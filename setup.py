@@ -14,13 +14,19 @@ setup(
     long_description_content_type="text/markdown",
     author="The accelerate-tpu authors",
     license="Apache 2.0",
-    packages=find_packages(include=["accelerate_tpu", "accelerate_tpu.*"]),
+    # accelerate_tpu_torch is the PyTorch/CUDA port; its CUDA sources ship with
+    # it and are compiled with nvcc at first use on the card.
+    packages=find_packages(
+        include=["accelerate_tpu", "accelerate_tpu.*", "accelerate_tpu_torch", "accelerate_tpu_torch.*"]
+    ),
+    package_data={"accelerate_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax>=0.4.30", "numpy>=1.24", "pyyaml"],
     extras_require={
         "flax": ["flax", "optax"],
         "checkpoint": ["orbax-checkpoint"],
         "test": ["pytest"],
+        "torch": ["torch>=2.5"],
     },
     entry_points={
         "console_scripts": [
