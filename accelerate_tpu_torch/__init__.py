@@ -1,26 +1,41 @@
 """accelerate_tpu_torch: the PyTorch/CUDA port of `accelerate_tpu`.
 
-A package of its own beside the JAX one, for an NVIDIA Hopper card. This
-slice serves Llama through the paged continuous-batching engine
+A package of its own beside the JAX one, for an NVIDIA Hopper card. It
+serves Llama through the paged continuous-batching engine
 (`serving.ContinuousBatcher`), whose decode and speculative-verify attention
-run in hand-written CUDA kernels (`csrc/paged_attention.cu`).
+run in hand-written CUDA kernels (`csrc/paged_attention.cu`), and trains it
+through `Accelerator.prepare` and the fused `train_step`, whose attention
+runs forward and backward in hand-written flash kernels
+(`csrc/flash_attention.cu`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
 imports ``torch`` and never ``jax`` or anything of `accelerate_tpu`.
 """
 
+from .accelerator import Accelerator
+from .data_loader import BatchSampler, SimpleDataLoader, prepare_data_loader
 from .device import resolve_device
+from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_named_model
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
+from .utils import GradientAccumulationPlugin, set_seed
 
 __all__ = [
+    "Accelerator",
+    "BatchSampler",
     "ContinuousBatcher",
     "EngineClosed",
+    "GradientAccumulationPlugin",
+    "Model",
+    "PreparedModel",
     "QueueFull",
     "Request",
     "RequestResult",
+    "SimpleDataLoader",
     "create_llama_model",
     "create_named_model",
+    "prepare_data_loader",
     "resolve_device",
+    "set_seed",
 ]

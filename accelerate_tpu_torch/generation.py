@@ -90,13 +90,16 @@ class CausalPrograms:
     def prefill(self, input_ids, positions, kv_pools, page_row):
         """[1, S] ids at [1, S] absolute positions through `page_row`
         ([1, pages] int32, covering every position) -> [1, S, V] logits."""
-        return self.model(input_ids, positions, kv_pools, page_row, attention_impl="gather")
+        return self.model(
+            input_ids, positions=positions, kv_pools=kv_pools, page_table=page_row, attention_impl="gather"
+        )
 
     @torch.no_grad()
     def step(self, token, position, kv_pools, page_table):
         """[B] tokens at [B] positions -> [B, V] logits."""
         logits = self.model(
-            token[:, None], position[:, None], kv_pools, page_table, self.attention_impl
+            token[:, None], positions=position[:, None], kv_pools=kv_pools, page_table=page_table,
+            attention_impl=self.attention_impl,
         )
         return logits[:, -1, :]
 
@@ -104,4 +107,7 @@ class CausalPrograms:
     def verify(self, tokens, positions, kv_pools, page_table):
         """[B, s] token block at [B, s] positions -> [B, s, V] logits; position
         j's logits see exactly the block prefix <= j."""
-        return self.model(tokens, positions, kv_pools, page_table, self.attention_impl)
+        return self.model(
+            tokens, positions=positions, kv_pools=kv_pools, page_table=page_table,
+            attention_impl=self.attention_impl,
+        )

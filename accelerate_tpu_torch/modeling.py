@@ -1,0 +1,95 @@
+"""Model bundles and the prepared-model wrapper (the port of
+`accelerate_tpu/modeling.py`'s `Model` and `PreparedModel`).
+
+A `Model` pairs an `nn.Module` with the loss that `Accelerator.backward` and
+`train_step` use by default; `Accelerator.prepare` takes either that or the
+module alone, whose `loss_fn` attribute (the port's Llama carries
+`causal_lm_loss`) is then the bundled loss.
+
+`PreparedModel` runs the module on the accelerator's device under the
+mixed-precision contract of JAX's `PreparedModel._mp_apply`: the master
+parameters stay as they are (f32), the forward runs on compute-dtype copies
+cast inside the autograd graph (`torch.func.functional_call`), so the
+gradients land on the masters in their own dtype; floating inputs are cast
+the same way and floating outputs come back as f32. `torch.autocast` would
+not match it: it keeps the norm scales and the embedding in f32 and casts
+other ops than JAX does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+
+@dataclass
+class Model:
+    """An `nn.Module` and its default loss, ``loss_fn(batch, apply_fn)``."""
+
+    module: nn.Module
+    loss_fn: Optional[Callable] = None
+
+    def parameters(self):
+        return self.module.parameters()
+
+
+def _cast_floating(tree, dtype):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: _cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floating(v, dtype) for v in tree)
+    return tree
+
+
+class PreparedModel:
+    """A model placed on the device, called under the precision policy.
+
+    `__call__` runs the forward; `loss(batch)` the bundled loss on it (the
+    argument to `Accelerator.backward` and the fused step's default)."""
+
+    def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None):
+        self.module = model.module.to(device)
+        self.loss_fn = model.loss_fn
+        self.device = device
+        self.compute_dtype = compute_dtype
+
+    def _mp_apply(self, *args, **kwargs):
+        if self.compute_dtype is None:
+            return self.module(*args, **kwargs)
+        # The casts are autograd ops: the backward casts each gradient back
+        # to its master's dtype.
+        tensors = {
+            name: t.to(self.compute_dtype) if t.is_floating_point() else t
+            for name, t in (*self.module.named_parameters(), *self.module.named_buffers())
+        }
+        args = _cast_floating(args, self.compute_dtype)
+        kwargs = _cast_floating(kwargs, self.compute_dtype)
+        out = torch.func.functional_call(self.module, tensors, args, kwargs)
+        return _cast_floating(out, torch.float32)
+
+    def __call__(self, *args, **kwargs):
+        return self._mp_apply(*args, **kwargs)
+
+    def loss(self, batch):
+        """The bundled loss under this model's precision policy."""
+        if self.loss_fn is None:
+            raise ValueError("This model bundle has no loss_fn; pass your own loss to backward()")
+        return self.loss_fn(batch, self._mp_apply)
+
+    def parameters(self):
+        return self.module.parameters()
+
+    @property
+    def num_parameters(self) -> int:
+        return sum(p.numel() for p in self.module.parameters())
+
+    def __repr__(self):
+        return (
+            f"PreparedModel(params={self.num_parameters:,}, device={self.device}, "
+            f"compute_dtype={self.compute_dtype})"
+        )

@@ -6,7 +6,9 @@ Parameter names follow the flax tree (`wq`, `input_norm`, `w_gate`, ...), so
 `llama_state_dict_from_flax` carries JAX weights across key for key.
 
 The attention module serves three modes, chosen by its arguments:
-  - the full causal forward (no KV pools);
+  - the full causal forward (no KV pools), the training path, with an
+    optional [B, S] padding mask; long unmasked sequences reach the flash
+    kernels through `dot_product_attention`'s gate;
   - prefill into the paged pool: the prompt (or its unmatched suffix) as
     queries, written at its absolute positions through one slot's page row
     and attended with the gather path;
@@ -85,7 +87,8 @@ class LlamaAttention(nn.Module):
         self.wv = _linear(cfg.hidden_size, hkv * d)
         self.wo = _linear(hq * d, cfg.hidden_size)
 
-    def forward(self, hidden, positions, kv_pool=None, page_table=None, attention_impl="gather"):
+    def forward(self, hidden, positions, attention_mask=None, kv_pool=None, page_table=None,
+                attention_impl="gather"):
         cfg = self.cfg
         b, s, _ = hidden.shape
         hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -93,7 +96,7 @@ class LlamaAttention(nn.Module):
         k = rotary_embedding(self.wk(hidden).reshape(b, s, hkv, d), positions, cfg.rope_theta)
         v = self.wv(hidden).reshape(b, s, hkv, d)
         if kv_pool is None:
-            out = dot_product_attention(q, k, v, causal=True)
+            out = dot_product_attention(q, k, v, mask=attention_mask, causal=True)
         else:
             out = slot_cache_attention(
                 q, k, v, kv_pool[0], kv_pool[1], positions, page_table, attention_impl
@@ -120,14 +123,36 @@ class LlamaLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, hidden, positions, kv_pool=None, page_table=None, attention_impl="gather"):
+    def forward(self, hidden, positions, attention_mask=None, kv_pool=None, page_table=None,
+                attention_impl="gather"):
         hidden = hidden + self.attention(
-            self.input_norm(hidden), positions, kv_pool, page_table, attention_impl
+            self.input_norm(hidden), positions, attention_mask, kv_pool, page_table, attention_impl
         )
         return hidden + self.mlp(self.post_attn_norm(hidden))
 
 
+def causal_lm_loss(batch, apply_fn):
+    """Next-token cross-entropy with shift; positions whose label is < 0 are
+    ignored. `apply_fn(input_ids, attention_mask)` gives the logits (the
+    prepared model's forward under its precision policy); labels default to
+    the inputs. The port of JAX's `causal_lm_loss(params, batch, apply_fn)`,
+    with the parameters implicit in the module."""
+    logits = apply_fn(batch["input_ids"], batch.get("attention_mask"))
+    labels = batch.get("labels", batch["input_ids"])
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    valid = (shift_labels >= 0).float()
+    safe_labels = shift_labels.clamp_min(0)
+    nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
 class LlamaForCausalLM(nn.Module):
+    #: The loss `Accelerator.prepare` bundles with this model, as JAX's
+    #: `create_llama_model` bundles it (`Model.from_flax(..., loss_fn=causal_lm_loss)`).
+    loss_fn = staticmethod(causal_lm_loss)
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.config = cfg
@@ -139,24 +164,28 @@ class LlamaForCausalLM(nn.Module):
     def forward(
         self,
         input_ids,
+        attention_mask=None,
         positions=None,
         kv_pools: Optional[KVPools] = None,
         page_table=None,
         attention_impl: str = "gather",
     ):
-        """[B, S] token ids -> [B, S, vocab] logits.
+        """[B, S] token ids -> [B, S, vocab] logits; the first three arguments
+        in JAX's order (`LlamaForCausalLM.__call__`).
 
-        Without `kv_pools` this is the full causal forward. With them (one
-        (k_pool, v_pool) pair per layer, [num_pages, page_size, Hkv, D] each)
-        the tokens' K/V are written into the pools at `positions` through
-        `page_table` ([B, pages_per_slot] int32) and attended there."""
+        Without `kv_pools` this is the full causal forward; `attention_mask`
+        ([B, S], True or 1 = a real token) keeps pad keys out of every row,
+        as in JAX. With `kv_pools` (one (k_pool, v_pool) pair per layer,
+        [num_pages, page_size, Hkv, D] each) the tokens' K/V are written into
+        the pools at `positions` through `page_table` ([B, pages_per_slot]
+        int32) and attended there."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
         hidden = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
             pool = None if kv_pools is None else kv_pools[i]
-            hidden = layer(hidden, positions, pool, page_table, attention_impl)
+            hidden = layer(hidden, positions, attention_mask, pool, page_table, attention_impl)
         hidden = self.final_norm(hidden)
         if self.lm_head is None:
             return hidden @ self.embed_tokens.weight.T

@@ -1,11 +1,13 @@
 """Attention ops: the seam the port's Llama calls.
 
-Port of the parts of `accelerate_tpu/ops/attention.py` that serving runs:
+Port of the parts of `accelerate_tpu/ops/attention.py` that serving and
+training run:
 
   - `dot_product_attention`: the plain einsum-softmax branch (GQA repeat,
-    softmax in f32), used by the full causal forward and by prefill. The JAX
-    package sends every masked input, and so all of serving's prefill, down
-    this branch; its flash kernels are not on the serving path.
+    softmax in f32) and, behind JAX's gate (`use_flash`), the flash kernels
+    of `ops/flash_attention.py`: long unmasked training sequences on the
+    card. Every masked input, and so all of serving's prefill, takes the
+    plain branch, as in the JAX package.
   - `write_slot_pool`: the paged cache's write half.
   - `slot_cache_attention`: write this dispatch's K/V into the pool, then
     attend, through either the ``"gather"`` path (gather the pages into a
@@ -19,14 +21,19 @@ Shapes follow [batch, seq, heads, head_dim] throughout.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention
 from .paged_attention import paged_decode_attention, paged_verify_attention
 
 #: The serving attention implementations `slot_cache_attention` accepts.
 SLOT_ATTENTION_IMPLS = ("gather", "paged_kernel")
+
+#: The path the last `dot_product_attention` call took: "flash" or "xla".
+LAST_DISPATCH: Optional[str] = None
 
 
 def make_causal_mask(q_len: int, kv_len: int, device=None) -> torch.Tensor:
@@ -37,7 +44,31 @@ def make_causal_mask(q_len: int, kv_len: int, device=None) -> torch.Tensor:
     return j <= i + (kv_len - q_len)
 
 
-def dot_product_attention(q, k, v, mask=None, *, causal: bool = False, scale: Optional[float] = None):
+def use_flash(implementation: Optional[str], masked: bool, sq: int, skv: int, causal: bool,
+              on_cuda: bool) -> bool:
+    """The flash gate of JAX's `dot_product_attention`: an explicit
+    ``"flash"``, or, with no implementation named, an unmasked call with
+    ``Sq >= 1024`` and both lengths multiples of 128 on the card (JAX: on a
+    TPU), unless it is causal with ``Sq > Skv``, a mask the kernels reject."""
+    if implementation == "flash":
+        return True
+    if implementation is not None or masked or not on_cuda:
+        return False
+    if sq < 1024 or sq % 128 or skv % 128:
+        return False
+    return not (causal and sq > skv)
+
+
+def dot_product_attention(
+    q,
+    k,
+    v,
+    mask=None,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    implementation: Optional[str] = None,
+):
     """Multi-head (optionally grouped-query) scaled dot-product attention.
 
     Args:
@@ -46,13 +77,35 @@ def dot_product_attention(q, k, v, mask=None, *, causal: bool = False, scale: Op
         mask: optional bool, [B, 1|Hq, Sq, Skv] or [B, Skv]; True = attend.
         causal: apply a bottom-right causal mask.
         scale: defaults to 1/sqrt(D).
+        implementation: ``"xla"`` (the plain einsum-softmax path, JAX's name
+            for it), ``"flash"`` (the kernels of `ops/flash_attention.py`,
+            which take no mask), or None: `use_flash` decides. With None,
+            ``ACCELERATE_TPU_ATTENTION_IMPL=xla|flash`` forces one for every
+            call, as in the JAX package. `LAST_DISPATCH` records the choice.
     """
+    global LAST_DISPATCH
+    if implementation is None:
+        forced = os.environ.get("ACCELERATE_TPU_ATTENTION_IMPL")
+        if forced in ("xla", "flash"):
+            implementation = forced
+    if implementation not in (None, "xla", "flash"):
+        raise ValueError(f"unknown implementation {implementation!r}; expected 'xla' or 'flash'")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"GQA requires query heads ({hq}) divisible by kv heads ({hkv})")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if implementation == "flash" and mask is not None:
+        raise ValueError(
+            "implementation='flash' cannot honor a mask argument: the kernels thread only "
+            "`causal`. Drop implementation= to let the dispatcher pick the plain path, or "
+            "pass implementation='xla'."
+        )
+    if use_flash(implementation, mask is not None, sq, skv, causal, q.is_cuda):
+        LAST_DISPATCH = "flash"
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    LAST_DISPATCH = "xla"
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=2)
         v = v.repeat_interleave(hq // hkv, dim=2)

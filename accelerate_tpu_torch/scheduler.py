@@ -1,0 +1,58 @@
+"""Learning-rate scheduler wrapper (the port of `accelerate_tpu/scheduler.py`).
+
+`AcceleratedScheduler` takes a schedule function (``step -> lr``, like an
+optax schedule) or a torch scheduler (anything with ``get_last_lr()``), and
+pushes its learning rate into the prepared optimizers. It advances only
+when the optimizers really stepped: not while gradients accumulate, not
+after a skipped step.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Union
+
+from .state import GradientState
+
+
+class AcceleratedScheduler:
+    def __init__(self, scheduler: Union[Callable, object], optimizers):
+        self.scheduler = scheduler
+        self.optimizers = optimizers if isinstance(optimizers, (list, tuple)) else [optimizers]
+        self.gradient_state = GradientState()
+        self._step_count = 0
+        self._last_lr: Optional[List[float]] = None
+        # Seed the optimizers with the schedule's initial learning rate.
+        self._apply_lr()
+
+    def _compute_lr(self) -> Optional[float]:
+        if callable(self.scheduler):
+            return float(self.scheduler(self._step_count))
+        if hasattr(self.scheduler, "get_last_lr"):
+            lr = self.scheduler.get_last_lr()
+            return float(lr[0]) if isinstance(lr, (list, tuple)) else float(lr)
+        return None
+
+    def _apply_lr(self):
+        lr = self._compute_lr()
+        if lr is not None:
+            for opt in self.optimizers:
+                opt.set_learning_rate(lr)
+            self._last_lr = [lr]
+
+    def step(self, *args, **kwargs):
+        if not self.gradient_state.sync_gradients:
+            return
+        if any(opt.step_was_skipped for opt in self.optimizers):
+            return
+        # One process: the schedule advances one step per optimizer step.
+        self._step_count += 1
+        if not callable(self.scheduler) and hasattr(self.scheduler, "step"):
+            self.scheduler.step(*args, **kwargs)
+        self._apply_lr()
+
+    def get_last_lr(self) -> Optional[List[float]]:
+        return self._last_lr
+
+    @property
+    def step_count(self) -> int:
+        return self._step_count

@@ -1,0 +1,115 @@
+"""The fused training step (the port of `accelerate_tpu/train_step.py`).
+
+`FusedTrainStep` is `step_fn(batch) -> loss`: gradients, optional global-norm
+clipping and the optimizer update in one call, the performance path that
+`Accelerator.train_step` returns. PyTorch runs eagerly, so "fused" means one
+call and no host readback: the returned loss stays on the device, and the
+caller decides when to read it.
+
+  - ``accumulation_steps=k > 1``: the batch stacks k microbatches along dim 0
+    (``[k*b, ...]``); each microbatch's loss is divided by k before its
+    backward, so the gradients add up to those of the mean, and the call
+    returns the mean microbatch loss (JAX's `lax.scan` accumulation).
+  - ``steps_per_call=K > 1``: the batch stacks K step-batches along dim 0 and
+    the call runs K full optimizer steps, returning the last step's loss (the
+    learning rate is read once per call, as in JAX's device loop).
+  - The learning rate a scheduler installs goes through the optimizer's
+    parameter groups, so every step reads the current one.
+  - Every call is a full optimizer step: it marks the sync boundary.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .optimizer import clip_grad_norm
+
+
+def split_leading(batch, n: int, what: str):
+    """`batch` (a dict, list or tuple of tensors, or a tensor) cut into `n`
+    equal parts along dim 0."""
+    if isinstance(batch, torch.Tensor):
+        if batch.shape[0] % n:
+            raise ValueError(f"{what}={n} must divide the batch dim ({batch.shape[0]})")
+        return list(batch.chunk(n))
+    if isinstance(batch, dict):
+        parts = {k: split_leading(v, n, what) for k, v in batch.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(batch, (list, tuple)):
+        parts = [split_leading(v, n, what) for v in batch]
+        return [type(batch)(p[i] for p in parts) for i in range(n)]
+    raise ValueError(f"{what} > 1 cannot split a batch leaf of type {type(batch).__name__}")
+
+
+class FusedTrainStep:
+    """Callable `step_fn(batch) -> loss` running grad + clip + update."""
+
+    def __init__(
+        self,
+        model,
+        optimizer,
+        loss_fn: Optional[Callable] = None,
+        max_grad_norm: Optional[float] = None,
+        accumulation_steps: int = 1,
+        gradient_state=None,
+        steps_per_call: int = 1,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn if loss_fn is not None else model.loss
+        self.max_grad_norm = max_grad_norm
+        self.accumulation_steps = int(accumulation_steps or 1)
+        self.steps_per_call = int(steps_per_call or 1)
+        self.gradient_state = gradient_state
+
+    def _loss_of(self, *args, **kwargs):
+        out = self.loss_fn(*args, **kwargs)
+        if isinstance(out, tuple):
+            return out
+        return out, None
+
+    def _one_step(self, *args, **kwargs):
+        opt = self.optimizer.optimizer
+        opt.zero_grad(set_to_none=True)
+        k = self.accumulation_steps
+        aux = None
+        if k > 1:
+            if len(args) != 1 or kwargs:
+                raise ValueError("accumulation_steps > 1 takes exactly one positional batch")
+            losses = []
+            for mbatch in split_leading(args[0], k, "accumulation_steps"):
+                loss, _ = self._loss_of(mbatch)
+                (loss / k).backward()
+                losses.append(loss.detach())
+            loss = torch.stack(losses).mean()
+        else:
+            loss, aux = self._loss_of(*args, **kwargs)
+            loss.backward()
+            loss = loss.detach()
+        if self.max_grad_norm is not None:
+            clip_grad_norm([p for g in opt.param_groups for p in g["params"]], self.max_grad_norm)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss, aux
+
+    def __call__(self, *args, **kwargs):
+        if self.steps_per_call > 1:
+            if len(args) != 1 or kwargs:
+                raise ValueError("steps_per_call > 1 takes exactly one positional batch")
+            for sbatch in split_leading(args[0], self.steps_per_call, "steps_per_call"):
+                loss, aux = self._one_step(sbatch)
+                if aux is not None:
+                    raise ValueError(
+                        "steps_per_call > 1 does not support loss functions that return "
+                        "(loss, aux); use steps_per_call=1 for aux outputs"
+                    )
+        else:
+            loss, aux = self._one_step(*args, **kwargs)
+        self.optimizer.step_was_skipped = False
+        if self.gradient_state is not None:
+            self.gradient_state._set_sync_gradients(True)
+        if aux is not None:
+            return loss, aux
+        return loss

@@ -6,8 +6,9 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. Card and build: the card's name and power limit (nvidia-smi), then every
-   `accelerate_tpu_torch/csrc/*.cu` built with nvcc for sm_90a, all sources
-   at once, with the build time and ptxas' register/shared-memory report.
+   `accelerate_tpu_torch/csrc/*.cu` built with nvcc for sm_90a, one nvcc per
+   source, all started together, with the build time and ptxas'
+   register/shared-memory report.
 2. Kernels: the paged-decode (K1) and block-verify (K2) kernels at
    Llama-1B's attention shapes (Hq 32, Hkv 8, D 64, page 16, 8 slots of 2048
    tokens, ragged lengths, shuffled page tables, a poisoned scratch page;
@@ -18,6 +19,13 @@ prints no result):
    the peak rate of the input type, whichever is larger) and, as a labelled
    yardstick the port never calls, `F.scaled_dot_product_attention` over an
    already-gathered dense K/V.
+   Then the flash-attention kernels of training, forward (K3), dK/dV (K4)
+   and dQ (K5), at Llama-1B's training shapes (batch 2, 32 heads after the
+   GQA repeat, sequence 2048, head 64, causal), the same way: held against
+   their plain versions in f32 (outputs atol 2e-5, gradients atol/rtol 1e-4)
+   and bf16 (atol 2e-3, rtol 1e-2), then timed beside the plain version,
+   the bound and, as the yardstick, `F.scaled_dot_product_attention`
+   (is_causal) and its autograd backward.
 3. Engine: `create_named_model("llama-1b")` at full width and depth (random
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
@@ -27,7 +35,22 @@ prints no result):
    (b) bf16: the "paged_kernel" engine, plain and speculative, timed; every
        request finishes; each kernel's launch count, zeroed just before the
        run, equals layers x dispatches of that run and is > 0.
-4. A `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+4. Training, through `Accelerator.prepare(model, AdamW, loader, schedule)`
+   and `train_step(max_grad_norm=1.0)`, sequence 2048, AdamW lr 1e-4,
+   weight decay 1e-4, betas (0.9, 0.999), eps 1e-8:
+   (a) f32 at Llama-1B's widths cut to 2 layers, batch 1, 3 steps, once
+       through the flash kernels and once with
+       ACCELERATE_TPU_ATTENTION_IMPL=xla (the plain attention), from the
+       same weights and batch: the losses agree (rtol 1e-4), and the kernel
+       run launched each flash kernel 2 layers x 3 steps times.
+   (b) bf16 mixed precision, Llama-1B at full width and depth, batch 2: 2
+       warm-up and 8 timed steps on one repeated batch; median step time,
+       tokens/s, MFU (6 x non-embedding parameters x tokens/s over 989
+       TFLOP/s), peak memory and the losses, which are finite and end below
+       where they started; each flash kernel, counted from 0 just before the
+       timed steps, launched 16 layers x 8 steps times.
+   (c) with --profile, device time of one more bf16 step by group.
+5. A `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -62,6 +85,30 @@ REPLACES = {
     "verify": "accelerate_tpu/ops/paged_attention.py:117",
 }
 SOURCE = "accelerate_tpu_torch/csrc/paged_attention.cu"
+
+# Llama-1B's training attention: batch 2 x 32 query heads (K/V repeated from
+# 8), sequence 2048, head 64, causal.
+FLASH_SHAPE = dict(b=2, hq=32, s=2048, d=64)
+FLASH_KERNELS = {
+    # name: (TPU kernel it replaces, products of 2 * BH * pairs * D operations it needs)
+    "flash_fwd": ("accelerate_tpu/ops/flash_attention.py:53", 2),       # s, p @ v
+    "flash_bwd_dkv": ("accelerate_tpu/ops/flash_attention.py:126", 4),  # s, dp, dv, dk
+    "flash_bwd_dq": ("accelerate_tpu/ops/flash_attention.py:174", 3),   # s, dp, dq
+}
+FLASH_SOURCE = "accelerate_tpu_torch/csrc/flash_attention.cu"
+# f32: the kernels and the plain versions sum the same fp32 products in
+# another order; a gradient sums up to 2048 of them. bf16: as for K1/K2, one
+# bf16 rounding of the output (2^-8 relative) above that.
+FLASH_F32_TOL = {"out": dict(atol=2e-5, rtol=0.0), "grad": dict(atol=1e-4, rtol=1e-4)}
+FLASH_LSE_TOL = dict(atol=2e-5, rtol=1e-5)
+
+# Training (phase 4).
+TRAIN_LR, TRAIN_BETAS, TRAIN_EPS, TRAIN_WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
+TRAIN_SEQ = 2048
+# f32 kernel vs plain attention: the same f32 arithmetic in another order,
+# carried through 3 AdamW steps of a 2-layer model; losses are about 12.
+TRAIN_F32_RTOL = 1e-4
+BF16_PEAK_FLOPS = 989e12
 
 
 def log(msg: str):
@@ -366,13 +413,279 @@ def profile_phase(model, requests, device, engine_kw, unprofiled_wall_s):
     }
 
 
+# ---------------------------------------------------------- flash kernels
+def flash_case(device, dtype, b, hq, s, d, seed):
+    """q, k, v and an output cotangent do, [B*H, S, D] each."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((b * hq, s, d), generator=gen, device=device).to(dtype) for _ in range(4)]
+
+
+def flash_bound(name, q, k, causal=True):
+    """(least ms, "bytes" | "operations") for one call of kernel `name`:
+    its products at 2 * BH * (visible pairs) * D operations each, at the
+    input type's peak; each input read once and each output written once
+    (fp32 lse and delta: 4 bytes a row)."""
+    bh, s, d = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(s, dtype=torch.float64)
+    pairs = int((torch.clamp(rows + (sk - s), max=sk - 1) + 1).sum()) if causal else s * sk
+    ops = FLASH_KERNELS[name][1] * 2 * bh * pairs * d
+    q_bytes, kv_bytes, row_bytes = q.numel() * q.element_size(), k.numel() * k.element_size(), bh * s * 4
+    n_bytes = {
+        "flash_fwd": 2 * q_bytes + 2 * kv_bytes + row_bytes,          # q, k, v -> o, lse
+        "flash_bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,  # q, k, v, do, lse, delta -> dk, dv
+        "flash_bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,   # q, k, v, do, lse, delta -> dq
+    }[name]
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_flash_yardsticks(q, k, v, do, b, hq):
+    """`F.scaled_dot_product_attention(is_causal=True)` on the same inputs
+    viewed [B, H, S, D], and its autograd backward (dq, dk and dv in one
+    call): yardsticks only, the port never calls them."""
+    fn = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x.detach().view(b, hq, *x.shape[1:]).requires_grad_() for x in (q, k, v))
+    out = fn(q4, k4, v4, is_causal=True)
+    do4 = do.view_as(out)
+    forward = lambda: fn(q4, k4, v4, is_causal=True)  # noqa: E731
+    backward = lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)  # noqa: E731
+    return forward, backward
+
+
+def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
+    """K3, K4 and K5 against their plain versions, f32 and bf16; each kernel
+    check is one launch. K4 and K5 get the lse and delta of the plain
+    forward, so each is held alone."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    scale = shape["d"] ** -0.5
+    results = {name: {} for name in FLASH_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = flash_case(device, dtype, seed=21, **shape)
+        ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
+        delta = (do.float() * ref_o.float()).sum(-1)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)
+        ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
+        calls = {
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True, scale=scale),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+        }
+        plains = {
+            "flash_fwd": lambda: fa.flash_fwd_reference(q, k, v, True, scale),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale),
+        }
+        expect = {"flash_fwd": {"o": ref_o, "lse": lse}, "flash_bwd_dkv": {"dk": ref_dk, "dv": ref_dv},
+                  "flash_bwd_dq": {"dq": ref_dq}}
+        if device.type == "cuda":
+            lib_fwd, lib_bwd = sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])
+        for name, call in calls.items():
+            before = fa.LAUNCHES[name]
+            out = call()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                if fa.LAUNCHES[name] != before + 1:
+                    raise RuntimeError(f"{name} on {device} did not launch its kernel")
+            got = dict(zip(expect[name], out if isinstance(out, tuple) else (out,)))
+            row = {"max_abs_err": 0.0, "errors": {}}
+            for key, ref in expect[name].items():
+                if not torch.isfinite(got[key]).all():
+                    raise RuntimeError(f"{name} ({dtype}) wrote non-finite {key}")
+                if key == "lse":
+                    tol = FLASH_LSE_TOL
+                elif dtype == torch.float32:
+                    tol = FLASH_F32_TOL["out" if key == "o" else "grad"]
+                else:
+                    tol = dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+                err = float((got[key].float() - ref.float()).abs().max())
+                torch.testing.assert_close(got[key].float(), ref.float(), **tol,
+                                           msg=lambda m: f"{name} {dtype} {key}: {m}")
+                row["errors"][key] = {"max_abs_err": err, "tolerance": tol}
+                if key != "lse":
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+            bound, bound_by = flash_bound(name, q, k)
+            row.update(bound_ms=bound, bound_by=bound_by)
+            if timed:
+                row["ms"] = time_ms(call, device)
+                row["plain_ms"] = time_ms(plains[name], device, iters=20)
+                row["library_ms"] = time_ms(lib_fwd if name == "flash_fwd" else lib_bwd, device)
+            results[name][str(dtype).replace("torch.", "")] = row
+            log(f"[flash] {name} {dtype}: {json.dumps(row)}")
+        del q, k, v, do, ref_o, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains
+    return results
+
+
+# ----------------------------------------------------------------- training
+def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
+    """A `SimpleDataLoader` over `batch` token rows from numpy `seed`,
+    repeated so that it yields the same batch `steps` times."""
+    from accelerate_tpu_torch import BatchSampler, SimpleDataLoader
+
+    rows = np.random.default_rng(seed).integers(0, vocab, (batch, seq)).astype(np.int64)
+    data = [{"input_ids": rows[i % batch]} for i in range(batch * steps)]
+    return SimpleDataLoader(data, BatchSampler(range(len(data)), batch))
+
+
+def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None):
+    """Train a Llama of `config` (random weights from seed 0) through the
+    user's entry points; returns (per-step losses, per-step seconds, the
+    prepared model, the step function, the last batch). `on_step(i)` runs
+    before step i, outside its timing."""
+    from accelerate_tpu_torch import Accelerator, create_llama_model
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    model = create_llama_model(config, seed=0, device=device)
+    accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu")
+    optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                  weight_decay=TRAIN_WD)
+    loader = repeated_batch_loader(config.vocab_size, batch, warmup + steps, seq)
+    pmodel, optimizer, loader, schedule = accelerator.prepare(model, optimizer, loader, lambda step: TRAIN_LR)
+    step_fn = accelerator.train_step(max_grad_norm=1.0)
+    losses, seconds = [], []
+    for i, b in enumerate(loader):
+        if on_step is not None:
+            on_step(i)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        loss = step_fn(b)
+        schedule.step()
+        losses.append(float(loss))  # reads the loss back: the step is done
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, pmodel, step_fn, b
+
+
+def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ, timed_steps=8,
+                   warmup=2, batch=2, profile=False):
+    import dataclasses
+    import os
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = MODEL_REGISTRY[model_name]()
+    on_card = device.type == "cuda"
+    report = {"model": model_name, "seq": seq}
+
+    # (a) f32 at full width, cut to `parity_layers` layers: kernels vs plain attention.
+    cut = dataclasses.replace(config, num_hidden_layers=parity_layers)
+    runs = {}
+    for impl in ("flash", "xla"):
+        fa.reset_launch_counts()
+        if impl == "xla":
+            os.environ["ACCELERATE_TPU_ATTENTION_IMPL"] = "xla"
+        try:
+            runs[impl] = train(device, cut, "no", batch=1, steps=3, seq=seq)[0]
+        finally:
+            os.environ.pop("ACCELERATE_TPU_ATTENTION_IMPL", None)
+        launches = dict(fa.LAUNCHES)
+        log(f"[train] f32 {parity_layers} layers, {impl} attention: losses {runs[impl]}, launches {launches}")
+        if on_card:
+            want = parity_layers * 3 if impl == "flash" else 0
+            if any(n != want for n in launches.values()):
+                raise RuntimeError(f"f32 {impl} run: flash launches {launches}, expected {want} each")
+        if on_card:
+            torch.cuda.empty_cache()
+    diff = [abs(a - b) / abs(b) for a, b in zip(runs["flash"], runs["xla"])]
+    if not all(np.isfinite(runs["flash"])) or max(diff) > TRAIN_F32_RTOL:
+        raise RuntimeError(f"f32 kernel losses {runs['flash']} differ from plain {runs['xla']} (rtol {diff})")
+    report["f32_parity"] = {"layers": parity_layers, "losses_kernels": runs["flash"],
+                            "losses_plain": runs["xla"], "max_rel_diff": max(diff), "rtol": TRAIN_F32_RTOL}
+
+    # (b) bf16 at full width and depth, timed.
+    def before_step(i):
+        if i == warmup:
+            fa.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+
+    losses, seconds, pmodel, step_fn, last_batch = train(
+        device, config, "bf16", batch=batch, steps=timed_steps, seq=seq, warmup=warmup, on_step=before_step
+    )
+    launches = dict(fa.LAUNCHES)
+    layers = config.num_hidden_layers
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"bf16 training losses are not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"bf16 training on a repeated batch did not fit it: {losses}")
+    if on_card and any(n != layers * timed_steps for n in launches.values()):
+        raise RuntimeError(f"bf16 timed steps: flash launches {launches}, expected {layers} x {timed_steps}")
+    params = pmodel.num_parameters
+    step_s = float(np.median(seconds[warmup:]))
+    tokens_per_s = batch * seq / step_s
+    non_embedding = params - config.vocab_size * config.hidden_size
+    bf16 = {
+        "batch": batch, "parameters": params, "warmup_steps": warmup, "timed_steps": timed_steps,
+        "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * x for x in seconds],
+        "tokens_per_s": tokens_per_s, "mfu": 6 * non_embedding * tokens_per_s / BF16_PEAK_FLOPS,
+        "losses": losses, "launches": launches,
+    }
+    if on_card:
+        bf16["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    log(f"[train] bf16 {model_name}: {json.dumps(bf16)}")
+    report["bf16"] = bf16
+    if profile:
+        report["bf16_profile"] = profile_train_step(step_fn, last_batch, device, step_s)
+    return report
+
+
+def profile_train_step(step_fn, batch, device, unprofiled_step_s):
+    """Device time by kernel group over one more bf16 training step under
+    `torch.profiler`: the flash kernels, GEMMs and the rest, and the busy
+    share of the unprofiled median step (the profiler slows the host, not
+    the device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step_fn(batch))
+    # A user annotation (the optimizer's `Optimizer.step#AdamW.step`) spans
+    # kernels that are counted on their own: leave it out of the sums.
+    kernels = [
+        (row.self_device_time_total, row.key, row.count)
+        for row in prof.key_averages()
+        if row.device_type == DeviceType.CUDA and row.self_device_time_total > 0
+        and not getattr(row, "is_user_annotation", False)
+    ]
+    total_us = sum(us for us, _, _ in kernels)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for us, name, _ in kernels:
+        lowered = name.lower()
+        if "flash_" in lowered and "kernel" in lowered:
+            groups["flash_attention"] += us
+        elif any(tag in lowered for tag in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
+            groups["gemm"] += us
+        else:
+            groups["other"] += us
+    kernels.sort(reverse=True)
+    out = {
+        "device_busy_ms": total_us / 1e3,
+        "busy_share_of_unprofiled_step": total_us / 1e6 / unprofiled_step_s,
+        "share_by_group": {k: v / total_us for k, v in groups.items()},
+        "top_kernels": [
+            {"name": name[:140], "calls": calls, "ms": us / 1e3, "share": us / total_us}
+            for us, name, calls in kernels[:15]
+        ],
+    }
+    log(f"[train] bf16 profile: {json.dumps(out)}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the build and the kernel phase (prints no result line)")
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one bf16 plain engine run: device time by kernel, busy share")
+                        help="also profile one bf16 plain engine run and one bf16 training step: "
+                             "device time by kernel, busy share")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False", file=sys.stderr)
@@ -395,11 +708,15 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     kernels = kernel_phase(device)
+    flash = flash_kernel_phase(device)
     if args.kernels_only:
         log(card)
         return 0
     engine = engine_phase(device, profile=args.profile)
     log(f"[engine] summary: {json.dumps(engine)}")
+    torch.cuda.empty_cache()  # the engine's model is gone; training starts from a clean pool
+    training = training_phase(device, profile=args.profile)
+    log(f"[train] summary: {json.dumps(training)}")
 
     rows = []
     runs = {"decode": "bf16_plain", "verify": "bf16_speculative"}
@@ -422,6 +739,30 @@ def main(argv=None) -> int:
             "library_call": "F.scaled_dot_product_attention over pre-gathered dense K/V (yardstick, never called by the port)",
             "dtype": "bfloat16",
             "shape": dict(KERNEL_SHAPE, s=1 if kind == "decode" else KERNEL_SHAPE["verify_s"]),
+            "f32": f32,
+        })
+    for name, (replaces, _) in FLASH_KERNELS.items():
+        bf16, f32 = flash[name]["bfloat16"], flash[name]["float32"]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": training["bf16"]["launches"][name],
+            "max_abs_err": bf16["max_abs_err"],
+            "tolerance": dict(atol=BF16_ATOL, rtol=BF16_RTOL),
+            "errors": bf16["errors"],
+            "ms": bf16["ms"],
+            "kernel_ms": bf16["ms"],
+            "plain_ms": bf16["plain_ms"],
+            "bound_ms": bf16["bound_ms"],
+            "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"],
+            "library_call": ("F.scaled_dot_product_attention(is_causal=True)" if name == "flash_fwd" else
+                             "autograd backward of F.scaled_dot_product_attention(is_causal=True): dq, dk "
+                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
+            "dtype": "bfloat16",
+            "shape": dict(FLASH_SHAPE, causal=True),
             "f32": f32,
         })
     print(json.dumps({"kernels": rows}), flush=True)

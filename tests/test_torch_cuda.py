@@ -9,18 +9,23 @@ This file imports no JAX, so it also runs on a card's machine that has none:
 (`--noconftest` skips `tests/conftest.py`, which sets JAX up for the rest of
 the suite.) Tolerances are those of `chip_smoke.py`: f32 atol 2e-5; bf16 atol
 2e-3, rtol 1e-2, one bf16 rounding of the output above the fp32 summation
-order, and well below the small outputs of long slots.
+order, and well below the small outputs of long slots. The flash backward's
+f32 gradients sum up to S products per value, in another order than the
+plain version's matmuls: atol/rtol 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
 F32 = dict(atol=2e-5, rtol=0.0)
+F32_GRAD = dict(atol=1e-4, rtol=1e-4)
+LSE = dict(atol=2e-5, rtol=1e-5)
 BF16 = dict(atol=2e-3, rtol=1e-2)
 
 
@@ -113,3 +118,100 @@ def test_engine_kernel_path_matches_gather_path(cuda):
             assert pa.LAUNCHES[kind] == expect
         assert runs[spec, "gather"] == runs[spec, "paged_kernel"]
     assert runs[False, "paged_kernel"] == runs[True, "paged_kernel"]
+
+
+def _flash_case(device, dtype, bh, s, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    to = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=device).to(dtype)  # noqa: E731
+    return to(bh, s, d), to(bh, sk, d), to(bh, sk, d), to(bh, s, d)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,s,sk", [(True, 192, 192), (False, 128, 200), (True, 64, 200)],
+                         ids=["causal", "full-ragged", "causal-cross"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
+    """K3, K4 and K5 against their plain versions on the same inputs, each
+    launched once; Sk = 200 leaves a ragged last tile."""
+    q, k, v, do = _flash_case(cuda, dtype, 3, s, sk, d, seed=d + s)
+    scale = d ** -0.5
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert {key: fa.LAUNCHES[key] - before[key] for key in before} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    tol, grad_tol = (F32, F32_GRAD) if dtype == torch.float32 else (BF16, BF16)
+    assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (3, s)
+    torch.testing.assert_close(o.float(), ref_o.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, **LSE)
+    # The backward against its plain version from the same o and lse.
+    ref_dq, ref_dk, ref_dv = fa.flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        torch.testing.assert_close(got.float(), ref.float(), **grad_tol, msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, _ = _flash_case(cuda, torch.float32, 2, 64, 64, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1))
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        fa.flash_fwd(q, k[:, :32], v[:, :32], causal=True)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_fwd(q, k.cpu(), v)
+
+
+def test_flash_attention_grads_through_autograd(cuda):
+    """The public [B, S, H, D] op with GQA: forward and grads through the
+    kernels equal autograd through the plain attention in f32."""
+    from accelerate_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=cuda).requires_grad_()
+               for shape in ((2, 256, 4, 64), (2, 256, 2, 64), (2, 256, 2, 64)))
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    ref = dot_product_attention(q, k, v, causal=True, implementation="xla")
+    ref_grads = torch.autograd.grad(ref.square().sum(), (q, k, v))
+    torch.testing.assert_close(out, ref, **F32)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, **F32_GRAD)
+
+
+def test_fused_training_steps_through_the_kernels(cuda, monkeypatch):
+    """`llama_tiny` (head 32) trained on the card through `Accelerator.prepare`
+    and `train_step`, sequence 128 with the flash path forced: three f32
+    steps through K3-K5 give the losses of the plain attention (rtol 1e-4, as
+    `chip_smoke.py`), and each kernel launches 2 layers x 3 steps times."""
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader, create_llama_model
+    from accelerate_tpu_torch.models import llama_tiny
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    rows = np.random.default_rng(3).integers(0, 512, (12, 128))
+    data = [{"input_ids": r} for r in rows]
+    losses = {}
+    try:
+        for impl in ("flash", "xla"):
+            monkeypatch.setenv("ACCELERATE_TPU_ATTENTION_IMPL", impl)
+            AcceleratorState._reset_state()
+            GradientState._reset_state()
+            model = create_llama_model(llama_tiny(), seed=1, device=cuda)
+            accelerator = Accelerator()
+            optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+            _, _, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(12), 4)))
+            step_fn = accelerator.train_step(max_grad_norm=1.0)
+            fa.reset_launch_counts()
+            losses[impl] = [float(step_fn(b)) for b in loader]
+            want = 6 if impl == "flash" else 0
+            assert fa.LAUNCHES == {key: want for key in fa.LAUNCHES}
+    finally:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+    np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=1e-4)
+    assert losses["flash"][-1] < losses["flash"][0]

@@ -20,6 +20,7 @@ import torch
 
 import accelerate_tpu_torch
 from accelerate_tpu_torch.ops import _build
+from accelerate_tpu_torch.ops import flash_attention as port_flash
 from accelerate_tpu_torch.ops import paged_attention as port_paged
 
 torch.set_num_threads(2)
@@ -36,6 +37,8 @@ def test_import_loads_no_jax_module():
     code = (
         "import json, sys\n"
         "import accelerate_tpu_torch, accelerate_tpu_torch.serving, accelerate_tpu_torch.ops.paged_attention\n"
+        "import accelerate_tpu_torch.accelerator, accelerate_tpu_torch.train_step, accelerate_tpu_torch.utils\n"
+        "import accelerate_tpu_torch.ops.flash_attention\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -63,8 +66,9 @@ def test_source_imports_no_jax_module():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """No GPU and no explicit device: raise, never fall back to the CPU."""
-    from accelerate_tpu_torch import ContinuousBatcher, create_llama_model, resolve_device
+    from accelerate_tpu_torch import Accelerator, ContinuousBatcher, create_llama_model, resolve_device
     from accelerate_tpu_torch.models import llama_tiny
+    from accelerate_tpu_torch.state import AcceleratorState
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -74,6 +78,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
     model = create_llama_model(llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatcher(model)
+    AcceleratorState._reset_state()
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Accelerator()
+        AcceleratorState._reset_state()
+        assert Accelerator(cpu=True).device == torch.device("cpu")
+    finally:
+        AcceleratorState._reset_state()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -91,18 +103,38 @@ def test_cpu_calls_never_build(monkeypatch):
     pos = torch.tensor([[5], [2]], dtype=torch.int32)
     out = port_paged.paged_decode_attention(q, pool, pool, table, pos)
     assert out.shape == q.shape and torch.isfinite(out).all()
+    x = torch.randn(1, 128, 2, 32, requires_grad=True)
+    port_flash.flash_attention(x, x, x, causal=True).sum().backward()
+    assert x.grad.shape == x.shape
     assert _build._LIBS == {}
+
+
+SOURCES = {
+    "flash_attention.cu": (
+        ["accelerate_tpu/ops/flash_attention.py::_fwd_kernel",
+         "accelerate_tpu/ops/flash_attention.py::_bwd_dkv_kernel",
+         "accelerate_tpu/ops/flash_attention.py::_bwd_dq_kernel"],
+        ["flash_fwd_launch", "flash_bwd_dkv_launch", "flash_bwd_dq_launch"],
+    ),
+    "paged_attention.cu": (
+        ["accelerate_tpu/ops/paged_attention.py::_decode_kernel"],
+        ["paged_decode_launch", "paged_verify_launch"],
+    ),
+}
 
 
 def test_build_targets_hopper_from_package_sources():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["paged_attention.cu"]
-    path = _build.library_path("paged_attention")
-    assert path.parent == _build.BUILD_DIR and path.name.startswith("paged_attention-")
+    assert sources == sorted(SOURCES)
     assert _build.BUILD_DIR.parts[-2] == "build", "the build lands under the ignored build/"
-    text = (_build.CSRC / "paged_attention.cu").read_text()
-    assert "accelerate_tpu/ops/paged_attention.py::_decode_kernel" in text
-    for entry in ("paged_decode_launch", "paged_verify_launch"):
-        assert f'extern "C" int {entry}' in text
+    for source, (replaces, entries) in SOURCES.items():
+        name = source[: -len(".cu")]
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.name.startswith(f"{name}-")
+        text = (_build.CSRC / source).read_text()
+        for tpu_kernel in replaces:
+            assert tpu_kernel in text, (source, tpu_kernel)
+        for entry in entries:
+            assert f'extern "C" int {entry}' in text, (source, entry)
