@@ -3,7 +3,9 @@
 A package of its own beside the JAX one, for an NVIDIA Hopper card. It
 serves Llama through the paged continuous-batching engine
 (`serving.ContinuousBatcher`), whose decode and speculative-verify attention
-run in hand-written CUDA kernels (`csrc/paged_attention.cu`), and trains it
+run in hand-written CUDA kernels (`csrc/paged_attention.cu`), with int8
+weights and int8 or fp8 KV pages on request (`ops/quantization.py`), and
+trains it
 through `Accelerator.prepare` and the fused `train_step`, whose attention
 runs forward and backward in hand-written flash kernels
 (`csrc/flash_attention.cu`).
@@ -18,6 +20,7 @@ from .data_loader import BatchSampler, SimpleDataLoader, prepare_data_loader
 from .device import resolve_device
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_named_model
+from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
 from .utils import GradientAccumulationPlugin, set_seed
 
@@ -27,15 +30,19 @@ __all__ = [
     "ContinuousBatcher",
     "EngineClosed",
     "GradientAccumulationPlugin",
+    "Int8Linear",
+    "KV_CACHE_DTYPES",
     "Model",
     "PreparedModel",
     "QueueFull",
     "Request",
     "RequestResult",
     "SimpleDataLoader",
+    "WEIGHT_DTYPES",
     "create_llama_model",
     "create_named_model",
     "prepare_data_loader",
+    "quantize_model_int8",
     "resolve_device",
     "set_seed",
 ]

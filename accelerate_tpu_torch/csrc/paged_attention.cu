@@ -1,26 +1,34 @@
 // Paged-KV attention for serving on Hopper (sm_90a): single-query decode and
-// the [B, s] speculative block-verify, one templated kernel over float and
-// __nv_bfloat16 pools.
+// the [B, s] speculative block-verify, one kernel templated on the query and
+// output type (float, __nv_bfloat16) and the pool's storage type: the query
+// type itself, or int8_t / __nv_fp8_e4m3 pages with per-page-per-head f32
+// scales (the fused-dequant mode).
 //
 // Replaces accelerate_tpu/ops/paged_attention.py::_decode_kernel (s == 1) and
-// ::_verify_kernel (s > 1). Same contract: query row (j, g) of slot b attends
-// the columns `col <= pos[b, j]` of its logical cache, whose page p lives at
-// pool page table[b, p] (clipped to [0, num_pages - 1]); pages with
-// base >= max_j(pos[b, j]) + 1 are never read; the softmax is the online
-// update of ops/flash_common.py in fp32, NEG_INF = -1e30, finalized against a
-// 1e-30 floor so rows of inactive slots (pointed at scratch page 0) come out
-// finite. Query head h * G + g rides KV head h (contiguous GQA groups).
+// ::_verify_kernel (s > 1), both with and without `quantized`. Same contract:
+// query row (j, g) of slot b attends the columns `col <= pos[b, j]` of its
+// logical cache, whose page p lives at pool page table[b, p] (clipped to
+// [0, num_pages - 1]); pages with base >= max_j(pos[b, j]) + 1 are never
+// read; the softmax is the online update of ops/flash_common.py in fp32,
+// NEG_INF = -1e30, finalized against a 1e-30 floor so rows of inactive slots
+// (pointed at scratch page 0) come out finite. Query head h * G + g rides KV
+// head h (contiguous GQA groups). A quantized page's value is
+// float(stored) * scale[page, h] in fp32, as the TPU kernel's fused multiply
+// on the VMEM-resident block.
 //
 // Bound: memory bandwidth. Each launch reads every live K/V page once,
-// sum_b ceil(len_b / ps) * ps * Hkv * D * 2 * itemsize bytes per layer, and
-// does ~4 * rows * len * D flops on it, far below the ridge point. The design
-// keeps the gathered [B, L, Hkv, D] copy the plain path builds out of device
-// memory: one thread block per (KV head h, slot b) loads its own page-table
-// entries, turns each page id into a pointer offset and streams a tile of
-// whole pages (up to kTileTokens tokens) of K and V into shared memory with
-// 16-byte vector loads, converting to fp32 there. The s * G query rows keep
-// m, l and acc[D] in shared memory; one warp folds each row's tile of scores
-// into (m, l) with shuffles.
+// sum_b ceil(len_b / ps) * ps * Hkv * D * 2 * itemsize bytes per layer
+// (itemsize 1 for a quantized pool, plus 8 bytes of scales per live page and
+// KV head), and does ~4 * rows * len * D flops on it, far below the ridge
+// point. The design keeps the gathered [B, L, Hkv, D] copy the plain path
+// builds out of device memory: one thread block per (KV head h, slot b)
+// loads its own page-table entries, turns each page id into a pointer offset
+// and streams a tile of whole pages (up to kTileTokens tokens) of K and V
+// into shared memory with 16-byte vector loads (4 f32, 8 bf16 or 16 int8 or
+// fp8 values), widening to fp32 and, for a quantized pool, multiplying by
+// the token's page scale there; no dequantized copy of the pool exists
+// anywhere. The s * G query rows keep m, l and acc[D] in shared memory; one
+// warp folds each row's tile of scores into (m, l) with shuffles.
 //
 // B * Hkv blocks underfill the 132 SMs at small batch (8 slots x 8 KV heads =
 // 64 blocks); splitting each slot's pages over several blocks with a second
@@ -32,8 +40,12 @@
 // it on the same stream, is complete when it reads.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,6 +90,39 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void load(const int8_t* src, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+    // Byte j of a little-endian word, sign-extended by an arithmetic shift.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dst[4 * i + j] = static_cast<float>(static_cast<int32_t>(words[i] << (24 - 8 * j)) >> 24);
+      }
+    }
+  }
+};
+
+template <>
+struct Vec<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  __device__ static void load(const __nv_fp8_e4m3* src, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const __nv_fp8x2_storage_t* pairs = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // e4m3 -> f16 is exact, and so is f16 -> f32.
+      const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pairs[i], __NV_E4M3)));
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+};
+
 __device__ inline void store(float* dst, float x) { *dst = x; }
 __device__ inline void store(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
 
@@ -93,12 +138,16 @@ __device__ inline float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// T: query and output type. TS: the pool's storage type, T itself or a
+// quantized type whose pages come with [num_pages, Hkv] f32 scales.
+template <typename T, typename TS>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool, const int* __restrict__ table,
+paged_attention_kernel(const T* __restrict__ q, const TS* __restrict__ k_pool,
+                       const TS* __restrict__ v_pool, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ table,
                        const int* __restrict__ pos, T* __restrict__ out, int S, int Hq,
                        int Hkv, int D, int num_pages, int ps, int P, float scale) {
+  constexpr bool kQuantized = !std::is_same<T, TS>::value;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hkv;
@@ -106,8 +155,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int TP = tile_pages(ps);
   const int TT = TP * ps;   // tokens per full tile
   const int kd = D + 1;     // padded K row: the score loop reads K by column
-  const int nv = Vec<T>::N;
+  const int nv = Vec<T>::N;     // query values per 16-byte load
   const int per_row = D / nv;
+  const int nkv = Vec<TS>::N;   // pool values per 16-byte load
+  const int kv_per_row = D / nkv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -152,20 +203,26 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int base = p0 * ps;
 
     // Stream the tile's pages: token t of the tile is token t % ps of pool
-    // page table[b, p0 + t / ps], KV head h.
-    for (int c = threadIdx.x; c < tl * per_row; c += blockDim.x) {
-      const int t = c / per_row;
-      const int d0 = (c - t * per_row) * nv;
+    // page table[b, p0 + t / ps], KV head h. A tile spans several pages, so a
+    // quantized value takes the scale of its own token's page.
+    for (int c = threadIdx.x; c < tl * kv_per_row; c += blockDim.x) {
+      const int t = c / kv_per_row;
+      const int d0 = (c - t * kv_per_row) * nkv;
       const int pi = t / ps;
       const int page = min(max(row_table[p0 + pi], 0), num_pages - 1);
       const int64_t src = ((int64_t)page * ps + (t - pi * ps)) * token_stride + (int64_t)h * D + d0;
-      float tmp[Vec<T>::N];
-      Vec<T>::load(k_pool + src, tmp);
+      float ks = 1.f, vs = 1.f;
+      if constexpr (kQuantized) {
+        ks = k_scale[(int64_t)page * Hkv + h];
+        vs = v_scale[(int64_t)page * Hkv + h];
+      }
+      float tmp[Vec<TS>::N];
+      Vec<TS>::load(k_pool + src, tmp);
 #pragma unroll
-      for (int i = 0; i < Vec<T>::N; ++i) k_s[t * kd + d0 + i] = tmp[i];
-      Vec<T>::load(v_pool + src, tmp);
+      for (int i = 0; i < Vec<TS>::N; ++i) k_s[t * kd + d0 + i] = kQuantized ? tmp[i] * ks : tmp[i];
+      Vec<TS>::load(v_pool + src, tmp);
 #pragma unroll
-      for (int i = 0; i < Vec<T>::N; ++i) v_s[t * D + d0 + i] = tmp[i];
+      for (int i = 0; i < Vec<TS>::N; ++i) v_s[t * D + d0 + i] = kQuantized ? tmp[i] * vs : tmp[i];
     }
     __syncthreads();
 
@@ -235,59 +292,108 @@ size_t shared_bytes(int S, int Hq, int Hkv, int D, int ps) {
   return sizeof(float) * (2 * R * D + TT * (D + 1) + TT * D + R * TT + 3 * R) + sizeof(int) * S;
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-           const void* pos, void* out, int B, int S, int Hq, int Hkv, int D, int num_pages,
-           int ps, int P, float scale, void* stream) {
+template <typename T, typename TS>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+           const void* v_scale, const void* table, const void* pos, void* out, int B, int S,
+           int Hq, int Hkv, int D, int num_pages, int ps, int P, float scale, void* stream) {
   // Dynamic shared memory above 48 KB needs an opt-in, which holds for the
   // current device only: set it on every such launch (a host-side attribute
-  // write), so no state is kept across devices or threads.
+  // write), so no state is kept across devices or threads. The tiles are fp32
+  // whatever the pool's storage type, so the size does not depend on it.
   const size_t smem = shared_bytes(S, Hq, Hkv, D, ps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        paged_attention_kernel<T, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(Hkv, B);
-  paged_attention_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+  paged_attention_kernel<T, TS><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const TS*>(k_pool), static_cast<const TS*>(v_pool),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(table), static_cast<const int*>(pos), static_cast<T*>(out), S, Hq,
       Hkv, D, num_pages, ps, P, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int dtype, const void* q, const void* k_pool, const void* v_pool, const void* table,
-             const void* pos, void* out, int B, int S, int Hq, int Hkv, int D, int num_pages,
-             int ps, int P, float scale, void* stream) {
+// dtype (q, out): 0 = float32, 1 = bfloat16. kv_dtype (pools): -1 = q's
+// dtype, unquantized; 0 = int8, 1 = fp8 e4m3, with f32 scales.
+template <typename T>
+int dispatch_pool(int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
+                  const void* k_scale, const void* v_scale, const void* table, const void* pos,
+                  void* out, int B, int S, int Hq, int Hkv, int D, int num_pages, int ps, int P,
+                  float scale, void* stream) {
+  if (kv_dtype == -1) {
+    return launch<T, T>(q, k_pool, v_pool, nullptr, nullptr, table, pos, out, B, S, Hq, Hkv, D,
+                        num_pages, ps, P, scale, stream);
+  }
+  if (k_scale == nullptr || v_scale == nullptr) return (int)cudaErrorInvalidValue;
+  if (kv_dtype == 0) {
+    return launch<T, int8_t>(q, k_pool, v_pool, k_scale, v_scale, table, pos, out, B, S, Hq,
+                             Hkv, D, num_pages, ps, P, scale, stream);
+  }
+  if (kv_dtype == 1) {
+    return launch<T, __nv_fp8_e4m3>(q, k_pool, v_pool, k_scale, v_scale, table, pos, out, B, S,
+                                    Hq, Hkv, D, num_pages, ps, P, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(int dtype, int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale, const void* table, const void* pos,
+             void* out, int B, int S, int Hq, int Hkv, int D, int num_pages, int ps, int P,
+             float scale, void* stream) {
   if (dtype == 0) {
-    return launch<float>(q, k_pool, v_pool, table, pos, out, B, S, Hq, Hkv, D, num_pages, ps, P,
-                         scale, stream);
+    return dispatch_pool<float>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table, pos, out,
+                                B, S, Hq, Hkv, D, num_pages, ps, P, scale, stream);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, table, pos, out, B, S, Hq, Hkv, D, num_pages,
-                                 ps, P, scale, stream);
+    return dispatch_pool<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table,
+                                        pos, out, B, S, Hq, Hkv, D, num_pages, ps, P, scale,
+                                        stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after its
-// launch (0 = launched).
+// Unquantized pools of q's dtype (0 = float32, 1 = bfloat16). Each entry
+// point returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int paged_decode_launch(const void* q, const void* k_pool, const void* v_pool,
                                    const void* table, const void* pos, void* out, int B, int Hq,
                                    int Hkv, int D, int num_pages, int ps, int P, float scale,
                                    int dtype, void* stream) {
-  return dispatch(dtype, q, k_pool, v_pool, table, pos, out, B, 1, Hq, Hkv, D, num_pages, ps, P,
-                  scale, stream);
+  return dispatch(dtype, -1, q, k_pool, v_pool, nullptr, nullptr, table, pos, out, B, 1, Hq, Hkv,
+                  D, num_pages, ps, P, scale, stream);
 }
 
 extern "C" int paged_verify_launch(const void* q, const void* k_pool, const void* v_pool,
                                    const void* table, const void* pos, void* out, int B, int S,
                                    int Hq, int Hkv, int D, int num_pages, int ps, int P,
                                    float scale, int dtype, void* stream) {
-  return dispatch(dtype, q, k_pool, v_pool, table, pos, out, B, S, Hq, Hkv, D, num_pages, ps, P,
-                  scale, stream);
+  return dispatch(dtype, -1, q, k_pool, v_pool, nullptr, nullptr, table, pos, out, B, S, Hq, Hkv,
+                  D, num_pages, ps, P, scale, stream);
+}
+
+// Quantized pools (kv_dtype 0 = int8, 1 = fp8 e4m3) with their [num_pages,
+// Hkv] f32 scales; D must be a multiple of 16 (one 16-byte load per 16
+// values).
+extern "C" int paged_decode_quant_launch(const void* q, const void* k_pool, const void* v_pool,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* table, const void* pos, void* out, int B,
+                                         int Hq, int Hkv, int D, int num_pages, int ps, int P,
+                                         float scale, int dtype, int kv_dtype, void* stream) {
+  return dispatch(dtype, kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table, pos, out, B, 1, Hq,
+                  Hkv, D, num_pages, ps, P, scale, stream);
+}
+
+extern "C" int paged_verify_quant_launch(const void* q, const void* k_pool, const void* v_pool,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* table, const void* pos, void* out, int B,
+                                         int S, int Hq, int Hkv, int D, int num_pages, int ps,
+                                         int P, float scale, int dtype, int kv_dtype,
+                                         void* stream) {
+  return dispatch(dtype, kv_dtype, q, k_pool, v_pool, k_scale, v_scale, table, pos, out, B, S, Hq,
+                  Hkv, D, num_pages, ps, P, scale, stream);
 }
 
 extern "C" unsigned long long paged_attention_shared_bytes(int S, int Hq, int Hkv, int D, int ps) {

@@ -16,6 +16,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .paging import SCRATCH_PAGE
+from .utils.operations import gather_pages, scatter_pages, zero_cache_tail
+
 
 @dataclass
 class GenerationConfig:
@@ -76,11 +79,13 @@ class CausalPrograms:
     """The three programs the serving engine runs over a causal LM and its
     paged KV pools (one (k_pool, v_pool) pair per layer).
 
-    `prefill` writes a prompt (or the unmatched suffix after shared-prefix
-    pages) into one slot's pages and returns its logits; it always attends
-    through the gather path, as the JAX package's prefill takes its XLA
-    branch. `step` advances every slot one token and `verify` scores a [B, s]
-    token block; both attend through `attention_impl`."""
+    `prefill` is the cached prefill (JAX's `make_cached_prefill_program`
+    driven by the paged insert): it runs a prompt, or the unmatched suffix
+    after shared-prefix pages, through a dense view of one slot's pages and
+    writes the pages back; its attention is the plain one, as the JAX
+    package's prefill takes its XLA branch. `step` advances every slot one
+    token and `verify` scores a [B, s] token block; both attend through
+    `attention_impl`."""
 
     def __init__(self, model, attention_impl: str):
         self.model = model
@@ -88,11 +93,28 @@ class CausalPrograms:
 
     @torch.no_grad()
     def prefill(self, input_ids, positions, kv_pools, page_row):
-        """[1, S] ids at [1, S] absolute positions through `page_row`
-        ([1, pages] int32, covering every position) -> [1, S, V] logits."""
-        return self.model(
-            input_ids, positions=positions, kv_pools=kv_pools, page_table=page_row, attention_impl="gather"
-        )
+        """[1, S] ids at [1, S] consecutive absolute positions through
+        `page_row` ([1, pages] int32, covering every position) -> [1, S, V]
+        logits.
+
+        As JAX's paged insert: the row's pages are gathered into a dense
+        view (dequantized for a quantized pool), the tokens' K/V are written
+        into that view at full precision and attended there, the rows past
+        the last token are zeroed, and the view's pages are written back
+        (quantized whole, at their own amax, for a quantized pool). The
+        pages before the first position's page hold a shared prefix and are
+        never rewritten: their entries are pointed at the scratch page. So a
+        prompt never attends its own quantized K/V."""
+        row = page_row.reshape(-1)
+        page_size = kv_pools[0][0].shape[1]
+        start, end = int(positions[0, 0]), int(positions[0, -1]) + 1
+        dense = gather_pages(kv_pools, row, self.model.embed_tokens.weight.dtype)
+        logits = self.model(input_ids, positions=positions, kv_cache=dense)
+        zero_cache_tail(dense, end)
+        write_row = row.clone()
+        write_row[: start // page_size] = SCRATCH_PAGE
+        scatter_pages(kv_pools, dense, write_row)
+        return logits
 
     @torch.no_grad()
     def step(self, token, position, kv_pools, page_table):

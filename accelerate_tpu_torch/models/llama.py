@@ -6,14 +6,21 @@ Parameter names follow the flax tree (`wq`, `input_norm`, `w_gate`, ...), so
 `llama_state_dict_from_flax` carries JAX weights across key for key.
 
 The attention module serves three modes, chosen by its arguments:
-  - the full causal forward (no KV pools), the training path, with an
+  - the full causal forward (no caches), the training path, with an
     optional [B, S] padding mask; long unmasked sequences reach the flash
     kernels through `dot_product_attention`'s gate;
-  - prefill into the paged pool: the prompt (or its unmatched suffix) as
-    queries, written at its absolute positions through one slot's page row
-    and attended with the gather path;
-  - decode and verify through `slot_cache_attention`, with the engine's
-    ``attention_impl``.
+  - the cached prefill (`kv_cache`): the prompt (or its unmatched suffix) as
+    queries, written at its absolute positions into a dense per-slot K/V
+    view and attended there (`dense_cache_attention`); the engine gathers
+    that view from the pool and scatters it back (`generation.py`);
+  - decode and verify through `slot_cache_attention` (`kv_pools`), with the
+    engine's ``attention_impl``.
+
+Quantized serving needs no config field: the engine decides. A layer's pool
+entry carries the scale pools when the pool is int8 or fp8 (JAX's
+`decode_kv_cache_dtype`), and the engine's copy of the model holds
+`Int8Linear` layers when the weights are int8 (JAX's `weight_dtype`), both
+from `ContinuousBatcher(kv_cache_dtype=..., weight_dtype=...)`.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..ops.attention import dot_product_attention, slot_cache_attention
+from ..ops.attention import dense_cache_attention, dot_product_attention, slot_cache_attention
 
-KVPools = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+#: One entry per layer: (k_pool, v_pool), or (k_pool, v_pool, k_scale,
+#: v_scale) for an int8/fp8 pool; dense caches are (k_cache, v_cache).
+KVPools = Sequence[Tuple[torch.Tensor, ...]]
 
 
 @dataclass
@@ -88,19 +97,22 @@ class LlamaAttention(nn.Module):
         self.wo = _linear(hq * d, cfg.hidden_size)
 
     def forward(self, hidden, positions, attention_mask=None, kv_pool=None, page_table=None,
-                attention_impl="gather"):
+                attention_impl="gather", kv_cache=None):
         cfg = self.cfg
         b, s, _ = hidden.shape
         hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         q = rotary_embedding(self.wq(hidden).reshape(b, s, hq, d), positions, cfg.rope_theta)
         k = rotary_embedding(self.wk(hidden).reshape(b, s, hkv, d), positions, cfg.rope_theta)
         v = self.wv(hidden).reshape(b, s, hkv, d)
-        if kv_pool is None:
-            out = dot_product_attention(q, k, v, mask=attention_mask, causal=True)
-        else:
+        if kv_pool is not None:
+            k_pool, v_pool, *scales = kv_pool
             out = slot_cache_attention(
-                q, k, v, kv_pool[0], kv_pool[1], positions, page_table, attention_impl
+                q, k, v, k_pool, v_pool, positions, page_table, attention_impl, *scales
             )
+        elif kv_cache is not None:
+            out = dense_cache_attention(q, k, v, kv_cache[0], kv_cache[1], positions)
+        else:
+            out = dot_product_attention(q, k, v, mask=attention_mask, causal=True)
         return self.wo(out.reshape(b, s, hq * d))
 
 
@@ -124,9 +136,10 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(cfg)
 
     def forward(self, hidden, positions, attention_mask=None, kv_pool=None, page_table=None,
-                attention_impl="gather"):
+                attention_impl="gather", kv_cache=None):
         hidden = hidden + self.attention(
-            self.input_norm(hidden), positions, attention_mask, kv_pool, page_table, attention_impl
+            self.input_norm(hidden), positions, attention_mask, kv_pool, page_table, attention_impl,
+            kv_cache,
         )
         return hidden + self.mlp(self.post_attn_norm(hidden))
 
@@ -169,23 +182,28 @@ class LlamaForCausalLM(nn.Module):
         kv_pools: Optional[KVPools] = None,
         page_table=None,
         attention_impl: str = "gather",
+        kv_cache: Optional[KVPools] = None,
     ):
         """[B, S] token ids -> [B, S, vocab] logits; the first three arguments
         in JAX's order (`LlamaForCausalLM.__call__`).
 
-        Without `kv_pools` this is the full causal forward; `attention_mask`
+        Without caches this is the full causal forward; `attention_mask`
         ([B, S], True or 1 = a real token) keeps pad keys out of every row,
         as in JAX. With `kv_pools` (one (k_pool, v_pool) pair per layer,
-        [num_pages, page_size, Hkv, D] each) the tokens' K/V are written into
-        the pools at `positions` through `page_table` ([B, pages_per_slot]
-        int32) and attended there."""
+        [num_pages, page_size, Hkv, D] each, followed by its k_scale and
+        v_scale for an int8/fp8 pool) the tokens' K/V are written into the
+        pools at `positions` through `page_table` ([B, pages_per_slot] int32)
+        and attended there. With `kv_cache` (one dense (k_cache, v_cache)
+        pair per layer, [B, L, Hkv, D]) they are written into those caches
+        at `positions` and attended there: the cached prefill."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
         hidden = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
             pool = None if kv_pools is None else kv_pools[i]
-            hidden = layer(hidden, positions, attention_mask, pool, page_table, attention_impl)
+            cache = None if kv_cache is None else kv_cache[i]
+            hidden = layer(hidden, positions, attention_mask, pool, page_table, attention_impl, cache)
         hidden = self.final_norm(hidden)
         if self.lm_head is None:
             return hidden @ self.embed_tokens.weight.T

@@ -8,12 +8,16 @@ training run:
     of `ops/flash_attention.py`: long unmasked training sequences on the
     card. Every masked input, and so all of serving's prefill, takes the
     plain branch, as in the JAX package.
-  - `write_slot_pool`: the paged cache's write half.
+  - `write_slot_pool`: the paged cache's write half, into float pools or,
+    with scale pools, into int8/fp8 pools (`ops/quantization.py`).
   - `slot_cache_attention`: write this dispatch's K/V into the pool, then
     attend, through either the ``"gather"`` path (gather the pages into a
-    logical buffer, mask, softmax: the JAX package's ``"xla"`` oracle) or the
-    ``"paged_kernel"`` path (the Hopper kernels of `ops/paged_attention.py`,
-    JAX's ``"pallas_paged"``).
+    logical buffer, dequantized on read for a quantized pool, mask, softmax:
+    the JAX package's ``"xla"`` oracle) or the ``"paged_kernel"`` path (the
+    Hopper kernels of `ops/paged_attention.py`, JAX's ``"pallas_paged"``).
+  - `dense_cache_attention`: the cached prefill's attention over a dense
+    per-slot K/V view (`utils/operations.gather_pages`), which holds the
+    prompt's own K/V at full precision whatever the pool stores.
 
 Shapes follow [batch, seq, heads, head_dim] throughout.
 """
@@ -28,6 +32,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .paged_attention import paged_decode_attention, paged_verify_attention
+from .quantization import dequantize_kv_pages, kv_spec_for_dtype, quantized_pool_write
 
 #: The serving attention implementations `slot_cache_attention` accepts.
 SLOT_ATTENTION_IMPLS = ("gather", "paged_kernel")
@@ -125,33 +130,48 @@ def dot_product_attention(
     return torch.matmul(probs, vh).transpose(1, 2)
 
 
-def write_slot_pool(k_pool, v_pool, k, v, positions, page_table):
+def write_slot_pool(k_pool, v_pool, k, v, positions, page_table, k_scale=None, v_scale=None):
     """The paged cache's write half: scatter this dispatch's [B, s] K/V into
     the pools through the slot page tables, row i's token j landing at
     ``pool[table[i, pos // ps], pos % ps]`` after clipping ``pos`` to
-    ``[0, L - 1]`` (L = pages_per_slot * page_size).
+    ``[0, L - 1]`` (L = pages_per_slot * page_size). With scale pools
+    (``[num_pages, Hkv]`` f32) the pools are int8 or fp8 and the write is
+    `quantized_pool_write`'s, which keeps each touched page's scale.
 
-    Writes IN PLACE (the JAX package returns new pools; here the pools are the
-    engine's long-lived buffers and a copy per dispatch would double the cache
-    traffic). Returns the clipped int32 positions."""
+    Writes IN PLACE, scales included (the JAX package returns new pools; here
+    the pools are the engine's long-lived buffers and a copy per dispatch
+    would double the cache traffic). Returns the clipped int32 positions."""
     page_size = k_pool.shape[1]
     pages_per_slot = page_table.shape[-1]
     pos = positions.clamp(0, pages_per_slot * page_size - 1)
     page_slot = torch.div(pos, page_size, rounding_mode="floor").long()
     pid = torch.gather(page_table.long(), 1, page_slot)  # [B, s]
     off = (pos % page_size).long()
-    k_pool[pid, off] = k.to(k_pool.dtype)
-    v_pool[pid, off] = v.to(v_pool.dtype)
+    if k_scale is None:
+        k_pool[pid, off] = k.to(k_pool.dtype)
+        v_pool[pid, off] = v.to(v_pool.dtype)
+    else:
+        quantized_pool_write(k_pool, k_scale, k, pid, off, kv_spec_for_dtype(k_pool.dtype))
+        quantized_pool_write(v_pool, v_scale, v, pid, off, kv_spec_for_dtype(v_pool.dtype))
     return pos.to(torch.int32)
 
 
-def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attention_impl: str = "paged_kernel"):
+def _attend_logical(q, k_full, v_full, pos):
+    """Attention of [B, s] queries over a logical [B, L, Hkv, D] cache, query
+    j of row i seeing ``cols <= pos[i, j]``."""
+    length = k_full.shape[1]
+    cols = torch.arange(length, device=q.device)
+    mask = (cols[None, None, :] <= pos[:, :, None])[:, None]  # [B, 1, s, L]
+    return dot_product_attention(q, k_full, v_full, mask=mask)
+
+
+def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attention_impl: str = "paged_kernel",
+                         k_scale=None, v_scale=None):
     """Write this dispatch's K/V into the page pools, then attend.
 
     Decode steps (s == 1) and speculative verify blocks (s == draft_tokens + 1)
     share this seam; the paged-kernel path picks `paged_decode_attention` or
-    `paged_verify_attention` by ``q.shape[1]``. Prefill uses the gather path
-    with the prompt as queries (one slot, its own page row).
+    `paged_verify_attention` by ``q.shape[1]``.
 
     Args:
         q: [B, s, Hq, D]; k / v: [B, s, Hkv, D].
@@ -159,6 +179,10 @@ def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attenti
         positions: [B, s] absolute positions; query j of row i attends
             ``cols <= positions[i, j]``.
         page_table: [B, pages_per_slot] int32.
+        k_scale / v_scale: [num_pages, Hkv] f32 scales of int8/fp8 pools,
+            updated in place; the kernels take them and dequantize in the
+            page walk, the gather path dequantizes the gathered pages to k's
+            dtype.
     Returns the attention output [B, s, Hq, D].
     """
     if attention_impl not in SLOT_ATTENTION_IMPLS:
@@ -168,15 +192,28 @@ def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attenti
     b, s = q.shape[:2]
     if positions.shape != (b, s):
         raise ValueError(f"positions must be [B, s] = {(b, s)}, got {tuple(positions.shape)}")
-    pos = write_slot_pool(k_pool, v_pool, k, v, positions, page_table)
+    pos = write_slot_pool(k_pool, v_pool, k, v, positions, page_table, k_scale, v_scale)
     if attention_impl == "paged_kernel":
         fn = paged_decode_attention if s == 1 else paged_verify_attention
-        return fn(q, k_pool, v_pool, page_table, pos)
+        return fn(q, k_pool, v_pool, page_table, pos, k_scale=k_scale, v_scale=v_scale)
     hkv, d = k_pool.shape[2], k_pool.shape[3]
     length = page_table.shape[-1] * k_pool.shape[1]
     table = page_table.long()
-    k_full = k_pool[table].reshape(b, length, hkv, d)
-    v_full = v_pool[table].reshape(b, length, hkv, d)
-    cols = torch.arange(length, device=q.device)
-    mask = (cols[None, None, :] <= pos[:, :, None])[:, None]  # [B, 1, s, L]
-    return dot_product_attention(q, k_full, v_full, mask=mask)
+    k_pages, v_pages = k_pool[table], v_pool[table]  # [B, P, ps, Hkv, D]
+    if k_scale is not None:
+        k_pages = dequantize_kv_pages(k_pages, k_scale[table], k.dtype)
+        v_pages = dequantize_kv_pages(v_pages, v_scale[table], v.dtype)
+    return _attend_logical(q, k_pages.reshape(b, length, hkv, d), v_pages.reshape(b, length, hkv, d), pos)
+
+
+def dense_cache_attention(q, k, v, k_cache, v_cache, positions):
+    """The cached prefill's attention (JAX's dense decode cache,
+    `update_decode_cache`): write this block's K/V into the dense per-slot
+    caches ``[B, L, Hkv, D]`` at `positions` ([B, s], IN PLACE), then attend
+    ``cols <= positions[i, j]``. The caches hold the matched prefix (read
+    from the pool, dequantized) and the block's own K/V at full precision."""
+    pos = positions.clamp(0, k_cache.shape[1] - 1).long()
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)[:, None]
+    k_cache[rows, pos] = k.to(k_cache.dtype)
+    v_cache[rows, pos] = v.to(v_cache.dtype)
+    return _attend_logical(q, k_cache, v_cache, pos)

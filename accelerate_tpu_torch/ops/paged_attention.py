@@ -9,13 +9,21 @@ same function that the tests and `chip_smoke.py` hold the kernel against.
 Nothing falls back: a CUDA tensor the kernel does not take raises, and so does
 a kernel that fails to build or launch.
 
+Quantized pools (``k_scale``/``v_scale``, `ops/quantization.py`): int8 or
+fp8-e4m3 pages with ``[num_pages, Hkv]`` f32 per-page-per-head scales. The
+kernel's fused-dequant mode reads one byte per cached value and multiplies by
+the page's scale inside the page walk; no dequantized copy of the pool is
+made on the card. The plain version dequantizes the gathered pages, then
+attends.
+
 Contract (the JAX package's): query j of slot b attends ``cols <= positions[b, j]``
 of its logical cache, whose page p is pool page ``page_table[b, p]`` (clipped
 to ``[0, num_pages - 1]``); the pools already hold this dispatch's K/V writes;
 query head ``h * G + g`` rides KV head ``h`` (G = Hq // Hkv, contiguous
 groups). Rows of inactive slots point at scratch page 0 and come out finite.
 
-`LAUNCHES` counts kernel launches, one per call that reached the kernel.
+`LAUNCHES` counts kernel launches, one per call that reached the kernel, by
+kernel and pool storage type (``decode``, ``decode_int8``, ...).
 """
 
 from __future__ import annotations
@@ -27,9 +35,17 @@ from typing import Dict, Optional
 import torch
 
 from .flash_common import NEG_INF
+from .quantization import E4M3, dequantize_kv_pages
 
-#: Kernel launches since the last reset, by kernel.
-LAUNCHES: Dict[str, int] = {"decode": 0, "verify": 0}
+#: Quantized pool storage dtypes the kernel takes: name and kernel code.
+_KV_CODES = {torch.int8: ("int8", 0), E4M3: ("fp8_e4m3", 1)}
+
+#: Kernel launches since the last reset, by kernel and quantized pool type.
+LAUNCHES: Dict[str, int] = {
+    key: 0
+    for kind in ("decode", "verify")
+    for key in (kind, *(f"{kind}_{name}" for name, _ in _KV_CODES.values()))
+}
 
 #: Shared memory a block may use on Hopper (232,448 bytes).
 _MAX_SHARED_BYTES = 232448
@@ -54,6 +70,10 @@ def _lib():
         lib.paged_decode_launch.restype = ctypes.c_int
         lib.paged_verify_launch.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
         lib.paged_verify_launch.restype = ctypes.c_int
+        lib.paged_decode_quant_launch.argtypes = [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]
+        lib.paged_decode_quant_launch.restype = ctypes.c_int
+        lib.paged_verify_quant_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P]
+        lib.paged_verify_quant_launch.restype = ctypes.c_int
         lib.paged_attention_shared_bytes.argtypes = [_I] * 5
         lib.paged_attention_shared_bytes.restype = ctypes.c_ulonglong
         lib.paged_attention_error_string.argtypes = [_I]
@@ -61,10 +81,12 @@ def _lib():
     return lib
 
 
-def paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale=None):
+def paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale=None,
+                              k_scale=None, v_scale=None):
     """The plain version of both kernels: gather every slot's pages into a
-    logical [B, L, Hkv, D] buffer, mask ``cols <= positions[b, j]`` with
-    NEG_INF, f32 softmax, output in q's dtype."""
+    logical [B, L, Hkv, D] buffer (dequantized to f32 with their page scales
+    for a quantized pool), mask ``cols <= positions[b, j]`` with NEG_INF, f32
+    softmax, output in q's dtype."""
     b, s, hq, d = q.shape
     n, ps, hkv, _ = k_pool.shape
     g = hq // hkv
@@ -72,8 +94,12 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale=No
         scale = 1.0 / math.sqrt(d)
     table = page_table.long().clamp(0, n - 1)
     length = table.shape[1] * ps
-    k = k_pool[table].reshape(b, length, hkv, d).float()
-    v = v_pool[table].reshape(b, length, hkv, d).float()
+    k, v = k_pool[table], v_pool[table]  # [B, P, ps, Hkv, D]
+    if k_scale is not None:
+        k = dequantize_kv_pages(k, k_scale[table], torch.float32)
+        v = dequantize_kv_pages(v, v_scale[table], torch.float32)
+    k = k.reshape(b, length, hkv, d).float()
+    v = v.reshape(b, length, hkv, d).float()
     qg = q.float().reshape(b, s, hkv, g, d)
     scores = torch.einsum("bshgd,blhd->bhsgl", qg, k) * scale
     cols = torch.arange(length, device=q.device)
@@ -84,7 +110,7 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale=No
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, page_table, positions):
+def _check(q, k_pool, v_pool, page_table, positions, k_scale=None, v_scale=None):
     if q.ndim != 4 or k_pool.ndim != 4:
         raise ValueError(f"expected q [B, s, Hq, D] and pools [N, ps, Hkv, D], got {q.shape}, {k_pool.shape}")
     b, s, hq, d = q.shape
@@ -97,19 +123,39 @@ def _check(q, k_pool, v_pool, page_table, positions):
         raise ValueError(f"page_table must be [B, pages_per_slot], got {page_table.shape}")
     if positions.numel() != b * s:
         raise ValueError(f"positions must hold [B, s] = {(b, s)} values, got {positions.shape}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("quantized pools need BOTH k_scale and v_scale (or neither)")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc is not None and tuple(sc.shape) != (n, hkv):
+            raise ValueError(
+                f"per-page-per-head {name} must be [num_pages, Hkv] = {(n, hkv)}, got {tuple(sc.shape)}"
+            )
 
 
-def _launch(kind, q, k_pool, v_pool, page_table, positions, scale):
+def _launch(kind, q, k_pool, v_pool, page_table, positions, scale, k_scale=None, v_scale=None):
     tensors = dict(q=q, k_pool=k_pool, v_pool=v_pool, page_table=page_table, positions=positions)
+    quantized = k_scale is not None
+    if quantized:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernel takes float32 or bfloat16 q, got {q.dtype}")
+    if quantized:
+        if k_pool.dtype not in _KV_CODES or v_pool.dtype != k_pool.dtype:
+            raise ValueError(
+                f"quantized pools must both be int8 or both float8_e4m3fn, got {k_pool.dtype}/{v_pool.dtype}"
+            )
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise ValueError(f"k_scale and v_scale must be float32, got {k_scale.dtype}/{v_scale.dtype}")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise ValueError(
             f"the kernel takes float32 or bfloat16 q and pools of q's dtype, got "
             f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}"
+            + ("; an int8 or fp8 pool needs k_scale and v_scale" if k_pool.dtype in _KV_CODES else "")
         )
     if page_table.dtype != torch.int32 or positions.dtype != torch.int32:
         raise ValueError("page_table and positions must be int32")
@@ -117,6 +163,8 @@ def _launch(kind, q, k_pool, v_pool, page_table, positions, scale):
     n, ps, hkv, _ = k_pool.shape
     if d % 8:
         raise ValueError(f"the kernel needs head_dim % 8 == 0 for 16-byte loads, got {d}")
+    if quantized and d % 16:
+        raise ValueError(f"the kernel needs head_dim % 16 == 0 for 16-byte loads of 1-byte pools, got {d}")
     for name in ("q", "k_pool", "v_pool"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -125,40 +173,45 @@ def _launch(kind, q, k_pool, v_pool, page_table, positions, scale):
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"{smem} bytes of shared memory per block exceed the card's {_MAX_SHARED_BYTES}")
     out = torch.empty_like(q)
-    ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, page_table, positions, out)]
     p = page_table.shape[1]
+    table_ptrs = [t.data_ptr() for t in (page_table, positions, out)]
+    dims = (b, hq, hkv, d, n, ps, p) if kind == "decode" else (b, s, hq, hkv, d, n, ps, p)
     # The launch goes to the current device on PyTorch's current stream of
     # q's device, behind this dispatch's pool writes.
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if kind == "decode":
-            err = lib.paged_decode_launch(
-                *ptrs, b, hq, hkv, d, n, ps, p, float(scale), _DTYPE_CODES[q.dtype], stream
-            )
+        if quantized:
+            name, code = _KV_CODES[k_pool.dtype]
+            entry = lib.paged_decode_quant_launch if kind == "decode" else lib.paged_verify_quant_launch
+            ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, k_scale, v_scale)] + table_ptrs
+            err = entry(*ptrs, *dims, float(scale), _DTYPE_CODES[q.dtype], code, stream)
+            key = f"{kind}_{name}"
         else:
-            err = lib.paged_verify_launch(
-                *ptrs, b, s, hq, hkv, d, n, ps, p, float(scale), _DTYPE_CODES[q.dtype], stream
-            )
+            entry = lib.paged_decode_launch if kind == "decode" else lib.paged_verify_launch
+            ptrs = [t.data_ptr() for t in (q, k_pool, v_pool)] + table_ptrs
+            err = entry(*ptrs, *dims, float(scale), _DTYPE_CODES[q.dtype], stream)
+            key = kind
     if err != 0:
         raise RuntimeError(
-            f"paged {kind} kernel launch failed: {lib.paged_attention_error_string(err).decode()}"
+            f"paged {key} kernel launch failed: {lib.paged_attention_error_string(err).decode()}"
         )
-    LAUNCHES[kind] += 1
+    LAUNCHES[key] += 1
     return out
 
 
-def _paged_call(kind, q, k_pool, v_pool, page_table, positions, scale):
-    _check(q, k_pool, v_pool, page_table, positions)
+def _paged_call(kind, q, k_pool, v_pool, page_table, positions, scale, k_scale, v_scale):
+    _check(q, k_pool, v_pool, page_table, positions, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
-        return _launch(kind, q, k_pool, v_pool, page_table, positions, scale)
+        return _launch(kind, q, k_pool, v_pool, page_table, positions, scale, k_scale, v_scale)
     if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale)
+        return paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale, k_scale, v_scale)
     raise ValueError(f"no paged attention for tensors on {q.device}")
 
 
-def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *, scale: Optional[float] = None):
+def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *, scale: Optional[float] = None,
+                           k_scale=None, v_scale=None):
     """Single-query paged decode attention over a pool-resident KV cache.
 
     Args:
@@ -169,15 +222,19 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, positions, *, scale: O
             point at the scratch page.
         positions: [B, 1] (or [B]) int32; row i attends ``cols <= positions[i]``.
         scale: defaults to 1/sqrt(D).
+        k_scale / v_scale: [num_pages, Hkv] f32 per-page-per-head scales of
+            int8 or fp8-e4m3 pools (both or neither); the dequant fuses into
+            the page walk.
 
     Returns [B, 1, Hq, D] in q's dtype.
     """
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"paged_decode_attention takes [B, 1, Hq, D] queries, got {tuple(q.shape)}")
-    return _paged_call("decode", q, k_pool, v_pool, page_table, positions, scale)
+    return _paged_call("decode", q, k_pool, v_pool, page_table, positions, scale, k_scale, v_scale)
 
 
-def paged_verify_attention(q, k_pool, v_pool, page_table, positions, *, scale: Optional[float] = None):
+def paged_verify_attention(q, k_pool, v_pool, page_table, positions, *, scale: Optional[float] = None,
+                           k_scale=None, v_scale=None):
     """Block-verify paged attention, the [B, s] variant that speculative
     decoding's verify step runs (s = draft_tokens + 1).
 
@@ -185,9 +242,10 @@ def paged_verify_attention(q, k_pool, v_pool, page_table, positions, *, scale: O
         q: [B, s, Hq, D] the block's queries.
         k_pool / v_pool / page_table: as `paged_decode_attention`.
         positions: [B, s] int32; query j of row i attends ``cols <= positions[i, j]``.
+        k_scale / v_scale: as `paged_decode_attention` (quantized pools).
 
     Returns [B, s, Hq, D].
     """
     if q.ndim != 4:
         raise ValueError(f"paged_verify_attention takes [B, s, Hq, D] queries, got {tuple(q.shape)}")
-    return _paged_call("verify", q, k_pool, v_pool, page_table, positions, scale)
+    return _paged_call("verify", q, k_pool, v_pool, page_table, positions, scale, k_scale, v_scale)

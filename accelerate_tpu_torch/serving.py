@@ -18,6 +18,12 @@ request slots share one pool of fixed-size KV pages per layer:
     through the block-verify kernel, accepting the longest greedily confirmed
     draft prefix plus one bonus token.
 
+Quantized serving (`ops/quantization.py`): ``weight_dtype="int8"`` serves
+from the engine's own int8 copy of the model's linear layers, made once at
+construction; ``kv_cache_dtype="int8" | "fp8_e4m3"`` stores the pages in one
+byte per value with ``[num_pages, Hkv]`` f32 scales per layer, which the
+decode and verify kernels read through their fused-dequant mode.
+
 The host reads back once per chunk, not once per token: the chunk's tokens,
 emission masks and the slots' new state come back in one copy. Stale K/V of a
 slot's earlier occupant is never visible, because each query attends only
@@ -41,6 +47,7 @@ import torch
 from .device import DeviceLike, make_generator, resolve_device
 from .generation import CausalPrograms, GenerationConfig, _sample
 from .ops.attention import SLOT_ATTENTION_IMPLS
+from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, kv_quant_spec, quantize_model_int8
 from .paging import SCRATCH_PAGE, PagePool, chain_hashes, pages_for
 from .speculative import (
     DEFAULT_DRAFT_NGRAM,
@@ -125,6 +132,8 @@ class ContinuousBatcher:
         draft_tokens: int = DEFAULT_DRAFT_TOKENS,
         draft_ngram: int = DEFAULT_DRAFT_NGRAM,
         attention_impl: str = "paged_kernel",
+        weight_dtype: str = "bf16",
+        kv_cache_dtype: str = "bf16",
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -154,6 +163,16 @@ class ContinuousBatcher:
                 f"unknown attention_impl {attention_impl!r}; expected one of {SLOT_ATTENTION_IMPLS}"
             )
         self.attention_impl = attention_impl
+        self.weight_dtype = str(weight_dtype)
+        if self.weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"unknown weight_dtype {weight_dtype!r}; expected one of {WEIGHT_DTYPES}")
+        self.kv_cache_dtype = str(kv_cache_dtype)
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"unknown kv_cache_dtype {kv_cache_dtype!r}; expected one of {KV_CACHE_DTYPES}"
+            )
+        if self.weight_dtype == "int8":
+            model = quantize_model_int8(model)  # the engine's own copy; the caller's is untouched
         self.page_size = int(page_size)
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
@@ -205,18 +224,24 @@ class ContinuousBatcher:
         )
         self._finish_counts: Dict[str, int] = dict.fromkeys(FINISH_REASONS, 0)
 
-    def _init_pools(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def _init_pools(self) -> List[Tuple[torch.Tensor, ...]]:
         """One zeroed (k_pool, v_pool) pair per layer, [num_pages, page_size,
-        Hkv, D] in the model's dtype."""
+        Hkv, D] in the model's dtype; for a quantized cache the pools are in
+        the storage dtype and each pair is followed by its zeroed [num_pages,
+        Hkv] f32 (k_scale, v_scale)."""
         cfg = self.config
         shape = (self.num_pages, self.page_size, cfg.num_key_value_heads, cfg.head_dim)
-        return [
-            (
-                torch.zeros(shape, dtype=self.dtype, device=self.device),
-                torch.zeros(shape, dtype=self.dtype, device=self.device),
-            )
-            for _ in range(cfg.num_hidden_layers)
-        ]
+        spec = kv_quant_spec(self.kv_cache_dtype)
+        dtype = self.dtype if spec is None else spec[0]
+        pools = []
+        for _ in range(cfg.num_hidden_layers):
+            layer = tuple(torch.zeros(shape, dtype=dtype, device=self.device) for _ in range(2))
+            if spec is not None:
+                layer += tuple(
+                    torch.zeros((self.num_pages, cfg.num_key_value_heads), device=self.device) for _ in range(2)
+                )
+            pools.append(layer)
+        return pools
 
     # ---------------------------------------------------------------- host plane
 
@@ -234,10 +259,22 @@ class ContinuousBatcher:
         return self._closed
 
     @property
+    def kv_pool_itemsize(self) -> int:
+        """Stored bytes per cached K/V value (1 for an int8 or fp8 pool)."""
+        return self._pools[0][0].element_size()
+
+    @property
+    def kv_cache_nbytes(self) -> int:
+        """Stored bytes of the whole paged cache: pools and scale pools."""
+        return sum(t.numel() * t.element_size() for layer in self._pools for t in layer)
+
+    @property
     def stats(self) -> Dict[str, Any]:
         c = self._counts
         view: Dict[str, Any] = {
             "attention_impl": self.attention_impl,
+            "weight_dtype": self.weight_dtype,
+            "kv_cache_dtype": self.kv_cache_dtype,
             "inserts": c["inserts"],
             "chunks": c["chunks"],
             "decode_steps": c["decode_steps"],

@@ -19,6 +19,12 @@ prints no result):
    the peak rate of the input type, whichever is larger) and, as a labelled
    yardstick the port never calls, `F.scaled_dot_product_attention` over an
    already-gathered dense K/V.
+   Then K1 and K2's fused-dequant mode the same way, on the same pools
+   quantized whole-page to int8 and to fp8 e4m3 (scratch page included) with
+   per-page-per-head f32 scales, against the plain version on the same codes
+   and scales; the bound counts 1 byte per cached value plus the scales, and
+   the yardstick is SDPA over K/V already dequantized to q's dtype and
+   gathered.
    Then the flash-attention kernels of training, forward (K3), dK/dV (K4)
    and dQ (K5), at Llama-1B's training shapes (batch 2, 32 heads after the
    GQA repeat, sequence 2048, head 64, causal), the same way: held against
@@ -35,6 +41,17 @@ prints no result):
    (b) bf16: the "paged_kernel" engine, plain and speculative, timed; every
        request finishes; each kernel's launch count, zeroed just before the
        run, equals layers x dispatches of that run and is > 0.
+   (c) f32, KV cache quantized to int8 and to fp8 e4m3: greedy tokens of
+       the "paged_kernel" engine equal the "gather" engine's, plain and
+       speculative; both read the same quantized pool.
+   (d) f32: with only the cache quantized, every request that does not
+       share the system prompt has the unquantized engine's first token.
+   (e) bf16 with int8 weights and an int8, then an fp8 e4m3 cache, plain
+       and speculative, timed: decode tokens/s, TTFT p50, peak memory, the
+       cache's bytes beside the bf16 engine's, and greedy agreement with the
+       bf16 unquantized run (reported, not gated: random weights); the
+       quantized kernel's launch count equals layers x dispatches and is
+       > 0, and every other count is 0.
 4. Training, through `Accelerator.prepare(model, AdamW, loader, schedule)`
    and `train_step(max_grad_norm=1.0)`, sequence 2048, AdamW lr 1e-4,
    weight decay 1e-4, betas (0.9, 0.999), eps 1e-8:
@@ -50,7 +67,8 @@ prints no result):
        where they started; each flash kernel, counted from 0 just before the
        timed steps, launched 16 layers x 8 steps times.
    (c) with --profile, device time of one more bf16 step by group.
-5. A `{"kernels": [...]}` line, the nvidia-smi line, and as the last line
+5. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+   quantized modes, K3-K5), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -59,6 +77,7 @@ TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -84,6 +103,7 @@ REPLACES = {
     "decode": "accelerate_tpu/ops/paged_attention.py:67",
     "verify": "accelerate_tpu/ops/paged_attention.py:117",
 }
+KV_DTYPES = ("int8", "fp8_e4m3")
 SOURCE = "accelerate_tpu_torch/csrc/paged_attention.cu"
 
 # Llama-1B's training attention: batch 2 x 32 query heads (K/V repeated from
@@ -169,17 +189,19 @@ def kernel_case(device, dtype, s, seed, slots, hq, hkv, d, page_size, max_length
     return q, k, v, torch.as_tensor(table, device=device), torch.as_tensor(pos, device=device)
 
 
-def kernel_bound(q, k, table, pos):
+def kernel_bound(q, k, table, pos, quantized=False):
     """(least ms, "bytes" | "operations") for these inputs: each live K/V page
-    read once, q, table entries and positions read once, the output written
-    once; 4 * D operations per (query head, visible column)."""
+    read once at the pool's own bytes per value (1 for int8 or fp8) and, for
+    a quantized pool, its K and V f32 scales per KV head; q, table entries
+    and positions read once, the output written once; 4 * D operations per
+    (query head, visible column)."""
     b, s, hq, d = q.shape
     ps, hkv = k.shape[1], k.shape[2]
-    itemsize = q.element_size()
     length = pos.max(dim=1).values.long() + 1
-    live_pages = (length + ps - 1) // ps
-    kv_bytes = int(live_pages.sum()) * ps * hkv * d * 2 * itemsize
-    n_bytes = kv_bytes + 2 * q.numel() * itemsize + int(live_pages.sum()) * 4 + pos.numel() * 4
+    live_pages = int(((length + ps - 1) // ps).sum())
+    kv_bytes = live_pages * ps * hkv * d * 2 * k.element_size()
+    scale_bytes = live_pages * hkv * 2 * 4 if quantized else 0
+    n_bytes = kv_bytes + scale_bytes + 2 * q.numel() * q.element_size() + live_pages * 4 + pos.numel() * 4
     ops = int((pos.long() + 1).sum()) * hq * d * 4
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[q.dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -235,6 +257,56 @@ def kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
     return results
 
 
+def quantized_kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
+    """K1 and K2's fused-dequant mode at the engine's shapes: the pools of
+    `kernel_case` (scratch page poisoned) quantized whole-page to int8 and to
+    fp8 e4m3, f32 and bf16 queries, each kernel launch held against the plain
+    version on the same codes and scales."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    results = {}
+    for kind, s in (("decode", 1), ("verify", shape["verify_s"])):
+        fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
+        for kv_dtype in KV_DTYPES:
+            key = f"{kind}_{kv_dtype}"
+            spec = qz.kv_quant_spec(kv_dtype)
+            entry = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, table, pos = kernel_case(device, torch.float32, s, seed=11 + s, **shape)
+                (kq, ks), (vq, vs) = qz.quantize_kv_pages(k, spec), qz.quantize_kv_pages(v, spec)
+                del k, v
+                q = q.to(dtype)
+                args = (q, kq, vq, table, pos)
+                scales = dict(k_scale=ks, v_scale=vs)
+                before = pa.LAUNCHES[key]
+                out = fn(*args, **scales)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                    if pa.LAUNCHES[key] != before + 1:
+                        raise RuntimeError(f"{key} call on {device} did not launch its kernel")
+                ref = pa.paged_attention_reference(*args, **scales)
+                if not torch.isfinite(out).all():
+                    raise RuntimeError(f"{key} kernel ({dtype}) wrote non-finite values")
+                err = float((out.float() - ref.float()).abs().max())
+                tol = dict(atol=F32_ATOL, rtol=0.0) if dtype == torch.float32 else dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+                torch.testing.assert_close(out.float(), ref.float(), **tol, msg=lambda m: f"{key} {dtype}: {m}")
+                row = {"max_abs_err": err, "tolerance": tol}
+                bound, bound_by = kernel_bound(q, kq, table, pos, quantized=True)
+                row.update(bound_ms=bound, bound_by=bound_by)
+                if timed:
+                    row["ms"] = time_ms(lambda: fn(*args, **scales), device)
+                    row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(*args, **scales), device)
+                    kd = qz.dequantize_kv(kq, ks[:, None, :, None], dtype)
+                    vd = qz.dequantize_kv(vq, vs[:, None, :, None], dtype)
+                    row["library_ms"] = time_ms(sdpa_yardstick(q, kd, vd, table, pos), device)
+                    del kd, vd
+                entry[str(dtype).replace("torch.", "")] = row
+                log(f"[kernels] {key} {dtype}: {json.dumps(row)}")
+            results[key] = entry
+    return results
+
+
 # ------------------------------------------------------------------ engine
 def make_requests(vocab, seed=0, n=16, system_len=256):
     """16 requests: half share one `system_len`-token system prompt and add
@@ -286,6 +358,7 @@ def serve(model, requests, device, **engine_kw):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    del engine._admit  # the wrapper referenced the engine: without this the engine outlives its run
     tokens = {rid: list(res.tokens) for rid, res in engine.results.items()}
     for res in engine.results.values():
         if not res.finished or res.finish_reason not in ("eos", "length"):
@@ -308,6 +381,22 @@ def serve(model, requests, device, **engine_kw):
     return engine, tokens, timing
 
 
+def free_memory(device):
+    """Drop unreachable engines and their pools, then restart the peak
+    memory count, so a run's peak is its own."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def agreement(base, other):
+    """Share of token positions, over every request, where `other`'s greedy
+    token equals `base`'s (positions past the shorter stream not counted)."""
+    pairs = [(x, y) for rid in base for x, y in zip(base[rid], other[rid])]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
 def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, system_len=256,
                  profile=False):
     from accelerate_tpu_torch import create_named_model
@@ -325,28 +414,46 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
         f"hidden {model.config.hidden_size}, vocab {model.config.vocab_size}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
 
-    # (a) f32 parity: the kernel path against the gather path, plain and speculative.
-    for label, extra in (("plain", {}), ("speculative", spec_kw)):
-        runs = {}
-        for impl in ("gather", "paged_kernel"):
-            engine, tokens, timing = serve(model, requests, device, attention_impl=impl, **engine_kw, **extra)
-            runs[impl] = tokens
-            log(f"[engine] f32 {label} {impl}: {json.dumps(timing)}")
-        if runs["gather"] != runs["paged_kernel"]:
-            bad = [rid for rid in runs["gather"] if runs["gather"][rid] != runs["paged_kernel"][rid]]
-            raise RuntimeError(f"f32 {label}: paged_kernel tokens differ from gather for requests {bad}")
-        log(f"[engine] f32 {label}: paged_kernel tokens == gather tokens for all {len(requests)} requests")
-        report[f"f32_{label}_identical"] = True
+    # (a) f32 parity: the kernel path against the gather path, plain and
+    # speculative; (c) the same on int8 and fp8 caches.
+    f32_plain = {}
+    for kv_dtype in ("bf16", *KV_DTYPES):
+        tag = "f32" if kv_dtype == "bf16" else f"f32 kv {kv_dtype}"
+        for label, extra in (("plain", {}), ("speculative", spec_kw)):
+            runs = {}
+            for impl in ("gather", "paged_kernel"):
+                engine, tokens, timing = serve(model, requests, device, attention_impl=impl,
+                                               kv_cache_dtype=kv_dtype, **engine_kw, **extra)
+                runs[impl] = tokens
+                log(f"[engine] {tag} {label} {impl}: {json.dumps(timing)}")
+            if runs["gather"] != runs["paged_kernel"]:
+                bad = [rid for rid in runs["gather"] if runs["gather"][rid] != runs["paged_kernel"][rid]]
+                raise RuntimeError(f"{tag} {label}: paged_kernel tokens differ from gather for requests {bad}")
+            log(f"[engine] {tag} {label}: paged_kernel tokens == gather tokens for all {len(requests)} requests")
+            report[tag.replace(" ", "_") + f"_{label}_identical"] = True
+            if label == "plain":
+                f32_plain[kv_dtype] = runs["paged_kernel"]
+
+    # (d) a prompt that shares no prefix never reads its own quantized K/V.
+    fresh = [r.request_id for r in requests if r.request_id % 2 == 1]  # even ids share the system prompt
+    for kv_dtype in KV_DTYPES:
+        bad = [rid for rid in fresh if f32_plain[kv_dtype][rid][0] != f32_plain["bf16"][rid][0]]
+        if bad:
+            raise RuntimeError(f"f32 kv {kv_dtype}: first tokens of fresh prompts {bad} differ from unquantized")
+        report[f"f32_kv_{kv_dtype}_fresh_first_tokens_exact"] = len(fresh)
+        report[f"f32_kv_{kv_dtype}_agreement"] = agreement(f32_plain["bf16"], f32_plain[kv_dtype])
+        log(f"[engine] f32 kv {kv_dtype}: first tokens of all {len(fresh)} fresh prompts equal the unquantized "
+            f"engine's; greedy agreement {report[f'f32_kv_{kv_dtype}_agreement']:.4f}")
 
     # (b) bf16 timing on the kernel path; launch counts zeroed just before each run.
     model = model.to(torch.bfloat16)
     serve(model, requests[:2], device, **engine_kw)  # warm-up: bf16 GEMM handles, allocator
     serve(model, requests[:2], device, **engine_kw, **spec_kw)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    free_memory(device)
+    bf16_tokens = {}
     for label, extra, kind in (("plain", {}, "decode"), ("speculative", spec_kw, "verify")):
         pa.reset_launch_counts()
-        engine, _, timing = serve(model, requests, device, **engine_kw, **extra)
+        engine, bf16_tokens[label], timing = serve(model, requests, device, **engine_kw, **extra)
         launches = dict(pa.LAUNCHES)
         dispatches = engine.stats["decode_steps"]  # chunks x chunk_size, one kernel call per layer each
         timing.update(launches=launches, dispatches=dispatches, prefix_cache=engine.stats["prefix_cache"])
@@ -363,11 +470,47 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
         report[f"bf16_{label}"] = timing
     if engine.stats["prefix_cache"]["hits"] <= 0:
         raise RuntimeError("the shared system prompt never hit the prefix cache")
+    bf16_cache_nbytes = engine.kv_cache_nbytes
     if device.type == "cuda":
         report["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+
+    # (e) bf16 with int8 weights and a quantized cache, timed.
+    serve(model, requests[:2], device, weight_dtype="int8", kv_cache_dtype="int8", **engine_kw)  # warm-up
+    for kv_dtype in KV_DTYPES:
+        quant_kw = dict(weight_dtype="int8", kv_cache_dtype=kv_dtype)
+        for label, extra, kind in (("plain", {}, "decode"), ("speculative", spec_kw, "verify")):
+            key = f"{kind}_{kv_dtype}"
+            pa.reset_launch_counts()
+            del engine
+            free_memory(device)
+            engine, tokens, timing = serve(model, requests, device, **engine_kw, **quant_kw, **extra)
+            launches = dict(pa.LAUNCHES)
+            dispatches = engine.stats["decode_steps"]
+            timing.update(
+                launches=launches, dispatches=dispatches, kv_cache_nbytes=engine.kv_cache_nbytes,
+                bf16_kv_cache_nbytes=bf16_cache_nbytes, agreement_with_bf16=agreement(bf16_tokens[label], tokens),
+                prefix_cache=engine.stats["prefix_cache"],
+            )
+            if label == "speculative":
+                timing["speculative"] = engine.stats["speculative"]
+            if device.type == "cuda":
+                timing["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+            log(f"[engine] bf16 w8 kv {kv_dtype} {label} paged_kernel: {json.dumps(timing)}")
+            if device.type == "cuda":
+                others = {k: n for k, n in launches.items() if k != key and n}
+                if launches[key] != layers * dispatches or launches[key] <= 0 or others:
+                    raise RuntimeError(
+                        f"bf16 w8 kv {kv_dtype} {label}: launches {launches}, expected {key} = {layers} "
+                        f"layers x {dispatches} dispatches and no other"
+                    )
+            report[f"bf16_w8_{kv_dtype}_{label}"] = timing
     if profile:
         report["bf16_plain_profile"] = profile_phase(
             model, requests, device, engine_kw, report["bf16_plain"]["wall_s"]
+        )
+        report["bf16_w8_int8_plain_profile"] = profile_phase(
+            model, requests, device, {**engine_kw, "weight_dtype": "int8", "kv_cache_dtype": "int8"},
+            report["bf16_w8_int8_plain"]["wall_s"],
         )
     return report
 
@@ -684,7 +827,8 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the build and the kernel phase (prints no result line)")
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one bf16 plain engine run and one bf16 training step: "
+                        help="also profile one bf16 plain engine run, one with int8 weights and cache, "
+                             "and one bf16 training step: "
                              "device time by kernel, busy share")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -707,27 +851,36 @@ def main(argv=None) -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    t0 = time.perf_counter()
     kernels = kernel_phase(device)
+    kernels.update(quantized_kernel_phase(device))
     flash = flash_kernel_phase(device)
+    log(f"[time] kernel phases {time.perf_counter() - t0:.1f}s")
     if args.kernels_only:
         log(card)
         return 0
+    t0 = time.perf_counter()
     engine = engine_phase(device, profile=args.profile)
     log(f"[engine] summary: {json.dumps(engine)}")
-    torch.cuda.empty_cache()  # the engine's model is gone; training starts from a clean pool
+    log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)  # the engines and their model are gone; training starts from a clean pool
+    t0 = time.perf_counter()
     training = training_phase(device, profile=args.profile)
     log(f"[train] summary: {json.dumps(training)}")
+    log(f"[time] training phase {time.perf_counter() - t0:.1f}s")
 
     rows = []
-    runs = {"decode": "bf16_plain", "verify": "bf16_speculative"}
-    for kind in ("decode", "verify"):
-        bf16, f32 = kernels[kind]["bfloat16"], kernels[kind]["float32"]
+    runs = {"decode": "plain", "verify": "speculative"}
+    for key in ("decode", "verify", *(f"{kind}_{kv}" for kind in ("decode", "verify") for kv in KV_DTYPES)):
+        kind, _, kv = key.partition("_")
+        bf16, f32 = kernels[key]["bfloat16"], kernels[key]["float32"]
+        run = f"bf16_w8_{kv}_{runs[kind]}" if kv else f"bf16_{runs[kind]}"
         rows.append({
-            "name": f"paged_{kind}",
+            "name": f"paged_{key}",
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[kind],
-            "launches": engine[runs[kind]]["launches"][kind],
+            "launches": engine[run]["launches"][key],
             "max_abs_err": bf16["max_abs_err"],
             "tolerance": bf16["tolerance"],
             "ms": bf16["ms"],
@@ -736,8 +889,10 @@ def main(argv=None) -> int:
             "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"],
             "library_ms": bf16["library_ms"],
-            "library_call": "F.scaled_dot_product_attention over pre-gathered dense K/V (yardstick, never called by the port)",
+            "library_call": "F.scaled_dot_product_attention over pre-gathered dense K/V (yardstick, never called by the port)"
+                            + (f", dequantized from {kv} to bf16 beforehand" if kv else ""),
             "dtype": "bfloat16",
+            "kv_dtype": kv or "bfloat16",
             "shape": dict(KERNEL_SHAPE, s=1 if kind == "decode" else KERNEL_SHAPE["verify_s"]),
             "f32": f32,
         })

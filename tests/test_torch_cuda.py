@@ -11,7 +11,9 @@ the suite.) Tolerances are those of `chip_smoke.py`: f32 atol 2e-5; bf16 atol
 2e-3, rtol 1e-2, one bf16 rounding of the output above the fp32 summation
 order, and well below the small outputs of long slots. The flash backward's
 f32 gradients sum up to S products per value, in another order than the
-plain version's matmuls: atol/rtol 1e-4.
+plain version's matmuls: atol/rtol 1e-4. The quantized mode of the paged
+kernels dequantizes exactly as its plain version does (one f32 multiply per
+value), so the same tolerances hold.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
+from accelerate_tpu_torch.ops import quantization as qz
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +86,61 @@ def test_large_shared_memory_launch_on_every_device(cuda):
         torch.testing.assert_close(out, ref, **F32)
 
 
+def _quantized(k, v, kv_dtype):
+    """The pools quantized whole-page (scratch page 0 too) and their scales."""
+    spec = qz.kv_quant_spec(kv_dtype)
+    kq, ks = qz.quantize_kv_pages(k.float(), spec)
+    vq, vs = qz.quantize_kv_pages(v.float(), spec)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("page_size", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+def test_quantized_kernel_matches_plain_version(cuda, kv_dtype, dtype, s, page_size):
+    """The fused-dequant mode over int8/fp8 pools, ragged positions and a
+    poisoned scratch page, against the plain version on the same codes and
+    scales; one launch under the quantized key, none under the others."""
+    q, k, v, table, pos = _case(cuda, torch.float32, s, ps=page_size, P=max(2, 96 // page_size), seed=page_size + s)
+    kq, vq, ks, vs = _quantized(k, v, kv_dtype)
+    q = q.to(dtype)
+    kind = "decode" if s == 1 else "verify"
+    fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
+    before = dict(pa.LAUNCHES)
+    out = fn(q, kq, vq, table, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert {key: pa.LAUNCHES[key] - before[key] for key in before} == {
+        key: int(key == f"{kind}_{kv_dtype}") for key in before}
+    assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
+    ref = pa.paged_attention_reference(q, kq, vq, table, pos, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out.float(), ref.float(), **(F32 if dtype == torch.float32 else BF16))
+
+
+def test_quantized_pool_launches_or_raises(cuda, monkeypatch):
+    """On the card an int8/fp8 pool goes to the kernel or raises: with the
+    plain dequantization and SDPA made to fail, the call still succeeds and
+    counts one launch; a pool the kernel does not take raises."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a CUDA call dequantized the pool outside the kernel")
+
+    monkeypatch.setattr(pa, "dequantize_kv_pages", forbidden)
+    monkeypatch.setattr(pa, "paged_attention_reference", forbidden)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention", forbidden)
+    q, k, v, table, pos = _case(cuda, torch.bfloat16, 1)
+    kq, vq, ks, vs = _quantized(k, v, "fp8_e4m3")
+    before = pa.LAUNCHES["decode_fp8_e4m3"]
+    out = pa.paged_decode_attention(q, kq, vq, table, pos, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["decode_fp8_e4m3"] == before + 1 and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="needs k_scale and v_scale"):
+        pa.paged_decode_attention(q, kq, vq, table, pos)
+    with pytest.raises(ValueError, match="% 16"):
+        short = _case(cuda, torch.bfloat16, 1, d=8)
+        sq, sv, sks, svs = _quantized(short[1], short[2], "int8")
+        pa.paged_decode_attention(short[0], sq, sv, short[3], short[4], k_scale=sks, v_scale=svs)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v, table, pos = _case(cuda, torch.float32, 1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -118,6 +176,34 @@ def test_engine_kernel_path_matches_gather_path(cuda):
             assert pa.LAUNCHES[kind] == expect
         assert runs[spec, "gather"] == runs[spec, "paged_kernel"]
     assert runs[False, "paged_kernel"] == runs[True, "paged_kernel"]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+def test_quantized_engine_kernel_path_matches_gather_path(cuda, kv_dtype):
+    """A small Llama served on the card with a quantized cache and int8
+    weights: f32 greedy tokens of the kernel path equal the gather path's,
+    plain and speculative, and the quantized launch counts equal layers x
+    dispatches while the unquantized ones stay 0."""
+    from accelerate_tpu_torch import ContinuousBatcher, Request, create_llama_model
+    from accelerate_tpu_torch.models import llama_tiny
+
+    model = create_llama_model(llama_tiny(), seed=1, device=cuda)
+    rng = np.random.default_rng(2)
+    motif = rng.integers(0, 512, (7,))
+    prompts = [rng.integers(0, 512, (int(n),)) for n in (5, 40, 17)] + [np.tile(motif, 6)]
+    for spec in (False, True):
+        runs = {}
+        for impl in ("gather", "paged_kernel"):
+            pa.reset_launch_counts()
+            engine = ContinuousBatcher(model, num_slots=2, max_length=128, chunk_size=4, page_size=8,
+                                       attention_impl=impl, speculative=spec, draft_tokens=4,
+                                       weight_dtype="int8", kv_cache_dtype=kv_dtype)
+            out = engine.run([Request(i, p, max_new_tokens=24) for i, p in enumerate(prompts)])
+            runs[impl] = {rid: list(map(int, t)) for rid, t in out.items()}
+            key = ("verify_" if spec else "decode_") + kv_dtype
+            n = model.config.num_hidden_layers * engine.stats["decode_steps"] if impl == "paged_kernel" else 0
+            assert pa.LAUNCHES == {k: n if k == key else 0 for k in pa.LAUNCHES}
+        assert runs["gather"] == runs["paged_kernel"]
 
 
 def _flash_case(device, dtype, bh, s, sk, d, seed=0):

@@ -22,6 +22,7 @@ import accelerate_tpu_torch
 from accelerate_tpu_torch.ops import _build
 from accelerate_tpu_torch.ops import flash_attention as port_flash
 from accelerate_tpu_torch.ops import paged_attention as port_paged
+from accelerate_tpu_torch.ops import quantization as port_quant
 
 torch.set_num_threads(2)
 
@@ -38,7 +39,8 @@ def test_import_loads_no_jax_module():
         "import json, sys\n"
         "import accelerate_tpu_torch, accelerate_tpu_torch.serving, accelerate_tpu_torch.ops.paged_attention\n"
         "import accelerate_tpu_torch.accelerator, accelerate_tpu_torch.train_step, accelerate_tpu_torch.utils\n"
-        "import accelerate_tpu_torch.ops.flash_attention\n"
+        "import accelerate_tpu_torch.ops.flash_attention, accelerate_tpu_torch.ops.quantization\n"
+        "import accelerate_tpu_torch.utils.operations, accelerate_tpu_torch.generation\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -103,6 +105,9 @@ def test_cpu_calls_never_build(monkeypatch):
     pos = torch.tensor([[5], [2]], dtype=torch.int32)
     out = port_paged.paged_decode_attention(q, pool, pool, table, pos)
     assert out.shape == q.shape and torch.isfinite(out).all()
+    codes, scales = port_quant.quantize_kv_pages(pool, port_quant.kv_quant_spec("int8"))
+    out = port_paged.paged_decode_attention(q, codes, codes, table, pos, k_scale=scales, v_scale=scales)
+    assert out.shape == q.shape and torch.isfinite(out).all()
     x = torch.randn(1, 128, 2, 32, requires_grad=True)
     port_flash.flash_attention(x, x, x, causal=True).sum().backward()
     assert x.grad.shape == x.shape
@@ -118,7 +123,8 @@ SOURCES = {
     ),
     "paged_attention.cu": (
         ["accelerate_tpu/ops/paged_attention.py::_decode_kernel"],
-        ["paged_decode_launch", "paged_verify_launch"],
+        ["paged_decode_launch", "paged_verify_launch", "paged_decode_quant_launch",
+         "paged_verify_quant_launch"],
     ),
 }
 
