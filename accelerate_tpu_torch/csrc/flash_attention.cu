@@ -2,9 +2,12 @@
 // float and __nv_bfloat16 inputs in the [B*H, S, D] layout, D in {32, 64, 128}.
 //
 // Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py:
-//   K3 flash_fwd_kernel     <- accelerate_tpu/ops/flash_attention.py::_fwd_kernel
-//   K4 flash_bwd_dkv_kernel <- accelerate_tpu/ops/flash_attention.py::_bwd_dkv_kernel
-//   K5 flash_bwd_dq_kernel  <- accelerate_tpu/ops/flash_attention.py::_bwd_dq_kernel
+//   K3 forward: flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
+//      <- accelerate_tpu/ops/flash_attention.py::_fwd_kernel
+//   K4 dK, dV: flash_bwd_dkv_kernel (both types)
+//      <- accelerate_tpu/ops/flash_attention.py::_bwd_dkv_kernel
+//   K5 dQ: flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
+//      <- accelerate_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // Same contract: scores s = (q . k) * scale summed in fp32; causal masks are
 // aligned bottom-right (query i sees keys j <= i + Sk - S); the forward keeps
 // the online softmax of ops/flash_common.py (m, l, acc in fp32, NEG_INF =
@@ -13,21 +16,55 @@
 // 128-lane broadcast); the backward recomputes p = exp(s - lse), and
 // delta = rowsum(do * o) comes in from the caller, as on the TPU.
 //
-// Bound: operations. At the training shapes (S 2048, D 64) each (query, key)
-// pair costs 4 * D operations forward and about 10 * D backward on data that
-// is read once per tile, far above the card's ridge point. This first design
-// does the products as fp32 FMAs on the CUDA cores over operands widened in
-// shared memory: each row (a query row in K3 and K5, a key row in K4) is split
-// over D / 16 threads that each hold 16 of its dimensions in registers, and
-// the other side streams through shared memory in 64-row tiles that every
-// thread reads as broadcasts, with the partial dot products summed by warp
-// shuffles. One block takes 64 rows of one (batch, head), so the Llama-1B
-// step's 2048-token sequences give 32 x B*H blocks, enough to fill 132 SMs;
-// causal blocks walk only the tiles their rows can see, heaviest first.
+// Bound: operations. At the training shapes (S 2048, D 64, causal) each
+// (query, key) pair costs 4 * D operations forward and 6 * D for dQ on data
+// read once per tile, far above the card's ridge point: the tensor cores'
+// 989 TFLOP/s bf16 is the ceiling, and the CUDA cores' 67 TFLOP/s fp32 one
+// fifteen times lower.
 //
-// Left for later: tensor cores (mma.sync / wgmma over bf16 tiles, the only
-// way near the 989 TFLOP/s bf16 peak), TMA loads into a ring of shared-memory
-// stages, grouped-query heads folded into the kernel instead of repeated K/V,
+// bf16, K3 and K5: the products run on the tensor cores. One
+// warpgroup owns 64 query rows; its Q tile (and dO for K5) arrives once by
+// TMA, and K/V tiles stream through a two-stage ring of shared memory,
+// loaded by TMA with mbarrier completion, so the copy of tile j + 2 overlaps
+// the products of tile j + 1, and several blocks on each SM overlap one
+// another's softmax with their tensor-core work. Tiles stay bf16 in shared
+// memory, swizzled (128B for D 64 and 128, 64B for D 32) as the wgmma
+// descriptors read them (flash_tiles.cuh). s = q.k^T (and dp = do.v^T) is a
+// wgmma with both operands in shared memory, K-major; the fp32 accumulator,
+// narrowed to bf16 pairs, is already the register A operand of the next
+// wgmma, o += p.v (dq += ds.k), which reads V (K) MN-major from the same
+// tile, so P and dS never touch shared memory. The online softmax works on
+// the accumulator registers, row max and sum over the four lanes that share
+// a row, masks only on tiles that cross the diagonal or Sk, and keeps l from
+// the fp32 p before p is rounded to bf16 (to nearest), as FlashAttention-2/3
+// and SDPA do. That rounding moves o by at most 2^-8 (P @ |V|) and dq by at
+// most 2^-8 (|dS| @ |K|), element by element, which chip_smoke.py adds to
+// their bf16 limit. K3 walks 128-key tiles (64 at D 128), K5 64-key tiles
+// (PERF.md).
+//
+// f32 keeps the first design: products as fp32 FMAs on the CUDA cores
+// over operands widened in shared memory, each row (a query row in K3 and
+// K5, a key row in K4) split over D / 16 threads holding 16 of its
+// dimensions, the other side streamed through shared memory in 64-row
+// tiles read as broadcasts, partial dot products summed by warp shuffles.
+// The tensor cores have no f32 mode, only TF32, whose 10-bit mantissa would
+// break the f32 parity that chip_smoke.py's training phase and the card
+// tests hold at 2e-5 / 1e-4. dispatch() chooses by dtype, explicitly: it is
+// no fallback. A bf16 tensor launches the wgmma kernel or the launch returns
+// an error (a failed tensor-map encode, too much shared memory, a refused
+// launch), which ops/flash_attention.py raises. K4 keeps the scalar design
+// in both types.
+//
+// Grids: one block per (64 query rows, B*H) for K3 and K5 (32 x B*H at the
+// Llama-1B step's 2048-token sequences), causal blocks walking only the key
+// tiles their rows can see, the heaviest first; one per (64 keys, B*H) for
+// K4.
+//
+// Left for later: K4 on the tensor cores, with grouped-query K/V heads
+// folded into the kernels (dK/dV summed over the group) instead of
+// repeated; warp specialisation, a producer warp issuing the TMA loads with
+// its registers given to the consumers by setmaxnreg; ping-pong of two
+// consumer warpgroups, so one's softmax hides behind the other's products;
 // and one fused backward pass with atomic dQ.
 //
 // The kernels launch on the caller's stream, allocate nothing and never
@@ -36,6 +73,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -345,6 +385,231 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (active) store_row<T, D>(dq + (int64_t)bh * S * D, row, t, dqr);
 }
 
+// ----------------------------------------------------- K3 and K5, bf16: wgmma
+// One warpgroup owns 64 query rows; its Q (and dO) tile arrives once by TMA,
+// and K/V tiles of kN keys stream through a ring of kStages stages, loaded
+// by thread 0 as soon as a stage is free. Scores and products accumulate in
+// fp32 registers (flash_tiles.cuh's Frag layout: rows r and r + 8, two
+// neighbouring columns per 8-column chunk).
+using flash_tiles::Frag;
+using flash_tiles::KVRing;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// kFixed 64-row tiles (Q; Q and dO), the ring, then the barriers: the
+// ring's and one per fixed tile.
+template <int D, int kN, int kStages, int kFixed>
+struct WgmmaSmem {
+  static constexpr int kFixedBytes = flash_tiles::Panels<D>::tile_bytes(kRows);
+  static constexpr int kRing = kFixed * kFixedBytes;
+  static constexpr int kBars = kRing + KVRing<D, kN, kStages>::kBytes;
+  static constexpr int kFixedBars = kBars + KVRing<D, kN, kStages>::kBarBytes;
+  static constexpr int kBytes = kFixedBars + 8 * kFixed + 1024;  // + alignment
+};
+
+// True where key `key` is hidden from query row `row`: past Sk, or past the
+// bottom-right causal diagonal.
+__device__ __forceinline__ bool hidden(int key, int row, int Sk, int offset, int causal) {
+  return key >= Sk || (causal && key > row + offset);
+}
+
+template <int D, int kN, int kStages>
+__global__ void __launch_bounds__(flash_tiles::kWarpgroup)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int S, int Sk, float scale, int causal) {
+  using L = WgmmaSmem<D, kN, kStages, 1>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = flash_tiles::align_1024(flash_tiles::smem_u32(smem_raw));
+  const uint32_t q_tile = base;
+  const KVRing<D, kN, kStages> ring(base + L::kRing, base + L::kBars);
+  const uint32_t q_bar = base + L::kFixedBars;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
+  const int offset = Sk - S;
+  const int end = visible_end(min(q0 + kRows, S) - 1, offset, Sk, causal);
+  const int n_tiles = (end + kN - 1) / kN;
+  if (threadIdx.x == 0) {
+    ring.init();
+    flash_tiles::mbar_init(q_bar, 1);
+    flash_tiles::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flash_tiles::load_tile<D, kRows>(q_tile, &tq, q_bar, q0, bh);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tk, &tv, bh);
+  }
+
+  const Frag f;
+  const int row0 = q0 + f.row;
+  const float scale_log2 = scale * kLog2e;  // scores in base-2 units: exp(x) = exp2(x log2 e)
+  float acc[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's columns only
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  flash_tiles::mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[kN / 2];
+    ring.wait_k(j);
+    flash_tiles::wgmma_fence();
+    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.k_tile(j));  // s = q . k^T
+    flash_tiles::wgmma_commit();
+    flash_tiles::wgmma_wait();
+    flash_tiles::fence_operands(s);
+
+    // m_new = max(m, max(s)); p = exp(s - m_new); l = l * corr + sum(p);
+    // acc = acc * corr + p @ v, corr = exp(m - m_new); masked lanes at NEG_INF,
+    // only on tiles that cross the diagonal or Sk.
+    const int k0 = j * kN;
+    const bool edge = k0 + kN > Sk || (causal && k0 + kN - 1 > q0 + offset);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int h = Frag::half(i);
+      float x = s[i] * scale_log2;
+      if (edge && hidden(k0 + f.column(i), row0 + 8 * h, Sk, offset, causal)) x = kNegInf;
+      s[i] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = flash_tiles::quad_max(mx[h]);
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      s[i] = exp2f(s[i] - m[Frag::half(i)]);
+      l[Frag::half(i)] += s[i];  // the fp32 p, before p is rounded to bf16 for p @ v
+    }
+    uint32_t p[kN / 16][4];
+    flash_tiles::to_fragments(s, p);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[Frag::half(i)];
+
+    ring.wait_v(j);
+    flash_tiles::fence_operands(acc);
+    flash_tiles::wgmma_fence();
+    flash_tiles::gemm_regs<D, kN>(acc, p, ring.v_tile(j));  // acc += p . v
+    flash_tiles::wgmma_commit();
+    flash_tiles::wgmma_wait();
+    flash_tiles::fence_operands(acc);
+    __syncthreads();  // every warp is done with stage j % kStages
+    if (threadIdx.x == 0 && j + kStages < n_tiles) ring.issue(j + kStages, &tk, &tv, bh);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const float safe_l = fmaxf(flash_tiles::quad_sum(l[h]), kLFloor);
+    if (row >= S) continue;
+    __nv_bfloat16* out = o + ((int64_t)bh * S + row) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<uint32_t*>(out + 8 * c + f.col) =
+          flash_tiles::pack_bf16(acc[4 * c + 2 * h] / safe_l, acc[4 * c + 2 * h + 1] / safe_l);
+    if (f.col == 0) lse[(int64_t)bh * S + row] = m[h] * kLn2 + logf(safe_l);
+  }
+}
+
+template <int D, int kN, int kStages>
+__global__ void __launch_bounds__(flash_tiles::kWarpgroup)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int S, int Sk, float scale, int causal) {
+  using L = WgmmaSmem<D, kN, kStages, 2>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = flash_tiles::align_1024(flash_tiles::smem_u32(smem_raw));
+  const uint32_t q_tile = base, do_tile = base + L::kFixedBytes;
+  const KVRing<D, kN, kStages> ring(base + L::kRing, base + L::kBars);
+  const uint32_t q_bar = base + L::kFixedBars, do_bar = q_bar + 8;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int offset = Sk - S;
+  const int end = visible_end(min(q0 + kRows, S) - 1, offset, Sk, causal);
+  const int n_tiles = (end + kN - 1) / kN;
+  if (threadIdx.x == 0) {
+    ring.init();
+    flash_tiles::mbar_init(q_bar, 1);
+    flash_tiles::mbar_init(do_bar, 1);
+    flash_tiles::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flash_tiles::load_tile<D, kRows>(q_tile, &tq, q_bar, q0, bh);
+    flash_tiles::load_tile<D, kRows>(do_tile, &tdo, do_bar, q0, bh);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tk, &tv, bh);
+  }
+
+  const Frag f;
+  const int row0 = q0 + f.row;
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dlt[2];  // lse in base-2 units, delta: per row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    lse2[h] = row < S ? lse[(int64_t)bh * S + row] * kLog2e : 0.f;
+    dlt[h] = row < S ? delta[(int64_t)bh * S + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  flash_tiles::mbar_wait(q_bar, 0);
+  flash_tiles::mbar_wait(do_bar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[kN / 2], dp[kN / 2];
+    ring.wait_k(j);
+    ring.wait_v(j);
+    flash_tiles::wgmma_fence();
+    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.k_tile(j));    // s = q . k^T
+    flash_tiles::gemm_rows<D, kRows, kN>(dp, do_tile, ring.v_tile(j));  // dp = do . v^T
+    flash_tiles::wgmma_commit();
+    flash_tiles::wgmma_wait();
+    flash_tiles::fence_operands(s);
+    flash_tiles::fence_operands(dp);
+
+    // p = exp(s * scale - lse), 0 where hidden; ds = p * (dp - delta) * scale.
+    const int k0 = j * kN;
+    const bool edge = k0 + kN > Sk || (causal && k0 + kN - 1 > q0 + offset);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int h = Frag::half(i);
+      float p = exp2f(fmaf(s[i], scale_log2, -lse2[h]));
+      if (edge && hidden(k0 + f.column(i), row0 + 8 * h, Sk, offset, causal)) p = 0.f;
+      s[i] = p * (dp[i] - dlt[h]) * scale;
+    }
+    uint32_t ds[kN / 16][4];
+    flash_tiles::to_fragments(s, ds);
+
+    flash_tiles::fence_operands(acc);
+    flash_tiles::wgmma_fence();
+    flash_tiles::gemm_regs<D, kN>(acc, ds, ring.k_tile(j));  // dq += ds . k
+    flash_tiles::wgmma_commit();
+    flash_tiles::wgmma_wait();
+    flash_tiles::fence_operands(acc);
+    __syncthreads();
+    if (threadIdx.x == 0 && j + kStages < n_tiles) ring.issue(j + kStages, &tk, &tv, bh);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    __nv_bfloat16* out = dq + ((int64_t)bh * S + row) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<uint32_t*>(out + 8 * c + f.col) =
+          flash_tiles::pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+  }
+}
+
 // ------------------------------------------------------------- launchers
 // Dynamic shared memory above 48 KB needs an opt-in, which holds for the
 // current device only: set it on every such launch.
@@ -411,6 +676,53 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// The wgmma kernels' shapes, measured at D 64 (PERF.md): K3 takes
+// 128-key tiles (64 at D 128, where two 128-key stages would leave one block
+// per SM), K5 64-key tiles; a ring of two stages. A block of one warpgroup
+// measured faster than one of two sharing each K/V tile.
+template <int D>
+constexpr int fwd_key_tile() { return D <= 64 ? 128 : 64; }
+constexpr int kDqKeyTile = 64;
+constexpr int kStages = 2;
+
+template <int D>
+int launch_fwd_wgmma(const Args& a) {
+  constexpr int kN = fwd_key_tile<D>();
+  CUtensorMap tq, tk, tv;
+  int err = flash_tiles::encode_tile_map<D>(&tq, a.q, a.BH, a.S, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tk, a.k, a.BH, a.Sk, kN);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tv, a.v, a.BH, a.Sk, kN);
+  if (err) return err;
+  const auto kernel = flash_fwd_wgmma_kernel<D, kN, kStages>;
+  const size_t smem = WgmmaSmem<D, kN, kStages, 1>::kBytes;
+  const cudaError_t e = allow_shared(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.S + kRows - 1) / kRows, a.BH);
+  kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(a.out0),
+                                                             static_cast<float*>(a.out1), a.S, a.Sk, a.scale,
+                                                             a.causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_wgmma(const Args& a) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = flash_tiles::encode_tile_map<D>(&tq, a.q, a.BH, a.S, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tdo, a.dout, a.BH, a.S, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tk, a.k, a.BH, a.Sk, kDqKeyTile);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tv, a.v, a.BH, a.Sk, kDqKeyTile);
+  if (err) return err;
+  const auto kernel = flash_bwd_dq_wgmma_kernel<D, kDqKeyTile, kStages>;
+  const size_t smem = WgmmaSmem<D, kDqKeyTile, kStages, 2>::kBytes;
+  const cudaError_t e = allow_shared(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.S + kRows - 1) / kRows, a.BH);
+  kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.out0), a.S, a.Sk, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
 enum Kind { kFwd, kDkv, kDq };
 
 template <typename T, int D>
@@ -420,11 +732,27 @@ int launch_kind(Kind kind, const Args& a) {
   return launch_dq<T, D>(a);
 }
 
+// bf16: K3 and K5 run on the tensor cores; K4 keeps the scalar design.
+template <int D>
+int launch_kind_bf16(Kind kind, const Args& a) {
+  if (kind == kFwd) return launch_fwd_wgmma<D>(a);
+  if (kind == kDq) return launch_dq_wgmma<D>(a);
+  return launch_dkv<__nv_bfloat16, D>(a);
+}
+
 template <typename T>
 int launch_head_dim(Kind kind, int D, const Args& a) {
   if (D == 32) return launch_kind<T, 32>(kind, a);
   if (D == 64) return launch_kind<T, 64>(kind, a);
   if (D == 128) return launch_kind<T, 128>(kind, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <>
+int launch_head_dim<__nv_bfloat16>(Kind kind, int D, const Args& a) {
+  if (D == 32) return launch_kind_bf16<32>(kind, a);
+  if (D == 64) return launch_kind_bf16<64>(kind, a);
+  if (D == 128) return launch_kind_bf16<128>(kind, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -469,5 +797,11 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
+  if (code == flash_tiles::kNoTensorMapEncoder) return "cuTensorMapEncodeTiled not found in the CUDA driver";
+  if (code >= flash_tiles::kTensorMapError) {
+    static thread_local char text[96];
+    snprintf(text, sizeof text, "cuTensorMapEncodeTiled failed (CUresult %d)", code - flash_tiles::kTensorMapError);
+    return text;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

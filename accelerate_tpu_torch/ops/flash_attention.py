@@ -2,11 +2,14 @@
 
 Port of `accelerate_tpu/ops/flash_attention.py`. On CUDA tensors each entry
 launches the hand-written Hopper kernels of `csrc/flash_attention.cu`:
-K3 (forward: o and the row logsumexp), K4 (dK, dV) and K5 (dQ). On CPU
-tensors it runs the plain PyTorch versions below, which work on the full
-[S, Sk] score matrix in fp32; the tests and `chip_smoke.py` hold the kernels
-against them. Nothing falls back: a CUDA tensor the kernels do not take
-raises, and so does a kernel that fails to build or launch.
+K3 (forward: o and the row logsumexp), K4 (dK, dV) and K5 (dQ); in bf16,
+K3 and K5 run on the tensor cores (wgmma over TMA-loaded tiles, with the
+shared building blocks in `csrc/flash_tiles.cuh`), in f32 on the CUDA
+cores. On CPU tensors it runs the plain PyTorch versions below, which work
+on the full [S, Sk] score matrix in fp32; the tests and `chip_smoke.py`
+hold the kernels against them. Nothing falls back: a CUDA tensor the
+kernels do not take raises, and so does a kernel that fails to build or
+launch (a tensor map that does not encode, say).
 
 Contract (the JAX package's): scores ``s = (q . k) * scale`` summed in fp32;
 ``causal`` masks are aligned bottom-right, query i seeing keys

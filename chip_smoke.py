@@ -29,9 +29,12 @@ prints no result):
    and dQ (K5), at Llama-1B's training shapes (batch 2, 32 heads after the
    GQA repeat, sequence 2048, head 64, causal), the same way: held against
    their plain versions in f32 (outputs atol 2e-5, gradients atol/rtol 1e-4)
-   and bf16 (atol 2e-3, rtol 1e-2), then timed beside the plain version,
-   the bound and, as the yardstick, `F.scaled_dot_product_attention`
-   (is_causal) and its autograd backward.
+   and bf16 (atol 2e-3, rtol 1e-2, element by element; K3 and K5, which
+   round P and dS to bf16 for the tensor cores, with the most that rounding
+   can move each element added to the limit), then timed beside the plain
+   version, the bound and, as the yardstick, SDPA (is_causal) and its
+   autograd backward. Each `[flash]` line gives SDPA's error beside the
+   kernel's.
 3. Engine: `create_named_model("llama-1b")` at full width and depth (random
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
@@ -72,6 +75,20 @@ prints no result):
    `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
+
+    python3 chip_smoke.py --compare TREE [TREE ...]
+
+times the flash kernels of several source trees on the card instead, in
+turns. Each TREE is a directory that holds `accelerate_tpu_torch/`: this
+checkout (`.`), a `git archive` of another commit, or a copy with one
+constant changed, unpacked under the git-ignored `scratch/`. Every tree runs
+in a process of its own, which builds its kernels into TREE/build/, in the
+order given and then in reverse (a b b a), so that drift on the card weighs
+on both sides alike. Each run prints one `[compare]` JSON line: K3, K4 and
+K5 in bf16 at the training shape, timed as above, each kernel's largest
+error against its plain version, SDPA's forward time as a yardstick of the
+card, and ptxas' report of the tree's wgmma kernels. It prints no result
+line.
 """
 
 from __future__ import annotations
@@ -79,6 +96,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -109,6 +127,15 @@ SOURCE = "accelerate_tpu_torch/csrc/paged_attention.cu"
 # Llama-1B's training attention: batch 2 x 32 query heads (K/V repeated from
 # 8), sequence 2048, head 64, causal.
 FLASH_SHAPE = dict(b=2, hq=32, s=2048, d=64)
+FLASH_DESIGN = {
+    "flash_fwd": "bf16: wgmma m64n128k16 s = q.k^T (q, k from shared memory) and m64n64k16 o += p.v (p "
+                 "from registers), TMA 3-D loads of 128-key K/V tiles through a 2-stage ring, one "
+                 "warpgroup of 64 query rows per block; f32: scalar fp32 FMAs",
+    "flash_bwd_dq": "bf16: wgmma m64n64k16 s = q.k^T and dp = do.v^T from shared memory, m64n64k16 "
+                    "dq += ds.k (ds from registers), TMA 3-D loads of 64-key K/V tiles through a 2-stage "
+                    "ring, one warpgroup of 64 query rows per block; f32: scalar fp32 FMAs",
+    "flash_bwd_dkv": "scalar fp32 FMAs on the CUDA cores",
+}
 FLASH_KERNELS = {
     # name: (TPU kernel it replaces, products of 2 * BH * pairs * D operations it needs)
     "flash_fwd": ("accelerate_tpu/ops/flash_attention.py:53", 2),       # s, p @ v
@@ -117,9 +144,21 @@ FLASH_KERNELS = {
 }
 FLASH_SOURCE = "accelerate_tpu_torch/csrc/flash_attention.cu"
 # f32: the kernels and the plain versions sum the same fp32 products in
-# another order; a gradient sums up to 2048 of them. bf16: as for K1/K2, one
-# bf16 rounding of the output (2^-8 relative) above that.
+# another order; a gradient sums up to 2048 of them. bf16 K4: as for K1/K2,
+# one bf16 rounding of the output (2^-8 relative) above that. bf16 K3 and K5
+# feed the tensor cores P and dS rounded to bf16, as FlashAttention-2/3 and
+# SDPA do, which the fp32 plain versions do not. Round to nearest moves each
+# p (ds) by at most BF16_UNIT of itself, so o moves by at most BF16_UNIT *
+# (P @ |V|) (P the normalised probabilities) and dq by at most BF16_UNIT *
+# (|dS| @ |K|), element by element: in rows that see few keys that exceeds
+# atol 2e-3 where the output is small. Their limit is atol + rtol |ref| plus
+# that bound (`flash_rounding_bound`), from the plain versions' own P and dS.
 FLASH_F32_TOL = {"out": dict(atol=2e-5, rtol=0.0), "grad": dict(atol=1e-4, rtol=1e-4)}
+BF16_UNIT = 2.0 ** -8  # round to nearest bf16: |fl(x) - x| <= 2^-8 |x|
+FLASH_ROUNDED = {  # outputs whose bf16 limit adds the rounding bound: what it is
+    ("flash_fwd", "o"): "2^-8 * (P @ |V|)",
+    ("flash_bwd_dq", "dq"): "2^-8 * (|dS| @ |K|)",
+}
 FLASH_LSE_TOL = dict(atol=2e-5, rtol=1e-5)
 
 # Training (phase 4).
@@ -133,6 +172,31 @@ BF16_PEAK_FLOPS = 989e12
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def ptxas_report(log_text: str):
+    """One line per kernel from nvcc's `-Xptxas -v` output: the kernel's
+    name and template arguments (`flash_fwd_wgmma_kernel<64,128,2>`), then
+    its registers, stack, spills and static shared memory; warnings and
+    performance notes (a wgmma serialised, say) as they are."""
+    import re
+
+    lines, kernel = [], None
+    for raw in log_text.splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", line)
+            if m:
+                args = ["bf16" if b else "f32" if f else i
+                        for i, b, f in re.findall(r"Li(\d+)E|(__nv_bfloat16)|^(f)", m.group(2))]
+                kernel = f"{m.group(1)}<{','.join(args)}>"
+            else:
+                kernel = line
+        elif kernel and ("spill" in line or "Used" in line):
+            lines.append(f"{kernel}: {line.replace('ptxas info    : ', '')}")
+        elif "warning" in line.lower() or "Performance Loss" in line:
+            lines.append(line)
+    return lines
 
 
 def card_line() -> str:
@@ -586,7 +650,7 @@ def flash_bound(name, q, k, causal=True):
 def sdpa_flash_yardsticks(q, k, v, do, b, hq):
     """`F.scaled_dot_product_attention(is_causal=True)` on the same inputs
     viewed [B, H, S, D], and its autograd backward (dq, dk and dv in one
-    call): yardsticks only, the port never calls them."""
+    call): yardsticks of time and error only, the port never calls them."""
     fn = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (x.detach().view(b, hq, *x.shape[1:]).requires_grad_() for x in (q, k, v))
     out = fn(q4, k4, v4, is_causal=True)
@@ -596,10 +660,43 @@ def sdpa_flash_yardsticks(q, k, v, do, b, hq):
     return forward, backward
 
 
+def flash_rounding_bound(name, q, k, v, do, lse, delta, causal, scale):
+    """The most, element by element, that rounding P (K3, `flash_fwd`) or dS
+    (K5, `flash_bwd_dq`) to bf16 before the second product can move the
+    output: BF16_UNIT * (P @ |V|), P = exp(s - lse) the normalised
+    probabilities, or BF16_UNIT * (|dS| @ |K|), dS = P * (dP - delta) * scale;
+    from the plain versions' fp32 P and dS."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    p = torch.exp(fa._scores(q, k, causal, scale) - lse[..., None])
+    if name == "flash_fwd":
+        return BF16_UNIT * torch.matmul(p, v.float().abs())
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
+    return BF16_UNIT * torch.matmul(ds.abs(), k.float().abs())
+
+
+def limit_report(got, ref, atol, rtol, bound=None):
+    """`got` held to `ref` element by element within atol + rtol |ref|
+    (+ `bound`): how many elements break that limit, the largest share of
+    its limit an element takes (over 1 breaks it), and that element's index,
+    value, reference, error and limit."""
+    ref = ref.float()
+    err = (got.float().reshape(ref.shape) - ref).abs()
+    limit = atol + rtol * ref.abs() + (0.0 if bound is None else bound)
+    share = (err / limit).flatten()
+    i = int(share.argmax())
+    return {"broken": int((share > 1).sum()), "share": float(share[i]), "worst": {
+        "index": [int(x) for x in np.unravel_index(i, ref.shape)], "value": float(got.flatten()[i]),
+        "ref": float(ref.flatten()[i]), "err": float(err.flatten()[i]), "limit": float(limit.flatten()[i]),
+    }}
+
+
 def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
     """K3, K4 and K5 against their plain versions, f32 and bf16; each kernel
     check is one launch. K4 and K5 get the lse and delta of the plain
-    forward, so each is held alone."""
+    forward, so each is held alone. bf16 K3's o and K5's dq also report
+    the element nearest to breaking the limit without the rounding bound,
+    and SDPA's output under both limits."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     scale = shape["d"] ** -0.5
@@ -610,6 +707,11 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
         delta = (do.float() * ref_o.float()).sum(-1)
         ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)
         ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
+        lib_fwd, lib_bwd = sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])
+        sdpa = dict(zip(("dq", "dk", "dv"), lib_bwd()), o=lib_fwd().detach())
+        refs = {"o": ref_o, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv}
+        sdpa_err = {key: float((sdpa[key].reshape(ref.shape).float() - ref.float()).abs().max())
+                    for key, ref in refs.items()}
         calls = {
             "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True, scale=scale),
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
@@ -622,8 +724,6 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
         }
         expect = {"flash_fwd": {"o": ref_o, "lse": lse}, "flash_bwd_dkv": {"dk": ref_dk, "dv": ref_dv},
                   "flash_bwd_dq": {"dq": ref_dq}}
-        if device.type == "cuda":
-            lib_fwd, lib_bwd = sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])
         for name, call in calls.items():
             before = fa.LAUNCHES[name]
             out = call()
@@ -643,10 +743,23 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
                 else:
                     tol = dict(atol=BF16_ATOL, rtol=BF16_RTOL)
                 err = float((got[key].float() - ref.float()).abs().max())
-                torch.testing.assert_close(got[key].float(), ref.float(), **tol,
-                                           msg=lambda m: f"{name} {dtype} {key}: {m}")
-                row["errors"][key] = {"max_abs_err": err, "tolerance": tol}
+                entry = row["errors"][key] = {"max_abs_err": err, "tolerance": tol}
+                if dtype == torch.bfloat16 and (name, key) in FLASH_ROUNDED:
+                    bound = flash_rounding_bound(name, q, k, v, do, lse, delta, True, scale)
+                    entry["tolerance"] = dict(tol, plus=FLASH_ROUNDED[(name, key)])
+                    entry["limit"] = limit_report(got[key], ref, **tol, bound=bound)
+                    entry["limit_without_bound"] = limit_report(got[key], ref, **tol)
+                    entry["sdpa_limit"] = limit_report(sdpa[key], ref, **tol, bound=bound)
+                    entry["sdpa_limit_without_bound"] = limit_report(sdpa[key], ref, **tol)
+                    del bound
+                    if entry["limit"]["broken"]:
+                        raise RuntimeError(f"{name} {dtype} {key}: {entry['limit']['broken']} elements past "
+                                           f"their limit, the worst {entry['limit']['worst']}")
+                else:
+                    torch.testing.assert_close(got[key].float(), ref.float(), **tol,
+                                               msg=lambda m: f"{name} {dtype} {key}: {m}")
                 if key != "lse":
+                    entry["sdpa_max_abs_err"] = sdpa_err[key]
                     row["max_abs_err"] = max(row["max_abs_err"], err)
             bound, bound_by = flash_bound(name, q, k)
             row.update(bound_ms=bound, bound_by=bound_by)
@@ -656,8 +769,51 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
                 row["library_ms"] = time_ms(lib_fwd if name == "flash_fwd" else lib_bwd, device)
             results[name][str(dtype).replace("torch.", "")] = row
             log(f"[flash] {name} {dtype}: {json.dumps(row)}")
-        del q, k, v, do, ref_o, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains
+        del q, k, v, do, ref_o, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains, refs, sdpa, lib_fwd, lib_bwd
     return results
+
+
+def compare_worker(tree):
+    """One `--compare` run: the flash kernels of `tree`, built into
+    tree/build/, in bf16 at FLASH_SHAPE."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    _build.build(["flash_attention"])
+    device = torch.device("cuda", 0)
+    shape = FLASH_SHAPE
+    scale = shape["d"] ** -0.5
+    q, k, v, do = flash_case(device, torch.bfloat16, seed=21, **shape)
+    o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale)
+    delta = (do.float() * o.float()).sum(-1)
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
+    got = dict(zip(("dk", "dv"), fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale)),
+               o=o, lse=lse, dq=fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale))
+    refs = {"o": ref_o, "lse": ref_lse, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv}
+    errors = {key: float((got[key].float() - ref.float()).abs().max()) for key, ref in refs.items()}
+    del got, refs, ref_o, ref_lse, ref_dk, ref_dv, ref_dq
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True, scale=scale),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+    }
+    ms = {name: time_ms(call, device) for name, call in calls.items()}
+    ms["sdpa_fwd"] = time_ms(sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])[0], device)
+    ptxas = [line for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", "")) if "wgmma" in line]
+    return {"tree": tree, "ms": ms, "errors": errors, "ptxas": ptxas, "card": card_line()}
+
+
+def compare(trees) -> int:
+    """Each tree in a process of its own, in the order given and then in
+    reverse; non-zero if any run failed."""
+    failed = 0
+    for tree in list(trees) + list(trees)[::-1]:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--compare-worker", tree], timeout=600)
+        failed += run.returncode != 0
+    return 1 if failed else 0
 
 
 # ----------------------------------------------------------------- training
@@ -778,9 +934,9 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
 
 def profile_train_step(step_fn, batch, device, unprofiled_step_s):
     """Device time by kernel group over one more bf16 training step under
-    `torch.profiler`: the flash kernels, GEMMs and the rest, and the busy
-    share of the unprofiled median step (the profiler slows the host, not
-    the device)."""
+    `torch.profiler`: the flash kernels (each by name), GEMMs and the rest,
+    and the busy share of the unprofiled median step (the profiler slows
+    the host, not the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -799,10 +955,12 @@ def profile_train_step(step_fn, batch, device, unprofiled_step_s):
     if total_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
     groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    for us, name, _ in kernels:
+    flash = []
+    for us, name, calls in kernels:
         lowered = name.lower()
         if "flash_" in lowered and "kernel" in lowered:
             groups["flash_attention"] += us
+            flash.append({"name": name[:140], "calls": calls, "ms": us / 1e3, "share": us / total_us})
         elif any(tag in lowered for tag in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
             groups["gemm"] += us
         else:
@@ -812,6 +970,7 @@ def profile_train_step(step_fn, batch, device, unprofiled_step_s):
         "device_busy_ms": total_us / 1e3,
         "busy_share_of_unprofiled_step": total_us / 1e6 / unprofiled_step_s,
         "share_by_group": {k: v / total_us for k, v in groups.items()},
+        "flash_kernels": sorted(flash, key=lambda row: -row["ms"]),  # every one, by name
         "top_kernels": [
             {"name": name[:140], "calls": calls, "ms": us / 1e3, "share": us / total_us}
             for us, name, calls in kernels[:15]
@@ -830,12 +989,20 @@ def main(argv=None) -> int:
                         help="also profile one bf16 plain engine run, one with int8 weights and cache, "
                              "and one bf16 training step: "
                              "device time by kernel, busy share")
+    parser.add_argument("--compare", nargs="+", metavar="TREE",
+                        help="time the flash kernels of each source tree instead, in turns (a b b a)")
+    parser.add_argument("--compare-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.compare:
+        return compare(args.compare)
+    if args.compare_worker:
+        log(f"[compare] {json.dumps(compare_worker(args.compare_worker))}")
+        return 0
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -847,9 +1014,8 @@ def main(argv=None) -> int:
     built = _build.build()
     log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f}s (per source: {built})")
     for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"[build] {name}: {line}")
 
     t0 = time.perf_counter()
     kernels = kernel_phase(device)
@@ -905,7 +1071,7 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": training["bf16"]["launches"][name],
             "max_abs_err": bf16["max_abs_err"],
-            "tolerance": dict(atol=BF16_ATOL, rtol=BF16_RTOL),
+            "tolerance": bf16["errors"][next(iter(bf16["errors"]))]["tolerance"],
             "errors": bf16["errors"],
             "ms": bf16["ms"],
             "kernel_ms": bf16["ms"],
@@ -918,6 +1084,7 @@ def main(argv=None) -> int:
                              "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
             "dtype": "bfloat16",
             "shape": dict(FLASH_SHAPE, causal=True),
+            "design": FLASH_DESIGN[name],
             "f32": f32,
         })
     print(json.dumps({"kernels": rows}), flush=True)

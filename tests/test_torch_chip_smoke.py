@@ -1,0 +1,162 @@
+"""CPU checks of the card script's own logic, which the card runs only as a
+whole: `chip_smoke.py`'s report of ptxas' output, its flash phase's limits
+(rehearsed on the plain versions, which CPU tensors take, and held against
+an emulation of the tensor-core kernels' bf16 arithmetic), and the refusal
+of its `--compare` mode to run without a card."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from accelerate_tpu_torch.ops import flash_attention as fa
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Lines as nvcc -Xptxas -v prints them for this repo's kernels.
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__877b7aaa_18_flash_attention_cu_5326155222flash_fwd_wgmma_kernelILi64ELi128ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__877b7aaa_18_flash_attention_cu_5326155222flash_fwd_wgmma_kernelILi64ELi128ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the wgmma pipeline in the function
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__877b7aaa_18_flash_attention_cu_5326155220flash_bwd_dkv_kernelI13__nv_bfloat16Li64EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_iifi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__877b7aaa_18_flash_attention_cu_5326155216flash_fwd_kernelIfLi32EEEvPKT_S3_S3_PS1_Pfiifi' for 'sm_90a'
+ptxas info    : Used 79 registers, used 1 barriers
+"""
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_ptxas_report_names_each_kernel():
+    lines = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert lines == [
+        "flash_fwd_wgmma_kernel<64,128,2>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "flash_fwd_wgmma_kernel<64,128,2>: Used 128 registers, used 1 barriers",
+        PTXAS_LOG.splitlines()[4].strip(),
+        "flash_bwd_dkv_kernel<bf16,64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "flash_bwd_dkv_kernel<bf16,64>: Used 120 registers, used 1 barriers",
+        "flash_fwd_kernel<f32,32>: Used 79 registers, used 1 barriers",
+    ]
+
+
+def test_flash_phase_holds_bf16_k3_k5_to_their_rounding_bound():
+    """The flash phase on CPU tensors: the plain versions meet every limit;
+    bf16 K3's o and K5's dq are held element by element within atol 2e-3 +
+    rtol 1e-2 |ref| plus the bound of their bf16 rounding, and report that
+    limit, the limit without the bound and SDPA under both; every other
+    limit is a constant; each output carries SDPA's error beside the
+    kernel's."""
+    results = chip_smoke.flash_kernel_phase(torch.device("cpu"), shape=dict(b=1, hq=2, s=128, d=32), timed=False)
+    bf16 = dict(atol=chip_smoke.BF16_ATOL, rtol=chip_smoke.BF16_RTOL)
+    for name, by_dtype in results.items():
+        for dtype, row in by_dtype.items():
+            for key, entry in row["errors"].items():
+                if key == "lse":
+                    assert entry["tolerance"] == chip_smoke.FLASH_LSE_TOL
+                    continue
+                assert 0 < entry["sdpa_max_abs_err"] < 0.1, (name, dtype, key)
+                if dtype == "bfloat16" and (name, key) in chip_smoke.FLASH_ROUNDED:
+                    assert entry["tolerance"] == dict(bf16, plus=chip_smoke.FLASH_ROUNDED[(name, key)])
+                    for report in ("limit", "limit_without_bound", "sdpa_limit", "sdpa_limit_without_bound"):
+                        assert set(entry[report]) == {"broken", "share", "worst"}, report
+                    assert entry["limit"]["broken"] == 0 and entry["limit"]["share"] == 0.0
+                elif dtype == "bfloat16":
+                    assert entry["tolerance"] == bf16
+                else:
+                    assert entry["tolerance"] in chip_smoke.FLASH_F32_TOL.values()
+    assert set(chip_smoke.FLASH_ROUNDED) == {("flash_fwd", "o"), ("flash_bwd_dq", "dq")}
+
+
+def _bf16_case(bh, s, d, seed, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    to = lambda scale=1.0: torch.as_tensor(rng.normal(size=(bh, s, d)).astype(np.float32) * scale).bfloat16()  # noqa: E731
+    return to(q_scale), to(), to(), to()
+
+
+def _k3_arithmetic(q, k, v, scale, tile, drop_last_tile=False):
+    """K3's bf16 arithmetic, causal with S = Sk: an online softmax over key
+    tiles of `tile`, p rounded to bf16 (to nearest) before p @ v, l summed
+    from the fp32 p, o rounded to bf16; `drop_last_tile` leaves the last
+    key tile out, as a wrong kernel would."""
+    bh, s, d = q.shape
+    rows = torch.arange(s)[:, None]
+    m = torch.full((bh, s, 1), fa.NEG_INF)
+    l, acc = torch.zeros(bh, s, 1), torch.zeros(bh, s, d)
+    starts = list(range(0, s, tile))
+    for k0 in starts[:-1] if drop_last_tile else starts:
+        x = torch.matmul(q.float(), k[:, k0:k0 + tile].float().transpose(-1, -2)) * scale
+        x = x.masked_fill(torch.arange(k0, k0 + x.shape[-1])[None, :] > rows, fa.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.bfloat16().float(), v[:, k0:k0 + tile].float())
+        m = m_new
+    return (acc / l).bfloat16()
+
+
+def _k5_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False):
+    """K5's bf16 arithmetic: fp32 p and ds, ds rounded to bf16 before
+    ds @ k, dq rounded to bf16; `drop_last_tile` zeroes the last key tile's
+    ds."""
+    p = torch.exp(fa._scores(q, k, True, scale) - lse[..., None])
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
+    if drop_last_tile:
+        ds[..., -tile:] = 0
+    return torch.matmul(ds.bfloat16().float(), k.float()).bfloat16()
+
+
+@pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0)],
+                         ids=["d64", "d128", "d32-scores-x8"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq"])
+def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(name, d, tile, q_scale):
+    """The bf16 limit of K3's o and K5's dq (atol + rtol |ref| + the
+    rounding bound) holds for the tensor-core kernels' arithmetic with room
+    to spare and breaks, by far, where the last key tile is left out."""
+    q, k, v, do = _bf16_case(4, 512, d, seed=d, q_scale=q_scale)
+    scale = d ** -0.5
+    ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    delta = fa._delta(ref_o, do)
+    if name == "flash_fwd":
+        ref = ref_o
+        right, wrong = (_k3_arithmetic(q, k, v, scale, tile, drop) for drop in (False, True))
+    else:
+        ref = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
+        right, wrong = (_k5_arithmetic(q, k, v, do, lse, delta, scale, tile, drop) for drop in (False, True))
+    bound = chip_smoke.flash_rounding_bound(name, q, k, v, do, lse, delta, True, scale)
+    tol = dict(atol=chip_smoke.BF16_ATOL, rtol=chip_smoke.BF16_RTOL)
+    held = chip_smoke.limit_report(right, ref, **tol, bound=bound)
+    assert held["broken"] == 0 and held["share"] < 0.75, held
+    caught = chip_smoke.limit_report(wrong, ref, **tol, bound=bound)
+    assert caught["broken"] > 100 and caught["share"] > 5, caught
+
+
+def test_limit_report_names_the_worst_element():
+    ref = torch.tensor([[0.0, 1.0], [2.0, -4.0]])
+    got = torch.tensor([[0.001, 1.0], [2.0, -3.9]]).bfloat16()
+    report = chip_smoke.limit_report(got, ref, atol=2e-3, rtol=1e-2)
+    assert report["broken"] == 1 and report["worst"]["index"] == [1, 1]
+    assert report["worst"]["ref"] == -4.0 and report["worst"]["limit"] == pytest.approx(0.042)
+    assert report["share"] == pytest.approx(report["worst"]["err"] / 0.042)
+    assert chip_smoke.limit_report(got, ref, atol=2e-3, rtol=1e-2, bound=torch.full((2, 2), 0.1))["broken"] == 0
+
+
+def test_compare_flash_kernels_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--compare", ROOT],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[compare]" not in run.stdout

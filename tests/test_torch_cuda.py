@@ -13,13 +13,20 @@ order, and well below the small outputs of long slots. The flash backward's
 f32 gradients sum up to S products per value, in another order than the
 plain version's matmuls: atol/rtol 1e-4. The quantized mode of the paged
 kernels dequantizes exactly as its plain version does (one f32 multiply per
-value), so the same tolerances hold.
+value), so the same tolerances hold. bf16 K3 and K5 run on the tensor cores
+with P and dS rounded to bf16 (as FlashAttention-2/3 and SDPA do), which
+their fp32 plain versions do not; in rows that see few keys that moves o
+and dq past atol 2e-3 where they are small. So their o and dq are held,
+element by element, within atol 2e-3 + rtol 1e-2 |ref| plus the most that
+rounding can move each element (`chip_smoke.flash_rounding_bound`:
+2^-8 (P @ |V|), 2^-8 (|dS| @ |K|)).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops import quantization as qz
@@ -206,19 +213,28 @@ def test_quantized_engine_kernel_path_matches_gather_path(cuda, kv_dtype):
         assert runs["gather"] == runs["paged_kernel"]
 
 
-def _flash_case(device, dtype, bh, s, sk, d, seed=0):
+def _flash_case(device, dtype, bh, s, sk, d, seed=0, q_scale=1.0):
     rng = np.random.default_rng(seed)
     to = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=device).to(dtype)  # noqa: E731
-    return to(bh, s, d), to(bh, sk, d), to(bh, sk, d), to(bh, s, d)
+    q, k, v, do = to(bh, s, d), to(bh, sk, d), to(bh, sk, d), to(bh, s, d)
+    return (q * q_scale).to(dtype), k, v, do
+
+
+def _assert_within(got, ref, tol, bound=None, what=""):
+    """`got` within atol + rtol |ref| (+ `bound`) of `ref`, element by element."""
+    report = chip_smoke.limit_report(got, ref, **tol, bound=bound)
+    assert report["broken"] == 0, (what, report)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("causal,s,sk", [(True, 192, 192), (False, 128, 200), (True, 64, 200)],
-                         ids=["causal", "full-ragged", "causal-cross"])
+@pytest.mark.parametrize("causal,s,sk", [(True, 192, 192), (False, 128, 200), (True, 64, 200),
+                                         (True, 130, 250), (True, 1024, 1024)],
+                         ids=["causal", "full-ragged", "causal-cross", "causal-ragged", "causal-1024"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
     """K3, K4 and K5 against their plain versions on the same inputs, each
-    launched once; Sk = 200 leaves a ragged last tile."""
+    launched once; Sk = 200 and S, Sk = 130, 250 leave ragged last tiles
+    of both sides (64-row query tiles, 64- and 128-key tiles)."""
     q, k, v, do = _flash_case(cuda, dtype, 3, s, sk, d, seed=d + s)
     scale = d ** -0.5
     before = dict(fa.LAUNCHES)
@@ -228,15 +244,102 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
     assert {key: fa.LAUNCHES[key] - before[key] for key in before} == {
         "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
-    tol, grad_tol = (F32, F32_GRAD) if dtype == torch.float32 else (BF16, BF16)
     assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (3, s)
-    torch.testing.assert_close(o.float(), ref_o.float(), **tol)
     torch.testing.assert_close(lse, ref_lse, **LSE)
     # The backward against its plain version from the same o and lse.
     ref_dq, ref_dk, ref_dv = fa.flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
     for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
         assert got.dtype == dtype and torch.isfinite(got).all(), name
-        torch.testing.assert_close(got.float(), ref.float(), **grad_tol, msg=lambda m: f"{name}: {m}")
+    if dtype == torch.float32:
+        torch.testing.assert_close(o.float(), ref_o.float(), **F32)
+        for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            torch.testing.assert_close(got.float(), ref.float(), **F32_GRAD, msg=lambda m: f"{name}: {m}")
+        return
+    bound_o = chip_smoke.flash_rounding_bound("flash_fwd", q, k, v, do, ref_lse, None, causal, scale)
+    bound_dq = chip_smoke.flash_rounding_bound("flash_bwd_dq", q, k, v, do, lse, fa._delta(o, do), causal, scale)
+    _assert_within(o, ref_o, BF16, bound_o, "o")
+    _assert_within(dq, ref_dq, BF16, bound_dq, "dq")
+    _assert_within(dk, ref_dk, BF16, what="dk")
+    _assert_within(dv, ref_dv, BF16, what="dv")
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_keep_to_their_head(cuda, dtype, d):
+    """S = 130 and Sk = 250 leave ragged last tiles in every head. Head 2's
+    K and V are set to inf: a kernel that filled head 1's ragged tile with
+    the next head's rows (a 2-D [B*H*S, D] tensor map, say) would multiply
+    them by its masked zeros and write NaN. Every other head's outputs equal
+    those of a run where head 2 is finite, bit for bit."""
+    q, k, v, do = _flash_case(cuda, dtype, 4, 130, 250, d, seed=d)
+    scale = d ** -0.5
+    kp, vp = k.clone(), v.clone()
+    kp[2], vp[2] = float("inf"), float("inf")
+    others = [0, 1, 3]
+    runs = []
+    for kk, vv in ((k, v), (kp, vp)):
+        for causal in (True, False):
+            o, lse = fa.flash_fwd(q, kk, vv, causal=causal, scale=scale)
+            dq, dk, dv = fa.flash_bwd(q, kk, vv, o, lse, do, causal=causal, scale=scale)
+            runs.append([x[others] for x in (o, lse, dq, dk, dv)])
+    torch.cuda.synchronize()
+    for clean, poisoned in zip(runs[:2], runs[2:]):
+        for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), clean, poisoned):
+            assert torch.isfinite(b).all(), name
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_softmax_rescales_large_scores(cuda, d):
+    """bf16 with q scaled by 8, so that scores spread 8 times wider and the
+    running row maximum jumps between key tiles: K3's o and lse and K5's dq
+    against their plain versions (o and dq within their rounding bound)."""
+    q, k, v, do = _flash_case(cuda, torch.bfloat16, 3, 192, 192, d, seed=d + 7, q_scale=8.0)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale)
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    delta = fa._delta(ref_o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    _assert_within(o, ref_o, BF16, chip_smoke.flash_rounding_bound("flash_fwd", q, k, v, do, ref_lse, delta,
+                                                                    True, scale), "o")
+    torch.testing.assert_close(lse, ref_lse, **LSE)
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, True, scale)
+    _assert_within(dq, ref_dq, BF16, chip_smoke.flash_rounding_bound("flash_bwd_dq", q, k, v, do, ref_lse, delta,
+                                                                      True, scale), "dq")
+
+
+def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
+    """On bf16 CUDA tensors K3 and K5 launch the wgmma kernels (the
+    profiler's kernel names say so) and f32 the scalar ones, each call one
+    launch; a tensor the TMA path cannot take raises before any launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = _flash_case(cuda, dtype, 2, 128, 128, 64)
+        lse = torch.zeros(q.shape[:2], device=cuda)
+        before = dict(fa.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_fwd(q, k, v, causal=True)
+            fa.flash_bwd_dq(q, k, v, do, lse, lse, causal=True)
+            torch.cuda.synchronize()
+        assert {key: fa.LAUNCHES[key] - before[key] for key in before} == {
+            "flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 1}
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+    assert "flash_fwd_wgmma_kernel" in names[torch.bfloat16]
+    assert "flash_bwd_dq_wgmma_kernel" in names[torch.bfloat16]
+    assert "wgmma" not in names[torch.float32] and "flash_fwd_kernel" in names[torch.float32]
+
+    q, k, v, _ = _flash_case(cuda, torch.bfloat16, 2, 64, 64, 64)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)  # 2 bytes off
+    shifted.copy_(q)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(shifted, k, v, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous())
+    assert fa.LAUNCHES == before
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
