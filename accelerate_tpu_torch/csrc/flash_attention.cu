@@ -4,7 +4,7 @@
 // Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py:
 //   K3 forward: flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
 //      <- accelerate_tpu/ops/flash_attention.py::_fwd_kernel
-//   K4 dK, dV: flash_bwd_dkv_kernel (both types)
+//   K4 dK, dV: flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_kernel (f32)
 //      <- accelerate_tpu/ops/flash_attention.py::_bwd_dkv_kernel
 //   K5 dQ: flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
 //      <- accelerate_tpu/ops/flash_attention.py::_bwd_dq_kernel
@@ -17,55 +17,63 @@
 // delta = rowsum(do * o) comes in from the caller, as on the TPU.
 //
 // Bound: operations. At the training shapes (S 2048, D 64, causal) each
-// (query, key) pair costs 4 * D operations forward and 6 * D for dQ on data
-// read once per tile, far above the card's ridge point: the tensor cores'
-// 989 TFLOP/s bf16 is the ceiling, and the CUDA cores' 67 TFLOP/s fp32 one
-// fifteen times lower.
+// (query, key) pair costs 4 * D operations forward, 8 * D for dK/dV and 6 * D
+// for dQ on data read once per tile, far above the card's ridge point: the
+// tensor cores' 989 TFLOP/s bf16 is the ceiling, and the CUDA cores' 67
+// TFLOP/s fp32 one fifteen times lower.
 //
-// bf16, K3 and K5: the products run on the tensor cores. One
-// warpgroup owns 64 query rows; its Q tile (and dO for K5) arrives once by
-// TMA, and K/V tiles stream through a two-stage ring of shared memory,
-// loaded by TMA with mbarrier completion, so the copy of tile j + 2 overlaps
-// the products of tile j + 1, and several blocks on each SM overlap one
-// another's softmax with their tensor-core work. Tiles stay bf16 in shared
-// memory, swizzled (128B for D 64 and 128, 64B for D 32) as the wgmma
-// descriptors read them (flash_tiles.cuh). s = q.k^T (and dp = do.v^T) is a
-// wgmma with both operands in shared memory, K-major; the fp32 accumulator,
-// narrowed to bf16 pairs, is already the register A operand of the next
-// wgmma, o += p.v (dq += ds.k), which reads V (K) MN-major from the same
-// tile, so P and dS never touch shared memory. The online softmax works on
-// the accumulator registers, row max and sum over the four lanes that share
-// a row, masks only on tiles that cross the diagonal or Sk, and keeps l from
-// the fp32 p before p is rounded to bf16 (to nearest), as FlashAttention-2/3
-// and SDPA do. That rounding moves o by at most 2^-8 (P @ |V|) and dq by at
-// most 2^-8 (|dS| @ |K|), element by element, which chip_smoke.py adds to
-// their bf16 limit. K3 walks 128-key tiles (64 at D 128), K5 64-key tiles
-// (PERF.md).
+// bf16: the products run on the tensor cores. One warpgroup owns 64 rows of
+// one side: query rows in K3 and K5, whose Q tile (and dO for K5) arrives
+// once by TMA while K/V tiles stream past; keys in K4, whose K and V tiles
+// arrive once while Q/dO tiles stream past. The streamed tiles go through a
+// two-stage ring of shared memory, loaded by TMA with mbarrier completion, so
+// the copy of tile j + 2 overlaps the products of tile j + 1, and several
+// blocks on each SM overlap one another's softmax with their tensor-core
+// work. Tiles stay bf16 in shared memory, swizzled (128B for D 64 and 128,
+// 64B for D 32) as the wgmma descriptors read them (flash_tiles.cuh). The
+// score products (s = q.k^T, dp = do.v^T; in K4 their transposes
+// sT = k.q^T, dpT = v.do^T) are wgmmas with both operands in shared memory,
+// K-major; the fp32 accumulator, narrowed to bf16 pairs, is already the
+// register A operand of the next wgmma (o += p.v, dq += ds.k; dv += pT.do,
+// dk += dsT.q), which reads its tile MN-major from the same shared memory, so
+// P and dS never touch shared memory. The online softmax works on the
+// accumulator registers, row max and sum over the four lanes that share a
+// row, masks only on tiles that cross the diagonal, S or Sk, and keeps l
+// from the fp32 p before p is rounded to bf16 (to nearest), as
+// FlashAttention-2/3 and SDPA do. That rounding moves o by at most
+// 2^-8 (P @ |V|), dq by at most 2^-8 (|dS| @ |K|), dv by at most
+// 2^-8 (P^T @ |dO|) and dk by at most 2^-8 (|dS|^T @ |Q|), element by
+// element, which chip_smoke.py adds to their bf16 limit. K3 walks 128-key
+// tiles (64 at D 128), K5 64-key tiles, K4 64-row query tiles (PERF.md).
+// In K4, lse and delta belong to the columns of the transposed scores; the
+// threads stage them for the next query tile in shared memory.
 //
 // f32 keeps the first design: products as fp32 FMAs on the CUDA cores
-// over operands widened in shared memory, each row (a query row in K3 and
-// K5, a key row in K4) split over D / 16 threads holding 16 of its
-// dimensions, the other side streamed through shared memory in 64-row
-// tiles read as broadcasts, partial dot products summed by warp shuffles.
-// The tensor cores have no f32 mode, only TF32, whose 10-bit mantissa would
-// break the f32 parity that chip_smoke.py's training phase and the card
-// tests hold at 2e-5 / 1e-4. dispatch() chooses by dtype, explicitly: it is
-// no fallback. A bf16 tensor launches the wgmma kernel or the launch returns
-// an error (a failed tensor-map encode, too much shared memory, a refused
-// launch), which ops/flash_attention.py raises. K4 keeps the scalar design
-// in both types.
+// over operands in shared memory, each row (a query row in K3 and K5, a key
+// row in K4) split over D / 16 threads holding 16 of its dimensions, the
+// other side streamed through shared memory in 64-row tiles read as
+// broadcasts, partial dot products summed by warp shuffles. The tensor cores
+// have no f32 mode, only TF32, whose 10-bit mantissa would break the f32
+// parity that chip_smoke.py's training phase and the card tests hold at
+// 2e-5 / 1e-4. dispatch() chooses by dtype, explicitly: it is no fallback. A
+// bf16 tensor launches the wgmma kernel or the launch returns an error (a
+// failed tensor-map encode, too much shared memory, a refused launch), which
+// ops/flash_attention.py raises.
 //
 // Grids: one block per (64 query rows, B*H) for K3 and K5 (32 x B*H at the
 // Llama-1B step's 2048-token sequences), causal blocks walking only the key
 // tiles their rows can see, the heaviest first; one per (64 keys, B*H) for
-// K4.
+// K4, walking only the query tiles whose rows can see its keys, the lowest
+// keys (the most queries) first: the scalar kernel per head, the wgmma
+// kernel over all heads (grid (B*H, keys / 64), 4% faster than per head at
+// the training shape, PERF.md).
 //
-// Left for later: K4 on the tensor cores, with grouped-query K/V heads
-// folded into the kernels (dK/dV summed over the group) instead of
-// repeated; warp specialisation, a producer warp issuing the TMA loads with
-// its registers given to the consumers by setmaxnreg; ping-pong of two
-// consumer warpgroups, so one's softmax hides behind the other's products;
-// and one fused backward pass with atomic dQ.
+// Left for later: grouped-query K/V heads folded into K4 (K/V read once per
+// group, dK/dV summed over the group) instead of repeated; warp
+// specialisation, a producer warp issuing the TMA loads with its registers
+// given to the consumers by setmaxnreg; ping-pong of two consumer
+// warpgroups, so one's softmax hides behind the other's products; and one
+// fused backward pass with atomic dQ.
 //
 // The kernels launch on the caller's stream, allocate nothing and never
 // synchronise.
@@ -87,7 +95,7 @@ constexpr int kDimsPerThread = 16;  // a row's dimensions per thread: 4 float4 c
 constexpr int kChunks = kDimsPerThread / 4;
 constexpr int kFold = 16;           // keys per online-softmax update in K3
 
-// Four consecutive elements of T, widened to fp32 (and narrowed back).
+// Four consecutive elements of T (the scalar kernels run in f32 only).
 template <typename T>
 struct Vec4;
 
@@ -95,25 +103,6 @@ template <>
 struct Vec4<float> {
   __device__ static float4 load(const float* p) { return *reinterpret_cast<const float4*>(p); }
   __device__ static void store(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  __device__ static float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(pairs[0]);
-    const float2 b = __bfloat1622float2(pairs[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  __device__ static void store(__nv_bfloat16* p, float4 x) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&a);
-    raw.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
 };
 
 // Threads per row and their dimensions: thread t of a row holds float4 chunks
@@ -385,27 +374,29 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (active) store_row<T, D>(dq + (int64_t)bh * S * D, row, t, dqr);
 }
 
-// ----------------------------------------------------- K3 and K5, bf16: wgmma
-// One warpgroup owns 64 query rows; its Q (and dO) tile arrives once by TMA,
-// and K/V tiles of kN keys stream through a ring of kStages stages, loaded
-// by thread 0 as soon as a stage is free. Scores and products accumulate in
+// ----------------------------------------------------- bf16: wgmma
+// K3 and K5: one warpgroup owns 64 query rows; its Q (and dO) tile arrives
+// once by TMA, and K/V tiles of kN keys stream through a ring of kStages
+// stages, loaded by thread 0 as soon as a stage is free. Scores and products accumulate in
 // fp32 registers (flash_tiles.cuh's Frag layout: rows r and r + 8, two
 // neighbouring columns per 8-column chunk).
 using flash_tiles::Frag;
-using flash_tiles::KVRing;
+using flash_tiles::PairRing;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// kFixed 64-row tiles (Q; Q and dO), the ring, then the barriers: the
-// ring's and one per fixed tile.
-template <int D, int kN, int kStages, int kFixed>
+// kFixed 64-row tiles (Q; Q and dO; K and V), the ring, the barriers (the
+// ring's and one per fixed tile), then kRowVals fp32 values (K4: lse and
+// delta of two query tiles).
+template <int D, int kN, int kStages, int kFixed, int kRowVals = 0>
 struct WgmmaSmem {
   static constexpr int kFixedBytes = flash_tiles::Panels<D>::tile_bytes(kRows);
   static constexpr int kRing = kFixed * kFixedBytes;
-  static constexpr int kBars = kRing + KVRing<D, kN, kStages>::kBytes;
-  static constexpr int kFixedBars = kBars + KVRing<D, kN, kStages>::kBarBytes;
-  static constexpr int kBytes = kFixedBars + 8 * kFixed + 1024;  // + alignment
+  static constexpr int kBars = kRing + PairRing<D, kN, kStages>::kBytes;
+  static constexpr int kFixedBars = kBars + PairRing<D, kN, kStages>::kBarBytes;
+  static constexpr int kRowVal = kFixedBars + 8 * kFixed;
+  static constexpr int kBytes = kRowVal + 4 * kRowVals + 1024;  // + alignment
 };
 
 // True where key `key` is hidden from query row `row`: past Sk, or past the
@@ -423,7 +414,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = flash_tiles::align_1024(flash_tiles::smem_u32(smem_raw));
   const uint32_t q_tile = base;
-  const KVRing<D, kN, kStages> ring(base + L::kRing, base + L::kBars);
+  const PairRing<D, kN, kStages> ring(base + L::kRing, base + L::kBars);
   const uint32_t q_bar = base + L::kFixedBars;
 
   const int bh = blockIdx.y;
@@ -439,7 +430,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   __syncthreads();
   if (threadIdx.x == 0) {
     flash_tiles::load_tile<D, kRows>(q_tile, &tq, q_bar, q0, bh);
-    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tk, &tv, bh);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tk, &tv, bh, j * kN);
   }
 
   const Frag f;
@@ -452,9 +443,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
 
   for (int j = 0; j < n_tiles; ++j) {
     float s[kN / 2];
-    ring.wait_k(j);
+    ring.wait_first(j);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.k_tile(j));  // s = q . k^T
+    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.first(j));  // s = q . k^T
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(s);
@@ -491,15 +482,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[Frag::half(i)];
 
-    ring.wait_v(j);
+    ring.wait_second(j);
     flash_tiles::fence_operands(acc);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_regs<D, kN>(acc, p, ring.v_tile(j));  // acc += p . v
+    flash_tiles::gemm_regs<D, kN>(acc, p, ring.second(j));  // acc += p . v
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(acc);
     __syncthreads();  // every warp is done with stage j % kStages
-    if (threadIdx.x == 0 && j + kStages < n_tiles) ring.issue(j + kStages, &tk, &tv, bh);
+    if (threadIdx.x == 0 && j + kStages < n_tiles) ring.issue(j + kStages, &tk, &tv, bh, (j + kStages) * kN);
   }
 
 #pragma unroll
@@ -526,7 +517,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = flash_tiles::align_1024(flash_tiles::smem_u32(smem_raw));
   const uint32_t q_tile = base, do_tile = base + L::kFixedBytes;
-  const KVRing<D, kN, kStages> ring(base + L::kRing, base + L::kBars);
+  const PairRing<D, kN, kStages> ring(base + L::kRing, base + L::kBars);
   const uint32_t q_bar = base + L::kFixedBars, do_bar = q_bar + 8;
 
   const int bh = blockIdx.y;
@@ -544,7 +535,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   if (threadIdx.x == 0) {
     flash_tiles::load_tile<D, kRows>(q_tile, &tq, q_bar, q0, bh);
     flash_tiles::load_tile<D, kRows>(do_tile, &tdo, do_bar, q0, bh);
-    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tk, &tv, bh);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tk, &tv, bh, j * kN);
   }
 
   const Frag f;
@@ -565,11 +556,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 
   for (int j = 0; j < n_tiles; ++j) {
     float s[kN / 2], dp[kN / 2];
-    ring.wait_k(j);
-    ring.wait_v(j);
+    ring.wait_first(j);
+    ring.wait_second(j);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.k_tile(j));    // s = q . k^T
-    flash_tiles::gemm_rows<D, kRows, kN>(dp, do_tile, ring.v_tile(j));  // dp = do . v^T
+    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.first(j));    // s = q . k^T
+    flash_tiles::gemm_rows<D, kRows, kN>(dp, do_tile, ring.second(j));  // dp = do . v^T
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(s);
@@ -590,12 +581,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 
     flash_tiles::fence_operands(acc);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_regs<D, kN>(acc, ds, ring.k_tile(j));  // dq += ds . k
+    flash_tiles::gemm_regs<D, kN>(acc, ds, ring.first(j));  // dq += ds . k
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(acc);
     __syncthreads();
-    if (threadIdx.x == 0 && j + kStages < n_tiles) ring.issue(j + kStages, &tk, &tv, bh);
+    if (threadIdx.x == 0 && j + kStages < n_tiles) ring.issue(j + kStages, &tk, &tv, bh, (j + kStages) * kN);
   }
 
 #pragma unroll
@@ -607,6 +598,128 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(out + 8 * c + f.col) =
           flash_tiles::pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+  }
+}
+
+// K4, bf16: K5 turned the other way. One warpgroup owns 64 keys; its K and V
+// tiles arrive once by TMA, and Q and dO tiles of kM query rows stream through
+// the ring, from the first tile whose rows can see the block's keys to S.
+// sT = k.q^T and dpT = v.do^T are [64 keys, kM queries] accumulators, so lse
+// and delta belong to their columns: the threads stage both for the next tile
+// in shared memory while the current one is in the tensor cores.
+template <int D, int kM, int kStages>
+__global__ void __launch_bounds__(flash_tiles::kWarpgroup)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Sk,
+                           float scale, int causal) {
+  static_assert(2 * kM <= flash_tiles::kWarpgroup, "one staged lse or delta value per thread");
+  using L = WgmmaSmem<D, kM, kStages, 2, 4 * kM>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = flash_tiles::align_1024(flash_tiles::smem_u32(smem_raw));
+  const uint32_t k_tile = base, v_tile = base + L::kFixedBytes;
+  const PairRing<D, kM, kStages> ring(base + L::kRing, base + L::kBars);  // Q, dO
+  const uint32_t k_bar = base + L::kFixedBars, v_bar = k_bar + 8;
+  // Two buffers of [lse in base-2 units, delta] for kM query rows each.
+  float* rows_s = reinterpret_cast<float*>(smem_raw + (base + L::kRowVal - flash_tiles::smem_u32(smem_raw)));
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;  // every head's first key tiles see the most queries: first
+  const int offset = Sk - S;
+  // Query i sees key j iff j <= i + offset: rows before k0 - offset see none.
+  const int t0 = (causal ? max(0, k0 - offset) : 0) / kM;
+  const int n_tiles = (S + kM - 1) / kM - t0;  // >= 1: k0 < Sk
+  const float scale_log2 = scale * kLog2e;
+
+  // Thread r < kM stages lse of row r of a tile, kM <= r < 2 kM its delta.
+  const int r = threadIdx.x % kM;
+  auto row_value = [&](int j) {
+    const int row = (t0 + j) * kM + r;
+    if (threadIdx.x >= 2 * kM || j >= n_tiles || row >= S) return 0.f;
+    const int64_t at = (int64_t)bh * S + row;
+    return threadIdx.x < kM ? __ldg(lse + at) * kLog2e : __ldg(delta + at);
+  };
+  if (threadIdx.x < 2 * kM) rows_s[threadIdx.x] = row_value(0);
+  if (threadIdx.x == 0) {
+    ring.init();
+    flash_tiles::mbar_init(k_bar, 1);
+    flash_tiles::mbar_init(v_bar, 1);
+    flash_tiles::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    flash_tiles::load_tile<D, kRows>(k_tile, &tk, k_bar, k0, bh);
+    flash_tiles::load_tile<D, kRows>(v_tile, &tv, v_bar, k0, bh);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) ring.issue(j, &tq, &tdo, bh, (t0 + j) * kM);
+  }
+
+  const Frag f;
+  const int key0 = k0 + f.row;  // this thread's keys: key0 and key0 + 8
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  flash_tiles::mbar_wait(k_bar, 0);
+  flash_tiles::mbar_wait(v_bar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const float next = row_value(j + 1);  // in flight while tile j is in the tensor cores
+    float sT[kM / 2], dpT[kM / 2];
+    ring.wait_first(j);
+    ring.wait_second(j);
+    flash_tiles::wgmma_fence();
+    flash_tiles::gemm_rows<D, kRows, kM>(sT, k_tile, ring.first(j));    // sT = k . q^T
+    flash_tiles::gemm_rows<D, kRows, kM>(dpT, v_tile, ring.second(j));  // dpT = v . do^T
+    flash_tiles::wgmma_commit();
+    flash_tiles::wgmma_wait();
+    flash_tiles::fence_operands(sT);
+    flash_tiles::fence_operands(dpT);
+
+    // pT = exp(sT * scale - lse[col]), 0 where hidden or past S;
+    // dsT = pT * (dpT - delta[col]) * scale.
+    const int i0 = (t0 + j) * kM;
+    const float* lse2_s = rows_s + (j & 1) * 2 * kM;
+    const float* delta_s = lse2_s + kM;
+    const bool edge = k0 + kRows > Sk || i0 + kM > S || (causal && k0 + kRows - 1 > i0 + offset);
+#pragma unroll
+    for (int i = 0; i < kM / 2; ++i) {
+      const int c = f.column(i);
+      float p = exp2f(fmaf(sT[i], scale_log2, -lse2_s[c]));
+      if (edge && (i0 + c >= S || hidden(key0 + 8 * Frag::half(i), i0 + c, Sk, offset, causal))) p = 0.f;
+      sT[i] = p;
+      dpT[i] = p * (dpT[i] - delta_s[c]) * scale;
+    }
+    uint32_t pT[kM / 16][4], dsT[kM / 16][4];
+    flash_tiles::to_fragments(sT, pT);
+    flash_tiles::to_fragments(dpT, dsT);
+
+    flash_tiles::fence_operands(dv_acc);
+    flash_tiles::fence_operands(dk_acc);
+    flash_tiles::wgmma_fence();
+    flash_tiles::gemm_regs<D, kM>(dv_acc, pT, ring.second(j));  // dv += pT . do
+    flash_tiles::gemm_regs<D, kM>(dk_acc, dsT, ring.first(j));  // dk += dsT . q
+    flash_tiles::wgmma_commit();
+    flash_tiles::wgmma_wait();
+    flash_tiles::fence_operands(dv_acc);
+    flash_tiles::fence_operands(dk_acc);
+    if (threadIdx.x < 2 * kM) rows_s[((j + 1) & 1) * 2 * kM + threadIdx.x] = next;
+    __syncthreads();  // every warp is done with stage j % kStages and rows buffer j & 1
+    if (threadIdx.x == 0 && j + kStages < n_tiles)
+      ring.issue(j + kStages, &tq, &tdo, bh, (t0 + j + kStages) * kM);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= Sk) continue;
+    const int64_t at = ((int64_t)bh * Sk + key) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * c + f.col) =
+          flash_tiles::pack_bf16(dk_acc[4 * c + 2 * h], dk_acc[4 * c + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * c + f.col) =
+          flash_tiles::pack_bf16(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+    }
   }
 }
 
@@ -679,10 +792,13 @@ int launch_dq(const Args& a) {
 // The wgmma kernels' shapes, measured at D 64 (PERF.md): K3 takes
 // 128-key tiles (64 at D 128, where two 128-key stages would leave one block
 // per SM), K5 64-key tiles; a ring of two stages. A block of one warpgroup
-// measured faster than one of two sharing each K/V tile.
+// measured faster than one of two sharing each K/V tile. K4 streams 64-row
+// query tiles: at D 128 they measured faster than 32-row ones, without
+// spills.
 template <int D>
 constexpr int fwd_key_tile() { return D <= 64 ? 128 : 64; }
 constexpr int kDqKeyTile = 64;
+constexpr int kDkvQueryTile = 64;
 constexpr int kStages = 2;
 
 template <int D>
@@ -723,6 +839,26 @@ int launch_dq_wgmma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  constexpr int kM = kDkvQueryTile;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = flash_tiles::encode_tile_map<D>(&tq, a.q, a.BH, a.S, kM);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tdo, a.dout, a.BH, a.S, kM);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tk, a.k, a.BH, a.Sk, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<D>(&tv, a.v, a.BH, a.Sk, kRows);
+  if (err) return err;
+  const auto kernel = flash_bwd_dkv_wgmma_kernel<D, kM, kStages>;
+  const size_t smem = WgmmaSmem<D, kM, kStages, 2, 4 * kM>::kBytes;
+  const cudaError_t e = allow_shared(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.BH, (a.Sk + kRows - 1) / kRows);  // heads fastest: the heaviest tiles of all heads first
+  kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1), a.S, a.Sk, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
 enum Kind { kFwd, kDkv, kDq };
 
 template <typename T, int D>
@@ -732,12 +868,12 @@ int launch_kind(Kind kind, const Args& a) {
   return launch_dq<T, D>(a);
 }
 
-// bf16: K3 and K5 run on the tensor cores; K4 keeps the scalar design.
+// bf16: every kernel runs on the tensor cores.
 template <int D>
 int launch_kind_bf16(Kind kind, const Args& a) {
   if (kind == kFwd) return launch_fwd_wgmma<D>(a);
-  if (kind == kDq) return launch_dq_wgmma<D>(a);
-  return launch_dkv<__nv_bfloat16, D>(a);
+  if (kind == kDkv) return launch_dkv_wgmma<D>(a);
+  return launch_dq_wgmma<D>(a);
 }
 
 template <typename T>

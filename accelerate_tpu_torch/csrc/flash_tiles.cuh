@@ -1,7 +1,8 @@
 // Tile building blocks for the Hopper flash-attention kernels of
-// flash_attention.cu (K3 forward, K5 dQ): TMA loads into a ring of shared-memory
-// stages with mbarrier completion, wgmma shared-memory descriptors, the wgmma
-// instructions themselves as inline PTX, and the host-side tensor maps.
+// flash_attention.cu (K3 forward, K4 dK/dV, K5 dQ): TMA loads into a ring of
+// shared-memory stages with mbarrier completion, wgmma shared-memory
+// descriptors, the wgmma instructions themselves as inline PTX, and the
+// host-side tensor maps.
 //
 // Layout. A tile of `Rows` rows of a bf16 [B*H, S, D] array lies in shared
 // memory as Panels<D>::kCount panels of [Rows, kCols]: 128-byte rows (64
@@ -9,9 +10,9 @@
 // swizzled 64B for D 32. TMA writes that layout
 // (one 3-D box per panel) and wgmma reads it through descriptors of the same
 // swizzle: K-major when the contraction runs along D (q.k, do.v), MN-major
-// when it runs along the rows (p.v, ds.k), so one copy of a K or V tile serves
-// both products. Every tile starts on a 1024-byte boundary, the period of the
-// 128B pattern, so descriptors carry base offset 0.
+// when it runs along the rows (p.v, ds.k; p^T.do, ds^T.q in K4), so one copy
+// of a tile serves both products. Every tile starts on a 1024-byte boundary,
+// the period of the 128B pattern, so descriptors carry base offset 0.
 //
 // The tensor maps are 3-D, [B*H, S, D]: TMA zero-fills rows past S within a
 // head. A 2-D [B*H*S, D] map would fill a ragged last tile with the next
@@ -237,7 +238,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 // acc (+)= A . B^T over D with A [64, D] and B [N, D] tiles in shared memory,
-// both K-major (q.k^T, do.v^T). Issue between wgmma_fence and wgmma_commit.
+// both K-major (q.k^T, do.v^T; k.q^T, v.do^T in K4). Issue between
+// wgmma_fence and wgmma_commit.
 template <int D, int RowsA, int RowsB, int NF>
 __device__ __forceinline__ void gemm_rows(float (&acc)[NF], uint32_t a_tile, uint32_t b_tile) {
   static_assert(2 * NF == RowsB, "the accumulator spans the B tile's rows");
@@ -248,7 +250,7 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[NF], uint32_t a_tile, uin
 
 // acc += X . B with X [64, Keys] in registers as bf16 A fragments (x[t] holds
 // keys [16 t, 16 t + 16)) and B a [Keys, D] tile in shared memory, read
-// MN-major (p.v, ds.k).
+// MN-major (p.v, ds.k; in K4 the keys are query rows: p^T.do, ds^T.q).
 template <int D, int Keys, int NF>
 __device__ __forceinline__ void gemm_regs(float (&acc)[NF], const uint32_t (&x)[Keys / 16][4], uint32_t b_tile) {
   static_assert(2 * NF == D, "the accumulator spans D");
@@ -288,32 +290,33 @@ __device__ __forceinline__ void to_fragments(const float (&x)[NF], uint32_t (&fr
     for (int j = 0; j < 4; ++j) frag[t][j] = pack_bf16(x[8 * t + 2 * j], x[8 * t + 2 * j + 1]);
 }
 
-// A ring of kStages shared-memory stages, each a K and a V tile of kN rows,
-// with one TMA-completion barrier per tile. Tile j of the walk lives in stage
-// j % kStages; its barrier completes phase j / kStages.
+// A ring of kStages shared-memory stages, each a pair of tiles of kN rows
+// (K and V in K3 and K5, Q and dO in K4), with one TMA-completion barrier per
+// tile. Tile j of the walk lives in stage j % kStages; its barrier completes
+// phase j / kStages.
 template <int D, int kN, int kStages>
-struct KVRing {
+struct PairRing {
   static constexpr int kTileBytes = Panels<D>::tile_bytes(kN);
   static constexpr int kBytes = 2 * kStages * kTileBytes;
   static constexpr int kBarBytes = 2 * kStages * 8;
-  uint32_t base;  // K tiles, then V tiles, 1024-aligned
-  uint32_t bars;  // K barriers, then V barriers
+  uint32_t base;  // first tiles, then second tiles, 1024-aligned
+  uint32_t bars;  // first barriers, then second barriers
 
-  __device__ KVRing(uint32_t base_, uint32_t bars_) : base(base_), bars(bars_) {}
-  __device__ uint32_t k_tile(int j) const { return base + (j % kStages) * kTileBytes; }
-  __device__ uint32_t v_tile(int j) const { return base + (kStages + j % kStages) * kTileBytes; }
-  __device__ uint32_t k_bar(int j) const { return bars + 8 * (j % kStages); }
-  __device__ uint32_t v_bar(int j) const { return bars + 8 * (kStages + j % kStages); }
+  __device__ PairRing(uint32_t base_, uint32_t bars_) : base(base_), bars(bars_) {}
+  __device__ uint32_t first(int j) const { return base + (j % kStages) * kTileBytes; }
+  __device__ uint32_t second(int j) const { return base + (kStages + j % kStages) * kTileBytes; }
+  __device__ uint32_t first_bar(int j) const { return bars + 8 * (j % kStages); }
+  __device__ uint32_t second_bar(int j) const { return bars + 8 * (kStages + j % kStages); }
   __device__ void init() const {
     for (int i = 0; i < 2 * kStages; ++i) mbar_init(bars + 8 * i, 1);
   }
-  // One thread: key rows [j kN, (j + 1) kN) of head bh into tile j's stage.
-  __device__ void issue(int j, const CUtensorMap* k, const CUtensorMap* v, int bh) const {
-    load_tile<D, kN>(k_tile(j), k, k_bar(j), j * kN, bh);
-    load_tile<D, kN>(v_tile(j), v, v_bar(j), j * kN, bh);
+  // One thread: rows [row0, row0 + kN) of head bh of each map into tile j's stage.
+  __device__ void issue(int j, const CUtensorMap* a, const CUtensorMap* b, int bh, int row0) const {
+    load_tile<D, kN>(first(j), a, first_bar(j), row0, bh);
+    load_tile<D, kN>(second(j), b, second_bar(j), row0, bh);
   }
-  __device__ void wait_k(int j) const { mbar_wait(k_bar(j), (j / kStages) & 1); }
-  __device__ void wait_v(int j) const { mbar_wait(v_bar(j), (j / kStages) & 1); }
+  __device__ void wait_first(int j) const { mbar_wait(first_bar(j), (j / kStages) & 1); }
+  __device__ void wait_second(int j) const { mbar_wait(second_bar(j), (j / kStages) & 1); }
 };
 
 __device__ __forceinline__ uint32_t align_1024(uint32_t addr) { return (addr + 1023) & ~1023u; }

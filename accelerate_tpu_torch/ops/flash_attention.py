@@ -3,7 +3,7 @@
 Port of `accelerate_tpu/ops/flash_attention.py`. On CUDA tensors each entry
 launches the hand-written Hopper kernels of `csrc/flash_attention.cu`:
 K3 (forward: o and the row logsumexp), K4 (dK, dV) and K5 (dQ); in bf16,
-K3 and K5 run on the tensor cores (wgmma over TMA-loaded tiles, with the
+all three run on the tensor cores (wgmma over TMA-loaded tiles, with the
 shared building blocks in `csrc/flash_tiles.cuh`), in f32 on the CUDA
 cores. On CPU tensors it runs the plain PyTorch versions below, which work
 on the full [S, Sk] score matrix in fp32; the tests and `chip_smoke.py`

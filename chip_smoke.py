@@ -29,9 +29,9 @@ prints no result):
    and dQ (K5), at Llama-1B's training shapes (batch 2, 32 heads after the
    GQA repeat, sequence 2048, head 64, causal), the same way: held against
    their plain versions in f32 (outputs atol 2e-5, gradients atol/rtol 1e-4)
-   and bf16 (atol 2e-3, rtol 1e-2, element by element; K3 and K5, which
-   round P and dS to bf16 for the tensor cores, with the most that rounding
-   can move each element added to the limit), then timed beside the plain
+   and bf16 (atol 2e-3, rtol 1e-2, element by element, with the most that
+   rounding P and dS to bf16 for the tensor cores can move each element
+   added to the limit), then timed beside the plain
    version, the bound and, as the yardstick, SDPA (is_causal) and its
    autograd backward. Each `[flash]` line gives SDPA's error beside the
    kernel's.
@@ -69,14 +69,16 @@ prints no result):
        TFLOP/s), peak memory and the losses, which are finite and end below
        where they started; each flash kernel, counted from 0 just before the
        timed steps, launched 16 layers x 8 steps times.
-   (c) with --profile, device time of one more bf16 step by group.
+   (c) with --profile, device time of one more bf16 step by group, and
+       that of the grouped-query repeat (K/V copies forward, their sum over
+       each group backward).
 5. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
    quantized modes, K3-K5), the nvidia-smi line, and as the last line
    `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
-    python3 chip_smoke.py --compare TREE [TREE ...]
+    python3 chip_smoke.py --compare TREE [TREE ...] [--head-dim D]
 
 times the flash kernels of several source trees on the card instead, in
 turns. Each TREE is a directory that holds `accelerate_tpu_torch/`: this
@@ -85,7 +87,8 @@ constant changed, unpacked under the git-ignored `scratch/`. Every tree runs
 in a process of its own, which builds its kernels into TREE/build/, in the
 order given and then in reverse (a b b a), so that drift on the card weighs
 on both sides alike. Each run prints one `[compare]` JSON line: K3, K4 and
-K5 in bf16 at the training shape, timed as above, each kernel's largest
+K5 in bf16 at the training shape (head dimension D if given), timed as
+above, each kernel's largest
 error against its plain version, SDPA's forward time as a yardstick of the
 card, and ptxas' report of the tree's wgmma kernels. It prints no result
 line.
@@ -134,7 +137,10 @@ FLASH_DESIGN = {
     "flash_bwd_dq": "bf16: wgmma m64n64k16 s = q.k^T and dp = do.v^T from shared memory, m64n64k16 "
                     "dq += ds.k (ds from registers), TMA 3-D loads of 64-key K/V tiles through a 2-stage "
                     "ring, one warpgroup of 64 query rows per block; f32: scalar fp32 FMAs",
-    "flash_bwd_dkv": "scalar fp32 FMAs on the CUDA cores",
+    "flash_bwd_dkv": "bf16: wgmma m64n64k16 sT = k.q^T and dpT = v.do^T from shared memory, m64n64k16 "
+                     "dv += pT.do and dk += dsT.q (pT, dsT from registers), K/V tiles loaded once and TMA "
+                     "3-D loads of 64-row Q/dO tiles through a 2-stage ring, lse and delta staged in shared "
+                     "memory, one warpgroup of 64 keys per block; f32: scalar fp32 FMAs",
 }
 FLASH_KERNELS = {
     # name: (TPU kernel it replaces, products of 2 * BH * pairs * D operations it needs)
@@ -144,19 +150,23 @@ FLASH_KERNELS = {
 }
 FLASH_SOURCE = "accelerate_tpu_torch/csrc/flash_attention.cu"
 # f32: the kernels and the plain versions sum the same fp32 products in
-# another order; a gradient sums up to 2048 of them. bf16 K4: as for K1/K2,
-# one bf16 rounding of the output (2^-8 relative) above that. bf16 K3 and K5
+# another order; a gradient sums up to 2048 of them. bf16: as for K1/K2, one
+# bf16 rounding of the output (2^-8 relative) above that; and the kernels
 # feed the tensor cores P and dS rounded to bf16, as FlashAttention-2/3 and
 # SDPA do, which the fp32 plain versions do not. Round to nearest moves each
 # p (ds) by at most BF16_UNIT of itself, so o moves by at most BF16_UNIT *
-# (P @ |V|) (P the normalised probabilities) and dq by at most BF16_UNIT *
-# (|dS| @ |K|), element by element: in rows that see few keys that exceeds
-# atol 2e-3 where the output is small. Their limit is atol + rtol |ref| plus
-# that bound (`flash_rounding_bound`), from the plain versions' own P and dS.
+# (P @ |V|) (P the normalised probabilities), dq by at most BF16_UNIT *
+# (|dS| @ |K|), dv by at most BF16_UNIT * (P^T @ |dO|) and dk by at most
+# BF16_UNIT * (|dS|^T @ |Q|), element by element: in rows that see few keys
+# (keys that few rows see) that exceeds atol 2e-3 where the output is small.
+# Their limit is atol + rtol |ref| plus that bound (`flash_rounding_bound`),
+# from the plain versions' own P and dS.
 FLASH_F32_TOL = {"out": dict(atol=2e-5, rtol=0.0), "grad": dict(atol=1e-4, rtol=1e-4)}
 BF16_UNIT = 2.0 ** -8  # round to nearest bf16: |fl(x) - x| <= 2^-8 |x|
 FLASH_ROUNDED = {  # outputs whose bf16 limit adds the rounding bound: what it is
     ("flash_fwd", "o"): "2^-8 * (P @ |V|)",
+    ("flash_bwd_dkv", "dk"): "2^-8 * (|dS|^T @ |Q|)",
+    ("flash_bwd_dkv", "dv"): "2^-8 * (P^T @ |dO|)",
     ("flash_bwd_dq", "dq"): "2^-8 * (|dS| @ |K|)",
 }
 FLASH_LSE_TOL = dict(atol=2e-5, rtol=1e-5)
@@ -660,19 +670,26 @@ def sdpa_flash_yardsticks(q, k, v, do, b, hq):
     return forward, backward
 
 
-def flash_rounding_bound(name, q, k, v, do, lse, delta, causal, scale):
-    """The most, element by element, that rounding P (K3, `flash_fwd`) or dS
-    (K5, `flash_bwd_dq`) to bf16 before the second product can move the
-    output: BF16_UNIT * (P @ |V|), P = exp(s - lse) the normalised
-    probabilities, or BF16_UNIT * (|dS| @ |K|), dS = P * (dP - delta) * scale;
-    from the plain versions' fp32 P and dS."""
+def flash_rounding_bound(name, key, q, k, v, do, lse, delta, causal, scale):
+    """The most, element by element, that rounding P or dS to bf16 before
+    the second product can move output `key` of kernel `name`: K3's o by
+    BF16_UNIT * (P @ |V|), P = exp(s - lse) the normalised probabilities;
+    K4's dv by BF16_UNIT * (P^T @ |dO|) and dk by BF16_UNIT * (|dS|^T @ |Q|),
+    dS = P * (dP - delta) * scale; K5's dq by BF16_UNIT * (|dS| @ |K|). From
+    the plain versions' fp32 P and dS."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
+    if (name, key) not in FLASH_ROUNDED:
+        raise ValueError(f"no rounding bound for {name}'s {key}")
     p = torch.exp(fa._scores(q, k, causal, scale) - lse[..., None])
-    if name == "flash_fwd":
+    if key == "o":
         return BF16_UNIT * torch.matmul(p, v.float().abs())
-    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
-    return BF16_UNIT * torch.matmul(ds.abs(), k.float().abs())
+    if key == "dv":
+        return BF16_UNIT * torch.matmul(p.transpose(-1, -2), do.float().abs())
+    ds = (p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale).abs()
+    if key == "dk":
+        return BF16_UNIT * torch.matmul(ds.transpose(-1, -2), q.float().abs())
+    return BF16_UNIT * torch.matmul(ds, k.float().abs())
 
 
 def limit_report(got, ref, atol, rtol, bound=None):
@@ -694,9 +711,9 @@ def limit_report(got, ref, atol, rtol, bound=None):
 def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
     """K3, K4 and K5 against their plain versions, f32 and bf16; each kernel
     check is one launch. K4 and K5 get the lse and delta of the plain
-    forward, so each is held alone. bf16 K3's o and K5's dq also report
-    the element nearest to breaking the limit without the rounding bound,
-    and SDPA's output under both limits."""
+    forward, so each is held alone. bf16 K3's o, K4's dk and dv and K5's dq
+    also report the element nearest to breaking the limit without the
+    rounding bound, and SDPA's output under both limits."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     scale = shape["d"] ** -0.5
@@ -745,7 +762,7 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
                 err = float((got[key].float() - ref.float()).abs().max())
                 entry = row["errors"][key] = {"max_abs_err": err, "tolerance": tol}
                 if dtype == torch.bfloat16 and (name, key) in FLASH_ROUNDED:
-                    bound = flash_rounding_bound(name, q, k, v, do, lse, delta, True, scale)
+                    bound = flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
                     entry["tolerance"] = dict(tol, plus=FLASH_ROUNDED[(name, key)])
                     entry["limit"] = limit_report(got[key], ref, **tol, bound=bound)
                     entry["limit_without_bound"] = limit_report(got[key], ref, **tol)
@@ -773,16 +790,16 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
     return results
 
 
-def compare_worker(tree):
+def compare_worker(tree, head_dim=FLASH_SHAPE["d"]):
     """One `--compare` run: the flash kernels of `tree`, built into
-    tree/build/, in bf16 at FLASH_SHAPE."""
+    tree/build/, in bf16 at FLASH_SHAPE with head dimension `head_dim`."""
     sys.path.insert(0, os.path.abspath(tree))
     from accelerate_tpu_torch.ops import _build
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     _build.build(["flash_attention"])
     device = torch.device("cuda", 0)
-    shape = FLASH_SHAPE
+    shape = dict(FLASH_SHAPE, d=head_dim)
     scale = shape["d"] ** -0.5
     q, k, v, do = flash_case(device, torch.bfloat16, seed=21, **shape)
     o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale)
@@ -803,15 +820,16 @@ def compare_worker(tree):
     ms = {name: time_ms(call, device) for name, call in calls.items()}
     ms["sdpa_fwd"] = time_ms(sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])[0], device)
     ptxas = [line for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", "")) if "wgmma" in line]
-    return {"tree": tree, "ms": ms, "errors": errors, "ptxas": ptxas, "card": card_line()}
+    return {"tree": tree, "shape": shape, "ms": ms, "errors": errors, "ptxas": ptxas, "card": card_line()}
 
 
-def compare(trees) -> int:
+def compare(trees, head_dim=FLASH_SHAPE["d"]) -> int:
     """Each tree in a process of its own, in the order given and then in
     reverse; non-zero if any run failed."""
     failed = 0
     for tree in list(trees) + list(trees)[::-1]:
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--compare-worker", tree], timeout=600)
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--compare-worker", tree,
+                              "--head-dim", str(head_dim)], timeout=600)
         failed += run.returncode != 0
     return 1 if failed else 0
 
@@ -935,13 +953,13 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
 def profile_train_step(step_fn, batch, device, unprofiled_step_s):
     """Device time by kernel group over one more bf16 training step under
     `torch.profiler`: the flash kernels (each by name), GEMMs and the rest,
-    and the busy share of the unprofiled median step (the profiler slows
-    the host, not the device)."""
+    the grouped-query repeat, and the busy share of the unprofiled median
+    step (the profiler slows the host, not the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         float(step_fn(batch))
     # A user annotation (the optimizer's `Optimizer.step#AdamW.step`) spans
     # kernels that are counted on their own: leave it out of the sums.
@@ -970,6 +988,7 @@ def profile_train_step(step_fn, batch, device, unprofiled_step_s):
         "device_busy_ms": total_us / 1e3,
         "busy_share_of_unprofiled_step": total_us / 1e6 / unprofiled_step_s,
         "share_by_group": {k: v / total_us for k, v in groups.items()},
+        "gqa_repeat": gqa_repeat_time(prof),
         "flash_kernels": sorted(flash, key=lambda row: -row["ms"]),  # every one, by name
         "top_kernels": [
             {"name": name[:140], "calls": calls, "ms": us / 1e3, "share": us / total_us}
@@ -977,6 +996,24 @@ def profile_train_step(step_fn, batch, device, unprofiled_step_s):
         ],
     }
     log(f"[train] bf16 profile: {json.dumps(out)}")
+    return out
+
+
+def gqa_repeat_time(prof):
+    """Device time (ms) and calls of `flash_attention`'s grouped-query
+    repeat in a step profiled with `record_shapes`: `repeat_interleave` by
+    an int (an expand and a copy of K or V to every query head) forward, and
+    its backward, autograd's sum of the gradient over each group, the one
+    `aten::sum` of a step over a 5-D [B, S, Hkv, group, D] tensor; each op's
+    kernels counted under it."""
+    out = {"forward_ms": 0.0, "forward_calls": 0, "backward_ms": 0.0, "backward_calls": 0}
+    for row in prof.key_averages(group_by_input_shape=True):
+        shapes = row.input_shapes or [[]]
+        side = ("forward" if row.key == "aten::repeat_interleave" else
+                "backward" if row.key == "aten::sum" and len(shapes[0]) == 5 else None)
+        if side:
+            out[f"{side}_ms"] += row.device_time_total / 1e3
+            out[f"{side}_calls"] += row.count
     return out
 
 
@@ -991,6 +1028,8 @@ def main(argv=None) -> int:
                              "device time by kernel, busy share")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
+    parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(32, 64, 128),
+                        help="--compare's head dimension (default: the training shape's)")
     parser.add_argument("--compare-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -999,9 +1038,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.compare:
-        return compare(args.compare)
+        return compare(args.compare, args.head_dim)
     if args.compare_worker:
-        log(f"[compare] {json.dumps(compare_worker(args.compare_worker))}")
+        log(f"[compare] {json.dumps(compare_worker(args.compare_worker, args.head_dim))}")
         return 0
     device = torch.device("cuda", 0)
     card = card_line()

@@ -1,8 +1,9 @@
 """CPU checks of the card script's own logic, which the card runs only as a
 whole: `chip_smoke.py`'s report of ptxas' output, its flash phase's limits
 (rehearsed on the plain versions, which CPU tensors take, and held against
-an emulation of the tensor-core kernels' bf16 arithmetic), and the refusal
-of its `--compare` mode to run without a card."""
+an emulation of the tensor-core kernels' bf16 arithmetic), its profile's
+attribution of the grouped-query repeat, and the refusal of its `--compare`
+mode to run without a card."""
 
 import os
 import subprocess
@@ -54,8 +55,9 @@ def test_ptxas_report_names_each_kernel():
 
 def test_flash_phase_holds_bf16_k3_k5_to_their_rounding_bound():
     """The flash phase on CPU tensors: the plain versions meet every limit;
-    bf16 K3's o and K5's dq are held element by element within atol 2e-3 +
-    rtol 1e-2 |ref| plus the bound of their bf16 rounding, and report that
+    bf16 K3's o, K4's dk and dv and K5's dq are held element by element
+    within atol 2e-3 + rtol 1e-2 |ref| plus the bound of their bf16
+    rounding, and report that
     limit, the limit without the bound and SDPA under both; every other
     limit is a constant; each output carries SDPA's error beside the
     kernel's."""
@@ -77,7 +79,8 @@ def test_flash_phase_holds_bf16_k3_k5_to_their_rounding_bound():
                     assert entry["tolerance"] == bf16
                 else:
                     assert entry["tolerance"] in chip_smoke.FLASH_F32_TOL.values()
-    assert set(chip_smoke.FLASH_ROUNDED) == {("flash_fwd", "o"), ("flash_bwd_dq", "dq")}
+    assert set(chip_smoke.FLASH_ROUNDED) == {("flash_fwd", "o"), ("flash_bwd_dkv", "dk"),
+                                             ("flash_bwd_dkv", "dv"), ("flash_bwd_dq", "dq")}
 
 
 def _bf16_case(bh, s, d, seed, q_scale=1.0):
@@ -118,13 +121,44 @@ def _k5_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False):
     return torch.matmul(ds.bfloat16().float(), k.float()).bfloat16()
 
 
+def _k4_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False):
+    """K4's bf16 arithmetic, causal with S = Sk: per 64-key block, query
+    tiles of `tile` rows streamed from the first that sees the block; fp32
+    pT and dsT, pT rounded to bf16 before pT @ do and dsT before dsT @ q,
+    dk and dv summed in fp32 and rounded to bf16; `drop_last_tile` leaves
+    the last query tile out, as a wrong kernel would."""
+    bh, s, d = q.shape
+    dk, dv = torch.zeros(bh, s, d), torch.zeros(bh, s, d)
+    starts = list(range(0, s, tile))
+    for k0 in range(0, s, 64):
+        keys = torch.arange(k0, k0 + 64)[:, None]
+        for i0 in [i0 for i0 in starts if i0 + tile > k0][:-1 if drop_last_tile else None]:
+            qt, dot = q[:, i0:i0 + tile].float(), do[:, i0:i0 + tile].float()
+            sT = torch.matmul(k[:, k0:k0 + 64].float(), qt.transpose(-1, -2)) * scale
+            hidden = keys > torch.arange(i0, i0 + tile)[None, :]
+            pT = torch.exp(sT - lse[:, None, i0:i0 + tile]).masked_fill(hidden, 0.0)
+            dpT = torch.matmul(v[:, k0:k0 + 64].float(), dot.transpose(-1, -2))
+            dsT = pT * (dpT - delta[:, None, i0:i0 + tile]) * scale
+            dv[:, k0:k0 + 64] += torch.matmul(pT.bfloat16().float(), dot)
+            dk[:, k0:k0 + 64] += torch.matmul(dsT.bfloat16().float(), qt)
+    return {"dk": dk.bfloat16(), "dv": dv.bfloat16()}
+
+
+OUTPUTS = [pytest.param(("flash_fwd", "o"), id="flash_fwd"), pytest.param(("flash_bwd_dq", "dq"), id="flash_bwd_dq"),
+           pytest.param(("flash_bwd_dkv", "dk"), id="flash_bwd_dkv-dk"),
+           pytest.param(("flash_bwd_dkv", "dv"), id="flash_bwd_dkv-dv")]
+
+
 @pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0)],
                          ids=["d64", "d128", "d32-scores-x8"])
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq"])
-def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(name, d, tile, q_scale):
-    """The bf16 limit of K3's o and K5's dq (atol + rtol |ref| + the
-    rounding bound) holds for the tensor-core kernels' arithmetic with room
-    to spare and breaks, by far, where the last key tile is left out."""
+@pytest.mark.parametrize("output", OUTPUTS)
+def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(output, d, tile, q_scale):
+    """The bf16 limit of K3's o, K4's dk and dv and K5's dq (atol + rtol
+    |ref| + the rounding bound) holds for the tensor-core kernels'
+    arithmetic with room to spare and breaks, by far, where the last key
+    tile (K4: query tile) is left out. `tile` is K3's key tile; K4 streams
+    64-row query tiles, as the kernel."""
+    name, key = output
     q, k, v, do = _bf16_case(4, 512, d, seed=d, q_scale=q_scale)
     scale = d ** -0.5
     ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
@@ -132,15 +166,51 @@ def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(nam
     if name == "flash_fwd":
         ref = ref_o
         right, wrong = (_k3_arithmetic(q, k, v, scale, tile, drop) for drop in (False, True))
-    else:
+    elif name == "flash_bwd_dq":
         ref = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
         right, wrong = (_k5_arithmetic(q, k, v, do, lse, delta, scale, tile, drop) for drop in (False, True))
-    bound = chip_smoke.flash_rounding_bound(name, q, k, v, do, lse, delta, True, scale)
+    else:
+        ref = dict(zip(("dk", "dv"), fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)))[key]
+        right, wrong = (_k4_arithmetic(q, k, v, do, lse, delta, scale, 64, drop)[key]
+                        for drop in (False, True))
+    bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
     tol = dict(atol=chip_smoke.BF16_ATOL, rtol=chip_smoke.BF16_RTOL)
     held = chip_smoke.limit_report(right, ref, **tol, bound=bound)
     assert held["broken"] == 0 and held["share"] < 0.75, held
     caught = chip_smoke.limit_report(wrong, ref, **tol, bound=bound)
     assert caught["broken"] > 100 and caught["share"] > 5, caught
+
+
+def test_gqa_repeat_time_finds_each_layers_k_and_v_repeat():
+    """The profile's grouped-query repeat, on a `llama_tiny` step on the CPU
+    (4 query heads over 2 K/V heads, 2 layers): one forward copy and one
+    backward group sum for K and for V in each layer, and no other op
+    counted (device times are 0 without a card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader, create_llama_model
+    from accelerate_tpu_torch.models import llama_tiny
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    config = llama_tiny()
+    rows = np.random.default_rng(0).integers(0, config.vocab_size, (2, 64))
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    try:
+        model = create_llama_model(config, seed=0, device=torch.device("cpu"))
+        accelerator = Accelerator(cpu=True)
+        optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+        data = [{"input_ids": r} for r in rows]
+        _, _, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(2), 2)))
+        step_fn = accelerator.train_step(max_grad_norm=1.0)
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+            step_fn(next(iter(loader)))
+    finally:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+    calls = 2 * config.num_hidden_layers
+    assert chip_smoke.gqa_repeat_time(prof) == {"forward_ms": 0.0, "forward_calls": calls,
+                                                "backward_ms": 0.0, "backward_calls": calls}
 
 
 def test_limit_report_names_the_worst_element():

@@ -13,13 +13,14 @@ order, and well below the small outputs of long slots. The flash backward's
 f32 gradients sum up to S products per value, in another order than the
 plain version's matmuls: atol/rtol 1e-4. The quantized mode of the paged
 kernels dequantizes exactly as its plain version does (one f32 multiply per
-value), so the same tolerances hold. bf16 K3 and K5 run on the tensor cores
-with P and dS rounded to bf16 (as FlashAttention-2/3 and SDPA do), which
-their fp32 plain versions do not; in rows that see few keys that moves o
-and dq past atol 2e-3 where they are small. So their o and dq are held,
-element by element, within atol 2e-3 + rtol 1e-2 |ref| plus the most that
-rounding can move each element (`chip_smoke.flash_rounding_bound`:
-2^-8 (P @ |V|), 2^-8 (|dS| @ |K|)).
+value), so the same tolerances hold. bf16 K3, K4 and K5 run on the tensor
+cores with P and dS rounded to bf16 (as FlashAttention-2/3 and SDPA do),
+which their fp32 plain versions do not; in rows that see few keys (keys
+that few rows see) that moves o, dq, dk and dv past atol 2e-3 where they
+are small. So they are held, element by element, within atol 2e-3 + rtol
+1e-2 |ref| plus the most that rounding can move each element
+(`chip_smoke.flash_rounding_bound`: 2^-8 (P @ |V|), 2^-8 (|dS| @ |K|),
+2^-8 (|dS|^T @ |Q|), 2^-8 (P^T @ |dO|)).
 """
 
 import numpy as np
@@ -255,32 +256,35 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
         for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
             torch.testing.assert_close(got.float(), ref.float(), **F32_GRAD, msg=lambda m: f"{name}: {m}")
         return
-    bound_o = chip_smoke.flash_rounding_bound("flash_fwd", q, k, v, do, ref_lse, None, causal, scale)
-    bound_dq = chip_smoke.flash_rounding_bound("flash_bwd_dq", q, k, v, do, lse, fa._delta(o, do), causal, scale)
-    _assert_within(o, ref_o, BF16, bound_o, "o")
-    _assert_within(dq, ref_dq, BF16, bound_dq, "dq")
-    _assert_within(dk, ref_dk, BF16, what="dk")
-    _assert_within(dv, ref_dv, BF16, what="dv")
+    delta = fa._delta(o, do)
+    _assert_within(o, ref_o, BF16, chip_smoke.flash_rounding_bound("flash_fwd", "o", q, k, v, do, ref_lse, None,
+                                                                    causal, scale), "o")
+    for name, key, got, ref in (("flash_bwd_dq", "dq", dq, ref_dq), ("flash_bwd_dkv", "dk", dk, ref_dk),
+                                ("flash_bwd_dkv", "dv", dv, ref_dv)):
+        bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, lse, delta, causal, scale)
+        _assert_within(got, ref, BF16, bound, key)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_keep_to_their_head(cuda, dtype, d):
     """S = 130 and Sk = 250 leave ragged last tiles in every head. Head 2's
-    K and V are set to inf: a kernel that filled head 1's ragged tile with
-    the next head's rows (a 2-D [B*H*S, D] tensor map, say) would multiply
-    them by its masked zeros and write NaN. Every other head's outputs equal
-    those of a run where head 2 is finite, bit for bit."""
+    Q, K, V and dO are set to inf: a kernel that filled head 1's ragged
+    tile with the next head's rows (a 2-D [B*H*S, D] tensor map, say) would
+    multiply them by its masked zeros and write NaN: K3 and K5 stream K/V
+    tiles, K4 Q/dO tiles. Every other head's outputs equal those of a run
+    where head 2 is finite, bit for bit."""
     q, k, v, do = _flash_case(cuda, dtype, 4, 130, 250, d, seed=d)
     scale = d ** -0.5
-    kp, vp = k.clone(), v.clone()
-    kp[2], vp[2] = float("inf"), float("inf")
+    poisoned = [x.clone() for x in (q, k, v, do)]
+    for x in poisoned:
+        x[2] = float("inf")
     others = [0, 1, 3]
     runs = []
-    for kk, vv in ((k, v), (kp, vp)):
+    for qq, kk, vv, dd in ((q, k, v, do), poisoned):
         for causal in (True, False):
-            o, lse = fa.flash_fwd(q, kk, vv, causal=causal, scale=scale)
-            dq, dk, dv = fa.flash_bwd(q, kk, vv, o, lse, do, causal=causal, scale=scale)
+            o, lse = fa.flash_fwd(qq, kk, vv, causal=causal, scale=scale)
+            dq, dk, dv = fa.flash_bwd(qq, kk, vv, o, lse, dd, causal=causal, scale=scale)
             runs.append([x[others] for x in (o, lse, dq, dk, dv)])
     torch.cuda.synchronize()
     for clean, poisoned in zip(runs[:2], runs[2:]):
@@ -292,25 +296,30 @@ def test_flash_kernels_keep_to_their_head(cuda, dtype, d):
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_softmax_rescales_large_scores(cuda, d):
     """bf16 with q scaled by 8, so that scores spread 8 times wider and the
-    running row maximum jumps between key tiles: K3's o and lse and K5's dq
-    against their plain versions (o and dq within their rounding bound)."""
+    running row maximum jumps between key tiles: K3's o and lse, K4's dk
+    and dv and K5's dq against their plain versions (each within its
+    rounding bound)."""
     q, k, v, do = _flash_case(cuda, torch.bfloat16, 3, 192, 192, d, seed=d + 7, q_scale=8.0)
     scale = d ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale)
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
     delta = fa._delta(ref_o, do)
     dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=True, scale=scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True, scale=scale)
     torch.cuda.synchronize()
-    _assert_within(o, ref_o, BF16, chip_smoke.flash_rounding_bound("flash_fwd", q, k, v, do, ref_lse, delta,
+    _assert_within(o, ref_o, BF16, chip_smoke.flash_rounding_bound("flash_fwd", "o", q, k, v, do, ref_lse, delta,
                                                                     True, scale), "o")
     torch.testing.assert_close(lse, ref_lse, **LSE)
     ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, True, scale)
-    _assert_within(dq, ref_dq, BF16, chip_smoke.flash_rounding_bound("flash_bwd_dq", q, k, v, do, ref_lse, delta,
-                                                                      True, scale), "dq")
+    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, ref_lse, delta, True, scale)
+    for name, key, got, ref in (("flash_bwd_dq", "dq", dq, ref_dq), ("flash_bwd_dkv", "dk", dk, ref_dk),
+                                ("flash_bwd_dkv", "dv", dv, ref_dv)):
+        bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, ref_lse, delta, True, scale)
+        _assert_within(got, ref, BF16, bound, key)
 
 
 def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
-    """On bf16 CUDA tensors K3 and K5 launch the wgmma kernels (the
+    """On bf16 CUDA tensors K3, K4 and K5 launch the wgmma kernels (the
     profiler's kernel names say so) and f32 the scalar ones, each call one
     launch; a tensor the TMA path cannot take raises before any launch."""
     from torch.profiler import ProfilerActivity, profile
@@ -322,14 +331,16 @@ def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
         before = dict(fa.LAUNCHES)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fa.flash_fwd(q, k, v, causal=True)
+            fa.flash_bwd_dkv(q, k, v, do, lse, lse, causal=True)
             fa.flash_bwd_dq(q, k, v, do, lse, lse, causal=True)
             torch.cuda.synchronize()
         assert {key: fa.LAUNCHES[key] - before[key] for key in before} == {
-            "flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 1}
+            "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
         names[dtype] = " ".join(e.key for e in prof.key_averages())
-    assert "flash_fwd_wgmma_kernel" in names[torch.bfloat16]
-    assert "flash_bwd_dq_wgmma_kernel" in names[torch.bfloat16]
-    assert "wgmma" not in names[torch.float32] and "flash_fwd_kernel" in names[torch.float32]
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert f"{kernel}_wgmma_kernel" in names[torch.bfloat16], kernel
+        assert f"{kernel}_kernel" in names[torch.float32], kernel
+    assert "wgmma" not in names[torch.float32]
 
     q, k, v, _ = _flash_case(cuda, torch.bfloat16, 2, 64, 64, 64)
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)  # 2 bytes off
