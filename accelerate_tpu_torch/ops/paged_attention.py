@@ -2,12 +2,20 @@
 block-verify, read straight off the page pool.
 
 Port of `accelerate_tpu/ops/paged_attention.py`. On CUDA tensors each public
-function launches the hand-written Hopper kernel in `csrc/paged_attention.cu`
-(one thread block per (KV head, slot) walking that slot's page table); on CPU
-tensors it runs `paged_attention_reference`, the plain PyTorch version of the
-same function that the tests and `chip_smoke.py` hold the kernel against.
-Nothing falls back: a CUDA tensor the kernel does not take raises, and so does
-a kernel that fails to build or launch.
+function launches the hand-written Hopper kernels in `csrc/paged_attention.cu`:
+one thread block per (KV head, slot, split of the slot's pages) walks that
+split's page-table entries and writes its rows' partial softmax state to a
+workspace, and a merge kernel combines each slot's splits. On CPU tensors it
+runs `paged_attention_reference`, the plain PyTorch version of the same
+function that the tests and `chip_smoke.py` hold the kernel against. Nothing
+falls back: a CUDA tensor the kernel does not take raises, and so does a
+kernel that fails to build or launch.
+
+The split length comes from the page size alone (`split_tokens`), never from
+positions, so a launch reads nothing back to the host.
+`paged_attention_split_emulation` repeats the kernels' arithmetic in plain
+PyTorch (per-split partials, p rounded to bf16 for bf16 queries, the merge)
+for the tests and `chip_smoke.py`; no entry point calls it.
 
 Quantized pools (``k_scale``/``v_scale``, `ops/quantization.py`): int8 or
 fp8-e4m3 pages with ``[num_pages, Hkv]`` f32 per-page-per-head scales. The
@@ -50,6 +58,12 @@ LAUNCHES: Dict[str, int] = {
 #: Shared memory a block may use on Hopper (232,448 bytes).
 _MAX_SHARED_BYTES = 232448
 
+#: Tokens of a kernel tile (whole pages, or one page when a page is larger)
+#: and of a split (whole tiles): `csrc/paged_attention.cu`'s kTileTokens and
+#: the split the wrapper passes it.
+TILE_TOKENS = 64
+SPLIT_TOKENS = 256
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,20 +75,37 @@ def reset_launch_counts():
         LAUNCHES[key] = 0
 
 
+def tile_tokens(page_size: int) -> int:
+    """Tokens of one tile: whole pages, at most TILE_TOKENS of them unless a
+    single page is larger."""
+    return page_size if page_size >= TILE_TOKENS else (TILE_TOKENS // page_size) * page_size
+
+
+def split_tokens(page_size: int) -> int:
+    """Tokens of one split: whole tiles, SPLIT_TOKENS or the nearest
+    multiple of the tile below it (one tile at least)."""
+    tile = tile_tokens(page_size)
+    return tile * max(1, SPLIT_TOKENS // tile)
+
+
+def num_splits(pages_per_slot: int, page_size: int, split: int) -> int:
+    return -(-pages_per_slot // (split // page_size))
+
+
 def _lib():
     from ._build import load
 
     lib = load("paged_attention")
     if lib.paged_decode_launch.argtypes is None:
-        lib.paged_decode_launch.argtypes = [_P] * 6 + [_I] * 7 + [_F, _I, _P]
+        lib.paged_decode_launch.argtypes = [_P] * 7 + [_I] * 8 + [_F, _I, _P]
         lib.paged_decode_launch.restype = ctypes.c_int
-        lib.paged_verify_launch.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
+        lib.paged_verify_launch.argtypes = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
         lib.paged_verify_launch.restype = ctypes.c_int
-        lib.paged_decode_quant_launch.argtypes = [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P]
+        lib.paged_decode_quant_launch.argtypes = [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P]
         lib.paged_decode_quant_launch.restype = ctypes.c_int
-        lib.paged_verify_quant_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P]
+        lib.paged_verify_quant_launch.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]
         lib.paged_verify_quant_launch.restype = ctypes.c_int
-        lib.paged_attention_shared_bytes.argtypes = [_I] * 5
+        lib.paged_attention_shared_bytes.argtypes = [_I] * 8
         lib.paged_attention_shared_bytes.restype = ctypes.c_ulonglong
         lib.paged_attention_error_string.argtypes = [_I]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -108,6 +139,85 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, positions, scale=No
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhsgl,blhd->bshgd", probs, v)
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def split_partials(q, k_pool, v_pool, page_table, positions, scale=None, k_scale=None,
+                   v_scale=None, split=None, p_terms=2):
+    """Per-split partials of the kernels' arithmetic in plain PyTorch (see
+    `paged_attention_split_emulation`): (m, l, acc, ran) with m and l
+    [B, Hkv, s, G, n_split], acc [B, Hkv, s, G, n_split, D], all f32, and
+    ran [B, n_split], the splits a launch runs."""
+    b, s, hq, d = q.shape
+    n, ps, hkv, _ = k_pool.shape
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    split = split or split_tokens(ps)
+    table = page_table.long().clamp(0, n - 1)
+    pages = table.shape[1]
+    n_split = num_splits(pages, ps, split)
+    length, total = pages * ps, n_split * split
+    k = k_pool[table].reshape(b, length, hkv, d).float()  # stored values: codes when quantized
+    v = v_pool[table].reshape(b, length, hkv, d).float()
+    ones = torch.ones(b, pages, hkv, device=q.device)
+    ks, vs = (ones, ones) if k_scale is None else (k_scale[table], v_scale[table])
+    ks = ks[:, :, None, :].expand(b, pages, ps, hkv).reshape(b, length, hkv)
+    vs = vs[:, :, None, :].expand(b, pages, ps, hkv).reshape(b, length, hkv)
+    pad = total - length
+    if pad:
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        ks = torch.nn.functional.pad(ks, (0, 0, 0, pad))
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, pad))
+    qg = q.float().reshape(b, s, hkv, g, d)
+    scores = torch.einsum("bshgd,blhd->bhsgl", qg, k) * scale * ks.transpose(1, 2)[:, :, None, None, :]
+    cols = torch.arange(total, device=q.device)
+    visible = (cols[None, None, :] <= positions.reshape(b, s, 1).long()) & (cols < length)
+    scores = scores.reshape(b, hkv, s, g, n_split, split)
+    vis = visible.reshape(b, 1, s, 1, n_split, split)
+    m = scores.masked_fill(~vis, NEG_INF).amax(-1)
+    p = torch.where(vis, torch.exp(scores - m[..., None]), torch.zeros((), device=q.device))
+    l = p.sum(-1)
+    pv = p * vs.transpose(1, 2).reshape(b, hkv, 1, 1, n_split, split)
+    if q.dtype == torch.bfloat16:  # hi + lo, each rounded to bf16 (one term: p rounded once)
+        terms = [pv.bfloat16().float()]
+        for _ in range(p_terms - 1):
+            terms.append((pv - sum(terms)).bfloat16().float())
+        pv = sum(terms)
+    acc = torch.einsum("bhsgnt,bnthd->bhsgnd", pv, v.reshape(b, n_split, split, hkv, d))
+    live = (positions.reshape(b, s).long().amax(1) + ps) // ps
+    runs = -(-live.clamp(max=pages) // (split // ps))
+    ran = torch.arange(n_split, device=q.device)[None, :] < runs[:, None]
+    return m, l, acc, ran
+
+
+def paged_attention_split_emulation(q, k_pool, v_pool, page_table, positions, scale=None,
+                                    k_scale=None, v_scale=None, split=None, drop_split=None, p_terms=2):
+    """The kernels' arithmetic in plain PyTorch, for the tests and
+    `chip_smoke.py` (no entry point calls it). Each slot's columns are cut
+    into splits of `split` tokens (default `split_tokens(page_size)`). Per
+    split and query row, in f32 (`split_partials`): s = (q . k) * scale *
+    k_scale (K's page scale on the score column); m = the largest visible s
+    (NEG_INF where the split holds none); p = exp(s - m) on visible columns
+    and 0 on the others; l = sum(p); acc = sum(p * v_scale * v). When q is
+    bf16, p * v_scale enters the tensor cores as `p_terms` bf16 values whose
+    sum approximates it: hi = bf16(x), lo = bf16(x - hi) (the kernel's two;
+    one term rounds p once, which the tests show breaks the bf16 limit).
+    Only the splits that start before the slot's max position + 1 run;
+    `drop_split` = i leaves split i out wherever it ran, as a wrong kernel
+    would. The merge weighs split i by exp(m_i - max_i m_i): out = sum w acc
+    / max(sum w l, 1e-30), in q's dtype."""
+    b, s, hq, d = q.shape
+    m, l, acc, ran = split_partials(q, k_pool, v_pool, page_table, positions, scale, k_scale, v_scale,
+                                    split, p_terms)
+    if drop_split is not None:
+        ran = ran.clone()
+        ran[:, drop_split] = False
+    ran = ran[:, None, None, None, :]
+    top = m.masked_fill(~ran, NEG_INF).amax(-1, keepdim=True)
+    w = torch.where(ran, torch.exp(m - top), torch.zeros((), device=q.device))
+    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1).clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
 def _check(q, k_pool, v_pool, page_table, positions, k_scale=None, v_scale=None):
@@ -168,23 +278,28 @@ def _launch(kind, q, k_pool, v_pool, page_table, positions, scale, k_scale=None,
     for name in ("q", "k_pool", "v_pool"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    p = page_table.shape[1]
+    split = split_tokens(ps)
+    kv_code = _KV_CODES[k_pool.dtype][1] if quantized else -1
     lib = _lib()
-    smem = lib.paged_attention_shared_bytes(s, hq, hkv, d, ps)
+    smem = lib.paged_attention_shared_bytes(s, hq, hkv, d, ps, split, _DTYPE_CODES[q.dtype], kv_code)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"{smem} bytes of shared memory per block exceed the card's {_MAX_SHARED_BYTES}")
     out = torch.empty_like(q)
-    p = page_table.shape[1]
-    table_ptrs = [t.data_ptr() for t in (page_table, positions, out)]
-    dims = (b, hq, hkv, d, n, ps, p) if kind == "decode" else (b, s, hq, hkv, d, n, ps, p)
+    # Each split's partial (acc[D], m, l) per query row, f32.
+    ws = torch.empty(b * hkv * num_splits(p, ps, split) * s * (hq // hkv) * (d + 2),
+                     dtype=torch.float32, device=q.device)
+    table_ptrs = [t.data_ptr() for t in (page_table, positions, out, ws)]
+    dims = ((b, hq, hkv, d, n, ps, p) if kind == "decode" else (b, s, hq, hkv, d, n, ps, p)) + (split,)
     # The launch goes to the current device on PyTorch's current stream of
     # q's device, behind this dispatch's pool writes.
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if quantized:
-            name, code = _KV_CODES[k_pool.dtype]
+            name = _KV_CODES[k_pool.dtype][0]
             entry = lib.paged_decode_quant_launch if kind == "decode" else lib.paged_verify_quant_launch
             ptrs = [t.data_ptr() for t in (q, k_pool, v_pool, k_scale, v_scale)] + table_ptrs
-            err = entry(*ptrs, *dims, float(scale), _DTYPE_CODES[q.dtype], code, stream)
+            err = entry(*ptrs, *dims, float(scale), _DTYPE_CODES[q.dtype], kv_code, stream)
             key = f"{kind}_{name}"
         else:
             entry = lib.paged_decode_launch if kind == "decode" else lib.paged_verify_launch

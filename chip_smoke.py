@@ -14,7 +14,10 @@ prints no result):
    tokens, ragged lengths, shuffled page tables, a poisoned scratch page;
    verify block s = 5), each held against its plain PyTorch version in f32
    (atol 2e-5) and bf16 (atol 2e-3, rtol 1e-2), then timed with CUDA events
-   (median of 60 launches, L2 flushed before each) beside the plain version,
+   (median of 60 launches, L2 flushed before each: `ms`, which a call's host
+   work bounds where it outlasts the flush, and `device_ms`, the device
+   spun 0.5 ms after the flush so that only its own time counts) beside the
+   plain version,
    the least time the card could take (bytes at 3.35 TB/s or operations at
    the peak rate of the input type, whichever is larger) and, as a labelled
    yardstick the port never calls, `F.scaled_dot_product_attention` over an
@@ -80,18 +83,21 @@ TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
     python3 chip_smoke.py --compare TREE [TREE ...] [--head-dim D]
 
-times the flash kernels of several source trees on the card instead, in
-turns. Each TREE is a directory that holds `accelerate_tpu_torch/`: this
-checkout (`.`), a `git archive` of another commit, or a copy with one
-constant changed, unpacked under the git-ignored `scratch/`. Every tree runs
-in a process of its own, which builds its kernels into TREE/build/, in the
-order given and then in reverse (a b b a), so that drift on the card weighs
-on both sides alike. Each run prints one `[compare]` JSON line: K3, K4 and
-K5 in bf16 at the training shape (head dimension D if given), timed as
-above, each kernel's largest
-error against its plain version, SDPA's forward time as a yardstick of the
-card, and ptxas' report of the tree's wgmma kernels. It prints no result
-line.
+times the kernels of several source trees on the card instead, in turns.
+Each TREE is a directory that holds `accelerate_tpu_torch/`: this checkout
+(`.`), a `git archive` of another commit, or a copy with one constant
+changed, unpacked under the git-ignored `scratch/`. Every tree runs in a
+process of its own, which builds its kernels into TREE/build/, in the order
+given and then in reverse (a b b a), so that drift on the card weighs on
+both sides alike. Each run prints one `[compare]` JSON line: K1 and K2
+with bf16 queries at the kernel phase's shape over bf16, int8 and fp8
+pools, each with its largest error against the plain version, its and the
+library call's times as above, the wall time per call of 1408 calls back
+to back (one serving run's) and the host's time per call over the first
+256, then ptxas' report of the tree's paged kernels; K3, K4 and K5 in bf16 at the training shape (head dimension
+D if given), timed as above, each kernel's largest error against its plain
+version, SDPA's forward time as a yardstick of the card, and ptxas' report
+of the tree's wgmma kernels. It prints no result line.
 """
 
 from __future__ import annotations
@@ -117,6 +123,15 @@ F32_ATOL = 2e-5
 # them; the measured error is about 2e-4.
 BF16_ATOL, BF16_RTOL = 2e-3, 1e-2
 TIMED_LAUNCHES = 60
+# Device clock cycles `time_ms(spin=True)` spins before each timed call
+# (0.5 ms at the H100's 1.98 GHz boost clock).
+SPIN_CYCLES = 1_000_000
+# Back-to-back calls `paged_compare` times for a wall time per call: the K1
+# (and K2) calls of one serving run, 16 layers x 88 dispatches. The host
+# time per call is read over the first HOST_CALLS of them, which a launch
+# queue holds without making the host wait for the device.
+SERVING_CALLS = 1408
+HOST_CALLS = 256
 
 # Llama-1B attention at the engine's shapes.
 KERNEL_SHAPE = dict(slots=8, hq=32, hkv=8, d=64, page_size=16, max_length=2048, verify_s=5)
@@ -142,6 +157,11 @@ FLASH_DESIGN = {
                      "3-D loads of 64-row Q/dO tiles through a 2-stage ring, lse and delta staged in shared "
                      "memory, one warpgroup of 64 keys per block; f32: scalar fp32 FMAs",
 }
+PAGED_DESIGN = ("bf16: grid (Hkv, slots, splits of 256 tokens x row groups) and a merge kernel launched as a "
+                "programmatic dependent; whole-page tiles of 64 tokens through a 2-stage cp.async ring at the "
+                "pool's own width; mma.sync m16n8k16 s = q.k^T and o += p.v (p as bf16 hi + lo) with query rows "
+                "as M, int8/e4m3 widened to bf16 in registers, page scales on the score and p columns; f32: "
+                "scalar fp32 FMAs in the same split and merge")
 FLASH_KERNELS = {
     # name: (TPU kernel it replaces, products of 2 * BH * pairs * D operations it needs)
     "flash_fwd": ("accelerate_tpu/ops/flash_attention.py:53", 2),       # s, p @ v
@@ -184,6 +204,32 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+def _template_args(mangled: str):
+    """A mangled template argument list, read left to right: `Li64E` is 64,
+    `f` f32, `a` int8, `13__nv_bfloat16` bf16, `13__nv_fp8_e4m3` fp8, and a
+    substitution (`S1_`) repeats the type before it."""
+    import re
+
+    names = {"__nv_bfloat16": "bf16", "__nv_fp8_e4m3": "fp8", "f": "f32", "a": "int8"}
+    args, i = [], 0
+    while i < len(mangled):
+        m = re.match(r"Li(\d+)E|(\d+)|(S\d*_)|([fa])", mangled[i:])
+        if not m:
+            break
+        i += m.end()
+        if m.group(1):
+            args.append(m.group(1))
+        elif m.group(2):
+            name = mangled[i:i + int(m.group(2))]
+            i += len(name)
+            args.append(names.get(name, name))
+        elif m.group(3):
+            args.append(args[-1])
+        else:
+            args.append(names[m.group(4)])
+    return args
+
+
 def ptxas_report(log_text: str):
     """One line per kernel from nvcc's `-Xptxas -v` output: the kernel's
     name and template arguments (`flash_fwd_wgmma_kernel<64,128,2>`), then
@@ -197,9 +243,7 @@ def ptxas_report(log_text: str):
         if "Compiling entry function" in line:
             m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", line)
             if m:
-                args = ["bf16" if b else "f32" if f else i
-                        for i, b, f in re.findall(r"Li(\d+)E|(__nv_bfloat16)|^(f)", m.group(2))]
-                kernel = f"{m.group(1)}<{','.join(args)}>"
+                kernel = f"{m.group(1)}<{','.join(_template_args(m.group(2)))}>"
             else:
                 kernel = line
         elif kernel and ("spill" in line or "Used" in line):
@@ -218,11 +262,17 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(fn, device, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
-    """Median device time of `fn` over `iters` calls, each bracketed by CUDA
-    events, with the 50 MB L2 flushed (a 256 MB write) before each call so
-    every call reads its inputs from device memory, as a layer of the engine
-    does."""
+def time_ms(fn, device, iters: int = TIMED_LAUNCHES, warmup: int = 3, spin: bool = False) -> float:
+    """Median time of `fn` over `iters` calls, each bracketed by CUDA events,
+    with the 50 MB L2 flushed (a 256 MB write) before each call so every call
+    reads its inputs from device memory, as a layer of the engine does.
+
+    Without `spin` (the `ms` of every row) a call whose host work outlasts the
+    flush is timed at least at that host work's pace: the device reaches the
+    start event and waits for the launches. With `spin` (`device_ms`) the
+    device spins for SPIN_CYCLES (about 0.5 ms) after the flush, so the host
+    has queued the whole call before the start event: the device's time
+    alone."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     for _ in range(warmup):
         fn()
@@ -230,6 +280,8 @@ def time_ms(fn, device, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
     events = []
     for _ in range(iters):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -237,6 +289,31 @@ def time_ms(fn, device, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize(device)
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def paired_times(call, library, device):
+    """A kernel's and its library call's times, each without and with the
+    spin (`time_ms`): ms, device_ms, library_ms, library_device_ms."""
+    return {"ms": time_ms(call, device), "device_ms": time_ms(call, device, spin=True),
+            "library_ms": time_ms(library, device), "library_device_ms": time_ms(library, device, spin=True)}
+
+
+def loop_times(call, device, n=SERVING_CALLS, host_calls=HOST_CALLS):
+    """`n` calls back to back, neither flushed nor spun: (wall ms per call,
+    synchronised at the end; host ms per call over the first `host_calls`,
+    the host's own work, as the device cannot hold it back that early).
+    Where the host's work per call outlasts the device's, the two meet."""
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for i in range(n):
+        call()
+        if i == host_calls - 1:
+            t1 = time.perf_counter()
+    torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    return 1e3 * (t2 - t0) / n, 1e3 * (t1 - t0) / host_calls
 
 
 # ----------------------------------------------------------------- kernels
@@ -322,9 +399,9 @@ def kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
             bound, bound_by = kernel_bound(q, k, table, pos)
             row.update(bound_ms=bound, bound_by=bound_by)
             if timed:
-                row["ms"] = time_ms(lambda: fn(q, k, v, table, pos), device)
+                row.update(paired_times(lambda: fn(q, k, v, table, pos), sdpa_yardstick(q, k, v, table, pos),
+                                        device))
                 row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(q, k, v, table, pos), device)
-                row["library_ms"] = time_ms(sdpa_yardstick(q, k, v, table, pos), device)
             entry[str(dtype).replace("torch.", "")] = row
             log(f"[kernels] {kind} {dtype}: {json.dumps(row)}")
         results[kind] = entry
@@ -369,11 +446,11 @@ def quantized_kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
                 bound, bound_by = kernel_bound(q, kq, table, pos, quantized=True)
                 row.update(bound_ms=bound, bound_by=bound_by)
                 if timed:
-                    row["ms"] = time_ms(lambda: fn(*args, **scales), device)
-                    row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(*args, **scales), device)
                     kd = qz.dequantize_kv(kq, ks[:, None, :, None], dtype)
                     vd = qz.dequantize_kv(vq, vs[:, None, :, None], dtype)
-                    row["library_ms"] = time_ms(sdpa_yardstick(q, kd, vd, table, pos), device)
+                    row.update(paired_times(lambda: fn(*args, **scales), sdpa_yardstick(q, kd, vd, table, pos),
+                                            device))
+                    row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(*args, **scales), device)
                     del kd, vd
                 entry[str(dtype).replace("torch.", "")] = row
                 log(f"[kernels] {key} {dtype}: {json.dumps(row)}")
@@ -611,7 +688,7 @@ def profile_phase(model, requests, device, engine_kw, unprofiled_wall_s):
     groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for us, name, _ in kernels:
         lowered = name.lower()
-        if "paged_attention" in lowered:
+        if "paged_" in lowered:  # csrc/paged_attention.cu: paged_split_*_kernel, paged_merge_kernel
             groups["paged_attention"] += us
         elif any(tag in lowered for tag in ("gemm", "gemv", "xmma", "cutlass", "nvjet")):
             groups["gemm"] += us
@@ -781,9 +858,8 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
             bound, bound_by = flash_bound(name, q, k)
             row.update(bound_ms=bound, bound_by=bound_by)
             if timed:
-                row["ms"] = time_ms(call, device)
+                row.update(paired_times(call, lib_fwd if name == "flash_fwd" else lib_bwd, device))
                 row["plain_ms"] = time_ms(plains[name], device, iters=20)
-                row["library_ms"] = time_ms(lib_fwd if name == "flash_fwd" else lib_bwd, device)
             results[name][str(dtype).replace("torch.", "")] = row
             log(f"[flash] {name} {dtype}: {json.dumps(row)}")
         del q, k, v, do, ref_o, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains, refs, sdpa, lib_fwd, lib_bwd
@@ -791,14 +867,65 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
 
 
 def compare_worker(tree, head_dim=FLASH_SHAPE["d"]):
-    """One `--compare` run: the flash kernels of `tree`, built into
-    tree/build/, in bf16 at FLASH_SHAPE with head dimension `head_dim`."""
+    """One `--compare` run of `tree`'s kernels, built into tree/build/: K1
+    and K2 (`paged_compare`), then the flash kernels in bf16 at FLASH_SHAPE
+    with head dimension `head_dim` (`flash_compare`)."""
     sys.path.insert(0, os.path.abspath(tree))
     from accelerate_tpu_torch.ops import _build
+
+    _build.build(["flash_attention", "paged_attention"])
+    device = torch.device("cuda", 0)
+    report = {"tree": tree, "paged": paged_compare(device),
+              "paged_ptxas": ptxas_report(_build.BUILD_LOG.get("paged_attention", ""))}
+    report.update(flash_compare(device, head_dim))
+    report["ptxas"] = [line for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", "")) if "wgmma" in line]
+    report["card"] = card_line()
+    return report
+
+
+def paged_compare(device, shape=KERNEL_SHAPE):
+    """K1 and K2 with bf16 queries at `shape` over bf16, int8 and fp8 pools
+    (the pools of `kernel_case`, quantized as in `quantized_kernel_phase`):
+    each call's largest error against the plain version, its times and the
+    library call's as the kernel phases take them (`paired_times`), and the
+    wall time per call of SERVING_CALLS calls back to back and the host's
+    time per call over the first HOST_CALLS (`loop_times`: `loop_ms`,
+    `host_ms`); the host's work bounds `loop_ms` once it outlasts the
+    device's."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    rows = {}
+    for kind, s in (("decode", 1), ("verify", shape["verify_s"])):
+        fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
+        q, k, v, table, pos = kernel_case(device, torch.float32, s, seed=11 + s, **shape)
+        q = q.to(torch.bfloat16)
+        for kv in ("bfloat16", *KV_DTYPES):
+            if kv == "bfloat16":
+                pools, scales = (k.to(torch.bfloat16), v.to(torch.bfloat16)), {}
+                dense = pools
+            else:
+                spec = qz.kv_quant_spec(kv)
+                (kq, ks), (vq, vs) = qz.quantize_kv_pages(k, spec), qz.quantize_kv_pages(v, spec)
+                pools, scales = (kq, vq), dict(k_scale=ks, v_scale=vs)
+                dense = (qz.dequantize_kv(kq, ks[:, None, :, None], torch.bfloat16),
+                         qz.dequantize_kv(vq, vs[:, None, :, None], torch.bfloat16))
+            args = (q, *pools, table, pos)
+            err = float((fn(*args, **scales).float()
+                         - pa.paged_attention_reference(*args, **scales).float()).abs().max())
+            row = paired_times(lambda: fn(*args, **scales), sdpa_yardstick(q, *dense, table, pos), device)
+            row["loop_ms"], row["host_ms"] = loop_times(lambda: fn(*args, **scales), device)
+            row["max_abs_err"] = err
+            rows[kind if kv == "bfloat16" else f"{kind}_{kv}"] = row
+            del pools, scales, dense, args
+    return rows
+
+
+def flash_compare(device, head_dim):
+    """K3, K4 and K5 in bf16 at FLASH_SHAPE with head dimension `head_dim`:
+    times, errors against the plain versions and SDPA's forward time."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    _build.build(["flash_attention"])
-    device = torch.device("cuda", 0)
     shape = dict(FLASH_SHAPE, d=head_dim)
     scale = shape["d"] ** -0.5
     q, k, v, do = flash_case(device, torch.bfloat16, seed=21, **shape)
@@ -819,8 +946,8 @@ def compare_worker(tree, head_dim=FLASH_SHAPE["d"]):
     }
     ms = {name: time_ms(call, device) for name, call in calls.items()}
     ms["sdpa_fwd"] = time_ms(sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])[0], device)
-    ptxas = [line for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", "")) if "wgmma" in line]
-    return {"tree": tree, "shape": shape, "ms": ms, "errors": errors, "ptxas": ptxas, "card": card_line()}
+    device_ms = {name: time_ms(call, device, spin=True) for name, call in calls.items()}
+    return {"shape": shape, "ms": ms, "device_ms": device_ms, "errors": errors}
 
 
 def compare(trees, head_dim=FLASH_SHAPE["d"]) -> int:
@@ -1090,6 +1217,8 @@ def main(argv=None) -> int:
             "tolerance": bf16["tolerance"],
             "ms": bf16["ms"],
             "kernel_ms": bf16["ms"],
+            "device_ms": bf16["device_ms"],
+            "library_device_ms": bf16["library_device_ms"],
             "plain_ms": bf16["plain_ms"],
             "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"],
@@ -1099,6 +1228,7 @@ def main(argv=None) -> int:
             "dtype": "bfloat16",
             "kv_dtype": kv or "bfloat16",
             "shape": dict(KERNEL_SHAPE, s=1 if kind == "decode" else KERNEL_SHAPE["verify_s"]),
+            "design": PAGED_DESIGN,
             "f32": f32,
         })
     for name, (replaces, _) in FLASH_KERNELS.items():
@@ -1114,6 +1244,8 @@ def main(argv=None) -> int:
             "errors": bf16["errors"],
             "ms": bf16["ms"],
             "kernel_ms": bf16["ms"],
+            "device_ms": bf16["device_ms"],
+            "library_device_ms": bf16["library_device_ms"],
             "plain_ms": bf16["plain_ms"],
             "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"],

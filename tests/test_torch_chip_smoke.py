@@ -230,3 +230,45 @@ def test_compare_flash_kernels_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 2 and "needs a CUDA device" in run.stderr
     assert "[compare]" not in run.stdout
+
+
+def test_compare_paged_kernels_refuses_without_a_card():
+    """The per-tree worker, which builds and times K1/K2 before the flash
+    kernels, refuses as `--compare` does."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--compare-worker", ROOT],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[compare]" not in run.stdout
+
+
+# Lines as nvcc -Xptxas -v prints them for the paged kernels.
+PAGED_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122paged_split_mma_kernelIaLi64ELi2EEEvPK13__nv_bfloat16PKT_S6_PKfS8_PKiSA_Pfiiiiiiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 216 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122paged_split_mma_kernelI13__nv_fp8_e4m3Li32ELi1EEEvPK13__nv_bfloat16PKT_S6_PKfS8_PKiSA_Pfiiiiiiiiif' for 'sm_90a'
+ptxas info    : Used 106 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125paged_split_scalar_kernelIfaEEvPKT_PKT0_S6_PKfS8_PKiSA_Pfiiiiiiiiif' for 'sm_90a'
+ptxas info    : Used 48 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125paged_split_scalar_kernelI13__nv_bfloat16S1_EEvPKT_PKT0_S7_PKfS9_PKiSB_Pfiiiiiiiiif' for 'sm_90a'
+ptxas info    : Used 50 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118paged_merge_kernelI13__nv_bfloat16EEvPKfPKiPT_iiiiiiiii' for 'sm_90a'
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report_names_the_paged_kernels():
+    """The split kernels' template arguments (the tensor-core kernel's pool
+    type, head dimension and row tiles; the scalar kernel's query and pool
+    types, a repeated type given by substitution) and the merge kernel's
+    output type."""
+    assert chip_smoke.ptxas_report(PAGED_PTXAS_LOG) == [
+        "paged_split_mma_kernel<int8,64,2>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "paged_split_mma_kernel<int8,64,2>: Used 216 registers, used 1 barriers",
+        "paged_split_mma_kernel<fp8,32,1>: Used 106 registers, used 1 barriers",
+        "paged_split_scalar_kernel<f32,int8>: Used 48 registers, used 1 barriers",
+        "paged_split_scalar_kernel<bf16,bf16>: Used 50 registers, used 1 barriers",
+        "paged_merge_kernel<bf16>: Used 32 registers, used 0 barriers",
+    ]

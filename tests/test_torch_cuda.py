@@ -160,6 +160,116 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                   v[..., :12].contiguous(), table, pos)
 
 
+def _split_case(device, s, page_size, kv_dtype, dtype, seed=3, hq=8, hkv=2, d=64, max_length=2048):
+    """Four slots of up to `max_length` tokens whose blocks end at the edges
+    of the kernel's splits: decode at lengths 1, one split, one split + 1 and
+    the full slot; verify blocks that start at 0, straddle the first split
+    boundary (rows end in two splits), start on it and end the slot. Shuffled
+    pages, scratch page 0 poisoned behind each slot's live pages; int8/fp8
+    pools quantized whole-page."""
+    rng = np.random.default_rng(seed)
+    split = pa.split_tokens(page_size)
+    P = max_length // page_size
+    B = 4
+    starts = [0, split - 1, split, max_length - 1] if s == 1 else [0, split - 3, split, max_length - s]
+    pos = (np.array(starts)[:, None] + np.arange(s)[None, :]).astype(np.int32)
+    N = B * P + 1
+    pages = rng.permutation(np.arange(1, N))
+    table = np.zeros((B, P), np.int32)
+    for b in range(B):
+        live = -(-(int(pos[b].max()) + 1) // page_size)
+        table[b, :live] = pages[b * P: b * P + live]
+    k = rng.normal(size=(N, page_size, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(N, page_size, hkv, d)).astype(np.float32)
+    k[0], v[0] = 1e4, 1e4
+    q = rng.normal(size=(B, s, hq, d)).astype(np.float32)
+    to = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    k, v = to(k), to(v)
+    scales = {}
+    if kv_dtype in ("int8", "fp8_e4m3"):
+        k, v, ks, vs = _quantized(k, v, kv_dtype)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    return (to(q).to(dtype), k, v, to(table), to(pos)), scales
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("page_size", [4, 16, 128])
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_split_edges_match_plain_version(cuda, dtype, s, page_size, kv_dtype, d):
+    """Slot lengths of 1, exactly one split, one past it and the full 2048,
+    and verify blocks whose rows end in different splits, at pages of 4, 16
+    and 128 over every pool type and at every head dimension the bf16
+    tensor-core kernel is built for (G = 4: decode takes one m16 row tile;
+    verify's 20 rows two tiles in one block at D 32 and 64, and two row
+    groups, each reading the pages, at D 128): the split kernel and its
+    merge against the plain version, one launch counted per call."""
+    args, scales = _split_case(cuda, s, page_size, kv_dtype, dtype, d=d)
+    kind = "decode" if s == 1 else "verify"
+    key = kind if kv_dtype == "native" else f"{kind}_{kv_dtype}"
+    fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
+    before = dict(pa.LAUNCHES)
+    out = fn(*args, **scales)
+    torch.cuda.synchronize()
+    assert {name: pa.LAUNCHES[name] - before[name] for name in before} == {
+        name: int(name == key) for name in before}
+    assert out.dtype == dtype and out.shape == args[0].shape and torch.isfinite(out).all()
+    ref = pa.paged_attention_reference(*args, **scales)
+    torch.testing.assert_close(out.float(), ref.float(), **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("d, kv_dtype", [(40, "native"), (48, "native"), (48, "int8"), (48, "fp8_e4m3"),
+                                         (96, "native"), (96, "int8")])
+@pytest.mark.parametrize("s", [1, 5])
+def test_kernel_bf16_queries_at_other_head_dims(cuda, s, d, kv_dtype):
+    """bf16 queries at head dimensions the tensor-core kernel is not built
+    for run the scalar split kernel with bf16 q and output (D % 8 for bf16
+    pools, D % 16 for 1-byte pools), held to the plain version at the bf16
+    tolerance, one launch per call."""
+    args, scales = _split_case(cuda, s, 16, kv_dtype, torch.bfloat16, d=d)
+    kind = "decode" if s == 1 else "verify"
+    key = kind if kv_dtype == "native" else f"{kind}_{kv_dtype}"
+    fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
+    before = pa.LAUNCHES[key]
+    out = fn(*args, **scales)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[key] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == args[0].shape and torch.isfinite(out).all()
+    ref = pa.paged_attention_reference(*args, **scales)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_kernel_launch_never_synchronises(cuda, kv_dtype):
+    """Under `torch.cuda.set_sync_debug_mode("error")` a decode and a verify
+    call each go through (a synchronising call would raise), and each counts
+    one launch: the wrapper allocates its workspace with torch.empty and
+    reads no positions back to the host."""
+    calls = []
+    for s in (1, 5):
+        args, scales = _split_case(cuda, s, 16, kv_dtype, torch.bfloat16)
+        fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
+        fn(*args, **scales)  # builds and loads the library outside the check
+        calls.append((fn, args, scales, "decode" if s == 1 else "verify"))
+    torch.cuda.synchronize()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, args, scales, kind in calls:
+            key = kind if kv_dtype == "native" else f"{kind}_{kv_dtype}"
+            before = pa.LAUNCHES[key]
+            outs.append(fn(*args, **scales))
+            assert pa.LAUNCHES[key] == before + 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for out, (fn, args, scales, _) in zip(outs, calls):
+        ref = pa.paged_attention_reference(*args, **scales)
+        torch.testing.assert_close(out.float(), ref.float(), **BF16)
+
+
 def test_engine_kernel_path_matches_gather_path(cuda):
     """A small Llama served on the card: greedy tokens of the kernel path
     equal the gather path's in f32, plain and speculative, and the launch
