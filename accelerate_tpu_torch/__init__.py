@@ -8,7 +8,9 @@ weights and int8 or fp8 KV pages on request (`ops/quantization.py`), and
 trains it
 through `Accelerator.prepare` and the fused `train_step`, whose attention
 runs forward and backward in hand-written flash kernels
-(`csrc/flash_attention.cu`).
+(`csrc/flash_attention.cu`), in f32, bf16 or fp16 with dynamic loss
+scaling, and saves and restores the whole training state
+(`Accelerator.save_state` / `load_state`, `checkpointing.py`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -16,27 +18,32 @@ imports ``torch`` and never ``jax`` or anything of `accelerate_tpu`.
 """
 
 from .accelerator import Accelerator
-from .data_loader import BatchSampler, SimpleDataLoader, prepare_data_loader
+from .checkpointing import CheckpointManager
+from .data_loader import BatchSampler, SeedableRandomSampler, SimpleDataLoader, prepare_data_loader, skip_first_batches
 from .device import resolve_device
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
-from .utils import GradientAccumulationPlugin, set_seed
+from .utils import GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration, set_seed
 
 __all__ = [
     "Accelerator",
     "BatchSampler",
+    "CheckpointManager",
     "ContinuousBatcher",
     "EngineClosed",
+    "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "Int8Linear",
     "KV_CACHE_DTYPES",
     "Model",
     "PreparedModel",
+    "ProjectConfiguration",
     "QueueFull",
     "Request",
     "RequestResult",
+    "SeedableRandomSampler",
     "SimpleDataLoader",
     "WEIGHT_DTYPES",
     "create_llama_model",
@@ -45,4 +52,5 @@ __all__ = [
     "quantize_model_int8",
     "resolve_device",
     "set_seed",
+    "skip_first_batches",
 ]

@@ -1,12 +1,17 @@
 """The user-facing training facade (the port of the one-process path of
 `accelerate_tpu/accelerator.py`).
 
-    accelerator = Accelerator(mixed_precision="bf16")
+    accelerator = Accelerator(mixed_precision="bf16")  # or "fp16", with loss scaling
     model, optimizer, loader, scheduler = accelerator.prepare(model, optimizer, loader, schedule)
     step_fn = accelerator.train_step(max_grad_norm=1.0)
     for batch in loader:
         loss = step_fn(batch)
         scheduler.step()
+
+Checkpoints: ``Accelerator(project_config=ProjectConfiguration(project_dir=...,
+automatic_checkpoint_naming=True))``, then `save_state()` every so often and,
+in a fresh process, `load_state("latest")` and
+`skip_first_batches(loader, steps_done_in_the_pass)`.
 
 or the eager surface, as in the JAX package:
 
@@ -27,18 +32,22 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
+import re
 from typing import Callable, List, Optional
 
 import torch
 from torch import nn
 
-from .data_loader import DataLoaderShard, SimpleDataLoader, prepare_data_loader
+from . import checkpointing
+from .checkpointing import CheckpointManager
+from .data_loader import DataLoaderShard, SimpleDataLoader, prepare_data_loader, skip_first_batches
 from .modeling import Model, PreparedModel
-from .optimizer import AcceleratedOptimizer
+from .optimizer import AcceleratedOptimizer, GradScaler
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .train_step import FusedTrainStep
-from .utils.dataclasses import GradientAccumulationPlugin
+from .utils.dataclasses import GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration
 
 logger = logging.getLogger(__name__)
 
@@ -52,14 +61,27 @@ class Accelerator:
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+        kwargs_handlers: Optional[list] = None,
+        project_config: Optional[ProjectConfiguration] = None,
     ):
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
+        self.project_configuration = project_config or ProjectConfiguration()
+        self.scaler_handler = None
+        for handler in kwargs_handlers or []:
+            if not isinstance(handler, GradScalerKwargs):
+                raise ValueError(f"unsupported kwargs handler {type(handler).__name__}; the port takes "
+                                 "GradScalerKwargs")
+            self.scaler_handler = handler
+        # fp16's dynamic loss scaling, shared by every prepared optimizer.
+        self.scaler = GradScaler(self.scaler_handler) if self.state.mixed_precision == "fp16" else None
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self._models: List[PreparedModel] = []
         self._optimizers: List[AcceleratedOptimizer] = []
         self._schedulers: List[AcceleratedScheduler] = []
+        self._dataloaders: List[DataLoaderShard] = []
+        self._custom_objects: list = []
         self._last_steps_per_call = 1
         self.step = 0
 
@@ -79,6 +101,15 @@ class Accelerator:
     @property
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_state.num_steps
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
+
+    @property
+    def save_iteration(self) -> int:
+        """The number the next automatically named checkpoint takes."""
+        return self.project_configuration.iteration
 
     # ------------------------------------------------------------ accumulation
     def _do_sync(self):
@@ -162,13 +193,16 @@ class Accelerator:
         owned = {id(p) for p in model.parameters()}
         if not any(id(p) in owned for g in optimizer.param_groups for p in g["params"]):
             raise ValueError("the optimizer was built over other parameters than the model's")
-        prepared = AcceleratedOptimizer(optimizer, model=model)
+        prepared = AcceleratedOptimizer(optimizer, model=model, scaler=self.scaler)
         self._optimizers.append(prepared)
         return prepared
 
     def prepare_data_loader(self, data_loader) -> DataLoaderShard:
         """Batches of `data_loader` on the device, as tensors."""
-        return prepare_data_loader(data_loader, self.device)
+        prepared = prepare_data_loader(data_loader, self.device)
+        if prepared not in self._dataloaders:
+            self._dataloaders.append(prepared)
+        return prepared
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
         if isinstance(scheduler, AcceleratedScheduler):
@@ -206,12 +240,16 @@ class Accelerator:
 
     def backward(self, loss_fn: Callable, *args, model: Optional[PreparedModel] = None, **kwargs):
         """Add the gradients of ``loss_fn(*args, **kwargs)``, divided by the
-        accumulation count, into the parameters' ``.grad``; returns the
-        (undivided, detached) loss, or ``(loss, aux)``. `model` is taken for
-        the JAX signature: autograd finds the parameters itself."""
+        accumulation count (and under fp16 multiplied by the loss scale),
+        into the parameters' ``.grad``; returns the (undivided, unscaled,
+        detached) loss, or ``(loss, aux)``. `model` is taken for the JAX
+        signature: autograd finds the parameters itself."""
         out = loss_fn(*args, **kwargs)
         loss, aux = out if isinstance(out, tuple) else (out, None)
-        (loss / self.gradient_state.num_steps).backward()
+        if self.scaler is not None and self.scaler.enabled:
+            (loss * (self.scaler.scale / self.gradient_state.num_steps)).backward()
+        else:
+            (loss / self.gradient_state.num_steps).backward()
         loss = loss.detach()
         return (loss, aux) if aux is not None else loss
 
@@ -246,10 +284,81 @@ class Accelerator:
         )
 
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: int = 2, model=None):
-        """Clip the accumulated gradients by global norm; a no-op (None)
-        while accumulating."""
+        """Clip the accumulated gradients by global norm, unscaled first
+        under fp16; a no-op (None) while accumulating."""
         if not self.sync_gradients:
             return None
         if norm_type != 2:
             raise NotImplementedError("Only the L2 global norm is supported")
         return self._optimizer_for(self._resolve_model(model)).clip_grad_norm_(max_norm)
+
+    # ------------------------------------------------------------ checkpoints
+    def register_for_checkpointing(self, *objects):
+        """Save and restore these objects' `state_dict` with the training
+        state; an object without `state_dict`/`load_state_dict` raises."""
+        invalid = [obj for obj in objects if not (hasattr(obj, "state_dict") and hasattr(obj, "load_state_dict"))]
+        if invalid:
+            raise ValueError("Objects must expose state_dict/load_state_dict; got invalid: "
+                             f"{[type(o).__name__ for o in invalid]}")
+        self._custom_objects.extend(objects)
+
+    def checkpoint_manager(self) -> CheckpointManager:
+        """The run's checkpoint store, ``{project_dir}/checkpoints``, rotating
+        to `total_limit`."""
+        if self.project_dir is None:
+            raise ValueError("checkpoints need ProjectConfiguration(project_dir=...)")
+        return CheckpointManager(os.path.join(self.project_dir, "checkpoints"),
+                                 keep_last_n=self.project_configuration.total_limit)
+
+    def _write_state(self, output_dir: str):
+        checkpointing.save_accelerator_state(output_dir, self._models, self._optimizers, self._schedulers,
+                                             self._dataloaders)
+        for i, obj in enumerate(self._custom_objects):
+            checkpointing.save_custom_state(obj, output_dir, i)
+
+    def save_state(self, output_dir: Optional[str] = None) -> str:
+        """Save every prepared and registered object. With
+        `automatic_checkpoint_naming`, commit ``checkpoint_{save_iteration}``
+        through `checkpoint_manager()` (staged, digest manifest, one atomic
+        rename, `latest`, rotation); else write into `output_dir` in place,
+        each file atomically, and finish with the digest manifest. Returns
+        the checkpoint's directory."""
+        if self.project_configuration.automatic_checkpoint_naming:
+            output_dir = self.checkpoint_manager().save(self.save_iteration, self._write_state)
+        else:
+            if output_dir is None:
+                raise ValueError("output_dir is required when automatic_checkpoint_naming is off")
+            os.makedirs(output_dir, exist_ok=True)
+            self._write_state(output_dir)
+            checkpointing.write_checkpoint_manifest(output_dir)
+        self.project_configuration.iteration += 1
+        return str(output_dir)
+
+    def load_state(self, input_dir: Optional[str] = None):
+        """Restore a checkpoint into the prepared and registered objects.
+        `input_dir` is a checkpoint directory (verified against its digest
+        manifest), a `CheckpointManager` base directory, or ``"latest"`` /
+        None for the newest checkpoint under this run's manager that
+        verifies, past a torn newest one. With automatic naming, the next
+        save numbers on from the restored checkpoint."""
+        if input_dir in (None, "latest"):
+            input_dir = self.checkpoint_manager().resolve()
+        elif CheckpointManager.is_manager_dir(input_dir):
+            input_dir = CheckpointManager(input_dir).resolve()
+        else:
+            input_dir = CheckpointManager(os.path.dirname(str(input_dir)) or ".").resolve(str(input_dir))
+        if self.project_configuration.automatic_checkpoint_naming:
+            number = re.findall(r"(\d+)(?=[^/]*$)", str(input_dir))
+            if number:
+                self.project_configuration.iteration = int(number[0]) + 1
+        logger.info("Loading states from %s", input_dir)
+        checkpointing.load_accelerator_state(input_dir, self._models, self._optimizers, self._schedulers,
+                                             self._dataloaders)
+        for i, obj in enumerate(self._custom_objects):
+            checkpointing.load_custom_state(obj, input_dir, i)
+        return input_dir
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        """`dataloader` without its first `num_batches` batches: resume a
+        pass where a restored checkpoint left it (`data_loader.skip_first_batches`)."""
+        return skip_first_batches(dataloader, num_batches)

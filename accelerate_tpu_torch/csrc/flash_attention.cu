@@ -1,12 +1,13 @@
 // FlashAttention-2 forward and backward for training on Hopper (sm_90a), over
-// float and __nv_bfloat16 inputs in the [B*H, S, D] layout, D in {32, 64, 128}.
+// float, __nv_bfloat16 and __half inputs in the [B*H, S, D] layout, D in
+// {32, 64, 128}.
 //
 // Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py:
-//   K3 forward: flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
+//   K3 forward: flash_fwd_wgmma_kernel<T = bf16 | f16>, flash_fwd_kernel (f32)
 //      <- accelerate_tpu/ops/flash_attention.py::_fwd_kernel
-//   K4 dK, dV: flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_kernel (f32)
+//   K4 dK, dV: flash_bwd_dkv_wgmma_kernel<T = bf16 | f16>, flash_bwd_dkv_kernel (f32)
 //      <- accelerate_tpu/ops/flash_attention.py::_bwd_dkv_kernel
-//   K5 dQ: flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
+//   K5 dQ: flash_bwd_dq_wgmma_kernel<T = bf16 | f16>, flash_bwd_dq_kernel (f32)
 //      <- accelerate_tpu/ops/flash_attention.py::_bwd_dq_kernel
 // Same contract: scores s = (q . k) * scale summed in fp32; causal masks are
 // aligned bottom-right (query i sees keys j <= i + Sk - S); the forward keeps
@@ -19,10 +20,14 @@
 // Bound: operations. At the training shapes (S 2048, D 64, causal) each
 // (query, key) pair costs 4 * D operations forward, 8 * D for dK/dV and 6 * D
 // for dQ on data read once per tile, far above the card's ridge point: the
-// tensor cores' 989 TFLOP/s bf16 is the ceiling, and the CUDA cores' 67
-// TFLOP/s fp32 one fifteen times lower.
+// tensor cores' 989 TFLOP/s bf16 (and fp16) is the ceiling, and the CUDA
+// cores' 67 TFLOP/s fp32 one fifteen times lower.
 //
-// bf16: the products run on the tensor cores. One warpgroup owns 64 rows of
+// bf16 and fp16 (mixed_precision="fp16"): the products run on the tensor
+// cores, in one kernel per product templated on the element type: the same
+// tiles, descriptors and swizzles (both types are two bytes), the wgmma
+// instruction .bf16 or .f16, the tensor map BFLOAT16 or FLOAT16. Below,
+// "bf16" stands for both where nothing else is said. One warpgroup owns 64 rows of
 // one side: query rows in K3 and K5, whose Q tile (and dO for K5) arrives
 // once by TMA while K/V tiles stream past; keys in K4, whose K and V tiles
 // arrive once while Q/dO tiles stream past. The streamed tiles go through a
@@ -43,7 +48,10 @@
 // FlashAttention-2/3 and SDPA do. That rounding moves o by at most
 // 2^-8 (P @ |V|), dq by at most 2^-8 (|dS| @ |K|), dv by at most
 // 2^-8 (P^T @ |dO|) and dk by at most 2^-8 (|dS|^T @ |Q|), element by
-// element, which chip_smoke.py adds to their bf16 limit. K3 walks 128-key
+// element, which chip_smoke.py adds to their bf16 limit; in fp16 the unit is
+// 2^-11, and P and dS are scaled by powers of two before they are narrowed,
+// so that neither overflows fp16's 65504 nor goes subnormal below 2^-14
+// (the fp16 range note below). K3 walks 128-key
 // tiles (64 at D 128), K5 64-key tiles, K4 64-row query tiles (PERF.md).
 // In K4, lse and delta belong to the columns of the transposed scores; the
 // threads stage them for the next query tile in shared memory.
@@ -56,7 +64,7 @@
 // have no f32 mode, only TF32, whose 10-bit mantissa would break the f32
 // parity that chip_smoke.py's training phase and the card tests hold at
 // 2e-5 / 1e-4. dispatch() chooses by dtype, explicitly: it is no fallback. A
-// bf16 tensor launches the wgmma kernel or the launch returns an error (a
+// bf16 or fp16 tensor launches its wgmma kernel or the launch returns an error (a
 // failed tensor-map encode, too much shared memory, a refused launch), which
 // ops/flash_attention.py raises.
 //
@@ -79,6 +87,7 @@
 // synchronise.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -374,7 +383,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (active) store_row<T, D>(dq + (int64_t)bh * S * D, row, t, dqr);
 }
 
-// ----------------------------------------------------- bf16: wgmma
+// ----------------------------------------------- bf16 and fp16: wgmma
 // K3 and K5: one warpgroup owns 64 query rows; its Q (and dO) tile arrives
 // once by TMA, and K/V tiles of kN keys stream through a ring of kStages
 // stages, loaded by thread 0 as soon as a stage is free. Scores and products accumulate in
@@ -385,6 +394,78 @@ using flash_tiles::PairRing;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// fp16's range. fp16 keeps 11 significant bits but tops out at 65504, and
+// its normal range ends at 2^-14 below; bf16 has fp32's range. So in fp16
+// every fp32 value narrowed for the tensor cores is first scaled by a power
+// of two, and the fp32 accumulator that sums its products is scaled back
+// by the inverse power at the end; each scaling is exact, and bf16 takes
+// none of it.
+//  - P (at most 1) is narrowed as P * 2^15, so that probabilities down to
+//    2^-29 keep full precision instead of going subnormal below 2^-14. The
+//    factor costs nothing: it is a bias of 15 in the base-2 exponent that
+//    computes P (K3: from m - 15, its l summing the scaled P, so that o =
+//    acc / l needs no unscaling; K4: from lse - 15).
+//  - dS has no bound ahead of time: under loss scaling dO arrives
+//    multiplied by up to 65536, and dS with it. Each accumulator row (a
+//    query row in K5, a key row in K4) keeps the exponent e of the largest
+//    |dS| it has seen and narrows dS as dS * 2^(kDsTop - e), its largest
+//    value in [2^14, 2^15); when a tile raises e, the row's accumulator is
+//    multiplied by 2^(e_old - e_new) before the tile's product is added, and
+//    by 2^(e - kDsTop) at the end. So dS never overflows fp16 where its
+//    products still fit (the plain version keeps dS in fp32, as JAX does),
+//    and each element keeps 11 bits down to 2^-28 of its row's largest.
+template <typename T>
+constexpr float kPBias = flash_tiles::Elem<T>::kHalf ? 15.f : 0.f;  // P is narrowed as P * 2^kPBias
+constexpr float kPUnscale = 1.f / 32768.f;
+constexpr int kDsTop = 14;
+constexpr int kDsMinExp = -64;  // a row whose every dS is below 2^-64 is scaled as if it were 2^-64
+
+// 2^n for -126 <= n <= 127, exactly; 0 below.
+__device__ __forceinline__ float pow2(int n) { return n < -126 ? 0.f : __int_as_float((n + 127) << 23); }
+
+// floor(log2(x)) for a normal x >= 0 (-127 for 0 and subnormals, 128 for inf and NaN).
+__device__ __forceinline__ int exponent_of(float x) { return (__float_as_int(x) >> 23) - 127; }
+
+// fp16 dS narrowing for the accumulator rows of one thread (rows h = 0, 1 of
+// the Frag layout), as set out above.
+struct DsRange {
+  int e[2] = {kDsMinExp, kDsMinExp};
+
+  // This tile's ds = g * scale, narrowed in place from g = p * (dp - delta)
+  // (one multiply per element, as bf16's ds = g * scale: the power of two
+  // rides on the scale exactly), and `acc` rescaled where a row's exponent
+  // grew (skipped, warp by warp, where none did: the usual case once a
+  // row's largest values have been seen).
+  template <int NF, int NA>
+  __device__ __forceinline__ void narrow(float (&g)[NF], float scale, float (&acc)[NA]) {
+    float mx[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NF; ++i) mx[Frag::half(i)] = fmaxf(mx[Frag::half(i)], fabsf(g[i]));
+    float mul[2], corr[2];
+    bool grew = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int top = max(e[h], exponent_of(flash_tiles::quad_max(mx[h]) * scale));
+      grew |= top != e[h];
+      corr[h] = pow2(e[h] - top);
+      mul[h] = pow2(kDsTop - top) * scale;
+      e[h] = top;
+    }
+#pragma unroll
+    for (int i = 0; i < NF; ++i) g[i] *= mul[Frag::half(i)];
+    if (__any_sync(0xffffffffu, grew)) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] *= corr[Frag::half(i)];
+    }
+  }
+
+  // The factor that takes row h's accumulator back to dS's own scale.
+  __device__ __forceinline__ float unscale(int h) const { return pow2(e[h] - kDsTop); }
+};
+
+template <typename T>
+constexpr bool kHalf = flash_tiles::Elem<T>::kHalf;
 
 // kFixed 64-row tiles (Q; Q and dO; K and V), the ring, the barriers (the
 // ring's and one per fixed tile), then kRowVals fp32 values (K4: lse and
@@ -405,10 +486,10 @@ __device__ __forceinline__ bool hidden(int key, int row, int Sk, int offset, int
   return key >= Sk || (causal && key > row + offset);
 }
 
-template <int D, int kN, int kStages>
+template <typename T, int D, int kN, int kStages>
 __global__ void __launch_bounds__(flash_tiles::kWarpgroup)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
                        float* __restrict__ lse, int S, int Sk, float scale, int causal) {
   using L = WgmmaSmem<D, kN, kStages, 1>;
   extern __shared__ uint8_t smem_raw[];
@@ -445,7 +526,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     float s[kN / 2];
     ring.wait_first(j);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.first(j));  // s = q . k^T
+    flash_tiles::gemm_rows<T, D, kRows, kN>(s, q_tile, ring.first(j));  // s = q . k^T
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(s);
@@ -464,28 +545,29 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
       s[i] = x;
       mx[h] = fmaxf(mx[h], x);
     }
-    float corr[2];
+    float corr[2], mb[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = flash_tiles::quad_max(mx[h]);
       corr[h] = exp2f(m[h] - mx[h]);
       m[h] = mx[h];
+      mb[h] = m[h] - kPBias<T>;
       l[h] *= corr[h];
     }
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) {
-      s[i] = exp2f(s[i] - m[Frag::half(i)]);
-      l[Frag::half(i)] += s[i];  // the fp32 p, before p is rounded to bf16 for p @ v
+      s[i] = exp2f(s[i] - mb[Frag::half(i)]);
+      l[Frag::half(i)] += s[i];  // the fp32 p, before p is rounded to T for p @ v
     }
     uint32_t p[kN / 16][4];
-    flash_tiles::to_fragments(s, p);
+    flash_tiles::to_fragments<T>(s, p);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[Frag::half(i)];
 
     ring.wait_second(j);
     flash_tiles::fence_operands(acc);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_regs<D, kN>(acc, p, ring.second(j));  // acc += p . v
+    flash_tiles::gemm_regs<T, D, kN>(acc, p, ring.second(j));  // acc += p . v
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(acc);
@@ -498,21 +580,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
     const int row = row0 + 8 * h;
     const float safe_l = fmaxf(flash_tiles::quad_sum(l[h]), kLFloor);
     if (row >= S) continue;
-    __nv_bfloat16* out = o + ((int64_t)bh * S + row) * D;
+    T* out = o + ((int64_t)bh * S + row) * D;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(out + 8 * c + f.col) =
-          flash_tiles::pack_bf16(acc[4 * c + 2 * h] / safe_l, acc[4 * c + 2 * h + 1] / safe_l);
-    if (f.col == 0) lse[(int64_t)bh * S + row] = m[h] * kLn2 + logf(safe_l);
+          flash_tiles::Elem<T>::pack(acc[4 * c + 2 * h] / safe_l, acc[4 * c + 2 * h + 1] / safe_l);
+    if (f.col == 0) lse[(int64_t)bh * S + row] = (m[h] - kPBias<T>) * kLn2 + logf(safe_l);
   }
 }
 
-template <int D, int kN, int kStages>
+template <typename T, int D, int kN, int kStages>
 __global__ void __launch_bounds__(flash_tiles::kWarpgroup)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int S, int Sk, float scale, int causal) {
+                          T* __restrict__ dq, int S, int Sk, float scale, int causal) {
   using L = WgmmaSmem<D, kN, kStages, 2>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = flash_tiles::align_1024(flash_tiles::smem_u32(smem_raw));
@@ -551,6 +633,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  [[maybe_unused]] DsRange range;  // fp16 only
   flash_tiles::mbar_wait(q_bar, 0);
   flash_tiles::mbar_wait(do_bar, 0);
 
@@ -559,8 +642,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
     ring.wait_first(j);
     ring.wait_second(j);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_rows<D, kRows, kN>(s, q_tile, ring.first(j));    // s = q . k^T
-    flash_tiles::gemm_rows<D, kRows, kN>(dp, do_tile, ring.second(j));  // dp = do . v^T
+    flash_tiles::gemm_rows<T, D, kRows, kN>(s, q_tile, ring.first(j));    // s = q . k^T
+    flash_tiles::gemm_rows<T, D, kRows, kN>(dp, do_tile, ring.second(j));  // dp = do . v^T
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(s);
@@ -574,14 +657,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
       const int h = Frag::half(i);
       float p = exp2f(fmaf(s[i], scale_log2, -lse2[h]));
       if (edge && hidden(k0 + f.column(i), row0 + 8 * h, Sk, offset, causal)) p = 0.f;
-      s[i] = p * (dp[i] - dlt[h]) * scale;
+      const float g = p * (dp[i] - dlt[h]);
+      s[i] = kHalf<T> ? g : g * scale;  // fp16: ds = g * scale in `narrow`
     }
+    if constexpr (kHalf<T>) range.narrow(s, scale, acc);
     uint32_t ds[kN / 16][4];
-    flash_tiles::to_fragments(s, ds);
+    flash_tiles::to_fragments<T>(s, ds);
 
     flash_tiles::fence_operands(acc);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_regs<D, kN>(acc, ds, ring.first(j));  // dq += ds . k
+    flash_tiles::gemm_regs<T, D, kN>(acc, ds, ring.first(j));  // dq += ds . k
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(acc);
@@ -593,11 +678,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
     if (row >= S) continue;
-    __nv_bfloat16* out = dq + ((int64_t)bh * S + row) * D;
+    T* out = dq + ((int64_t)bh * S + row) * D;
+    const float back = kHalf<T> ? range.unscale(h) : 1.f;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(out + 8 * c + f.col) =
-          flash_tiles::pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+          flash_tiles::Elem<T>::pack(acc[4 * c + 2 * h] * back, acc[4 * c + 2 * h + 1] * back);
   }
 }
 
@@ -607,12 +693,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 // sT = k.q^T and dpT = v.do^T are [64 keys, kM queries] accumulators, so lse
 // and delta belong to their columns: the threads stage both for the next tile
 // in shared memory while the current one is in the tensor cores.
-template <int D, int kM, int kStages>
+template <typename T, int D, int kM, int kStages>
 __global__ void __launch_bounds__(flash_tiles::kWarpgroup)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                            const float* __restrict__ lse, const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Sk,
+                           T* __restrict__ dk, T* __restrict__ dv, int S, int Sk,
                            float scale, int causal) {
   static_assert(2 * kM <= flash_tiles::kWarpgroup, "one staged lse or delta value per thread");
   using L = WgmmaSmem<D, kM, kStages, 2, 4 * kM>;
@@ -638,7 +724,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
     const int row = (t0 + j) * kM + r;
     if (threadIdx.x >= 2 * kM || j >= n_tiles || row >= S) return 0.f;
     const int64_t at = (int64_t)bh * S + row;
-    return threadIdx.x < kM ? __ldg(lse + at) * kLog2e : __ldg(delta + at);
+    return threadIdx.x < kM ? __ldg(lse + at) * kLog2e - kPBias<T> : __ldg(delta + at);
   };
   if (threadIdx.x < 2 * kM) rows_s[threadIdx.x] = row_value(0);
   if (threadIdx.x == 0) {
@@ -659,6 +745,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  [[maybe_unused]] DsRange range;  // fp16 only
   flash_tiles::mbar_wait(k_bar, 0);
   flash_tiles::mbar_wait(v_bar, 0);
 
@@ -668,8 +755,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
     ring.wait_first(j);
     ring.wait_second(j);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_rows<D, kRows, kM>(sT, k_tile, ring.first(j));    // sT = k . q^T
-    flash_tiles::gemm_rows<D, kRows, kM>(dpT, v_tile, ring.second(j));  // dpT = v . do^T
+    flash_tiles::gemm_rows<T, D, kRows, kM>(sT, k_tile, ring.first(j));    // sT = k . q^T
+    flash_tiles::gemm_rows<T, D, kRows, kM>(dpT, v_tile, ring.second(j));  // dpT = v . do^T
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(sT);
@@ -686,18 +773,20 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
       const int c = f.column(i);
       float p = exp2f(fmaf(sT[i], scale_log2, -lse2_s[c]));
       if (edge && (i0 + c >= S || hidden(key0 + 8 * Frag::half(i), i0 + c, Sk, offset, causal))) p = 0.f;
-      sT[i] = p;
-      dpT[i] = p * (dpT[i] - delta_s[c]) * scale;
+      sT[i] = p;  // P * 2^kPBias: lse was staged less kPBias
+      const float g = p * (dpT[i] - delta_s[c]);
+      dpT[i] = kHalf<T> ? g : g * scale;  // fp16: dsT = g * scale in `narrow`
     }
+    if constexpr (kHalf<T>) range.narrow(dpT, scale, dk_acc);
     uint32_t pT[kM / 16][4], dsT[kM / 16][4];
-    flash_tiles::to_fragments(sT, pT);
-    flash_tiles::to_fragments(dpT, dsT);
+    flash_tiles::to_fragments<T>(sT, pT);
+    flash_tiles::to_fragments<T>(dpT, dsT);
 
     flash_tiles::fence_operands(dv_acc);
     flash_tiles::fence_operands(dk_acc);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_regs<D, kM>(dv_acc, pT, ring.second(j));  // dv += pT . do
-    flash_tiles::gemm_regs<D, kM>(dk_acc, dsT, ring.first(j));  // dk += dsT . q
+    flash_tiles::gemm_regs<T, D, kM>(dv_acc, pT, ring.second(j));  // dv += pT . do
+    flash_tiles::gemm_regs<T, D, kM>(dk_acc, dsT, ring.first(j));  // dk += dsT . q
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(dv_acc);
@@ -713,12 +802,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
     const int key = key0 + 8 * h;
     if (key >= Sk) continue;
     const int64_t at = ((int64_t)bh * Sk + key) * D;
+    // fp16: pT and dsT carried P's factor 2^15; dsT its row's power of two too.
+    const float dk_back = kHalf<T> ? range.unscale(h) * kPUnscale : 1.f, dv_back = kHalf<T> ? kPUnscale : 1.f;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       *reinterpret_cast<uint32_t*>(dk + at + 8 * c + f.col) =
-          flash_tiles::pack_bf16(dk_acc[4 * c + 2 * h], dk_acc[4 * c + 2 * h + 1]);
+          flash_tiles::Elem<T>::pack(dk_acc[4 * c + 2 * h] * dk_back, dk_acc[4 * c + 2 * h + 1] * dk_back);
       *reinterpret_cast<uint32_t*>(dv + at + 8 * c + f.col) =
-          flash_tiles::pack_bf16(dv_acc[4 * c + 2 * h], dv_acc[4 * c + 2 * h + 1]);
+          flash_tiles::Elem<T>::pack(dv_acc[4 * c + 2 * h] * dv_back, dv_acc[4 * c + 2 * h + 1] * dv_back);
     }
   }
 }
@@ -801,61 +892,61 @@ constexpr int kDqKeyTile = 64;
 constexpr int kDkvQueryTile = 64;
 constexpr int kStages = 2;
 
-template <int D>
+template <typename T, int D>
 int launch_fwd_wgmma(const Args& a) {
   constexpr int kN = fwd_key_tile<D>();
   CUtensorMap tq, tk, tv;
-  int err = flash_tiles::encode_tile_map<D>(&tq, a.q, a.BH, a.S, kRows);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tk, a.k, a.BH, a.Sk, kN);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tv, a.v, a.BH, a.Sk, kN);
+  int err = flash_tiles::encode_tile_map<T, D>(&tq, a.q, a.BH, a.S, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tk, a.k, a.BH, a.Sk, kN);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tv, a.v, a.BH, a.Sk, kN);
   if (err) return err;
-  const auto kernel = flash_fwd_wgmma_kernel<D, kN, kStages>;
+  const auto kernel = flash_fwd_wgmma_kernel<T, D, kN, kStages>;
   const size_t smem = WgmmaSmem<D, kN, kStages, 1>::kBytes;
   const cudaError_t e = allow_shared(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.S + kRows - 1) / kRows, a.BH);
-  kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(a.out0),
+  kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(tq, tk, tv, static_cast<T*>(a.out0),
                                                              static_cast<float*>(a.out1), a.S, a.Sk, a.scale,
                                                              a.causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq_wgmma(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = flash_tiles::encode_tile_map<D>(&tq, a.q, a.BH, a.S, kRows);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tdo, a.dout, a.BH, a.S, kRows);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tk, a.k, a.BH, a.Sk, kDqKeyTile);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tv, a.v, a.BH, a.Sk, kDqKeyTile);
+  int err = flash_tiles::encode_tile_map<T, D>(&tq, a.q, a.BH, a.S, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tdo, a.dout, a.BH, a.S, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tk, a.k, a.BH, a.Sk, kDqKeyTile);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tv, a.v, a.BH, a.Sk, kDqKeyTile);
   if (err) return err;
-  const auto kernel = flash_bwd_dq_wgmma_kernel<D, kDqKeyTile, kStages>;
+  const auto kernel = flash_bwd_dq_wgmma_kernel<T, D, kDqKeyTile, kStages>;
   const size_t smem = WgmmaSmem<D, kDqKeyTile, kStages, 2>::kBytes;
   const cudaError_t e = allow_shared(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.S + kRows - 1) / kRows, a.BH);
   kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
-      static_cast<__nv_bfloat16*>(a.out0), a.S, a.Sk, a.scale, a.causal);
+      static_cast<T*>(a.out0), a.S, a.Sk, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkv_wgmma(const Args& a) {
   constexpr int kM = kDkvQueryTile;
   CUtensorMap tq, tk, tv, tdo;
-  int err = flash_tiles::encode_tile_map<D>(&tq, a.q, a.BH, a.S, kM);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tdo, a.dout, a.BH, a.S, kM);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tk, a.k, a.BH, a.Sk, kRows);
-  if (!err) err = flash_tiles::encode_tile_map<D>(&tv, a.v, a.BH, a.Sk, kRows);
+  int err = flash_tiles::encode_tile_map<T, D>(&tq, a.q, a.BH, a.S, kM);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tdo, a.dout, a.BH, a.S, kM);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tk, a.k, a.BH, a.Sk, kRows);
+  if (!err) err = flash_tiles::encode_tile_map<T, D>(&tv, a.v, a.BH, a.Sk, kRows);
   if (err) return err;
-  const auto kernel = flash_bwd_dkv_wgmma_kernel<D, kM, kStages>;
+  const auto kernel = flash_bwd_dkv_wgmma_kernel<T, D, kM, kStages>;
   const size_t smem = WgmmaSmem<D, kM, kStages, 2, 4 * kM>::kBytes;
   const cudaError_t e = allow_shared(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.BH, (a.Sk + kRows - 1) / kRows);  // heads fastest: the heaviest tiles of all heads first
   kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
-      static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1), a.S, a.Sk, a.scale, a.causal);
+      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.Sk, a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -868,12 +959,12 @@ int launch_kind(Kind kind, const Args& a) {
   return launch_dq<T, D>(a);
 }
 
-// bf16: every kernel runs on the tensor cores.
-template <int D>
-int launch_kind_bf16(Kind kind, const Args& a) {
-  if (kind == kFwd) return launch_fwd_wgmma<D>(a);
-  if (kind == kDkv) return launch_dkv_wgmma<D>(a);
-  return launch_dq_wgmma<D>(a);
+// bf16 and fp16: every kernel runs on the tensor cores.
+template <typename T, int D>
+int launch_kind_wgmma(Kind kind, const Args& a) {
+  if (kind == kFwd) return launch_fwd_wgmma<T, D>(a);
+  if (kind == kDkv) return launch_dkv_wgmma<T, D>(a);
+  return launch_dq_wgmma<T, D>(a);
 }
 
 template <typename T>
@@ -884,19 +975,20 @@ int launch_head_dim(Kind kind, int D, const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <>
-int launch_head_dim<__nv_bfloat16>(Kind kind, int D, const Args& a) {
-  if (D == 32) return launch_kind_bf16<32>(kind, a);
-  if (D == 64) return launch_kind_bf16<64>(kind, a);
-  if (D == 128) return launch_kind_bf16<128>(kind, a);
+template <typename T>
+int launch_head_dim_wgmma(Kind kind, int D, const Args& a) {
+  if (D == 32) return launch_kind_wgmma<T, 32>(kind, a);
+  if (D == 64) return launch_kind_wgmma<T, 64>(kind, a);
+  if (D == 128) return launch_kind_wgmma<T, 128>(kind, a);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 int dispatch(Kind kind, int dtype, int D, const Args& a) {
   if (a.BH <= 0 || a.S <= 0 || a.Sk <= 0 || a.BH > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_head_dim<float>(kind, D, a);
-  if (dtype == 1) return launch_head_dim<__nv_bfloat16>(kind, D, a);
+  if (dtype == 1) return launch_head_dim_wgmma<__nv_bfloat16>(kind, D, a);
+  if (dtype == 2) return launch_head_dim_wgmma<__half>(kind, D, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,10 +2,11 @@
 
 Port of `accelerate_tpu/ops/flash_attention.py`. On CUDA tensors each entry
 launches the hand-written Hopper kernels of `csrc/flash_attention.cu`:
-K3 (forward: o and the row logsumexp), K4 (dK, dV) and K5 (dQ); in bf16,
-all three run on the tensor cores (wgmma over TMA-loaded tiles, with the
-shared building blocks in `csrc/flash_tiles.cuh`), in f32 on the CUDA
-cores. On CPU tensors it runs the plain PyTorch versions below, which work
+K3 (forward: o and the row logsumexp), K4 (dK, dV) and K5 (dQ); in bf16
+and fp16, all three run on the tensor cores (wgmma over TMA-loaded tiles,
+with the shared building blocks in `csrc/flash_tiles.cuh`; in fp16 P and dS
+are scaled by powers of two before they are narrowed, so that dS does not
+overflow under loss scaling), in f32 on the CUDA cores. On CPU tensors it runs the plain PyTorch versions below, which work
 on the full [S, Sk] score matrix in fp32; the tests and `chip_smoke.py`
 hold the kernels against them. Nothing falls back: a CUDA tensor the
 kernels do not take raises, and so does a kernel that fails to build or
@@ -27,7 +28,9 @@ Entries:
   - `flash_attention`: the public ``[B, S, H, D]`` op, with grouped-query
     K/V heads repeated before the kernels, as JAX does.
 
-`LAUNCHES` counts kernel launches, one per launch of each kernel.
+`LAUNCHES` counts kernel launches, one per launch of each kernel: under
+``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` those on f32 and bf16
+tensors, under the same names with ``_f16`` those on fp16 tensors.
 """
 
 from __future__ import annotations
@@ -41,12 +44,15 @@ import torch
 from .flash_common import NEG_INF
 
 #: Kernel launches since the last reset, by kernel.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+    "flash_fwd_f16": 0, "flash_bwd_dkv_f16": 0, "flash_bwd_dq_f16": 0,
+}
 
 #: Head dimensions the kernels are built for.
 HEAD_DIMS = (32, 64, 128)
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -137,7 +143,7 @@ def _check_blocks(q, k, v, causal):
 def _check_cuda(**tensors):
     q = tensors["q"]
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the kernels take float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"the kernels take float32, bfloat16 or float16, got {q.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the kernels are built for head_dim in {HEAD_DIMS}, got {q.shape[-1]}")
     for name, t in tensors.items():
@@ -164,7 +170,7 @@ def _run(kind, *args):
         )
     if err != 0:
         raise RuntimeError(f"{kind} kernel launch failed: {lib.flash_attention_error_string(err).decode()}")
-    LAUNCHES[kind] += 1
+    LAUNCHES[kind + ("_f16" if q.dtype == torch.float16 else "")] += 1
 
 
 def _shape_args(q, k, scale, causal):

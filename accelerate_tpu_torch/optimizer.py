@@ -1,5 +1,5 @@
 """The accelerated optimizer (the port of `accelerate_tpu/optimizer.py`'s
-`AcceleratedOptimizer` and its clipping rule).
+`AcceleratedOptimizer`, its clipping rule and fp16's `GradScaler`).
 
 It wraps a `torch.optim.Optimizer` built over the module's parameters.
 Gradients accumulate in the parameters' ``.grad`` as autograd leaves them;
@@ -8,15 +8,69 @@ only there, so microbatches in between keep adding up (the JAX package's
 eager contract). The learning rate a scheduler installs
 (`set_learning_rate`) is written into every parameter group at once, so the
 eager and the fused step read the same value.
+
+Under ``mixed_precision="fp16"`` the optimizer holds the accelerator's
+`GradScaler`: the backward multiplied the loss by its scale, so the
+gradients are divided by it once (before clipping, as JAX's
+`unscale_and_clip`), checked for non-finite values, and a step with any
+is skipped: the parameters and the optimizer's state stay exactly as they
+were, `step_was_skipped` is set and the scale backs off.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import torch
 
 from .state import GradientState
+from .utils.dataclasses import GradScalerKwargs
+
+
+class GradScaler:
+    """Dynamic loss scaling for fp16, on the host (JAX's `GradScaler`): the
+    scale halves (`backoff_factor`) after a step with non-finite gradients
+    and doubles (`growth_factor`) after `growth_interval` finite steps in a
+    row."""
+
+    def __init__(self, kwargs: Optional[GradScalerKwargs] = None):
+        kwargs = kwargs or GradScalerKwargs()
+        self.scale = float(kwargs.init_scale)
+        self.growth_factor = kwargs.growth_factor
+        self.backoff_factor = kwargs.backoff_factor
+        self.growth_interval = kwargs.growth_interval
+        self.enabled = kwargs.enabled
+        self._growth_tracker = 0
+
+    def update(self, found_inf: bool):
+        if not self.enabled:
+            return
+        if found_inf:
+            self.scale *= self.backoff_factor
+            self._growth_tracker = 0
+        else:
+            self._growth_tracker += 1
+            if self._growth_tracker >= self.growth_interval:
+                self.scale *= self.growth_factor
+                self._growth_tracker = 0
+
+    def state_dict(self):
+        return {"scale": self.scale, "growth_tracker": self._growth_tracker}
+
+    def load_state_dict(self, state):
+        self.scale = state["scale"]
+        self._growth_tracker = state["growth_tracker"]
+
+
+def unscale_grads(grads: List[torch.Tensor], inv_scale: float) -> torch.Tensor:
+    """Multiply every gradient by `inv_scale` in place; returns a 1-element
+    f32 tensor, 1 where any gradient held a non-finite value (JAX's
+    unscale and `isfinite` check, in one pass over the gradients)."""
+    found_inf = torch.zeros(1, dtype=torch.float32, device=grads[0].device)
+    torch._amp_foreach_non_finite_check_and_unscale_(
+        grads, found_inf, torch.full((1,), inv_scale, dtype=torch.float32, device=grads[0].device)
+    )
+    return found_inf
 
 
 def clip_grad_norm(parameters: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
@@ -34,39 +88,74 @@ def clip_grad_norm(parameters: Iterable[torch.nn.Parameter], max_norm: float) ->
 
 
 class AcceleratedOptimizer:
-    """A `torch.optim.Optimizer` bound to a prepared model."""
+    """A `torch.optim.Optimizer` bound to a prepared model, with the
+    accelerator's `GradScaler` under fp16."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, model=None):
+    def __init__(self, optimizer: torch.optim.Optimizer, model=None, scaler: Optional[GradScaler] = None):
         self.optimizer = optimizer
         self.model = model
+        self.scaler = scaler
         self.gradient_state = GradientState()
         self.step_was_skipped = False
+        self._found_inf: Optional[torch.Tensor] = None  # set once the gradients are unscaled
 
     def _params(self):
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
-    def _has_grads(self) -> bool:
-        return any(p.grad is not None for p in self._params())
+    def _grads(self):
+        return [p.grad for p in self._params() if p.grad is not None]
+
+    @property
+    def use_scaler(self) -> bool:
+        return self.scaler is not None and self.scaler.enabled
+
+    def unscale_(self) -> Optional[torch.Tensor]:
+        """Divide the accumulated gradients by the loss scale, once per step
+        (JAX's unscale-once contract); returns the non-finite flag, or None
+        without an enabled scaler."""
+        if not self.use_scaler:
+            return None
+        if self._found_inf is None:
+            self._found_inf = unscale_grads(self._grads(), 1.0 / self.scaler.scale)
+        return self._found_inf
+
+    def apply_or_skip(self) -> bool:
+        """The update from unscaled gradients, or, under an enabled scaler
+        whose check found a non-finite gradient, no update at all; the
+        scaler learns which (one host readback of the flag). Returns True
+        when the step was skipped."""
+        skipped = False
+        if self.use_scaler:
+            skipped = bool(self.unscale_().item())
+            self.scaler.update(skipped)
+        if not skipped:
+            self.optimizer.step()
+        self._found_inf = None
+        self.step_was_skipped = skipped
+        return skipped
 
     def step(self):
         """Apply the update at a sync boundary; a no-op (marked skipped)
-        while accumulating or when there are no gradients."""
-        if not self.gradient_state.sync_gradients or not self._has_grads():
+        while accumulating, when there are no gradients, or under fp16 when
+        a gradient is not finite."""
+        if not self.gradient_state.sync_gradients or not self._grads():
             self.step_was_skipped = True
             return
-        self.optimizer.step()
-        self.step_was_skipped = False
+        self.apply_or_skip()
 
     def zero_grad(self, set_to_none: bool = True):
         """Clear the gradients; a no-op mid-accumulation."""
         if self.gradient_state.sync_gradients:
             self.optimizer.zero_grad(set_to_none=set_to_none)
+            self._found_inf = None
 
     def clip_grad_norm_(self, max_norm: float) -> Optional[torch.Tensor]:
-        """Clip the accumulated gradients by global norm; returns the
-        pre-clip norm, or None when there are none."""
-        if not self._has_grads():
+        """Unscale (under fp16), then clip the accumulated gradients by
+        global norm; returns the pre-clip norm, or None when there are
+        none."""
+        if not self._grads():
             return None
+        self.unscale_()
         return clip_grad_norm(self._params(), max_norm)
 
     def set_learning_rate(self, lr: float):
@@ -77,3 +166,9 @@ class AcceleratedOptimizer:
     @property
     def learning_rate(self) -> float:
         return self.optimizer.param_groups[0]["lr"]
+
+    def state_dict(self) -> dict:
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state: dict):
+        self.optimizer.load_state_dict(state)

@@ -50,6 +50,22 @@ class AcceleratedScheduler:
             self.scheduler.step(*args, **kwargs)
         self._apply_lr()
 
+    def state_dict(self) -> dict:
+        """The step count, the last learning rate and a torch scheduler's own
+        state (JAX's keys)."""
+        inner = None
+        if not callable(self.scheduler) and hasattr(self.scheduler, "state_dict"):
+            inner = self.scheduler.state_dict()
+        return {"step_count": self._step_count, "last_lr": self._last_lr, "inner": inner}
+
+    def load_state_dict(self, state: dict):
+        """Restore `state_dict()` and push the learning rate into the optimizers."""
+        self._step_count = state["step_count"]
+        self._last_lr = state.get("last_lr")
+        if state.get("inner") is not None and hasattr(self.scheduler, "load_state_dict"):
+            self.scheduler.load_state_dict(state["inner"])
+        self._apply_lr()
+
     def get_last_lr(self) -> Optional[List[float]]:
         return self._last_lr
 

@@ -40,7 +40,7 @@ class AcceleratorState:
         if mode not in COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"mixed_precision={mode!r} is not ported yet (the port runs {sorted(COMPUTE_DTYPES)}; "
-                "fp16 loss scaling and fp8 are later work)"
+                "fp8 is later work)"
             )
         # The card unless the caller asks for the CPU; no card raises.
         self.device = resolve_device("cpu" if cpu else None)

@@ -15,6 +15,11 @@ caller decides when to read it.
     learning rate is read once per call, as in JAX's device loop).
   - The learning rate a scheduler installs goes through the optimizer's
     parameter groups, so every step reads the current one.
+  - Under fp16 the loss is multiplied by the scaler's scale before its
+    backward; the gradients are unscaled, checked and clipped, and a step
+    with a non-finite gradient is skipped (JAX's fused fp16 step). That
+    check is read on the host once per call, the one readback of an fp16
+    step; ``steps_per_call > 1`` refuses an enabled scaler, as in JAX.
   - Every call is a full optimizer step: it marks the sync boundary.
 """
 
@@ -62,6 +67,11 @@ class FusedTrainStep:
         self.max_grad_norm = max_grad_norm
         self.accumulation_steps = int(accumulation_steps or 1)
         self.steps_per_call = int(steps_per_call or 1)
+        if self.steps_per_call > 1 and optimizer.use_scaler:
+            raise ValueError(
+                "steps_per_call > 1 cannot honor dynamic fp16 loss scaling (scale updates are "
+                "per-step host decisions); use bf16 mixed precision or steps_per_call=1"
+            )
         self.gradient_state = gradient_state
 
     def _loss_of(self, *args, **kwargs):
@@ -71,9 +81,11 @@ class FusedTrainStep:
         return out, None
 
     def _one_step(self, *args, **kwargs):
-        opt = self.optimizer.optimizer
+        accelerated = self.optimizer
+        opt = accelerated.optimizer
         opt.zero_grad(set_to_none=True)
         k = self.accumulation_steps
+        loss_scale = accelerated.scaler.scale if accelerated.use_scaler else 1.0
         aux = None
         if k > 1:
             if len(args) != 1 or kwargs:
@@ -81,16 +93,17 @@ class FusedTrainStep:
             losses = []
             for mbatch in split_leading(args[0], k, "accumulation_steps"):
                 loss, _ = self._loss_of(mbatch)
-                (loss / k).backward()
+                (loss * (loss_scale / k) if loss_scale != 1.0 else loss / k).backward()
                 losses.append(loss.detach())
             loss = torch.stack(losses).mean()
         else:
             loss, aux = self._loss_of(*args, **kwargs)
-            loss.backward()
+            (loss * loss_scale if loss_scale != 1.0 else loss).backward()
             loss = loss.detach()
+        accelerated.unscale_()
         if self.max_grad_norm is not None:
-            clip_grad_norm([p for g in opt.param_groups for p in g["params"]], self.max_grad_norm)
-        opt.step()
+            clip_grad_norm(accelerated._params(), self.max_grad_norm)
+        accelerated.apply_or_skip()
         opt.zero_grad(set_to_none=True)
         return loss, aux
 
@@ -107,7 +120,6 @@ class FusedTrainStep:
                     )
         else:
             loss, aux = self._one_step(*args, **kwargs)
-        self.optimizer.step_was_skipped = False
         if self.gradient_state is not None:
             self.gradient_state._set_sync_gradients(True)
         if aux is not None:

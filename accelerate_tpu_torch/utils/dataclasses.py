@@ -5,13 +5,14 @@ from __future__ import annotations
 
 import enum
 from dataclasses import asdict, dataclass
+from typing import Optional
 
 import torch
 
 
 class PrecisionType(str, enum.Enum):
-    """The JAX package's precision modes. The port runs ``no`` and ``bf16``;
-    ``fp16`` (dynamic loss scaling) and ``fp8`` are still to port."""
+    """The JAX package's precision modes. The port runs ``no``, ``bf16`` and
+    ``fp16`` (with dynamic loss scaling); ``fp8`` is still to port."""
 
     NO = "no"
     FP8 = "fp8"
@@ -24,7 +25,7 @@ class PrecisionType(str, enum.Enum):
 
 
 #: Compute dtype of each mode the port runs.
-COMPUTE_DTYPES = {"no": torch.float32, "bf16": torch.bfloat16}
+COMPUTE_DTYPES = {"no": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
 @dataclass
@@ -37,3 +38,27 @@ class GradientAccumulationPlugin:
 
     def to_kwargs(self) -> dict:
         return asdict(self)
+
+
+@dataclass
+class GradScalerKwargs:
+    """Dynamic loss scaling for ``mixed_precision="fp16"``, with the JAX
+    package's defaults; passed to `Accelerator(kwargs_handlers=[...])`."""
+
+    init_scale: float = 65536.0
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    enabled: bool = True
+
+
+@dataclass
+class ProjectConfiguration:
+    """Where `Accelerator.save_state` writes: with
+    `automatic_checkpoint_naming`, ``{project_dir}/checkpoints/checkpoint_{iteration}``
+    through `checkpointing.CheckpointManager`, keeping the last `total_limit`."""
+
+    project_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0

@@ -31,13 +31,17 @@ prints no result):
    Then the flash-attention kernels of training, forward (K3), dK/dV (K4)
    and dQ (K5), at Llama-1B's training shapes (batch 2, 32 heads after the
    GQA repeat, sequence 2048, head 64, causal), the same way: held against
-   their plain versions in f32 (outputs atol 2e-5, gradients atol/rtol 1e-4)
-   and bf16 (atol 2e-3, rtol 1e-2, element by element, with the most that
+   their plain versions in f32 (outputs atol 2e-5, gradients atol/rtol 1e-4),
+   bf16 (atol 2e-3, rtol 1e-2, element by element, with the most that
    rounding P and dS to bf16 for the tensor cores can move each element
-   added to the limit), then timed beside the plain
+   added to the limit) and fp16 (atol 1e-3, rtol 5e-3, plus the same bound
+   at fp16's unit 2^-11), then timed beside the plain
    version, the bound and, as the yardstick, SDPA (is_causal) and its
    autograd backward. Each `[flash]` line gives SDPA's error beside the
-   kernel's.
+   kernel's. Then fp16 K4 and K5 on the range case: dO and V large, as
+   under loss scaling, so that the plain version's dS passes fp16's 65504
+   while dk, dv and dq fit; the kernels' outputs are finite and within
+   the fp16 limit.
 3. Engine: `create_named_model("llama-1b")` at full width and depth (random
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
@@ -75,9 +79,27 @@ prints no result):
    (c) with --profile, device time of one more bf16 step by group, and
        that of the grouped-query repeat (K/V copies forward, their sum over
        each group backward).
+   (d) fp16 with dynamic loss scaling (default `GradScalerKwargs`: scale
+       65536), Llama-1B at full width and depth, batch 2, 2 warm-up and 8
+       timed steps: step time, tokens/s, MFU, the scale after each step and
+       the steps skipped. Gates: finite losses; a timed step applied; layer
+       0's query projection unchanged bit for bit across each skipped step
+       (and changed by each applied one); the scales the scaler's rule gives
+       for the skip pattern; the last loss below the first where two or more
+       steps were applied; each fp16 flash kernel launched 16 layers x 8
+       steps times, skipped steps included.
+   (e) a checkpoint round trip, bf16, Llama-1B's widths cut to 2 layers,
+       batch 1, over 8 distinct seeded rows shuffled by a
+       `SeedableRandomSampler`: 4 steps with `save_state` after step 2 into
+       a `CheckpointManager` directory under `tempfile.mkdtemp()`, then a
+       fresh run (state reset, weights from another seed) that restores
+       "latest" and takes steps 3 and 4 from the restored loader position:
+       their losses equal the uninterrupted run's within rtol 1e-6. Reports
+       the bytes written and the save and load seconds; the directory is
+       removed however the phase ends.
 5. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
-   quantized modes, K3-K5), the nvidia-smi line, and as the last line
-   `{"ok": true, "device": {...}}`.
+   quantized modes, K3-K5 in bf16 and in fp16), the nvidia-smi line, and as
+   the last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -114,7 +136,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 CUDA cores; bf16 tensor cores
+# f32 CUDA cores; bf16 and fp16 tensor cores (dense, the same rate for both)
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 F32_ATOL = 2e-5
 # bf16: both sides widen the same bf16 inputs and compute in fp32, so they
 # differ by the fp32 summation order plus at most one bf16 rounding of the
@@ -157,6 +180,15 @@ FLASH_DESIGN = {
                      "3-D loads of 64-row Q/dO tiles through a 2-stage ring, lse and delta staged in shared "
                      "memory, one warpgroup of 64 keys per block; f32: scalar fp32 FMAs",
 }
+FLASH_FP16_DESIGN = {
+    "flash_fwd": "; fp16: the bf16 kernel's template with .f16 wgmma and FLOAT16 tensor maps, p narrowed as "
+                 "p * 2^15 and o scaled back",
+    "flash_bwd_dq": "; fp16: the bf16 kernel's template with .f16 wgmma and FLOAT16 tensor maps, ds narrowed as "
+                    "ds * 2^(14 - e), e the exponent of the row's largest |ds| so far, the accumulator rescaled by "
+                    "powers of two",
+    "flash_bwd_dkv": "; fp16: the bf16 kernel's template with .f16 wgmma and FLOAT16 tensor maps, pT narrowed as "
+                     "pT * 2^15, dsT as dsT * 2^(14 - e) per key row with the dk accumulator rescaled",
+}
 PAGED_DESIGN = ("bf16: grid (Hkv, slots, splits of 256 tokens x row groups) and a merge kernel launched as a "
                 "programmatic dependent; whole-page tiles of 64 tokens through a 2-stage cp.async ring at the "
                 "pool's own width; mma.sync m16n8k16 s = q.k^T and o += p.v (p as bf16 hi + lo) with query rows "
@@ -190,6 +222,35 @@ FLASH_ROUNDED = {  # outputs whose bf16 limit adds the rounding bound: what it i
     ("flash_bwd_dq", "dq"): "2^-8 * (|dS| @ |K|)",
 }
 FLASH_LSE_TOL = dict(atol=2e-5, rtol=1e-5)
+# fp16 (mixed_precision="fp16"): the same kernels with fp16 operands. fp16
+# keeps 11 significant bits, so one rounding of the output is a relative
+# 2^-11 and the rounding of P and dS for the tensor cores moves each element
+# by at most FP16_UNIT of it: the bound above with that unit. The kernels
+# scale P by 2^15 and dS by a power of two per row before narrowing them
+# (csrc/flash_attention.cu), so that neither leaves fp16's normal range; an
+# element far below its row's largest may still go subnormal, and moves by
+# at most 2^-39 of that largest, which the atol covers.
+FP16_ATOL, FP16_RTOL = 1e-3, 5e-3
+FP16_UNIT = 2.0 ** -11  # round to nearest fp16 (normal range): |fl(x) - x| <= 2^-11 |x|
+ROUNDING_UNIT = {torch.bfloat16: BF16_UNIT, torch.float16: FP16_UNIT}
+UNIT_TEXT = {torch.bfloat16: "2^-8", torch.float16: "2^-11"}
+FP16_MAX = 65504.0
+# The fp16 range case: q and k small, so that each causal row spreads its
+# probability evenly over the keys it sees; v and dO large, as dO is under
+# loss scaling. The plain version's fp32 dS then tops out near 2^17, past
+# fp16's 65504, while dK, dV and dQ still fit fp16 (the plain version on
+# the CPU at sequence 2048, head 64: over 16 heads |dS| up to 1.76e5, dk
+# 1.6e4, dq 1.2e4, dv 8.8e3). A kernel that rounded dS to fp16 as it is
+# would write inf.
+FLASH_RANGE_SCALES = dict(q=0.02, k=0.02, v=100.0, do=2000.0)
+# In the range case dP = dO . V^T runs to about 2^21, where fp32 keeps a
+# unit of 0.125: summed in the kernel's order and in the plain version's,
+# dP - delta differs by such units even where P * (dP - delta) is 0 in exact
+# arithmetic (a row that sees one key). Its dk and dq limits add the most a
+# different fp32 order of D products can move them through dS,
+# 2 D 2^-24 scale (P * (|dO| @ |V|^T)) @ |K| for dq and the transpose @ |Q|
+# for dk (`dp_order_bound`).
+FP32_UNIT = 2.0 ** -24
 
 # Training (phase 4).
 TRAIN_LR, TRAIN_BETAS, TRAIN_EPS, TRAIN_WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
@@ -206,11 +267,12 @@ def log(msg: str):
 
 def _template_args(mangled: str):
     """A mangled template argument list, read left to right: `Li64E` is 64,
-    `f` f32, `a` int8, `13__nv_bfloat16` bf16, `13__nv_fp8_e4m3` fp8, and a
+    `f` f32, `a` int8, `13__nv_bfloat16` bf16, `6__half` f16,
+    `13__nv_fp8_e4m3` fp8, and a
     substitution (`S1_`) repeats the type before it."""
     import re
 
-    names = {"__nv_bfloat16": "bf16", "__nv_fp8_e4m3": "fp8", "f": "f32", "a": "int8"}
+    names = {"__nv_bfloat16": "bf16", "__half": "f16", "__nv_fp8_e4m3": "fp8", "f": "f32", "a": "int8"}
     args, i = [], 0
     while i < len(mangled):
         m = re.match(r"Li(\d+)E|(\d+)|(S\d*_)|([fa])", mangled[i:])
@@ -708,10 +770,13 @@ def profile_phase(model, requests, device, engine_kw, unprofiled_wall_s):
 
 
 # ---------------------------------------------------------- flash kernels
-def flash_case(device, dtype, b, hq, s, d, seed):
-    """q, k, v and an output cotangent do, [B*H, S, D] each."""
+def flash_case(device, dtype, b, hq, s, d, seed, scales=None):
+    """q, k, v and an output cotangent do, [B*H, S, D] each, standard normal
+    times `scales[name]` where given."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((b * hq, s, d), generator=gen, device=device).to(dtype) for _ in range(4)]
+    scales = scales or {}
+    return [(torch.randn((b * hq, s, d), generator=gen, device=device) * scales.get(name, 1.0)).to(dtype)
+            for name in ("q", "k", "v", "do")]
 
 
 def flash_bound(name, q, k, causal=True):
@@ -748,25 +813,57 @@ def sdpa_flash_yardsticks(q, k, v, do, b, hq):
 
 
 def flash_rounding_bound(name, key, q, k, v, do, lse, delta, causal, scale):
-    """The most, element by element, that rounding P or dS to bf16 before
-    the second product can move output `key` of kernel `name`: K3's o by
-    BF16_UNIT * (P @ |V|), P = exp(s - lse) the normalised probabilities;
-    K4's dv by BF16_UNIT * (P^T @ |dO|) and dk by BF16_UNIT * (|dS|^T @ |Q|),
-    dS = P * (dP - delta) * scale; K5's dq by BF16_UNIT * (|dS| @ |K|). From
-    the plain versions' fp32 P and dS."""
+    """The most, element by element, that rounding P or dS to q's type (bf16
+    or fp16) before the second product can move output `key` of kernel
+    `name`, with `unit` that type's ROUNDING_UNIT: K3's o by unit * (P @ |V|),
+    P = exp(s - lse) the normalised probabilities; K4's dv by
+    unit * (P^T @ |dO|) and dk by unit * (|dS|^T @ |Q|),
+    dS = P * (dP - delta) * scale; K5's dq by unit * (|dS| @ |K|). From the
+    plain versions' fp32 P and dS."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     if (name, key) not in FLASH_ROUNDED:
         raise ValueError(f"no rounding bound for {name}'s {key}")
+    unit = ROUNDING_UNIT[q.dtype]
     p = torch.exp(fa._scores(q, k, causal, scale) - lse[..., None])
     if key == "o":
-        return BF16_UNIT * torch.matmul(p, v.float().abs())
+        return unit * torch.matmul(p, v.float().abs())
     if key == "dv":
-        return BF16_UNIT * torch.matmul(p.transpose(-1, -2), do.float().abs())
+        return unit * torch.matmul(p.transpose(-1, -2), do.float().abs())
     ds = (p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale).abs()
     if key == "dk":
-        return BF16_UNIT * torch.matmul(ds.transpose(-1, -2), q.float().abs())
-    return BF16_UNIT * torch.matmul(ds, k.float().abs())
+        return unit * torch.matmul(ds.transpose(-1, -2), q.float().abs())
+    return unit * torch.matmul(ds, k.float().abs())
+
+
+def dp_order_bound(key, q, k, v, do, lse, causal, scale):
+    """The most that summing each dP = dO . V^T (D products) in another fp32
+    order, on both sides, can move dk or dq through dS = P * (dP - delta) *
+    scale: 2 D 2^-24 scale (P * (|dO| @ |V|^T)) @ |K| for dq, its
+    transpose @ |Q| for dk."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    p = torch.exp(fa._scores(q, k, causal, scale) - lse[..., None])
+    w = 2 * q.shape[-1] * FP32_UNIT * scale * p * torch.matmul(do.float().abs(), v.float().abs().transpose(-1, -2))
+    if key == "dk":
+        return torch.matmul(w.transpose(-1, -2), q.float().abs())
+    return torch.matmul(w, k.float().abs())
+
+
+def flash_tolerance(dtype, key):
+    """The limit of output `key` in `dtype` before any rounding bound."""
+    if key == "lse":
+        return FLASH_LSE_TOL
+    if dtype == torch.float32:
+        return FLASH_F32_TOL["out" if key == "o" else "grad"]
+    if dtype == torch.bfloat16:
+        return dict(atol=BF16_ATOL, rtol=BF16_RTOL)
+    return dict(atol=FP16_ATOL, rtol=FP16_RTOL)
+
+
+def launch_key(name, dtype):
+    """The `LAUNCHES` count of kernel `name` on `dtype` tensors."""
+    return name + ("_f16" if dtype == torch.float16 else "")
 
 
 def limit_report(got, ref, atol, rtol, bound=None):
@@ -786,16 +883,17 @@ def limit_report(got, ref, atol, rtol, bound=None):
 
 
 def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
-    """K3, K4 and K5 against their plain versions, f32 and bf16; each kernel
-    check is one launch. K4 and K5 get the lse and delta of the plain
-    forward, so each is held alone. bf16 K3's o, K4's dk and dv and K5's dq
-    also report the element nearest to breaking the limit without the
-    rounding bound, and SDPA's output under both limits."""
+    """K3, K4 and K5 against their plain versions, f32, bf16 and fp16; each
+    kernel check is one launch. K4 and K5 get the lse and delta of the
+    plain forward, so each is held alone. bf16 and fp16 K3's o, K4's dk and
+    dv and K5's dq also report the element nearest to breaking the limit
+    without the rounding bound, and SDPA's output under both limits. Then
+    fp16 K4 and K5 on the range case (`flash_range_case`)."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     scale = shape["d"] ** -0.5
     results = {name: {} for name in FLASH_KERNELS}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, do = flash_case(device, dtype, seed=21, **shape)
         ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
         delta = (do.float() * ref_o.float()).sum(-1)
@@ -819,42 +917,14 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
         expect = {"flash_fwd": {"o": ref_o, "lse": lse}, "flash_bwd_dkv": {"dk": ref_dk, "dv": ref_dv},
                   "flash_bwd_dq": {"dq": ref_dq}}
         for name, call in calls.items():
-            before = fa.LAUNCHES[name]
-            out = call()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-                if fa.LAUNCHES[name] != before + 1:
-                    raise RuntimeError(f"{name} on {device} did not launch its kernel")
-            got = dict(zip(expect[name], out if isinstance(out, tuple) else (out,)))
+            got = launch_checked(device, name, dtype, call, expect[name])
             row = {"max_abs_err": 0.0, "errors": {}}
             for key, ref in expect[name].items():
-                if not torch.isfinite(got[key]).all():
-                    raise RuntimeError(f"{name} ({dtype}) wrote non-finite {key}")
-                if key == "lse":
-                    tol = FLASH_LSE_TOL
-                elif dtype == torch.float32:
-                    tol = FLASH_F32_TOL["out" if key == "o" else "grad"]
-                else:
-                    tol = dict(atol=BF16_ATOL, rtol=BF16_RTOL)
-                err = float((got[key].float() - ref.float()).abs().max())
-                entry = row["errors"][key] = {"max_abs_err": err, "tolerance": tol}
-                if dtype == torch.bfloat16 and (name, key) in FLASH_ROUNDED:
-                    bound = flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
-                    entry["tolerance"] = dict(tol, plus=FLASH_ROUNDED[(name, key)])
-                    entry["limit"] = limit_report(got[key], ref, **tol, bound=bound)
-                    entry["limit_without_bound"] = limit_report(got[key], ref, **tol)
-                    entry["sdpa_limit"] = limit_report(sdpa[key], ref, **tol, bound=bound)
-                    entry["sdpa_limit_without_bound"] = limit_report(sdpa[key], ref, **tol)
-                    del bound
-                    if entry["limit"]["broken"]:
-                        raise RuntimeError(f"{name} {dtype} {key}: {entry['limit']['broken']} elements past "
-                                           f"their limit, the worst {entry['limit']['worst']}")
-                else:
-                    torch.testing.assert_close(got[key].float(), ref.float(), **tol,
-                                               msg=lambda m: f"{name} {dtype} {key}: {m}")
+                entry = row["errors"][key] = hold_flash_output(name, key, got[key], ref, q, k, v, do, lse, delta,
+                                                               scale, sdpa=sdpa.get(key))
                 if key != "lse":
                     entry["sdpa_max_abs_err"] = sdpa_err[key]
-                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    row["max_abs_err"] = max(row["max_abs_err"], entry["max_abs_err"])
             bound, bound_by = flash_bound(name, q, k)
             row.update(bound_ms=bound, bound_by=bound_by)
             if timed:
@@ -863,7 +933,97 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
             results[name][str(dtype).replace("torch.", "")] = row
             log(f"[flash] {name} {dtype}: {json.dumps(row)}")
         del q, k, v, do, ref_o, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains, refs, sdpa, lib_fwd, lib_bwd
+    range_rows = flash_range_case(device, shape)
+    for name, row in range_rows.items():
+        results[name]["float16"]["range_case"] = row
     return results
+
+
+def launch_checked(device, name, dtype, call, keys):
+    """`call()` of kernel `name` on `dtype` tensors, which on the card must
+    launch it exactly once; its outputs by the names in `keys`, each finite."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    counter = launch_key(name, dtype)
+    before = fa.LAUNCHES[counter]
+    out = call()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        if fa.LAUNCHES[counter] != before + 1:
+            raise RuntimeError(f"{name} on {dtype} {device} did not launch its kernel")
+    got = dict(zip(keys, out if isinstance(out, tuple) else (out,)))
+    for key, x in got.items():
+        if not torch.isfinite(x).all():
+            raise RuntimeError(f"{name} ({dtype}) wrote non-finite {key}")
+    return got
+
+
+def hold_flash_output(name, key, got, ref, q, k, v, do, lse, delta, scale, sdpa=None, dp_order=False):
+    """Hold output `key` of kernel `name` to its plain version `ref` at the
+    limit of q's type (`flash_tolerance`), plus, for bf16 and fp16 outputs of
+    FLASH_ROUNDED, the rounding bound (and with `dp_order` for dk and dq,
+    `dp_order_bound`); raises past it. Returns the error, the limit and,
+    with the bound, how close the worst element came, with and without the
+    bound (and SDPA's `sdpa` output under both)."""
+    dtype = q.dtype
+    tol = flash_tolerance(dtype, key)
+    entry = {"max_abs_err": float((got.float() - ref.float()).abs().max()), "tolerance": tol}
+    if dtype in ROUNDING_UNIT and (name, key) in FLASH_ROUNDED:
+        bound = flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
+        entry["tolerance"] = dict(tol, plus=FLASH_ROUNDED[(name, key)].replace("2^-8", UNIT_TEXT[dtype]))
+        if dp_order and key in ("dk", "dq"):
+            bound = bound + dp_order_bound(key, q, k, v, do, lse, True, scale)
+            entry["tolerance"]["plus"] += (" + 2 D 2^-24 scale (P * (|dO| @ |V|^T))"
+                                           + ("^T @ |Q|" if key == "dk" else " @ |K|"))
+        entry["limit"] = limit_report(got, ref, **tol, bound=bound)
+        entry["limit_without_bound"] = limit_report(got, ref, **tol)
+        if sdpa is not None:
+            entry["sdpa_limit"] = limit_report(sdpa, ref, **tol, bound=bound)
+            entry["sdpa_limit_without_bound"] = limit_report(sdpa, ref, **tol)
+        del bound
+        if entry["limit"]["broken"]:
+            raise RuntimeError(f"{name} {dtype} {key}: {entry['limit']['broken']} elements past "
+                               f"their limit, the worst {entry['limit']['worst']}")
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), **tol, msg=lambda m: f"{name} {dtype} {key}: {m}")
+    return entry
+
+
+def flash_range_case(device, shape=FLASH_SHAPE):
+    """fp16 K4 and K5 where dS outgrows fp16 (FLASH_RANGE_SCALES): the plain
+    version's largest |dS| must pass 65504 while its dk, dv and dq fit fp16,
+    or the case tests nothing; each kernel, launched once, writes finite
+    values within the fp16 limit of its plain version, dk's and dq's with
+    `dp_order_bound` added."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    scale = shape["d"] ** -0.5
+    q, k, v, do = flash_case(device, torch.float16, seed=23, scales=FLASH_RANGE_SCALES, **shape)
+    ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    delta = fa._delta(ref_o, do)
+    p = torch.exp(fa._scores(q, k, True, scale) - lse[..., None])
+    ds_max = float((p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None])
+                    * scale).abs().max())
+    del p
+    expect = {"flash_bwd_dkv": dict(zip(("dk", "dv"), fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True,
+                                                                                  scale))),
+              "flash_bwd_dq": {"dq": fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)}}
+    refs_max = {key: float(ref.float().abs().max()) for out in expect.values() for key, ref in out.items()}
+    if not ds_max > FP16_MAX or not all(x < FP16_MAX for x in refs_max.values()):
+        raise RuntimeError(f"the range case does not test the range: plain |dS| max {ds_max}, outputs {refs_max}")
+    calls = {
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+    }
+    rows = {}
+    for name, call in calls.items():
+        got = launch_checked(device, name, torch.float16, call, expect[name])
+        rows[name] = {"scales": FLASH_RANGE_SCALES, "plain_ds_abs_max": ds_max, "plain_abs_max": refs_max,
+                      "errors": {key: hold_flash_output(name, key, got[key], ref, q, k, v, do, lse, delta, scale,
+                                                        dp_order=True)
+                                 for key, ref in expect[name].items()}}
+        log(f"[flash] {name} float16 range case: {json.dumps(rows[name])}")
+    return rows
 
 
 def compare_worker(tree, head_dim=FLASH_SHAPE["d"]):
@@ -972,11 +1132,13 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
     return SimpleDataLoader(data, BatchSampler(range(len(data)), batch))
 
 
-def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None):
+def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
+          after_step=None):
     """Train a Llama of `config` (random weights from seed 0) through the
     user's entry points; returns (per-step losses, per-step seconds, the
-    prepared model, the step function, the last batch). `on_step(i)` runs
-    before step i, outside its timing."""
+    prepared model, the step function, the last batch). `on_step(i,
+    step_fn)` runs before step i and `after_step(i, step_fn)` after it, both
+    outside its timing."""
     from accelerate_tpu_torch import Accelerator, create_llama_model
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
@@ -992,7 +1154,7 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     losses, seconds = [], []
     for i, b in enumerate(loader):
         if on_step is not None:
-            on_step(i)
+            on_step(i, step_fn)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
@@ -1000,11 +1162,37 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
         schedule.step()
         losses.append(float(loss))  # reads the loss back: the step is done
         seconds.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step(i, step_fn)
     return losses, seconds, pmodel, step_fn, b
 
 
+def expected_launches(n, dtype=None):
+    """Flash launch counts of a run that launched each kernel `n` times on
+    tensors of `dtype` (f32 and bf16 share a count, fp16 has its own) and
+    none on others."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    mine = {launch_key(name, dtype) for name in FLASH_KERNELS} if dtype is not None else set()
+    return {key: n if key in mine else 0 for key in fa.LAUNCHES}
+
+
+def step_report(batch, seq, seconds, warmup, params, config, launches):
+    """Median step time of the timed steps, tokens/s, MFU (6 x non-embedding
+    parameters x tokens/s over 989 TFLOP/s, dense bf16 and fp16 alike)."""
+    step_s = float(np.median(seconds[warmup:]))
+    tokens_per_s = batch * seq / step_s
+    non_embedding = params - config.vocab_size * config.hidden_size
+    return {
+        "batch": batch, "parameters": params, "warmup_steps": warmup, "timed_steps": len(seconds) - warmup,
+        "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * x for x in seconds],
+        "tokens_per_s": tokens_per_s, "mfu": 6 * non_embedding * tokens_per_s / BF16_PEAK_FLOPS,
+        "launches": launches,
+    }
+
+
 def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ, timed_steps=8,
-                   warmup=2, batch=2, profile=False):
+                   warmup=2, batch=2, profile=False, checkpoint_layers=2):
     import dataclasses
     import os
 
@@ -1014,6 +1202,7 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
     config = MODEL_REGISTRY[model_name]()
     on_card = device.type == "cuda"
     report = {"model": model_name, "seq": seq}
+    layers = config.num_hidden_layers
 
     # (a) f32 at full width, cut to `parity_layers` layers: kernels vs plain attention.
     cut = dataclasses.replace(config, num_hidden_layers=parity_layers)
@@ -1029,10 +1218,9 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
         launches = dict(fa.LAUNCHES)
         log(f"[train] f32 {parity_layers} layers, {impl} attention: losses {runs[impl]}, launches {launches}")
         if on_card:
-            want = parity_layers * 3 if impl == "flash" else 0
-            if any(n != want for n in launches.values()):
-                raise RuntimeError(f"f32 {impl} run: flash launches {launches}, expected {want} each")
-        if on_card:
+            want = expected_launches(parity_layers * 3, torch.float32 if impl == "flash" else None)
+            if launches != want:
+                raise RuntimeError(f"f32 {impl} run: flash launches {launches}, expected {want}")
             torch.cuda.empty_cache()
     diff = [abs(a - b) / abs(b) for a, b in zip(runs["flash"], runs["xla"])]
     if not all(np.isfinite(runs["flash"])) or max(diff) > TRAIN_F32_RTOL:
@@ -1041,7 +1229,7 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
                             "losses_plain": runs["xla"], "max_rel_diff": max(diff), "rtol": TRAIN_F32_RTOL}
 
     # (b) bf16 at full width and depth, timed.
-    def before_step(i):
+    def before_step(i, step_fn):
         if i == warmup:
             fa.reset_launch_counts()
             if on_card:
@@ -1051,30 +1239,170 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
         device, config, "bf16", batch=batch, steps=timed_steps, seq=seq, warmup=warmup, on_step=before_step
     )
     launches = dict(fa.LAUNCHES)
-    layers = config.num_hidden_layers
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"bf16 training losses are not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"bf16 training on a repeated batch did not fit it: {losses}")
-    if on_card and any(n != layers * timed_steps for n in launches.values()):
+    if on_card and launches != expected_launches(layers * timed_steps, torch.bfloat16):
         raise RuntimeError(f"bf16 timed steps: flash launches {launches}, expected {layers} x {timed_steps}")
-    params = pmodel.num_parameters
-    step_s = float(np.median(seconds[warmup:]))
-    tokens_per_s = batch * seq / step_s
-    non_embedding = params - config.vocab_size * config.hidden_size
-    bf16 = {
-        "batch": batch, "parameters": params, "warmup_steps": warmup, "timed_steps": timed_steps,
-        "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * x for x in seconds],
-        "tokens_per_s": tokens_per_s, "mfu": 6 * non_embedding * tokens_per_s / BF16_PEAK_FLOPS,
-        "losses": losses, "launches": launches,
-    }
+    bf16 = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+    bf16["losses"] = losses
     if on_card:
         bf16["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
     log(f"[train] bf16 {model_name}: {json.dumps(bf16)}")
     report["bf16"] = bf16
     if profile:
-        report["bf16_profile"] = profile_train_step(step_fn, last_batch, device, step_s)
+        report["bf16_profile"] = profile_train_step(step_fn, last_batch, device, bf16["step_ms_median"] / 1e3)
+    del pmodel, step_fn, last_batch
+    free_memory(device)
+
+    # (d) fp16 with dynamic loss scaling at full width and depth, timed.
+    t0 = time.perf_counter()
+    report["fp16"] = fp16_phase(device, config, batch, seq, timed_steps, warmup)
+    log(f"[time] training (d) fp16 {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+
+    # (e) a bf16 checkpoint round trip at full width, cut to `checkpoint_layers` layers.
+    t0 = time.perf_counter()
+    report["checkpoint"] = checkpoint_phase(device, dataclasses.replace(config, num_hidden_layers=checkpoint_layers),
+                                            seq)
+    log(f"[time] training (e) checkpoint {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
     return report
+
+
+def fp16_phase(device, config, batch, seq, timed_steps, warmup):
+    """(d): `train_step` under `mixed_precision="fp16"` with the default
+    `GradScalerKwargs` (scale 65536). Gates: finite losses; at least one
+    timed step applied; one weight matrix unchanged bit for bit across every
+    skipped step; the scale after each step as the scaler's rule gives it
+    from the skip pattern; the last loss below the first where two or more
+    steps were applied; each fp16 flash kernel launched layers x timed
+    steps times, skipped steps included, and no other flash kernel."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.optimizer import GradScaler
+
+    on_card = device.type == "cuda"
+    watched = {}  # a copy of layer 0's query projection (f32 master) before each step
+
+    def before_step(i, step_fn):
+        if i == warmup:
+            fa.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+        watched["weight"] = step_fn.model.module.layers[0].attention.wq.weight
+        watched["before"] = watched["weight"].detach().clone()
+
+    record = {"skipped": [], "scale": [], "unchanged": []}
+
+    def after_step(i, step_fn):
+        opt = step_fn.optimizer
+        record["skipped"].append(opt.step_was_skipped)
+        record["scale"].append(opt.scaler.scale)
+        record["unchanged"].append(bool(torch.equal(watched["weight"], watched["before"])))
+
+    losses, seconds, pmodel, step_fn, _ = train(device, config, "fp16", batch=batch, steps=timed_steps, seq=seq,
+                                                warmup=warmup, on_step=before_step, after_step=after_step)
+    launches = dict(fa.LAUNCHES)
+    out = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+    out.update(losses=losses, skipped=record["skipped"], scale_after_step=record["scale"],
+               weight_unchanged=record["unchanged"])
+    if on_card:
+        out["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    del pmodel, step_fn, watched["weight"], watched["before"]
+    log(f"[train] fp16 {json.dumps(out)}")
+    rule = GradScaler()
+    replay = []
+    for skipped in record["skipped"]:
+        rule.update(skipped)
+        replay.append(rule.scale)
+    applied = [i for i, skipped in enumerate(record["skipped"]) if not skipped]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"fp16 training losses are not finite: {losses}")
+    if not any(i >= warmup for i in applied):
+        raise RuntimeError(f"fp16: no timed step was applied (skipped {record['skipped']})")
+    if any(skip and not same for skip, same in zip(record["skipped"], record["unchanged"])):
+        raise RuntimeError(f"fp16: a skipped step changed the weights (skipped {record['skipped']}, "
+                           f"unchanged {record['unchanged']})")
+    if any(not skip and same for skip, same in zip(record["skipped"], record["unchanged"])):
+        raise RuntimeError(f"fp16: an applied step left the weights as they were ({record['unchanged']})")
+    if replay != record["scale"]:
+        raise RuntimeError(f"fp16: scales {record['scale']} do not follow the scaler's rule {replay}")
+    if len(applied) >= 2 and not losses[-1] < losses[0]:
+        raise RuntimeError(f"fp16 training on a repeated batch did not fit it: {losses}")
+    want = expected_launches(config.num_hidden_layers * timed_steps, torch.float16)
+    if on_card and launches != want:
+        raise RuntimeError(f"fp16 timed steps: flash launches {launches}, expected {want}")
+    return out
+
+
+def checkpoint_phase(device, config, seq, steps=4, save_after=2, n_batches=8):
+    """(e): bf16 training of `config` (batch 1) over a `SimpleDataLoader` of
+    `n_batches` distinct seeded rows shuffled by a `SeedableRandomSampler`;
+    `save_state` after step `save_after` into a `CheckpointManager` under a
+    fresh temporary directory, then a fresh run (state reset, weights from
+    another seed) that restores "latest" and takes the remaining steps from
+    the restored loader position. Its losses equal the uninterrupted run's
+    within rtol 1e-6. The directory is removed however the phase ends."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader, create_llama_model
+    from accelerate_tpu_torch.data_loader import SeedableRandomSampler
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import ProjectConfiguration
+
+    rows = np.random.default_rng(5).integers(0, config.vocab_size, (n_batches, seq)).astype(np.int64)
+    data = [{"input_ids": r} for r in rows]
+    project_dir = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+
+    def run(seed, resume):
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+        model = create_llama_model(config, seed=seed, device=device)
+        accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu", project_config=ProjectConfiguration(
+            project_dir=project_dir, automatic_checkpoint_naming=True))
+        optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                      weight_decay=TRAIN_WD)
+        loader = SimpleDataLoader(data, BatchSampler(SeedableRandomSampler(num_samples=n_batches, seed=11), 1))
+        _, _, loader, schedule = accelerator.prepare(model, optimizer, loader, lambda step: TRAIN_LR)
+        timing = {"parameters": sum(p.numel() for p in model.parameters())}
+        if resume:
+            t0 = time.perf_counter()
+            path = accelerator.load_state("latest")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            timing.update(load_s=time.perf_counter() - t0, loaded=os.path.basename(path))
+            loader = accelerator.skip_first_batches(loader, save_after)
+        step_fn = accelerator.train_step(max_grad_norm=1.0)
+        losses = []
+        for b in loader:
+            losses.append(float(step_fn(b)))
+            schedule.step()
+            if not resume and len(losses) == save_after:
+                t0 = time.perf_counter()
+                path = accelerator.save_state()
+                timing.update(save_s=time.perf_counter() - t0, saved=os.path.basename(path),
+                              bytes_written=sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+                              files=sorted(os.listdir(path)))
+            if len(losses) == (steps - save_after if resume else steps):
+                break
+        return losses, timing
+
+    try:
+        full, saved = run(seed=0, resume=False)
+        free_memory(device)
+        resumed, loaded = run(seed=1, resume=True)
+    finally:
+        shutil.rmtree(project_dir, ignore_errors=True)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[save_after:]))
+    out = {"layers": config.num_hidden_layers, "losses": full, "resumed_losses": resumed, "max_rel_diff": diff,
+           **saved, **loaded}
+    log(f"[train] checkpoint {json.dumps(out)}")
+    if not all(np.isfinite(full + resumed)) or len(resumed) != steps - save_after or diff > 1e-6:
+        raise RuntimeError(f"checkpoint resume: losses {resumed} differ from the uninterrupted {full[save_after:]} "
+                           f"(rtol {diff}, limit 1e-6)")
+    return out
 
 
 def profile_train_step(step_fn, batch, device, unprofiled_step_s):
@@ -1257,6 +1585,33 @@ def main(argv=None) -> int:
             "shape": dict(FLASH_SHAPE, causal=True),
             "design": FLASH_DESIGN[name],
             "f32": f32,
+        })
+    for name, (replaces, _) in FLASH_KERNELS.items():
+        fp16 = flash[name]["float16"]
+        rows.append({
+            "name": launch_key(name, torch.float16),
+            "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": training["fp16"]["launches"][launch_key(name, torch.float16)],
+            "max_abs_err": fp16["max_abs_err"],
+            "tolerance": fp16["errors"][next(iter(fp16["errors"]))]["tolerance"],
+            "errors": fp16["errors"],
+            "range_case": fp16.get("range_case"),
+            "ms": fp16["ms"],
+            "kernel_ms": fp16["ms"],
+            "device_ms": fp16["device_ms"],
+            "library_device_ms": fp16["library_device_ms"],
+            "plain_ms": fp16["plain_ms"],
+            "bound_ms": fp16["bound_ms"],
+            "bound_by": fp16["bound_by"],
+            "library_ms": fp16["library_ms"],
+            "library_call": ("F.scaled_dot_product_attention(is_causal=True), fp16" if name == "flash_fwd" else
+                             "autograd backward of F.scaled_dot_product_attention(is_causal=True), fp16: dq, dk "
+                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
+            "dtype": "float16",
+            "shape": dict(FLASH_SHAPE, causal=True),
+            "design": FLASH_DESIGN[name] + FLASH_FP16_DESIGN[name],
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

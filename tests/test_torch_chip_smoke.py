@@ -1,9 +1,9 @@
 """CPU checks of the card script's own logic, which the card runs only as a
 whole: `chip_smoke.py`'s report of ptxas' output, its flash phase's limits
 (rehearsed on the plain versions, which CPU tensors take, and held against
-an emulation of the tensor-core kernels' bf16 arithmetic), its profile's
-attribution of the grouped-query repeat, and the refusal of its `--compare`
-mode to run without a card."""
+an emulation of the tensor-core kernels' bf16 and fp16 arithmetic, fp16's
+range scaling included), its profile's attribution of the grouped-query
+repeat, and the refusal of its `--compare` mode to run without a card."""
 
 import os
 import subprocess
@@ -57,43 +57,91 @@ def test_flash_phase_holds_bf16_k3_k5_to_their_rounding_bound():
     """The flash phase on CPU tensors: the plain versions meet every limit;
     bf16 K3's o, K4's dk and dv and K5's dq are held element by element
     within atol 2e-3 + rtol 1e-2 |ref| plus the bound of their bf16
-    rounding, and report that
+    rounding (fp16's within atol 1e-3 + rtol 5e-3 |ref| plus the bound at
+    fp16's unit), and report that
     limit, the limit without the bound and SDPA under both; every other
     limit is a constant; each output carries SDPA's error beside the
-    kernel's."""
+    kernel's. fp16 K4 and K5 also carry the range case."""
     results = chip_smoke.flash_kernel_phase(torch.device("cpu"), shape=dict(b=1, hq=2, s=128, d=32), timed=False)
-    bf16 = dict(atol=chip_smoke.BF16_ATOL, rtol=chip_smoke.BF16_RTOL)
+    narrow = {"bfloat16": (dict(atol=chip_smoke.BF16_ATOL, rtol=chip_smoke.BF16_RTOL), "2^-8"),
+              "float16": (dict(atol=chip_smoke.FP16_ATOL, rtol=chip_smoke.FP16_RTOL), "2^-11")}
     for name, by_dtype in results.items():
+        assert set(by_dtype) == {"float32", "bfloat16", "float16"}
         for dtype, row in by_dtype.items():
             for key, entry in row["errors"].items():
                 if key == "lse":
                     assert entry["tolerance"] == chip_smoke.FLASH_LSE_TOL
                     continue
                 assert 0 < entry["sdpa_max_abs_err"] < 0.1, (name, dtype, key)
-                if dtype == "bfloat16" and (name, key) in chip_smoke.FLASH_ROUNDED:
-                    assert entry["tolerance"] == dict(bf16, plus=chip_smoke.FLASH_ROUNDED[(name, key)])
+                if dtype in narrow and (name, key) in chip_smoke.FLASH_ROUNDED:
+                    tol, unit = narrow[dtype]
+                    assert entry["tolerance"] == dict(tol, plus=chip_smoke.FLASH_ROUNDED[(name, key)].replace("2^-8", unit))
                     for report in ("limit", "limit_without_bound", "sdpa_limit", "sdpa_limit_without_bound"):
                         assert set(entry[report]) == {"broken", "share", "worst"}, report
                     assert entry["limit"]["broken"] == 0 and entry["limit"]["share"] == 0.0
-                elif dtype == "bfloat16":
-                    assert entry["tolerance"] == bf16
+                elif dtype in narrow:
+                    assert entry["tolerance"] == narrow[dtype][0]
                 else:
                     assert entry["tolerance"] in chip_smoke.FLASH_F32_TOL.values()
+            assert ("range_case" in row) == (dtype == "float16" and name != "flash_fwd"), (name, dtype)
     assert set(chip_smoke.FLASH_ROUNDED) == {("flash_fwd", "o"), ("flash_bwd_dkv", "dk"),
                                              ("flash_bwd_dkv", "dv"), ("flash_bwd_dq", "dq")}
 
 
-def _bf16_case(bh, s, d, seed, q_scale=1.0):
+def _bf16_case(bh, s, d, seed, q_scale=1.0, dtype=torch.bfloat16, scales=None):
     rng = np.random.default_rng(seed)
-    to = lambda scale=1.0: torch.as_tensor(rng.normal(size=(bh, s, d)).astype(np.float32) * scale).bfloat16()  # noqa: E731
-    return to(q_scale), to(), to(), to()
+    scales = scales or dict(q=q_scale)
+    to = lambda name: torch.as_tensor(rng.normal(size=(bh, s, d)).astype(np.float32) * scales.get(name, 1.0)).to(dtype)  # noqa: E731
+    return to("q"), to("k"), to("v"), to("do")
+
+
+P_SCALE = 2.0 ** 15  # fp16: the kernels narrow P as P * 2^15
+DS_TOP, DS_MIN_EXP = 14, -64  # fp16: a row's largest |dS| narrowed into [2^14, 2^15)
+
+
+def _narrow_p(p, dtype):
+    """p (fp32, at most 1) as the kernels feed it to the tensor cores, back in fp32."""
+    if dtype == torch.float16:
+        return (p * P_SCALE).half().float() / P_SCALE
+    return p.to(dtype).float()
+
+
+def _exponent(x):
+    """floor(log2(x)) of x >= 0 as the kernels read it from the bits: -127 for 0."""
+    e = torch.frexp(x)[1] - 1
+    return torch.where(x > 0, e, torch.full_like(e, -127))
+
+
+class _DsRange:
+    """fp16 K4/K5's dS narrowing over the tiles of one accumulator, row by
+    row (a row being a query row in K5, a key row in K4): each tile's dS is
+    scaled by 2^(14 - e), e the exponent of the row's largest |dS| so far,
+    rounded to fp16 and scaled back. In exact arithmetic that is the
+    kernel's rescale-the-accumulator scheme, whose factors are all powers of
+    two. `naive` rounds dS to fp16 as it is."""
+
+    def __init__(self, rows_shape, naive=False):
+        self.e = torch.full(rows_shape, DS_MIN_EXP, dtype=torch.int32)
+        self.naive = naive
+
+    def narrow(self, ds):
+        if self.naive:
+            return ds.half().float()
+        self.e = torch.maximum(self.e, _exponent(ds.abs().amax(-1)))
+        mul = torch.pow(2.0, (DS_TOP - self.e).double()).float()[..., None]
+        return (ds * mul).half().float() / mul
+
+
+def _narrow_ds(ds, dtype, rng):
+    return rng.narrow(ds) if dtype == torch.float16 else ds.to(dtype).float()
 
 
 def _k3_arithmetic(q, k, v, scale, tile, drop_last_tile=False):
-    """K3's bf16 arithmetic, causal with S = Sk: an online softmax over key
-    tiles of `tile`, p rounded to bf16 (to nearest) before p @ v, l summed
-    from the fp32 p, o rounded to bf16; `drop_last_tile` leaves the last
-    key tile out, as a wrong kernel would."""
+    """K3's bf16 (fp16) arithmetic, causal with S = Sk: an online softmax
+    over key tiles of `tile`, p rounded to q's type (to nearest; in fp16
+    scaled by 2^15 first) before p @ v, l summed from the fp32 p, o rounded
+    to q's type; `drop_last_tile` leaves the last key tile out, as a wrong
+    kernel would."""
     bh, s, d = q.shape
     rows = torch.arange(s)[:, None]
     m = torch.full((bh, s, 1), fa.NEG_INF)
@@ -105,33 +153,41 @@ def _k3_arithmetic(q, k, v, scale, tile, drop_last_tile=False):
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         corr, p = torch.exp(m - m_new), torch.exp(x - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + torch.matmul(p.bfloat16().float(), v[:, k0:k0 + tile].float())
+        acc = acc * corr + torch.matmul(_narrow_p(p, q.dtype), v[:, k0:k0 + tile].float())
         m = m_new
-    return (acc / l).bfloat16()
+    return (acc / l).to(q.dtype)
 
 
-def _k5_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False):
-    """K5's bf16 arithmetic: fp32 p and ds, ds rounded to bf16 before
-    ds @ k, dq rounded to bf16; `drop_last_tile` zeroes the last key tile's
-    ds."""
+def _k5_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False, naive=False):
+    """K5's bf16 (fp16) arithmetic: fp32 p and ds over key tiles of `tile`,
+    ds rounded to q's type before ds @ k (in fp16 through `_DsRange`), dq
+    summed in fp32 and rounded to q's type; `drop_last_tile` zeroes the
+    last key tile's ds."""
     p = torch.exp(fa._scores(q, k, True, scale) - lse[..., None])
     ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
     if drop_last_tile:
         ds[..., -tile:] = 0
-    return torch.matmul(ds.bfloat16().float(), k.float()).bfloat16()
+    rows = _DsRange(ds.shape[:-1], naive)
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[1], tile):
+        dq += torch.matmul(_narrow_ds(ds[..., k0:k0 + tile], q.dtype, rows), k[:, k0:k0 + tile].float())
+    return dq.to(q.dtype)
 
 
-def _k4_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False):
-    """K4's bf16 arithmetic, causal with S = Sk: per 64-key block, query
-    tiles of `tile` rows streamed from the first that sees the block; fp32
-    pT and dsT, pT rounded to bf16 before pT @ do and dsT before dsT @ q,
-    dk and dv summed in fp32 and rounded to bf16; `drop_last_tile` leaves
-    the last query tile out, as a wrong kernel would."""
+def _k4_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False, naive=False):
+    """K4's bf16 (fp16) arithmetic, causal with S = Sk: per 64-key block,
+    query tiles of `tile` rows streamed from the first that sees the block;
+    fp32 pT and dsT, pT rounded to q's type before pT @ do (in fp16 scaled by
+    2^15 first) and dsT before dsT @ q (in fp16 through `_DsRange`, a row
+    being a key), dk and dv summed in fp32 and rounded to q's type;
+    `drop_last_tile` leaves the last query tile out, as a wrong kernel
+    would."""
     bh, s, d = q.shape
     dk, dv = torch.zeros(bh, s, d), torch.zeros(bh, s, d)
     starts = list(range(0, s, tile))
     for k0 in range(0, s, 64):
         keys = torch.arange(k0, k0 + 64)[:, None]
+        rows = _DsRange((bh, 64), naive)
         for i0 in [i0 for i0 in starts if i0 + tile > k0][:-1 if drop_last_tile else None]:
             qt, dot = q[:, i0:i0 + tile].float(), do[:, i0:i0 + tile].float()
             sT = torch.matmul(k[:, k0:k0 + 64].float(), qt.transpose(-1, -2)) * scale
@@ -139,14 +195,24 @@ def _k4_arithmetic(q, k, v, do, lse, delta, scale, tile, drop_last_tile=False):
             pT = torch.exp(sT - lse[:, None, i0:i0 + tile]).masked_fill(hidden, 0.0)
             dpT = torch.matmul(v[:, k0:k0 + 64].float(), dot.transpose(-1, -2))
             dsT = pT * (dpT - delta[:, None, i0:i0 + tile]) * scale
-            dv[:, k0:k0 + 64] += torch.matmul(pT.bfloat16().float(), dot)
-            dk[:, k0:k0 + 64] += torch.matmul(dsT.bfloat16().float(), qt)
-    return {"dk": dk.bfloat16(), "dv": dv.bfloat16()}
+            dv[:, k0:k0 + 64] += torch.matmul(_narrow_p(pT, q.dtype), dot)
+            dk[:, k0:k0 + 64] += torch.matmul(_narrow_ds(dsT, q.dtype, rows), qt)
+    return {"dk": dk.to(q.dtype), "dv": dv.to(q.dtype)}
 
 
 OUTPUTS = [pytest.param(("flash_fwd", "o"), id="flash_fwd"), pytest.param(("flash_bwd_dq", "dq"), id="flash_bwd_dq"),
            pytest.param(("flash_bwd_dkv", "dk"), id="flash_bwd_dkv-dk"),
            pytest.param(("flash_bwd_dkv", "dv"), id="flash_bwd_dkv-dv")]
+
+
+def _right_and_wrong(name, key, q, k, v, do, lse, delta, scale, tile):
+    """The kernel's arithmetic for output `key` of `name`, and the same with
+    its last key tile (K4: query tile) left out."""
+    if name == "flash_fwd":
+        return (_k3_arithmetic(q, k, v, scale, tile, drop) for drop in (False, True))
+    if name == "flash_bwd_dq":
+        return (_k5_arithmetic(q, k, v, do, lse, delta, scale, 64, drop) for drop in (False, True))
+    return (_k4_arithmetic(q, k, v, do, lse, delta, scale, 64, drop)[key] for drop in (False, True))
 
 
 @pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0)],
@@ -157,7 +223,7 @@ def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(out
     |ref| + the rounding bound) holds for the tensor-core kernels'
     arithmetic with room to spare and breaks, by far, where the last key
     tile (K4: query tile) is left out. `tile` is K3's key tile; K4 streams
-    64-row query tiles, as the kernel."""
+    64-row query tiles, and K5 64-key tiles, as the kernels."""
     name, key = output
     q, k, v, do = _bf16_case(4, 512, d, seed=d, q_scale=q_scale)
     scale = d ** -0.5
@@ -179,6 +245,67 @@ def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(out
     assert held["broken"] == 0 and held["share"] < 0.75, held
     caught = chip_smoke.limit_report(wrong, ref, **tol, bound=bound)
     assert caught["broken"] > 100 and caught["share"] > 5, caught
+
+
+def _plain(name, key, q, k, v, do, lse, delta, scale):
+    if name == "flash_fwd":
+        return fa.flash_fwd_reference(q, k, v, True, scale)[0]
+    if name == "flash_bwd_dq":
+        return fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
+    return dict(zip(("dk", "dv"), fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)))[key]
+
+
+@pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0)],
+                         ids=["d64", "d128", "d32-scores-x8"])
+@pytest.mark.parametrize("output", OUTPUTS)
+def test_fp16_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(output, d, tile, q_scale):
+    """The fp16 twin: the limit of fp16 K3's o, K4's dk and dv and K5's dq
+    (atol 1e-3 + rtol 5e-3 |ref| + 2^-11 times the rounding term) holds for
+    the kernels' fp16 arithmetic, P scaled by 2^15 and dS by a power of two
+    per row before each is rounded, and breaks, by far, where the last tile
+    is left out."""
+    name, key = output
+    q, k, v, do = _bf16_case(4, 512, d, seed=d, q_scale=q_scale, dtype=torch.float16)
+    scale = d ** -0.5
+    ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    delta = fa._delta(ref_o, do)
+    ref = _plain(name, key, q, k, v, do, lse, delta, scale)
+    right, wrong = _right_and_wrong(name, key, q, k, v, do, lse, delta, scale, tile)
+    assert right.dtype == torch.float16
+    bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
+    tol = chip_smoke.flash_tolerance(torch.float16, key)
+    assert tol == dict(atol=1e-3, rtol=5e-3)
+    held = chip_smoke.limit_report(right, ref, **tol, bound=bound)
+    assert held["broken"] == 0 and held["share"] < 0.75, held
+    caught = chip_smoke.limit_report(wrong, ref, **tol, bound=bound)
+    assert caught["broken"] > 100 and caught["share"] > 5, caught
+
+
+@pytest.mark.parametrize("output", [o for o in OUTPUTS if o.values[0][0] != "flash_fwd"])
+def test_fp16_range_case_stays_finite_in_the_kernels_arithmetic(output):
+    """chip_smoke's range case (dO and V large, as under loss scaling) at 2
+    heads: the plain version's |dS| passes fp16's 65504 while dk, dv and dq
+    fit. The kernels' arithmetic, with dS scaled per row before it is
+    rounded, stays finite and within the fp16 limit; dS rounded as it is
+    overflows to inf."""
+    name, key = output
+    q, k, v, do = _bf16_case(2, 2048, 64, seed=5, dtype=torch.float16, scales=chip_smoke.FLASH_RANGE_SCALES)
+    scale = 64 ** -0.5
+    ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    delta = fa._delta(ref_o, do)
+    ref = _plain(name, key, q, k, v, do, lse, delta, scale)
+    p = torch.exp(fa._scores(q, k, True, scale) - lse[..., None])
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
+    assert float(ds.abs().max()) > chip_smoke.FP16_MAX > float(ref.float().abs().max())
+    emulate = _k5_arithmetic if name == "flash_bwd_dq" else _k4_arithmetic
+    outs = {naive: emulate(q, k, v, do, lse, delta, scale, 64, naive=naive) for naive in (False, True)}
+    right, naive = (x if name == "flash_bwd_dq" else x[key] for x in (outs[False], outs[True]))
+    assert torch.isfinite(right).all()
+    bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
+    held = chip_smoke.limit_report(right, ref, **chip_smoke.flash_tolerance(torch.float16, key), bound=bound)
+    assert held["broken"] == 0, held
+    if key != "dv":  # dv takes P and dO, never dS
+        assert not torch.isfinite(naive).all()
 
 
 def test_gqa_repeat_time_finds_each_layers_k_and_v_repeat():

@@ -20,7 +20,9 @@ that few rows see) that moves o, dq, dk and dv past atol 2e-3 where they
 are small. So they are held, element by element, within atol 2e-3 + rtol
 1e-2 |ref| plus the most that rounding can move each element
 (`chip_smoke.flash_rounding_bound`: 2^-8 (P @ |V|), 2^-8 (|dS| @ |K|),
-2^-8 (|dS|^T @ |Q|), 2^-8 (P^T @ |dO|)).
+2^-8 (|dS|^T @ |Q|), 2^-8 (P^T @ |dO|)). fp16 K3-K5 run the same kernels
+with fp16 operands: atol 1e-3 + rtol 5e-3 |ref| plus the same bound at
+fp16's unit, 2^-11 (`chip_smoke.flash_tolerance`).
 """
 
 import numpy as np
@@ -38,6 +40,15 @@ F32 = dict(atol=2e-5, rtol=0.0)
 F32_GRAD = dict(atol=1e-4, rtol=1e-4)
 LSE = dict(atol=2e-5, rtol=1e-5)
 BF16 = dict(atol=2e-3, rtol=1e-2)
+NARROW = {torch.bfloat16: BF16, torch.float16: dict(atol=1e-3, rtol=5e-3)}
+
+
+def _launched(before, dtype, n=1):
+    """The flash launch counts since `before` that `n` launches of each
+    kernel on `dtype` tensors leave."""
+    suffix = "_f16" if dtype == torch.float16 else ""
+    return {key: n if key in {k + suffix for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")} else 0
+            for key in before}
 
 
 @pytest.fixture
@@ -341,7 +352,7 @@ def _assert_within(got, ref, tol, bound=None, what=""):
 @pytest.mark.parametrize("causal,s,sk", [(True, 192, 192), (False, 128, 200), (True, 64, 200),
                                          (True, 130, 250), (True, 1024, 1024)],
                          ids=["causal", "full-ragged", "causal-cross", "causal-ragged", "causal-1024"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
     """K3, K4 and K5 against their plain versions on the same inputs, each
     launched once; Sk = 200 and S, Sk = 130, 250 leave ragged last tiles
@@ -352,8 +363,7 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
     o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert {key: fa.LAUNCHES[key] - before[key] for key in before} == {
-        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    assert {key: fa.LAUNCHES[key] - before[key] for key in before} == _launched(before, dtype)
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
     assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (3, s)
     torch.testing.assert_close(lse, ref_lse, **LSE)
@@ -367,16 +377,17 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
             torch.testing.assert_close(got.float(), ref.float(), **F32_GRAD, msg=lambda m: f"{name}: {m}")
         return
     delta = fa._delta(o, do)
-    _assert_within(o, ref_o, BF16, chip_smoke.flash_rounding_bound("flash_fwd", "o", q, k, v, do, ref_lse, None,
-                                                                    causal, scale), "o")
+    tol = NARROW[dtype]
+    _assert_within(o, ref_o, tol, chip_smoke.flash_rounding_bound("flash_fwd", "o", q, k, v, do, ref_lse, None,
+                                                                   causal, scale), "o")
     for name, key, got, ref in (("flash_bwd_dq", "dq", dq, ref_dq), ("flash_bwd_dkv", "dk", dk, ref_dk),
                                 ("flash_bwd_dkv", "dv", dv, ref_dv)):
         bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, lse, delta, causal, scale)
-        _assert_within(got, ref, BF16, bound, key)
+        _assert_within(got, ref, tol, bound, key)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_kernels_keep_to_their_head(cuda, dtype, d):
     """S = 130 and Sk = 250 leave ragged last tiles in every head. Head 2's
     Q, K, V and dO are set to inf: a kernel that filled head 1's ragged
@@ -404,12 +415,13 @@ def test_flash_kernels_keep_to_their_head(cuda, dtype, d):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-def test_flash_softmax_rescales_large_scores(cuda, d):
-    """bf16 with q scaled by 8, so that scores spread 8 times wider and the
-    running row maximum jumps between key tiles: K3's o and lse, K4's dk
-    and dv and K5's dq against their plain versions (each within its
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_softmax_rescales_large_scores(cuda, d, dtype):
+    """bf16 (fp16) with q scaled by 8, so that scores spread 8 times wider
+    and the running row maximum jumps between key tiles: K3's o and lse,
+    K4's dk and dv and K5's dq against their plain versions (each within its
     rounding bound)."""
-    q, k, v, do = _flash_case(cuda, torch.bfloat16, 3, 192, 192, d, seed=d + 7, q_scale=8.0)
+    q, k, v, do = _flash_case(cuda, dtype, 3, 192, 192, d, seed=d + 7, q_scale=8.0)
     scale = d ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale)
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
@@ -417,15 +429,15 @@ def test_flash_softmax_rescales_large_scores(cuda, d):
     dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=True, scale=scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True, scale=scale)
     torch.cuda.synchronize()
-    _assert_within(o, ref_o, BF16, chip_smoke.flash_rounding_bound("flash_fwd", "o", q, k, v, do, ref_lse, delta,
-                                                                    True, scale), "o")
+    bound = chip_smoke.flash_rounding_bound("flash_fwd", "o", q, k, v, do, ref_lse, delta, True, scale)
+    _assert_within(o, ref_o, NARROW[dtype], bound, "o")
     torch.testing.assert_close(lse, ref_lse, **LSE)
     ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, ref_lse, delta, True, scale)
     ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, ref_lse, delta, True, scale)
     for name, key, got, ref in (("flash_bwd_dq", "dq", dq, ref_dq), ("flash_bwd_dkv", "dk", dk, ref_dk),
                                 ("flash_bwd_dkv", "dv", dv, ref_dv)):
         bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, ref_lse, delta, True, scale)
-        _assert_within(got, ref, BF16, bound, key)
+        _assert_within(got, ref, NARROW[dtype], bound, key)
 
 
 def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
@@ -444,8 +456,7 @@ def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
             fa.flash_bwd_dkv(q, k, v, do, lse, lse, causal=True)
             fa.flash_bwd_dq(q, k, v, do, lse, lse, causal=True)
             torch.cuda.synchronize()
-        assert {key: fa.LAUNCHES[key] - before[key] for key in before} == {
-            "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        assert {key: fa.LAUNCHES[key] - before[key] for key in before} == _launched(before, dtype)
         names[dtype] = " ".join(e.key for e in prof.key_averages())
     for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         assert f"{kernel}_wgmma_kernel" in names[torch.bfloat16], kernel
@@ -463,10 +474,55 @@ def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
     assert fa.LAUNCHES == before
 
 
+def test_fp16_flash_path_runs_the_fp16_tensor_core_kernels(cuda):
+    """fp16 K3, K4 and K5 launch the wgmma kernels' fp16 instantiations,
+    each call one launch counted under its `_f16` name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = _flash_case(cuda, torch.float16, 2, 128, 128, 64)
+    lse = torch.zeros(q.shape[:2], device=cuda)
+    before = dict(fa.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_fwd(q, k, v, causal=True)
+        fa.flash_bwd_dkv(q, k, v, do, lse, lse, causal=True)
+        fa.flash_bwd_dq(q, k, v, do, lse, lse, causal=True)
+        torch.cuda.synchronize()
+    assert {key: fa.LAUNCHES[key] - before[key] for key in before} == _launched(before, torch.float16)
+    names = " ".join(e.key for e in prof.key_averages())
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert f"{kernel}_wgmma_kernel<__half" in names, kernel
+
+
+def test_fp16_flash_kernels_refuse_mixed_types(cuda):
+    """fp16 q beside an fp16 lse (it must be f32), an f32 k or a bf16 dO is
+    refused before any launch."""
+    q, k, v, do = _flash_case(cuda, torch.float16, 2, 64, 64, 64)
+    lse = torch.zeros(q.shape[:2], device=cuda)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="lse must be torch.float32"):
+        fa.flash_bwd_dq(q, k, v, do, lse.half(), lse, causal=True)
+    with pytest.raises(ValueError, match="k must be torch.float16"):
+        fa.flash_fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="do must be torch.float16"):
+        fa.flash_bwd_dkv(q, k, v, do.bfloat16(), lse, lse, causal=True)
+    assert fa.LAUNCHES == before
+
+
+def test_fp16_range_case(cuda):
+    """chip_smoke's range case: dO and V large, as under loss scaling, so
+    that the plain version's dS passes fp16's 65504 while dk, dv and dq fit;
+    fp16 K4 and K5 write finite values within the fp16 limit (the function
+    raises otherwise)."""
+    rows = chip_smoke.flash_range_case(cuda)
+    for name, row in rows.items():
+        assert row["plain_ds_abs_max"] > chip_smoke.FP16_MAX, name
+        assert all(entry["limit"]["broken"] == 0 for entry in row["errors"].values()), name
+
+
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
     q, k, v, _ = _flash_case(cuda, torch.float32, 2, 64, 64, 64)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        fa.flash_fwd(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(), v[..., :48].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
@@ -519,7 +575,7 @@ def test_fused_training_steps_through_the_kernels(cuda, monkeypatch):
             fa.reset_launch_counts()
             losses[impl] = [float(step_fn(b)) for b in loader]
             want = 6 if impl == "flash" else 0
-            assert fa.LAUNCHES == {key: want for key in fa.LAUNCHES}
+            assert fa.LAUNCHES == {key: 0 if key.endswith("_f16") else want for key in fa.LAUNCHES}
     finally:
         AcceleratorState._reset_state()
         GradientState._reset_state()

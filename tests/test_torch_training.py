@@ -136,10 +136,12 @@ def _port_fused(weights, data, batch, mixed_precision="no", max_grad_norm=1.0, a
     return losses, pmodel
 
 
-@pytest.mark.parametrize("mixed_precision,tol", [("no", F32_VS_JAX), ("bf16", BF16_VS_JAX)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mixed_precision,tol", [("no", F32_VS_JAX), ("bf16", BF16_VS_JAX), ("fp16", BF16_VS_JAX)],
+                         ids=["f32", "bf16", "fp16"])
 def test_train_step_losses_track_jax(weights, mixed_precision, tol):
     """Eight fused steps (two passes over four batches of 8) with clipping at
-    1.0: the per-step losses of the port follow JAX's."""
+    1.0: the per-step losses of the port follow JAX's (fp16 with the default
+    loss scaling on both sides)."""
     data = _data(32)
     expect = _jax_losses(weights, data, 8, mixed_precision)
     got, pmodel = _port_fused(weights, data, 8, mixed_precision)
@@ -311,21 +313,24 @@ def test_sync_boundary_and_data_loader(weights):
     assert accelerator.sync_gradients
 
 
-def test_mixed_precision_contract(weights):
-    """bf16: the forward runs on bf16 copies cast inside the autograd graph,
-    logits come back f32, and the gradients land on the f32 masters; the
-    module's own parameters are never cast."""
+@pytest.mark.parametrize("mixed_precision,dtype", [("bf16", torch.bfloat16), ("fp16", torch.float16)],
+                         ids=["bf16", "fp16"])
+def test_mixed_precision_contract(weights, mixed_precision, dtype):
+    """bf16 and fp16: the forward runs on copies in the compute dtype cast
+    inside the autograd graph, logits come back f32, and the gradients land
+    on the f32 masters; the module's own parameters are never cast. fp8 is
+    not ported and raises."""
     model = _port_model(weights)
-    accelerator = port.Accelerator(mixed_precision="bf16", cpu=True)
+    accelerator = port.Accelerator(mixed_precision=mixed_precision, cpu=True)
     pmodel = accelerator.prepare(model)
     ids = torch.as_tensor(_data(2)[0]["input_ids"])[None]
     logits = pmodel(ids)
     assert logits.dtype == torch.float32
-    expect = model.to(torch.bfloat16)(ids).float()
+    expect = model.to(dtype)(ids).float()
     model.float()
     torch.testing.assert_close(logits, expect, rtol=0, atol=0)
     pmodel.loss({"input_ids": ids}).backward()
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="fp16"):
+    with pytest.raises(NotImplementedError, match="fp8"):
         AcceleratorState._reset_state()
-        port.Accelerator(mixed_precision="fp16", cpu=True)
+        port.Accelerator(mixed_precision="fp8", cpu=True)
