@@ -1,11 +1,14 @@
 """accelerate_tpu_torch: the PyTorch/CUDA port of `accelerate_tpu`.
 
 A package of its own beside the JAX one, for an NVIDIA Hopper card. It
-serves Llama through the paged continuous-batching engine
-(`serving.ContinuousBatcher`), whose decode and speculative-verify attention
-run in hand-written CUDA kernels (`csrc/paged_attention.cu`), with int8
-weights and int8 or fp8 KV pages on request (`ops/quantization.py`), and
-trains it
+generates from Llama with `generate` and the static `Generator`
+(`generation.py`: prefill and a decode loop over a contiguous decode cache,
+sampling, repetition penalty, n-gram speculative decoding), serves it
+through the continuous-batching engine (`serving.ContinuousBatcher`), whose
+paged decode and speculative-verify attention run in hand-written CUDA
+kernels (`csrc/paged_attention.cu`), with int8 weights and int8 or fp8 KV
+pages on request (`ops/quantization.py`), or over a contiguous per-slot
+cache with a per-request repetition penalty, and trains it
 through `Accelerator.prepare` and the fused `train_step`, whose attention
 runs forward and backward in hand-written flash kernels
 (`csrc/flash_attention.cu`), in f32, bf16 or fp16 with dynamic loss
@@ -21,6 +24,7 @@ from .accelerator import Accelerator
 from .checkpointing import CheckpointManager
 from .data_loader import BatchSampler, SeedableRandomSampler, SimpleDataLoader, prepare_data_loader, skip_first_batches
 from .device import resolve_device
+from .generation import GenerationConfig, Generator, generate
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
@@ -34,6 +38,8 @@ __all__ = [
     "ContinuousBatcher",
     "EngineClosed",
     "GradScalerKwargs",
+    "GenerationConfig",
+    "Generator",
     "GradientAccumulationPlugin",
     "Int8Linear",
     "KV_CACHE_DTYPES",
@@ -48,6 +54,7 @@ __all__ = [
     "WEIGHT_DTYPES",
     "create_llama_model",
     "create_named_model",
+    "generate",
     "prepare_data_loader",
     "quantize_model_int8",
     "resolve_device",

@@ -5,16 +5,22 @@ in fp32, grouped-query attention through `ops/attention.py`, SwiGLU MLP.
 Parameter names follow the flax tree (`wq`, `input_norm`, `w_gate`, ...), so
 `llama_state_dict_from_flax` carries JAX weights across key for key.
 
-The attention module serves three modes, chosen by its arguments:
+The attention module serves four modes, chosen by its arguments:
   - the full causal forward (no caches), the training path, with an
     optional [B, S] padding mask; long unmasked sequences reach the flash
     kernels through `dot_product_attention`'s gate;
   - the cached prefill (`kv_cache`): the prompt (or its unmatched suffix) as
     queries, written at its absolute positions into a dense per-slot K/V
-    view and attended there (`dense_cache_attention`); the engine gathers
-    that view from the pool and scatters it back (`generation.py`);
+    view and attended there (`dense_cache_attention`); the paged engine
+    gathers that view from the pool and scatters it back, the contiguous
+    engine passes the slot's own row (`generation.py`);
   - decode and verify through `slot_cache_attention` (`kv_pools`), with the
-    engine's ``attention_impl``.
+    engine's ``attention_impl``: paged pools with a page table, or the
+    contiguous layout's [S, L, Hkv, D] rows without one;
+  - the static `Generator`'s decode cache (`decode_cache`, JAX's
+    ``decode_cache_length`` branch): one write index shared by the batch,
+    a persistent pad mask, the plain masked attention over the written
+    prefix (`ops.attention.decode_cache_attention`).
 
 Quantized serving needs no config field: the engine decides. A layer's pool
 entry carries the scale pools when the pool is int8 or fp8 (JAX's
@@ -33,7 +39,14 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..ops.attention import dense_cache_attention, dot_product_attention, slot_cache_attention
+from ..ops.attention import (
+    DecodeCache,
+    decode_cache_attention,
+    decode_cache_mask,
+    dense_cache_attention,
+    dot_product_attention,
+    slot_cache_attention,
+)
 
 #: One entry per layer: (k_pool, v_pool), or (k_pool, v_pool, k_scale,
 #: v_scale) for an int8/fp8 pool; dense caches are (k_cache, v_cache).
@@ -97,7 +110,9 @@ class LlamaAttention(nn.Module):
         self.wo = _linear(hq * d, cfg.hidden_size)
 
     def forward(self, hidden, positions, attention_mask=None, kv_pool=None, page_table=None,
-                attention_impl="gather", kv_cache=None):
+                attention_impl="gather", kv_cache=None, decode_cache=None):
+        """`decode_cache` is ``(cache, layer index)``; `attention_mask` is
+        then the block's decode mask (`decode_cache_mask`)."""
         cfg = self.cfg
         b, s, _ = hidden.shape
         hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -109,6 +124,8 @@ class LlamaAttention(nn.Module):
             out = slot_cache_attention(
                 q, k, v, k_pool, v_pool, positions, page_table, attention_impl, *scales
             )
+        elif decode_cache is not None:
+            out = decode_cache_attention(q, k, v, *decode_cache, attention_mask)
         elif kv_cache is not None:
             out = dense_cache_attention(q, k, v, kv_cache[0], kv_cache[1], positions)
         else:
@@ -136,10 +153,10 @@ class LlamaLayer(nn.Module):
         self.mlp = LlamaMLP(cfg)
 
     def forward(self, hidden, positions, attention_mask=None, kv_pool=None, page_table=None,
-                attention_impl="gather", kv_cache=None):
+                attention_impl="gather", kv_cache=None, decode_cache=None):
         hidden = hidden + self.attention(
             self.input_norm(hidden), positions, attention_mask, kv_pool, page_table, attention_impl,
-            kv_cache,
+            kv_cache, decode_cache,
         )
         return hidden + self.mlp(self.post_attn_norm(hidden))
 
@@ -183,6 +200,7 @@ class LlamaForCausalLM(nn.Module):
         page_table=None,
         attention_impl: str = "gather",
         kv_cache: Optional[KVPools] = None,
+        decode_cache: Optional[DecodeCache] = None,
     ):
         """[B, S] token ids -> [B, S, vocab] logits; the first three arguments
         in JAX's order (`LlamaForCausalLM.__call__`).
@@ -193,21 +211,43 @@ class LlamaForCausalLM(nn.Module):
         [num_pages, page_size, Hkv, D] each, followed by its k_scale and
         v_scale for an int8/fp8 pool) the tokens' K/V are written into the
         pools at `positions` through `page_table` ([B, pages_per_slot] int32)
-        and attended there. With `kv_cache` (one dense (k_cache, v_cache)
-        pair per layer, [B, L, Hkv, D]) they are written into those caches
-        at `positions` and attended there: the cached prefill."""
+        and attended there. With `kv_pools` and no `page_table` the pairs
+        are the contiguous layout's per-slot rows, [B, L, Hkv, D]. With
+        `kv_cache` (one dense (k_cache, v_cache) pair per layer, [B, L, Hkv,
+        D]) they are written into those caches at `positions` and attended
+        there: the cached prefill.
+
+        With `decode_cache` (`make_decode_cache`) the block is written at
+        the cache's shared index, which then advances by S; `positions` are
+        the rotary positions only, and `attention_mask` ([B, S]) is stored
+        as the cache's persistent pad mask (JAX's decode-cache mode)."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+        if decode_cache is not None:
+            attention_mask = decode_cache_mask(decode_cache, s, attention_mask)
         hidden = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
             pool = None if kv_pools is None else kv_pools[i]
             cache = None if kv_cache is None else kv_cache[i]
-            hidden = layer(hidden, positions, attention_mask, pool, page_table, attention_impl, cache)
+            dcache = None if decode_cache is None else (decode_cache, i)
+            hidden = layer(hidden, positions, attention_mask, pool, page_table, attention_impl, cache, dcache)
+        if decode_cache is not None:
+            decode_cache.index += s
         hidden = self.final_norm(hidden)
         if self.lm_head is None:
             return hidden @ self.embed_tokens.weight.T
         return self.lm_head(hidden)
+
+    def make_decode_cache(self, batch: int, max_length: int, dtype: Optional[torch.dtype] = None,
+                          device=None) -> DecodeCache:
+        """A zeroed decode cache for `batch` rows of `max_length` positions,
+        in `dtype` (the weights' by default) on `device` (the weights')."""
+        cfg, weight = self.config, self.embed_tokens.weight
+        return DecodeCache.create(
+            cfg.num_hidden_layers, batch, max_length, cfg.num_key_value_heads, cfg.head_dim,
+            dtype or weight.dtype, device or weight.device,
+        )
 
 
 @torch.no_grad()

@@ -15,9 +15,17 @@ training run:
     logical buffer, dequantized on read for a quantized pool, mask, softmax:
     the JAX package's ``"xla"`` oracle) or the ``"paged_kernel"`` path (the
     Hopper kernels of `ops/paged_attention.py`, JAX's ``"pallas_paged"``).
+    With no page table it is the contiguous layout's: one ``[S, L, Hkv, D]``
+    row per slot, written per row at its position and read plainly.
   - `dense_cache_attention`: the cached prefill's attention over a dense
     per-slot K/V view (`utils/operations.gather_pages`), which holds the
     prompt's own K/V at full precision whatever the pool stores.
+  - `DecodeCache`, `update_decode_cache` and `decode_cache_mask`: the static
+    `Generator`'s cache (JAX's `update_decode_cache`), ``[B, L, Hkv, D]``
+    per layer with ONE physical write index shared by the batch and a
+    persistent ``[B, L]`` pad mask for left-padded prompts. The physical
+    index is not the rotary position: a left-padded row's positions come
+    from its mask, while every row's cache slots advance together from 0.
 
 Shapes follow [batch, seq, heads, head_dim] throughout.
 """
@@ -26,7 +34,8 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional
 
 import torch
 
@@ -175,10 +184,13 @@ def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attenti
 
     Args:
         q: [B, s, Hq, D]; k / v: [B, s, Hkv, D].
-        k_pool / v_pool: [num_pages, page_size, Hkv, D], updated in place.
+        k_pool / v_pool: [num_pages, page_size, Hkv, D], updated in place;
+            with ``page_table=None``, the contiguous layout's per-slot rows
+            [B, L, Hkv, D] instead (JAX's non-paged `update_slot_cache`).
         positions: [B, s] absolute positions; query j of row i attends
             ``cols <= positions[i, j]``.
-        page_table: [B, pages_per_slot] int32.
+        page_table: [B, pages_per_slot] int32, or None for the contiguous
+            layout.
         k_scale / v_scale: [num_pages, Hkv] f32 scales of int8/fp8 pools,
             updated in place; the kernels take them and dequantize in the
             page walk, the gather path dequantizes the gathered pages to k's
@@ -192,6 +204,8 @@ def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attenti
     b, s = q.shape[:2]
     if positions.shape != (b, s):
         raise ValueError(f"positions must be [B, s] = {(b, s)}, got {tuple(positions.shape)}")
+    if page_table is None:
+        return _contiguous_slot_attention(q, k, v, k_pool, v_pool, positions, attention_impl, k_scale)
     pos = write_slot_pool(k_pool, v_pool, k, v, positions, page_table, k_scale, v_scale)
     if attention_impl == "paged_kernel":
         fn = paged_decode_attention if s == 1 else paged_verify_attention
@@ -206,6 +220,29 @@ def slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attenti
     return _attend_logical(q, k_pages.reshape(b, length, hkv, d), v_pages.reshape(b, length, hkv, d), pos)
 
 
+def _contiguous_slot_attention(q, k, v, k_rows, v_rows, positions, attention_impl, k_scale):
+    """The contiguous slot cache: row i's K/V land at its own clipped
+    positions in its ``[L, Hkv, D]`` row, and query j attends
+    ``cols <= pos[i, j]`` (stale K/V of a slot's earlier occupant lies
+    above every position and is never seen). The read is the plain one."""
+    if k_scale is not None or k_rows.dtype in (torch.int8, torch.float8_e4m3fn):
+        kv = "int8" if k_rows.dtype == torch.int8 else "fp8_e4m3"
+        raise ValueError(
+            f"kv_cache_dtype={kv!r} requires the paged slot cache "
+            "(page_size > 0); the contiguous layout has no page-scale pool"
+        )
+    if attention_impl == "paged_kernel":
+        raise ValueError(
+            "attention_impl='paged_kernel' requires the paged KV cache "
+            "(paged=True); the contiguous layout has no page table to walk"
+        )
+    pos = positions.clamp(0, k_rows.shape[1] - 1).long()
+    rows = torch.arange(k_rows.shape[0], device=k_rows.device)[:, None]
+    k_rows[rows, pos] = k.to(k_rows.dtype)
+    v_rows[rows, pos] = v.to(v_rows.dtype)
+    return _attend_logical(q, k_rows, v_rows, pos)
+
+
 def dense_cache_attention(q, k, v, k_cache, v_cache, positions):
     """The cached prefill's attention (JAX's dense decode cache,
     `update_decode_cache`): write this block's K/V into the dense per-slot
@@ -217,3 +254,104 @@ def dense_cache_attention(q, k, v, k_cache, v_cache, positions):
     k_cache[rows, pos] = k.to(k_cache.dtype)
     v_cache[rows, pos] = v.to(v_cache.dtype)
     return _attend_logical(q, k_cache, v_cache, pos)
+
+
+@dataclass
+class DecodeCache:
+    """The static `Generator`'s K/V cache: per layer a ``[B, L, Hkv, D]``
+    key and value buffer, ONE physical write index shared by the batch and
+    the layers (JAX keeps a `cache_index` per layer, all advanced together),
+    and, after a masked prefill, the persistent ``[B, L]`` bool pad mask.
+
+    `index` is a host integer: every write advances it by a number the host
+    already knows (the block's length), and a speculative rewind by the
+    accepted length the loop reads back anyway, so no write or read of the
+    cache ever waits on the device."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    index: int = 0
+    pad_mask: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, num_layers: int, batch: int, max_length: int, kv_heads: int, head_dim: int,
+               dtype: torch.dtype, device) -> "DecodeCache":
+        """Zeroed buffers for `num_layers` layers of `batch` rows of
+        `max_length` positions."""
+        shape = (batch, max_length, kv_heads, head_dim)
+        return cls(
+            keys=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)],
+            values=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)],
+        )
+
+    @property
+    def max_length(self) -> int:
+        return self.keys[0].shape[1]
+
+    def rewind(self, delta: int) -> None:
+        """Roll the write index back by `delta` (JAX's `_rewind_cache_index`):
+        the speculative accept step. The rejected rows stay in the buffers,
+        unreachable: the mask stops at ``index + s`` and the next block's
+        writes start at the rewound index, covering them before any query
+        can see them."""
+        self.index -= int(delta)
+
+
+def decode_cache_mask(cache: DecodeCache, s: int, pad_mask=None) -> torch.Tensor:
+    """The mask of JAX's `update_decode_cache` for an `s`-token block written
+    at ``cache.index``, cut to the written prefix: ``[B, 1, s, index + s]``
+    bool, query i seeing ``cols <= index + i``. The columns past ``index +
+    s`` are never written yet, so reading only the prefix drops nothing but
+    exact zeros of the f32 softmax.
+
+    `pad_mask` ([B, s], 1 = a real token; the prompt's attention_mask at
+    prefill) is stored into the cache's ``[B, L]`` pad mask at the index and
+    ANDed into this and every later block's mask, so a left-padded row
+    never attends its pads."""
+    b = cache.keys[0].shape[0]
+    device = cache.keys[0].device
+    cur = cache.index
+    if pad_mask is not None:
+        if pad_mask.ndim != 2:
+            raise ValueError(
+                f"the decode-cache path persists a [B, S] key-padding mask; got a "
+                f"rank-{pad_mask.ndim} mask. Pass attention_mask as [batch, seq] "
+                f"(1 = real token), the HF padding-mask shape."
+            )
+        if cache.pad_mask is None:
+            cache.pad_mask = torch.ones((b, cache.max_length), dtype=torch.bool, device=device)
+        cache.pad_mask[:, cur : cur + s] = pad_mask.bool()[:, : cache.max_length - cur]
+    end = min(cur + s, cache.max_length)
+    rows = cur + torch.arange(s, device=device)[:, None]
+    cols = torch.arange(end, device=device)[None, :]
+    mask = (cols <= rows)[None, None].expand(b, 1, s, end)
+    if cache.pad_mask is not None:
+        mask = mask & cache.pad_mask[:, None, None, :end]
+    return mask
+
+
+def update_decode_cache(cache: DecodeCache, layer: int, k, v):
+    """Write layer `layer`'s [B, s, Hkv, D] block at ``cache.index`` (the
+    index itself advances once per forward, after the last layer) and return
+    the written prefix ``[B, index + s, Hkv, D]`` of its K and V.
+
+    A block that would run past `max_length` keeps only the rows that fit.
+    That happens only to the tail of a speculative loop's last verify block,
+    whose rows past the cache are drafts no emitted token depends on. (JAX's
+    `dynamic_update_slice` clamps the block's start instead, which writes
+    the block over earlier rows and changes the loop's last tokens.)"""
+    cur, length = cache.index, cache.max_length
+    end = min(cur + k.shape[1], length)
+    k_cache, v_cache = cache.keys[layer], cache.values[layer]
+    k_cache[:, cur:end] = k[:, : end - cur].to(k_cache.dtype)
+    v_cache[:, cur:end] = v[:, : end - cur].to(v_cache.dtype)
+    return k_cache[:, :end], v_cache[:, :end]
+
+
+def decode_cache_attention(q, k, v, cache: DecodeCache, layer: int, mask):
+    """The Generator's attention: write the block into the decode cache and
+    attend the written prefix under `mask` (`decode_cache_mask`), the plain
+    path, as JAX's masked `dot_product_attention` never takes the flash
+    gate."""
+    k_all, v_all = update_decode_cache(cache, layer, k, v)
+    return dot_product_attention(q, k_all, v_all, mask=mask)

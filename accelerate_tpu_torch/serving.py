@@ -1,7 +1,8 @@
-"""Continuous-batching serving engine over a paged KV cache.
+"""Continuous-batching serving engine over a paged or a contiguous KV cache.
 
-Port of `accelerate_tpu/serving.py` (paged layout only). A fixed number of
-request slots share one pool of fixed-size KV pages per layer:
+Port of `accelerate_tpu/serving.py`. In the paged layout (the default) a
+fixed number of request slots share one pool of fixed-size KV pages per
+layer:
 
   - **admission** reserves a request's whole worst-case footprint,
     ``ceil((prompt + max_new [+ draft window]) / page_size)`` pages, minus the
@@ -17,6 +18,14 @@ request slots share one pool of fixed-size KV pages per layer:
     each step by an n-gram draft plus one (draft_tokens + 1)-position verify
     through the block-verify kernel, accepting the longest greedily confirmed
     draft prefix plus one bonus token.
+
+The contiguous layout (``paged=False``) gives each slot its own
+``[max_length, Hkv, D]`` row per layer instead: the insert prefills straight
+into the slot's row, decode and verify write each row at its own position
+and attend it plainly, and admission reserves nothing. With
+``use_repetition_penalty`` each slot carries a ``[V]`` presence row on the
+device, seeded at insert from the whole prompt and the first token, and a
+request's `repetition_penalty` applies to every token it samples.
 
 Quantized serving (`ops/quantization.py`): ``weight_dtype="int8"`` serves
 from the engine's own int8 copy of the model's linear layers, made once at
@@ -45,7 +54,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, make_generator, resolve_device
-from .generation import CausalPrograms, GenerationConfig, _sample
+from .generation import CausalPrograms, GenerationConfig, _apply_repetition_penalty, _presence, _sample
 from .ops.attention import SLOT_ATTENTION_IMPLS
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, kv_quant_spec, quantize_model_int8
 from .paging import SCRATCH_PAGE, PagePool, chain_hashes, pages_for
@@ -73,15 +82,18 @@ FINISH_REASONS = ("eos", "length", "timeout", "error", "cancelled")
 
 @dataclass
 class Request:
-    """One serving request. `eos_token_id`, `max_new_tokens` and
-    `temperature` are per request; `do_sample`/`top_k`/`top_p` are engine
-    level. `deadline_s` is a wall-clock budget from `submit()`, enforced at
-    step boundaries (``finish_reason="timeout"``, partial tokens kept)."""
+    """One serving request. `eos_token_id`, `max_new_tokens`, `temperature`
+    and `repetition_penalty` (read by an engine built with
+    ``use_repetition_penalty=True``) are per request; `do_sample`/`top_k`/
+    `top_p` are engine level. `deadline_s` is a wall-clock budget from
+    `submit()`, enforced at step boundaries (``finish_reason="timeout"``,
+    partial tokens kept)."""
 
     request_id: int
     input_ids: Any  # [prompt_len] int sequence
     max_new_tokens: int = 32
     temperature: float = 1.0
+    repetition_penalty: float = 1.0
     eos_token_id: Optional[int] = None
     arrival_time: float = 0.0  # caller-defined clock, echoed into the result
     deadline_s: Optional[float] = None
@@ -100,7 +112,8 @@ class RequestResult:
 
 
 class ContinuousBatcher:
-    """Slot-based in-flight batching over a paged KV cache.
+    """Slot-based in-flight batching over a paged (or, with ``paged=False``,
+    contiguous) KV cache.
 
     Typical driving loop::
 
@@ -112,7 +125,9 @@ class ContinuousBatcher:
                 stream(request_id, new_tokens)
 
     The engine runs on the model's device, which must be the resolved
-    `device` (``cuda`` unless ``device="cpu"``)."""
+    `device` (``cuda`` unless ``device="cpu"``). `attention_impl` defaults
+    to ``"paged_kernel"`` for a paged engine and to the plain read
+    (``"gather"``) for a contiguous one."""
 
     def __init__(
         self,
@@ -123,15 +138,17 @@ class ContinuousBatcher:
         do_sample: bool = False,
         top_k: int = 0,
         top_p: float = 1.0,
+        use_repetition_penalty: bool = False,
         seed: int = 0,
         max_queue: Optional[int] = None,
+        paged: bool = True,
         page_size: int = 16,
         num_pages: Optional[int] = None,
         prefix_cache: bool = True,
         speculative: bool = False,
         draft_tokens: int = DEFAULT_DRAFT_TOKENS,
         draft_ngram: int = DEFAULT_DRAFT_NGRAM,
-        attention_impl: str = "paged_kernel",
+        attention_impl: Optional[str] = None,
         weight_dtype: str = "bf16",
         kv_cache_dtype: str = "bf16",
         device: DeviceLike = None,
@@ -158,11 +175,26 @@ class ContinuousBatcher:
                     "speculative decode is greedy-only: draft verification accepts "
                     "argmax matches, which is not distribution-preserving under sampling"
                 )
+            if use_repetition_penalty:
+                raise ValueError(
+                    "speculative decode does not compose with use_repetition_penalty "
+                    "(the presence update is order-dependent across a verified "
+                    "block); disable one of the two"
+                )
+        self.paged = bool(paged)
+        if attention_impl is None:
+            attention_impl = "paged_kernel" if self.paged else "gather"
         if attention_impl not in SLOT_ATTENTION_IMPLS:
             raise ValueError(
                 f"unknown attention_impl {attention_impl!r}; expected one of {SLOT_ATTENTION_IMPLS}"
             )
+        if attention_impl == "paged_kernel" and not self.paged:
+            raise ValueError(
+                "attention_impl='paged_kernel' requires the paged KV cache "
+                "(paged=True); the contiguous layout has no page table to walk"
+            )
         self.attention_impl = attention_impl
+        self.use_repetition_penalty = bool(use_repetition_penalty)
         self.weight_dtype = str(weight_dtype)
         if self.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"unknown weight_dtype {weight_dtype!r}; expected one of {WEIGHT_DTYPES}")
@@ -171,23 +203,39 @@ class ContinuousBatcher:
             raise ValueError(
                 f"unknown kv_cache_dtype {kv_cache_dtype!r}; expected one of {KV_CACHE_DTYPES}"
             )
+        if self.kv_cache_dtype != "bf16" and not self.paged:
+            raise ValueError(
+                "a quantized KV cache requires the paged layout (paged=True): "
+                "the per-page-per-head scale pools have no contiguous twin"
+            )
         if self.weight_dtype == "int8":
             model = quantize_model_int8(model)  # the engine's own copy; the caller's is untouched
         self.page_size = int(page_size)
-        if self.page_size < 1:
-            raise ValueError("page_size must be >= 1")
-        self.pages_per_slot = -(-self.max_length // self.page_size)
-        # Default pool: every slot at max_length, plus the scratch page.
-        self.num_pages = (
-            int(num_pages) if num_pages is not None else self.num_slots * self.pages_per_slot + 1
-        )
-        self.use_prefix_cache = bool(prefix_cache)
+        if self.paged:
+            if self.page_size < 1:
+                raise ValueError("page_size must be >= 1")
+            self.pages_per_slot = -(-self.max_length // self.page_size)
+            # Default pool: every slot at max_length, plus the scratch page.
+            self.num_pages = (
+                int(num_pages) if num_pages is not None else self.num_slots * self.pages_per_slot + 1
+            )
+        else:
+            self.pages_per_slot = self.num_pages = 0
+        # The prefix cache's suffix-only insert never sees the whole prompt,
+        # which seeding the presence row needs: a penalty engine runs without it.
+        self.use_prefix_cache = bool(prefix_cache) and self.paged and not self.use_repetition_penalty
+        if prefix_cache and self.paged and self.use_repetition_penalty:
+            logger.info(
+                "prefix cache disabled: use_repetition_penalty needs whole-prompt "
+                "presence seeding, which shared-prefix inserts cannot provide"
+            )
         self.dtype = weight.dtype
         self.programs = CausalPrograms(model, attention_impl)
         self._sample_config = GenerationConfig(do_sample=do_sample, top_k=top_k, top_p=top_p)
         self._generator = make_generator(seed, self.device)
         self._pools = self._init_pools()
-        self.pool = PagePool(self.num_pages, self.page_size)
+        self._presence = self._init_presence()
+        self.pool = PagePool(self.num_pages, self.page_size) if self.paged else None
 
         S = self.num_slots
         # Host mirror of the per-slot state, pushed once per chunk.
@@ -197,8 +245,9 @@ class ContinuousBatcher:
         self._rem = np.zeros(S, np.int64)
         self._eos = np.full(S, -1, np.int64)
         self._temp = np.ones(S, np.float32)
+        self._pen = np.ones(S, np.float32)
         # All-zero rows point at the scratch page: a free slot's discarded
-        # writes never land in a live request's pages.
+        # writes never land in a live request's pages (paged only).
         self._page_table = np.zeros((S, self.pages_per_slot), np.int32)
         self._slot_pages: List[List[int]] = [[] for _ in range(S)]
         # Speculative engines: each slot's observed context (prompt +
@@ -228,9 +277,13 @@ class ContinuousBatcher:
         """One zeroed (k_pool, v_pool) pair per layer, [num_pages, page_size,
         Hkv, D] in the model's dtype; for a quantized cache the pools are in
         the storage dtype and each pair is followed by its zeroed [num_pages,
-        Hkv] f32 (k_scale, v_scale)."""
+        Hkv] f32 (k_scale, v_scale). Contiguous: one [num_slots, max_length,
+        Hkv, D] pair per layer."""
         cfg = self.config
-        shape = (self.num_pages, self.page_size, cfg.num_key_value_heads, cfg.head_dim)
+        if self.paged:
+            shape = (self.num_pages, self.page_size, cfg.num_key_value_heads, cfg.head_dim)
+        else:
+            shape = (self.num_slots, self.max_length, cfg.num_key_value_heads, cfg.head_dim)
         spec = kv_quant_spec(self.kv_cache_dtype)
         dtype = self.dtype if spec is None else spec[0]
         pools = []
@@ -242,6 +295,12 @@ class ContinuousBatcher:
                 )
             pools.append(layer)
         return pools
+
+    def _init_presence(self) -> Optional[torch.Tensor]:
+        """The penalty engine's [num_slots, vocab] bool seen-token rows."""
+        if not self.use_repetition_penalty:
+            return None
+        return torch.zeros((self.num_slots, self.config.vocab_size), dtype=torch.bool, device=self.device)
 
     # ---------------------------------------------------------------- host plane
 
@@ -265,7 +324,8 @@ class ContinuousBatcher:
 
     @property
     def kv_cache_nbytes(self) -> int:
-        """Stored bytes of the whole paged cache: pools and scale pools."""
+        """Stored bytes of the whole slot cache: pools and scale pools, or
+        the contiguous layout's rows."""
         return sum(t.numel() * t.element_size() for layer in self._pools for t in layer)
 
     @property
@@ -279,9 +339,11 @@ class ContinuousBatcher:
             "chunks": c["chunks"],
             "decode_steps": c["decode_steps"],
             "finish_reasons": dict(self._finish_counts),
-            "pages_total": self.pool.pages_total,
-            "pages_in_use": self.pool.pages_in_use,
-            "prefix_cache": {
+        }
+        if self.paged:
+            view["pages_total"] = self.pool.pages_total
+            view["pages_in_use"] = self.pool.pages_in_use
+            view["prefix_cache"] = {
                 "enabled": self.use_prefix_cache,
                 "hits": c["prefix_hits"],
                 "misses": c["prefix_misses"],
@@ -289,8 +351,7 @@ class ContinuousBatcher:
                 "prefill_tokens_saved": c["prefill_tokens_saved"],
                 "entries": self.pool.prefix_entries,
                 "cached_pages": self.pool.pages_cached,
-            },
-        }
+            }
         if self.speculative:
             steps = c["verify_steps"]
             view["speculative"] = {
@@ -326,12 +387,13 @@ class ContinuousBatcher:
             )
         if ids.min() < 0 or ids.max() >= self.config.vocab_size:
             raise ValueError(f"prompt token ids must lie in [0, {self.config.vocab_size})")
-        need = self._pages_needed(int(ids.size), request.max_new_tokens)
-        if need > self.pool.pages_total:
-            raise ValueError(
-                f"request needs {need} KV pages at page_size {self.page_size} but the "
-                f"pool holds {self.pool.pages_total}"
-            )
+        if self.paged:
+            need = self._pages_needed(int(ids.size), request.max_new_tokens)
+            if need > self.pool.pages_total:
+                raise ValueError(
+                    f"request needs {need} KV pages at page_size {self.page_size} but the "
+                    f"pool holds {self.pool.pages_total}"
+                )
         if request.request_id in self.results:
             raise ValueError(f"duplicate request_id {request.request_id}")
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
@@ -362,8 +424,10 @@ class ContinuousBatcher:
                 self._finish(result, "error", now=now, slot=slot, error=repr(exc))
         self._active[:] = False
         self._pools = self._init_pools()
+        self._presence = self._init_presence()
         self._history[:] = 0
-        self.pool.reset()
+        if self.paged:
+            self.pool.reset()
         self._page_table[:] = SCRATCH_PAGE
         self._slot_pages = [[] for _ in range(self.num_slots)]
 
@@ -416,25 +480,67 @@ class ContinuousBatcher:
         self._finish(result, "cancelled", slot=self._slot_of(request_id))
         return True
 
-    def _insert(self, ids: np.ndarray, matched_len: int, page_row: np.ndarray, temperature: float) -> int:
+    def _insert(self, slot: int, ids: np.ndarray, matched_len: int, page_row: Optional[np.ndarray],
+                temperature: float, penalty: float) -> int:
         """Prefill the unmatched suffix ``ids[matched_len:]`` at its absolute
-        positions into the slot's pages and sample the first token. The
-        suffix starts on a page boundary, so its writes never touch a shared
-        prefix page."""
+        positions and sample the first token. Paged: into the slot's pages;
+        the suffix starts on a page boundary, so its writes never touch a
+        shared prefix page. Contiguous: straight into the slot's rows (the
+        whole prompt; there is no prefix cache). A penalty engine seeds the
+        slot's presence row from the prompt (the whole prompt: its prefix
+        cache is off) and the first token."""
         dev = self.device
         p = int(ids.size)
         suffix = torch.as_tensor(ids[matched_len:], device=dev)[None]
         positions = torch.arange(matched_len, p, device=dev)[None]
-        row = torch.as_tensor(page_row[: pages_for(p, self.page_size)], device=dev)[None]
-        logits = self.programs.prefill(suffix, positions, self._pools, row)
-        token = _sample(logits[:, -1, :], self._sample_config, self._generator, temperature)
+        if self.paged:
+            row = torch.as_tensor(page_row[: pages_for(p, self.page_size)], device=dev)[None]
+            logits = self.programs.prefill(suffix, positions, self._pools, row)
+        else:
+            rows = [(k[slot : slot + 1, :p], v[slot : slot + 1, :p]) for k, v in self._pools]
+            logits = self.programs.prefill_rows(suffix, positions, rows)
+        last = logits[:, -1, :]
+        if self._presence is not None:
+            seen = _presence(suffix, torch.ones_like(suffix, dtype=torch.bool), self.config.vocab_size)
+            last = _apply_repetition_penalty(last, seen, penalty)
+        token = _sample(last, self._sample_config, self._generator, temperature)
+        if self._presence is not None:
+            seen[0, token[0]] = True
+            self._presence[slot] = seen[0]
         return int(token[0])
+
+    def _reserve(self, req: Request):
+        """A paged admission's pages: the prompt's prefix-cache hits, then
+        private pages for the rest of its footprint. Returns (pages, matched
+        pages, chain hashes), or None (nothing held) when the pool cannot
+        cover the request yet."""
+        ids = req.input_ids
+        p = int(ids.size)
+        hashes: List[str] = []
+        shared: List[int] = []
+        if self.use_prefix_cache:
+            hashes = chain_hashes(ids, self.page_size)
+            # Cap below the whole prompt: the last token always reruns so
+            # the insert has first-token logits to sample.
+            shared = self.pool.match_prefix(hashes, min(len(hashes), (p - 1) // self.page_size))
+        matched_pages = len(shared)
+        private = self.pool.reserve(self._pages_needed(p, req.max_new_tokens) - matched_pages)
+        if private is None:
+            if shared:
+                self.pool.release(shared)
+            return None
+        if self.use_prefix_cache:
+            self._counts["prefix_hits"] += matched_pages
+            self._counts["prefix_misses"] += max(p // self.page_size - matched_pages, 0)
+            self._counts["prefill_tokens_saved"] += matched_pages * self.page_size
+        return shared + private, matched_pages, hashes
 
     def _admit(self) -> List[Tuple[int, List[int]]]:
         """Fill free slots from the queue (FIFO), one insert per admission.
         When the pool (plus evictable cached prefix pages) cannot cover the
         next request it goes back to the front of the queue until in-flight
-        requests release pages."""
+        requests release pages. A contiguous engine reserves nothing: every
+        slot owns its rows."""
         events: List[Tuple[int, List[int]]] = []
         while self._queue and self.free_slots:
             req = self._queue.popleft()
@@ -442,33 +548,23 @@ class ContinuousBatcher:
             ids = req.input_ids
             p = int(ids.size)
             result = self.results[req.request_id]
-            total_pages = self._pages_needed(p, req.max_new_tokens)
-            hashes: List[str] = []
-            shared: List[int] = []
-            if self.use_prefix_cache:
-                hashes = chain_hashes(ids, self.page_size)
-                # Cap below the whole prompt: the last token always reruns so
-                # the insert has first-token logits to sample.
-                shared = self.pool.match_prefix(hashes, min(len(hashes), (p - 1) // self.page_size))
-            matched_pages = len(shared)
-            matched_len = matched_pages * self.page_size
-            private = self.pool.reserve(total_pages - matched_pages)
-            if private is None:
-                if shared:
-                    self.pool.release(shared)
-                self._queue.appendleft(req)
-                break
-            pages = shared + private
-            if self.use_prefix_cache:
-                self._counts["prefix_hits"] += matched_pages
-                self._counts["prefix_misses"] += max(p // self.page_size - matched_pages, 0)
-                self._counts["prefill_tokens_saved"] += matched_len
-            page_row = np.zeros((self.pages_per_slot,), np.int32)
-            page_row[: len(pages)] = pages
+            pages: List[int] = []
+            matched_pages, hashes, page_row = 0, [], None
+            if self.paged:
+                reserved = self._reserve(req)
+                if reserved is None:
+                    self._queue.appendleft(req)
+                    break
+                pages, matched_pages, hashes = reserved
+                page_row = np.zeros((self.pages_per_slot,), np.int32)
+                page_row[: len(pages)] = pages
             try:
-                token = self._insert(ids, matched_len, page_row, req.temperature)
+                token = self._insert(
+                    slot, ids, matched_pages * self.page_size, page_row, req.temperature, req.repetition_penalty
+                )
             except Exception as exc:  # noqa: BLE001 — isolate, report, keep serving
-                self.pool.release(pages)
+                if pages:
+                    self.pool.release(pages)
                 logger.warning("insert failed for request %s (isolated): %r", req.request_id, exc)
                 self._finish(result, "error", error=repr(exc))
                 continue
@@ -492,16 +588,19 @@ class ContinuousBatcher:
                 self._rem[slot] = rem
                 self._eos[slot] = eos
                 self._temp[slot] = req.temperature
+                self._pen[slot] = req.repetition_penalty
                 if self.speculative:
                     self._history[slot, :p] = ids
                     self._history[slot, p] = token
                     self._history[slot, p + 1:] = 0
-                self._slot_pages[slot] = pages
-                self._page_table[slot] = page_row
+                if self.paged:
+                    self._slot_pages[slot] = pages
+                    self._page_table[slot] = page_row
             else:
                 # One-token request: its pages release at once; a prefix it
                 # just registered stays cached for the next hit.
-                self.pool.release(pages)
+                if pages:
+                    self.pool.release(pages)
                 self._finish(result, "eos" if token == eos else "length", now=now)
         return events
 
@@ -515,14 +614,21 @@ class ContinuousBatcher:
 
     # --------------------------------------------------------------- the chunks
 
-    def _decode_chunk(self, token, pos, active, rem, eos, temp, table):
+    def _decode_chunk(self, token, pos, active, rem, eos, temp, pen, table):
         """`chunk_size` decode steps over every slot. Returns the [chunk, S]
-        token and emission matrices and the slots' new state."""
+        token and emission matrices and the slots' new state. A penalty
+        engine penalises each slot's seen tokens by its request's `pen` and
+        marks each active slot's new token seen."""
         toks, emits = [], []
+        slots = torch.arange(self.num_slots, device=self.device)
         for _ in range(self.chunk_size):
             logits = self.programs.step(token, pos, self._pools, table)
+            if self._presence is not None:
+                logits = _apply_repetition_penalty(logits, self._presence, pen)
             nxt = _sample(logits, self._sample_config, self._generator, temp)
             nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+            if self._presence is not None:
+                self._presence[slots, nxt] |= active
             toks.append(nxt)
             emits.append(active)
             new_rem = torch.where(active, rem - 1, rem)
@@ -591,7 +697,7 @@ class ContinuousBatcher:
                 )
                 token, pos, rem, eos = state[0], state[1], state[3], state[4]
                 active = state[2].bool()
-                table = torch.as_tensor(self._page_table, device=dev)
+                table = torch.as_tensor(self._page_table, device=dev) if self.paged else None
                 if self.speculative:
                     history = torch.as_tensor(self._history, device=dev)
                     toks, emit, token, pos, active, rem, n_emit, proposed = self._spec_chunk(
@@ -599,9 +705,9 @@ class ContinuousBatcher:
                     )
                     extra = [n_emit.flatten(), proposed.flatten()]
                 else:
-                    temp = torch.as_tensor(self._temp, device=dev)[:, None]
+                    temp, pen = torch.as_tensor(np.stack([self._temp, self._pen]), device=dev)[:, :, None]
                     toks, emit, token, pos, active, rem = self._decode_chunk(
-                        token, pos, active, rem, eos, temp, table
+                        token, pos, active, rem, eos, temp, pen, table
                     )
                     extra = []
                 # The one readback of the chunk.

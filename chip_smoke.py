@@ -62,7 +62,31 @@ prints no result):
        bf16 unquantized run (reported, not gated: random weights); the
        quantized kernel's launch count equals layers x dispatches and is
        > 0, and every other count is 0.
-4. Training, through `Accelerator.prepare(model, AdamW, loader, schedule)`
+4. Generate: `create_named_model("llama-1b")` at full width and depth
+   (random weights from seed 0) through `Generator(max_length=2048)`, the
+   port's `generate`: prefill, then a decode loop over the model's decode
+   cache (one shared write index, a persistent pad mask, the plain masked
+   attention over the written prefix; JAX runs no Pallas kernel there
+   either).
+   (a) f32, greedy, gated: 4 prompts of 256 tokens, 32 new tokens each,
+       give the "paged_kernel" engine's tokens (K1's path) row for row; the
+       same with draft_tokens=4 gives the plain loop's; a left-padded batch
+       of 64-256 tokens gives each prompt generated alone; a repetition
+       penalty of 1.3 gives the paged engine's with use_repetition_penalty
+       and that penalty per request; the contiguous engine (paged=False) on
+       the engine phase's 16 requests gives the paged engine's tokens.
+   (b) bf16, timed: the paged and the contiguous engine on the 16 requests
+       (decode tokens/s, TTFT p50, the cache's bytes, peak memory); then
+       `generate` at batch 1 on a 512-token prompt and at batch 8 left-padded
+       128-512, 128 new tokens each (TTFT, the median of 3 one-token calls;
+       decode tokens/s; peak memory), and with draft_tokens=4 at batch 1 on
+       a prompt that repeats a 64-token passage (accepted tokens per verify
+       step). Gates: every request finishes, every token id lies in the
+       vocabulary, and no K1-K5 launch count moves over the generate runs
+       and the contiguous engine.
+   (c) with --profile, device time by kernel group of one more batch-1
+       generate call, and the device's busy share of the unprofiled one.
+5. Training, through `Accelerator.prepare(model, AdamW, loader, schedule)`
    and `train_step(max_grad_norm=1.0)`, sequence 2048, AdamW lr 1e-4,
    weight decay 1e-4, betas (0.9, 0.999), eps 1e-8:
    (a) f32 at Llama-1B's widths cut to 2 layers, batch 1, 3 steps, once
@@ -97,7 +121,7 @@ prints no result):
        their losses equal the uninterrupted run's within rtol 1e-6. Reports
        the bytes written and the save and load seconds; the directory is
        removed however the phase ends.
-5. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+6. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
    quantized modes, K3-K5 in bf16 and in fp16), the nvidia-smi line, and as
    the last line `{"ok": true, "device": {...}}`.
 
@@ -252,7 +276,7 @@ FLASH_RANGE_SCALES = dict(q=0.02, k=0.02, v=100.0, do=2000.0)
 # for dk (`dp_order_bound`).
 FP32_UNIT = 2.0 ** -24
 
-# Training (phase 4).
+# Training (phase 5).
 TRAIN_LR, TRAIN_BETAS, TRAIN_EPS, TRAIN_WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
 TRAIN_SEQ = 2048
 # f32 kernel vs plain attention: the same f32 arithmetic in another order,
@@ -718,27 +742,28 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
                     )
             report[f"bf16_w8_{kv_dtype}_{label}"] = timing
     if profile:
-        report["bf16_plain_profile"] = profile_phase(
-            model, requests, device, engine_kw, report["bf16_plain"]["wall_s"]
+        report["bf16_plain_profile"] = profile_run(
+            lambda: serve(model, requests, device, **engine_kw)[2]["wall_s"], report["bf16_plain"]["wall_s"]
         )
-        report["bf16_w8_int8_plain_profile"] = profile_phase(
-            model, requests, device, {**engine_kw, "weight_dtype": "int8", "kv_cache_dtype": "int8"},
+        quant_kw = {**engine_kw, "weight_dtype": "int8", "kv_cache_dtype": "int8"}
+        report["bf16_w8_int8_plain_profile"] = profile_run(
+            lambda: serve(model, requests, device, **quant_kw)[2]["wall_s"],
             report["bf16_w8_int8_plain"]["wall_s"],
         )
     return report
 
 
-def profile_phase(model, requests, device, engine_kw, unprofiled_wall_s):
-    """Device time by kernel over one more bf16 plain run under
-    `torch.profiler` (CUPTI). Kernels run on one stream and do not overlap,
-    so their summed time is the device's busy time; its share of the
-    unprofiled run's wall clock is the busy share (the profiler slows the
-    host, not the device)."""
+def profile_run(run, unprofiled_wall_s):
+    """Device time by kernel over one more run (`run()` does it and returns
+    its wall seconds) under `torch.profiler` (CUPTI). Kernels run on one
+    stream and do not overlap, so their summed time is the device's busy
+    time; its share of the unprofiled run's wall clock is the busy share
+    (the profiler slows the host, not the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, timing = serve(model, requests, device, **engine_kw)
+        profiled_wall_s = run()
     kernels = [
         (row.self_device_time_total, row.key, row.count)
         for row in prof.key_averages()
@@ -758,7 +783,7 @@ def profile_phase(model, requests, device, engine_kw, unprofiled_wall_s):
             groups["other"] += us
     kernels.sort(reverse=True)
     return {
-        "profiled_wall_s": timing["wall_s"],
+        "profiled_wall_s": profiled_wall_s,
         "device_busy_s": total_us / 1e6,
         "busy_share_of_unprofiled_wall": total_us / 1e6 / unprofiled_wall_s,
         "share_by_group": {k: v / total_us for k, v in groups.items()},
@@ -767,6 +792,195 @@ def profile_phase(model, requests, device, engine_kw, unprofiled_wall_s):
             for us, name, calls in kernels[:15]
         ],
     }
+
+
+# ---------------------------------------------------------------- generate
+# `generate` and the contiguous engine (phase 4): Llama-1B, 2048-token cache.
+GENERATE_SHAPE = dict(
+    max_length=2048, prompt=256, new=32, batch=4, ragged=(64, 128, 192, 256), penalty=1.3,
+    timed_prompt=512, timed_new=128, timed_batch=8, timed_ragged=(128, 512), passage=64, draft=4,
+)
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def left_pad(prompts):
+    """Prompts of several lengths as one left-padded batch: (ids, mask)."""
+    width = max(p.size for p in prompts)
+    ids = np.zeros((len(prompts), width), np.int64)
+    mask = np.zeros((len(prompts), width), np.int64)
+    for row, p in enumerate(prompts):
+        ids[row, width - p.size:] = p
+        mask[row, width - p.size:] = 1
+    return ids, mask
+
+
+def launch_counts():
+    """Every K1-K5 launch count, keyed by kernel."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    return {**{f"paged_{k}": n for k, n in pa.LAUNCHES.items()}, **fa.LAUNCHES}
+
+
+def reset_launch_counts():
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def timed_generate(gen, ids, device, mask=None, repeats=3, **cfg):
+    """One `Generator` call timed: TTFT is the median wall time of `repeats`
+    calls for one new token (prefill, first sample, the host tail, a
+    synchronise); then one call for `max_new_tokens`, whose tokens after
+    the first over (its wall time - TTFT) give decode tokens/s, and whose
+    peak device memory is read. Speculative calls also count their verify
+    dispatches (forwards after the prefill). Returns (tokens, timing)."""
+    from accelerate_tpu_torch import GenerationConfig
+
+    n = cfg.pop("max_new_tokens")
+    ttft = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        gen(ids, GenerationConfig(max_new_tokens=1, **cfg), attention_mask=mask)
+        sync(device)
+        ttft.append(time.perf_counter() - t0)
+    forwards = []
+    forward = gen._forward
+    gen._forward = lambda *a: (forwards.append(1), forward(*a))[1]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    try:
+        t0 = time.perf_counter()
+        out = gen(ids, GenerationConfig(max_new_tokens=n, **cfg), attention_mask=mask)
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        del gen._forward
+    tokens = out[:, ids.shape[1]:].cpu().numpy()
+    vocab = gen.base_config.vocab_size
+    if tokens.shape != (ids.shape[0], n) or tokens.min() < 0 or tokens.max() >= vocab:
+        raise RuntimeError(f"generate returned {tokens.shape} tokens in [{tokens.min()}, {tokens.max()}]")
+    ttft_s = float(np.median(ttft))
+    timing = {
+        "batch": int(ids.shape[0]), "prompt_tokens": int(ids.shape[1] if mask is None else mask.sum()),
+        "new_tokens": n, "ttft_s": ttft_s, "wall_s": wall,
+        "decode_tokens_per_s": ids.shape[0] * (n - 1) / max(wall - ttft_s, 1e-9),
+    }
+    if cfg.get("draft_tokens"):
+        verify_steps = len(forwards) - 1
+        timing.update(verify_steps=verify_steps, accepted_tokens_per_verify_step=(n - 1) / max(verify_steps, 1))
+    if device.type == "cuda":
+        timing["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    return tokens, timing
+
+
+def generate_phase(device, model_name="llama-1b", shape=GENERATE_SHAPE, n_requests=16, system_len=256,
+                   profile=False):
+    """(a) f32 greedy identities of `generate` against the paged-kernel
+    engine and against itself; (b) bf16 readings of `generate` and of the
+    contiguous engine beside the paged one. K1-K5 must not launch on the
+    generate path or in the contiguous engine. With `profile`, device time
+    by kernel group of one more batch-1 generate call."""
+    from accelerate_tpu_torch import GenerationConfig, Generator, Request, create_named_model
+
+    engine_kw = dict(num_slots=8, page_size=16, max_length=shape["max_length"], chunk_size=8)
+    new, pen = shape["new"], shape["penalty"]
+    report = {"model": model_name, "shape": shape}
+    t0 = time.perf_counter()
+    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device)
+    vocab = model.config.vocab_size
+    gen = Generator(model, max_length=shape["max_length"], device=device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, (shape["prompt"],)) for _ in range(shape["batch"])]
+
+    def engine_tokens(reqs, **kw):
+        _, tokens, _ = serve(model, reqs, device, **engine_kw, **kw)
+        return [tokens[r.request_id] for r in reqs]
+
+    def same(what, got, expect):
+        got, expect = [list(map(int, t)) for t in got], [list(map(int, t)) for t in expect]
+        if got != expect:
+            bad = [i for i, (g, e) in enumerate(zip(got, expect)) if g != e]
+            raise RuntimeError(f"generate f32: {what} differ in rows {bad}")
+        report[f"f32_{what.replace(' ', '_')}"] = True
+        log(f"[generate] f32: {what} agree, {len(got)} rows")
+
+    # (a) f32, greedy.
+    ids = np.stack(prompts)
+    plain = gen(ids, GenerationConfig(max_new_tokens=new)).cpu().numpy()[:, ids.shape[1]:]
+    reqs = [Request(i, p, max_new_tokens=new) for i, p in enumerate(prompts)]
+    same("generate and the paged_kernel engine tokens", plain, engine_tokens(reqs))
+    spec = gen(ids, GenerationConfig(max_new_tokens=new, draft_tokens=shape["draft"])).cpu().numpy()
+    same("speculative and plain generate tokens", spec[:, ids.shape[1]:], plain)
+    ragged = [p[: n] for p, n in zip(prompts, shape["ragged"])]
+    rids, mask = left_pad(ragged)
+    batch = gen(rids, GenerationConfig(max_new_tokens=new), attention_mask=mask).cpu().numpy()
+    alone = [gen(p[None], GenerationConfig(max_new_tokens=new)).cpu().numpy()[0, p.size:] for p in ragged]
+    same("left-padded rows and each prompt alone", batch[:, rids.shape[1]:], alone)
+    penalized = gen(ids, GenerationConfig(max_new_tokens=new, repetition_penalty=pen)).cpu().numpy()
+    reqs = [Request(i, p, max_new_tokens=new, repetition_penalty=pen) for i, p in enumerate(prompts)]
+    same("penalized generate and the penalized paged_kernel engine tokens", penalized[:, ids.shape[1]:],
+         engine_tokens(reqs, use_repetition_penalty=True))
+    requests = make_requests(vocab, n=n_requests, system_len=system_len)
+    same("contiguous and paged_kernel engine tokens", engine_tokens(requests, paged=False),
+         engine_tokens(requests))
+    log(f"[time] generate (a) f32 {time.perf_counter() - t0:.1f}s")
+
+    # (b) bf16, timed. The paged engine first, then everything the K1-K5
+    # counts must stay 0 over.
+    t0 = time.perf_counter()
+    model = model.to(torch.bfloat16)
+    serve(model, requests[:2], device, **engine_kw)  # warm-up
+    serve(model, requests[:2], device, paged=False, **engine_kw)
+    engines = {}
+    for label, kw in (("paged_kernel", {}), ("contiguous", dict(paged=False))):
+        if label == "contiguous":
+            reset_launch_counts()
+        free_memory(device)
+        engine, _, timing = serve(model, requests, device, **engine_kw, **kw)
+        timing.update(kv_cache_nbytes=engine.kv_cache_nbytes, attention_impl=engine.attention_impl)
+        if device.type == "cuda":
+            timing["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        del engine
+        engines[label] = timing
+        log(f"[generate] bf16 engine {label}: {json.dumps(timing)}")
+    report["bf16_engines"] = engines
+    gen(prompts[0][None, :8], GenerationConfig(max_new_tokens=4))  # warm-up
+    long = rng.integers(0, vocab, (shape["timed_prompt"],))
+    _, report["bf16_batch1"] = timed_generate(gen, long[None], device, max_new_tokens=shape["timed_new"])
+    lo, hi = shape["timed_ragged"]
+    lengths = np.linspace(lo, hi, shape["timed_batch"]).astype(int)
+    rids, mask = left_pad([rng.integers(0, vocab, (int(n),)) for n in lengths])
+    _, report["bf16_batch_ragged"] = timed_generate(gen, rids, device, mask, max_new_tokens=shape["timed_new"])
+    passage = rng.integers(0, vocab, (shape["passage"],))
+    repeated = np.tile(passage, -(-shape["timed_prompt"] // shape["passage"]))[: shape["timed_prompt"]]
+    _, report["bf16_speculative"] = timed_generate(
+        gen, repeated[None], device, max_new_tokens=shape["timed_new"], draft_tokens=shape["draft"]
+    )
+    for key in ("bf16_batch1", "bf16_batch_ragged", "bf16_speculative"):
+        log(f"[generate] {key}: {json.dumps(report[key])}")
+    launches = launch_counts()
+    report["launches_on_generate_and_contiguous"] = launches
+    if any(launches.values()):
+        raise RuntimeError(f"a K1-K5 kernel launched on the generate path or the contiguous engine: {launches}")
+    log(f"[generate] K1-K5 launches over the bf16 generate runs and the contiguous engine: {launches}")
+    log(f"[time] generate (b) bf16 {time.perf_counter() - t0:.1f}s")
+    if profile:
+        def run():
+            t = time.perf_counter()
+            gen(long[None], GenerationConfig(max_new_tokens=shape["timed_new"]))
+            sync(device)
+            return time.perf_counter() - t
+
+        report["bf16_batch1_profile"] = profile_run(run, report["bf16_batch1"]["wall_s"])
+        log(f"[generate] bf16 batch 1 profile: {json.dumps(report['bf16_batch1_profile'])}")
+    return report
 
 
 # ---------------------------------------------------------- flash kernels
@@ -1479,7 +1693,7 @@ def main(argv=None) -> int:
                         help="stop after the build and the kernel phase (prints no result line)")
     parser.add_argument("--profile", action="store_true",
                         help="also profile one bf16 plain engine run, one with int8 weights and cache, "
-                             "and one bf16 training step: "
+                             "one bf16 batch-1 generate call and one bf16 training step: "
                              "device time by kernel, busy share")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
@@ -1523,6 +1737,11 @@ def main(argv=None) -> int:
     engine = engine_phase(device, profile=args.profile)
     log(f"[engine] summary: {json.dumps(engine)}")
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    generated = generate_phase(device, profile=args.profile)
+    log(f"[generate] summary: {json.dumps(generated)}")
+    log(f"[time] generate phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)  # the engines and their model are gone; training starts from a clean pool
     t0 = time.perf_counter()
     training = training_phase(device, profile=args.profile)

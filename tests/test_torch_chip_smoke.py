@@ -3,7 +3,8 @@ whole: `chip_smoke.py`'s report of ptxas' output, its flash phase's limits
 (rehearsed on the plain versions, which CPU tensors take, and held against
 an emulation of the tensor-core kernels' bf16 and fp16 arithmetic, fp16's
 range scaling included), its profile's attribution of the grouped-query
-repeat, and the refusal of its `--compare` mode to run without a card."""
+repeat, the refusal of its `--compare` mode to run without a card, and its
+generate phase rehearsed at llama_tiny."""
 
 import os
 import subprocess
@@ -399,3 +400,19 @@ def test_ptxas_report_names_the_paged_kernels():
         "paged_split_scalar_kernel<bf16,bf16>: Used 50 registers, used 1 barriers",
         "paged_merge_kernel<bf16>: Used 32 registers, used 0 barriers",
     ]
+
+
+def test_generate_phase_rehearses_on_the_cpu():
+    """The generate phase at llama_tiny on the CPU: its f32 identities hold
+    (generate against the paged engine, speculative and left-padded against
+    plain, the penalty against the penalized engine, the contiguous engine
+    against the paged one), its bf16 readings come back, and no K1-K5 count
+    moves."""
+    small = dict(max_length=768, prompt=24, new=8, batch=3, ragged=(5, 12, 24), penalty=1.3,
+                 timed_prompt=32, timed_new=8, timed_batch=3, timed_ragged=(8, 32), passage=8, draft=3)
+    report = chip_smoke.generate_phase(torch.device("cpu"), "llama-tiny", shape=small, n_requests=4, system_len=16)
+    assert report["f32_contiguous_and_paged_kernel_engine_tokens"] is True
+    assert report["bf16_engines"]["contiguous"]["attention_impl"] == "gather"
+    assert report["bf16_speculative"]["verify_steps"] > 0
+    assert report["bf16_batch_ragged"]["batch"] == 3
+    assert not any(report["launches_on_generate_and_contiguous"].values())

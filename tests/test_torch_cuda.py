@@ -581,3 +581,69 @@ def test_fused_training_steps_through_the_kernels(cuda, monkeypatch):
         GradientState._reset_state()
     np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=1e-4)
     assert losses["flash"][-1] < losses["flash"][0]
+
+
+def _tiny_pair(cuda):
+    """llama_tiny in f32 on the CPU and the same weights on the card."""
+    from accelerate_tpu_torch import create_llama_model
+    from accelerate_tpu_torch.models import llama_tiny
+
+    cpu = create_llama_model(llama_tiny(), seed=1, device="cpu")
+    card = create_llama_model(llama_tiny(), seed=1, device="cpu").to(cuda)
+    return cpu, card
+
+
+def test_generate_on_the_card_matches_the_cpu_port(cuda):
+    """f32 greedy tokens of `generate` on the card equal the CPU port's:
+    uniform, left-padded, penalized and speculative."""
+    from accelerate_tpu_torch import GenerationConfig, Generator
+
+    cpu, card = _tiny_pair(cuda)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 512, (3, 40))
+    mask = np.ones_like(ids)
+    mask[0, :25], mask[1, :9] = 0, 0
+    cases = [(ids, None, {}), (ids, mask, {}), (ids, None, dict(repetition_penalty=1.3)),
+             (ids[:1], None, dict(draft_tokens=4))]
+    on_cpu, on_card = Generator(cpu, device="cpu"), Generator(card)
+    for prompt, m, extra in cases:
+        config = GenerationConfig(max_new_tokens=24, **extra)
+        got = on_card(prompt, config, attention_mask=m)
+        assert got.device.type == "cuda"
+        assert got.cpu().tolist() == on_cpu(prompt, config, attention_mask=m).tolist(), extra
+
+
+def test_contiguous_engine_matches_paged_on_the_card(cuda):
+    from accelerate_tpu_torch import ContinuousBatcher, Request
+
+    _, card = _tiny_pair(cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, (int(n),)) for n in (5, 40, 17, 60)]
+    runs = {}
+    for paged in (True, False):
+        for penalty in (False, True):
+            engine = ContinuousBatcher(card, num_slots=2, max_length=128, chunk_size=4, paged=paged,
+                                       use_repetition_penalty=penalty)
+            out = engine.run([Request(i, p, max_new_tokens=20, repetition_penalty=1.2)
+                              for i, p in enumerate(prompts)])
+            runs[paged, penalty] = {rid: list(map(int, t)) for rid, t in out.items()}
+    assert runs[True, False] == runs[False, False]
+    assert runs[True, True] == runs[False, True] != runs[True, False]
+
+
+def test_generate_and_contiguous_engine_launch_no_kernel(cuda):
+    """The generate path and the contiguous engine attend plainly (masked
+    attention never takes the flash gate; the contiguous layout has no page
+    table): no K1-K5 launch count moves."""
+    from accelerate_tpu_torch import ContinuousBatcher, GenerationConfig, Generator, Request
+
+    _, card = _tiny_pair(cuda)
+    pa.reset_launch_counts()
+    fa.reset_launch_counts()
+    gen = Generator(card)
+    ids = np.random.default_rng(5).integers(0, 512, (2, 200))
+    gen(ids, GenerationConfig(max_new_tokens=16))
+    gen(ids[:1], GenerationConfig(max_new_tokens=16, draft_tokens=4))
+    engine = ContinuousBatcher(card, num_slots=2, max_length=256, chunk_size=4, paged=False)
+    engine.run([Request(0, ids[0], max_new_tokens=8)])
+    assert not any(pa.LAUNCHES.values()) and not any(fa.LAUNCHES.values())
