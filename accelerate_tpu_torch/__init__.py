@@ -13,7 +13,13 @@ through `Accelerator.prepare` and the fused `train_step`, whose attention
 runs forward and backward in hand-written flash kernels
 (`csrc/flash_attention.cu`), in f32, bf16 or fp16 with dynamic loss
 scaling, and saves and restores the whole training state
-(`Accelerator.save_state` / `load_state`, `checkpointing.py`).
+(`Accelerator.save_state` / `load_state`, `checkpointing.py`). Every
+in-tree layer can be checkpointed (`CompilationConfig(remat_policy=...)`,
+`ops/remat.py`), which runs the flash forward again in the backward. BERT
+(`models/bert.py`) trains through the same surface, with JSON/CSV trackers
+(`tracking.py`) and `gather_for_metrics`: `python -m
+accelerate_tpu_torch.examples.nlp_example` is the twin of the JAX
+package's `examples/nlp_example.py`.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -29,12 +35,13 @@ from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
-from .utils import GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration, set_seed
+from .utils import CompilationConfig, GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration, set_seed
 
 __all__ = [
     "Accelerator",
     "BatchSampler",
     "CheckpointManager",
+    "CompilationConfig",
     "ContinuousBatcher",
     "EngineClosed",
     "GradScalerKwargs",

@@ -21,6 +21,11 @@ or the eager surface, as in the JAX package:
         optimizer.step()
         optimizer.zero_grad()
 
+Activation checkpointing: ``Accelerator(compilation_config=CompilationConfig(
+remat_policy="full"))`` checkpoints every in-tree layer (`ops/remat.py`).
+Metrics: ``Accelerator(log_with="json", project_dir=...)``, then
+`init_trackers`, `log` and `end_training`, and `gather_for_metrics`.
+
 The model is an `nn.Module` (or a `modeling.Model` bundle) whose parameters
 the optimizer was built over; the optimizer a `torch.optim.Optimizer`; the
 loader a `SimpleDataLoader`, a torch `DataLoader` or any iterable of
@@ -36,6 +41,8 @@ import os
 import re
 from typing import Callable, List, Optional
 
+import numpy as np
+
 import torch
 from torch import nn
 
@@ -46,8 +53,9 @@ from .modeling import Model, PreparedModel
 from .optimizer import AcceleratedOptimizer, GradScaler
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .tracking import LOGGER_TYPE_TO_CLASS, GeneralTracker, filter_trackers
 from .train_step import FusedTrainStep
-from .utils.dataclasses import GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration
+from .utils.dataclasses import CompilationConfig, GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration
 
 logger = logging.getLogger(__name__)
 
@@ -63,9 +71,17 @@ class Accelerator:
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         kwargs_handlers: Optional[list] = None,
         project_config: Optional[ProjectConfiguration] = None,
+        log_with=None,
+        project_dir: Optional[str] = None,
+        compilation_config: Optional[CompilationConfig] = None,
     ):
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
-        self.project_configuration = project_config or ProjectConfiguration()
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
+        self.compilation_config = compilation_config or CompilationConfig()
+        self.log_with = filter_trackers(log_with, self.logging_dir)
+        self.trackers: List[GeneralTracker] = []
         self.scaler_handler = None
         for handler in kwargs_handlers or []:
             if not isinstance(handler, GradScalerKwargs):
@@ -105,6 +121,10 @@ class Accelerator:
     @property
     def project_dir(self) -> Optional[str]:
         return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self) -> Optional[str]:
+        return self.project_configuration.logging_dir
 
     @property
     def save_iteration(self) -> int:
@@ -175,7 +195,8 @@ class Accelerator:
         if isinstance(model, nn.Module):
             model = Model(model, loss_fn=getattr(model, "loss_fn", None))
         compute_dtype = None if self.mixed_precision == "no" else self.state.compute_dtype
-        prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype)
+        prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype,
+                                 remat_policy=self.compilation_config.remat_policy)
         self._models.append(prepared)
         return prepared
 
@@ -291,6 +312,62 @@ class Accelerator:
         if norm_type != 2:
             raise NotImplementedError("Only the L2 global norm is supported")
         return self._optimizer_for(self._resolve_model(model)).clip_grad_norm_(max_norm)
+
+    # ------------------------------------------------------------ one process
+    def print(self, *args, **kwargs):
+        """`print` on the main process: here, the one process."""
+        print(*args, **kwargs)
+
+    def gather(self, tensor):
+        """The dim-0 concatenation of `tensor` over the processes: with one
+        process, `tensor` itself."""
+        return tensor
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """`gather` for metrics. The JAX package pads the last batch of a
+        loader to the batch size and cuts the repeats off here; the port's
+        loaders pad nothing, so with one process the data comes back whole:
+        tensors and arrays (through dicts, lists and tuples) as given, other
+        data, or any with ``use_gather_object``, as a list of objects."""
+        leaves = input_data.values() if isinstance(input_data, dict) else (
+            input_data if isinstance(input_data, (list, tuple)) else [input_data])
+        if use_gather_object or not all(isinstance(t, (torch.Tensor, np.ndarray)) for t in leaves):
+            return input_data if isinstance(input_data, list) else [input_data]
+        return self.gather(input_data)
+
+    # ------------------------------------------------------------ trackers
+    def init_trackers(self, project_name: str, config: Optional[dict] = None, init_kwargs: dict = None):
+        """Start every tracker of `log_with` under `project_name` and store
+        `config` with each."""
+        init_kwargs = init_kwargs or {}
+        self.trackers = []
+        for tracker in self.log_with:
+            if isinstance(tracker, GeneralTracker):
+                self.trackers.append(tracker)
+                continue
+            # Every ported tracker writes under the logging directory.
+            kwargs = init_kwargs.get(str(tracker), {})
+            self.trackers.append(LOGGER_TYPE_TO_CLASS[str(tracker)](project_name, self.logging_dir, **kwargs))
+        if config is not None:
+            for tracker in self.trackers:
+                tracker.store_init_configuration(config)
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"No tracker named {name} is running")
+
+    def log(self, values: dict, step: Optional[int] = None, log_kwargs: dict = None):
+        """Log `values` at `step` to every running tracker."""
+        log_kwargs = log_kwargs or {}
+        for tracker in self.trackers:
+            tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
+
+    def end_training(self):
+        """Finish every tracker."""
+        for tracker in self.trackers:
+            tracker.finish()
 
     # ------------------------------------------------------------ checkpoints
     def register_for_checkpointing(self, *objects):

@@ -13,7 +13,9 @@ cast inside the autograd graph (`torch.func.functional_call`), so the
 gradients land on the masters in their own dtype; floating inputs are cast
 the same way and floating outputs come back as f32. `torch.autocast` would
 not match it: it keeps the norm scales and the embedding in f32 and casts
-other ops than JAX does.
+other ops than JAX does. With a `remat_policy` the forward runs inside
+`ops.remat.remat_scope`, so every in-tree layer is checkpointed (JAX's
+`PreparedModel(remat_policy=...)`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from .ops.remat import check_policy, remat_scope
 
 
 @dataclass
@@ -52,13 +56,19 @@ class PreparedModel:
     `__call__` runs the forward; `loss(batch)` the bundled loss on it (the
     argument to `Accelerator.backward` and the fused step's default)."""
 
-    def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None,
+                 remat_policy: Optional[str] = None):
         self.module = model.module.to(device)
         self.loss_fn = model.loss_fn
         self.device = device
         self.compute_dtype = compute_dtype
+        self.remat_policy = check_policy(remat_policy)
 
     def _mp_apply(self, *args, **kwargs):
+        with remat_scope(self.remat_policy):
+            return self._apply(*args, **kwargs)
+
+    def _apply(self, *args, **kwargs):
         if self.compute_dtype is None:
             return self.module(*args, **kwargs)
         # The casts are autograd ops: the backward casts each gradient back
@@ -91,5 +101,5 @@ class PreparedModel:
     def __repr__(self):
         return (
             f"PreparedModel(params={self.num_parameters:,}, device={self.device}, "
-            f"compute_dtype={self.compute_dtype})"
+            f"compute_dtype={self.compute_dtype}, remat_policy={self.remat_policy})"
         )

@@ -22,6 +22,10 @@ The attention module serves four modes, chosen by its arguments:
     a persistent pad mask, the plain masked attention over the written
     prefix (`ops.attention.decode_cache_attention`).
 
+The layer loop goes through `ops.remat.maybe_remat`, so a `remat_scope`
+(`CompilationConfig.remat_policy`) checkpoints every layer of a training
+forward; the flash forward then runs again in the backward.
+
 Quantized serving needs no config field: the engine decides. A layer's pool
 entry carries the scale pools when the pool is int8 or fp8 (JAX's
 `decode_kv_cache_dtype`), and the engine's copy of the model holds
@@ -47,6 +51,7 @@ from ..ops.attention import (
     dot_product_attention,
     slot_cache_attention,
 )
+from ..ops.remat import maybe_remat
 
 #: One entry per layer: (k_pool, v_pool), or (k_pool, v_pool, k_scale,
 #: v_scale) for an int8/fp8 pool; dense caches are (k_cache, v_cache).
@@ -231,7 +236,8 @@ class LlamaForCausalLM(nn.Module):
             pool = None if kv_pools is None else kv_pools[i]
             cache = None if kv_cache is None else kv_cache[i]
             dcache = None if decode_cache is None else (decode_cache, i)
-            hidden = layer(hidden, positions, attention_mask, pool, page_table, attention_impl, cache, dcache)
+            hidden = maybe_remat(layer, hidden, positions, attention_mask, pool, page_table, attention_impl, cache,
+                                 dcache)
         if decode_cache is not None:
             decode_cache.index += s
         hidden = self.final_norm(hidden)

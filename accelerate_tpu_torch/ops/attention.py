@@ -7,7 +7,8 @@ training run:
     softmax in f32) and, behind JAX's gate (`use_flash`), the flash kernels
     of `ops/flash_attention.py`: long unmasked training sequences on the
     card. Every masked input, and so all of serving's prefill, takes the
-    plain branch, as in the JAX package.
+    plain branch, as in the JAX package; so does a packed batch's
+    ``segment_ids`` (`segment_mask`, attention within equal ids).
   - `write_slot_pool`: the paged cache's write half, into float pools or,
     with scale pools, into int8/fp8 pools (`ops/quantization.py`).
   - `slot_cache_attention`: write this dispatch's K/V into the pool, then
@@ -58,6 +59,13 @@ def make_causal_mask(q_len: int, kv_len: int, device=None) -> torch.Tensor:
     return j <= i + (kv_len - q_len)
 
 
+def segment_mask(q_seg, kv_seg):
+    """Packed-sequence attention mask: [B, Sq] x [B, Skv] ids -> [B, 1, Sq,
+    Skv] bool, True where the ids match (the JAX package's definition, in
+    `parallel/ring_attention.py`)."""
+    return q_seg[:, None, :, None] == kv_seg[:, None, None, :]
+
+
 def use_flash(implementation: Optional[str], masked: bool, sq: int, skv: int, causal: bool,
               on_cuda: bool) -> bool:
     """The flash gate of JAX's `dot_product_attention`: an explicit
@@ -82,6 +90,7 @@ def dot_product_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     implementation: Optional[str] = None,
+    segment_ids=None,
 ):
     """Multi-head (optionally grouped-query) scaled dot-product attention.
 
@@ -96,6 +105,9 @@ def dot_product_attention(
             which take no mask), or None: `use_flash` decides. With None,
             ``ACCELERATE_TPU_ATTENTION_IMPL=xla|flash`` forces one for every
             call, as in the JAX package. `LAST_DISPATCH` records the choice.
+        segment_ids: optional [B, S] int ids of packed sequences (needs
+            Sq == Skv); attention stays within equal ids. Such a call takes
+            the plain path, as a masked one does.
     """
     global LAST_DISPATCH
     if implementation is None:
@@ -110,13 +122,16 @@ def dot_product_attention(
         raise ValueError(f"GQA requires query heads ({hq}) divisible by kv heads ({hkv})")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if implementation == "flash" and mask is not None:
+    if segment_ids is not None and sq != skv:
+        raise ValueError(f"segment_ids requires Sq == Skv (self-attention packing), got ({sq}, {skv})")
+    if implementation == "flash" and (mask is not None or segment_ids is not None):
+        blocked = "mask" if mask is not None else "segment_ids"
         raise ValueError(
-            "implementation='flash' cannot honor a mask argument: the kernels thread only "
+            f"implementation='flash' cannot honor a {blocked} argument: the kernels thread only "
             "`causal`. Drop implementation= to let the dispatcher pick the plain path, or "
             "pass implementation='xla'."
         )
-    if use_flash(implementation, mask is not None, sq, skv, causal, q.is_cuda):
+    if use_flash(implementation, mask is not None or segment_ids is not None, sq, skv, causal, q.is_cuda):
         LAST_DISPATCH = "flash"
         return flash_attention(q, k, v, causal=causal, scale=scale)
     LAST_DISPATCH = "xla"
@@ -132,6 +147,8 @@ def dot_product_attention(
         if mask.ndim == 2:  # [B, Skv] padding mask
             mask = mask[:, None, None, :]
         scores = scores.masked_fill(~mask.bool(), neg)
+    if segment_ids is not None:
+        scores = scores.masked_fill(~segment_mask(segment_ids, segment_ids), neg)
     # Softmax in fp32 for stability under bf16 compute.
     s32 = scores.float()
     probs = torch.exp(s32 - s32.amax(dim=-1, keepdim=True))

@@ -1,10 +1,17 @@
 """Utilities of the port's training slice."""
 
-from .dataclasses import GradientAccumulationPlugin, GradScalerKwargs, PrecisionType, ProjectConfiguration
+from .dataclasses import (
+    CompilationConfig,
+    GradientAccumulationPlugin,
+    GradScalerKwargs,
+    PrecisionType,
+    ProjectConfiguration,
+)
 from .operations import send_to_device
 from .random import set_seed
 
 __all__ = [
+    "CompilationConfig",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "PrecisionType",

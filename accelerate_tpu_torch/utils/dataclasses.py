@@ -56,9 +56,30 @@ class GradScalerKwargs:
 class ProjectConfiguration:
     """Where `Accelerator.save_state` writes: with
     `automatic_checkpoint_naming`, ``{project_dir}/checkpoints/checkpoint_{iteration}``
-    through `checkpointing.CheckpointManager`, keeping the last `total_limit`."""
+    through `checkpointing.CheckpointManager`, keeping the last `total_limit`.
+    Trackers write under `logging_dir`, `project_dir` unless set."""
 
     project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
     automatic_checkpoint_naming: bool = False
     total_limit: Optional[int] = None
     iteration: int = 0
+
+    def set_directories(self, project_dir=None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        self.set_directories(self.project_dir)
+
+
+@dataclass
+class CompilationConfig:
+    """The JAX package's compilation options, of which one has a meaning
+    here: `remat_policy` (None or one of `ops.remat.POLICY_NAMES`), the
+    activation checkpointing of every in-tree layer. Its XLA-only fields
+    (`donate_params`, `scan_layers`, `cache_dir`, `xla_flags`) have no
+    counterpart in eager PyTorch and are left out."""
+
+    remat_policy: Optional[str] = None

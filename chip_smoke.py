@@ -121,7 +121,35 @@ prints no result):
        their losses equal the uninterrupted run's within rtol 1e-6. Reports
        the bytes written and the save and load seconds; the directory is
        removed however the phase ends.
-6. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+   (f) activation checkpointing, `Accelerator(compilation_config=
+       CompilationConfig(remat_policy=...))` under None, "full" and "dots":
+       f32 at Llama-1B's widths cut to 2 layers, batch 1, 3 steps each,
+       through the kernels: the losses under both policies equal those
+       without remat (rtol 1e-6). Then bf16 at full width and depth, batch 2,
+       2 warm-up and 4 timed steps each: step time, tokens/s, MFU, peak
+       memory from the first timed step, the losses (their largest relative
+       difference from the run without remat reported, not gated) and the
+       flash launches. Gates: finite losses; under a policy K3 launched 2 x
+       16 layers x 4 steps times (the forward, then the recompute in the
+       backward) and K4, K5 16 x 4, without remat all three 16 x 4; peak
+       memory under "full" below the run without remat. With --profile,
+       device time by kernel group of one more step under each policy.
+6. BERT: `create_named_model("bert-base")` (12 layers, hidden 768, 12
+   heads, FFN 3072, vocab 30522; random weights from seed 0), f32, on one
+   batch of 8 x 128 tokens with a padding mask and token types: the card's
+   logits equal the same model's on the CPU within atol 1e-4. Then the
+   port's twin of `examples/nlp_example.py`
+   (`accelerate_tpu_torch.examples.nlp_example`) through its
+   `training_function` with `--full` and its defaults (bf16, batch 32 x
+   128, 512 training and 128 eval samples, 3 epochs): step time (the device
+   synchronised at each `backward`), samples/s, MFU beside the GEMM dtype
+   (f32 after each LayerNorm, the JAX package's dtype flow), peak memory,
+   each epoch's loss and accuracy. Gates: finite losses, the last epoch's
+   below the first's. Then the peak memory of one bf16 BERT-base step
+   under remat None and "full", reported (with --profile, device time by
+   kernel of one more step without remat). BERT runs no K1-K5: its
+   attention is masked or short, as in the JAX package.
+7. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
    quantized modes, K3-K5 in bf16 and in fp16), the nvidia-smi line, and as
    the last line `{"ok": true, "device": {...}}`.
 
@@ -764,10 +792,13 @@ def profile_run(run, unprofiled_wall_s):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_wall_s = run()
+    # A user annotation (an optimizer's `Optimizer.step#AdamW.step`) spans
+    # kernels that are counted on their own: leave it out of the sums.
     kernels = [
         (row.self_device_time_total, row.key, row.count)
         for row in prof.key_averages()
         if row.device_type == DeviceType.CUDA and row.self_device_time_total > 0
+        and not getattr(row, "is_user_annotation", False)
     ]
     total_us = sum(us for us, _, _ in kernels)
     if total_us <= 0:
@@ -1347,19 +1378,21 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
-          after_step=None):
+          after_step=None, remat_policy=None):
     """Train a Llama of `config` (random weights from seed 0) through the
     user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
     step_fn)` runs before step i and `after_step(i, step_fn)` after it, both
-    outside its timing."""
-    from accelerate_tpu_torch import Accelerator, create_llama_model
+    outside its timing. `remat_policy` goes to the accelerator's
+    `CompilationConfig`."""
+    from accelerate_tpu_torch import Accelerator, CompilationConfig, create_llama_model
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
     AcceleratorState._reset_state()
     GradientState._reset_state()
     model = create_llama_model(config, seed=0, device=device)
-    accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu")
+    accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu",
+                              compilation_config=CompilationConfig(remat_policy=remat_policy))
     optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
                                   weight_decay=TRAIN_WD)
     loader = repeated_batch_loader(config.vocab_size, batch, warmup + steps, seq)
@@ -1619,6 +1652,251 @@ def checkpoint_phase(device, config, seq, steps=4, save_after=2, n_batches=8):
     return out
 
 
+# Activation checkpointing (phase 5 (f)) and BERT (phase 6).
+REMAT_POLICIES = (None, "full", "dots")
+# Under a remat policy the recompute runs the same kernels and GEMMs on the
+# same inputs as the forward, and what the policy saves it saved from that
+# forward: the f32 losses match those without remat to the last bits.
+REMAT_F32_RTOL = 1e-6
+# BERT-base f32 logits on the card against the same model on the CPU, TF32
+# off: the same f32 operations in another summation order over 768-3072
+# products, on logits of about 1.
+BERT_LOGITS_ATOL = 1e-4
+
+
+def remat_launches(n, policy, dtype):
+    """Flash launch counts of `n` layer steps on `dtype` tensors under
+    `policy`: a checkpointed layer launches the forward again in its
+    backward, so K3 runs twice as often as K4 and K5."""
+    want = expected_launches(n, dtype)
+    if policy is not None:
+        want[launch_key("flash_fwd", dtype)] *= 2
+    return want
+
+
+def remat_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ, timed_steps=4, warmup=2, batch=2,
+                profile=False):
+    """(f) Training under `CompilationConfig(remat_policy=...)`: None, `full`
+    and `dots`. f32 at full width cut to `parity_layers` layers, 3 steps
+    each: the losses under both policies equal those without remat within
+    rtol 1e-6, through the kernels. Then bf16 at full width and depth,
+    `warmup` + `timed_steps` steps each: step time, tokens/s, MFU, peak
+    memory (counted from the first timed step), losses, flash launches.
+    Gates: finite losses; K3 launched 2 x layers x steps times under a
+    policy, once per layer step without, K4 and K5 once; peak memory under
+    `full` below the run without remat. With `profile`, device time by
+    kernel group of one more step under each policy."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = MODEL_REGISTRY[model_name]()
+    on_card = device.type == "cuda"
+    report = {"model": model_name, "seq": seq}
+
+    cut = dataclasses.replace(config, num_hidden_layers=parity_layers)
+    f32 = {}
+    for policy in REMAT_POLICIES:
+        fa.reset_launch_counts()
+        f32[str(policy)] = train(device, cut, "no", batch=1, steps=3, seq=seq, remat_policy=policy)[0]
+        launches = dict(fa.LAUNCHES)
+        log(f"[remat] f32 {parity_layers} layers, remat_policy={policy}: losses {f32[str(policy)]}, "
+            f"launches {launches}")
+        if on_card and launches != remat_launches(parity_layers * 3, policy, torch.float32):
+            raise RuntimeError(f"f32 remat_policy={policy}: flash launches {launches}, expected "
+                               f"{remat_launches(parity_layers * 3, policy, torch.float32)}")
+        free_memory(device)
+    base = f32["None"]
+    diffs = {p: max(abs(a - b) / abs(b) for a, b in zip(f32[p], base)) for p in f32 if p != "None"}
+    if not all(np.isfinite(x) for losses in f32.values() for x in losses) or max(diffs.values()) > REMAT_F32_RTOL:
+        raise RuntimeError(f"f32 losses under remat {f32} differ from those without (rtol {diffs})")
+    report["f32_parity"] = {"layers": parity_layers, "losses": f32, "max_rel_diff": diffs, "rtol": REMAT_F32_RTOL}
+
+    runs = {}
+    for policy in REMAT_POLICIES:
+        def before_step(i, step_fn):
+            if i == warmup:
+                fa.reset_launch_counts()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(device)
+
+        losses, seconds, pmodel, step_fn, last_batch = train(device, config, "bf16", batch=batch, steps=timed_steps,
+                                                             seq=seq, warmup=warmup, on_step=before_step,
+                                                             remat_policy=policy)
+        launches = dict(fa.LAUNCHES)
+        want = remat_launches(config.num_hidden_layers * timed_steps, policy, torch.bfloat16)
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"bf16 remat_policy={policy}: losses are not finite: {losses}")
+        if on_card and launches != want:
+            raise RuntimeError(f"bf16 remat_policy={policy}: flash launches {launches}, expected {want}")
+        run = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+        run["losses"] = losses
+        if on_card:
+            run["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        log(f"[remat] bf16 {model_name} remat_policy={policy}: {json.dumps(run)}")
+        if profile:
+            run["profile"] = profile_train_step(step_fn, last_batch, device, run["step_ms_median"] / 1e3)
+        runs[str(policy)] = run
+        del pmodel, step_fn, last_batch
+        free_memory(device)
+    if on_card and not runs["full"]["peak_memory_bytes"] < runs["None"]["peak_memory_bytes"]:
+        raise RuntimeError(f"peak memory under full remat {runs['full']['peak_memory_bytes']} is not below "
+                           f"{runs['None']['peak_memory_bytes']} without remat")
+    report["bf16"] = runs
+    # Reported, not gated: bf16 GEMMs may pick other algorithms across runs.
+    report["bf16_max_rel_loss_diff"] = {
+        p: max(abs(a - b) / abs(b) for a, b in zip(runs[p]["losses"], runs["None"]["losses"])) for p in ("full", "dots")
+    }
+    return report
+
+
+def bert_batch(config, batch, seq, seed=0):
+    """[B, S] token ids, a ragged 0/1 padding mask and token types (two
+    halves) from numpy `seed`."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, config.vocab_size, (batch, seq))
+    lengths = rng.integers(seq // 2, seq + 1, batch)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int64)
+    types = (np.arange(seq)[None, :] >= seq // 2).astype(np.int64).repeat(batch, 0)
+    return torch.as_tensor(ids), torch.as_tensor(mask), torch.as_tensor(types)
+
+
+def run_example(device, example_args):
+    """The twin example's `training_function` with `example_args`, the
+    wall time of each step (the device synchronised at each `backward`) and
+    the metrics it logged; its output directory is removed afterwards."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.examples import nlp_example
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    stamps = []
+
+    class TimedAccelerator(nlp_example.Accelerator):
+        def backward(self, *args, **kwargs):
+            sync(self.device)
+            stamps.append(time.perf_counter())
+            return super().backward(*args, **kwargs)
+
+    output_dir = tempfile.mkdtemp()
+    args = nlp_example.parse_args([*example_args, "--output_dir", output_dir,
+                                   *(["--cpu"] if device.type == "cpu" else [])])
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    original, nlp_example.Accelerator = nlp_example.Accelerator, TimedAccelerator
+    try:
+        t0 = time.perf_counter()
+        accuracy = nlp_example.training_function(args)
+        sync(device)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(output_dir, "nlp_example", "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+    finally:
+        nlp_example.Accelerator = original
+        shutil.rmtree(output_dir, ignore_errors=True)
+    steps = -(-args.train_size // args.batch_size)
+    # A step is the time from one backward to the next within an epoch.
+    intervals = [b - a for e in range(args.epochs) for a, b in zip(stamps[e * steps:(e + 1) * steps - 1],
+                                                                   stamps[e * steps + 1:(e + 1) * steps])]
+    return args, accuracy, wall, metrics, intervals
+
+
+def bert_phase(device, model_name="bert-base", example_args=("--full",), logits_batch=8, seq=128, profile=False):
+    """6. BERT. An f32 forward of `model_name` on one batch on `device`
+    against the same model on the CPU (logits within atol 1e-4); the twin
+    of `examples/nlp_example.py` run through its `training_function` with
+    `example_args` (BERT-base at the example's defaults: bf16, batch 32 x
+    128, 512 training and 128 eval samples, 3 epochs): step time,
+    samples/s, MFU beside the GEMM dtype, peak memory, per-epoch loss and
+    accuracy; gates: finite losses, the last epoch's loss below the
+    first's. Then the peak memory of one bf16 step under remat None and
+    `full`, reported; with `profile`, device time by kernel of one more
+    step without remat and the device's busy share of the example's step."""
+    import copy
+
+    from accelerate_tpu_torch import Accelerator, CompilationConfig, create_named_model
+    from accelerate_tpu_torch.examples import nlp_example
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    config = MODEL_REGISTRY[model_name]()
+    on_card = device.type == "cuda"
+    report = {"model": model_name}
+
+    cpu_model = create_named_model(model_name, seed=0, device="cpu")
+    params = sum(p.numel() for p in cpu_model.parameters())
+    model = copy.deepcopy(cpu_model).to(device)
+    inputs = bert_batch(config, logits_batch, seq)
+    with torch.no_grad():
+        ref = cpu_model(*inputs)
+        got = model(*(t.to(device) for t in inputs)).cpu()
+    err = float((got - ref).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > BERT_LOGITS_ATOL:
+        raise RuntimeError(f"{model_name} f32 logits on {device} differ from the CPU's by {err}")
+    report["f32_logits_vs_cpu"] = {"batch": logits_batch, "seq": seq, "max_abs_err": err, "atol": BERT_LOGITS_ATOL}
+    log(f"[bert] f32 {model_name} logits on {device} vs cpu: max_abs_err {err}")
+    del model, cpu_model
+    free_memory(device)
+
+    args, accuracy, wall, metrics, intervals = run_example(device, example_args)
+    losses = [m["loss"] for m in metrics]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the nlp example's per-epoch losses {losses} are not finite and falling")
+    step_s = float(np.median(intervals))
+    tokens_per_s = args.batch_size * nlp_example.MAX_LEN / step_s
+    example = {
+        "args": {k: v for k, v in vars(args).items() if k != "output_dir"}, "parameters": params,
+        "wall_s": wall, "step_ms_median": 1e3 * step_s, "steps_timed": len(intervals),
+        "samples_per_s": args.batch_size / step_s, "tokens_per_s": tokens_per_s,
+        "mfu": 6 * (params - config.vocab_size * config.hidden_size) * tokens_per_s / BF16_PEAK_FLOPS,
+        "gemm_dtype": "float32 (flax's promotion after each f32 LayerNorm, as in the JAX package)",
+        "losses": losses, "accuracies": [m["accuracy"] for m in metrics], "final_accuracy": accuracy,
+    }
+    if on_card:
+        example["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    log(f"[bert] nlp example: {json.dumps(example)}")
+    report["example"] = example
+    free_memory(device)
+
+    peaks = {}
+    data = nlp_example.get_dataset(config.vocab_size - 1, n=args.batch_size)
+    batch = {k: torch.as_tensor(np.stack([row[k] for row in data])).to(device) for k in data[0]}
+    for policy in (None, "full"):
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+        accelerator = Accelerator(mixed_precision="bf16", cpu=not on_card,
+                                  compilation_config=CompilationConfig(remat_policy=policy))
+        model = create_named_model(model_name, seed=0, device=device)
+        prepared, optimizer = accelerator.prepare(
+            model, torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=nlp_example.WEIGHT_DECAY))
+        free_memory(device)
+        loss = accelerator.backward(prepared.loss, batch)
+        optimizer.step()
+        optimizer.zero_grad()
+        if not np.isfinite(float(loss)):
+            raise RuntimeError(f"{model_name} bf16 step under remat_policy={policy}: loss {float(loss)}")
+        peaks[str(policy)] = int(torch.cuda.max_memory_allocated(device)) if on_card else None
+        if profile and policy is None:
+            def step():
+                t0 = time.perf_counter()
+                accelerator.backward(prepared.loss, batch)
+                accelerator.clip_grad_norm_(max_norm=1.0)
+                optimizer.step()
+                optimizer.zero_grad()
+                sync(device)
+                return time.perf_counter() - t0
+
+            report["profile"] = profile_run(step, step_s)
+            log(f"[bert] bf16 step profile: {json.dumps(report['profile'])}")
+        del model, prepared, optimizer, accelerator
+        free_memory(device)
+    report["one_step_peak_memory_bytes"] = {"batch": args.batch_size, "seq": nlp_example.MAX_LEN, **peaks}
+    log(f"[bert] one bf16 step, peak memory by remat policy: {json.dumps(report['one_step_peak_memory_bytes'])}")
+    return report
+
+
 def profile_train_step(step_fn, batch, device, unprofiled_step_s):
     """Device time by kernel group over one more bf16 training step under
     `torch.profiler`: the flash kernels (each by name), GEMMs and the rest,
@@ -1693,8 +1971,8 @@ def main(argv=None) -> int:
                         help="stop after the build and the kernel phase (prints no result line)")
     parser.add_argument("--profile", action="store_true",
                         help="also profile one bf16 plain engine run, one with int8 weights and cache, "
-                             "one bf16 batch-1 generate call and one bf16 training step: "
-                             "device time by kernel, busy share")
+                             "one bf16 batch-1 generate call, one bf16 training step, one under each "
+                             "remat policy and one BERT-base step: device time by kernel, busy share")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(32, 64, 128),
@@ -1747,6 +2025,16 @@ def main(argv=None) -> int:
     training = training_phase(device, profile=args.profile)
     log(f"[train] summary: {json.dumps(training)}")
     log(f"[time] training phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    remat = remat_phase(device, profile=args.profile)
+    log(f"[remat] summary: {json.dumps(remat)}")
+    log(f"[time] training (f) remat {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    bert = bert_phase(device, profile=args.profile)
+    log(f"[bert] summary: {json.dumps(bert)}")
+    log(f"[time] bert phase {time.perf_counter() - t0:.1f}s")
 
     rows = []
     runs = {"decode": "plain", "verify": "speculative"}

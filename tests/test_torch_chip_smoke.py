@@ -416,3 +416,31 @@ def test_generate_phase_rehearses_on_the_cpu():
     assert report["bf16_speculative"]["verify_steps"] > 0
     assert report["bf16_batch_ragged"]["batch"] == 3
     assert not any(report["launches_on_generate_and_contiguous"].values())
+
+
+def test_remat_phase_rehearses_on_the_cpu():
+    """Training (f) at llama_tiny on the CPU: the f32 losses under `full` and
+    `dots` equal those without remat, and each bf16 run reports its step
+    time and losses (the flash gate stays shut here, so no launch counts)."""
+    report = chip_smoke.remat_phase(torch.device("cpu"), "llama-tiny", seq=64, timed_steps=2, warmup=1)
+    assert report["f32_parity"]["max_rel_diff"] == {"full": 0.0, "dots": 0.0}
+    assert set(report["bf16"]) == {"None", "full", "dots"}
+    for run in report["bf16"].values():
+        assert run["timed_steps"] == 2 and len(run["losses"]) == 3 and run["step_ms_median"] > 0
+    launches = chip_smoke.remat_launches(16 * 4, "full", torch.bfloat16)
+    assert (launches["flash_fwd"], launches["flash_bwd_dkv"], launches["flash_bwd_dq"]) == (128, 64, 64)
+    assert chip_smoke.remat_launches(16 * 4, None, torch.bfloat16)["flash_fwd"] == 64
+
+
+def test_bert_phase_rehearses_on_the_cpu():
+    """The BERT phase at bert_tiny on the CPU: logits against themselves, the
+    twin example's per-epoch losses (finite, falling) and its step timing,
+    one step under each remat policy."""
+    report = chip_smoke.bert_phase(torch.device("cpu"), "bert-tiny", logits_batch=2, seq=32, example_args=(
+        "--train_size", "64", "--eval_size", "32", "--batch_size", "16", "--epochs", "2"))
+    example = report["example"]
+    assert report["f32_logits_vs_cpu"]["max_abs_err"] == 0.0
+    assert example["steps_timed"] == 6 and example["step_ms_median"] > 0
+    assert len(example["losses"]) == 2 and example["losses"][-1] < example["losses"][0]
+    assert example["args"]["mixed_precision"] == "bf16" and example["args"]["cpu"] is True
+    assert set(report["one_step_peak_memory_bytes"]) == {"batch", "seq", "None", "full"}

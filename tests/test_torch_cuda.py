@@ -647,3 +647,54 @@ def test_generate_and_contiguous_engine_launch_no_kernel(cuda):
     engine = ContinuousBatcher(card, num_slots=2, max_length=256, chunk_size=4, paged=False)
     engine.run([Request(0, ids[0], max_new_tokens=8)])
     assert not any(pa.LAUNCHES.values()) and not any(fa.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_launches_the_flash_forward_again_and_keeps_the_losses(cuda, monkeypatch, policy):
+    """`llama_tiny` trained on the card with the flash path forced, f32, under
+    `CompilationConfig(remat_policy=...)`: K3 launches twice per layer step
+    (the forward, then the recompute in the backward), K4 and K5 once, and
+    the losses equal those without remat within rtol 1e-6."""
+    from accelerate_tpu_torch import (Accelerator, BatchSampler, CompilationConfig, SimpleDataLoader,
+                                      create_llama_model)
+    from accelerate_tpu_torch.models import llama_tiny
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    monkeypatch.setenv("ACCELERATE_TPU_ATTENTION_IMPL", "flash")
+    rows = np.random.default_rng(3).integers(0, 512, (12, 128))
+    data = [{"input_ids": r} for r in rows]
+    losses, launches = {}, {}
+    try:
+        for remat in (None, policy):
+            AcceleratorState._reset_state()
+            GradientState._reset_state()
+            model = create_llama_model(llama_tiny(), seed=1, device=cuda)
+            accelerator = Accelerator(compilation_config=CompilationConfig(remat_policy=remat))
+            optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+            _, _, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(12), 4)))
+            step_fn = accelerator.train_step(max_grad_norm=1.0)
+            fa.reset_launch_counts()
+            losses[remat] = [float(step_fn(b)) for b in loader]
+            launches[remat] = dict(fa.LAUNCHES)
+    finally:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+    assert launches[None] == {key: 0 if key.endswith("_f16") else 6 for key in fa.LAUNCHES}
+    assert launches[policy] == {**launches[None], "flash_fwd": 12}
+    np.testing.assert_allclose(losses[policy], losses[None], rtol=1e-6)
+
+
+def test_bert_logits_on_the_card_match_the_cpu(cuda):
+    """f32 `bert-base` on one batch with a padding mask and token types: the
+    card's logits equal the CPU's within atol 1e-4 (TF32 off)."""
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.models import bert_base
+
+    cpu = create_named_model("bert-base", seed=0, device="cpu")
+    card = create_named_model("bert-base", seed=0, device="cpu").to(cuda)
+    ids, mask, types = chip_smoke.bert_batch(bert_base(), 4, 128)
+    with torch.no_grad():
+        ref = cpu(ids, mask, types)
+        got = card(ids.to(cuda), mask.to(cuda), types.to(cuda))
+    assert got.device.type == "cuda" and got.shape == (4, 2)
+    torch.testing.assert_close(got.cpu(), ref, atol=chip_smoke.BERT_LOGITS_ATOL, rtol=0)

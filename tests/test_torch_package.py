@@ -41,6 +41,8 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.accelerator, accelerate_tpu_torch.train_step, accelerate_tpu_torch.utils\n"
         "import accelerate_tpu_torch.ops.flash_attention, accelerate_tpu_torch.ops.quantization\n"
         "import accelerate_tpu_torch.utils.operations, accelerate_tpu_torch.generation\n"
+        "import accelerate_tpu_torch.ops.remat, accelerate_tpu_torch.tracking, accelerate_tpu_torch.models.bert\n"
+        "import accelerate_tpu_torch.examples.nlp_example\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
