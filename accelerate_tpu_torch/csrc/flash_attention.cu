@@ -1,6 +1,6 @@
 // FlashAttention-2 forward and backward for training on Hopper (sm_90a), over
 // float, __nv_bfloat16 and __half inputs in the [B*H, S, D] layout, D in
-// {32, 64, 128}.
+// {32, 64, 96, 128, 256}.
 //
 // Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py:
 //   K3 forward: flash_fwd_wgmma_kernel<T = bf16 | f16>, flash_fwd_kernel (f32)
@@ -34,8 +34,9 @@
 // two-stage ring of shared memory, loaded by TMA with mbarrier completion, so
 // the copy of tile j + 2 overlaps the products of tile j + 1, and several
 // blocks on each SM overlap one another's softmax with their tensor-core
-// work. Tiles stay bf16 in shared memory, swizzled (128B for D 64 and 128,
-// 64B for D 32) as the wgmma descriptors read them (flash_tiles.cuh). The
+// work. Tiles stay bf16 in shared memory, swizzled (128B for D 64, 128 and
+// 256, 64B for D 32 and 96) as the wgmma descriptors read them
+// (flash_tiles.cuh). The
 // score products (s = q.k^T, dp = do.v^T; in K4 their transposes
 // sT = k.q^T, dpT = v.do^T) are wgmmas with both operands in shared memory,
 // K-major; the fp32 accumulator, narrowed to bf16 pairs, is already the
@@ -52,13 +53,28 @@
 // 2^-11, and P and dS are scaled by powers of two before they are narrowed,
 // so that neither overflows fp16's 65504 nor goes subnormal below 2^-14
 // (the fp16 range note below). K3 walks 128-key
-// tiles (64 at D 128), K5 64-key tiles, K4 64-row query tiles (PERF.md).
-// In K4, lse and delta belong to the columns of the transposed scores; the
-// threads stage them for the next query tile in shared memory.
+// tiles (64 at D 96 and above), K5 64-key tiles, K4 64-row query tiles
+// (PERF.md). In K4, lse and delta belong to the columns of the transposed
+// scores; the threads stage them for the next query tile in shared memory.
+//
+// D 256 is bound by registers: one fp32 accumulator of 64 rows x 256
+// columns is 128 registers a thread of the warpgroup. K3 (o) and K5 (dq)
+// hold one beside their 64-key score tiles (about 200 registers, ptxas'
+// report in chip_smoke.py's [build] lines). K4 would hold two, dK and dV,
+// 256 registers, over the 255 a thread may have, so at D 256 its grid has a
+// third dimension over the two halves of D: each block owns dK and dV for
+// 128 of the 256 columns and recomputes sT = k.q^T and dpT = v.do^T over the
+// full D, as the other half's block does. That costs K4 1.5x its products
+// (6 D instead of 4 D operations a pair) and keeps D 128's register shape;
+// two consumer warpgroups sharing pT and dsT through shared memory would
+// save the recompute, and are left for later. Shared memory at D 256: K3's
+// Q tile (32 KB) and two stages of 64-key K/V tiles (128 KB); K5 and K4 add
+// a second fixed tile (dO; K, V), 193 KB each, one block per SM.
 //
 // f32 keeps the first design: products as fp32 FMAs on the CUDA cores
 // over operands in shared memory, each row (a query row in K3 and K5, a key
-// row in K4) split over D / 16 threads holding 16 of its dimensions, the
+// row in K4) split over a power of two of threads holding 16 of its
+// dimensions each (12 at D 96; Split below), the
 // other side streamed through shared memory in 64-row tiles read as
 // broadcasts, partial dot products summed by warp shuffles. The tensor cores
 // have no f32 mode, only TF32, whose 10-bit mantissa would break the f32
@@ -98,11 +114,9 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLFloor = 1e-30f;
-constexpr int kRows = 64;           // rows a block owns: queries (K3, K5) or keys (K4)
-constexpr int kTile = 64;           // rows of the other side per shared-memory tile
-constexpr int kDimsPerThread = 16;  // a row's dimensions per thread: 4 float4 chunks
-constexpr int kChunks = kDimsPerThread / 4;
-constexpr int kFold = 16;           // keys per online-softmax update in K3
+constexpr int kRows = 64;  // rows a wgmma block owns: queries (K3, K5) or keys (K4)
+constexpr int kTile = 64;  // rows of the other side per shared-memory tile
+constexpr int kFold = 16;  // keys per online-softmax update in the scalar K3
 
 // Four consecutive elements of T (the scalar kernels run in f32 only).
 template <typename T>
@@ -114,13 +128,22 @@ struct Vec4<float> {
   __device__ static void store(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
 };
 
-// Threads per row and their dimensions: thread t of a row holds float4 chunks
-// c * TPR + t (c < kChunks), so the TPR threads of a row read neighbouring
-// 16-byte words of a shared-memory row: no bank conflicts.
+// The scalar kernels' split of a row over threads. Thread t of a row holds
+// float4 chunks c * TPR + t (c < kChunks), so the TPR threads of a row read
+// neighbouring 16-byte words of a shared-memory row: no bank conflicts. TPR
+// must be a power of two, for the xor shuffles of row_sum: 16 dimensions a
+// thread, 12 (three chunks) at D 96, where 16 would give TPR 6. A block owns
+// kRows rows: 64, and 32 at D 256, where 64 rows of 16 lanes would make
+// 1024-thread blocks of at most 64 registers a thread, fewer than K4's four
+// 16-value rows need; 32 rows make 512 threads of up to 128.
 template <int D>
 struct Split {
-  static constexpr int TPR = D / kDimsPerThread;
+  static constexpr int kDims = D == 96 ? 12 : 16;
+  static constexpr int kChunks = kDims / 4;
+  static constexpr int TPR = D / kDims;
+  static constexpr int kRows = D == 256 ? 32 : 64;
   static constexpr int kThreads = kRows * TPR;
+  static_assert(TPR * kDims == D && (TPR & (TPR - 1)) == 0 && TPR <= 32, "a power of two of lanes a row");
   __device__ static int dim(int c, int t) { return (c * TPR + t) * 4; }
 };
 
@@ -132,11 +155,11 @@ __device__ inline float row_sum(float x) {
   return x;
 }
 
-// This thread's 16 dimensions of row `row` (zeros past `n`), widened.
+// This thread's dimensions of row `row` (zeros past `n`), widened.
 template <typename T, int D>
 __device__ inline void load_row(const T* base, int row, int n, int t, float* dst) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < Split<D>::kChunks; ++c) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < n) x = Vec4<T>::load(base + (int64_t)row * D + Split<D>::dim(c, t));
     dst[4 * c] = x.x;
@@ -149,7 +172,7 @@ __device__ inline void load_row(const T* base, int row, int n, int t, float* dst
 template <typename T, int D>
 __device__ inline void store_row(T* base, int row, int t, const float* src) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < Split<D>::kChunks; ++c) {
     Vec4<T>::store(base + (int64_t)row * D + Split<D>::dim(c, t),
                    make_float4(src[4 * c], src[4 * c + 1], src[4 * c + 2], src[4 * c + 3]));
   }
@@ -160,7 +183,7 @@ template <int D>
 __device__ inline float dot_part(const float* regs, const float* row, int t) {
   float acc = 0.f;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < Split<D>::kChunks; ++c) {
     const float4 x = *reinterpret_cast<const float4*>(row + Split<D>::dim(c, t));
     acc = fmaf(regs[4 * c], x.x, acc);
     acc = fmaf(regs[4 * c + 1], x.y, acc);
@@ -174,7 +197,7 @@ __device__ inline float dot_part(const float* regs, const float* row, int t) {
 template <int D>
 __device__ inline void axpy_part(float* regs, float w, const float* row, int t) {
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
+  for (int c = 0; c < Split<D>::kChunks; ++c) {
     const float4 x = *reinterpret_cast<const float4*>(row + Split<D>::dim(c, t));
     regs[4 * c] = fmaf(w, x.x, regs[4 * c]);
     regs[4 * c + 1] = fmaf(w, x.y, regs[4 * c + 1]);
@@ -209,14 +232,14 @@ __global__ void __launch_bounds__(Split<D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int S, int Sk, float scale,
                  int causal) {
-  constexpr int TPR = Split<D>::TPR;
+  constexpr int TPR = Split<D>::TPR, kDims = Split<D>::kDims, kBlockRows = Split<D>::kRows;
   const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal rows first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;  // the longest causal rows first
   const int t = threadIdx.x % TPR;
   const int row = q0 + threadIdx.x / TPR;
   const int offset = Sk - S;
   const int limit = causal ? min(row + offset, Sk - 1) : Sk - 1;  // last key this row sees
-  const int end = visible_end(min(q0 + kRows, S) - 1, offset, Sk, causal);
+  const int end = visible_end(min(q0 + kBlockRows, S) - 1, offset, Sk, causal);
 
   extern __shared__ float smem[];
   float* k_s = smem;              // [kTile, D]
@@ -224,10 +247,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + (int64_t)bh * Sk * D;
   const T* vb = v + (int64_t)bh * Sk * D;
 
-  float qr[kDimsPerThread], acc[kDimsPerThread];
+  float qr[kDims], acc[kDims];
   load_row<T, D>(q + (int64_t)bh * S * D, row, S, t, qr);
 #pragma unroll
-  for (int i = 0; i < kDimsPerThread; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDims; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   for (int k0 = 0; k0 < end; k0 += kTile) {
@@ -257,7 +280,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
       l = l * corr + sum;
 #pragma unroll
-      for (int i = 0; i < kDimsPerThread; ++i) acc[i] *= corr;
+      for (int i = 0; i < kDims; ++i) acc[i] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kFold; ++jj) axpy_part<D>(acc, s[jj], v_s + (j0 + jj) * D, t);
       m = m_new;
@@ -267,7 +290,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   if (row < S) {
     const float safe_l = fmaxf(l, kLFloor);
 #pragma unroll
-    for (int i = 0; i < kDimsPerThread; ++i) acc[i] = acc[i] / safe_l;
+    for (int i = 0; i < kDims; ++i) acc[i] = acc[i] / safe_l;
     store_row<T, D>(o + (int64_t)bh * S * D, row, t, acc);
     if (t == 0) lse[(int64_t)bh * S + row] = m + logf(safe_l);
   }
@@ -280,9 +303,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int S, int Sk, float scale, int causal) {
-  constexpr int TPR = Split<D>::TPR;
+  constexpr int TPR = Split<D>::TPR, kDims = Split<D>::kDims, kBlockRows = Split<D>::kRows;
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kRows;  // the first key tiles see the most queries: first
+  const int k0 = blockIdx.x * kBlockRows;  // the first key tiles see the most queries: first
   const int t = threadIdx.x % TPR;
   const int key = k0 + threadIdx.x / TPR;
   const int offset = Sk - S;
@@ -297,11 +320,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const T* qb = q + (int64_t)bh * S * D;
   const T* dob = dout + (int64_t)bh * S * D;
 
-  float kr[kDimsPerThread], vr[kDimsPerThread], dkr[kDimsPerThread], dvr[kDimsPerThread];
+  float kr[kDims], vr[kDims], dkr[kDims], dvr[kDims];
   load_row<T, D>(k + (int64_t)bh * Sk * D, key, Sk, t, kr);
   load_row<T, D>(v + (int64_t)bh * Sk * D, key, Sk, t, vr);
 #pragma unroll
-  for (int i = 0; i < kDimsPerThread; ++i) dkr[i] = dvr[i] = 0.f;
+  for (int i = 0; i < kDims; ++i) dkr[i] = dvr[i] = 0.f;
 
   for (int i0 = (i_first / kTile) * kTile; i0 < S; i0 += kTile) {
     __syncthreads();
@@ -340,14 +363,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int S, int Sk,
                     float scale, int causal) {
-  constexpr int TPR = Split<D>::TPR;
+  constexpr int TPR = Split<D>::TPR, kDims = Split<D>::kDims, kBlockRows = Split<D>::kRows;
   const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
   const int t = threadIdx.x % TPR;
   const int row = q0 + threadIdx.x / TPR;
   const int offset = Sk - S;
   const int limit = causal ? min(row + offset, Sk - 1) : Sk - 1;
-  const int end = visible_end(min(q0 + kRows, S) - 1, offset, Sk, causal);
+  const int end = visible_end(min(q0 + kBlockRows, S) - 1, offset, Sk, causal);
 
   extern __shared__ float smem[];
   float* k_s = smem;
@@ -355,11 +378,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* kb = k + (int64_t)bh * Sk * D;
   const T* vb = v + (int64_t)bh * Sk * D;
 
-  float qr[kDimsPerThread], dor[kDimsPerThread], dqr[kDimsPerThread];
+  float qr[kDims], dor[kDims], dqr[kDims];
   load_row<T, D>(q + (int64_t)bh * S * D, row, S, t, qr);
   load_row<T, D>(dout + (int64_t)bh * S * D, row, S, t, dor);
 #pragma unroll
-  for (int i = 0; i < kDimsPerThread; ++i) dqr[i] = 0.f;
+  for (int i = 0; i < kDims; ++i) dqr[i] = 0.f;
   const bool active = row < S;
   const float lse_r = active ? lse[(int64_t)bh * S + row] : 0.f;
   const float delta_r = active ? delta[(int64_t)bh * S + row] : 0.f;
@@ -692,8 +715,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
 // the ring, from the first tile whose rows can see the block's keys to S.
 // sT = k.q^T and dpT = v.do^T are [64 keys, kM queries] accumulators, so lse
 // and delta belong to their columns: the threads stage both for the next tile
-// in shared memory while the current one is in the tensor cores.
-template <typename T, int D, int kM, int kStages>
+// in shared memory while the current one is in the tensor cores. With
+// kSplit 2 (D 256) block z of the grid owns columns [z D / 2, (z + 1) D / 2)
+// of dK and dV and computes sT and dpT over the full D, as the other does.
+template <typename T, int D, int kM, int kStages, int kSplit>
 __global__ void __launch_bounds__(flash_tiles::kWarpgroup)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -710,6 +735,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
   // Two buffers of [lse in base-2 units, delta] for kM query rows each.
   float* rows_s = reinterpret_cast<float*>(smem_raw + (base + L::kRowVal - flash_tiles::smem_u32(smem_raw)));
 
+  constexpr int kOutCols = D / kSplit;  // the columns of dK and dV this block owns
+  const int col0 = blockIdx.z * kOutCols;
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kRows;  // every head's first key tiles see the most queries: first
   const int offset = Sk - S;
@@ -742,9 +769,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
 
   const Frag f;
   const int key0 = k0 + f.row;  // this thread's keys: key0 and key0 + 8
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[kOutCols / 2], dv_acc[kOutCols / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < kOutCols / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   [[maybe_unused]] DsRange range;  // fp16 only
   flash_tiles::mbar_wait(k_bar, 0);
   flash_tiles::mbar_wait(v_bar, 0);
@@ -785,8 +812,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
     flash_tiles::fence_operands(dv_acc);
     flash_tiles::fence_operands(dk_acc);
     flash_tiles::wgmma_fence();
-    flash_tiles::gemm_regs<T, D, kM>(dv_acc, pT, ring.second(j));  // dv += pT . do
-    flash_tiles::gemm_regs<T, D, kM>(dk_acc, dsT, ring.first(j));  // dk += dsT . q
+    flash_tiles::gemm_regs<T, D, kM>(dv_acc, pT, ring.second(j), col0);  // dv += pT . do
+    flash_tiles::gemm_regs<T, D, kM>(dk_acc, dsT, ring.first(j), col0);  // dk += dsT . q
     flash_tiles::wgmma_commit();
     flash_tiles::wgmma_wait();
     flash_tiles::fence_operands(dv_acc);
@@ -801,11 +828,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + 8 * h;
     if (key >= Sk) continue;
-    const int64_t at = ((int64_t)bh * Sk + key) * D;
+    const int64_t at = ((int64_t)bh * Sk + key) * D + col0;
     // fp16: pT and dsT carried P's factor 2^15; dsT its row's power of two too.
     const float dk_back = kHalf<T> ? range.unscale(h) * kPUnscale : 1.f, dv_back = kHalf<T> ? kPUnscale : 1.f;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < kOutCols / 8; ++c) {
       *reinterpret_cast<uint32_t*>(dk + at + 8 * c + f.col) =
           flash_tiles::Elem<T>::pack(dk_acc[4 * c + 2 * h] * dk_back, dk_acc[4 * c + 2 * h + 1] * dk_back);
       *reinterpret_cast<uint32_t*>(dv + at + 8 * c + f.col) =
@@ -846,7 +873,7 @@ int launch_fwd(const Args& a) {
   const size_t smem = kv_tile_bytes(D);
   cudaError_t err = allow_shared(flash_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + kRows - 1) / kRows, a.BH);
+  const dim3 grid((a.S + Split<D>::kRows - 1) / Split<D>::kRows, a.BH);
   flash_fwd_kernel<T, D><<<grid, Split<D>::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.S, a.Sk, a.scale, a.causal);
@@ -858,7 +885,7 @@ int launch_dkv(const Args& a) {
   const size_t smem = qdo_tile_bytes(D);
   cudaError_t err = allow_shared(flash_bwd_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Sk + kRows - 1) / kRows, a.BH);
+  const dim3 grid((a.Sk + Split<D>::kRows - 1) / Split<D>::kRows, a.BH);
   flash_bwd_dkv_kernel<T, D><<<grid, Split<D>::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse_in),
@@ -872,7 +899,7 @@ int launch_dq(const Args& a) {
   const size_t smem = kv_tile_bytes(D);
   cudaError_t err = allow_shared(flash_bwd_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + kRows - 1) / kRows, a.BH);
+  const dim3 grid((a.S + Split<D>::kRows - 1) / Split<D>::kRows, a.BH);
   flash_bwd_dq_kernel<T, D><<<grid, Split<D>::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse_in),
@@ -881,11 +908,12 @@ int launch_dq(const Args& a) {
 }
 
 // The wgmma kernels' shapes, measured at D 64 (PERF.md): K3 takes
-// 128-key tiles (64 at D 128, where two 128-key stages would leave one block
-// per SM), K5 64-key tiles; a ring of two stages. A block of one warpgroup
-// measured faster than one of two sharing each K/V tile. K4 streams 64-row
-// query tiles: at D 128 they measured faster than 32-row ones, without
-// spills.
+// 128-key tiles (64 at D 96 and above, where two 128-key stages would leave
+// one block per SM, and at D 256 would not fit), K5 64-key tiles; a ring of
+// two stages. A block of one warpgroup measured faster than one of two
+// sharing each K/V tile. K4 streams 64-row query tiles: at D 128 they
+// measured faster than 32-row ones, without spills; at D 256 it splits D's
+// columns in two (above).
 template <int D>
 constexpr int fwd_key_tile() { return D <= 64 ? 128 : 64; }
 constexpr int kDqKeyTile = 64;
@@ -939,11 +967,13 @@ int launch_dkv_wgmma(const Args& a) {
   if (!err) err = flash_tiles::encode_tile_map<T, D>(&tk, a.k, a.BH, a.Sk, kRows);
   if (!err) err = flash_tiles::encode_tile_map<T, D>(&tv, a.v, a.BH, a.Sk, kRows);
   if (err) return err;
-  const auto kernel = flash_bwd_dkv_wgmma_kernel<T, D, kM, kStages>;
+  constexpr int kSplit = D > 128 ? 2 : 1;
+  const auto kernel = flash_bwd_dkv_wgmma_kernel<T, D, kM, kStages, kSplit>;
   const size_t smem = WgmmaSmem<D, kM, kStages, 2, 4 * kM>::kBytes;
   const cudaError_t e = allow_shared(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.BH, (a.Sk + kRows - 1) / kRows);  // heads fastest: the heaviest tiles of all heads first
+  // heads fastest: the heaviest tiles of all heads first
+  const dim3 grid(a.BH, (a.Sk + kRows - 1) / kRows, kSplit);
   kernel<<<grid, flash_tiles::kWarpgroup, smem, a.stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
       static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.Sk, a.scale, a.causal);
@@ -971,7 +1001,9 @@ template <typename T>
 int launch_head_dim(Kind kind, int D, const Args& a) {
   if (D == 32) return launch_kind<T, 32>(kind, a);
   if (D == 64) return launch_kind<T, 64>(kind, a);
+  if (D == 96) return launch_kind<T, 96>(kind, a);
   if (D == 128) return launch_kind<T, 128>(kind, a);
+  if (D == 256) return launch_kind<T, 256>(kind, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -979,7 +1011,9 @@ template <typename T>
 int launch_head_dim_wgmma(Kind kind, int D, const Args& a) {
   if (D == 32) return launch_kind_wgmma<T, 32>(kind, a);
   if (D == 64) return launch_kind_wgmma<T, 64>(kind, a);
+  if (D == 96) return launch_kind_wgmma<T, 96>(kind, a);
   if (D == 128) return launch_kind_wgmma<T, 128>(kind, a);
+  if (D == 256) return launch_kind_wgmma<T, 256>(kind, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,8 +11,9 @@
 //
 // Layout. A tile of `Rows` rows of a [B*H, S, D] array lies in shared
 // memory as Panels<D>::kCount panels of [Rows, kCols]: 128-byte rows (64
-// columns) swizzled 128B for D 64 and 128, 64-byte rows (32 columns)
-// swizzled 64B for D 32. TMA writes that layout
+// columns) swizzled 128B for D 64, 128 and 256 (one, two or four panels),
+// 64-byte rows (32 columns) swizzled 64B for D 32 and 96 (one or three
+// panels). TMA writes that layout
 // (one 3-D box per panel) and wgmma reads it through descriptors of the same
 // swizzle: K-major when the contraction runs along D (q.k, do.v), MN-major
 // when it runs along the rows (p.v, ds.k; p^T.do, ds^T.q in K4), so one copy
@@ -46,8 +47,8 @@ constexpr int kTensorMapError = kNoTensorMapEncoder + 1;
 // Panels of a row of D two-byte values in shared memory.
 template <int D>
 struct Panels {
-  static_assert(D == 32 || D == 64 || D == 128, "head dims 32, 64, 128");
-  static constexpr int kCols = D == 32 ? 32 : 64;  // columns per panel
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256, "head dims 32, 64, 96, 128, 256");
+  static constexpr int kCols = D % 64 == 0 ? 64 : 32;  // columns per panel
   static constexpr int kCount = D / kCols;
   static constexpr int kRowBytes = kCols * 2;       // 64 or 128
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: 1 = 128B, 2 = 64B swizzle
@@ -189,8 +190,8 @@ struct Elem<__half> {
 // wgmma.m64nNk16.f32.TY.TY, TY = bf16 or f16 as T is, N = 2 x the
 // accumulator floats per thread (16 -> n32, 32 -> n64, 64 -> n128). `ss`
 // (n64, n128: the score tiles): A and B from shared memory by descriptor;
-// `rs` (n32, n64, n128: one per head dim): A from four two-value registers
-// per thread. scale_d = 0 overwrites the accumulator, 1 adds to it.
+// `rs` (n32, n64, n128; `gemm_regs` combines them for D 96 and 256): A from
+// four two-value registers per thread. scale_d = 0 overwrites the accumulator, 1 adds to it.
 // TransB = 1 reads B MN-major. Each body is written once, as FLASH_WGMMA(TY).
 template <int TransB, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
@@ -294,14 +295,29 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[NF], uint32_t a_tile, uin
     wgmma_ss<0, T>(acc, k_major_desc<D, RowsA>(a_tile, t), k_major_desc<D, RowsB>(b_tile, t), t > 0);
 }
 
-// acc += X . B with X [64, Keys] in registers as T A fragments (x[t] holds
-// keys [16 t, 16 t + 16)) and B a [Keys, D] tile in shared memory, read
-// MN-major (p.v, ds.k; in K4 the keys are query rows: p^T.do, ds^T.q).
+// acc += X . B[:, col0 : col0 + 2 NF] with X [64, Keys] in registers as T A
+// fragments (x[t] holds keys [16 t, 16 t + 16)) and B a [Keys, D] tile in
+// shared memory, read MN-major (p.v, ds.k; in K4 the keys are query rows:
+// p^T.do, ds^T.q). The 2 NF columns go to wgmmas of at most 128 columns over
+// whole panels, widest first (D 96: n64 + n32; D 256: two n128); an
+// m64nN accumulator's floats run column chunk by column chunk, so each
+// wgmma's accumulator is a contiguous slice of acc. col0 is a multiple of
+// the panel width (K4 at D 256 owns half of D's columns).
 template <typename T, int D, int Keys, int NF>
-__device__ __forceinline__ void gemm_regs(float (&acc)[NF], const uint32_t (&x)[Keys / 16][4], uint32_t b_tile) {
-  static_assert(2 * NF == D, "the accumulator spans D");
+__device__ __forceinline__ void gemm_regs(float (&acc)[NF], const uint32_t (&x)[Keys / 16][4], uint32_t b_tile,
+                                          int col0 = 0) {
+  using P = Panels<D>;
+  constexpr int kN = 2 * NF;
+  constexpr int kFirst = kN >= 128 ? 128 : (kN >= 64 ? 64 : 32);
+  static_assert(kN % P::kCols == 0 && kN <= D, "whole panels of B");
+  float(&head)[kFirst / 2] = *reinterpret_cast<float(*)[kFirst / 2]>(&acc[0]);
+  const uint32_t tile = b_tile + (col0 / P::kCols) * Keys * P::kRowBytes;
 #pragma unroll
-  for (int t = 0; t < Keys / 16; ++t) wgmma_rs<1, T>(acc, x[t], mn_major_desc<D, Keys>(b_tile, t), 1);
+  for (int t = 0; t < Keys / 16; ++t) wgmma_rs<1, T>(head, x[t], mn_major_desc<D, Keys>(tile, t), 1);
+  if constexpr (kFirst < kN) {
+    float(&rest)[NF - kFirst / 2] = *reinterpret_cast<float(*)[NF - kFirst / 2]>(&acc[kFirst / 2]);
+    gemm_regs<T, D, Keys, NF - kFirst / 2>(rest, x, b_tile, col0 + kFirst);
+  }
 }
 
 // The accumulator of an m64nN wgmma as seen by one thread of a block of one

@@ -145,7 +145,7 @@ class CausalPrograms:
         row = page_row.reshape(-1)
         page_size = kv_pools[0][0].shape[1]
         start, end = int(positions[0, 0]), int(positions[0, -1]) + 1
-        dense = gather_pages(kv_pools, row, self.model.embed_tokens.weight.dtype)
+        dense = gather_pages(kv_pools, row, self.model.get_input_embeddings().weight.dtype)
         logits = self.model(input_ids, positions=positions, kv_cache=dense)
         zero_cache_tail(dense, end)
         write_row = row.clone()
@@ -211,7 +211,7 @@ class Generator:
         if not hasattr(model, "config") or not hasattr(model, "make_decode_cache"):
             raise ValueError("generate() needs a model built from an in-tree module")
         self.device = resolve_device(device)
-        weight = model.embed_tokens.weight
+        weight = model.get_input_embeddings().weight
         if weight.device.type != self.device.type:
             raise ValueError(f"the model lives on {weight.device}, the generator on {self.device}")
         self.base_config = model.config

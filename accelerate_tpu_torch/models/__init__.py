@@ -1,5 +1,9 @@
-"""In-tree model families of the port (the Llama and BERT slices of
-`accelerate_tpu/models/__init__.py`)."""
+"""In-tree model families of the port (the Llama, BERT, GPT-NeoX, GPT-J and
+OPT slices of `accelerate_tpu/models/__init__.py`).
+
+Each family has its config, its `create_*` factory (random weights from a
+seed, made on the device) and its carry function, ``*_state_dict_from_flax``,
+which takes a JAX params tree to the port's `state_dict`."""
 
 from __future__ import annotations
 
@@ -15,6 +19,15 @@ from .bert import (
     bert_tiny,
     create_bert_model,
 )
+from .gpt_neox import (
+    GPTNeoXConfig,
+    GPTNeoXForCausalLM,
+    create_gpt_neox_model,
+    gpt_neox_20b,
+    gpt_neox_state_dict_from_flax,
+    gpt_neox_tiny,
+)
+from .gptj import GPTJConfig, GPTJForCausalLM, create_gptj_model, gptj_6b, gptj_state_dict_from_flax, gptj_tiny
 from .llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -24,6 +37,7 @@ from .llama import (
     llama_state_dict_from_flax,
     llama_tiny,
 )
+from .opt import OPTConfig, OPTForCausalLM, create_opt_model, opt_30b, opt_state_dict_from_flax, opt_tiny
 
 #: name -> config factory, the subset of the JAX package's MODEL_REGISTRY the
 #: port runs.
@@ -33,12 +47,21 @@ MODEL_REGISTRY = {
     "llama-tiny": llama_tiny,
     "bert-base": bert_base,
     "bert-tiny": bert_tiny,
+    "gptj-6b": gptj_6b,
+    "gptj-tiny": gptj_tiny,
+    "gpt-neox-20b": gpt_neox_20b,
+    "gpt-neox-tiny": gpt_neox_tiny,
+    "opt-30b": opt_30b,
+    "opt-tiny": opt_tiny,
 }
 
 #: config type -> the family's model factory (JAX's CREATE_BY_FAMILY).
 CREATE_BY_FAMILY = {
     LlamaConfig: create_llama_model,
     BertConfig: create_bert_model,
+    GPTJConfig: create_gptj_model,
+    GPTNeoXConfig: create_gpt_neox_model,
+    OPTConfig: create_opt_model,
 }
 
 

@@ -37,6 +37,7 @@ from torch import nn
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops.attention import dot_product_attention
 from ..ops.remat import maybe_remat
+from .decoder import Dense
 
 #: The std of a unit normal truncated to [-2, 2], which flax's lecun_normal
 #: divides out so that its draws keep variance 1 / fan_in.
@@ -59,15 +60,6 @@ class BertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
-
-
-class Dense(nn.Linear):
-    """flax's ``nn.Dense(dtype=None)``: input, weight and bias promoted to
-    one dtype (`torch.promote_types`) before the product."""
-
-    def forward(self, x):
-        dtype = torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
 
 
 class LayerNorm(nn.Module):
@@ -164,6 +156,9 @@ class BertForSequenceClassification(nn.Module):
         self.config = cfg
         self.bert = BertEncoder(cfg)
         self.classifier = Dense(cfg.hidden_size, cfg.num_labels)
+
+    def get_input_embeddings(self) -> nn.Embedding:
+        return self.bert.word_embeddings
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         """[B, S] token ids -> [B, num_labels] logits. `attention_mask` is a

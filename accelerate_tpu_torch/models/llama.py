@@ -36,26 +36,15 @@ from `ContinuousBatcher(kv_cache_dtype=..., weight_dtype=...)`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..ops.attention import (
-    DecodeCache,
-    decode_cache_attention,
-    decode_cache_mask,
-    dense_cache_attention,
-    dot_product_attention,
-    slot_cache_attention,
-)
-from ..ops.remat import maybe_remat
-
-#: One entry per layer: (k_pool, v_pool), or (k_pool, v_pool, k_scale,
-#: v_scale) for an int8/fp8 pool; dense caches are (k_cache, v_cache).
-KVPools = Sequence[Tuple[torch.Tensor, ...]]
+from ..ops.attention import attend
+from .decoder import CausalDecoder, causal_lm_loss  # noqa: F401  (causal_lm_loss: JAX's home for it)
 
 
 @dataclass
@@ -124,17 +113,7 @@ class LlamaAttention(nn.Module):
         q = rotary_embedding(self.wq(hidden).reshape(b, s, hq, d), positions, cfg.rope_theta)
         k = rotary_embedding(self.wk(hidden).reshape(b, s, hkv, d), positions, cfg.rope_theta)
         v = self.wv(hidden).reshape(b, s, hkv, d)
-        if kv_pool is not None:
-            k_pool, v_pool, *scales = kv_pool
-            out = slot_cache_attention(
-                q, k, v, k_pool, v_pool, positions, page_table, attention_impl, *scales
-            )
-        elif decode_cache is not None:
-            out = decode_cache_attention(q, k, v, *decode_cache, attention_mask)
-        elif kv_cache is not None:
-            out = dense_cache_attention(q, k, v, kv_cache[0], kv_cache[1], positions)
-        else:
-            out = dot_product_attention(q, k, v, mask=attention_mask, causal=True)
+        out = attend(q, k, v, positions, attention_mask, kv_pool, page_table, attention_impl, kv_cache, decode_cache)
         return self.wo(out.reshape(b, s, hq * d))
 
 
@@ -166,27 +145,10 @@ class LlamaLayer(nn.Module):
         return hidden + self.mlp(self.post_attn_norm(hidden))
 
 
-def causal_lm_loss(batch, apply_fn):
-    """Next-token cross-entropy with shift; positions whose label is < 0 are
-    ignored. `apply_fn(input_ids, attention_mask)` gives the logits (the
-    prepared model's forward under its precision policy); labels default to
-    the inputs. The port of JAX's `causal_lm_loss(params, batch, apply_fn)`,
-    with the parameters implicit in the module."""
-    logits = apply_fn(batch["input_ids"], batch.get("attention_mask"))
-    labels = batch.get("labels", batch["input_ids"])
-    shift_logits = logits[:, :-1].float()
-    shift_labels = labels[:, 1:].long()
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    valid = (shift_labels >= 0).float()
-    safe_labels = shift_labels.clamp_min(0)
-    nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
-
-
-class LlamaForCausalLM(nn.Module):
-    #: The loss `Accelerator.prepare` bundles with this model, as JAX's
-    #: `create_llama_model` bundles it (`Model.from_flax(..., loss_fn=causal_lm_loss)`).
-    loss_fn = staticmethod(causal_lm_loss)
+class LlamaForCausalLM(CausalDecoder):
+    """`CausalDecoder.forward` over Llama's layers; the head is `lm_head`, or
+    the embedding when `tie_word_embeddings`. Its `loss_fn` is
+    `causal_lm_loss`, as JAX's `create_llama_model` bundles it."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -196,64 +158,13 @@ class LlamaForCausalLM(nn.Module):
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg.hidden_size, cfg.vocab_size)
 
-    def forward(
-        self,
-        input_ids,
-        attention_mask=None,
-        positions=None,
-        kv_pools: Optional[KVPools] = None,
-        page_table=None,
-        attention_impl: str = "gather",
-        kv_cache: Optional[KVPools] = None,
-        decode_cache: Optional[DecodeCache] = None,
-    ):
-        """[B, S] token ids -> [B, S, vocab] logits; the first three arguments
-        in JAX's order (`LlamaForCausalLM.__call__`).
+    def get_input_embeddings(self) -> nn.Embedding:
+        return self.embed_tokens
 
-        Without caches this is the full causal forward; `attention_mask`
-        ([B, S], True or 1 = a real token) keeps pad keys out of every row,
-        as in JAX. With `kv_pools` (one (k_pool, v_pool) pair per layer,
-        [num_pages, page_size, Hkv, D] each, followed by its k_scale and
-        v_scale for an int8/fp8 pool) the tokens' K/V are written into the
-        pools at `positions` through `page_table` ([B, pages_per_slot] int32)
-        and attended there. With `kv_pools` and no `page_table` the pairs
-        are the contiguous layout's per-slot rows, [B, L, Hkv, D]. With
-        `kv_cache` (one dense (k_cache, v_cache) pair per layer, [B, L, Hkv,
-        D]) they are written into those caches at `positions` and attended
-        there: the cached prefill.
-
-        With `decode_cache` (`make_decode_cache`) the block is written at
-        the cache's shared index, which then advances by S; `positions` are
-        the rotary positions only, and `attention_mask` ([B, S]) is stored
-        as the cache's persistent pad mask (JAX's decode-cache mode)."""
-        b, s = input_ids.shape
-        if positions is None:
-            positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
-        if decode_cache is not None:
-            attention_mask = decode_cache_mask(decode_cache, s, attention_mask)
-        hidden = self.embed_tokens(input_ids)
-        for i, layer in enumerate(self.layers):
-            pool = None if kv_pools is None else kv_pools[i]
-            cache = None if kv_cache is None else kv_cache[i]
-            dcache = None if decode_cache is None else (decode_cache, i)
-            hidden = maybe_remat(layer, hidden, positions, attention_mask, pool, page_table, attention_impl, cache,
-                                 dcache)
-        if decode_cache is not None:
-            decode_cache.index += s
-        hidden = self.final_norm(hidden)
+    def head(self, hidden):
         if self.lm_head is None:
             return hidden @ self.embed_tokens.weight.T
         return self.lm_head(hidden)
-
-    def make_decode_cache(self, batch: int, max_length: int, dtype: Optional[torch.dtype] = None,
-                          device=None) -> DecodeCache:
-        """A zeroed decode cache for `batch` rows of `max_length` positions,
-        in `dtype` (the weights' by default) on `device` (the weights')."""
-        cfg, weight = self.config, self.embed_tokens.weight
-        return DecodeCache.create(
-            cfg.num_hidden_layers, batch, max_length, cfg.num_key_value_heads, cfg.head_dim,
-            dtype or weight.dtype, device or weight.device,
-        )
 
 
 @torch.no_grad()

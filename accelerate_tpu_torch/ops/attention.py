@@ -21,6 +21,8 @@ training run:
   - `dense_cache_attention`: the cached prefill's attention over a dense
     per-slot K/V view (`utils/operations.gather_pages`), which holds the
     prompt's own K/V at full precision whatever the pool stores.
+  - `attend`: a decoder layer's attention through whichever of the modes
+    above its caches select (the models' one entry).
   - `DecodeCache`, `update_decode_cache` and `decode_cache_mask`: the static
     `Generator`'s cache (JAX's `update_decode_cache`), ``[B, L, Hkv, D]``
     per layer with ONE physical write index shared by the batch and a
@@ -372,3 +374,21 @@ def decode_cache_attention(q, k, v, cache: DecodeCache, layer: int, mask):
     gate."""
     k_all, v_all = update_decode_cache(cache, layer, k, v)
     return dot_product_attention(q, k_all, v_all, mask=mask)
+
+
+def attend(q, k, v, positions, attention_mask=None, kv_pool=None, page_table=None, attention_impl="gather",
+           kv_cache=None, decode_cache=None):
+    """[B, S, Hq, D] q and [B, S, Hkv, D] k, v through the mode the caches
+    select: `kv_pool` (the engine's pools, paged with `page_table` or
+    contiguous without), `decode_cache` (``(cache, layer index)``, with
+    `attention_mask` the block's decode mask), `kv_cache` (the cached
+    prefill's dense pair), or none: the causal forward with an optional
+    [B, S] padding mask."""
+    if kv_pool is not None:
+        k_pool, v_pool, *scales = kv_pool
+        return slot_cache_attention(q, k, v, k_pool, v_pool, positions, page_table, attention_impl, *scales)
+    if decode_cache is not None:
+        return decode_cache_attention(q, k, v, *decode_cache, attention_mask)
+    if kv_cache is not None:
+        return dense_cache_attention(q, k, v, kv_cache[0], kv_cache[1], positions)
+    return dot_product_attention(q, k, v, mask=attention_mask, causal=True)

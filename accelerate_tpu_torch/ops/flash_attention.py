@@ -6,7 +6,9 @@ K3 (forward: o and the row logsumexp), K4 (dK, dV) and K5 (dQ); in bf16
 and fp16, all three run on the tensor cores (wgmma over TMA-loaded tiles,
 with the shared building blocks in `csrc/flash_tiles.cuh`; in fp16 P and dS
 are scaled by powers of two before they are narrowed, so that dS does not
-overflow under loss scaling), in f32 on the CUDA cores. On CPU tensors it runs the plain PyTorch versions below, which work
+overflow under loss scaling), in f32 on the CUDA cores; all at head dims
+32, 64, 96 (GPT-NeoX-20B), 128 and 256 (GPT-J-6B). On CPU tensors it runs
+the plain PyTorch versions below, which work
 on the full [S, Sk] score matrix in fp32; the tests and `chip_smoke.py`
 hold the kernels against them. Nothing falls back: a CUDA tensor the
 kernels do not take raises, and so does a kernel that fails to build or
@@ -50,7 +52,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 #: Head dimensions the kernels are built for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p

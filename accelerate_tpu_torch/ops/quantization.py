@@ -169,32 +169,37 @@ def dequantize_weight_int8(q, scale, dtype=torch.float32):
 
 
 class Int8Linear(nn.Module):
-    """A bias-free linear layer over an int8 weight: `q` ``[out, in]`` int8
-    and `scale` ``[out]`` f32 buffers. The int8 matrix is widened to x's
-    dtype for the product and the per-output-channel scale is applied to
-    the f32 result (JAX's `_int8_dense_apply`). A W8A16 GEMM that reads the
-    int8 matrix directly is later work."""
+    """A linear layer over an int8 weight: `q` ``[out, in]`` int8 and
+    `scale` ``[out]`` f32 buffers, and the layer's bias (or None), kept in
+    its own dtype. The int8 matrix is widened to x's dtype for the product,
+    the per-output-channel scale is applied to the f32 result, which is
+    rounded to x's dtype, and the bias is added after, in that dtype (JAX's
+    `_int8_dense_apply`). A W8A16 GEMM that reads the int8 matrix directly
+    is later work."""
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.out_features, self.in_features = q.shape
         self.register_buffer("q", q)
         self.register_buffer("scale", scale)
+        self.register_buffer("bias", bias)
 
     @classmethod
     def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
-        if linear.bias is not None:
-            raise ValueError("Int8Linear takes bias-free linear layers")
-        return cls(*quantize_weight_int8(linear.weight))
+        bias = None if linear.bias is None else linear.bias.detach()
+        return cls(*quantize_weight_int8(linear.weight), bias)
 
     def forward(self, x):
-        return (F.linear(x, self.q.to(x.dtype)).float() * self.scale).to(x.dtype)
+        y = (F.linear(x, self.q.to(x.dtype)).float() * self.scale).to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def quantize_model_int8(model: nn.Module) -> nn.Module:
     """A copy of `model` whose every `nn.Linear` is an `Int8Linear` (for
-    Llama: wq, wk, wv, wo, w_gate, w_up, w_down and an untied lm_head);
-    embeddings and norms are the caller's own tensors, shared, not copied.
+    Llama: wq, wk, wv, wo, w_gate, w_up, w_down and an untied lm_head; for
+    GPT-NeoX its biased projections and `embed_out`); embeddings, norms and
+    the linear layers' biases are the caller's own tensors, shared, not
+    copied.
     The caller's model is not changed, and a model with no `nn.Linear` left
     comes back as a copy with the same tensors (idempotent)."""
     import copy
@@ -203,6 +208,8 @@ def quantize_model_int8(model: nn.Module) -> nn.Module:
     for module in model.modules():
         if isinstance(module, nn.Linear):
             memo[id(module.weight)] = None  # dropped from the copy, quantized below
+            if module.bias is not None:
+                memo[id(module.bias)] = module.bias  # shared, and kept by the Int8Linear
         else:
             for t in [*module.parameters(recurse=False), *module.buffers(recurse=False)]:
                 memo[id(t)] = t  # shared

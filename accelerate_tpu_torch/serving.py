@@ -154,7 +154,12 @@ class ContinuousBatcher:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        weight = model.embed_tokens.weight
+        if not getattr(model, "slot_serving", False):
+            raise ValueError(
+                f"{type(model).__name__} has no slot cache: this model family doesn't support "
+                "slot-batched serving yet (generate() runs it)"
+            )
+        weight = model.get_input_embeddings().weight
         if weight.device.type != self.device.type:
             raise ValueError(f"the model lives on {weight.device}, the engine on {self.device}")
         cfg = model.config

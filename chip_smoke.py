@@ -42,6 +42,12 @@ prints no result):
    under loss scaling, so that the plain version's dS passes fp16's 65504
    while dk, dv and dq fit; the kernels' outputs are finite and within
    the fp16 limit.
+   Then the same at the families' shapes: K1 and K2 at GPT-NeoX-20B's
+   (Hq = Hkv = 64, one K/V head per query head, D 96, which the scalar split
+   kernel takes; bf16, int8 and fp8 pools) and K3-K5 at GPT-NeoX-20B's
+   training attention (batch 1, 64 heads, sequence 2048, D 96) and
+   GPT-J-6B's (16 heads of 256), in f32, bf16 and fp16 with fp16's range
+   case.
 3. Engine: `create_named_model("llama-1b")` at full width and depth (random
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
@@ -149,9 +155,31 @@ prints no result):
    under remat None and "full", reported (with --profile, device time by
    kernel of one more step without remat). BERT runs no K1-K5: its
    attention is masked or short, as in the JAX package.
-7. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
-   quantized modes, K3-K5 in bf16 and in fp16), the nvidia-smi line, and as
-   the last line `{"ok": true, "device": {...}}`.
+7. GPT-NeoX, GPT-J and OPT at their published widths (random weights from
+   seed 0, made in their dtype on the card):
+   (a) GPT-NeoX-20B through the paged engine: f32 at full width cut to 2
+       layers, the kernel path's greedy tokens equal the gather path's,
+       plain and speculative, unquantized and on int8 and fp8 caches, and
+       `generate`'s equal the K1 engine's on 4 prompts of 256 tokens; then
+       bf16 at 44 layers (41.1 GB of weights, 17.7 GB of pools) over the 16
+       requests of phase 3, plain (K1) and speculative (K2), timed, launches
+       gated as in phase 3; then int8 weights over an int8 and an fp8 cache
+       at 22 layers (the bf16 model the engine copies from and its int8
+       copy both on the card).
+   (b) `generate` of GPT-NeoX-20B, GPT-J-6B and OPT-30B in bf16 at full
+       depth, batch 1 on a 512-token prompt, 128 new tokens: TTFT, decode
+       tokens/s, peak memory; no K1-K5 launch.
+   (c) Training of each through `Accelerator.prepare` and `train_step`,
+       sequence 2048, cut in depth (NeoX 2, GPT-J 4, OPT 2 layers): f32 at
+       2 layers, batch 1, 3 steps, kernel losses against the plain
+       attention's (rtol 1e-4); bf16 mixed precision with f32 masters, batch
+       2, 2 warm-up and 4 timed steps (step time, tokens/s, MFU, peak
+       memory; losses finite and falling; K3-K5 launched layers x 4 times at
+       D 96, 256 and 128); 2 fp16 steps counting the fp16 kernels' launches.
+8. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+   quantized modes at Llama-1B's and at GPT-NeoX-20B's shape, K3-K5 in
+   bf16 and in fp16 at Llama-1B's head 64 and at heads 96 and 256), the
+   nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -216,6 +244,9 @@ REPLACES = {
 }
 KV_DTYPES = ("int8", "fp8_e4m3")
 SOURCE = "accelerate_tpu_torch/csrc/paged_attention.cu"
+# GPT-NeoX-20B's attention at the engine's shapes: 64 query heads, each with
+# its own K/V head (G = 1), head 96; slots, pages and lengths as Llama's.
+NEOX_KERNEL_SHAPE = dict(KERNEL_SHAPE, hq=64, hkv=64, d=96)
 
 # Llama-1B's training attention: batch 2 x 32 query heads (K/V repeated from
 # 8), sequence 2048, head 64, causal.
@@ -246,6 +277,19 @@ PAGED_DESIGN = ("bf16: grid (Hkv, slots, splits of 256 tokens x row groups) and 
                 "pool's own width; mma.sync m16n8k16 s = q.k^T and o += p.v (p as bf16 hi + lo) with query rows "
                 "as M, int8/e4m3 widened to bf16 in registers, page scales on the score and p columns; f32: "
                 "scalar fp32 FMAs in the same split and merge")
+PAGED_SCALAR_DESIGN = ("bf16 and f32 q at D 96 (GPT-NeoX-20B, G = 1): paged_split_scalar_kernel, scalar fp32 FMAs "
+                       "over the pool's own width in the same grid of 256-token splits and the same merge kernel; "
+                       "the mma.sync route takes D 32, 64 and 128")
+# The training attention of GPT-NeoX-20B (64 heads of 96) and GPT-J-6B (16
+# heads of 256): batch 1, sequence 2048, causal. OPT-30B's 56 heads of 128
+# run the D 128 kernels.
+FAMILY_FLASH_SHAPES = {96: dict(b=1, hq=64, s=2048, d=96), 256: dict(b=1, hq=16, s=2048, d=256)}
+WIDE_FLASH_DESIGN = {
+    96: "; D 96: three 32-column panels at the 64B swizzle, wgmma n64 + n32 for the D-wide products, 64-key tiles",
+    256: "; D 256: four 64-column panels at the 128B swizzle, two wgmma n128 for the D-wide products, 64-key "
+         "tiles; K4 over a third grid dimension of two column halves of dK and dV, each recomputing sT and dpT "
+         "over the full D (1.5x K4's products, 255 registers a thread otherwise too few)",
+}
 FLASH_KERNELS = {
     # name: (TPU kernel it replaces, products of 2 * BH * pairs * D operations it needs)
     "flash_fwd": ("accelerate_tpu/ops/flash_attention.py:53", 2),       # s, p @ v
@@ -303,6 +347,16 @@ FLASH_RANGE_SCALES = dict(q=0.02, k=0.02, v=100.0, do=2000.0)
 # 2 D 2^-24 scale (P * (|dO| @ |V|^T)) @ |K| for dq and the transpose @ |Q|
 # for dk (`dp_order_bound`).
 FP32_UNIT = 2.0 ** -24
+
+# The families of phase 7 at their published widths, and the depth their
+# training runs are cut to: about 24, 19 and 26 GB of f32 masters,
+# gradients and AdamW moments.
+FAMILIES = ("gpt-neox-20b", "gptj-6b", "opt-30b")
+FAMILY_TRAIN_LAYERS = {"gpt-neox-20b": 2, "gptj-6b": 4, "opt-30b": 2}
+# NeoX-20B's int8-weight engine quantizes a copy of a bf16 model cut to this
+# depth (20.6 GB bf16, 10.1 GB int8, the int8 pools 4.4 GB).
+NEOX_W8_LAYERS = 22
+FAMILY_TIMED_STEPS, FAMILY_WARMUP, FAMILY_FP16_STEPS = 4, 2, 2
 
 # Training (phase 5).
 TRAIN_LR, TRAIN_BETAS, TRAIN_EPS, TRAIN_WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
@@ -662,29 +716,53 @@ def agreement(base, other):
     return sum(x == y for x, y in pairs) / max(len(pairs), 1)
 
 
+ENGINE_KW = dict(num_slots=8, page_size=16, max_length=2048, chunk_size=8)
+SPEC_KW = dict(speculative=True, draft_tokens=KERNEL_SHAPE["verify_s"] - 1)
+
+
 def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, system_len=256,
                  profile=False):
     from accelerate_tpu_torch import create_named_model
-    from accelerate_tpu_torch.ops import paged_attention as pa
 
-    engine_kw = {**dict(num_slots=8, page_size=16, max_length=2048, chunk_size=8), **(engine_kw or {})}
-    spec_kw = dict(speculative=True, draft_tokens=KERNEL_SHAPE["verify_s"] - 1)
-    report = {"model": model_name, "engine": engine_kw, "draft_tokens": spec_kw["draft_tokens"]}
+    engine_kw = {**ENGINE_KW, **(engine_kw or {})}
+    report = {"model": model_name, "engine": engine_kw, "draft_tokens": SPEC_KW["draft_tokens"]}
 
     t0 = time.perf_counter()
     model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device)
-    layers = model.config.num_hidden_layers
     requests = make_requests(model.config.vocab_size, n=n_requests, system_len=system_len)
-    log(f"[engine] {model_name} f32 built in {time.perf_counter() - t0:.1f}s: {layers} layers, "
-        f"hidden {model.config.hidden_size}, vocab {model.config.vocab_size}, "
+    log_model(f"[engine] {model_name} f32", model, t0)
+    engine_parity(model, requests, device, engine_kw, report)
+    model = model.to(torch.bfloat16)
+    bf16_tokens, bf16_cache_nbytes = engine_timed(model, requests, device, engine_kw, report)
+    engine_quantized(model, requests, device, engine_kw, report, bf16_tokens, bf16_cache_nbytes)
+    if profile:
+        report["bf16_plain_profile"] = profile_run(
+            lambda: serve(model, requests, device, **engine_kw)[2]["wall_s"], report["bf16_plain"]["wall_s"]
+        )
+        quant_kw = {**engine_kw, "weight_dtype": "int8", "kv_cache_dtype": "int8"}
+        report["bf16_w8_int8_plain_profile"] = profile_run(
+            lambda: serve(model, requests, device, **quant_kw)[2]["wall_s"],
+            report["bf16_w8_int8_plain"]["wall_s"],
+        )
+    return report
+
+
+def log_model(tag, model, t0):
+    cfg = model.config
+    log(f"{tag} built in {time.perf_counter() - t0:.1f}s: {cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
 
-    # (a) f32 parity: the kernel path against the gather path, plain and
-    # speculative; (c) the same on int8 and fp8 caches.
+
+def engine_parity(model, requests, device, engine_kw, report):
+    """(a) f32: the kernel path's greedy tokens equal the gather path's,
+    plain and speculative; (c) the same on int8 and fp8 caches; (d) with
+    only the cache quantized, every prompt that shares no prefix has the
+    unquantized engine's first token."""
     f32_plain = {}
     for kv_dtype in ("bf16", *KV_DTYPES):
         tag = "f32" if kv_dtype == "bf16" else f"f32 kv {kv_dtype}"
-        for label, extra in (("plain", {}), ("speculative", spec_kw)):
+        for label, extra in (("plain", {}), ("speculative", SPEC_KW)):
             runs = {}
             for impl in ("gather", "paged_kernel"):
                 engine, tokens, timing = serve(model, requests, device, attention_impl=impl,
@@ -699,7 +777,6 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
             if label == "plain":
                 f32_plain[kv_dtype] = runs["paged_kernel"]
 
-    # (d) a prompt that shares no prefix never reads its own quantized K/V.
     fresh = [r.request_id for r in requests if r.request_id % 2 == 1]  # even ids share the system prompt
     for kv_dtype in KV_DTYPES:
         bad = [rid for rid in fresh if f32_plain[kv_dtype][rid][0] != f32_plain["bf16"][rid][0]]
@@ -709,14 +786,24 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
         report[f"f32_kv_{kv_dtype}_agreement"] = agreement(f32_plain["bf16"], f32_plain[kv_dtype])
         log(f"[engine] f32 kv {kv_dtype}: first tokens of all {len(fresh)} fresh prompts equal the unquantized "
             f"engine's; greedy agreement {report[f'f32_kv_{kv_dtype}_agreement']:.4f}")
+    return f32_plain
 
-    # (b) bf16 timing on the kernel path; launch counts zeroed just before each run.
-    model = model.to(torch.bfloat16)
+
+def engine_timed(model, requests, device, engine_kw, report):
+    """(b) bf16 on the kernel path, plain (K1) and speculative (K2), timed
+    after a warm-up of each; each kernel's launch count, zeroed just before
+    its run, equals layers x dispatches of that run and is > 0. Returns the
+    greedy tokens of both runs and the cache's bytes."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    layers = model.config.num_hidden_layers
     serve(model, requests[:2], device, **engine_kw)  # warm-up: bf16 GEMM handles, allocator
-    serve(model, requests[:2], device, **engine_kw, **spec_kw)
+    serve(model, requests[:2], device, **engine_kw, **SPEC_KW)
     free_memory(device)
-    bf16_tokens = {}
-    for label, extra, kind in (("plain", {}, "decode"), ("speculative", spec_kw, "verify")):
+    bf16_tokens, engine = {}, None
+    for label, extra, kind in (("plain", {}, "decode"), ("speculative", SPEC_KW, "verify")):
+        engine = None  # the last run's pools go before this run's are made
+        gc.collect()
         pa.reset_launch_counts()
         engine, bf16_tokens[label], timing = serve(model, requests, device, **engine_kw, **extra)
         launches = dict(pa.LAUNCHES)
@@ -735,32 +822,44 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
         report[f"bf16_{label}"] = timing
     if engine.stats["prefix_cache"]["hits"] <= 0:
         raise RuntimeError("the shared system prompt never hit the prefix cache")
-    bf16_cache_nbytes = engine.kv_cache_nbytes
+    report["kv_cache_nbytes"] = engine.kv_cache_nbytes
     if device.type == "cuda":
         report["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    return bf16_tokens, engine.kv_cache_nbytes
 
-    # (e) bf16 with int8 weights and a quantized cache, timed.
+
+def engine_quantized(model, requests, device, engine_kw, report, bf16_tokens, bf16_cache_nbytes):
+    """(e) bf16 with int8 weights and an int8, then an fp8 cache, plain and
+    speculative, timed: the cache's bytes beside `bf16_cache_nbytes` (the
+    bf16 cache of a model of this depth), greedy agreement with
+    `bf16_tokens` where given; the quantized kernel's launch count equals
+    layers x dispatches and is > 0, and every other count is 0."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    layers = model.config.num_hidden_layers
+    free_memory(device)
     serve(model, requests[:2], device, weight_dtype="int8", kv_cache_dtype="int8", **engine_kw)  # warm-up
     for kv_dtype in KV_DTYPES:
         quant_kw = dict(weight_dtype="int8", kv_cache_dtype=kv_dtype)
-        for label, extra, kind in (("plain", {}, "decode"), ("speculative", spec_kw, "verify")):
+        for label, extra, kind in (("plain", {}, "decode"), ("speculative", SPEC_KW, "verify")):
             key = f"{kind}_{kv_dtype}"
             pa.reset_launch_counts()
-            del engine
+            engine = None
             free_memory(device)
             engine, tokens, timing = serve(model, requests, device, **engine_kw, **quant_kw, **extra)
             launches = dict(pa.LAUNCHES)
             dispatches = engine.stats["decode_steps"]
             timing.update(
                 launches=launches, dispatches=dispatches, kv_cache_nbytes=engine.kv_cache_nbytes,
-                bf16_kv_cache_nbytes=bf16_cache_nbytes, agreement_with_bf16=agreement(bf16_tokens[label], tokens),
-                prefix_cache=engine.stats["prefix_cache"],
+                bf16_kv_cache_nbytes=bf16_cache_nbytes, prefix_cache=engine.stats["prefix_cache"],
             )
+            if bf16_tokens is not None:
+                timing["agreement_with_bf16"] = agreement(bf16_tokens[label], tokens)
             if label == "speculative":
                 timing["speculative"] = engine.stats["speculative"]
             if device.type == "cuda":
                 timing["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
-            log(f"[engine] bf16 w8 kv {kv_dtype} {label} paged_kernel: {json.dumps(timing)}")
+            log(f"[engine] bf16 w8 kv {kv_dtype} {label} paged_kernel ({layers} layers): {json.dumps(timing)}")
             if device.type == "cuda":
                 others = {k: n for k, n in launches.items() if k != key and n}
                 if launches[key] != layers * dispatches or launches[key] <= 0 or others:
@@ -769,16 +868,8 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
                         f"layers x {dispatches} dispatches and no other"
                     )
             report[f"bf16_w8_{kv_dtype}_{label}"] = timing
-    if profile:
-        report["bf16_plain_profile"] = profile_run(
-            lambda: serve(model, requests, device, **engine_kw)[2]["wall_s"], report["bf16_plain"]["wall_s"]
-        )
-        quant_kw = {**engine_kw, "weight_dtype": "int8", "kv_cache_dtype": "int8"}
-        report["bf16_w8_int8_plain_profile"] = profile_run(
-            lambda: serve(model, requests, device, **quant_kw)[2]["wall_s"],
-            report["bf16_w8_int8_plain"]["wall_s"],
-        )
-    return report
+    engine = None
+    free_memory(device)
 
 
 def profile_run(run, unprofiled_wall_s):
@@ -1379,18 +1470,19 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
           after_step=None, remat_policy=None):
-    """Train a Llama of `config` (random weights from seed 0) through the
-    user's entry points; returns (per-step losses, per-step seconds, the
+    """Train a model of `config` (its family's, random weights from seed 0)
+    through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
     step_fn)` runs before step i and `after_step(i, step_fn)` after it, both
     outside its timing. `remat_policy` goes to the accelerator's
     `CompilationConfig`."""
-    from accelerate_tpu_torch import Accelerator, CompilationConfig, create_llama_model
+    from accelerate_tpu_torch import Accelerator, CompilationConfig
+    from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
     AcceleratorState._reset_state()
     GradientState._reset_state()
-    model = create_llama_model(config, seed=0, device=device)
+    model = CREATE_BY_FAMILY[type(config)](config, seed=0, device=device)
     accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu",
                               compilation_config=CompilationConfig(remat_policy=remat_policy))
     optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
@@ -1438,10 +1530,44 @@ def step_report(batch, seq, seconds, warmup, params, config, launches):
     }
 
 
+def f32_flash_parity(device, config, seq, steps=3):
+    """f32 training of `config` (batch 1, `steps` steps) once through the
+    flash kernels and once through the plain attention
+    (ACCELERATE_TPU_ATTENTION_IMPL=xla), from the same weights and batch:
+    the losses agree within TRAIN_F32_RTOL, and on the card the kernel run
+    launched each flash kernel layers x steps times, the plain run none."""
+    import os
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    layers = config.num_hidden_layers
+    runs = {}
+    for impl in ("flash", "xla"):
+        fa.reset_launch_counts()
+        if impl == "xla":
+            os.environ["ACCELERATE_TPU_ATTENTION_IMPL"] = "xla"
+        try:
+            runs[impl] = train(device, config, "no", batch=1, steps=steps, seq=seq)[0]
+        finally:
+            os.environ.pop("ACCELERATE_TPU_ATTENTION_IMPL", None)
+        launches = dict(fa.LAUNCHES)
+        log(f"[train] f32 {layers} layers (head {config.head_dim}), {impl} attention: losses {runs[impl]}, "
+            f"launches {launches}")
+        if device.type == "cuda":
+            want = expected_launches(layers * steps, torch.float32 if impl == "flash" else None)
+            if launches != want:
+                raise RuntimeError(f"f32 {impl} run: flash launches {launches}, expected {want}")
+            torch.cuda.empty_cache()
+    diff = [abs(a - b) / abs(b) for a, b in zip(runs["flash"], runs["xla"])]
+    if not all(np.isfinite(runs["flash"])) or max(diff) > TRAIN_F32_RTOL:
+        raise RuntimeError(f"f32 kernel losses {runs['flash']} differ from plain {runs['xla']} (rtol {diff})")
+    return {"layers": layers, "losses_kernels": runs["flash"], "losses_plain": runs["xla"], "max_rel_diff": max(diff),
+            "rtol": TRAIN_F32_RTOL}
+
+
 def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ, timed_steps=8,
                    warmup=2, batch=2, profile=False, checkpoint_layers=2):
     import dataclasses
-    import os
 
     from accelerate_tpu_torch.models import MODEL_REGISTRY
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -1452,28 +1578,7 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
     layers = config.num_hidden_layers
 
     # (a) f32 at full width, cut to `parity_layers` layers: kernels vs plain attention.
-    cut = dataclasses.replace(config, num_hidden_layers=parity_layers)
-    runs = {}
-    for impl in ("flash", "xla"):
-        fa.reset_launch_counts()
-        if impl == "xla":
-            os.environ["ACCELERATE_TPU_ATTENTION_IMPL"] = "xla"
-        try:
-            runs[impl] = train(device, cut, "no", batch=1, steps=3, seq=seq)[0]
-        finally:
-            os.environ.pop("ACCELERATE_TPU_ATTENTION_IMPL", None)
-        launches = dict(fa.LAUNCHES)
-        log(f"[train] f32 {parity_layers} layers, {impl} attention: losses {runs[impl]}, launches {launches}")
-        if on_card:
-            want = expected_launches(parity_layers * 3, torch.float32 if impl == "flash" else None)
-            if launches != want:
-                raise RuntimeError(f"f32 {impl} run: flash launches {launches}, expected {want}")
-            torch.cuda.empty_cache()
-    diff = [abs(a - b) / abs(b) for a, b in zip(runs["flash"], runs["xla"])]
-    if not all(np.isfinite(runs["flash"])) or max(diff) > TRAIN_F32_RTOL:
-        raise RuntimeError(f"f32 kernel losses {runs['flash']} differ from plain {runs['xla']} (rtol {diff})")
-    report["f32_parity"] = {"layers": parity_layers, "losses_kernels": runs["flash"],
-                            "losses_plain": runs["xla"], "max_rel_diff": max(diff), "rtol": TRAIN_F32_RTOL}
+    report["f32_parity"] = f32_flash_parity(device, dataclasses.replace(config, num_hidden_layers=parity_layers), seq)
 
     # (b) bf16 at full width and depth, timed.
     def before_step(i, step_fn):
@@ -1964,6 +2069,279 @@ def gqa_repeat_time(prof):
     return out
 
 
+# ----------------------------------------------------------------- families
+def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_layers=NEOX_W8_LAYERS, n_requests=16,
+                      system_len=256, new=32, n_prompts=4, profile=False):
+    """GPT-NeoX through the paged engine (K1 and K2 at D 96, G = 1). (a) f32
+    at full width cut to `parity_layers` layers: the kernel path's tokens
+    equal the gather path's, unquantized and on int8 and fp8 caches
+    (`engine_parity`), and `generate`'s greedy tokens equal the K1 engine's
+    on `n_prompts` prompts; (b) bf16 at full width and depth, timed, with
+    the launch gates of `engine_timed`; (e) int8 weights over an int8 and an
+    fp8 cache at `w8_layers` layers (`engine_quantized`). With `profile`,
+    device time by kernel group of one more bf16 plain run."""
+    import dataclasses
+
+    from accelerate_tpu_torch import GenerationConfig, Generator, Request
+    from accelerate_tpu_torch.models import CREATE_BY_FAMILY, MODEL_REGISTRY
+
+    config = MODEL_REGISTRY[model_name]()
+    create = CREATE_BY_FAMILY[type(config)]
+    engine_kw = dict(ENGINE_KW)
+    report = {"model": model_name, "engine": engine_kw, "draft_tokens": SPEC_KW["draft_tokens"],
+              "parity_layers": parity_layers, "w8_layers": w8_layers}
+    requests = make_requests(config.vocab_size, n=n_requests, system_len=system_len)
+
+    t0 = time.perf_counter()
+    model = create(dataclasses.replace(config, num_hidden_layers=parity_layers), seed=0, dtype=torch.float32,
+                   device=device)
+    log_model(f"[neox] {model_name} f32 cut", model, t0)
+    engine_parity(model, requests, device, engine_kw, report)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, config.vocab_size, (256,)) for _ in range(n_prompts)]
+    gen = Generator(model, max_length=engine_kw["max_length"], device=device)
+    got = gen(np.stack(prompts), GenerationConfig(max_new_tokens=new)).cpu().numpy()[:, 256:]
+    _, tokens, _ = serve(model, [Request(i, p, max_new_tokens=new) for i, p in enumerate(prompts)], device,
+                         **engine_kw)
+    if [list(map(int, row)) for row in got] != [tokens[i] for i in range(n_prompts)]:
+        raise RuntimeError("f32 NeoX cut: generate's greedy tokens differ from the paged_kernel engine's")
+    report["f32_generate_equals_paged_kernel_engine"] = n_prompts
+    log(f"[neox] f32 {parity_layers} layers: generate's tokens == the paged_kernel engine's for {n_prompts} prompts")
+    del model, gen
+    free_memory(device)
+    log(f"[time] neox (a) f32 {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    model = create(config, seed=0, dtype=torch.bfloat16, device=device)
+    log_model(f"[neox] {model_name} bf16", model, t0)
+    _, nbytes = engine_timed(model, requests, device, engine_kw, report)
+    if profile:
+        report["bf16_plain_profile"] = profile_run(
+            lambda: serve(model, requests, device, **engine_kw)[2]["wall_s"], report["bf16_plain"]["wall_s"])
+        log(f"[neox] bf16 plain profile: {json.dumps(report['bf16_plain_profile'])}")
+    del model
+    free_memory(device)
+    log(f"[time] neox (b) bf16 {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    model = create(dataclasses.replace(config, num_hidden_layers=w8_layers), seed=0, dtype=torch.bfloat16,
+                   device=device)
+    # The bf16 cache of a model of this depth: the pools are per layer.
+    engine_quantized(model, requests, device, engine_kw, report, None,
+                     nbytes * w8_layers // config.num_hidden_layers)
+    del model
+    free_memory(device)
+    log(f"[time] neox (e) int8 weights {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+def family_generate_phase(device, model_name, shape=GENERATE_SHAPE, profile=False):
+    """`generate` of `model_name` in bf16 at full width and depth (random
+    weights from seed 0): batch 1 on a `timed_prompt`-token prompt,
+    `timed_new` new tokens (`timed_generate`: TTFT, decode tokens/s, peak
+    memory), after a warm-up; every K1-K5 count stays 0 over it. With
+    `profile`, device time by kernel group of one more such call."""
+    from accelerate_tpu_torch import GenerationConfig, Generator, create_named_model
+
+    t0 = time.perf_counter()
+    model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+    log_model(f"[family] {model_name} bf16", model, t0)
+    report = {"model": model_name, "layers": model.config.num_hidden_layers,
+              "parameters": sum(p.numel() for p in model.parameters()), "build_s": time.perf_counter() - t0}
+    vocab = model.config.vocab_size
+    gen = Generator(model, max_length=shape["max_length"], device=device)
+    rng = np.random.default_rng(1)
+    gen(rng.integers(0, vocab, (1, 8)), GenerationConfig(max_new_tokens=4))  # warm-up
+    reset_launch_counts()
+    prompt = rng.integers(0, vocab, (shape["timed_prompt"],))
+    _, report["bf16_batch1"] = timed_generate(gen, prompt[None], device, max_new_tokens=shape["timed_new"])
+    report["launches"] = launch_counts()
+    if any(report["launches"].values()):
+        raise RuntimeError(f"a K1-K5 kernel launched on {model_name}'s generate path: {report['launches']}")
+    log(f"[family] {model_name} generate bf16 batch 1: {json.dumps(report['bf16_batch1'])}")
+    if profile:
+        def run():
+            t = time.perf_counter()
+            gen(prompt[None], GenerationConfig(max_new_tokens=shape["timed_new"]))
+            sync(device)
+            return time.perf_counter() - t
+
+        report["bf16_batch1_profile"] = profile_run(run, report["bf16_batch1"]["wall_s"])
+        log(f"[family] {model_name} generate profile: {json.dumps(report['bf16_batch1_profile'])}")
+    del gen, model
+    free_memory(device)
+    return report
+
+
+def family_training_phase(device, model_name, layers, seq=TRAIN_SEQ, timed_steps=FAMILY_TIMED_STEPS,
+                          warmup=FAMILY_WARMUP, batch=2, fp16_steps=FAMILY_FP16_STEPS, parity_steps=3,
+                          parity_layers=2, profile=False):
+    """Training of `model_name` at full width cut to `layers` layers through
+    `Accelerator.prepare` and the fused `train_step`: (a) f32 cut to
+    `parity_layers` layers, batch 1, the flash kernels' losses against the
+    plain attention's (`f32_flash_parity`); (b) bf16 mixed precision with f32 masters, batch x
+    `seq` tokens, `warmup` + `timed_steps` steps on one repeated batch: step
+    time, tokens/s, MFU, peak memory; losses finite and falling; each flash
+    kernel launched layers x timed steps times at the family's head dim;
+    (c) fp16 with loss scaling, `fp16_steps` steps: finite losses and each
+    fp16 flash kernel launched layers x steps times. With `profile`, device
+    time by kernel group of one more bf16 step."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = dataclasses.replace(MODEL_REGISTRY[model_name](), num_hidden_layers=layers)
+    on_card = device.type == "cuda"
+    report = {"model": model_name, "layers": layers, "head_dim": config.head_dim, "seq": seq}
+    t0 = time.perf_counter()
+    report["f32_parity"] = f32_flash_parity(device, dataclasses.replace(config, num_hidden_layers=parity_layers), seq,
+                                            steps=parity_steps)
+    free_memory(device)
+    log(f"[time] {model_name} training (a) f32 {time.perf_counter() - t0:.1f}s")
+
+    def before_step(i, step_fn):
+        if i == warmup:
+            fa.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+
+    t0 = time.perf_counter()
+    losses, seconds, pmodel, step_fn, last_batch = train(device, config, "bf16", batch=batch, steps=timed_steps,
+                                                         seq=seq, warmup=warmup, on_step=before_step)
+    launches = dict(fa.LAUNCHES)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{model_name} bf16 training on a repeated batch: losses {losses}")
+    if on_card and launches != expected_launches(layers * timed_steps, torch.bfloat16):
+        raise RuntimeError(f"{model_name} bf16 timed steps: flash launches {launches}, expected {layers} x "
+                           f"{timed_steps}")
+    bf16 = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+    bf16["losses"] = losses
+    if on_card:
+        bf16["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    log(f"[family] {model_name} train bf16 {layers} layers: {json.dumps(bf16)}")
+    report["bf16"] = bf16
+    if profile:
+        report["bf16_profile"] = profile_train_step(step_fn, last_batch, device, bf16["step_ms_median"] / 1e3)
+    del pmodel, step_fn, last_batch
+    free_memory(device)
+    log(f"[time] {model_name} training (b) bf16 {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    losses, seconds, pmodel, step_fn, _ = train(device, config, "fp16", batch=batch, steps=fp16_steps, seq=seq)
+    launches = dict(fa.LAUNCHES)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{model_name} fp16 training losses are not finite: {losses}")
+    if on_card and launches != expected_launches(layers * fp16_steps, torch.float16):
+        raise RuntimeError(f"{model_name} fp16 steps: flash launches {launches}, expected {layers} x {fp16_steps}")
+    report["fp16"] = {"steps": fp16_steps, "losses": losses, "step_ms": [1e3 * x for x in seconds],
+                      "launches": launches}
+    log(f"[family] {model_name} train fp16 {layers} layers: {json.dumps(report['fp16'])}")
+    del pmodel, step_fn
+    free_memory(device)
+    log(f"[time] {model_name} training (c) fp16 {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+def paged_rows(kernels, engine, shape, design, suffix=""):
+    """The `kernels` line's K1/K2 rows (unquantized and both quantized
+    modes, bf16 queries) from a kernel phase at `shape` and the launches of
+    the engine runs that drove them."""
+    rows = []
+    runs = {"decode": "plain", "verify": "speculative"}
+    for key in ("decode", "verify", *(f"{kind}_{kv}" for kind in ("decode", "verify") for kv in KV_DTYPES)):
+        kind, _, kv = key.partition("_")
+        bf16, f32 = kernels[key]["bfloat16"], kernels[key]["float32"]
+        run = f"bf16_w8_{kv}_{runs[kind]}" if kv else f"bf16_{runs[kind]}"
+        rows.append({
+            "name": f"paged_{key}{suffix}",
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[kind],
+            "launches": engine[run]["launches"][key],
+            "max_abs_err": bf16["max_abs_err"],
+            "tolerance": bf16["tolerance"],
+            "ms": bf16["ms"],
+            "kernel_ms": bf16["ms"],
+            "device_ms": bf16["device_ms"],
+            "library_device_ms": bf16["library_device_ms"],
+            "plain_ms": bf16["plain_ms"],
+            "bound_ms": bf16["bound_ms"],
+            "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"],
+            "library_call": "F.scaled_dot_product_attention over pre-gathered dense K/V (yardstick, never called by the port)"
+                            + (f", dequantized from {kv} to bf16 beforehand" if kv else ""),
+            "dtype": "bfloat16",
+            "kv_dtype": kv or "bfloat16",
+            "shape": dict(shape, s=1 if kind == "decode" else shape["verify_s"]),
+            "design": design,
+            "f32": f32,
+        })
+    return rows
+
+
+def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design=""):
+    """The `kernels` line's K3-K5 rows in bf16 and in fp16 from a flash phase
+    at `shape` and the launches of the training runs that drove them."""
+    rows = []
+    for name, (replaces, _) in FLASH_KERNELS.items():
+        bf16, f32 = flash[name]["bfloat16"], flash[name]["float32"]
+        rows.append({
+            "name": name + suffix,
+            "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": bf16_launches[name],
+            "max_abs_err": bf16["max_abs_err"],
+            "tolerance": bf16["errors"][next(iter(bf16["errors"]))]["tolerance"],
+            "errors": bf16["errors"],
+            "ms": bf16["ms"],
+            "kernel_ms": bf16["ms"],
+            "device_ms": bf16["device_ms"],
+            "library_device_ms": bf16["library_device_ms"],
+            "plain_ms": bf16["plain_ms"],
+            "bound_ms": bf16["bound_ms"],
+            "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"],
+            "library_call": ("F.scaled_dot_product_attention(is_causal=True)" if name == "flash_fwd" else
+                             "autograd backward of F.scaled_dot_product_attention(is_causal=True): dq, dk "
+                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
+            "dtype": "bfloat16",
+            "shape": dict(shape, causal=True),
+            "design": FLASH_DESIGN[name] + design,
+            "f32": f32,
+        })
+    for name, (replaces, _) in FLASH_KERNELS.items():
+        fp16 = flash[name]["float16"]
+        rows.append({
+            "name": launch_key(name, torch.float16) + suffix,
+            "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": fp16_launches[launch_key(name, torch.float16)],
+            "max_abs_err": fp16["max_abs_err"],
+            "tolerance": fp16["errors"][next(iter(fp16["errors"]))]["tolerance"],
+            "errors": fp16["errors"],
+            "range_case": fp16.get("range_case"),
+            "ms": fp16["ms"],
+            "kernel_ms": fp16["ms"],
+            "device_ms": fp16["device_ms"],
+            "library_device_ms": fp16["library_device_ms"],
+            "plain_ms": fp16["plain_ms"],
+            "bound_ms": fp16["bound_ms"],
+            "bound_by": fp16["bound_by"],
+            "library_ms": fp16["library_ms"],
+            "library_call": ("F.scaled_dot_product_attention(is_causal=True), fp16" if name == "flash_fwd" else
+                             "autograd backward of F.scaled_dot_product_attention(is_causal=True), fp16: dq, dk "
+                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
+            "dtype": "float16",
+            "shape": dict(shape, causal=True),
+            "design": FLASH_DESIGN[name] + FLASH_FP16_DESIGN[name] + design,
+        })
+    return rows
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1972,10 +2350,12 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one bf16 plain engine run, one with int8 weights and cache, "
                              "one bf16 batch-1 generate call, one bf16 training step, one under each "
-                             "remat policy and one BERT-base step: device time by kernel, busy share")
+                             "remat policy, one BERT-base step, and for the families one NeoX-20B engine "
+                             "run, one generate call and one training step each: device time by kernel, "
+                             "busy share")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
-    parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(32, 64, 128),
+    parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(32, 64, 96, 128, 256),
                         help="--compare's head dimension (default: the training shape's)")
     parser.add_argument("--compare-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -2008,6 +2388,15 @@ def main(argv=None) -> int:
     kernels.update(quantized_kernel_phase(device))
     flash = flash_kernel_phase(device)
     log(f"[time] kernel phases {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    log(f"[kernels] GPT-NeoX-20B's shape: {json.dumps(NEOX_KERNEL_SHAPE)}")
+    neox_kernels = kernel_phase(device, NEOX_KERNEL_SHAPE)
+    neox_kernels.update(quantized_kernel_phase(device, NEOX_KERNEL_SHAPE))
+    wide_flash = {}
+    for d, shape in FAMILY_FLASH_SHAPES.items():
+        log(f"[flash] head dim {d}: {json.dumps(shape)}")
+        wide_flash[d] = flash_kernel_phase(device, shape)
+    log(f"[time] kernel phases at the families' shapes {time.perf_counter() - t0:.1f}s")
     if args.kernels_only:
         log(card)
         return 0
@@ -2035,91 +2424,31 @@ def main(argv=None) -> int:
     bert = bert_phase(device, profile=args.profile)
     log(f"[bert] summary: {json.dumps(bert)}")
     log(f"[time] bert phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    neox = neox_engine_phase(device, profile=args.profile)
+    log(f"[neox] summary: {json.dumps(neox)}")
+    log(f"[time] neox engine phase {time.perf_counter() - t0:.1f}s")
+    family_generate, family_train = {}, {}
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        family_generate[name] = family_generate_phase(device, name, profile=args.profile)
+        log(f"[time] {name} generate phase {time.perf_counter() - t0:.1f}s")
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        family_train[name] = family_training_phase(device, name, FAMILY_TRAIN_LAYERS[name], profile=args.profile)
+        log(f"[family] {name} training summary: {json.dumps(family_train[name])}")
+        log(f"[time] {name} training phase {time.perf_counter() - t0:.1f}s")
+    log(f"[family] generate summary: {json.dumps(family_generate)}")
 
-    rows = []
-    runs = {"decode": "plain", "verify": "speculative"}
-    for key in ("decode", "verify", *(f"{kind}_{kv}" for kind in ("decode", "verify") for kv in KV_DTYPES)):
-        kind, _, kv = key.partition("_")
-        bf16, f32 = kernels[key]["bfloat16"], kernels[key]["float32"]
-        run = f"bf16_w8_{kv}_{runs[kind]}" if kv else f"bf16_{runs[kind]}"
-        rows.append({
-            "name": f"paged_{key}",
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[kind],
-            "launches": engine[run]["launches"][key],
-            "max_abs_err": bf16["max_abs_err"],
-            "tolerance": bf16["tolerance"],
-            "ms": bf16["ms"],
-            "kernel_ms": bf16["ms"],
-            "device_ms": bf16["device_ms"],
-            "library_device_ms": bf16["library_device_ms"],
-            "plain_ms": bf16["plain_ms"],
-            "bound_ms": bf16["bound_ms"],
-            "bound_by": bf16["bound_by"],
-            "library_ms": bf16["library_ms"],
-            "library_call": "F.scaled_dot_product_attention over pre-gathered dense K/V (yardstick, never called by the port)"
-                            + (f", dequantized from {kv} to bf16 beforehand" if kv else ""),
-            "dtype": "bfloat16",
-            "kv_dtype": kv or "bfloat16",
-            "shape": dict(KERNEL_SHAPE, s=1 if kind == "decode" else KERNEL_SHAPE["verify_s"]),
-            "design": PAGED_DESIGN,
-            "f32": f32,
-        })
-    for name, (replaces, _) in FLASH_KERNELS.items():
-        bf16, f32 = flash[name]["bfloat16"], flash[name]["float32"]
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": FLASH_SOURCE,
-            "replaces": replaces,
-            "launches": training["bf16"]["launches"][name],
-            "max_abs_err": bf16["max_abs_err"],
-            "tolerance": bf16["errors"][next(iter(bf16["errors"]))]["tolerance"],
-            "errors": bf16["errors"],
-            "ms": bf16["ms"],
-            "kernel_ms": bf16["ms"],
-            "device_ms": bf16["device_ms"],
-            "library_device_ms": bf16["library_device_ms"],
-            "plain_ms": bf16["plain_ms"],
-            "bound_ms": bf16["bound_ms"],
-            "bound_by": bf16["bound_by"],
-            "library_ms": bf16["library_ms"],
-            "library_call": ("F.scaled_dot_product_attention(is_causal=True)" if name == "flash_fwd" else
-                             "autograd backward of F.scaled_dot_product_attention(is_causal=True): dq, dk "
-                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
-            "dtype": "bfloat16",
-            "shape": dict(FLASH_SHAPE, causal=True),
-            "design": FLASH_DESIGN[name],
-            "f32": f32,
-        })
-    for name, (replaces, _) in FLASH_KERNELS.items():
-        fp16 = flash[name]["float16"]
-        rows.append({
-            "name": launch_key(name, torch.float16),
-            "route": "cuda",
-            "source": FLASH_SOURCE,
-            "replaces": replaces,
-            "launches": training["fp16"]["launches"][launch_key(name, torch.float16)],
-            "max_abs_err": fp16["max_abs_err"],
-            "tolerance": fp16["errors"][next(iter(fp16["errors"]))]["tolerance"],
-            "errors": fp16["errors"],
-            "range_case": fp16.get("range_case"),
-            "ms": fp16["ms"],
-            "kernel_ms": fp16["ms"],
-            "device_ms": fp16["device_ms"],
-            "library_device_ms": fp16["library_device_ms"],
-            "plain_ms": fp16["plain_ms"],
-            "bound_ms": fp16["bound_ms"],
-            "bound_by": fp16["bound_by"],
-            "library_ms": fp16["library_ms"],
-            "library_call": ("F.scaled_dot_product_attention(is_causal=True), fp16" if name == "flash_fwd" else
-                             "autograd backward of F.scaled_dot_product_attention(is_causal=True), fp16: dq, dk "
-                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
-            "dtype": "float16",
-            "shape": dict(FLASH_SHAPE, causal=True),
-            "design": FLASH_DESIGN[name] + FLASH_FP16_DESIGN[name],
-        })
+    wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"]}  # the families at each head dim
+    rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
+    rows += flash_rows(flash, training["bf16"]["launches"], training["fp16"]["launches"], FLASH_SHAPE)
+    rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
+    for d, shape in FAMILY_FLASH_SHAPES.items():
+        run = wide_runs[d]
+        rows += flash_rows(wide_flash[d], run["bf16"]["launches"], run["fp16"]["launches"], shape,
+                           suffix=f"_d{d}", design=WIDE_FLASH_DESIGN[d])
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 whole: `chip_smoke.py`'s report of ptxas' output, its flash phase's limits
 (rehearsed on the plain versions, which CPU tensors take, and held against
 an emulation of the tensor-core kernels' bf16 and fp16 arithmetic, fp16's
-range scaling included), its profile's attribution of the grouped-query
-repeat, the refusal of its `--compare` mode to run without a card, and its
-generate phase rehearsed at llama_tiny."""
+range scaling included, at every head dim the kernels are built for), its
+profile's attribution of the grouped-query repeat, the refusal of its
+`--compare` mode to run without a card, its generate phase rehearsed at
+llama_tiny, and the families' phases and `kernels` rows rehearsed at their
+tiny configs."""
 
 import os
 import subprocess
@@ -216,8 +218,9 @@ def _right_and_wrong(name, key, q, k, v, do, lse, delta, scale, tile):
     return (_k4_arithmetic(q, k, v, do, lse, delta, scale, 64, drop)[key] for drop in (False, True))
 
 
-@pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0)],
-                         ids=["d64", "d128", "d32-scores-x8"])
+@pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0), (96, 64, 1.0),
+                                             (256, 64, 1.0)],
+                         ids=["d64", "d128", "d32-scores-x8", "d96", "d256"])
 @pytest.mark.parametrize("output", OUTPUTS)
 def test_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(output, d, tile, q_scale):
     """The bf16 limit of K3's o, K4's dk and dv and K5's dq (atol + rtol
@@ -256,8 +259,9 @@ def _plain(name, key, q, k, v, do, lse, delta, scale):
     return dict(zip(("dk", "dv"), fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)))[key]
 
 
-@pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0)],
-                         ids=["d64", "d128", "d32-scores-x8"])
+@pytest.mark.parametrize("d,tile,q_scale", [(64, 128, 1.0), (128, 64, 1.0), (32, 128, 8.0), (96, 64, 1.0),
+                                             (256, 64, 1.0)],
+                         ids=["d64", "d128", "d32-scores-x8", "d96", "d256"])
 @pytest.mark.parametrize("output", OUTPUTS)
 def test_fp16_rounding_bound_takes_the_kernels_arithmetic_and_catches_a_lost_tile(output, d, tile, q_scale):
     """The fp16 twin: the limit of fp16 K3's o, K4's dk and dv and K5's dq
@@ -444,3 +448,69 @@ def test_bert_phase_rehearses_on_the_cpu():
     assert len(example["losses"]) == 2 and example["losses"][-1] < example["losses"][0]
     assert example["args"]["mixed_precision"] == "bf16" and example["args"]["cpu"] is True
     assert set(report["one_step_peak_memory_bytes"]) == {"batch", "seq", "None", "full"}
+
+
+def _timed(rows):
+    """A rehearsal's untimed kernel rows with the card's time keys filled
+    (times exist only on the card)."""
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms")
+    for row in rows.values():
+        for entry in row.values():
+            entry.update({k: 0.0 for k in keys if k not in entry})
+    return rows
+
+
+def test_neox_engine_phase_rehearses_on_the_cpu(monkeypatch):
+    """GPT-NeoX through the engine phase at a tiny config on the CPU: the f32
+    cut's kernel and gather tokens agree (unquantized, int8 and fp8 caches),
+    `generate` gives the K1 engine's tokens, the bf16 and int8-weight runs
+    come back; then the K1/K2 rows of the `kernels` line at NeoX's kernel
+    shape (Hq = Hkv, D 96), cut small, from those runs."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY, gpt_neox
+
+    cpu = torch.device("cpu")
+    monkeypatch.setitem(MODEL_REGISTRY, "gpt-neox-rehearsal", lambda: dataclasses.replace(
+        gpt_neox.gpt_neox_tiny(), num_hidden_layers=4, max_position_embeddings=1024))
+    monkeypatch.setattr(chip_smoke, "ENGINE_KW", dict(num_slots=4, page_size=16, max_length=768, chunk_size=8))
+    report = chip_smoke.neox_engine_phase(cpu, "gpt-neox-rehearsal", parity_layers=2, w8_layers=2, n_requests=4,
+                                          system_len=16, new=6, n_prompts=2)
+    assert report["f32_plain_identical"] and report["f32_kv_fp8_e4m3_speculative_identical"]
+    assert report["f32_generate_equals_paged_kernel_engine"] == 2
+    assert report["bf16_w8_int8_plain"]["kv_cache_nbytes"] < report["bf16_w8_int8_plain"]["bf16_kv_cache_nbytes"]
+    shape = dict(chip_smoke.NEOX_KERNEL_SHAPE, slots=4, hq=4, hkv=4, max_length=256)
+    kernels = chip_smoke.kernel_phase(cpu, shape, timed=False)
+    kernels.update(chip_smoke.quantized_kernel_phase(cpu, shape, timed=False))
+    rows = chip_smoke.paged_rows(_timed(kernels), report, shape, chip_smoke.PAGED_SCALAR_DESIGN, suffix="_neox")
+    assert [row["name"] for row in rows] == [f"paged_{key}_neox" for key in (
+        "decode", "verify", "decode_int8", "decode_fp8_e4m3", "verify_int8", "verify_fp8_e4m3")]
+    assert all(row["shape"]["d"] == 96 and row["shape"]["hq"] == row["shape"]["hkv"] for row in rows)
+
+
+@pytest.mark.parametrize("name", ["gpt-neox-tiny", "gptj-tiny", "opt-tiny"])
+def test_family_phases_rehearse_on_the_cpu(name):
+    """Each family's generate phase (bf16, batch 1, no K1-K5 launch) and
+    training phase (f32 kernel-path losses against the plain ones, bf16
+    losses falling, an fp16 step) at its tiny config on the CPU, and the
+    `kernels` line's K3-K5 rows at a wide head dim from a flash phase and
+    those runs' launch counts."""
+    cpu = torch.device("cpu")
+    shape = dict(chip_smoke.GENERATE_SHAPE, max_length=256, timed_prompt=32, timed_new=6)
+    generated = chip_smoke.family_generate_phase(cpu, name, shape=shape)
+    assert generated["bf16_batch1"]["new_tokens"] == 6 and not any(generated["launches"].values())
+    trained = chip_smoke.family_training_phase(cpu, name, 2, seq=64, timed_steps=2, warmup=1, fp16_steps=1,
+                                               parity_steps=2)
+    assert trained["f32_parity"]["max_rel_diff"] == 0.0
+    assert trained["bf16"]["losses"][-1] < trained["bf16"]["losses"][0]
+    assert len(trained["fp16"]["losses"]) == 1
+    d = 96 if name == "gpt-neox-tiny" else 256
+    wide = dict(b=1, hq=1, s=128, d=d)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "flash_range_case", lambda device, shape: {})  # the range needs S 2048
+        phase = chip_smoke.flash_kernel_phase(cpu, shape=wide, timed=False)
+    rows = chip_smoke.flash_rows(_timed(phase), trained["bf16"]["launches"], trained["fp16"]["launches"], wide,
+                                 suffix=f"_d{d}", design=chip_smoke.WIDE_FLASH_DESIGN[d])
+    assert [row["name"] for row in rows] == [f"{k}_d{d}" for k in (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_f16", "flash_bwd_dkv_f16", "flash_bwd_dq_f16")]
+    assert all(row["shape"]["d"] == d and "launches" in row and "bound_ms" in row for row in rows)

@@ -210,7 +210,7 @@ def _split_case(device, s, page_size, kv_dtype, dtype, seed=3, hq=8, hkv=2, d=64
 @pytest.mark.parametrize("page_size", [4, 16, 128])
 @pytest.mark.parametrize("s", [1, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_split_edges_match_plain_version(cuda, dtype, s, page_size, kv_dtype, d):
+def test_kernel_split_edges_match_plain_version(cuda, dtype, s, page_size, kv_dtype, d, hq=8, hkv=2):
     """Slot lengths of 1, exactly one split, one past it and the full 2048,
     and verify blocks whose rows end in different splits, at pages of 4, 16
     and 128 over every pool type and at every head dimension the bf16
@@ -218,7 +218,7 @@ def test_kernel_split_edges_match_plain_version(cuda, dtype, s, page_size, kv_dt
     verify's 20 rows two tiles in one block at D 32 and 64, and two row
     groups, each reading the pages, at D 128): the split kernel and its
     merge against the plain version, one launch counted per call."""
-    args, scales = _split_case(cuda, s, page_size, kv_dtype, dtype, d=d)
+    args, scales = _split_case(cuda, s, page_size, kv_dtype, dtype, d=d, hq=hq, hkv=hkv)
     kind = "decode" if s == 1 else "verify"
     key = kind if kv_dtype == "native" else f"{kind}_{kv_dtype}"
     fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
@@ -251,6 +251,18 @@ def test_kernel_bf16_queries_at_other_head_dims(cuda, s, d, kv_dtype):
     assert out.dtype == torch.bfloat16 and out.shape == args[0].shape and torch.isfinite(out).all()
     ref = pa.paged_attention_reference(*args, **scales)
     torch.testing.assert_close(out.float(), ref.float(), **BF16)
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_neox_heads_matches_plain_version(cuda, dtype, s, page_size, kv_dtype):
+    """GPT-NeoX-20B's attention, one K/V head per query head (G = 1) at head
+    dimension 96, through the scalar split kernel over every pool type, at
+    the split edges of `test_kernel_split_edges_match_plain_version`: held
+    to the plain version, one launch counted per call."""
+    test_kernel_split_edges_match_plain_version(cuda, dtype, s, page_size, kv_dtype, 96, hq=4, hkv=4)
 
 
 @pytest.mark.parametrize("kv_dtype", ["native", "int8"])
@@ -438,6 +450,31 @@ def test_flash_softmax_rescales_large_scores(cuda, d, dtype):
                                 ("flash_bwd_dkv", "dv", dv, ref_dv)):
         bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, ref_lse, delta, True, scale)
         _assert_within(got, ref, NARROW[dtype], bound, key)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("causal,s,sk", [(True, 192, 192), (False, 128, 200), (True, 64, 200),
+                                         (True, 130, 250), (True, 1024, 1024)],
+                         ids=["causal", "full-ragged", "causal-cross", "causal-ragged", "causal-1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_kernels_match_plain_versions_at_family_head_dims(cuda, dtype, causal, s, sk, d):
+    """`test_flash_kernels_match_plain_versions` at GPT-NeoX-20B's head dim
+    96 (three 64B-swizzled panels; scalar rows of 12 dims over 8 lanes) and
+    GPT-J-6B's 256 (four 128B-swizzled panels; K4 over two column halves;
+    scalar blocks of 32 rows)."""
+    test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_kernels_keep_to_their_head_at_family_head_dims(cuda, dtype, d):
+    test_flash_kernels_keep_to_their_head(cuda, dtype, d)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_softmax_rescales_large_scores_at_family_head_dims(cuda, d, dtype):
+    test_flash_softmax_rescales_large_scores(cuda, d, dtype)
 
 
 def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
@@ -698,3 +735,76 @@ def test_bert_logits_on_the_card_match_the_cpu(cuda):
         got = card(ids.to(cuda), mask.to(cuda), types.to(cuda))
     assert got.device.type == "cuda" and got.shape == (4, 2)
     torch.testing.assert_close(got.cpu(), ref, atol=chip_smoke.BERT_LOGITS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["gpt-neox-tiny", "gptj-tiny", "opt-tiny"])
+def test_family_on_the_card_matches_the_cpu_port(cuda, name):
+    """Each family's tiny model, f32: logits on the card equal the CPU
+    port's (atol 1e-4), and greedy `generate` gives the CPU's tokens."""
+    from accelerate_tpu_torch import GenerationConfig, Generator, create_named_model
+
+    cpu = create_named_model(name, seed=1, device="cpu")
+    card = create_named_model(name, seed=1, device="cpu").to(cuda)
+    ids = np.random.default_rng(5).integers(0, 512, (2, 40))
+    with torch.no_grad():
+        torch.testing.assert_close(card(torch.as_tensor(ids, device=cuda)).cpu(), cpu(torch.as_tensor(ids)),
+                                   atol=1e-4, rtol=0)
+    config = GenerationConfig(max_new_tokens=16)
+    assert Generator(card)(ids, config).cpu().tolist() == Generator(cpu, device="cpu")(ids, config).tolist()
+
+
+def test_neox_engine_kernel_path_matches_gather_path(cuda):
+    """GPT-NeoX (Hq = Hkv, partial rotary, biases) through the engine on the
+    card: the paged_kernel path's greedy tokens equal the gather path's,
+    plain and speculative, unquantized and with int8 weights over an int8
+    cache, and K1 (K2) launches layers x decode steps times."""
+    from accelerate_tpu_torch import ContinuousBatcher, Request, create_named_model
+
+    model = create_named_model("gpt-neox-tiny", seed=2, device=cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, (int(n),)) for n in (5, 40, 17, 60)]
+    for quant in ({}, dict(weight_dtype="int8", kv_cache_dtype="int8")):
+        for spec in (False, True):
+            runs = {}
+            for impl in ("gather", "paged_kernel"):
+                pa.reset_launch_counts()
+                engine = ContinuousBatcher(model, num_slots=2, max_length=128, chunk_size=4, attention_impl=impl,
+                                           speculative=spec, **quant)
+                out = engine.run([Request(i, p, max_new_tokens=20) for i, p in enumerate(prompts)])
+                runs[impl] = {rid: list(map(int, t)) for rid, t in out.items()}
+                key = ("verify" if spec else "decode") + ("_int8" if quant else "")
+                n = model.config.num_hidden_layers * engine.stats["decode_steps"] if impl == "paged_kernel" else 0
+                assert pa.LAUNCHES == {k: n if k == key else 0 for k in pa.LAUNCHES}
+            assert runs["gather"] == runs["paged_kernel"], (quant, spec)
+
+
+@pytest.mark.parametrize("name", ["gpt-neox-tiny", "gptj-tiny", "opt-tiny"])
+def test_family_training_steps_through_the_kernels(cuda, monkeypatch, name):
+    """Each family's tiny model trained on the card, sequence 128, the flash
+    path forced: three f32 steps through K3-K5 give the plain attention's
+    losses (rtol 1e-4), each kernel launching 2 layers x 3 steps times."""
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader, create_named_model
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    rows = np.random.default_rng(3).integers(0, 512, (12, 128))
+    data = [{"input_ids": r} for r in rows]
+    losses = {}
+    try:
+        for impl in ("flash", "xla"):
+            monkeypatch.setenv("ACCELERATE_TPU_ATTENTION_IMPL", impl)
+            AcceleratorState._reset_state()
+            GradientState._reset_state()
+            model = create_named_model(name, seed=1, device=cuda)
+            accelerator = Accelerator()
+            optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+            _, _, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(12), 4)))
+            step_fn = accelerator.train_step(max_grad_norm=1.0)
+            fa.reset_launch_counts()
+            losses[impl] = [float(step_fn(b)) for b in loader]
+            want = 6 if impl == "flash" else 0
+            assert fa.LAUNCHES == {key: 0 if key.endswith("_f16") else want for key in fa.LAUNCHES}
+    finally:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+    np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=1e-4)
+    assert losses["flash"][-1] < losses["flash"][0]

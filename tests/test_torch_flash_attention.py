@@ -43,8 +43,9 @@ def _normal(rng, *shape):
 
 @pytest.mark.parametrize(
     "bh,s,sk,d,causal",
-    [(4, 128, 128, 32, True), (2, 64, 192, 64, True), (3, 128, 128, 64, False)],
-    ids=["causal", "causal-cross", "full"],
+    [(4, 128, 128, 32, True), (2, 64, 192, 64, True), (3, 128, 128, 64, False),
+     (2, 128, 128, 96, True), (1, 128, 128, 256, True), (2, 128, 128, 96, False)],
+    ids=["causal", "causal-cross", "full", "causal-d96", "causal-d256", "full-d96"],
 )
 def test_plain_kernels_match_pallas_interpret(bh, s, sk, d, causal):
     """Block level: plain K3 against `_fwd_call` (o and lse[..., 0]), plain
@@ -95,11 +96,11 @@ def test_flash_forward_matches_jax(shape, hkv, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("hkv", [2, 1], ids=["mha", "gqa"])
-def test_flash_grads_match_jax(causal, hkv):
+def test_flash_grads_match_jax(causal, hkv, d=32):
     """Autograd through `FlashAttentionFunction` (plain K3-K5 on the CPU)
     against `jax.grad` through JAX's custom VJP; with GQA the repeated K/V
     heads' gradients sum over each group."""
-    q, k, v = _qkv(1, 128, 2, 32, hkv=hkv, seed=2)
+    q, k, v = _qkv(1, 128, 2, d, hkv=hkv, seed=2)
 
     def loss_jax(q_, k_, v_):
         out = jax_flash.flash_attention(q_, k_, v_, causal=causal, block_q=64, block_k=64, interpret=True)
@@ -110,6 +111,14 @@ def test_flash_grads_match_jax(causal, hkv):
     port_flash.flash_attention(tq, tk, tv, causal=causal, block_q=64, block_k=64).square().sum().backward()
     for name, r, g in zip("qkv", ref, (tq.grad, tk.grad, tv.grad)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **GRAD, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [96, 256], ids=["d96", "d256"])
+def test_flash_grads_match_jax_at_neox_and_gptj_head_dims(d, causal):
+    """`test_flash_grads_match_jax` at GPT-NeoX-20B's head dim 96 and
+    GPT-J-6B's 256 (Hq = Hkv, as both families)."""
+    test_flash_grads_match_jax(causal, 2, d)
 
 
 def test_flash_causal_cross_length_matches_jax():

@@ -17,7 +17,7 @@ import torch
 
 import jax
 
-from accelerate_tpu.models import bert as jax_bert
+from accelerate_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 from accelerate_tpu.models import llama as jax_llama
 from accelerate_tpu_torch.generation import CausalPrograms
 from accelerate_tpu_torch.models import MODEL_REGISTRY, create_named_model
@@ -134,8 +134,7 @@ def test_prefill_then_decode_and_verify_match_full_forward(impl):
 
 def test_registry_configs_match_jax_and_widths():
     for name, factory in MODEL_REGISTRY.items():
-        jcfg = {"llama-3-8b": jax_llama.llama3_8b, "llama-1b": jax_llama.llama_1b, "llama-tiny": jax_llama.llama_tiny,
-                "bert-base": jax_bert.bert_base, "bert-tiny": jax_bert.bert_tiny}[name]()
+        jcfg = JAX_REGISTRY[name][1]()
         cfg = factory()
         for f in dataclasses.fields(cfg):
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), (name, f.name)

@@ -42,7 +42,8 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.ops.flash_attention, accelerate_tpu_torch.ops.quantization\n"
         "import accelerate_tpu_torch.utils.operations, accelerate_tpu_torch.generation\n"
         "import accelerate_tpu_torch.ops.remat, accelerate_tpu_torch.tracking, accelerate_tpu_torch.models.bert\n"
-        "import accelerate_tpu_torch.examples.nlp_example\n"
+        "import accelerate_tpu_torch.examples.nlp_example, accelerate_tpu_torch.models.decoder\n"
+        "import accelerate_tpu_torch.models.gpt_neox, accelerate_tpu_torch.models.gptj, accelerate_tpu_torch.models.opt\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -70,7 +71,7 @@ def test_source_imports_no_jax_module():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """No GPU and no explicit device: raise, never fall back to the CPU."""
-    from accelerate_tpu_torch import Accelerator, ContinuousBatcher, create_llama_model, resolve_device
+    from accelerate_tpu_torch import Accelerator, ContinuousBatcher, create_llama_model, create_named_model, resolve_device
     from accelerate_tpu_torch.models import llama_tiny
     from accelerate_tpu_torch.state import AcceleratorState
 
@@ -82,6 +83,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     model = create_llama_model(llama_tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatcher(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_named_model("gpt-neox-tiny")
     AcceleratorState._reset_state()
     try:
         with pytest.raises(RuntimeError, match="device='cpu'"):

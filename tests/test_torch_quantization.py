@@ -152,6 +152,43 @@ def test_quantize_weight_int8_matches_jax():
     np.testing.assert_allclose(got.numpy(), expect, atol=1e-5, rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_linear_with_bias_matches_jax_int8_dense(dtype):
+    """A biased layer (GPT-NeoX's projections): JAX's int8 Dense, a flax
+    `nn.Dense` over `quantize_params_int8` params under `weight_autocast`,
+    scales the f32 product, rounds it to x's dtype and adds the bias after;
+    `Int8Linear.from_linear` keeps the bias in the layer's dtype and does
+    the same. f32 within 1e-5; bf16 within the roundings of either side."""
+    import flax.linen as fnn
+
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(24, 40)).astype(np.float32)  # flax kernel [in, out]
+    b = rng.normal(size=(40,)).astype(np.float32)
+    x = rng.normal(size=(3, 24)).astype(np.float32)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    qparams = jq.quantize_params_int8({"params": {"kernel": jnp.asarray(w, jdtype), "bias": jnp.asarray(b, jdtype)}})
+    with jq.weight_autocast("int8"):
+        expect = fnn.Dense(40).apply(qparams, jnp.asarray(x, jdtype))
+    linear = torch.nn.Linear(24, 40).to(dtype)
+    with torch.no_grad():
+        linear.weight.copy_(torch.as_tensor(w.T))
+        linear.bias.copy_(torch.as_tensor(b))
+    layer = pq.Int8Linear.from_linear(linear)
+    assert layer.bias.dtype == dtype and layer.q.dtype == torch.int8
+    got = layer(torch.as_tensor(x).to(dtype))
+    assert got.dtype == dtype
+    expect = np.asarray(expect.astype(jnp.float32))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), expect, atol=1e-5, rtol=1e-6)
+        return
+    # bf16: the port rounds the product to bf16 twice (F.linear's output, then
+    # after the scale), JAX once, and each rounds the sum with the bias once:
+    # at most 3 * 2^-8 of |product| + |bias| apart, element by element.
+    product = np.abs(x @ pq.dequantize_weight_int8(layer.q, layer.scale).numpy().T)
+    limit = 1e-3 + 3 * 2 ** -8 * (product + np.abs(b))
+    assert (np.abs(got.float().numpy() - expect) <= limit).all()
+
+
 @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
 def test_stale_rows_never_inflate_insert_scales(kv_dtype):
     """A recycled page's stale content past the prompt is zeroed before the
