@@ -19,7 +19,10 @@ in-tree layer can be checkpointed (`CompilationConfig(remat_policy=...)`,
 (`models/bert.py`) trains through the same surface, with JSON/CSV trackers
 (`tracking.py`) and `gather_for_metrics`: `python -m
 accelerate_tpu_torch.examples.nlp_example` is the twin of the JAX
-package's `examples/nlp_example.py`.
+package's `examples/nlp_example.py`. T5 (`models/t5.py`, T0pp-11B's
+config) trains through the same surface and generates through
+`Seq2SeqGenerator`; `utils/hf_loading.py` loads Hugging Face checkpoints
+into every family and writes them back.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -30,7 +33,7 @@ from .accelerator import Accelerator
 from .checkpointing import CheckpointManager
 from .data_loader import BatchSampler, SeedableRandomSampler, SimpleDataLoader, prepare_data_loader, skip_first_batches
 from .device import resolve_device
-from .generation import GenerationConfig, Generator, generate
+from .generation import GenerationConfig, Generator, Seq2SeqGenerator, generate
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
@@ -57,6 +60,7 @@ __all__ = [
     "Request",
     "RequestResult",
     "SeedableRandomSampler",
+    "Seq2SeqGenerator",
     "SimpleDataLoader",
     "WEIGHT_DTYPES",
     "create_llama_model",

@@ -1,8 +1,9 @@
 """KV-cached autoregressive generation: `generate`, the static `Generator`,
 sampling, and the prefill / step / verify programs of causal-LM serving.
 
-Port of `accelerate_tpu/generation.py` (causal LMs; `Seq2SeqGenerator` and
-quantized bundles wait). The JAX package compiles one prefill and one fused
+Port of `accelerate_tpu/generation.py` (causal LMs, and `Seq2SeqGenerator`
+for the encoder-decoder T5; quantized bundles wait). The JAX package
+compiles one prefill and one fused
 decode loop (`lax.while_loop`); PyTorch runs eagerly, so here the loop is a
 Python loop over device tensors that reads the device back only where it
 must: the plain loop once every `FINISHED_CHECK_EVERY` steps (to stop when
@@ -232,11 +233,14 @@ class Generator:
         return self.model(tokens, attention_mask, positions, decode_cache=cache)
 
     def _decode(self, cache, first_logits, next_positions, limit: int, config: GenerationConfig,
-                rng, presence):
+                rng, presence, forward=None):
         """The plain loop (JAX's `_decode_fn`): sample, mark the token seen
         under a repetition penalty, emit pads on rows past their EOS. Returns
         the [B, bucket] token buffer. Reads the device back at most once
-        every `FINISHED_CHECK_EVERY` steps, and never without an EOS."""
+        every `FINISHED_CHECK_EVERY` steps, and never without an EOS.
+        `forward(cache, tokens, positions)` is a step's forward
+        (`self._forward` unless given)."""
+        forward = forward or self._forward
         b = first_logits.shape[0]
         eos, pad_id = config.eos_token_id, _pad_id(config)
         rows = torch.arange(b, device=first_logits.device)
@@ -259,7 +263,7 @@ class Generator:
                 finished |= token == eos
                 if i % FINISHED_CHECK_EVERY == 0 and bool(finished.all()):  # the loop's one read
                     break
-            logits = self._forward(cache, token[:, None], (next_positions + i - 1)[:, None])[:, -1]
+            logits = forward(cache, token[:, None], (next_positions + i - 1)[:, None])[:, -1]
             token = pick(logits)
             if eos is not None:
                 token = torch.where(finished, torch.full_like(token, pad_id), token)
@@ -403,6 +407,83 @@ class Generator:
         gen_host = generated[:, :max_new].cpu().numpy()
         gen_host = _trim_at_eos(gen_host, config.eos_token_id, max_new)
         return torch.as_tensor(np.concatenate([ids_host, gen_host], axis=1), device=dev)
+
+
+class Seq2SeqGenerator(Generator):
+    """Encode once, then the same decode loop as `Generator`, for an
+    encoder-decoder (`T5ForConditionalGeneration`: `encode(input_ids,
+    attention_mask)` and `decode(decoder_input_ids, encoder_hidden,
+    positions, enc_mask, decode_cache)`).
+
+    The decoder's cache holds ``max_new_tokens + 1`` positions: the start
+    token at position 0, primed with the encoder's output before the loop,
+    then one per new token. The cross-attention K/V are projected from the
+    encoder's output on that prime call and read back at every step. The
+    model must live on `device` (``cuda`` unless ``device="cpu"``)."""
+
+    def __init__(self, model, max_new_tokens: int = 32, decoder_start_token_id: int = 0,
+                 device: DeviceLike = None):
+        if not hasattr(model, "encode") or not hasattr(model, "make_decode_cache"):
+            raise ValueError("Seq2SeqGenerator needs an encoder-decoder model built from an in-tree module")
+        super().__init__(model, max_new_tokens=max_new_tokens, max_length=max_new_tokens + 1, device=device)
+        self.start_id = decoder_start_token_id
+
+    @torch.no_grad()
+    def __call__(self, input_ids, generation_config: Optional[GenerationConfig] = None,
+                 rng: Optional[torch.Generator] = None, **kwargs):
+        """[B, S] ids -> [B, n] decoder tokens on the generator's device
+        (HF's seq2seq `generate` shape: the start token is not returned),
+        n <= max_new_tokens, cut after the step where every row has emitted
+        EOS. `attention_mask` ([B, S] 1/0, pads anywhere) rides in the
+        keyword arguments beside the `GenerationConfig` fields; it keeps the
+        pads out of the encoder and the cross-attention. A call that names
+        no budget fills the generator's; one that asks for more raises."""
+        attention_mask = kwargs.pop("attention_mask", None)  # before GenerationConfig(**kwargs)
+        explicit_request = generation_config is not None or "max_new_tokens" in kwargs
+        config = generation_config or GenerationConfig(**kwargs)
+        if config.draft_tokens:
+            raise ValueError(
+                "speculative decoding (draft_tokens > 0) is causal-LM only; the "
+                "encoder-decoder decode path has no verify-block seam"
+            )
+        max_new = config.max_new_tokens
+        if not explicit_request:
+            # A bare call: the dataclass default (32) is not a user request.
+            max_new = min(max_new, self.max_new_tokens)
+        elif max_new > self.max_new_tokens:
+            raise ValueError(
+                f"Requested {max_new} new tokens but this generator's decoder "
+                f"cache was sized for {self.max_new_tokens}; rebuild with a larger max_new_tokens"
+            )
+        dev, model = self.device, self.model
+        ids = torch.as_tensor(input_ids).to(device=dev, dtype=torch.long)
+        b = ids.shape[0]
+        am = None
+        if attention_mask is not None:
+            am = torch.as_tensor(attention_mask).to(device=dev, dtype=torch.long)
+            enc_mask = am[:, None, None, :].bool()
+        else:
+            enc_mask = torch.ones((b, 1, 1, ids.shape[1]), dtype=torch.bool, device=dev)
+        encoder_hidden = model.encode(ids, am)
+        cache = model.make_decode_cache(b, self.max_length)
+        start = torch.full((b,), self.start_id, dtype=torch.long, device=dev)
+        first_logits = model.decode(start[:, None], encoder_hidden, torch.zeros((1,), dtype=torch.long, device=dev),
+                                    enc_mask, decode_cache=cache)[:, -1]
+        presence = None
+        if config.repetition_penalty != 1.0:
+            # The penalty covers the decoder's context (HF): the start token only.
+            presence = torch.zeros((b, self.base_config.vocab_size), dtype=torch.bool, device=dev)
+            presence[torch.arange(b, device=dev), start] = True
+        if rng is None and config.do_sample:
+            rng = make_generator(0, dev)
+
+        def forward(cache, tokens, positions):
+            return model.decode(tokens, encoder_hidden, positions[0], enc_mask, decode_cache=cache)
+
+        next_positions = torch.ones((b,), dtype=torch.long, device=dev)  # the start token holds position 0
+        generated = self._decode(cache, first_logits, next_positions, max_new, config, rng, presence, forward)
+        gen_host = _trim_at_eos(generated[:, :max_new].cpu().numpy(), config.eos_token_id, max_new)
+        return torch.as_tensor(gen_host, device=dev)
 
 
 # One Generator per live model for `generate`, keyed weakly on the model's

@@ -1,5 +1,5 @@
-"""In-tree model families of the port (the Llama, BERT, GPT-NeoX, GPT-J and
-OPT slices of `accelerate_tpu/models/__init__.py`).
+"""In-tree model families of the port (the Llama, BERT, GPT-NeoX, GPT-J, OPT
+and T5 slices of `accelerate_tpu/models/__init__.py`).
 
 Each family has its config, its `create_*` factory (random weights from a
 seed, made on the device) and its carry function, ``*_state_dict_from_flax``,
@@ -38,6 +38,17 @@ from .llama import (
     llama_tiny,
 )
 from .opt import OPTConfig, OPTForCausalLM, create_opt_model, opt_30b, opt_state_dict_from_flax, opt_tiny
+from .t5 import (
+    T5Config,
+    T5ForConditionalGeneration,
+    create_t5_model,
+    seq2seq_lm_loss,
+    t0pp_11b,
+    t5_small_v1_0,
+    t5_state_dict_from_flax,
+    t5_tiny,
+    t5_tiny_v1_0,
+)
 
 #: name -> config factory, the subset of the JAX package's MODEL_REGISTRY the
 #: port runs.
@@ -53,6 +64,10 @@ MODEL_REGISTRY = {
     "gpt-neox-tiny": gpt_neox_tiny,
     "opt-30b": opt_30b,
     "opt-tiny": opt_tiny,
+    "t0pp-11b": t0pp_11b,
+    "t5-tiny": t5_tiny,
+    "t5-small": t5_small_v1_0,
+    "t5-tiny-v1-0": t5_tiny_v1_0,
 }
 
 #: config type -> the family's model factory (JAX's CREATE_BY_FAMILY).
@@ -62,6 +77,7 @@ CREATE_BY_FAMILY = {
     GPTJConfig: create_gptj_model,
     GPTNeoXConfig: create_gpt_neox_model,
     OPTConfig: create_opt_model,
+    T5Config: create_t5_model,
 }
 
 

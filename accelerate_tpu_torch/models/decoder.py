@@ -20,6 +20,7 @@ its input and weight to one type before the product.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -176,7 +177,10 @@ def random_init(build, seed: int, dtype: torch.dtype, device: DeviceLike, embed_
     generator on that device, so no f32 copy of a model too large for it
     in f32 is ever made. Linear weights are normal with std 1/sqrt(fan_in),
     biases normal with std 0.02, embeddings normal with `embed_std` (1 by
-    default), LayerNorm scales ones and biases zeros."""
+    default; a function of the embedding module gives each its own),
+    LayerNorm scales ones and biases zeros, RMSNorm scales ones."""
+    from .llama import RMSNorm
+
     dev = resolve_device(device)
     with torch.device("meta"):
         model = build()
@@ -188,15 +192,18 @@ def random_init(build, seed: int, dtype: torch.dtype, device: DeviceLike, embed_
             if module.bias is not None:
                 module.bias.normal_(0.0, 0.02, generator=gen)
         elif isinstance(module, nn.Embedding):
-            module.weight.normal_(0.0, 1.0 if embed_std is None else embed_std, generator=gen)
+            std = embed_std(module) if callable(embed_std) else (1.0 if embed_std is None else embed_std)
+            module.weight.normal_(0.0, std, generator=gen)
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, RMSNorm):
+            module.weight.fill_(1.0)
     return model.eval()
 
 
 #: flax leaf name -> torch parameter name
-_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight", "rel_embedding": "weight"}
 
 
 def state_dict_from_flax(params, num_layers: int) -> Dict[str, torch.Tensor]:
@@ -221,12 +228,21 @@ def state_dict_from_flax(params, num_layers: int) -> Dict[str, torch.Tensor]:
     n_tree = sum(k.startswith("layer_") for k in tree)
     if n_tree != num_layers:
         raise ValueError(f"params tree has {n_tree} layers, the config {num_layers}")
+    return flax_tree_to_state_dict(tree)
+
+
+def flax_tree_to_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """The walk of `state_dict_from_flax` over a per-layer tree: a list
+    entry ``<name>_{i}`` (``layer_{i}``, T5's ``enc_blocks_{i}``) becomes
+    ``<name>.{i}`` (``layer`` as ``layers``), `Dense` kernels are
+    transposed, and each leaf takes its torch name (`_LEAVES`)."""
     sd = {}
 
     def walk(node, path):
         for key, value in node.items():
             if isinstance(value, dict):
-                name = f"layers.{key[len('layer_'):]}" if key.startswith("layer_") else key
+                m = re.fullmatch(r"(layer|enc_blocks|dec_blocks)_(\d+)", key)
+                name = f"{'layers' if m.group(1) == 'layer' else m.group(1)}.{m.group(2)}" if m else key
                 walk(value, path + [name])
                 continue
             if key not in _LEAVES:

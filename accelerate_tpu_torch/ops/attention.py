@@ -8,7 +8,8 @@ training run:
     of `ops/flash_attention.py`: long unmasked training sequences on the
     card. Every masked input, and so all of serving's prefill, takes the
     plain branch, as in the JAX package; so does a packed batch's
-    ``segment_ids`` (`segment_mask`, attention within equal ids).
+    ``segment_ids`` (`segment_mask`, attention within equal ids) and a
+    call with an additive score ``bias`` (T5's relative positions).
   - `write_slot_pool`: the paged cache's write half, into float pools or,
     with scale pools, into int8/fp8 pools (`ops/quantization.py`).
   - `slot_cache_attention`: write this dispatch's K/V into the pool, then
@@ -37,8 +38,8 @@ from __future__ import annotations
 
 import math
 import os
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -89,6 +90,7 @@ def dot_product_attention(
     v,
     mask=None,
     *,
+    bias=None,
     causal: bool = False,
     scale: Optional[float] = None,
     implementation: Optional[str] = None,
@@ -100,6 +102,10 @@ def dot_product_attention(
         q: [B, Sq, Hq, D]
         k / v: [B, Skv, Hkv, D] with Hq % Hkv == 0
         mask: optional bool, [B, 1|Hq, Sq, Skv] or [B, Skv]; True = attend.
+        bias: optional additive [1|B, Hq, Sq, Skv] score bias (T5's relative
+            positions), cast to the scores' dtype and added after scaling,
+            before the causal mask and `mask`. Like a mask, it keeps the
+            call on the plain path.
         causal: apply a bottom-right causal mask.
         scale: defaults to 1/sqrt(D).
         implementation: ``"xla"`` (the plain einsum-softmax path, JAX's name
@@ -126,14 +132,15 @@ def dot_product_attention(
         scale = 1.0 / math.sqrt(d)
     if segment_ids is not None and sq != skv:
         raise ValueError(f"segment_ids requires Sq == Skv (self-attention packing), got ({sq}, {skv})")
-    if implementation == "flash" and (mask is not None or segment_ids is not None):
-        blocked = "mask" if mask is not None else "segment_ids"
+    if implementation == "flash" and (bias is not None or mask is not None or segment_ids is not None):
+        blocked = "bias" if bias is not None else ("mask" if mask is not None else "segment_ids")
         raise ValueError(
             f"implementation='flash' cannot honor a {blocked} argument: the kernels thread only "
             "`causal`. Drop implementation= to let the dispatcher pick the plain path, or "
             "pass implementation='xla'."
         )
-    if use_flash(implementation, mask is not None or segment_ids is not None, sq, skv, causal, q.is_cuda):
+    masked = bias is not None or mask is not None or segment_ids is not None
+    if use_flash(implementation, masked, sq, skv, causal, q.is_cuda):
         LAST_DISPATCH = "flash"
         return flash_attention(q, k, v, causal=causal, scale=scale)
     LAST_DISPATCH = "xla"
@@ -142,6 +149,8 @@ def dot_product_attention(
         v = v.repeat_interleave(hq // hkv, dim=2)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # [B, H, S, D]
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale  # [B, H, Sq, Skv]
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
     neg = torch.finfo(scores.dtype).min
     if causal:
         scores = scores.masked_fill(~make_causal_mask(sq, skv, q.device), neg)
@@ -280,7 +289,10 @@ class DecodeCache:
     """The static `Generator`'s K/V cache: per layer a ``[B, L, Hkv, D]``
     key and value buffer, ONE physical write index shared by the batch and
     the layers (JAX keeps a `cache_index` per layer, all advanced together),
-    and, after a masked prefill, the persistent ``[B, L]`` bool pad mask.
+    and, after a masked prefill, the persistent ``[B, L]`` bool pad mask. An
+    encoder-decoder also keeps, per decoder layer, the cross-attention K and
+    V it projected from the encoder's output on its first decode call
+    (`cross`, layer -> (k, v)), which every later step reads back.
 
     `index` is a host integer: every write advances it by a number the host
     already knows (the block's length), and a speculative rewind by the
@@ -291,6 +303,7 @@ class DecodeCache:
     values: List[torch.Tensor]
     index: int = 0
     pad_mask: Optional[torch.Tensor] = None
+    cross: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(default_factory=dict)
 
     @classmethod
     def create(cls, num_layers: int, batch: int, max_length: int, kv_heads: int, head_dim: int,
@@ -367,13 +380,13 @@ def update_decode_cache(cache: DecodeCache, layer: int, k, v):
     return k_cache[:, :end], v_cache[:, :end]
 
 
-def decode_cache_attention(q, k, v, cache: DecodeCache, layer: int, mask):
+def decode_cache_attention(q, k, v, cache: DecodeCache, layer: int, mask, bias=None, scale=None):
     """The Generator's attention: write the block into the decode cache and
-    attend the written prefix under `mask` (`decode_cache_mask`), the plain
-    path, as JAX's masked `dot_product_attention` never takes the flash
-    gate."""
+    attend the written prefix under `mask` (`decode_cache_mask`) and an
+    optional score `bias` over the same prefix, the plain path, as JAX's
+    masked `dot_product_attention` never takes the flash gate."""
     k_all, v_all = update_decode_cache(cache, layer, k, v)
-    return dot_product_attention(q, k_all, v_all, mask=mask)
+    return dot_product_attention(q, k_all, v_all, mask=mask, bias=bias, scale=scale)
 
 
 def attend(q, k, v, positions, attention_mask=None, kv_pool=None, page_table=None, attention_impl="gather",

@@ -82,9 +82,18 @@ def _lib():
 
 
 # ------------------------------------------------------------- plain versions
+# The plain versions compute in fp32, or in float64 for float64 inputs: the
+# card's checks hold the f32 kernels to them on the same inputs widened to
+# float64, where the f32 plain version's own rounding would take most of the
+# f32 limit (`chip_smoke.flash_kernel_phase`).
+def _wide(x):
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _scores(q, k, causal, scale):
-    """fp32 [BH, S, Sk] scaled scores, masked bottom-right with NEG_INF."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    """fp32 (float64 for float64 inputs) [BH, S, Sk] scaled scores, masked
+    bottom-right with NEG_INF."""
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     if causal:
         sq, skv = q.shape[1], k.shape[1]
         rows = torch.arange(sq, device=q.device)[:, None]
@@ -94,35 +103,36 @@ def _scores(q, k, causal, scale):
 
 
 def flash_fwd_reference(q, k, v, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of K3: (o in q's dtype, lse [BH, S] fp32)."""
+    """The plain version of K3: (o in q's dtype, lse [BH, S] fp32, or
+    float64 for float64 inputs)."""
     s = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p, v.float()) / l
+    o = torch.matmul(p, _wide(v)) / l
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool, scale: float):
     """The plain version of K4: (dk, dv) in q's dtype."""
     p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    do32 = do.float()
+    do32 = _wide(do)
     dv = torch.matmul(p.transpose(-1, -2), do32)
-    ds = p * (torch.matmul(do32, v.float().transpose(-1, -2)) - delta[..., None]) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    ds = p * (torch.matmul(do32, _wide(v).transpose(-1, -2)) - delta[..., None]) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), _wide(q))
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool, scale: float):
     """The plain version of K5: dq in q's dtype."""
     p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
-    return torch.matmul(ds, k.float()).to(q.dtype)
+    ds = p * (torch.matmul(_wide(do), _wide(v).transpose(-1, -2)) - delta[..., None]) * scale
+    return torch.matmul(ds, _wide(k)).to(q.dtype)
 
 
 def _delta(o, do):
     """rowsum(do * o) in fp32, [BH, S]: computed outside the kernels, as JAX does."""
-    return (do.float() * o.float()).sum(dim=-1)
+    return (_wide(do) * _wide(o)).sum(dim=-1)
 
 
 def flash_bwd_reference(q, k, v, o, lse, do, causal: bool, scale: float):

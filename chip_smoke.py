@@ -47,7 +47,9 @@ prints no result):
    kernel takes; bf16, int8 and fp8 pools) and K3-K5 at GPT-NeoX-20B's
    training attention (batch 1, 64 heads, sequence 2048, D 96) and
    GPT-J-6B's (16 heads of 256), in f32, bf16 and fp16 with fp16's range
-   case.
+   case. Then K3-K5 at T5's cross-attention shape (batch 2, 64 heads of 64,
+   1024 queries over 2048 keys, non-causal, scale 1.0), f32 and bf16, with
+   SDPA (is_causal=False, scale=1.0) as the yardstick.
 3. Engine: `create_named_model("llama-1b")` at full width and depth (random
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
@@ -176,9 +178,38 @@ prints no result):
        2, 2 warm-up and 4 timed steps (step time, tokens/s, MFU, peak
        memory; losses finite and falling; K3-K5 launched layers x 4 times at
        D 96, 256 and 128); 2 fp16 steps counting the fp16 kernels' launches.
-8. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+8. T5 at T0pp-11B's published widths (vocab 32128, d_model 4096, 64 heads
+   of 64, FFN 10240 gated-GELU, untied head; random weights from seed 0):
+   (a) training through `Accelerator.prepare` and `train_step`, cut to 2
+       encoder and 2 decoder layers, 2048 encoder and 1024 decoder tokens,
+       no attention mask: f32, batch 1, 2 steps, the kernels' losses against
+       the plain attention's (rtol 1e-4), and the first step's gradient of
+       every parameter (relative norm 1e-4); bf16, batch 2, AdamW with weight
+       decay, 2 warm-up and 4 timed steps (step time, tokens/s, MFU, peak
+       memory; losses finite and falling). The cross-attention takes the
+       flash gate (K3-K5 non-causal, Sq 1024 over Skv 2048, scale 1.0); every
+       self-attention carries the relative bias and takes the plain path:
+       each kernel launched 2 decoder layers x steps times.
+   (b) `Seq2SeqGenerator`: f32 cut to 2 + 2 layers, its greedy tokens equal
+       the uncached full-forward argmax loop's (one row right-padded under an
+       attention mask); bf16 at the full 24 + 24 layers (22.3 GB), batch 8,
+       prompts of 512 tokens (two right-padded under an attention mask), 128
+       new greedy tokens: time to the first token (encode and prime), decode
+       tokens/s, the decode step beside its weight-read bound, peak memory
+       (with --profile, the device's busy share over one more call); no
+       K1-K5 launch.
+9. HF checkpoint interchange: Llama-1B bf16 written with
+   `save_hf_checkpoint` into a temporary directory and loaded with
+   `load_hf_checkpoint_in_model` into a model from another seed: the same
+   tensors bit for bit, and the paged engine's 16 requests of phase 3,
+   plain (K1) and speculative (K2), give the original's tokens; the file's
+   bytes, the save and load seconds and the directory's filesystem
+   (`df -T`). Then T5 at T0pp-11B's widths cut to 2 + 2 layers round trips
+   with bit-equal logits.
+10. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
    quantized modes at Llama-1B's and at GPT-NeoX-20B's shape, K3-K5 in
-   bf16 and in fp16 at Llama-1B's head 64 and at heads 96 and 256), the
+   bf16 and in fp16 at Llama-1B's head 64 and at heads 96 and 256, and in
+   bf16 at T5's cross-attention shape, non-causal: `*_t5cross`), the
    nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -199,7 +230,8 @@ to back (one serving run's) and the host's time per call over the first
 256, then ptxas' report of the tree's paged kernels; K3, K4 and K5 in bf16 at the training shape (head dimension
 D if given), timed as above, each kernel's largest error against its plain
 version, SDPA's forward time as a yardstick of the card, and ptxas' report
-of the tree's wgmma kernels. It prints no result line.
+of the tree's wgmma kernels; and K3-K5 the same way at T5's cross-attention
+shape (non-causal, scale 1.0). It prints no result line.
 """
 
 from __future__ import annotations
@@ -284,6 +316,12 @@ PAGED_SCALAR_DESIGN = ("bf16 and f32 q at D 96 (GPT-NeoX-20B, G = 1): paged_spli
 # heads of 256): batch 1, sequence 2048, causal. OPT-30B's 56 heads of 128
 # run the D 128 kernels.
 FAMILY_FLASH_SHAPES = {96: dict(b=1, hq=64, s=2048, d=96), 256: dict(b=1, hq=16, s=2048, d=256)}
+# T5's cross-attention in training (T0pp-11B's heads: 64 of 64): a 1024-token
+# decoder over a 2048-token encoder, batch 2, non-causal, scale 1.0 (T5 does
+# not scale its scores): K3-K5's non-causal mode over Sq < Skv.
+T5_CROSS_FLASH_SHAPE = dict(b=2, hq=64, s=1024, sk=2048, d=64)
+T5_CROSS_DESIGN = ("; T5 cross-attention: non-causal, Sq 1024 over Skv 2048, scale 1.0, every key tile "
+                   "visible to every query tile")
 WIDE_FLASH_DESIGN = {
     96: "; D 96: three 32-column panels at the 64B swizzle, wgmma n64 + n32 for the D-wide products, 64-key tiles",
     256: "; D 256: four 64-column panels at the 128B swizzle, two wgmma n128 for the D-wide products, 64-key "
@@ -310,6 +348,13 @@ FLASH_SOURCE = "accelerate_tpu_torch/csrc/flash_attention.cu"
 # Their limit is atol + rtol |ref| plus that bound (`flash_rounding_bound`),
 # from the plain versions' own P and dS.
 FLASH_F32_TOL = {"out": dict(atol=2e-5, rtol=0.0), "grad": dict(atol=1e-4, rtol=1e-4)}
+# The f32 kernels' plain versions run on the same inputs widened to float64
+# (the plain versions then compute in float64): at T5's scale 1.0 the scores
+# are sqrt(D) times wider than at 1/sqrt(D), and an f32 GEMM's own rounding
+# of them moves o by most of the 2e-5 limit (SDPA's f32 o against float64:
+# 1.5e-5 at T5's cross shape on one H100), where the kernel's lane-split sums
+# err less (8.5e-6).
+F32_REFERENCE = torch.float64
 BF16_UNIT = 2.0 ** -8  # round to nearest bf16: |fl(x) - x| <= 2^-8 |x|
 FLASH_ROUNDED = {  # outputs whose bf16 limit adds the rounding bound: what it is
     ("flash_fwd", "o"): "2^-8 * (P @ |V|)",
@@ -357,6 +402,26 @@ FAMILY_TRAIN_LAYERS = {"gpt-neox-20b": 2, "gptj-6b": 4, "opt-30b": 2}
 # depth (20.6 GB bf16, 10.1 GB int8, the int8 pools 4.4 GB).
 NEOX_W8_LAYERS = 22
 FAMILY_TIMED_STEPS, FAMILY_WARMUP, FAMILY_FP16_STEPS = 4, 2, 2
+
+# T5 (phase 8): T0pp-11B at its published widths. Training is cut to this
+# many encoder and decoder layers (the full 24 + 24 needs about 200 GB with
+# f32 AdamW state) on 2048 encoder and 1024 decoder tokens; generation runs
+# the full depth in bf16 (22.3 GB).
+T5_MODEL = "t0pp-11b"
+T5_TRAIN_LAYERS = 2
+T5_ENC_SEQ, T5_DEC_SEQ = 2048, 1024
+T5_GENERATE = dict(batch=8, prompt=512, new=128, padded=((2, 384), (5, 200)), parity_layers=2, parity_batch=2,
+                   parity_prompt=64, parity_new=16)
+# T5's f32 parity (`t5_f32_parity`) holds the first T5_PARITY_STEPS steps'
+# losses (TRAIN_F32_RTOL) and the first step's gradient of every parameter
+# (T5_GRAD_RTOL, the norm of the difference over the plain one's) through
+# the kernels to those through the plain attention. A third step is run and
+# reported beside the same steps with every attention in float64: at flax's
+# initial weights T5's unscaled scores spread over about +-8 sigma, and from
+# the third step the losses of any two f32 attentions part, the plain one's
+# from float64's as far as the kernels' do.
+T5_PARITY_STEPS = 2
+T5_GRAD_RTOL = 1e-4
 
 # Training (phase 5).
 TRAIN_LR, TRAIN_BETAS, TRAIN_EPS, TRAIN_WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
@@ -1106,12 +1171,13 @@ def generate_phase(device, model_name="llama-1b", shape=GENERATE_SHAPE, n_reques
 
 
 # ---------------------------------------------------------- flash kernels
-def flash_case(device, dtype, b, hq, s, d, seed, scales=None):
-    """q, k, v and an output cotangent do, [B*H, S, D] each, standard normal
-    times `scales[name]` where given."""
+def flash_case(device, dtype, b, hq, s, d, seed, scales=None, sk=None):
+    """q and an output cotangent do, [B*H, S, D], and k and v, [B*H, Sk, D]
+    (Sk = S unless given), standard normal times `scales[name]` where given."""
     gen = torch.Generator(device=device).manual_seed(seed)
     scales = scales or {}
-    return [(torch.randn((b * hq, s, d), generator=gen, device=device) * scales.get(name, 1.0)).to(dtype)
+    rows = {"q": s, "k": sk or s, "v": sk or s, "do": s}
+    return [(torch.randn((b * hq, rows[name], d), generator=gen, device=device) * scales.get(name, 1.0)).to(dtype)
             for name in ("q", "k", "v", "do")]
 
 
@@ -1135,15 +1201,16 @@ def flash_bound(name, q, k, causal=True):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_flash_yardsticks(q, k, v, do, b, hq):
-    """`F.scaled_dot_product_attention(is_causal=True)` on the same inputs
-    viewed [B, H, S, D], and its autograd backward (dq, dk and dv in one
-    call): yardsticks of time and error only, the port never calls them."""
+def sdpa_flash_yardsticks(q, k, v, do, b, hq, causal=True, scale=None):
+    """`F.scaled_dot_product_attention(is_causal=causal, scale=scale)` on
+    the same inputs viewed [B, H, S, D], and its autograd backward (dq, dk
+    and dv in one call): yardsticks of time and error only, the port never
+    calls them."""
     fn = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (x.detach().view(b, hq, *x.shape[1:]).requires_grad_() for x in (q, k, v))
-    out = fn(q4, k4, v4, is_causal=True)
+    out = fn(q4, k4, v4, is_causal=causal, scale=scale)
     do4 = do.view_as(out)
-    forward = lambda: fn(q4, k4, v4, is_causal=True)  # noqa: E731
+    forward = lambda: fn(q4, k4, v4, is_causal=causal, scale=scale)  # noqa: E731
     backward = lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)  # noqa: E731
     return forward, backward
 
@@ -1218,60 +1285,69 @@ def limit_report(got, ref, atol, rtol, bound=None):
     }}
 
 
-def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True):
-    """K3, K4 and K5 against their plain versions, f32, bf16 and fp16; each
-    kernel check is one launch. K4 and K5 get the lse and delta of the
-    plain forward, so each is held alone. bf16 and fp16 K3's o, K4's dk and
-    dv and K5's dq also report the element nearest to breaking the limit
-    without the rounding bound, and SDPA's output under both limits. Then
-    fp16 K4 and K5 on the range case (`flash_range_case`)."""
+def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True, causal=True, scale=None,
+                       dtypes=(torch.float32, torch.bfloat16, torch.float16)):
+    """K3, K4 and K5 against their plain versions in each of `dtypes`, at
+    `shape` (``sk``, the key length, defaults to ``s``), `causal` or not, at
+    `scale` (1/sqrt(D) by default); each kernel check is one launch. K4 and
+    K5 get the lse and delta of the plain forward, so each is held alone.
+    bf16 and fp16 K3's o, K4's dk and dv and K5's dq also report the element
+    nearest to breaking the limit without the rounding bound, and SDPA's
+    output under both limits. Then, with fp16 among `dtypes`, fp16 K4 and
+    K5 on the range case (`flash_range_case`)."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    scale = shape["d"] ** -0.5
+    scale = shape["d"] ** -0.5 if scale is None else scale
     results = {name: {} for name in FLASH_KERNELS}
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+    for dtype in dtypes:
         q, k, v, do = flash_case(device, dtype, seed=21, **shape)
-        ref_o, lse = fa.flash_fwd_reference(q, k, v, True, scale)
-        delta = (do.float() * ref_o.float()).sum(-1)
-        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)
-        ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
-        lib_fwd, lib_bwd = sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])
+        # f32 kernels are held to the plain versions on the same inputs
+        # widened to float64 (F32_REFERENCE); the kernels take the f32 lse
+        # and delta.
+        wide = [x.to(F32_REFERENCE) for x in (q, k, v, do)] if dtype == torch.float32 else (q, k, v, do)
+        ref_o, ref_lse = fa.flash_fwd_reference(*wide[:3], causal, scale)
+        ref_delta = fa._delta(ref_o, wide[3])
+        lse, delta = ref_lse.float(), ref_delta.float()
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*wide, ref_lse, ref_delta, causal, scale)
+        ref_dq = fa.flash_bwd_dq_reference(*wide, ref_lse, ref_delta, causal, scale)
+        lib_fwd, lib_bwd = sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"], causal, scale)
         sdpa = dict(zip(("dq", "dk", "dv"), lib_bwd()), o=lib_fwd().detach())
         refs = {"o": ref_o, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv}
         sdpa_err = {key: float((sdpa[key].reshape(ref.shape).float() - ref.float()).abs().max())
                     for key, ref in refs.items()}
         calls = {
-            "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True, scale=scale),
-            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
-            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=causal, scale=scale),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale),
         }
         plains = {
-            "flash_fwd": lambda: fa.flash_fwd_reference(q, k, v, True, scale),
-            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale),
-            "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale),
+            "flash_fwd": lambda: fa.flash_fwd_reference(q, k, v, causal, scale),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale),
         }
-        expect = {"flash_fwd": {"o": ref_o, "lse": lse}, "flash_bwd_dkv": {"dk": ref_dk, "dv": ref_dv},
+        expect = {"flash_fwd": {"o": ref_o, "lse": ref_lse}, "flash_bwd_dkv": {"dk": ref_dk, "dv": ref_dv},
                   "flash_bwd_dq": {"dq": ref_dq}}
         for name, call in calls.items():
             got = launch_checked(device, name, dtype, call, expect[name])
             row = {"max_abs_err": 0.0, "errors": {}}
             for key, ref in expect[name].items():
                 entry = row["errors"][key] = hold_flash_output(name, key, got[key], ref, q, k, v, do, lse, delta,
-                                                               scale, sdpa=sdpa.get(key))
+                                                               scale, sdpa=sdpa.get(key), causal=causal)
                 if key != "lse":
                     entry["sdpa_max_abs_err"] = sdpa_err[key]
                     row["max_abs_err"] = max(row["max_abs_err"], entry["max_abs_err"])
-            bound, bound_by = flash_bound(name, q, k)
+            bound, bound_by = flash_bound(name, q, k, causal)
             row.update(bound_ms=bound, bound_by=bound_by)
             if timed:
                 row.update(paired_times(call, lib_fwd if name == "flash_fwd" else lib_bwd, device))
                 row["plain_ms"] = time_ms(plains[name], device, iters=20)
             results[name][str(dtype).replace("torch.", "")] = row
             log(f"[flash] {name} {dtype}: {json.dumps(row)}")
-        del q, k, v, do, ref_o, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains, refs, sdpa, lib_fwd, lib_bwd
-    range_rows = flash_range_case(device, shape)
-    for name, row in range_rows.items():
-        results[name]["float16"]["range_case"] = row
+        del q, k, v, do, wide, ref_o, ref_lse, ref_delta, lse, delta, ref_dk, ref_dv, ref_dq, calls, plains, refs
+        del sdpa, lib_fwd, lib_bwd
+    if torch.float16 in dtypes:
+        for name, row in flash_range_case(device, shape).items():
+            results[name]["float16"]["range_case"] = row
     return results
 
 
@@ -1294,7 +1370,7 @@ def launch_checked(device, name, dtype, call, keys):
     return got
 
 
-def hold_flash_output(name, key, got, ref, q, k, v, do, lse, delta, scale, sdpa=None, dp_order=False):
+def hold_flash_output(name, key, got, ref, q, k, v, do, lse, delta, scale, sdpa=None, dp_order=False, causal=True):
     """Hold output `key` of kernel `name` to its plain version `ref` at the
     limit of q's type (`flash_tolerance`), plus, for bf16 and fp16 outputs of
     FLASH_ROUNDED, the rounding bound (and with `dp_order` for dk and dq,
@@ -1305,10 +1381,10 @@ def hold_flash_output(name, key, got, ref, q, k, v, do, lse, delta, scale, sdpa=
     tol = flash_tolerance(dtype, key)
     entry = {"max_abs_err": float((got.float() - ref.float()).abs().max()), "tolerance": tol}
     if dtype in ROUNDING_UNIT and (name, key) in FLASH_ROUNDED:
-        bound = flash_rounding_bound(name, key, q, k, v, do, lse, delta, True, scale)
+        bound = flash_rounding_bound(name, key, q, k, v, do, lse, delta, causal, scale)
         entry["tolerance"] = dict(tol, plus=FLASH_ROUNDED[(name, key)].replace("2^-8", UNIT_TEXT[dtype]))
         if dp_order and key in ("dk", "dq"):
-            bound = bound + dp_order_bound(key, q, k, v, do, lse, True, scale)
+            bound = bound + dp_order_bound(key, q, k, v, do, lse, causal, scale)
             entry["tolerance"]["plus"] += (" + 2 D 2^-24 scale (P * (|dO| @ |V|^T))"
                                            + ("^T @ |Q|" if key == "dk" else " @ |K|"))
         entry["limit"] = limit_report(got, ref, **tol, bound=bound)
@@ -1418,32 +1494,38 @@ def paged_compare(device, shape=KERNEL_SHAPE):
 
 
 def flash_compare(device, head_dim):
-    """K3, K4 and K5 in bf16 at FLASH_SHAPE with head dimension `head_dim`:
-    times, errors against the plain versions and SDPA's forward time."""
+    """K3, K4 and K5 in bf16 at FLASH_SHAPE with head dimension `head_dim`
+    (causal), and under ``t5cross`` at T5_CROSS_FLASH_SHAPE (non-causal,
+    scale 1.0): times, errors against the plain versions and SDPA's forward
+    time."""
+    out = flash_compare_case(device, dict(FLASH_SHAPE, d=head_dim), causal=True, scale=head_dim ** -0.5)
+    out["t5cross"] = flash_compare_case(device, T5_CROSS_FLASH_SHAPE, causal=False, scale=1.0)
+    return out
+
+
+def flash_compare_case(device, shape, causal, scale):
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    shape = dict(FLASH_SHAPE, d=head_dim)
-    scale = shape["d"] ** -0.5
     q, k, v, do = flash_case(device, torch.bfloat16, seed=21, **shape)
-    o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
     delta = (do.float() * o.float()).sum(-1)
-    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
-    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True, scale)
-    ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
-    got = dict(zip(("dk", "dv"), fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale)),
-               o=o, lse=lse, dq=fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale))
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+    ref_dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    got = dict(zip(("dk", "dv"), fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)),
+               o=o, lse=lse, dq=fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale))
     refs = {"o": ref_o, "lse": ref_lse, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv}
     errors = {key: float((got[key].float() - ref.float()).abs().max()) for key, ref in refs.items()}
     del got, refs, ref_o, ref_lse, ref_dk, ref_dv, ref_dq
     calls = {
-        "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True, scale=scale),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=causal, scale=scale),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale),
     }
     ms = {name: time_ms(call, device) for name, call in calls.items()}
-    ms["sdpa_fwd"] = time_ms(sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"])[0], device)
+    ms["sdpa_fwd"] = time_ms(sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"], causal, scale)[0], device)
     device_ms = {name: time_ms(call, device, spin=True) for name, call in calls.items()}
-    return {"shape": shape, "ms": ms, "device_ms": device_ms, "errors": errors}
+    return {"shape": dict(shape, causal=causal, scale=scale), "ms": ms, "device_ms": device_ms, "errors": errors}
 
 
 def compare(trees, head_dim=FLASH_SHAPE["d"]) -> int:
@@ -1469,13 +1551,14 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
-          after_step=None, remat_policy=None):
+          after_step=None, remat_policy=None, loader=None):
     """Train a model of `config` (its family's, random weights from seed 0)
     through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
     step_fn)` runs before step i and `after_step(i, step_fn)` after it, both
     outside its timing. `remat_policy` goes to the accelerator's
-    `CompilationConfig`."""
+    `CompilationConfig`. The data is `loader`, or one repeated batch of
+    `batch` x `seq` tokens (`repeated_batch_loader`)."""
     from accelerate_tpu_torch import Accelerator, CompilationConfig
     from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -1487,7 +1570,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
                               compilation_config=CompilationConfig(remat_policy=remat_policy))
     optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
                                   weight_decay=TRAIN_WD)
-    loader = repeated_batch_loader(config.vocab_size, batch, warmup + steps, seq)
+    if loader is None:
+        loader = repeated_batch_loader(config.vocab_size, batch, warmup + steps, seq)
     pmodel, optimizer, loader, schedule = accelerator.prepare(model, optimizer, loader, lambda step: TRAIN_LR)
     step_fn = accelerator.train_step(max_grad_norm=1.0)
     losses, seconds = [], []
@@ -2244,6 +2328,388 @@ def family_training_phase(device, model_name, layers, seq=TRAIN_SEQ, timed_steps
     return report
 
 
+# ----------------------------------------------------------------------- T5
+def t5_config(model_name, layers):
+    """`model_name`'s T5 config cut to `layers` encoder and `layers` decoder layers."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    return dataclasses.replace(MODEL_REGISTRY[model_name](), num_layers=layers, num_decoder_layers=layers)
+
+
+def t5_batch_loader(vocab, batch, steps, enc_seq, dec_seq, seed=0):
+    """A `SimpleDataLoader` over one seq2seq batch from numpy `seed`, repeated
+    `steps` times: `batch` encoder rows of `enc_seq` tokens, labels of
+    `dec_seq` tokens and the decoder inputs, the labels shifted right behind
+    the start token 0. No attention mask, so the cross-attention takes the
+    flash gate."""
+    from accelerate_tpu_torch import BatchSampler, SimpleDataLoader
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, vocab, (batch, enc_seq)).astype(np.int64)
+    labels = rng.integers(1, vocab, (batch, dec_seq)).astype(np.int64)
+    dec = np.concatenate([np.zeros((batch, 1), np.int64), labels[:, :-1]], axis=1)
+    data = [{"input_ids": src[i % batch], "decoder_input_ids": dec[i % batch], "labels": labels[i % batch]}
+            for i in range(batch * steps)]
+    return SimpleDataLoader(data, BatchSampler(range(len(data)), batch))
+
+
+def t5_step_flops(model, batch, enc_seq, dec_seq):
+    """A T5 training step's GEMM operations: 6 x (the encoder blocks'
+    parameters x encoder tokens + (the decoder blocks' and the head's) x
+    decoder tokens); attention's score products and the lookups are left out."""
+    def n(module):
+        return sum(p.numel() for p in module.parameters())
+
+    head = model.shared if model.lm_head is None else model.lm_head
+    return 6 * batch * (n(model.enc_blocks) * enc_seq + (n(model.dec_blocks) + n(head)) * dec_seq)
+
+
+def attention_mode(name):
+    """A context for T5's attention: ``"flash"`` (the gate as it is),
+    ``"xla"`` (ACCELERATE_TPU_ATTENTION_IMPL=xla: the plain path) or
+    ``"f64"`` (the plain path on float64 copies of its inputs, cast back: a
+    reference of T5's f32 rounding, never a path of the port)."""
+    import contextlib
+
+    from accelerate_tpu_torch.models import t5
+
+    @contextlib.contextmanager
+    def scope():
+        plain = t5.dot_product_attention
+
+        def f64(q, k, v, mask=None, *, bias=None, causal=False, scale=None, **_):
+            wide = [x.double() for x in (q, k, v)]
+            return plain(*wide, mask, bias=None if bias is None else bias.double(), causal=causal, scale=scale,
+                         implementation="xla").to(q.dtype)
+
+        if name != "flash":
+            os.environ["ACCELERATE_TPU_ATTENTION_IMPL"] = "xla"
+        if name == "f64":
+            t5.dot_product_attention = f64
+        try:
+            yield
+        finally:
+            os.environ.pop("ACCELERATE_TPU_ATTENTION_IMPL", None)
+            t5.dot_product_attention = plain
+
+    return scope()
+
+
+def t5_f32_parity(device, config, make_loader, steps=T5_PARITY_STEPS + 1):
+    """f32 T5 training (batch 1, `steps` steps of `make_loader(1, steps)`'s
+    batch) through the kernels, the plain attention and the plain attention
+    in float64 (`attention_mode`), from the same weights: the first
+    T5_PARITY_STEPS losses through the kernels within TRAIN_F32_RTOL of the
+    plain ones; the first step's gradient of every parameter within
+    T5_GRAD_RTOL; the kernel runs launched each flash kernel once per
+    decoder layer and pass, the others none. Every pair's differences are
+    reported."""
+    from accelerate_tpu_torch.models import create_t5_model
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    modes = ("flash", "xla", "f64")
+    layers = config.num_decoder_layers
+    losses, grads = {}, {}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in next(iter(make_loader(1, 1))).items()}
+    model = create_t5_model(config, seed=0, device=device)
+    for name in modes:
+        fa.reset_launch_counts()
+        with attention_mode(name):
+            losses[name] = train(device, config, "no", batch=1, steps=steps, loader=make_loader(1, steps))[0]
+            model.zero_grad(set_to_none=True)
+            model.loss_fn(batch, model).backward()
+        grads[name] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        want = expected_launches(layers * (steps + 1), torch.float32 if name == "flash" else None)
+        if device.type == "cuda" and dict(fa.LAUNCHES) != want:
+            raise RuntimeError(f"T5 f32 {name} attention: flash launches {dict(fa.LAUNCHES)}, expected {want}")
+        free_memory(device)
+    report = {"layers": [config.num_layers, layers], "losses": losses, "gated_steps": T5_PARITY_STEPS,
+              "rtol": TRAIN_F32_RTOL, "grad_rtol": T5_GRAD_RTOL, "rel_diff": {}, "grad_rel_norm_diff": {}}
+    for a, b in (("flash", "xla"), ("flash", "f64"), ("xla", "f64")):
+        report["rel_diff"][f"{a}_vs_{b}"] = [abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b])]
+        diff = {n: float((grads[a][n] - g).norm() / g.norm().clamp_min(1e-30)) for n, g in grads[b].items()}
+        worst = max(diff, key=diff.get)
+        report["grad_rel_norm_diff"][f"{a}_vs_{b}"] = {"worst": worst, "rel_norm_diff": diff[worst]}
+    log(f"[t5] f32 parity: {json.dumps(report)}")
+    gated = report["rel_diff"]["flash_vs_xla"][:T5_PARITY_STEPS]
+    if not all(np.isfinite(losses["flash"])) or max(gated) > TRAIN_F32_RTOL:
+        raise RuntimeError(f"T5 f32 kernel losses {losses['flash']} differ from plain {losses['xla']} (rtol {gated})")
+    grad = report["grad_rel_norm_diff"]["flash_vs_xla"]
+    if grad["rel_norm_diff"] > T5_GRAD_RTOL:
+        raise RuntimeError(f"T5 f32 first-step gradient of {grad['worst']} through the kernels differs from the "
+                           f"plain one by {grad['rel_norm_diff']} (relative norm)")
+    del model, grads
+    return report
+
+
+def t5_training_phase(device, model_name=T5_MODEL, layers=T5_TRAIN_LAYERS, enc_seq=T5_ENC_SEQ, dec_seq=T5_DEC_SEQ,
+                      batch=2, timed_steps=FAMILY_TIMED_STEPS, warmup=FAMILY_WARMUP, profile=False):
+    """T5 at `model_name`'s widths cut to `layers` + `layers` layers, through
+    `Accelerator.prepare` and `train_step`, on `enc_seq` encoder and
+    `dec_seq` decoder tokens with no attention mask: (a) f32, batch 1, the
+    kernels' losses and first-step gradients against the plain attention's
+    (`t5_f32_parity`), each flash kernel launched once per decoder layer
+    and pass (the cross-attention; every self-attention carries the
+    relative bias and takes the plain path); (b) bf16 mixed precision, batch x tokens,
+    `warmup` + `timed_steps` steps of AdamW with weight decay on one repeated
+    batch: step time, tokens/s (encoder and decoder tokens), MFU
+    (`t5_step_flops` over 989 TFLOP/s), peak memory; losses finite and
+    falling; each bf16 flash kernel launched decoder layers x timed steps
+    times. With `profile`, device time by kernel group of one more step."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = t5_config(model_name, layers)
+    on_card = device.type == "cuda"
+    report = {"model": model_name, "layers": [layers, layers], "enc_seq": enc_seq, "dec_seq": dec_seq}
+
+    def make(b, steps):
+        return t5_batch_loader(config.vocab_size, b, steps, enc_seq, dec_seq)
+
+    t0 = time.perf_counter()
+    report["f32_parity"] = t5_f32_parity(device, config, make)
+    free_memory(device)
+    log(f"[time] t5 training (a) f32 {time.perf_counter() - t0:.1f}s")
+
+    def before_step(i, step_fn):
+        if i == warmup:
+            fa.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+
+    t0 = time.perf_counter()
+    losses, seconds, pmodel, step_fn, last_batch = train(device, config, "bf16", batch=batch, steps=timed_steps,
+                                                         warmup=warmup, on_step=before_step,
+                                                         loader=make(batch, warmup + timed_steps))
+    launches = dict(fa.LAUNCHES)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{model_name} bf16 training on a repeated batch: losses {losses}")
+    if on_card and launches != expected_launches(layers * timed_steps, torch.bfloat16):
+        raise RuntimeError(f"{model_name} bf16 timed steps: flash launches {launches}, expected {layers} decoder "
+                           f"layers x {timed_steps}")
+    step_s = float(np.median(seconds[warmup:]))
+    flops = t5_step_flops(pmodel.module, batch, enc_seq, dec_seq)
+    bf16 = {
+        "batch": batch, "parameters": pmodel.num_parameters, "warmup_steps": warmup, "timed_steps": timed_steps,
+        "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * x for x in seconds],
+        "tokens_per_s": batch * (enc_seq + dec_seq) / step_s, "decoder_tokens_per_s": batch * dec_seq / step_s,
+        "flops_per_step": flops, "mfu": flops / step_s / BF16_PEAK_FLOPS, "launches": launches, "losses": losses,
+    }
+    if on_card:
+        bf16["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    log(f"[t5] train bf16 {layers} + {layers} layers: {json.dumps(bf16)}")
+    report["bf16"] = bf16
+    if profile:
+        report["bf16_profile"] = profile_train_step(step_fn, last_batch, device, step_s)
+    del pmodel, step_fn, last_batch
+    free_memory(device)
+    log(f"[time] t5 training (b) bf16 {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+def t5_full_context_greedy(model, ids, mask, n, device):
+    """Greedy tokens by argmax over the uncached teacher-forced forward, the
+    decoder context grown a token at a time from the start token 0."""
+    ids_t, am = torch.as_tensor(ids, device=device), torch.as_tensor(mask, device=device)
+    dec = torch.zeros((ids.shape[0], 1), dtype=torch.long, device=device)
+    with torch.no_grad():
+        for _ in range(n):
+            dec = torch.cat([dec, model(ids_t, dec, am)[:, -1].argmax(-1)[:, None]], dim=1)
+    return dec[:, 1:].cpu().numpy()
+
+
+def t5_generate_phase(device, model_name=T5_MODEL, shape=T5_GENERATE, profile=False):
+    """`Seq2SeqGenerator` over T5 at `model_name`'s widths: (a) f32 cut to
+    ``parity_layers`` + ``parity_layers`` layers, a batch with one
+    right-padded row and its attention mask: the generator's greedy tokens
+    equal `t5_full_context_greedy`'s; (b) bf16 at full depth, `batch`
+    prompts of `prompt` tokens, the rows in `padded` right-padded to their
+    lengths with an attention mask, `new` greedy tokens: the time to the
+    first token (encode and the start token's prime: the median of three
+    one-token calls), decode tokens/s, the decode step beside its
+    weight-read bound (the decoder and the head, bf16, at 3.35 TB/s) and
+    peak memory; with `profile`, device time by kernel group and the
+    device's busy share over one more call. No K1-K5 kernel launches: every
+    attention is masked, biased or one query row long, as in JAX."""
+    from accelerate_tpu_torch import Seq2SeqGenerator, create_named_model
+    from accelerate_tpu_torch.models import create_t5_model
+
+    report = {"model": model_name}
+    rng = np.random.default_rng(2)
+    cfg = t5_config(model_name, shape["parity_layers"])
+    b, p, n = shape["parity_batch"], shape["parity_prompt"], shape["parity_new"]
+    model = create_t5_model(cfg, seed=0, device=device)
+    ids = rng.integers(1, cfg.vocab_size, (b, p))
+    mask = np.ones((b, p), np.int64)
+    mask[-1, p // 2:] = 0
+    got = Seq2SeqGenerator(model, max_new_tokens=n, device=device)(ids, max_new_tokens=n, attention_mask=mask)
+    got = got.cpu().numpy()
+    expect = t5_full_context_greedy(model, ids, mask, n, device)
+    if not np.array_equal(got, expect):
+        raise RuntimeError(f"f32 Seq2SeqGenerator tokens {got.tolist()} differ from the uncached loop's "
+                           f"{expect.tolist()}")
+    report["f32_parity"] = {"layers": [cfg.num_layers, cfg.num_decoder_layers], "batch": b, "prompt": p,
+                            "new_tokens": n, "tokens_equal_uncached_loop": True}
+    log(f"[t5] f32 generate, {cfg.num_layers} + {cfg.num_decoder_layers} layers: tokens equal the uncached "
+        f"full-forward loop's ({b} x {n})")
+    del model
+    free_memory(device)
+
+    t0 = time.perf_counter()
+    model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+    cfg = model.config
+    report.update(layers=[cfg.num_layers, cfg.num_decoder_layers], build_s=time.perf_counter() - t0,
+                  parameters=sum(x.numel() for x in model.parameters()))
+    log(f"[t5] {model_name} bf16 built in {report['build_s']:.1f}s: {report['parameters']} parameters")
+    new = shape["new"]
+    gen = Seq2SeqGenerator(model, max_new_tokens=new, device=device)
+    gen(rng.integers(1, cfg.vocab_size, (1, 16)), max_new_tokens=4)  # warm-up
+    ids = rng.integers(1, cfg.vocab_size, (shape["batch"], shape["prompt"]))
+    mask = np.ones_like(ids)
+    for row, length in shape["padded"]:
+        ids[row, length:], mask[row, length:] = 0, 0
+    reset_launch_counts()
+    ttft = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen(ids, max_new_tokens=1, attention_mask=mask)
+        sync(device)
+        ttft.append(time.perf_counter() - t0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def run():
+        t = time.perf_counter()
+        out = gen(ids, max_new_tokens=new, attention_mask=mask)
+        sync(device)
+        return time.perf_counter() - t, out
+
+    wall, out = run()
+    tokens = out.cpu().numpy()
+    if tokens.shape != (ids.shape[0], new) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        raise RuntimeError(f"Seq2SeqGenerator returned {tokens.shape} tokens in [{tokens.min()}, {tokens.max()}]")
+    ttft_s = float(np.median(ttft))
+    step_s = (wall - ttft_s) / (new - 1)
+    weights = sum(x.numel() * x.element_size() for m in (model.dec_blocks, model.dec_final_norm, model.lm_head)
+                  for x in m.parameters())
+    timing = {"batch": int(ids.shape[0]), "prompt_tokens": int(mask.sum()), "padded_rows": shape["padded"],
+              "new_tokens": new, "ttft_s": ttft_s, "ttft_runs_s": ttft, "wall_s": wall,
+              "decode_tokens_per_s": ids.shape[0] * (new - 1) / max(wall - ttft_s, 1e-9),
+              "decode_step_ms": 1e3 * step_s, "step_weight_bytes": weights,
+              "step_bound_ms": 1e3 * weights / HBM_BYTES_PER_S}
+    if device.type == "cuda":
+        timing["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    report["launches"] = launch_counts()
+    if any(report["launches"].values()):
+        raise RuntimeError(f"a K1-K5 kernel launched on T5's generate path: {report['launches']}")
+    if profile:
+        timing["profile"] = profile_run(lambda: run()[0], wall)
+    report["bf16"] = timing
+    log(f"[t5] generate bf16 {model_name}: {json.dumps(timing)}")
+    del gen, model, out
+    free_memory(device)
+    return report
+
+
+# ------------------------------------------------------------ HF checkpoints
+def filesystem(path):
+    """`df -T path`'s row for `path`: the device, its type, its size and use."""
+    out = subprocess.run(["df", "-T", path], capture_output=True, text=True, timeout=30).stdout.splitlines()
+    return out[-1] if out else "unknown"
+
+
+def hf_phase(device, model_name="llama-1b", t5_name=T5_MODEL, t5_layers=T5_TRAIN_LAYERS, engine_kw=None,
+             n_requests=16, system_len=256):
+    """HF checkpoint interchange on the card, through a temporary directory
+    (removed however the phase ends): `model_name` in bf16 at full width and
+    depth (random weights from seed 0) written with `save_hf_checkpoint`
+    and loaded with `load_hf_checkpoint_in_model` into a model built from
+    seed 1, which then holds the same tensors bit for bit, in bf16 on the
+    card; the paged engine's 16-request mix, plain (K1) and speculative
+    (K2), gives the loaded model the original's tokens, with each kernel's
+    launches layers x dispatches. Reports the file's bytes, the save and
+    load seconds and the directory's filesystem. Then T5 at `t5_name`'s
+    widths cut to `t5_layers` + `t5_layers` layers, bf16, round trips with
+    bit-equal logits."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.models import create_t5_model
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.utils.hf_loading import load_hf_checkpoint_in_model, save_hf_checkpoint
+
+    engine_kw = {**ENGINE_KW, **(engine_kw or {})}
+    directory = tempfile.mkdtemp(prefix="hf_checkpoint_")
+    report = {"model": model_name, "filesystem": filesystem(directory)}
+    try:
+        def round_trip(original, fresh, model_type, name):
+            path = os.path.join(directory, f"{name}.safetensors")
+            sync(device)
+            t0 = time.perf_counter()
+            save_hf_checkpoint(original, model_type, original.config, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            load_hf_checkpoint_in_model(fresh, path, model_type)
+            sync(device)
+            load_s = time.perf_counter() - t0
+            want = original.state_dict()
+            for key, t in fresh.state_dict().items():
+                if t.dtype != torch.bfloat16 or t.device != want[key].device or not torch.equal(t, want[key]):
+                    raise RuntimeError(f"{name}: {key} did not load as saved ({t.dtype}, {t.device})")
+            out = {"file_bytes": os.path.getsize(path), "save_s": save_s, "load_s": load_s,
+                   "tensors": len(want)}
+            os.remove(path)
+            return out
+
+        original = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+        fresh = create_named_model(model_name, seed=1, dtype=torch.bfloat16, device=device)
+        report["llama"] = round_trip(original, fresh, "llama", model_name)
+        log(f"[hf] {model_name} bf16 round trip in {report['filesystem']!r}: {json.dumps(report['llama'])}")
+        layers = original.config.num_hidden_layers
+        requests = make_requests(original.config.vocab_size, n=n_requests, system_len=system_len)
+        for label, extra, kind in (("plain", {}, "decode"), ("speculative", SPEC_KW, "verify")):
+            tokens = {}
+            for which, model in (("original", original), ("loaded", fresh)):
+                pa.reset_launch_counts()
+                engine, tokens[which], timing = serve(model, requests, device, **engine_kw, **extra)
+                launches, dispatches = dict(pa.LAUNCHES), engine.stats["decode_steps"]
+                engine = None
+                gc.collect()
+                if device.type == "cuda" and (launches[kind] != layers * dispatches or launches[kind] <= 0):
+                    raise RuntimeError(f"hf {label} {which}: launches {launches}, expected {kind} = {layers} "
+                                       f"layers x {dispatches} dispatches")
+                report[f"{label}_{which}"] = dict(timing, launches=launches, dispatches=dispatches)
+            if tokens["original"] != tokens["loaded"]:
+                bad = [rid for rid in tokens["original"] if tokens["original"][rid] != tokens["loaded"][rid]]
+                raise RuntimeError(f"hf {label}: the loaded model's tokens differ for requests {bad}")
+            report[f"{label}_tokens_equal"] = len(requests)
+            log(f"[hf] {label} engine: the loaded model's tokens equal the original's for all {len(requests)} "
+                f"requests; launches {report[f'{label}_loaded']['launches']}")
+        del original, fresh
+        free_memory(device)
+
+        cfg = t5_config(t5_name, t5_layers)
+        original = create_t5_model(cfg, seed=0, dtype=torch.bfloat16, device=device)
+        fresh = create_t5_model(cfg, seed=1, dtype=torch.bfloat16, device=device)
+        report["t5"] = round_trip(original, fresh, "t5", t5_name)
+        rng = np.random.default_rng(4)
+        ids = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 64)), device=device)
+        dec = torch.as_tensor(rng.integers(1, cfg.vocab_size, (2, 32)), device=device)
+        with torch.no_grad():
+            if not torch.equal(original(ids, dec), fresh(ids, dec)):
+                raise RuntimeError("T5 logits differ after the HF round trip")
+        report["t5"].update(layers=[t5_layers, t5_layers], logits_bit_equal=True)
+        log(f"[hf] {t5_name} {t5_layers} + {t5_layers} layers bf16 round trip, logits bit-equal: "
+            f"{json.dumps(report['t5'])}")
+        del original, fresh
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    free_memory(device)
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -2281,9 +2747,11 @@ def paged_rows(kernels, engine, shape, design, suffix=""):
     return rows
 
 
-def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design=""):
-    """The `kernels` line's K3-K5 rows in bf16 and in fp16 from a flash phase
-    at `shape` and the launches of the training runs that drove them."""
+def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design="", causal=True, scale=None):
+    """The `kernels` line's K3-K5 rows in bf16 and, with `fp16_launches`, in
+    fp16, from a flash phase at `shape` (`causal` or not, at `scale` if it
+    is not 1/sqrt(D)) and the launches of the training runs that drove them."""
+    sdpa = f"F.scaled_dot_product_attention(is_causal={causal}" + ("" if scale is None else f", scale={scale}") + ")"
     rows = []
     for name, (replaces, _) in FLASH_KERNELS.items():
         bf16, f32 = flash[name]["bfloat16"], flash[name]["float32"]
@@ -2304,14 +2772,16 @@ def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design="")
             "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"],
             "library_ms": bf16["library_ms"],
-            "library_call": ("F.scaled_dot_product_attention(is_causal=True)" if name == "flash_fwd" else
-                             "autograd backward of F.scaled_dot_product_attention(is_causal=True): dq, dk "
-                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
+            "library_call": (sdpa if name == "flash_fwd" else
+                             f"autograd backward of {sdpa}: dq, dk and dv in one call, the work of "
+                             "flash_bwd_dkv and flash_bwd_dq together"),
             "dtype": "bfloat16",
-            "shape": dict(shape, causal=True),
+            "shape": dict(shape, causal=causal, **({} if scale is None else {"scale": scale})),
             "design": FLASH_DESIGN[name] + design,
             "f32": f32,
         })
+    if fp16_launches is None:
+        return rows
     for name, (replaces, _) in FLASH_KERNELS.items():
         fp16 = flash[name]["float16"]
         rows.append({
@@ -2336,7 +2806,7 @@ def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design="")
                              "autograd backward of F.scaled_dot_product_attention(is_causal=True), fp16: dq, dk "
                              "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
             "dtype": "float16",
-            "shape": dict(shape, causal=True),
+            "shape": dict(shape, causal=causal),
             "design": FLASH_DESIGN[name] + FLASH_FP16_DESIGN[name] + design,
         })
     return rows
@@ -2350,9 +2820,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one bf16 plain engine run, one with int8 weights and cache, "
                              "one bf16 batch-1 generate call, one bf16 training step, one under each "
-                             "remat policy, one BERT-base step, and for the families one NeoX-20B engine "
-                             "run, one generate call and one training step each: device time by kernel, "
-                             "busy share")
+                             "remat policy, one BERT-base step, for the families one NeoX-20B engine "
+                             "run, one generate call and one training step each, and one T5 training "
+                             "step and one T5 generate call: device time by kernel, busy share")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(32, 64, 96, 128, 256),
@@ -2397,6 +2867,11 @@ def main(argv=None) -> int:
         log(f"[flash] head dim {d}: {json.dumps(shape)}")
         wide_flash[d] = flash_kernel_phase(device, shape)
     log(f"[time] kernel phases at the families' shapes {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    log(f"[flash] T5 cross-attention, non-causal, scale 1.0: {json.dumps(T5_CROSS_FLASH_SHAPE)}")
+    t5_flash = flash_kernel_phase(device, T5_CROSS_FLASH_SHAPE, causal=False, scale=1.0,
+                                  dtypes=(torch.float32, torch.bfloat16))
+    log(f"[time] kernel phases at T5's cross-attention shape {time.perf_counter() - t0:.1f}s")
     if args.kernels_only:
         log(card)
         return 0
@@ -2440,6 +2915,18 @@ def main(argv=None) -> int:
         log(f"[family] {name} training summary: {json.dumps(family_train[name])}")
         log(f"[time] {name} training phase {time.perf_counter() - t0:.1f}s")
     log(f"[family] generate summary: {json.dumps(family_generate)}")
+    t0 = time.perf_counter()
+    t5_train = t5_training_phase(device, profile=args.profile)
+    log(f"[t5] training summary: {json.dumps(t5_train)}")
+    log(f"[time] t5 training phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    t5_generate = t5_generate_phase(device, profile=args.profile)
+    log(f"[t5] generate summary: {json.dumps(t5_generate)}")
+    log(f"[time] t5 generate phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    hf = hf_phase(device)
+    log(f"[hf] summary: {json.dumps(hf)}")
+    log(f"[time] hf phase {time.perf_counter() - t0:.1f}s")
 
     wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"]}  # the families at each head dim
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
@@ -2449,6 +2936,8 @@ def main(argv=None) -> int:
         run = wide_runs[d]
         rows += flash_rows(wide_flash[d], run["bf16"]["launches"], run["fp16"]["launches"], shape,
                            suffix=f"_d{d}", design=WIDE_FLASH_DESIGN[d])
+    rows += flash_rows(t5_flash, t5_train["bf16"]["launches"], None, T5_CROSS_FLASH_SHAPE, suffix="_t5cross",
+                       design=T5_CROSS_DESIGN, causal=False, scale=1.0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

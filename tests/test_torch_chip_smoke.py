@@ -514,3 +514,64 @@ def test_family_phases_rehearse_on_the_cpu(name):
     assert [row["name"] for row in rows] == [f"{k}_d{d}" for k in (
         "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_f16", "flash_bwd_dkv_f16", "flash_bwd_dq_f16")]
     assert all(row["shape"]["d"] == d and "launches" in row and "bound_ms" in row for row in rows)
+
+
+def test_flash_bound_counts_the_pairs_each_mask_leaves():
+    """Non-causal: every query sees every key, S x Sk pairs (T5's cross
+    shape: 1024 x 2048); causal over Sq < Skv: query i sees i + Sk - S + 1
+    keys. Operations: 2, 4 and 3 products of 2 BH pairs D; bytes each input
+    read once, each output written once."""
+    shape = chip_smoke.T5_CROSS_FLASH_SHAPE
+    bh, s, sk, d = shape["b"] * shape["hq"], shape["s"], shape["sk"], shape["d"]
+    q = torch.empty((bh, s, d), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((bh, sk, d), dtype=torch.bfloat16, device="meta")
+    for name, products in (("flash_fwd", 2), ("flash_bwd_dkv", 4), ("flash_bwd_dq", 3)):
+        ms, by = chip_smoke.flash_bound(name, q, k, causal=False)
+        assert by == "operations"
+        assert ms == pytest.approx(1e3 * products * 2 * bh * s * sk * d / 989e12, rel=1e-12)
+        causal_ms, _ = chip_smoke.flash_bound(name, q, k, causal=True)
+        pairs = sum(i + sk - s + 1 for i in range(s))
+        assert causal_ms == pytest.approx(ms * pairs / (s * sk), rel=1e-12)
+    q32 = torch.empty((4, 128, 64), dtype=torch.float32, device="meta")
+    ms, by = chip_smoke.flash_bound("flash_fwd", q32, q32, causal=False)
+    assert ms == pytest.approx(1e3 * 2 * 2 * 4 * 128 * 128 * 64 / 67e12, rel=1e-12) and by == "operations"
+
+
+def test_t5_phases_rehearse_on_the_cpu(monkeypatch):
+    """The T5 phases at t5_tiny on the CPU: the non-causal flash phase at
+    scale 1.0 (f32 and bf16, no fp16 range case) and its `*_t5cross` rows
+    from the training run's launches; training (f32 kernel-path losses equal
+    the plain ones here, where the gate stays shut; bf16 losses falling);
+    `Seq2SeqGenerator` against the uncached loop and its bf16 readings; the
+    HF round trips of a Llama engine and a T5."""
+    cpu = torch.device("cpu")
+    shape = dict(b=1, hq=2, s=64, sk=128, d=32)
+    phase = chip_smoke.flash_kernel_phase(cpu, shape, timed=False, causal=False, scale=1.0,
+                                          dtypes=(torch.float32, torch.bfloat16))
+    assert set(phase["flash_fwd"]) == {"float32", "bfloat16"}
+    assert all(row["bfloat16"]["errors"]["o" if name == "flash_fwd" else next(iter(row["bfloat16"]["errors"]))]
+               ["limit"]["broken"] == 0 for name, row in phase.items())
+    trained = chip_smoke.t5_training_phase(cpu, "t5-tiny", layers=2, enc_seq=64, dec_seq=32, timed_steps=2, warmup=1)
+    parity = trained["f32_parity"]
+    assert parity["rel_diff"]["flash_vs_xla"] == [0.0] * 3 and len(parity["losses"]["f64"]) == 3
+    assert parity["grad_rel_norm_diff"]["flash_vs_xla"]["rel_norm_diff"] == 0.0
+    assert 0 < parity["grad_rel_norm_diff"]["xla_vs_f64"]["rel_norm_diff"] < 1e-4
+    assert trained["bf16"]["losses"][-1] < trained["bf16"]["losses"][0] and trained["bf16"]["mfu"] > 0
+    want = chip_smoke.expected_launches(2 * 4, torch.bfloat16)
+    assert (want["flash_fwd"], want["flash_bwd_dkv"], want["flash_bwd_dq"], want["flash_fwd_f16"]) == (8, 8, 8, 0)
+    rows = chip_smoke.flash_rows(_timed(phase), want, None, shape, suffix="_t5cross",
+                                 design=chip_smoke.T5_CROSS_DESIGN, causal=False, scale=1.0)
+    assert [row["name"] for row in rows] == ["flash_fwd_t5cross", "flash_bwd_dkv_t5cross", "flash_bwd_dq_t5cross"]
+    for row in rows:
+        assert row["shape"]["causal"] is False and row["shape"]["scale"] == 1.0 and row["launches"] == 8
+        assert "is_causal=False, scale=1.0" in row["library_call"] and row["bound_by"] in ("bytes", "operations")
+    generated = chip_smoke.t5_generate_phase(cpu, "t5-tiny", shape=dict(
+        batch=3, prompt=24, new=6, padded=((1, 10),), parity_layers=2, parity_batch=2, parity_prompt=12,
+        parity_new=5))
+    assert generated["f32_parity"]["tokens_equal_uncached_loop"]
+    assert generated["bf16"]["new_tokens"] == 6 and generated["bf16"]["step_bound_ms"] > 0
+    assert not any(generated["launches"].values())
+    monkeypatch.setattr(chip_smoke, "ENGINE_KW", dict(num_slots=4, page_size=16, max_length=768, chunk_size=8))
+    hf = chip_smoke.hf_phase(cpu, "llama-tiny", t5_name="t5-tiny", n_requests=4, system_len=16)
+    assert hf["plain_tokens_equal"] == hf["speculative_tokens_equal"] == 4
+    assert hf["llama"]["file_bytes"] > 0 and hf["t5"]["logits_bit_equal"]

@@ -11,7 +11,10 @@ the suite.) Tolerances are those of `chip_smoke.py`: f32 atol 2e-5; bf16 atol
 2e-3, rtol 1e-2, one bf16 rounding of the output above the fp32 summation
 order, and well below the small outputs of long slots. The flash backward's
 f32 gradients sum up to S products per value, in another order than the
-plain version's matmuls: atol/rtol 1e-4. The quantized mode of the paged
+plain version's matmuls: atol/rtol 1e-4. f32 flash kernels are held to
+their plain versions on the same inputs widened to float64: at scale 1.0
+(T5) the f32 plain version's own score products take most of the f32
+limit (`chip_smoke.F32_REFERENCE`). The quantized mode of the paged
 kernels dequantizes exactly as its plain version does (one f32 multiply per
 value), so the same tolerances hold. bf16 K3, K4 and K5 run on the tensor
 cores with P and dS rounded to bf16 (as FlashAttention-2/3 and SDPA do),
@@ -369,21 +372,29 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
     """K3, K4 and K5 against their plain versions on the same inputs, each
     launched once; Sk = 200 and S, Sk = 130, 250 leave ragged last tiles
     of both sides (64-row query tiles, 64- and 128-key tiles)."""
+    _hold_flash_kernels(cuda, dtype, causal, s, sk, d, d ** -0.5)
+
+
+def _hold_flash_kernels(cuda, dtype, causal, s, sk, d, scale):
     q, k, v, do = _flash_case(cuda, dtype, 3, s, sk, d, seed=d + s)
-    scale = d ** -0.5
     before = dict(fa.LAUNCHES)
     o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     torch.cuda.synchronize()
     assert {key: fa.LAUNCHES[key] - before[key] for key in before} == _launched(before, dtype)
-    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    # f32 against the plain versions on the same inputs widened to float64
+    # (`chip_smoke.F32_REFERENCE`), the narrow types against fp32's.
+    f32 = dtype == torch.float32
+    wq, wk, wv, wdo = (x.to(chip_smoke.F32_REFERENCE) if f32 else x for x in (q, k, v, do))
+    ref_o, ref_lse = fa.flash_fwd_reference(wq, wk, wv, causal, scale)
     assert o.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (3, s)
-    torch.testing.assert_close(lse, ref_lse, **LSE)
+    torch.testing.assert_close(lse, ref_lse.float(), **LSE)
     # The backward against its plain version from the same o and lse.
-    ref_dq, ref_dk, ref_dv = fa.flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+    ref_dq, ref_dk, ref_dv = fa.flash_bwd_reference(wq, wk, wv, o.to(wq.dtype) if f32 else o,
+                                                    lse.to(wq.dtype) if f32 else lse, wdo, causal, scale)
     for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
         assert got.dtype == dtype and torch.isfinite(got).all(), name
-    if dtype == torch.float32:
+    if f32:
         torch.testing.assert_close(o.float(), ref_o.float(), **F32)
         for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
             torch.testing.assert_close(got.float(), ref.float(), **F32_GRAD, msg=lambda m: f"{name}: {m}")
@@ -396,6 +407,17 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, d):
                                 ("flash_bwd_dkv", "dv", dv, ref_dv)):
         bound = chip_smoke.flash_rounding_bound(name, key, q, k, v, do, lse, delta, causal, scale)
         _assert_within(got, ref, tol, bound, key)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s,sk", [(128, 256), (130, 250), (64, 1000), (1024, 2048)],
+                         ids=["aligned", "ragged", "short-over-long", "t5-cross"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_kernels_match_plain_versions_non_causal_at_scale_one(cuda, dtype, s, sk, d):
+    """K3-K5's non-causal mode over Sq < Skv at scale 1.0, T5's
+    cross-attention: every key tile visible to every query tile, scores
+    sqrt(D) times wider than at 1/sqrt(D), so P is sharper; the same limits."""
+    _hold_flash_kernels(cuda, dtype, False, s, sk, d, 1.0)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -808,3 +830,90 @@ def test_family_training_steps_through_the_kernels(cuda, monkeypatch, name):
         GradientState._reset_state()
     np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=1e-4)
     assert losses["flash"][-1] < losses["flash"][0]
+
+
+def test_t5_on_the_card_matches_the_cpu_port(cuda):
+    """t5_tiny, f32: logits on the card equal the CPU port's (atol 1e-4),
+    with and without an encoder attention mask, and `Seq2SeqGenerator`'s
+    greedy tokens equal the CPU's; no K1-K5 kernel launches."""
+    from accelerate_tpu_torch import Seq2SeqGenerator, create_named_model
+
+    cpu = create_named_model("t5-tiny", seed=1, device="cpu")
+    card = create_named_model("t5-tiny", seed=1, device="cpu").to(cuda)
+    rng = np.random.default_rng(8)
+    ids, dec = rng.integers(1, 512, (3, 40)), rng.integers(1, 512, (3, 12))
+    mask = np.ones_like(ids)
+    mask[1, 25:] = 0
+    before = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        for m in (None, mask):
+            got = card(*(torch.as_tensor(x, device=cuda) for x in (ids, dec)),
+                       None if m is None else torch.as_tensor(m, device=cuda))
+            ref = cpu(torch.as_tensor(ids), torch.as_tensor(dec), None if m is None else torch.as_tensor(m))
+            torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)
+    for m in (None, mask):
+        kw = {} if m is None else {"attention_mask": m}
+        on_card = Seq2SeqGenerator(card, max_new_tokens=12)(ids, **kw)
+        assert on_card.device.type == "cuda"
+        assert on_card.cpu().tolist() == Seq2SeqGenerator(cpu, max_new_tokens=12, device="cpu")(ids, **kw).tolist()
+    assert fa.LAUNCHES == before
+
+
+def test_t5_training_steps_through_the_non_causal_kernels(cuda, monkeypatch):
+    """A tiny T5 (head 32) at 1024 encoder and decoder tokens, f32: its
+    cross-attention takes the flash gate (non-causal, scale 1.0; the biased
+    self-attention stays plain), and three AdamW steps give the plain
+    attention's losses (rtol 1e-4), each kernel launching 2 decoder layers
+    x 3 steps times."""
+    import dataclasses
+
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader
+    from accelerate_tpu_torch.models import create_t5_model, t5_tiny
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    cfg = dataclasses.replace(t5_tiny(), d_kv=32)
+    rng = np.random.default_rng(4)
+    data = [{"input_ids": rng.integers(1, 512, (1024,)), "decoder_input_ids": rng.integers(1, 512, (1024,)),
+             "labels": rng.integers(0, 512, (1024,))} for _ in range(6)]
+    losses = {}
+    try:
+        for impl in ("flash", "xla"):
+            if impl == "xla":
+                monkeypatch.setenv("ACCELERATE_TPU_ATTENTION_IMPL", "xla")
+            AcceleratorState._reset_state()
+            GradientState._reset_state()
+            model = create_t5_model(cfg, seed=1, device=cuda)
+            accelerator = Accelerator()
+            optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+            _, _, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(6), 2)))
+            step = accelerator.train_step(max_grad_norm=1.0)
+            fa.reset_launch_counts()
+            losses[impl] = [float(step(batch)) for batch in loader]
+            n = 2 * 3 if impl == "flash" else 0
+            assert fa.LAUNCHES == _launched(fa.LAUNCHES, torch.float32, n), impl
+    finally:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+    np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=1e-4)
+
+
+def test_hf_checkpoint_loads_into_a_bf16_llama_on_the_card(cuda, tmp_path):
+    """An HF checkpoint written from a CPU model loads into a bf16 Llama on
+    the card: every tensor stays bf16 on the card and equals the CPU
+    model's rounded to bf16; the bf16 engine then serves it through K1."""
+    from accelerate_tpu_torch import ContinuousBatcher, Request, create_named_model
+    from accelerate_tpu_torch.utils.hf_loading import load_hf_checkpoint_in_model, save_hf_checkpoint
+
+    cpu = create_named_model("llama-tiny", seed=1, device="cpu")
+    path = str(tmp_path / "model.safetensors")
+    save_hf_checkpoint(cpu, "llama", cpu.config, path)
+    card = create_named_model("llama-tiny", seed=2, dtype=torch.bfloat16, device=cuda)
+    load_hf_checkpoint_in_model(card, path, "llama")
+    want = cpu.state_dict()
+    for name, t in card.state_dict().items():
+        assert t.dtype == torch.bfloat16 and t.device.type == "cuda", name
+        assert torch.equal(t.cpu(), want[name].bfloat16()), name
+    pa.reset_launch_counts()
+    engine = ContinuousBatcher(card, num_slots=2, max_length=128, chunk_size=4)
+    out = engine.run([Request(0, np.arange(1, 30), max_new_tokens=8)])
+    assert len(out[0]) == 8 and pa.LAUNCHES["decode"] == card.config.num_hidden_layers * engine.stats["decode_steps"]

@@ -1,8 +1,9 @@
 """Package-level rules of the PyTorch/CUDA port (`accelerate_tpu_torch`).
 
-  - it imports nothing of JAX (jax, flax, optax) and nothing of the JAX
-    package, at run time (a fresh interpreter) and in its source (an AST
-    scan);
+  - it imports nothing of JAX (jax, flax, optax, ml_dtypes), nothing of the
+    JAX package and neither `safetensors` nor `transformers` (the chip
+    machine has none of them), at run time (a fresh interpreter) and in its
+    source (an AST scan);
   - its entry points run on the card unless the caller asks for the CPU;
   - importing the kernel modules builds nothing, and CPU tensors never reach
     the build;
@@ -27,7 +28,7 @@ from accelerate_tpu_torch.ops import quantization as port_quant
 torch.set_num_threads(2)
 
 PACKAGE = Path(accelerate_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "accelerate_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "safetensors", "transformers", "accelerate_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -44,6 +45,7 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.ops.remat, accelerate_tpu_torch.tracking, accelerate_tpu_torch.models.bert\n"
         "import accelerate_tpu_torch.examples.nlp_example, accelerate_tpu_torch.models.decoder\n"
         "import accelerate_tpu_torch.models.gpt_neox, accelerate_tpu_torch.models.gptj, accelerate_tpu_torch.models.opt\n"
+        "import accelerate_tpu_torch.models.t5, accelerate_tpu_torch.utils.hf_loading, accelerate_tpu_torch.utils.modeling\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -85,6 +87,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ContinuousBatcher(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_named_model("gpt-neox-tiny")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_named_model("t5-tiny")
+    from accelerate_tpu_torch import Seq2SeqGenerator
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Seq2SeqGenerator(create_named_model("t5-tiny", device="cpu"))
     AcceleratorState._reset_state()
     try:
         with pytest.raises(RuntimeError, match="device='cpu'"):
