@@ -22,7 +22,10 @@ accelerate_tpu_torch.examples.nlp_example` is the twin of the JAX
 package's `examples/nlp_example.py`. T5 (`models/t5.py`, T0pp-11B's
 config) trains through the same surface and generates through
 `Seq2SeqGenerator`; `utils/hf_loading.py` loads Hugging Face checkpoints
-into every family and writes them back.
+into every family and writes them back. Mixtral (`models/mixtral.py`,
+Mixtral-8x7B's config) trains and generates through the same entry points,
+its MLP a top-k mixture of experts (`parallel/expert.py`) whose router
+losses ride beside the loss.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -35,7 +38,7 @@ from .data_loader import BatchSampler, SeedableRandomSampler, SimpleDataLoader, 
 from .device import resolve_device
 from .generation import GenerationConfig, Generator, Seq2SeqGenerator, generate
 from .modeling import Model, PreparedModel
-from .models import create_llama_model, create_named_model
+from .models import create_llama_model, create_mixtral_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
 from .utils import CompilationConfig, GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration, set_seed
@@ -64,6 +67,7 @@ __all__ = [
     "SimpleDataLoader",
     "WEIGHT_DTYPES",
     "create_llama_model",
+    "create_mixtral_model",
     "create_named_model",
     "generate",
     "prepare_data_loader",

@@ -54,7 +54,7 @@ from .optimizer import AcceleratedOptimizer, GradScaler
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .tracking import LOGGER_TYPE_TO_CLASS, GeneralTracker, filter_trackers
-from .train_step import FusedTrainStep
+from .train_step import FusedTrainStep, detached
 from .utils.dataclasses import CompilationConfig, GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration
 
 logger = logging.getLogger(__name__)
@@ -272,7 +272,7 @@ class Accelerator:
         else:
             (loss / self.gradient_state.num_steps).backward()
         loss = loss.detach()
-        return (loss, aux) if aux is not None else loss
+        return (loss, detached(aux)) if aux is not None else loss
 
     def train_step(
         self,

@@ -1,6 +1,6 @@
 // FlashAttention-2 forward and backward for training on Hopper (sm_90a), over
 // float, __nv_bfloat16 and __half inputs in the [B*H, S, D] layout, D in
-// {32, 64, 96, 128, 256}.
+// {16, 32, 64, 96, 128, 256}.
 //
 // Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py:
 //   K3 forward: flash_fwd_wgmma_kernel<T = bf16 | f16>, flash_fwd_kernel (f32)
@@ -35,7 +35,7 @@
 // the copy of tile j + 2 overlaps the products of tile j + 1, and several
 // blocks on each SM overlap one another's softmax with their tensor-core
 // work. Tiles stay bf16 in shared memory, swizzled (128B for D 64, 128 and
-// 256, 64B for D 32 and 96) as the wgmma descriptors read them
+// 256, 64B for D 32 and 96, 32B for D 16) as the wgmma descriptors read them
 // (flash_tiles.cuh). The
 // score products (s = q.k^T, dp = do.v^T; in K4 their transposes
 // sT = k.q^T, dpT = v.do^T) are wgmmas with both operands in shared memory,
@@ -74,7 +74,7 @@
 // f32 keeps the first design: products as fp32 FMAs on the CUDA cores
 // over operands in shared memory, each row (a query row in K3 and K5, a key
 // row in K4) split over a power of two of threads holding 16 of its
-// dimensions each (12 at D 96; Split below), the
+// dimensions each (12 at D 96; one thread a row at D 16; Split below), the
 // other side streamed through shared memory in 64-row tiles read as
 // broadcasts, partial dot products summed by warp shuffles. The tensor cores
 // have no f32 mode, only TF32, whose 10-bit mantissa would break the f32
@@ -999,6 +999,7 @@ int launch_kind_wgmma(Kind kind, const Args& a) {
 
 template <typename T>
 int launch_head_dim(Kind kind, int D, const Args& a) {
+  if (D == 16) return launch_kind<T, 16>(kind, a);
   if (D == 32) return launch_kind<T, 32>(kind, a);
   if (D == 64) return launch_kind<T, 64>(kind, a);
   if (D == 96) return launch_kind<T, 96>(kind, a);
@@ -1009,6 +1010,7 @@ int launch_head_dim(Kind kind, int D, const Args& a) {
 
 template <typename T>
 int launch_head_dim_wgmma(Kind kind, int D, const Args& a) {
+  if (D == 16) return launch_kind_wgmma<T, 16>(kind, a);
   if (D == 32) return launch_kind_wgmma<T, 32>(kind, a);
   if (D == 64) return launch_kind_wgmma<T, 64>(kind, a);
   if (D == 96) return launch_kind_wgmma<T, 96>(kind, a);

@@ -13,7 +13,9 @@
 // memory as Panels<D>::kCount panels of [Rows, kCols]: 128-byte rows (64
 // columns) swizzled 128B for D 64, 128 and 256 (one, two or four panels),
 // 64-byte rows (32 columns) swizzled 64B for D 32 and 96 (one or three
-// panels). TMA writes that layout
+// panels), one panel of 32-byte rows (16 columns) swizzled 32B for D 16
+// (T5-tiny's d_kv: its score products are one k16 step, its p.v and dK/dV
+// products m64n16). TMA writes that layout
 // (one 3-D box per panel) and wgmma reads it through descriptors of the same
 // swizzle: K-major when the contraction runs along D (q.k, do.v), MN-major
 // when it runs along the rows (p.v, ds.k; p^T.do, ds^T.q in K4), so one copy
@@ -47,11 +49,16 @@ constexpr int kTensorMapError = kNoTensorMapEncoder + 1;
 // Panels of a row of D two-byte values in shared memory.
 template <int D>
 struct Panels {
-  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256, "head dims 32, 64, 96, 128, 256");
-  static constexpr int kCols = D % 64 == 0 ? 64 : 32;  // columns per panel
+  static_assert(D == 16 || D == 32 || D == 64 || D == 96 || D == 128 || D == 256,
+                "head dims 16, 32, 64, 96, 128, 256");
+  static constexpr int kCols = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);  // columns per panel
   static constexpr int kCount = D / kCols;
-  static constexpr int kRowBytes = kCols * 2;       // 64 or 128
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: 1 = 128B, 2 = 64B swizzle
+  static constexpr int kRowBytes = kCols * 2;  // 32, 64 or 128
+  // wgmma's swizzle field: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : (kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
   __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * D * 2; }
 };
 
@@ -188,11 +195,25 @@ struct Elem<__half> {
 };
 
 // wgmma.m64nNk16.f32.TY.TY, TY = bf16 or f16 as T is, N = 2 x the
-// accumulator floats per thread (16 -> n32, 32 -> n64, 64 -> n128). `ss`
-// (n64, n128: the score tiles): A and B from shared memory by descriptor;
-// `rs` (n32, n64, n128; `gemm_regs` combines them for D 96 and 256): A from
-// four two-value registers per thread. scale_d = 0 overwrites the accumulator, 1 adds to it.
+// accumulator floats per thread (8 -> n16, 16 -> n32, 32 -> n64, 64 ->
+// n128). `ss` (n64, n128: the score tiles): A and B from shared memory by
+// descriptor; `rs` (n16, n32, n64, n128; `gemm_regs` combines them for D 96
+// and 256): A from four two-value registers per thread. scale_d = 0 overwrites the accumulator, 1 adds to it.
 // TransB = 1 reads B MN-major. Each body is written once, as FLASH_WGMMA(TY).
+template <int TransB, typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, " \
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB))
+  if constexpr (Elem<T>::kHalf) FLASH_WGMMA("f16"); else FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
+}
+
 template <int TransB, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int scale_d) {
 #define FLASH_WGMMA(TY) \
@@ -308,7 +329,7 @@ __device__ __forceinline__ void gemm_regs(float (&acc)[NF], const uint32_t (&x)[
                                           int col0 = 0) {
   using P = Panels<D>;
   constexpr int kN = 2 * NF;
-  constexpr int kFirst = kN >= 128 ? 128 : (kN >= 64 ? 64 : 32);
+  constexpr int kFirst = kN >= 128 ? 128 : (kN >= 64 ? 64 : (kN >= 32 ? 32 : 16));
   static_assert(kN % P::kCols == 0 && kN <= D, "whole panels of B");
   float(&head)[kFirst / 2] = *reinterpret_cast<float(*)[kFirst / 2]>(&acc[0]);
   const uint32_t tile = b_tile + (col0 / P::kCols) * Keys * P::kRowBytes;
@@ -418,8 +439,7 @@ int encode_tile_map(CUtensorMap* map, const void* base, int BH, int rows, int bo
   const cuuint32_t box[3] = {(cuuint32_t)P::kCols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, Elem<T>::kMapType, 3, const_cast<void*>(base), dims, strides,
-                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            P::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, P::kSwizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }

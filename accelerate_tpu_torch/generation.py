@@ -9,7 +9,11 @@ Python loop over device tensors that reads the device back only where it
 must: the plain loop once every `FINISHED_CHECK_EVERY` steps (to stop when
 every row has finished), the speculative loop once per verify dispatch (the
 accepted length). The cache is the model's decode cache
-(`ops.attention.DecodeCache`) with static capacity `max_length`.
+(`ops.attention.DecodeCache`) with static capacity `max_length`. A
+mixture-of-experts model (Mixtral) routes the tokens of each forward with
+that forward's capacity, as JAX's programs do: the prefill's B x S tokens
+(a left-padded prompt's pads among them), a step's B, a verify block's
+B x (draft_tokens + 1).
 
 The serving engine's programs are the plain methods of `CausalPrograms`:
 a program is a forward call with the KV pools and a page table.

@@ -1,5 +1,5 @@
-"""In-tree model families of the port (the Llama, BERT, GPT-NeoX, GPT-J, OPT
-and T5 slices of `accelerate_tpu/models/__init__.py`).
+"""In-tree model families of the port (the Llama, BERT, GPT-NeoX, GPT-J, OPT,
+T5 and Mixtral slices of `accelerate_tpu/models/__init__.py`).
 
 Each family has its config, its `create_*` factory (random weights from a
 seed, made on the device) and its carry function, ``*_state_dict_from_flax``,
@@ -37,6 +37,15 @@ from .llama import (
     llama_state_dict_from_flax,
     llama_tiny,
 )
+from .mixtral import (
+    MixtralConfig,
+    MixtralForCausalLM,
+    create_mixtral_model,
+    make_moe_causal_lm_loss,
+    mixtral_8x7b,
+    mixtral_state_dict_from_flax,
+    mixtral_tiny,
+)
 from .opt import OPTConfig, OPTForCausalLM, create_opt_model, opt_30b, opt_state_dict_from_flax, opt_tiny
 from .t5 import (
     T5Config,
@@ -68,6 +77,8 @@ MODEL_REGISTRY = {
     "t5-tiny": t5_tiny,
     "t5-small": t5_small_v1_0,
     "t5-tiny-v1-0": t5_tiny_v1_0,
+    "mixtral-8x7b": mixtral_8x7b,
+    "mixtral-tiny": mixtral_tiny,
 }
 
 #: config type -> the family's model factory (JAX's CREATE_BY_FAMILY).
@@ -78,6 +89,7 @@ CREATE_BY_FAMILY = {
     GPTNeoXConfig: create_gpt_neox_model,
     OPTConfig: create_opt_model,
     T5Config: create_t5_model,
+    MixtralConfig: create_mixtral_model,
 }
 
 

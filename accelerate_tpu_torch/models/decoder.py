@@ -3,7 +3,7 @@ LayerNorm and Dense, the decoder's forward, random weights built in place
 and the carry of a flax params tree.
 
 `CausalDecoder` is the forward every causal family shares (Llama, GPT-NeoX,
-GPT-J, OPT): embed, the layer loop through `ops.remat.maybe_remat`, the
+GPT-J, OPT, Mixtral): embed, the layer loop through `ops.remat.maybe_remat`, the
 final norm and the head, in the four modes of `ops.attention.attend` (the
 training forward, the cached prefill, the engine's slot pools, the
 `Generator`'s decode cache); each family supplies its embedding, blocks and
@@ -121,7 +121,8 @@ class CausalDecoder(nn.Module):
         raise NotImplementedError
 
     def forward(self, input_ids, attention_mask=None, positions=None, kv_pools=None, page_table=None,
-                attention_impl: str = "gather", kv_cache=None, decode_cache: Optional[DecodeCache] = None):
+                attention_impl: str = "gather", kv_cache=None, decode_cache: Optional[DecodeCache] = None,
+                return_aux: bool = False):
         """[B, S] token ids -> [B, S, vocab] logits; the first three arguments
         in JAX's order (`LlamaForCausalLM.__call__`).
 
@@ -141,22 +142,38 @@ class CausalDecoder(nn.Module):
         the cache's shared index, which then advances by S; `positions` are
         the rotary (or learned-position) positions only, and
         `attention_mask` ([B, S]) is stored as the cache's persistent pad
-        mask (JAX's decode-cache mode)."""
+        mask (JAX's decode-cache mode).
+
+        A block may return ``(hidden, aux)``, a dict of scalar losses
+        (Mixtral's router losses); with `return_aux` the forward returns
+        ``(logits, aux)``, each entry summed over the layers and divided by
+        their number, as JAX's `MixtralForCausalLM` does."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
         if decode_cache is not None:
             attention_mask = decode_cache_mask(decode_cache, s, attention_mask)
         hidden = self.embed(input_ids, positions)
+        total_aux = None
         for i, layer in enumerate(self.layers):
             pool = None if kv_pools is None else kv_pools[i]
             cache = None if kv_cache is None else kv_cache[i]
             dcache = None if decode_cache is None else (decode_cache, i)
-            hidden = maybe_remat(layer, hidden, positions, attention_mask, pool, page_table, attention_impl, cache,
-                                 dcache)
+            out = maybe_remat(layer, hidden, positions, attention_mask, pool, page_table, attention_impl, cache,
+                              dcache)
+            if isinstance(out, tuple):
+                hidden, aux = out
+                total_aux = aux if total_aux is None else {k: total_aux[k] + aux[k] for k in total_aux}
+            else:
+                hidden = out
         if decode_cache is not None:
             decode_cache.index += s
-        return self.head(self.final_norm(hidden))
+        logits = self.head(self.final_norm(hidden))
+        if not return_aux:
+            return logits
+        if total_aux is None:
+            raise ValueError(f"{type(self).__name__}'s blocks return no auxiliary losses")
+        return logits, {k: v / max(len(self.layers), 1) for k, v in total_aux.items()}
 
     def make_decode_cache(self, batch: int, max_length: int, dtype: Optional[torch.dtype] = None,
                           device=None) -> DecodeCache:
@@ -178,7 +195,9 @@ def random_init(build, seed: int, dtype: torch.dtype, device: DeviceLike, embed_
     in f32 is ever made. Linear weights are normal with std 1/sqrt(fan_in),
     biases normal with std 0.02, embeddings normal with `embed_std` (1 by
     default; a function of the embedding module gives each its own),
-    LayerNorm scales ones and biases zeros, RMSNorm scales ones."""
+    LayerNorm scales ones and biases zeros, RMSNorm scales ones, the
+    experts' [E, in, out] weights normal with std 1/sqrt(in)."""
+    from ..parallel.expert import ExpertMLP
     from .llama import RMSNorm
 
     dev = resolve_device(device)
@@ -199,6 +218,8 @@ def random_init(build, seed: int, dtype: torch.dtype, device: DeviceLike, embed_
             module.bias.zero_()
         elif isinstance(module, RMSNorm):
             module.weight.fill_(1.0)
+        elif isinstance(module, ExpertMLP):
+            module.normal_(gen)
     return model.eval()
 
 
@@ -235,7 +256,9 @@ def flax_tree_to_state_dict(tree) -> Dict[str, torch.Tensor]:
     """The walk of `state_dict_from_flax` over a per-layer tree: a list
     entry ``<name>_{i}`` (``layer_{i}``, T5's ``enc_blocks_{i}``) becomes
     ``<name>.{i}`` (``layer`` as ``layers``), `Dense` kernels are
-    transposed, and each leaf takes its torch name (`_LEAVES`)."""
+    transposed, and each leaf takes its torch name (`_LEAVES`). A leaf
+    named ``<name>/kernel`` is a bare parameter of that name, kept as it is
+    (the experts' [E, in, out] weights, ``experts/w_gate/kernel``)."""
     sd = {}
 
     def walk(node, path):
@@ -244,6 +267,10 @@ def flax_tree_to_state_dict(tree) -> Dict[str, torch.Tensor]:
                 m = re.fullmatch(r"(layer|enc_blocks|dec_blocks)_(\d+)", key)
                 name = f"{'layers' if m.group(1) == 'layer' else m.group(1)}.{m.group(2)}" if m else key
                 walk(value, path + [name])
+                continue
+            name, slash, leaf = key.partition("/")
+            if slash and leaf == "kernel":
+                sd[".".join(path + [name])] = torch.from_numpy(np.array(value))
                 continue
             if key not in _LEAVES:
                 raise ValueError(f"unexpected leaf {'/'.join(path + [key])}")

@@ -304,6 +304,9 @@ class DecodeCache:
     index: int = 0
     pad_mask: Optional[torch.Tensor] = None
     cross: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(default_factory=dict)
+    #: [B, s, 1, 1] bool, True for a query of the current masked block that
+    #: sees no key (a pad of a left-padded prompt); None for other blocks.
+    blind: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, num_layers: int, batch: int, max_length: int, kv_heads: int, head_dim: int,
@@ -359,6 +362,7 @@ def decode_cache_mask(cache: DecodeCache, s: int, pad_mask=None) -> torch.Tensor
     mask = (cols <= rows)[None, None].expand(b, 1, s, end)
     if cache.pad_mask is not None:
         mask = mask & cache.pad_mask[:, None, None, :end]
+    cache.blind = None if pad_mask is None else ~mask.any(dim=-1).permute(0, 2, 1)[..., None]
     return mask
 
 
@@ -384,9 +388,23 @@ def decode_cache_attention(q, k, v, cache: DecodeCache, layer: int, mask, bias=N
     """The Generator's attention: write the block into the decode cache and
     attend the written prefix under `mask` (`decode_cache_mask`) and an
     optional score `bias` over the same prefix, the plain path, as JAX's
-    masked `dot_product_attention` never takes the flash gate."""
+    masked `dot_product_attention` never takes the flash gate.
+
+    A query that sees no key (`cache.blind`: a pad of a left-padded prompt)
+    gets what JAX's attention over the whole ``[B, L]`` cache gives it: the
+    softmax's uniform weights 1/L over every slot, the unwritten zeros
+    included, not over the written prefix only. Its output feeds no emitted
+    token, but a MoE layer routes the pad with the rest, so its expert
+    choice, and the capacity left to the real tokens, must be JAX's."""
     k_all, v_all = update_decode_cache(cache, layer, k, v)
-    return dot_product_attention(q, k_all, v_all, mask=mask, bias=bias, scale=scale)
+    out = dot_product_attention(q, k_all, v_all, mask=mask, bias=bias, scale=scale)
+    if cache.blind is None:
+        return out
+    values = cache.values[layer]  # [B, L, Hkv, D]
+    uniform = torch.full((values.shape[1],), 1.0 / values.shape[1], device=values.device).to(values.dtype)
+    mean = torch.einsum("l,blhd->bhd", uniform, values)
+    mean = mean.repeat_interleave(q.shape[2] // values.shape[2], dim=1)[:, None].to(out.dtype)  # [B, 1, Hq, D]
+    return torch.where(cache.blind, mean, out)
 
 
 def attend(q, k, v, positions, attention_mask=None, kv_pool=None, page_table=None, attention_impl="gather",

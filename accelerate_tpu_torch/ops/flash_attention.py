@@ -7,7 +7,8 @@ and fp16, all three run on the tensor cores (wgmma over TMA-loaded tiles,
 with the shared building blocks in `csrc/flash_tiles.cuh`; in fp16 P and dS
 are scaled by powers of two before they are narrowed, so that dS does not
 overflow under loss scaling), in f32 on the CUDA cores; all at head dims
-32, 64, 96 (GPT-NeoX-20B), 128 and 256 (GPT-J-6B). On CPU tensors it runs
+16 (T5-tiny), 32, 64, 96 (GPT-NeoX-20B), 128 (Mixtral-8x7B) and 256
+(GPT-J-6B). On CPU tensors it runs
 the plain PyTorch versions below, which work
 on the full [S, Sk] score matrix in fp32; the tests and `chip_smoke.py`
 hold the kernels against them. Nothing falls back: a CUDA tensor the
@@ -52,7 +53,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 #: Head dimensions the kernels are built for.
-HEAD_DIMS = (32, 64, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p

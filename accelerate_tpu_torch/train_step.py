@@ -48,6 +48,18 @@ def split_leading(batch, n: int, what: str):
     raise ValueError(f"{what} > 1 cannot split a batch leaf of type {type(batch).__name__}")
 
 
+def detached(tree):
+    """`tree` (a tensor, or dicts, lists and tuples of them) with every tensor
+    detached: a loss function's aux comes back as values, as JAX's do."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(detached(v) for v in tree)
+    return tree
+
+
 class FusedTrainStep:
     """Callable `step_fn(batch) -> loss` running grad + clip + update."""
 
@@ -99,7 +111,7 @@ class FusedTrainStep:
         else:
             loss, aux = self._loss_of(*args, **kwargs)
             (loss * loss_scale if loss_scale != 1.0 else loss).backward()
-            loss = loss.detach()
+            loss, aux = loss.detach(), detached(aux)
         accelerated.unscale_()
         if self.max_grad_norm is not None:
             clip_grad_norm(accelerated._params(), self.max_grad_norm)

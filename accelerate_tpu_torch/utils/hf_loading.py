@@ -1,14 +1,16 @@
 """HF checkpoint interchange: load Hugging Face checkpoints into the port's
 models, and write them back.
 
-Port of `accelerate_tpu/utils/hf_loading.py` for Llama, GPT-J, GPT-NeoX, OPT
-and T5 (Mixtral waits for the Mixtral model). The JAX package maps HF names
+Port of `accelerate_tpu/utils/hf_loading.py` for Llama, Mixtral, GPT-J,
+GPT-NeoX, OPT and T5. The JAX package maps HF names
 to a flax tree and transposes every torch ``[out, in]`` weight into a flax
 ``[in, out]`` kernel; the port's modules carry the flax tree's names as
 their own state-dict names (``layers.0.attention.wq.weight``, what the
 families' ``*_state_dict_from_flax`` produce) and store `nn.Linear`
 weights as ``[out, in]`` as HF does, so a mapping here is a renaming,
-except GPT-NeoX's fused ``query_key_value``, split per head and fused back.
+except GPT-NeoX's fused ``query_key_value``, split per head and fused back,
+and Mixtral's per-expert ``w1``/``w3``/``w2`` (``[out, in]`` each), stacked
+into the experts' ``[E, in, out]`` weights and split back.
 
 Files: a single ``.safetensors`` (read and written by `utils/modeling.py`,
 no `safetensors` package), a torch ``.bin`` (`torch.load(weights_only=True)`),
@@ -128,6 +130,47 @@ def _llama_from_hf(flat, config) -> StateDict:
 
 def _llama_to_hf(state, config) -> StateDict:
     return _rename_to(state, _llama_pairs(config))
+
+
+# ------------------------------------------------------------------------ mixtral
+#: HF's expert projections -> the port's expert weights (w1 gate, w3 up, w2 down).
+_MIXTRAL_EXPERTS = (("w1", "w_gate"), ("w3", "w_up"), ("w2", "w_down"))
+
+
+def _mixtral_pairs(config) -> Pairs:
+    """Every name but the experts' weights; the router is ``gate``."""
+    pairs = [("model.embed_tokens.weight", "embed_tokens.weight"), ("model.norm.weight", "final_norm.weight"),
+             ("lm_head.weight", "lm_head.weight")]
+    for i in range(config.num_hidden_layers):
+        pairs += _pairs(f"model.layers.{i}.", f"layers.{i}.", _weights(
+            [(f"self_attn.{x}_proj", f"attention.w{x}") for x in "qkvo"]
+            + [("block_sparse_moe.gate", "moe.router")]
+            + [("input_layernorm", "input_norm"), ("post_attention_layernorm", "post_attn_norm")]
+        ))
+    return pairs
+
+
+def _mixtral_from_hf(flat, config) -> StateDict:
+    """Each expert's ``[out, in]`` projection transposed and stacked over
+    the experts into ``[E, in, out]``."""
+    state = _rename_from(flat, _mixtral_pairs(config))
+    for i in range(config.num_hidden_layers):
+        p = f"model.layers.{i}.block_sparse_moe.experts."
+        for hf, ours in _MIXTRAL_EXPERTS:
+            state[f"layers.{i}.moe.experts.{ours}"] = torch.stack(
+                [torch.as_tensor(flat[f"{p}{e}.{hf}.weight"]).T for e in range(config.num_local_experts)])
+    return state
+
+
+def _mixtral_to_hf(state, config) -> StateDict:
+    flat = _rename_to(state, _mixtral_pairs(config))
+    for i in range(config.num_hidden_layers):
+        p = f"model.layers.{i}.block_sparse_moe.experts."
+        for hf, ours in _MIXTRAL_EXPERTS:
+            stacked = state[f"layers.{i}.moe.experts.{ours}"]
+            for e in range(config.num_local_experts):
+                flat[f"{p}{e}.{hf}.weight"] = stacked[e].T.contiguous()
+    return flat
 
 
 # --------------------------------------------------------------------------- gptj
@@ -294,6 +337,7 @@ def _t5_to_hf(state, config) -> StateDict:
 
 _FROM_HF = {
     "llama": _llama_from_hf,
+    "mixtral": _mixtral_from_hf,
     "gptj": _gptj_from_hf,
     "gpt_neox": _gpt_neox_from_hf,
     "opt": _opt_from_hf,
@@ -301,6 +345,7 @@ _FROM_HF = {
 }
 _TO_HF = {
     "llama": _llama_to_hf,
+    "mixtral": _mixtral_to_hf,
     "gptj": _gptj_to_hf,
     "gpt_neox": _gpt_neox_to_hf,
     "opt": _opt_to_hf,

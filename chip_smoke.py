@@ -49,7 +49,12 @@ prints no result):
    GPT-J-6B's (16 heads of 256), in f32, bf16 and fp16 with fp16's range
    case. Then K3-K5 at T5's cross-attention shape (batch 2, 64 heads of 64,
    1024 queries over 2048 keys, non-causal, scale 1.0), f32 and bf16, with
-   SDPA (is_causal=False, scale=1.0) as the yardstick.
+   SDPA (is_causal=False, scale=1.0) as the yardstick. K3-K5 at Mixtral's
+   attention (batch 1, 32 heads of 128, sequence 2048, causal) run with the
+   families'. Then the repaired head dim 16 (phase 10 (a)): K3-K5 at
+   batch 2, 4 heads of 16, sequence 1024, causal and non-causal (scale
+   1.0), in f32, bf16 and fp16, and T5-tiny (d_kv 16) forward and backward
+   at 1024 + 1024 tokens through them.
 3. Engine: `create_named_model("llama-1b")` at full width and depth (random
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
@@ -206,11 +211,41 @@ prints no result):
    bytes, the save and load seconds and the directory's filesystem
    (`df -T`). Then T5 at T0pp-11B's widths cut to 2 + 2 layers round trips
    with bit-equal logits.
-10. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+10. Mixtral-8x7B at its published widths (8 experts of FFN 14336, top 2,
+   capacity factor 1.25; 32 heads of 128 over 8 KV heads; random weights
+   from seed 0, made in their dtype on the card), cut in depth (93.4 GB in
+   bf16 at 32 layers):
+   (a) the head-dim-16 repair, run with the kernel phases (phase 2): the
+       f32 T5-tiny loss through K3-K5 equals the plain attention's within
+       2e-5 + 1e-4 |plain|, each kernel launched once per decoder layer,
+       and the bf16 and fp16 runs' launches feed the `_d16` rows.
+   (b) K3-K5 at Mixtral's attention, with the families' (phase 2); their
+       launches are (d)'s.
+   (c) `generate` through `Generator(max_length=1024)`: f32 at 2 layers
+       and the dropless capacity factor 4.0, the cached greedy tokens equal
+       the full-context greedy loop's for 8 new tokens; bf16 at 24 layers
+       (70.2 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
+       (128-512 tokens), 128 new tokens each (TTFT, decode tokens/s, peak
+       memory), no K1-K5 launch; the tokens the routers dropped at the
+       prefill and at each decode step of the batch-8 call, counted by a
+       forward hook on each router that routes its logits again; the
+       device's busy share of a 16-token batch-1 call (`torch.profiler`).
+   (d) training at 2 layers, `train_step`, batch 1 x 2048: f32 at narrow
+       widths (hidden 1024, 8 heads of 128, FFN 3584), 3 steps, the kernel
+       losses against the plain attention's (rtol 1e-4); bf16, 2 warm-up and
+       8 timed steps (step time, tokens/s, peak memory, each step's ce and
+       router losses, MFU over the work done, `mixtral_step_flops`; K3-K5
+       launched 2 x 8 times); 2 fp16 steps.
+   (e) with phase 9, a 2-layer bf16 cut saved with `save_hf_checkpoint`
+       and loaded into a model from another seed: the same tensors bit for
+       bit and the same greedy tokens.
+11. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
    quantized modes at Llama-1B's and at GPT-NeoX-20B's shape, K3-K5 in
-   bf16 and in fp16 at Llama-1B's head 64 and at heads 96 and 256, and in
-   bf16 at T5's cross-attention shape, non-causal: `*_t5cross`), the
-   nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`.
+   bf16 and in fp16 at Llama-1B's head 64 and at heads 96, 256 and 128
+   (Mixtral's, `*_d128`), in bf16 at T5's cross-attention shape,
+   non-causal: `*_t5cross`, and in bf16 and fp16 at head 16, non-causal at
+   scale 1.0, T5-tiny's path: `*_d16`), the nvidia-smi line, and as the
+   last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -312,10 +347,14 @@ PAGED_DESIGN = ("bf16: grid (Hkv, slots, splits of 256 tokens x row groups) and 
 PAGED_SCALAR_DESIGN = ("bf16 and f32 q at D 96 (GPT-NeoX-20B, G = 1): paged_split_scalar_kernel, scalar fp32 FMAs "
                        "over the pool's own width in the same grid of 256-token splits and the same merge kernel; "
                        "the mma.sync route takes D 32, 64 and 128")
-# The training attention of GPT-NeoX-20B (64 heads of 96) and GPT-J-6B (16
-# heads of 256): batch 1, sequence 2048, causal. OPT-30B's 56 heads of 128
-# run the D 128 kernels.
-FAMILY_FLASH_SHAPES = {96: dict(b=1, hq=64, s=2048, d=96), 256: dict(b=1, hq=16, s=2048, d=256)}
+# The training attention of GPT-NeoX-20B (64 heads of 96), GPT-J-6B (16
+# heads of 256) and Mixtral-8x7B (32 heads of 128 after the GQA repeat from
+# 8, as Llama-3-8B's): batch 1, sequence 2048, causal. OPT-30B's 56 heads of
+# 128 run the D 128 kernels too.
+FAMILY_FLASH_SHAPES = {96: dict(b=1, hq=64, s=2048, d=96), 256: dict(b=1, hq=16, s=2048, d=256),
+                       128: dict(b=1, hq=32, s=2048, d=128)}
+# K3-K5 at head dim 16, T5-tiny's d_kv (4 heads): batch 2, sequence 1024.
+D16_FLASH_SHAPE = dict(b=2, hq=4, s=1024, d=16)
 # T5's cross-attention in training (T0pp-11B's heads: 64 of 64): a 1024-token
 # decoder over a 2048-token encoder, batch 2, non-causal, scale 1.0 (T5 does
 # not scale its scores): K3-K5's non-causal mode over Sq < Skv.
@@ -327,6 +366,11 @@ WIDE_FLASH_DESIGN = {
     256: "; D 256: four 64-column panels at the 128B swizzle, two wgmma n128 for the D-wide products, 64-key "
          "tiles; K4 over a third grid dimension of two column halves of dK and dV, each recomputing sT and dpT "
          "over the full D (1.5x K4's products, 255 registers a thread otherwise too few)",
+    128: "; D 128 (Mixtral-8x7B): two 64-column panels at the 128B swizzle, wgmma n128 for the D-wide "
+         "products, 64-key tiles in K3",
+    16: "; D 16 (T5-tiny's cross-attention: non-causal, scale 1.0): one 16-column panel at the 32B swizzle, "
+        "the score products one k16 step, wgmma n16 for the D-wide products, 128-key tiles in K3; f32: one "
+        "thread a row",
 }
 FLASH_KERNELS = {
     # name: (TPU kernel it replaces, products of 2 * BH * pairs * D operations it needs)
@@ -422,6 +466,27 @@ T5_GENERATE = dict(batch=8, prompt=512, new=128, padded=((2, 384), (5, 200)), pa
 # from float64's as far as the kernels' do.
 T5_PARITY_STEPS = 2
 T5_GRAD_RTOL = 1e-4
+# The repaired fault (phase 10 (a)): T5-tiny's d_kv 16 at 1024 encoder and
+# decoder tokens, where the flash gate opens.
+T5_TINY_SEQ = 1024
+
+# Mixtral (phase 10): Mixtral-8x7B at its published widths (8 experts of FFN
+# 14336, top 2, capacity factor 1.25; 32 heads of 128 over 8 KV heads; vocab
+# 32000). Its 46.70e9 parameters are 93.4 GB in bf16, past the card's 80 GB,
+# so each run is cut in depth: a layer is 1.4513e9 parameters (2.903 GB in
+# bf16), the embedding and the head 0.524 GB together. Generation runs 24 of
+# the 32 layers (70.2 GB) over a 1024-token cache (prompt 512 + 128 new);
+# its f32 dropless check 2 layers.
+MIXTRAL_MODEL = "mixtral-8x7b"
+MIXTRAL_GENERATE = dict(layers=24, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
+                        parity_layers=2, parity_batch=2, parity_prompt=64, parity_new=8, profile_new=16)
+# Training runs 2 layers (3.165e9 parameters: f32 masters and gradients,
+# AdamW's two moments and the bf16 copies, about 57 GB) on batch 1 x 2048.
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_TRAIN = dict(batch=1, seq=2048, warmup=2, timed_steps=8, fp16_steps=2, parity_steps=3)
+# The f32 parity's narrow widths: Mixtral's head dim 128 and 4:1 GQA kept,
+# the hidden width cut to 1024 (8 heads), the FFN to 3584; 8 experts, top 2.
+MIXTRAL_NARROW = dict(hidden_size=1024, intermediate_size=3584, num_attention_heads=8, num_key_value_heads=2)
 
 # Training (phase 5).
 TRAIN_LR, TRAIN_BETAS, TRAIN_EPS, TRAIN_WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
@@ -1551,14 +1616,16 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
-          after_step=None, remat_policy=None, loader=None):
+          after_step=None, remat_policy=None, loader=None, aux_out=None):
     """Train a model of `config` (its family's, random weights from seed 0)
     through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
     step_fn)` runs before step i and `after_step(i, step_fn)` after it, both
     outside its timing. `remat_policy` goes to the accelerator's
     `CompilationConfig`. The data is `loader`, or one repeated batch of
-    `batch` x `seq` tokens (`repeated_batch_loader`)."""
+    `batch` x `seq` tokens (`repeated_batch_loader`). A loss that returns
+    ``(loss, aux)`` (Mixtral's) appends each step's aux, as floats, to
+    `aux_out`."""
     from accelerate_tpu_torch import Accelerator, CompilationConfig
     from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -1581,10 +1648,13 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        loss = step_fn(b)
+        out = step_fn(b)
         schedule.step()
+        loss, aux = out if isinstance(out, tuple) else (out, None)
         losses.append(float(loss))  # reads the loss back: the step is done
         seconds.append(time.perf_counter() - t0)
+        if aux is not None and aux_out is not None:
+            aux_out.append({k: float(v) for k, v in aux.items()})
         if after_step is not None:
             after_step(i, step_fn)
     return losses, seconds, pmodel, step_fn, b
@@ -2096,7 +2166,8 @@ def profile_train_step(step_fn, batch, device, unprofiled_step_s):
 
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-        float(step_fn(batch))
+        out = step_fn(batch)
+        float(out[0] if isinstance(out, tuple) else out)  # a (loss, aux) step: Mixtral's
     # A user annotation (the optimizer's `Optimizer.step#AdamW.step`) spans
     # kernels that are counted on their own: leave it out of the sums.
     kernels = [
@@ -2620,7 +2691,7 @@ def filesystem(path):
 
 
 def hf_phase(device, model_name="llama-1b", t5_name=T5_MODEL, t5_layers=T5_TRAIN_LAYERS, engine_kw=None,
-             n_requests=16, system_len=256):
+             n_requests=16, system_len=256, mixtral_name=MIXTRAL_MODEL, mixtral_layers=2):
     """HF checkpoint interchange on the card, through a temporary directory
     (removed however the phase ends): `model_name` in bf16 at full width and
     depth (random weights from seed 0) written with `save_hf_checkpoint`
@@ -2631,12 +2702,13 @@ def hf_phase(device, model_name="llama-1b", t5_name=T5_MODEL, t5_layers=T5_TRAIN
     launches layers x dispatches. Reports the file's bytes, the save and
     load seconds and the directory's filesystem. Then T5 at `t5_name`'s
     widths cut to `t5_layers` + `t5_layers` layers, bf16, round trips with
-    bit-equal logits."""
+    bit-equal logits; then `mixtral_name` cut to `mixtral_layers` layers,
+    bf16, round trips with equal greedy tokens (Mixtral (e))."""
     import shutil
     import tempfile
 
-    from accelerate_tpu_torch import create_named_model
-    from accelerate_tpu_torch.models import create_t5_model
+    from accelerate_tpu_torch import GenerationConfig, Generator, create_named_model
+    from accelerate_tpu_torch.models import create_mixtral_model, create_t5_model
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.utils.hf_loading import load_hf_checkpoint_in_model, save_hf_checkpoint
 
@@ -2704,9 +2776,340 @@ def hf_phase(device, model_name="llama-1b", t5_name=T5_MODEL, t5_layers=T5_TRAIN
         log(f"[hf] {t5_name} {t5_layers} + {t5_layers} layers bf16 round trip, logits bit-equal: "
             f"{json.dumps(report['t5'])}")
         del original, fresh
+        free_memory(device)
+
+        # (e) of the Mixtral slice: the experts' [E, in, out] weights split
+        # into HF's per-expert w1/w3/w2 and stacked back.
+        cfg = mixtral_config(mixtral_name, num_hidden_layers=mixtral_layers)
+        original = create_mixtral_model(cfg, seed=0, dtype=torch.bfloat16, device=device)
+        fresh = create_mixtral_model(cfg, seed=1, dtype=torch.bfloat16, device=device)
+        report["mixtral"] = round_trip(original, fresh, "mixtral", mixtral_name)
+        ids = np.random.default_rng(5).integers(1, cfg.vocab_size, (2, 64))
+        tokens = [Generator(m, max_length=128, device=device)(ids, GenerationConfig(max_new_tokens=16)).cpu().numpy()
+                  for m in (original, fresh)]
+        if not np.array_equal(*tokens):
+            raise RuntimeError("Mixtral's greedy tokens differ after the HF round trip")
+        report["mixtral"].update(layers=mixtral_layers, greedy_tokens_equal=True, new_tokens=16)
+        log(f"[hf] {mixtral_name} {mixtral_layers} layers bf16 round trip, greedy tokens equal: "
+            f"{json.dumps(report['mixtral'])}")
+        del original, fresh
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     free_memory(device)
+    return report
+
+
+# ------------------------------------------------------------ head dim 16
+def t5_head_dim_16_case(device, model_name="t5-tiny", seq=T5_TINY_SEQ):
+    """The repaired fault on a model: `model_name` (d_kv 16) forward and
+    backward on `seq` encoder and `seq` decoder tokens, unmasked, through
+    its loss. In f32 once through the kernels and once with
+    ACCELERATE_TPU_ATTENTION_IMPL=xla: on the card the cross-attention
+    takes the flash gate (non-causal, scale 1.0) and launches K3-K5 once per
+    decoder layer, the plain run none, and the losses agree within
+    F32_ATOL + TRAIN_F32_RTOL |plain|. Then the same in bf16 and in fp16
+    (the weights cast): finite losses, and the launches the `_d16` rows
+    carry."""
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.models.t5 import seq2seq_lm_loss
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(16)
+    report = {"model": model_name, "enc_seq": seq, "dec_seq": seq}
+    model = None
+
+    def run(dtype):
+        nonlocal model
+        model = create_named_model(model_name, seed=2, dtype=dtype, device=device)
+        vocab = model.config.vocab_size
+        batch = {key: torch.as_tensor(rng.integers(1, vocab, (1, seq)), device=device)
+                 for key in ("input_ids", "decoder_input_ids", "labels")}
+        fa.reset_launch_counts()
+        loss = seq2seq_lm_loss(batch, model)
+        loss.backward()
+        sync(device)
+        return float(loss.detach()), dict(fa.LAUNCHES)
+
+    layers = None
+    for impl in ("flash", "xla"):
+        rng = np.random.default_rng(16)  # the same batch for both runs
+        if impl == "xla":
+            os.environ["ACCELERATE_TPU_ATTENTION_IMPL"] = "xla"
+        try:
+            loss, launches = run(torch.float32)
+        finally:
+            os.environ.pop("ACCELERATE_TPU_ATTENTION_IMPL", None)
+        layers = model.config.num_decoder_layers
+        report["head_dim"] = model.config.d_kv
+        report[f"f32_{impl}"] = {"loss": loss, "launches": launches}
+        want = expected_launches(layers if impl == "flash" else 0, torch.float32 if impl == "flash" else None)
+        if device.type == "cuda" and launches != want:
+            raise RuntimeError(f"{model_name} f32 {impl}: flash launches {launches}, expected {want}")
+    flash, plain = report["f32_flash"]["loss"], report["f32_xla"]["loss"]
+    limit = F32_ATOL + TRAIN_F32_RTOL * abs(plain)
+    if not np.isfinite(flash) or abs(flash - plain) > limit:
+        raise RuntimeError(f"{model_name} f32 loss through the kernels {flash} differs from the plain {plain}")
+    report.update(f32_abs_diff=abs(flash - plain), f32_limit=limit)
+    for dtype in (torch.bfloat16, torch.float16):
+        rng = np.random.default_rng(16)
+        loss, launches = run(dtype)
+        key = str(dtype).replace("torch.", "")
+        if not np.isfinite(loss):
+            raise RuntimeError(f"{model_name} {key} loss is not finite: {loss}")
+        if device.type == "cuda" and launches != expected_launches(layers, dtype):
+            raise RuntimeError(f"{model_name} {key}: flash launches {launches}, expected {layers} of each")
+        report[key] = {"loss": loss, "launches": launches}
+    log(f"[d16] {model_name} forward and backward at {seq} + {seq} tokens: {json.dumps(report)}")
+    model = None
+    free_memory(device)
+    return report
+
+
+def head_dim_16_phase(device, shape=D16_FLASH_SHAPE, model_name="t5-tiny", seq=T5_TINY_SEQ, timed=True):
+    """(a) of the Mixtral slice, the repair first: K3-K5 at head dim 16
+    against their plain versions in f32, bf16 and fp16, causal and
+    non-causal (scale 1.0, T5's), timed; then `t5_head_dim_16_case`."""
+    report = {}
+    log(f"[flash] head dim 16, causal: {json.dumps(shape)}")
+    report["causal"] = flash_kernel_phase(device, shape, timed=timed)
+    log(f"[flash] head dim 16, non-causal, scale 1.0: {json.dumps(shape)}")
+    report["non_causal"] = flash_kernel_phase(device, shape, timed=timed, causal=False, scale=1.0)
+    report["t5"] = t5_head_dim_16_case(device, model_name, seq)
+    return report
+
+
+# ------------------------------------------------------------------ Mixtral
+def mixtral_config(model_name=MIXTRAL_MODEL, **changes):
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    return dataclasses.replace(MODEL_REGISTRY[model_name](), **changes)
+
+
+def router_drops(model, call):
+    """Run `call()` with a forward hook on every layer's router that routes
+    the router's logits again (`top_k_routing` at the forward's capacity)
+    and counts what the capacity dropped. Returns per forward (the prefill,
+    then each decode step) the tokens it routed, the token-choices dropped
+    summed over the layers, and the tokens that lost every choice; the
+    counts stay on the device until `call()` returns."""
+    from accelerate_tpu_torch.parallel.expert import expert_capacity, top_k_routing
+
+    forwards, handles = [], []
+    for i, layer in enumerate(model.layers):
+        def hook(router, args, logits, moe=layer.moe, first=i == 0):
+            tokens = logits.shape[0]
+            capacity = expert_capacity(tokens, moe.num_experts, moe.top_k, moe.capacity_factor)
+            kept = top_k_routing(logits, moe.top_k, capacity)[0].sum(dim=(1, 2))  # choices kept per token
+            if first:
+                forwards.append({"tokens": tokens, "capacity": capacity, "counts": []})
+            forwards[-1]["counts"].append(torch.stack([tokens * moe.top_k - kept.sum(), (kept == 0).sum()]))
+
+        handles.append(layer.moe.router.register_forward_hook(hook))
+    try:
+        call()
+    finally:
+        for handle in handles:
+            handle.remove()
+    out = []
+    for f in forwards:
+        counts = torch.stack(f.pop("counts")).sum(dim=0).tolist()
+        out.append(dict(f, dropped_choices=int(counts[0]), dropped_tokens=int(counts[1])))
+    return out
+
+
+def mixtral_generate_phase(device, model_name=MIXTRAL_MODEL, shape=MIXTRAL_GENERATE, profile=True):
+    """(c) `generate` of `model_name` at full width:
+    - f32 cut to `parity_layers` layers at the dropless capacity factor
+      E / top_k: the cached greedy tokens of `Generator` equal the
+      full-context greedy loop's (no cache) for `parity_new` tokens;
+    - bf16 cut to `layers` layers (random weights from seed 0), the
+      `Generator` over a `max_length` cache: batch 1 on a `prompt`-token
+      prompt and a left-padded batch of `batch` (`ragged` tokens), `new`
+      new tokens each (`timed_generate`: TTFT, decode tokens/s, peak
+      memory); no K1-K5 launch over them;
+    - the router's drops on the left-padded batch, at the prefill and at
+      each decode step (`router_drops`);
+    - on the card, the device's busy share of a batch-1 call of
+      `profile_new` tokens (`profile_run`)."""
+    from accelerate_tpu_torch import GenerationConfig, Generator
+    from accelerate_tpu_torch.models import create_mixtral_model
+
+    report = {"model": model_name, "shape": shape}
+    t0 = time.perf_counter()
+    base = mixtral_config(model_name)
+    cfg = mixtral_config(model_name, num_hidden_layers=shape["parity_layers"],
+                         capacity_factor=base.num_local_experts / base.num_experts_per_tok)
+    model = create_mixtral_model(cfg, seed=0, device=device)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, cfg.vocab_size, (shape["parity_batch"], shape["parity_prompt"]))
+    n = shape["parity_new"]
+    cached = Generator(model, max_length=shape["max_length"], device=device)(
+        ids, GenerationConfig(max_new_tokens=n)).cpu().numpy()
+    full = torch.as_tensor(ids, device=device)
+    with torch.no_grad():
+        for _ in range(n):
+            full = torch.cat([full, model(full)[:, -1].argmax(-1)[:, None]], dim=1)
+    if not np.array_equal(cached, full.cpu().numpy()):
+        raise RuntimeError(f"{model_name} f32 dropless: cached greedy tokens differ from the full-context loop's")
+    report["f32_dropless"] = {"layers": cfg.num_hidden_layers, "capacity_factor": cfg.capacity_factor,
+                              "batch": int(ids.shape[0]), "prompt": int(ids.shape[1]), "new_tokens": n,
+                              "cached_equals_full_context": True}
+    log(f"[mixtral] f32 {cfg.num_hidden_layers} layers, capacity {cfg.capacity_factor}: cached greedy tokens "
+        f"equal the full-context loop's ({n} new tokens, batch {ids.shape[0]})")
+    del model
+    free_memory(device)
+    log(f"[time] mixtral generate (c) f32 {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    cfg = mixtral_config(model_name, num_hidden_layers=shape["layers"])
+    model = create_mixtral_model(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    log_model(f"[mixtral] {model_name} bf16", model, t0)
+    report.update(layers=cfg.num_hidden_layers, parameters=sum(p.numel() for p in model.parameters()),
+                  weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                  build_s=time.perf_counter() - t0)
+    gen = Generator(model, max_length=shape["max_length"], device=device)
+    gen(rng.integers(0, cfg.vocab_size, (1, 8)), GenerationConfig(max_new_tokens=4))  # warm-up
+    reset_launch_counts()
+    prompt = rng.integers(0, cfg.vocab_size, (shape["prompt"],))
+    _, report["bf16_batch1"] = timed_generate(gen, prompt[None], device, max_new_tokens=shape["new"])
+    log(f"[mixtral] generate bf16 batch 1: {json.dumps(report['bf16_batch1'])}")
+    lo, hi = shape["ragged"]
+    lengths = np.linspace(lo, hi, shape["batch"]).astype(int)
+    rids, mask = left_pad([rng.integers(0, cfg.vocab_size, (int(k),)) for k in lengths])
+    _, report["bf16_batch_ragged"] = timed_generate(gen, rids, device, mask, max_new_tokens=shape["new"])
+    log(f"[mixtral] generate bf16 batch {shape['batch']} left-padded: {json.dumps(report['bf16_batch_ragged'])}")
+    report["launches"] = launch_counts()
+    if any(report["launches"].values()):
+        raise RuntimeError(f"a K1-K5 kernel launched on {model_name}'s generate path: {report['launches']}")
+    forwards = router_drops(model, lambda: gen(rids, GenerationConfig(max_new_tokens=shape["new"]),
+                                               attention_mask=mask))
+    steps = forwards[1:]
+    report["router_drops"] = {
+        "prefill": forwards[0],
+        "decode_tokens_per_step": steps[0]["tokens"] if steps else 0,
+        "decode_capacity": steps[0]["capacity"] if steps else 0,
+        "decode_steps": len(steps),
+        "decode_dropped_choices_per_step": [f["dropped_choices"] for f in steps],
+        "decode_dropped_tokens_per_step": [f["dropped_tokens"] for f in steps],
+        "choices_per_forward": cfg.num_hidden_layers * cfg.num_experts_per_tok,
+    }
+    log(f"[mixtral] router drops, batch {shape['batch']} left-padded, summed over {cfg.num_hidden_layers} layers: "
+        f"{json.dumps(report['router_drops'])}")
+    if profile and device.type == "cuda":
+        def run():
+            t = time.perf_counter()
+            gen(prompt[None], GenerationConfig(max_new_tokens=shape["profile_new"]))
+            sync(device)
+            return time.perf_counter() - t
+
+        report["bf16_batch1_profile"] = profile_run(run, run())
+        report["bf16_batch1_profile"]["new_tokens"] = shape["profile_new"]
+        log(f"[mixtral] generate bf16 batch 1 profile: {json.dumps(report['bf16_batch1_profile'])}")
+    del gen, model
+    free_memory(device)
+    log(f"[time] mixtral generate (c) bf16 {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+def mixtral_step_flops(config, batch, seq):
+    """The work of one training step of a Mixtral `config` on `batch` x
+    `seq` tokens, as done: 3 x the forward's, and the forward per layer the
+    q, k, v and o projections (2 T H (2 Hq D + 2 Hkv D)), the causal
+    attention (2 products of 2 B Hq D over S (S + 1) / 2 pairs), the router
+    (2 T H E), the three expert GEMMs over all E x C capacity slots
+    (6 E C H F), the dispatch and combine einsums (2 x 2 T E C H), and the
+    head once (2 T H V); T = B S, C the expert capacity at T."""
+    from accelerate_tpu_torch.parallel.expert import expert_capacity
+
+    t, h, f = batch * seq, config.hidden_size, config.intermediate_size
+    e, k, v = config.num_local_experts, config.num_experts_per_tok, config.vocab_size
+    hq, hkv, d = config.num_attention_heads, config.num_key_value_heads, config.head_dim
+    c = expert_capacity(t, e, k, config.capacity_factor)
+    layer = (2 * t * h * (2 * hq * d + 2 * hkv * d) + 2 * 2 * batch * hq * d * seq * (seq + 1) / 2
+             + 2 * t * h * e + 6 * e * c * h * f + 4 * t * e * c * h)
+    return 3 * (config.num_hidden_layers * layer + 2 * t * h * v)
+
+
+MIXTRAL_FLOPS_FORMULA = ("3 x forward; forward = layers x (2 T H (2 Hq D + 2 Hkv D) + 4 B Hq D S (S + 1) / 2 "
+                         "+ 2 T H E + 6 E C H F + 4 T E C H) + 2 T H V, T = B S, C = the expert capacity at T; "
+                         "MFU = that / step time / 989 TFLOP/s (the combine einsum runs in f32)")
+
+
+def mixtral_training_phase(device, model_name=MIXTRAL_MODEL, layers=MIXTRAL_TRAIN_LAYERS, shape=MIXTRAL_TRAIN,
+                           narrow=MIXTRAL_NARROW, profile=False):
+    """(d) Training of `model_name` at full width cut to `layers` layers,
+    through `Accelerator.prepare` and the fused `train_step`, its loss the
+    bundled `make_moe_causal_lm_loss` (ce + 0.02 load balance + 0.001 z):
+    - f32 at the `narrow` widths (head dim 128 kept), 2 layers, batch 1,
+      the flash kernels' losses against the plain attention's
+      (`f32_flash_parity`);
+    - bf16 mixed precision, batch x seq tokens, warm-up and timed steps on
+      one repeated batch: step time, tokens/s, MFU counted as the work done
+      (`mixtral_step_flops`), peak memory, each step's ce and router losses
+      (finite), the losses falling; each flash kernel launched layers x
+      timed steps times;
+    - fp16 steps with loss scaling, counting the fp16 kernels' launches.
+    With `profile`, device time by kernel group of one more bf16 step."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    config = mixtral_config(model_name, num_hidden_layers=layers)
+    on_card = device.type == "cuda"
+    batch, seq, warmup, timed_steps = shape["batch"], shape["seq"], shape["warmup"], shape["timed_steps"]
+    report = {"model": model_name, "layers": layers, "head_dim": config.head_dim, "seq": seq}
+    t0 = time.perf_counter()
+    report["f32_parity"] = f32_flash_parity(device, mixtral_config(model_name, num_hidden_layers=2, **narrow), seq,
+                                            steps=shape["parity_steps"])
+    report["f32_parity"]["widths"] = narrow
+    free_memory(device)
+    log(f"[time] mixtral training (d) f32 {time.perf_counter() - t0:.1f}s")
+
+    def before_step(i, step_fn):
+        if i == warmup:
+            fa.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+
+    t0 = time.perf_counter()
+    aux = []
+    losses, seconds, pmodel, step_fn, last_batch = train(device, config, "bf16", batch=batch, steps=timed_steps,
+                                                         seq=seq, warmup=warmup, on_step=before_step, aux_out=aux)
+    launches = dict(fa.LAUNCHES)
+    finite = all(np.isfinite(losses)) and all(np.isfinite(list(a.values())).all() for a in aux)
+    if not finite or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{model_name} bf16 training on a repeated batch: losses {losses}, aux {aux}")
+    if on_card and launches != expected_launches(layers * timed_steps, torch.bfloat16):
+        raise RuntimeError(f"{model_name} bf16 timed steps: flash launches {launches}, expected {layers} x "
+                           f"{timed_steps}")
+    bf16 = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+    flops = mixtral_step_flops(config, batch, seq)
+    bf16.update(losses=losses, aux=aux, flops_per_step=flops, mfu=flops / (bf16["step_ms_median"] / 1e3) /
+                BF16_PEAK_FLOPS, mfu_formula=MIXTRAL_FLOPS_FORMULA)
+    if on_card:
+        bf16["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    log(f"[mixtral] train bf16 {layers} layers: {json.dumps(bf16)}")
+    report["bf16"] = bf16
+    if profile:
+        report["bf16_profile"] = profile_train_step(step_fn, last_batch, device, bf16["step_ms_median"] / 1e3)
+    del pmodel, step_fn, last_batch
+    free_memory(device)
+    log(f"[time] mixtral training (d) bf16 {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    fa.reset_launch_counts()
+    steps = shape["fp16_steps"]
+    losses, seconds, pmodel, step_fn, _ = train(device, config, "fp16", batch=batch, steps=steps, seq=seq)
+    launches = dict(fa.LAUNCHES)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{model_name} fp16 training losses are not finite: {losses}")
+    if on_card and launches != expected_launches(layers * steps, torch.float16):
+        raise RuntimeError(f"{model_name} fp16 steps: flash launches {launches}, expected {layers} x {steps}")
+    report["fp16"] = {"steps": steps, "losses": losses, "step_ms": [1e3 * x for x in seconds], "launches": launches}
+    log(f"[mixtral] train fp16 {layers} layers: {json.dumps(report['fp16'])}")
+    del pmodel, step_fn
+    free_memory(device)
+    log(f"[time] mixtral training (d) fp16 {time.perf_counter() - t0:.1f}s")
     return report
 
 
@@ -2802,11 +3205,11 @@ def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design="",
             "bound_ms": fp16["bound_ms"],
             "bound_by": fp16["bound_by"],
             "library_ms": fp16["library_ms"],
-            "library_call": ("F.scaled_dot_product_attention(is_causal=True), fp16" if name == "flash_fwd" else
-                             "autograd backward of F.scaled_dot_product_attention(is_causal=True), fp16: dq, dk "
-                             "and dv in one call, the work of flash_bwd_dkv and flash_bwd_dq together"),
+            "library_call": (f"{sdpa}, fp16" if name == "flash_fwd" else
+                             f"autograd backward of {sdpa}, fp16: dq, dk and dv in one call, the work of "
+                             "flash_bwd_dkv and flash_bwd_dq together"),
             "dtype": "float16",
-            "shape": dict(shape, causal=causal),
+            "shape": dict(shape, causal=causal, **({} if scale is None else {"scale": scale})),
             "design": FLASH_DESIGN[name] + FLASH_FP16_DESIGN[name] + design,
         })
     return rows
@@ -2825,7 +3228,7 @@ def main(argv=None) -> int:
                              "step and one T5 generate call: device time by kernel, busy share")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
-    parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(32, 64, 96, 128, 256),
+    parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
                         help="--compare's head dimension (default: the training shape's)")
     parser.add_argument("--compare-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -2872,6 +3275,9 @@ def main(argv=None) -> int:
     t5_flash = flash_kernel_phase(device, T5_CROSS_FLASH_SHAPE, causal=False, scale=1.0,
                                   dtypes=(torch.float32, torch.bfloat16))
     log(f"[time] kernel phases at T5's cross-attention shape {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    d16 = head_dim_16_phase(device)
+    log(f"[time] mixtral (a) head dim 16 {time.perf_counter() - t0:.1f}s")
     if args.kernels_only:
         log(card)
         return 0
@@ -2924,11 +3330,20 @@ def main(argv=None) -> int:
     log(f"[t5] generate summary: {json.dumps(t5_generate)}")
     log(f"[time] t5 generate phase {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    mixtral_generate = mixtral_generate_phase(device)
+    log(f"[mixtral] generate summary: {json.dumps(mixtral_generate)}")
+    log(f"[time] mixtral generate phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mixtral_train = mixtral_training_phase(device, profile=args.profile)
+    log(f"[mixtral] training summary: {json.dumps(mixtral_train)}")
+    log(f"[time] mixtral training phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     hf = hf_phase(device)
     log(f"[hf] summary: {json.dumps(hf)}")
     log(f"[time] hf phase {time.perf_counter() - t0:.1f}s")
 
-    wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"]}  # the families at each head dim
+    # the families at each head dim
+    wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"], 128: mixtral_train}
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
     rows += flash_rows(flash, training["bf16"]["launches"], training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
@@ -2938,6 +3353,9 @@ def main(argv=None) -> int:
                            suffix=f"_d{d}", design=WIDE_FLASH_DESIGN[d])
     rows += flash_rows(t5_flash, t5_train["bf16"]["launches"], None, T5_CROSS_FLASH_SHAPE, suffix="_t5cross",
                        design=T5_CROSS_DESIGN, causal=False, scale=1.0)
+    # At head dim 16 the path is T5-tiny's cross-attention: non-causal, scale 1.0.
+    rows += flash_rows(d16["non_causal"], d16["t5"]["bfloat16"]["launches"], d16["t5"]["float16"]["launches"],
+                       D16_FLASH_SHAPE, suffix="_d16", design=WIDE_FLASH_DESIGN[16], causal=False, scale=1.0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

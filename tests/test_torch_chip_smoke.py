@@ -5,8 +5,8 @@ an emulation of the tensor-core kernels' bf16 and fp16 arithmetic, fp16's
 range scaling included, at every head dim the kernels are built for), its
 profile's attribution of the grouped-query repeat, the refusal of its
 `--compare` mode to run without a card, its generate phase rehearsed at
-llama_tiny, and the families' phases and `kernels` rows rehearsed at their
-tiny configs."""
+llama_tiny, and the families' and Mixtral's phases and `kernels` rows
+rehearsed at their tiny configs."""
 
 import os
 import subprocess
@@ -18,6 +18,7 @@ import torch
 
 import chip_smoke
 from accelerate_tpu_torch.ops import flash_attention as fa
+from accelerate_tpu_torch.parallel.expert import expert_capacity
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -572,6 +573,73 @@ def test_t5_phases_rehearse_on_the_cpu(monkeypatch):
     assert generated["bf16"]["new_tokens"] == 6 and generated["bf16"]["step_bound_ms"] > 0
     assert not any(generated["launches"].values())
     monkeypatch.setattr(chip_smoke, "ENGINE_KW", dict(num_slots=4, page_size=16, max_length=768, chunk_size=8))
-    hf = chip_smoke.hf_phase(cpu, "llama-tiny", t5_name="t5-tiny", n_requests=4, system_len=16)
+    hf = chip_smoke.hf_phase(cpu, "llama-tiny", t5_name="t5-tiny", n_requests=4, system_len=16,
+                             mixtral_name="mixtral-tiny")
     assert hf["plain_tokens_equal"] == hf["speculative_tokens_equal"] == 4
     assert hf["llama"]["file_bytes"] > 0 and hf["t5"]["logits_bit_equal"]
+    assert hf["mixtral"]["greedy_tokens_equal"] and hf["mixtral"]["file_bytes"] > 0
+
+
+def test_head_dim_16_is_a_compare_choice():
+    """`--head-dim 16` is accepted (the refusal is the card's, not
+    argparse's), and 128 stays one."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    for d in ("16", "128"):
+        run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--compare", ROOT, "--head-dim", d],
+                             capture_output=True, text=True, timeout=120)
+        assert run.returncode == 2 and "needs a CUDA device" in run.stderr and "invalid choice" not in run.stderr
+
+
+def test_mixtral_phases_rehearse_on_the_cpu(monkeypatch):
+    """The Mixtral slice's phases at `mixtral-tiny` on the CPU: (a) the head
+    dim 16 kernels against their plain versions and T5-tiny's forward and
+    backward (the gate stays shut here: no launch, equal losses); (c)
+    generation, f32 dropless cached against full context, bf16 timings and
+    the router's drops at the prefill and each decode step; (d) training,
+    f32 parity, bf16 losses falling with finite ce and router losses, the
+    MoE FLOP count; and the `kernels` line's `_d16` (non-causal, scale 1.0)
+    and `_d128` rows from those runs' launches."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(chip_smoke, "flash_range_case", lambda device, shape: {})  # the range needs S 2048
+    d16_shape = dict(b=1, hq=2, s=128, d=16)
+    d16 = chip_smoke.head_dim_16_phase(cpu, shape=d16_shape, seq=128, timed=False)
+    assert d16["t5"]["head_dim"] == 16 and d16["t5"]["f32_abs_diff"] == 0.0
+    for phase in (d16["causal"], d16["non_causal"]):
+        assert set(phase["flash_fwd"]) == {"float32", "bfloat16", "float16"}
+        for name, row in phase.items():
+            assert all(entry["limit"]["broken"] == 0 for dtype in ("bfloat16", "float16")
+                       for key, entry in row[dtype]["errors"].items() if key != "lse"), name
+    generated = chip_smoke.mixtral_generate_phase(cpu, "mixtral-tiny", shape=dict(
+        layers=2, max_length=128, prompt=32, new=6, batch=3, ragged=(8, 32), parity_layers=2, parity_batch=2,
+        parity_prompt=12, parity_new=5, profile_new=4))
+    assert generated["f32_dropless"]["cached_equals_full_context"] and not any(generated["launches"].values())
+    drops = generated["router_drops"]
+    assert drops["prefill"]["tokens"] == 3 * 32 and drops["decode_steps"] == 5 and drops["decode_tokens_per_step"] == 3
+    assert drops["prefill"]["capacity"] == expert_capacity(3 * 32, 4, 2, 1.25) == 60
+    trained = chip_smoke.mixtral_training_phase(cpu, "mixtral-tiny", layers=2, narrow={}, shape=dict(
+        batch=1, seq=64, warmup=1, timed_steps=2, fp16_steps=1, parity_steps=2))
+    assert trained["f32_parity"]["max_rel_diff"] == 0.0
+    bf16 = trained["bf16"]
+    assert bf16["losses"][-1] < bf16["losses"][0] and bf16["mfu"] > 0
+    assert [sorted(a) for a in bf16["aux"]] == [["ce", "load_balance_loss", "router_z_loss"]] * 3
+    cfg = chip_smoke.mixtral_config("mixtral-8x7b", num_hidden_layers=2)
+    flops = chip_smoke.mixtral_step_flops(cfg, 1, 2048)
+    c = 640  # ceil(2048 * 2 / 8 * 1.25)
+    experts = 3 * 2 * 6 * 8 * c * 4096 * 14336
+    assert experts < flops < 1.4 * experts
+    want = chip_smoke.expected_launches(2, torch.bfloat16)
+    want16 = chip_smoke.expected_launches(2, torch.float16)
+    rows = chip_smoke.flash_rows(_timed(d16["non_causal"]), want, want16, d16_shape, suffix="_d16",
+                                 design=chip_smoke.WIDE_FLASH_DESIGN[16], causal=False, scale=1.0)
+    assert [row["name"] for row in rows] == [f"{k}_d16" for k in (
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_f16", "flash_bwd_dkv_f16", "flash_bwd_dq_f16")]
+    assert all(row["shape"]["scale"] == 1.0 and row["shape"]["causal"] is False and row["launches"] == 2
+               and "is_causal=False, scale=1.0" in row["library_call"] for row in rows)
+    d128 = dict(chip_smoke.FAMILY_FLASH_SHAPES[128], s=128)
+    phase = chip_smoke.flash_kernel_phase(cpu, shape=d128, timed=False, dtypes=(torch.float32, torch.bfloat16,
+                                                                                 torch.float16))
+    rows = chip_smoke.flash_rows(_timed(phase), want, want16, d128, suffix="_d128",
+                                 design=chip_smoke.WIDE_FLASH_DESIGN[128])
+    assert [row["name"] for row in rows][:3] == ["flash_fwd_d128", "flash_bwd_dkv_d128", "flash_bwd_dq_d128"]
+    assert all(row["shape"]["d"] == 128 and row["shape"]["hq"] == 32 for row in rows)

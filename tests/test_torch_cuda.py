@@ -499,6 +499,69 @@ def test_flash_softmax_rescales_large_scores_at_family_head_dims(cuda, d, dtype)
     test_flash_softmax_rescales_large_scores(cuda, d, dtype)
 
 
+@pytest.mark.parametrize("causal,s,sk", [(True, 192, 192), (False, 128, 200), (True, 64, 200),
+                                         (True, 130, 250), (True, 1024, 1024)],
+                         ids=["causal", "full-ragged", "causal-cross", "causal-ragged", "causal-1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_kernels_match_plain_versions_at_head_dim_16(cuda, dtype, causal, s, sk):
+    """`test_flash_kernels_match_plain_versions` at T5-tiny's head dim 16:
+    one 32B-swizzled panel, the score product one k16 step, p.v and dK/dV
+    m64n16 wgmmas; scalar rows of one thread."""
+    test_flash_kernels_match_plain_versions(cuda, dtype, causal, s, sk, 16)
+
+
+@pytest.mark.parametrize("s,sk", [(128, 256), (130, 250), (1024, 1024)], ids=["aligned", "ragged", "t5-tiny"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_kernels_match_plain_versions_non_causal_at_head_dim_16(cuda, dtype, s, sk):
+    """The non-causal mode at head dim 16 and scale 1.0, T5-tiny's
+    cross-attention."""
+    _hold_flash_kernels(cuda, dtype, False, s, sk, 16, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_flash_kernels_keep_to_their_head_at_head_dim_16(cuda, dtype):
+    test_flash_kernels_keep_to_their_head(cuda, dtype, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_softmax_rescales_large_scores_at_head_dim_16(cuda, dtype):
+    test_flash_softmax_rescales_large_scores(cuda, 16, dtype)
+
+
+def test_t5_tiny_at_head_dim_16_takes_the_flash_kernels(cuda, monkeypatch):
+    """The repaired fault: an unmasked `t5-tiny` (d_kv 16) forward and
+    backward at 1024 decoder over 1024 encoder tokens, f32, reaches the
+    flash gate (the cross-attention: non-causal, scale 1.0) and launches
+    K3-K5 on each of its 2 decoder layers, where it raised before; its loss
+    equals the forced-plain run's within rtol 1e-5, and each parameter's
+    gradient within `chip_smoke.T5_GRAD_RTOL` (the norm of the difference
+    over the plain one's, as `chip_smoke.t5_f32_parity` holds T5)."""
+    from accelerate_tpu_torch.models import create_named_model
+    from accelerate_tpu_torch.models.t5 import seq2seq_lm_loss
+
+    rng = np.random.default_rng(16)
+    batch = {"input_ids": torch.as_tensor(rng.integers(1, 512, (1, 1024)), device=cuda),
+             "decoder_input_ids": torch.as_tensor(rng.integers(1, 512, (1, 1024)), device=cuda),
+             "labels": torch.as_tensor(rng.integers(0, 512, (1, 1024)), device=cuda)}
+    runs = {}
+    for impl in ("flash", "xla"):
+        if impl == "xla":
+            monkeypatch.setenv("ACCELERATE_TPU_ATTENTION_IMPL", "xla")
+        model = create_named_model("t5-tiny", seed=2, device=cuda)
+        assert model.config.d_kv == 16
+        fa.reset_launch_counts()
+        loss = seq2seq_lm_loss(batch, model)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = model.config.num_decoder_layers if impl == "flash" else 0
+        assert fa.LAUNCHES == _launched(fa.LAUNCHES, torch.float32, n), impl
+        runs[impl] = (float(loss.detach()), {k: p.grad for k, p in model.named_parameters()})
+    assert abs(runs["flash"][0] - runs["xla"][0]) <= 1e-5 * abs(runs["xla"][0])
+    for name, g in runs["xla"][1].items():
+        diff = float((runs["flash"][1][name] - g).norm() / g.norm().clamp_min(1e-30))
+        assert diff <= chip_smoke.T5_GRAD_RTOL, (name, diff)
+
+
 def test_bf16_flash_path_runs_the_tensor_core_kernels(cuda):
     """On bf16 CUDA tensors K3, K4 and K5 launch the wgmma kernels (the
     profiler's kernel names say so) and f32 the scalar ones, each call one
@@ -891,6 +954,46 @@ def test_t5_training_steps_through_the_non_causal_kernels(cuda, monkeypatch):
             losses[impl] = [float(step(batch)) for batch in loader]
             n = 2 * 3 if impl == "flash" else 0
             assert fa.LAUNCHES == _launched(fa.LAUNCHES, torch.float32, n), impl
+    finally:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+    np.testing.assert_allclose(losses["flash"], losses["xla"], rtol=1e-4)
+
+
+def test_mixtral_training_step_launches_the_flash_kernels_at_head_dim_128(cuda, monkeypatch):
+    """One f32 `train_step` of a `mixtral_tiny` widened to head dim 128 (4
+    heads of 128 over 2 KV heads) on 1024 tokens, where the flash gate
+    opens: K3-K5 each launch once per layer, the router losses come back
+    finite, and the loss equals the forced-plain run's (rtol 1e-4)."""
+    import dataclasses
+
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader
+    from accelerate_tpu_torch.models import create_mixtral_model, mixtral_tiny
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    cfg = dataclasses.replace(mixtral_tiny(), hidden_size=512, max_position_embeddings=1024)
+    assert cfg.head_dim == 128
+    data = [{"input_ids": np.random.default_rng(10).integers(0, cfg.vocab_size, (1024,))}]
+    losses = {}
+    try:
+        for impl in ("flash", "xla"):
+            if impl == "xla":
+                monkeypatch.setenv("ACCELERATE_TPU_ATTENTION_IMPL", "xla")
+            AcceleratorState._reset_state()
+            GradientState._reset_state()
+            model = create_mixtral_model(cfg, seed=1, device=cuda)
+            accelerator = Accelerator()
+            optimizer = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+            _, _, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(1), 1)))
+            step = accelerator.train_step(max_grad_norm=1.0)
+            fa.reset_launch_counts()
+            loss, aux = step(next(iter(loader)))
+            torch.cuda.synchronize()
+            n = cfg.num_hidden_layers if impl == "flash" else 0
+            assert fa.LAUNCHES == _launched(fa.LAUNCHES, torch.float32, n), impl
+            assert sorted(aux) == ["ce", "load_balance_loss", "router_z_loss"]
+            assert all(np.isfinite(float(v)) for v in aux.values())
+            losses[impl] = float(loss)
     finally:
         AcceleratorState._reset_state()
         GradientState._reset_state()

@@ -44,8 +44,9 @@ def _normal(rng, *shape):
 @pytest.mark.parametrize(
     "bh,s,sk,d,causal",
     [(4, 128, 128, 32, True), (2, 64, 192, 64, True), (3, 128, 128, 64, False),
-     (2, 128, 128, 96, True), (1, 128, 128, 256, True), (2, 128, 128, 96, False)],
-    ids=["causal", "causal-cross", "full", "causal-d96", "causal-d256", "full-d96"],
+     (2, 128, 128, 96, True), (1, 128, 128, 256, True), (2, 128, 128, 96, False),
+     (2, 128, 128, 16, True), (2, 128, 256, 16, False)],
+    ids=["causal", "causal-cross", "full", "causal-d96", "causal-d256", "full-d96", "causal-d16", "full-cross-d16"],
 )
 def test_plain_kernels_match_pallas_interpret(bh, s, sk, d, causal):
     """Block level: plain K3 against `_fwd_call` (o and lse[..., 0]), plain
@@ -119,6 +120,25 @@ def test_flash_grads_match_jax_at_neox_and_gptj_head_dims(d, causal):
     """`test_flash_grads_match_jax` at GPT-NeoX-20B's head dim 96 and
     GPT-J-6B's 256 (Hq = Hkv, as both families)."""
     test_flash_grads_match_jax(causal, 2, d)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_grads_match_jax_at_head_dim_16(causal):
+    """`test_flash_grads_match_jax` at T5-tiny's head dim 16."""
+    test_flash_grads_match_jax(causal, 2, 16)
+
+
+def test_head_dim_16_is_admitted():
+    """The kernels take head dim 16 (T5-tiny's d_kv), which JAX's Pallas
+    kernels take too: `HEAD_DIMS` holds it, the wrapper's checks pass a
+    D 16 tensor and still refuse D 48, and `use_flash` opens on the card
+    for T5-tiny's unmasked 1024-token cross-attention."""
+    assert 16 in port_flash.HEAD_DIMS
+    q = torch.zeros(4, 128, 16)
+    port_flash._check_cuda(q=q, k=q, v=q)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_flash._check_cuda(q=torch.zeros(4, 128, 48), k=torch.zeros(4, 128, 48), v=torch.zeros(4, 128, 48))
+    assert port_attention.use_flash(None, False, 1024, 1024, False, on_cuda=True)
 
 
 def test_flash_causal_cross_length_matches_jax():

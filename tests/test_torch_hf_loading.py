@@ -7,7 +7,7 @@ held against the `safetensors` package, the JAX package's
     and the package's through the port, in F32, F16, BF16, I8 and I64; a
     file the JAX package wrote from bf16 params (real BF16, and the older
     U16 form it records in metadata) loads as bf16 with the same bits.
-  - Per family (Llama, GPT-J, GPT-NeoX, OPT, T5 v1.1 and v1.0), on the state
+  - Per family (Llama, Mixtral, GPT-J, GPT-NeoX, OPT, T5 v1.1 and v1.0), on the state
     dict of a random `transformers` model built in memory from a config
     (nothing downloads): the port's `convert_hf_state_dict` equals, tensor
     for tensor and bit for bit, the family's ``*_state_dict_from_flax``
@@ -16,7 +16,8 @@ held against the `safetensors` package, the JAX package's
   - f32 logits of the loaded port model match the `transformers` forward
     within rtol/atol 2e-4, JAX's own limit for the same check
     (`tests/test_hf_loading.py`, `test_gpt_neox_opt.py`, `test_gptj.py`),
-    at JAX's configs.
+    at JAX's configs. HF's Mixtral is dropless, so its case sets the port's
+    capacity factor to E / top_k, where no choice is dropped.
   - Round trips through one safetensors file, a torch ``.bin`` and sharded
     safetensors and ``.bin`` indexes give the same state bit for bit.
   - A tied head distinct from the embedding is refused; a tied view equal
@@ -36,7 +37,7 @@ import torch
 import jax
 
 from accelerate_tpu.utils import hf_loading as jax_hf
-from accelerate_tpu_torch.models import gpt_neox, gptj, llama, opt, t5
+from accelerate_tpu_torch.models import gpt_neox, gptj, llama, mixtral, opt, t5
 from accelerate_tpu_torch.utils import hf_loading as port_hf
 from accelerate_tpu_torch.utils.modeling import load_safetensors_state_dict, save_safetensors
 
@@ -144,6 +145,22 @@ def _llama_case():
             llama.create_llama_model, llama.llama_state_dict_from_flax, 128)
 
 
+def _mixtral_case():
+    from accelerate_tpu.models.mixtral import mixtral_tiny
+
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, num_local_experts=4, num_experts_per_tok=2, max_position_embeddings=256,
+        rope_theta=10000.0, rms_norm_eps=1e-5, tie_word_embeddings=False, router_jitter_noise=0.0,
+        attn_implementation="eager",
+    )
+    tiny = mixtral_tiny()
+    # HF routes without a capacity: at E / top_k slots per even share none is dropped.
+    jcfg = dataclasses.replace(tiny, capacity_factor=tiny.num_local_experts / tiny.num_experts_per_tok)
+    return (transformers.MixtralForCausalLM, hf_cfg, jcfg, _port_config(mixtral.MixtralConfig, jcfg),
+            mixtral.create_mixtral_model, mixtral.mixtral_state_dict_from_flax, 512)
+
+
 def _gptj_case():
     from accelerate_tpu.models.gptj import gptj_tiny
 
@@ -197,6 +214,7 @@ def _t5_case(v1_0):
 
 CASES = {
     "llama": _llama_case,
+    "mixtral": _mixtral_case,
     "gptj": _gptj_case,
     "gpt_neox": _gpt_neox_case,
     "opt": _opt_case,
@@ -345,8 +363,12 @@ def test_tied_head_distinct_from_the_embedding_is_refused(model_type):
 
 
 def test_unsupported_model_type_is_named():
+    """A type neither package maps (BERT has no HF mapping in either) is
+    refused by name, as JAX's is."""
     cfg = _llama_case()[3]
-    with pytest.raises(ValueError, match="Unsupported model_type 'mixtral'"):
-        port_hf.convert_hf_state_dict({}, "mixtral", cfg)
-    with pytest.raises(ValueError, match="Unsupported model_type 'mixtral'"):
-        port_hf.export_hf_state_dict({}, "mixtral", cfg)
+    with pytest.raises(ValueError, match="Unsupported model_type 'bert'"):
+        jax_hf.convert_hf_state_dict({}, "bert", cfg)
+    with pytest.raises(ValueError, match="Unsupported model_type 'bert'"):
+        port_hf.convert_hf_state_dict({}, "bert", cfg)
+    with pytest.raises(ValueError, match="Unsupported model_type 'bert'"):
+        port_hf.export_hf_state_dict({}, "bert", cfg)

@@ -46,6 +46,7 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.examples.nlp_example, accelerate_tpu_torch.models.decoder\n"
         "import accelerate_tpu_torch.models.gpt_neox, accelerate_tpu_torch.models.gptj, accelerate_tpu_torch.models.opt\n"
         "import accelerate_tpu_torch.models.t5, accelerate_tpu_torch.utils.hf_loading, accelerate_tpu_torch.utils.modeling\n"
+        "import accelerate_tpu_torch.parallel.expert, accelerate_tpu_torch.models.mixtral\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -89,6 +90,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         create_named_model("gpt-neox-tiny")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_named_model("t5-tiny")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_named_model("mixtral-tiny")
     from accelerate_tpu_torch import Seq2SeqGenerator
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
