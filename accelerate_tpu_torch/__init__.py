@@ -41,7 +41,14 @@ from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_mixtral_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
-from .utils import CompilationConfig, GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration, set_seed
+from .utils import (
+    CompilationConfig,
+    FP8RecipeKwargs,
+    GradientAccumulationPlugin,
+    GradScalerKwargs,
+    ProjectConfiguration,
+    set_seed,
+)
 
 __all__ = [
     "Accelerator",
@@ -50,6 +57,7 @@ __all__ = [
     "CompilationConfig",
     "ContinuousBatcher",
     "EngineClosed",
+    "FP8RecipeKwargs",
     "GradScalerKwargs",
     "GenerationConfig",
     "Generator",

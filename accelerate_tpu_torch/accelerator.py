@@ -1,7 +1,7 @@
 """The user-facing training facade (the port of the one-process path of
 `accelerate_tpu/accelerator.py`).
 
-    accelerator = Accelerator(mixed_precision="bf16")  # or "fp16", with loss scaling
+    accelerator = Accelerator(mixed_precision="bf16")  # or "fp16", with loss scaling, or "fp8"
     model, optimizer, loader, scheduler = accelerator.prepare(model, optimizer, loader, schedule)
     step_fn = accelerator.train_step(max_grad_norm=1.0)
     for batch in loader:
@@ -23,6 +23,8 @@ or the eager surface, as in the JAX package:
 
 Activation checkpointing: ``Accelerator(compilation_config=CompilationConfig(
 remat_policy="full"))`` checkpoints every in-tree layer (`ops/remat.py`).
+fp8: ``Accelerator(mixed_precision="fp8", kwargs_handlers=[FP8RecipeKwargs(...)])``
+runs every linear layer's product in fp8 (`ops/fp8.py`), the rest in bf16.
 Metrics: ``Accelerator(log_with="json", project_dir=...)``, then
 `init_trackers`, `log` and `end_training`, and `gather_for_metrics`.
 
@@ -55,7 +57,13 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .tracking import LOGGER_TYPE_TO_CLASS, GeneralTracker, filter_trackers
 from .train_step import FusedTrainStep, detached
-from .utils.dataclasses import CompilationConfig, GradientAccumulationPlugin, GradScalerKwargs, ProjectConfiguration
+from .utils.dataclasses import (
+    CompilationConfig,
+    FP8RecipeKwargs,
+    GradientAccumulationPlugin,
+    GradScalerKwargs,
+    ProjectConfiguration,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -83,11 +91,15 @@ class Accelerator:
         self.log_with = filter_trackers(log_with, self.logging_dir)
         self.trackers: List[GeneralTracker] = []
         self.scaler_handler = None
+        self.fp8_recipe_handler = None
         for handler in kwargs_handlers or []:
-            if not isinstance(handler, GradScalerKwargs):
+            if isinstance(handler, GradScalerKwargs):
+                self.scaler_handler = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe_handler = handler
+            else:
                 raise ValueError(f"unsupported kwargs handler {type(handler).__name__}; the port takes "
-                                 "GradScalerKwargs")
-            self.scaler_handler = handler
+                                 "GradScalerKwargs and FP8RecipeKwargs")
         # fp16's dynamic loss scaling, shared by every prepared optimizer.
         self.scaler = GradScaler(self.scaler_handler) if self.state.mixed_precision == "fp16" else None
         if gradient_accumulation_plugin is None:
@@ -195,8 +207,11 @@ class Accelerator:
         if isinstance(model, nn.Module):
             model = Model(model, loss_fn=getattr(model, "loss_fn", None))
         compute_dtype = None if self.mixed_precision == "no" else self.state.compute_dtype
+        fp8_recipe = None
+        if self.mixed_precision == "fp8":
+            fp8_recipe = self.fp8_recipe_handler or FP8RecipeKwargs()
         prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype,
-                                 remat_policy=self.compilation_config.remat_policy)
+                                 remat_policy=self.compilation_config.remat_policy, fp8_recipe=fp8_recipe)
         self._models.append(prepared)
         return prepared
 

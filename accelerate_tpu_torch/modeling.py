@@ -15,18 +15,25 @@ the same way and floating outputs come back as f32. `torch.autocast` would
 not match it: it keeps the norm scales and the embedding in f32 and casts
 other ops than JAX does. With a `remat_policy` the forward runs inside
 `ops.remat.remat_scope`, so every in-tree layer is checkpointed (JAX's
-`PreparedModel(remat_policy=...)`).
+`PreparedModel(remat_policy=...)`). With an `fp8_recipe` (mixed precision
+"fp8": bf16 copies) the forward runs inside `ops.fp8.fp8_autocast`, so every
+linear layer's product is an fp8 one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 from torch import nn
 
+from .ops.fp8 import fp8_autocast
 from .ops.remat import check_policy, remat_scope
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -57,15 +64,26 @@ class PreparedModel:
     argument to `Accelerator.backward` and the fused step's default)."""
 
     def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, fp8_recipe=None):
         self.module = model.module.to(device)
         self.loss_fn = model.loss_fn
         self.device = device
         self.compute_dtype = compute_dtype
         self.remat_policy = check_policy(remat_policy)
+        self.fp8_recipe = fp8_recipe
+        if fp8_recipe is not None and fp8_recipe.scaling == "delayed":
+            # The forward never rolls the histories, so every layer keeps
+            # the cold scale 1.0: JAX's prepared model computes the same.
+            logger.warning(
+                "FP8RecipeKwargs(scaling='delayed') through the prepared-model path keeps amax "
+                "histories frozen at their init scale (the forward does not update them). Use the "
+                "default dynamic scaling, or thread meta explicitly via ops.fp8.fp8_matmul_delayed / "
+                "fp8_autocast(recipe, update_meta=True)."
+            )
 
     def _mp_apply(self, *args, **kwargs):
-        with remat_scope(self.remat_policy):
+        fp8 = contextlib.nullcontext() if self.fp8_recipe is None else fp8_autocast(self.fp8_recipe)
+        with fp8, remat_scope(self.remat_policy):
             return self._apply(*args, **kwargs)
 
     def _apply(self, *args, **kwargs):
@@ -101,5 +119,5 @@ class PreparedModel:
     def __repr__(self):
         return (
             f"PreparedModel(params={self.num_parameters:,}, device={self.device}, "
-            f"compute_dtype={self.compute_dtype}, remat_policy={self.remat_policy})"
+            f"compute_dtype={self.compute_dtype}, remat_policy={self.remat_policy}, fp8_recipe={self.fp8_recipe})"
         )

@@ -1,9 +1,10 @@
 """In-tree model families of the port (the Llama, BERT, GPT-NeoX, GPT-J, OPT,
-T5 and Mixtral slices of `accelerate_tpu/models/__init__.py`).
+T5, Mixtral and ResNet slices of `accelerate_tpu/models/__init__.py`).
 
 Each family has its config, its `create_*` factory (random weights from a
 seed, made on the device) and its carry function, ``*_state_dict_from_flax``,
-which takes a JAX params tree to the port's `state_dict`."""
+which takes a JAX params tree to the port's `state_dict`. ResNet, an image
+model, is exported but not registered, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -47,6 +48,16 @@ from .mixtral import (
     mixtral_tiny,
 )
 from .opt import OPTConfig, OPTForCausalLM, create_opt_model, opt_30b, opt_state_dict_from_flax, opt_tiny
+from .resnet import (
+    ResNet,
+    ResNetConfig,
+    create_resnet_model,
+    image_classification_loss,
+    resnet18_ish,
+    resnet50,
+    resnet_state_dict_from_flax,
+    resnet_tiny,
+)
 from .t5 import (
     T5Config,
     T5ForConditionalGeneration,

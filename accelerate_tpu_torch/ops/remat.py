@@ -18,14 +18,20 @@ Policies, with the meaning of JAX's `jax.checkpoint_policies`:
 
   - ``full``, ``nothing_saveable``: save nothing inside the layer;
   - ``dots``, ``dots_saveable``: save the outputs of the matmuls
-    (``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``: JAX's ``dot_general``)
-    and recompute the elementwise chain;
-  - ``dots_with_no_batch_dims``: save ``mm``/``addmm`` only, not the batched
-    score products.
+    (``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``, and fp8's ``_scaled_mm``:
+    JAX's ``dot_general``) and recompute the elementwise chain;
+  - ``dots_with_no_batch_dims``: save ``mm``/``addmm``/``_scaled_mm`` only,
+    not the batched score products.
 
 A flash kernel's output is never saved: its launch is no aten op (JAX's
 ``pallas_call`` is no ``dot_general``), so the recompute launches the
 forward kernel again, and the backward kernels run on its fresh o and lse.
+
+Under `ops.fp8.fp8_autocast` the recompute runs under the recipe the
+forward ran under, captured at the call: the autograd engine runs the
+backward (and so the recompute) on a thread of its own on the card, where
+the forward's context is not set. JAX's `jax.checkpoint` retraces inside
+its interceptor in the same way.
 """
 
 from __future__ import annotations
@@ -43,13 +49,15 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from .fp8 import recipe_scope, recompute_recipe
+
 # Active remat policy name, or None (no remat), read at forward time.
 _REMAT_POLICY: contextvars.ContextVar = contextvars.ContextVar("remat_policy", default=None)
 
 #: CompilationConfig.remat_policy values (JAX's names).
 POLICY_NAMES = ("full", "nothing_saveable", "dots", "dots_saveable", "dots_with_no_batch_dims")
 
-_MATMULS = ("mm", "addmm", "bmm", "baddbmm")
+_MATMULS = ("mm", "addmm", "bmm", "baddbmm", "_scaled_mm")
 
 
 def _saved_ops(name: str):
@@ -60,7 +68,7 @@ def _saved_ops(name: str):
         "nothing_saveable": None,
         "dots": tuple(getattr(aten, op) for op in _MATMULS),
         "dots_saveable": tuple(getattr(aten, op) for op in _MATMULS),
-        "dots_with_no_batch_dims": (aten.mm, aten.addmm),
+        "dots_with_no_batch_dims": (aten.mm, aten.addmm, aten._scaled_mm),
     }[name]
 
 
@@ -109,13 +117,20 @@ def maybe_remat(layer: torch.nn.Module, *args, **kwargs):
     swapped the module's tensors back (`PreparedModel` runs the forward on
     compute-dtype copies through `torch.func.functional_call`), so the
     layer's parameters and buffers are taken now and passed to the
-    recompute explicitly: it sees the tensors the forward saw."""
+    recompute explicitly: it sees the tensors the forward saw, and the fp8
+    recipe the forward ran under."""
     name = _REMAT_POLICY.get()
     if name is None or not torch.is_grad_enabled():
         return layer(*args, **kwargs)
     tensors = dict((*layer.named_parameters(), *layer.named_buffers()))
+    fp8 = recompute_recipe(layer)
+    calls = []
 
     def run(*a, **kw):
-        return torch.func.functional_call(layer, tensors, a, kw)
+        # The first call is the forward, inside the caller's own context;
+        # every later one a recompute.
+        with recipe_scope(fp8 if calls else None):
+            calls.append(1)
+            return torch.func.functional_call(layer, tensors, a, kw)
 
     return checkpoint(run, *args, use_reentrant=False, context_fn=_context_fn(name), **kwargs)

@@ -37,11 +37,6 @@ class AcceleratorState:
         mode = mode or "no"
         if mode not in PrecisionType.list():
             raise ValueError(f"mixed_precision must be one of {PrecisionType.list()}, got {mode}")
-        if mode not in COMPUTE_DTYPES:
-            raise NotImplementedError(
-                f"mixed_precision={mode!r} is not ported yet (the port runs {sorted(COMPUTE_DTYPES)}; "
-                "fp8 is later work)"
-            )
         # The card unless the caller asks for the CPU; no card raises.
         self.device = resolve_device("cpu" if cpu else None)
         self._mixed_precision = mode

@@ -2,6 +2,7 @@
 
 from .dataclasses import (
     CompilationConfig,
+    FP8RecipeKwargs,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     PrecisionType,
@@ -12,6 +13,7 @@ from .random import set_seed
 
 __all__ = [
     "CompilationConfig",
+    "FP8RecipeKwargs",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "PrecisionType",

@@ -11,8 +11,9 @@ import torch
 
 
 class PrecisionType(str, enum.Enum):
-    """The JAX package's precision modes. The port runs ``no``, ``bf16`` and
-    ``fp16`` (with dynamic loss scaling); ``fp8`` is still to port."""
+    """The JAX package's precision modes, all of which the port runs: ``no``,
+    ``bf16``, ``fp16`` (with dynamic loss scaling) and ``fp8`` (bf16 compute,
+    every linear layer's product in fp8 under `FP8RecipeKwargs`)."""
 
     NO = "no"
     FP8 = "fp8"
@@ -24,8 +25,8 @@ class PrecisionType(str, enum.Enum):
         return [m.value for m in cls]
 
 
-#: Compute dtype of each mode the port runs.
-COMPUTE_DTYPES = {"no": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
+#: Compute dtype of each mode (fp8's linear products aside, bf16 under fp8).
+COMPUTE_DTYPES = {"no": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16, "fp8": torch.bfloat16}
 
 
 @dataclass
@@ -50,6 +51,35 @@ class GradScalerKwargs:
     backoff_factor: float = 0.5
     growth_interval: int = 2000
     enabled: bool = True
+
+
+@dataclass
+class FP8RecipeKwargs:
+    """The fp8 recipe of ``mixed_precision="fp8"``, with the JAX package's
+    fields, defaults and checks; passed to `Accelerator(kwargs_handlers=[...])`.
+    `fp8_format` "HYBRID" takes the backward's gradients in e5m2, "E4M3"
+    everything in e4m3; `scaling` "dynamic" scales each tensor by its own
+    amax, "delayed" by a rolling window of `amax_history_len` amaxes
+    (`ops/fp8.py`). `margin`, `interval` and `override_linear_precision` are
+    accepted and, as in the JAX package, read by nothing."""
+
+    margin: int = 0
+    interval: int = 1
+    fp8_format: str = "HYBRID"  # E4M3 | HYBRID
+    scaling: str = "dynamic"  # dynamic | delayed
+    amax_history_len: int = 1024
+    amax_compute_algo: str = "most_recent"
+    override_linear_precision: tuple = (False, False, False)
+
+    def __post_init__(self):
+        self.fp8_format = self.fp8_format.upper()
+        if self.fp8_format not in ("E4M3", "HYBRID"):
+            raise ValueError("fp8_format must be E4M3 or HYBRID")
+        self.scaling = self.scaling.lower()
+        if self.scaling not in ("dynamic", "delayed"):
+            raise ValueError("scaling must be dynamic or delayed")
+        if self.amax_compute_algo not in ("max", "most_recent"):
+            raise ValueError("amax_compute_algo must be max or most_recent")
 
 
 @dataclass

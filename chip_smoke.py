@@ -239,13 +239,51 @@ prints no result):
    (e) with phase 9, a 2-layer bf16 cut saved with `save_hf_checkpoint`
        and loaded into a model from another seed: the same tensors bit for
        bit and the same greedy tokens.
-11. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
+11. fp8 mixed precision and ResNet, run after phase 5 (f):
+   (a) the fp8 products at Llama-1B's eight linear shapes (wq, wk, wv, wo,
+       w_gate, w_up, w_down, lm_head 2048 x 128256) at batch 2 x 2048
+       tokens, in HYBRID through the port's autograd path
+       (`ops.fp8.fp8_matmul`, `torch._scaled_mm` on the card): forward, dx
+       (the gradient in e5m2) and dw, each held element by element to its
+       plain version on the same fp8 operands and scales within a relative
+       2^-7 (one bf16 rounding of each side) plus 2^-12 of the sum of the
+       products' magnitudes (the tensor cores' accumulation, `FP8_ACC`);
+       each timed (`_scaled_mm` on operands already laid out, CUDA events
+       after an L2 flush, median of 20) beside a bf16 `torch.matmul` of the
+       same shape, the plain version and the fp8 bound at 1979 TFLOP/s, with
+       the quantize passes (amax, scale, cast of x, w and g) and the
+       transposed fp8 copies `_scaled_mm`'s column-major operand needs, and
+       their sum over one step's layers.
+   (b) Llama-1B at full width and depth trained with
+       `Accelerator(mixed_precision="fp8")` through `train_step`, as 5 (b)
+       (batch 2, AdamW, 2 warm-up and 8 timed steps on one repeated batch):
+       step time, tokens/s, MFU over 989 TFLOP/s and the same work over the
+       fp8 peak, peak memory, the losses beside 5 (b)'s bf16 losses (same
+       batch and seed) and the step time over bf16's. Gates: losses finite
+       and falling; each bf16 K3-K5 launched 16 layers x 8 steps times and
+       no other flash kernel; per step 16 x 7 + 1 fp8 forward products and
+       as many dx and dw. With --profile, one more step's device time by
+       part: `_scaled_mm`, the quantize passes, the layout copies, AdamW,
+       K3-K5, the rest.
+   (c) fp8 at Llama-1B's widths cut to 2 layers (f32 masters), batch 1, 3
+       steps, without remat and under `remat_policy="full"`: equal losses
+       (rtol 1e-6); the recompute, on the autograd engine's device thread,
+       runs K3 and every layer's forward products again.
+   (d) ResNet-50 (`resnet50()`, 25,557,032 parameters, random weights from
+       seed 0) through `prepare` and `backward` with AdamW (lr 1e-3, decay
+       1e-4), bf16, one repeated batch of 64 x 224 x 224 x 3 (numpy seed
+       0): step time, images/s, peak memory. Gates: losses finite and
+       falling; every BatchNorm buffer unchanged bit for bit.
+12. A `{"kernels": [...]}` line (K1 and K2 unquantized and in both
    quantized modes at Llama-1B's and at GPT-NeoX-20B's shape, K3-K5 in
    bf16 and in fp16 at Llama-1B's head 64 and at heads 96, 256 and 128
    (Mixtral's, `*_d128`), in bf16 at T5's cross-attention shape,
    non-causal: `*_t5cross`, and in bf16 and fp16 at head 16, non-causal at
-   scale 1.0, T5-tiny's path: `*_d16`), the nvidia-smi line, and as the
-   last line `{"ok": true, "device": {...}}`.
+   scale 1.0, T5-tiny's path: `*_d16`; the bf16 K3-K5 rows count the
+   launches of 5 (b) and 11 (b), whose attention is bf16), the nvidia-smi
+   line, and as the last line `{"ok": true, "device": {...}}`.
+
+`--fp8-only` runs the build and phase 11 alone (prints no result line).
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -3113,6 +3151,342 @@ def mixtral_training_phase(device, model_name=MIXTRAL_MODEL, layers=MIXTRAL_TRAI
     return report
 
 
+# ------------------------------------------------------------ fp8 and ResNet
+# fp8 (phase 11). The H100 SXM's dense fp8 tensor-core rate (NVIDIA's
+# figure; 3958 TFLOP/s with sparsity), the fp8 products' bound.
+FP8_PEAK_FLOPS = 1979e12
+# An fp8 product against its plain version on the same fp8 operands and
+# scales: one bf16 rounding of each output (two roundings of nearby values
+# differ by at most a relative 2^-7), plus the order of the sum: the
+# products of fp8 values are exact, and Hopper's fp8 MMA adds them with
+# about 14 bits inside the tensor core before cuBLAS promotes each partial
+# sum to f32 (fast accumulation off, `_scaled_mm`'s default), so the sum may
+# move by 2^-12 of the sum of the products' magnitudes (the plain version's
+# f32 order, 2^-24 a term, is far inside that).
+FP8_RTOL = 2.0 ** -7
+FP8_ACC = 2.0 ** -12
+# CUDA-event timed calls of each product in phase 11 (a) (the plain version
+# of the lm_head product, an f32 GEMM, takes about 35 ms).
+FP8_TIMED = 20
+# Phase 11 (c): fp8 under remat at Llama-1B's widths cut to this depth.
+FP8_REMAT_LAYERS = 2
+# Phase 11 (d): ResNet-50, bf16, one repeated batch of 64 images of 224 x 224.
+RESNET = dict(batch=64, size=224, warmup=2, timed_steps=8, lr=1e-3, weight_decay=1e-4)
+
+
+def llama_linear_shapes(config):
+    """{name: (in, out)} of one Llama layer's linear layers, and the head's."""
+    h, d = config.hidden_size, config.head_dim
+    return {"wq": (h, config.num_attention_heads * d), "wk": (h, config.num_key_value_heads * d),
+            "wv": (h, config.num_key_value_heads * d), "wo": (config.num_attention_heads * d, h),
+            "w_gate": (h, config.intermediate_size), "w_up": (h, config.intermediate_size),
+            "w_down": (config.intermediate_size, h), "lm_head": (h, config.vocab_size)}
+
+
+def fp8_plain(a, sa, b, sb):
+    """The plain version of an fp8 product: ``(a @ b) * (sa * sb)`` in f32,
+    rounded to bf16."""
+    return ((a.float() @ b.float()) * (sa * sb)).to(torch.bfloat16)
+
+
+def fp8_product_case(device, tokens, n_in, n_out, seed=0, timed=True):
+    """One linear layer at `tokens` x `n_in` -> `n_out` in HYBRID through the
+    port's autograd path (`ops.fp8.fp8_matmul(x, weight.T)` forward, then
+    its backward on a bf16 gradient), each product held to its plain
+    version on the same fp8 operands and scales. With `timed`: each
+    product's `_scaled_mm` on operands already laid out, the plain version
+    and a bf16 `torch.matmul` of the same shape, the fp8 bound, and the
+    quantize passes (amax, scale, cast of x, w and g) and the transposed fp8
+    copies `_scaled_mm`'s column-major second operand needs."""
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn(tokens, n_in, generator=gen, device=device).to(torch.bfloat16)
+    weight = (torch.randn(n_out, n_in, generator=gen, device=device) * n_in ** -0.5).to(torch.bfloat16)
+    g = (torch.randn(tokens, n_out, generator=gen, device=device) * 1e-3).to(torch.bfloat16)
+    xs, ws = x.clone().requires_grad_(), weight.clone().requires_grad_()
+    out = pfp8.fp8_matmul(xs, ws.T)
+    out.backward(g)
+    got = {"fwd": out.detach(), "dx": xs.grad, "dw": ws.grad}
+    xq, sx = pfp8.quantize_fp8(x)
+    wq, sw = pfp8.quantize_fp8(weight.T)  # [in, out], column-major
+    gq, sg = pfp8.quantize_fp8(g, pfp8.E5M2)
+    operands = {"fwd": (xq, sx, wq, sw), "dx": (gq, sg, wq.T, sw), "dw": (gq.T, sg, xq, sx)}
+    bf16 = {"fwd": (x, weight.T), "dx": (g, weight), "dw": (g.T, x)}
+    report = {"shape": {"tokens": tokens, "in": n_in, "out": n_out}}
+    for role, (a, sa, b, sb) in operands.items():
+        ref = fp8_plain(a, sa, b, sb)
+        acc = (a.float().abs() @ b.float().abs()) * (sa * sb)  # the products' magnitudes, summed
+        entry = {"dtypes": [str(a.dtype), str(b.dtype)], "max_abs_err": float((got[role].float() - ref.float()).abs().max()),
+                 "limit": limit_report(got[role], ref, 0.0, FP8_RTOL, FP8_ACC * acc),
+                 "limit_without_accumulation": limit_report(got[role], ref, 0.0, FP8_RTOL)}
+        del ref, acc
+        m, k, n = a.shape[0], a.shape[1], b.shape[1]
+        entry["bound_ms"] = 1e3 * max(2 * m * k * n / FP8_PEAK_FLOPS, (m * k + k * n + 2 * m * n) / HBM_BYTES_PER_S)
+        entry["bound_by"] = "operations" if 2 * m * k * n / FP8_PEAK_FLOPS > (m * k + k * n + 2 * m * n) / HBM_BYTES_PER_S else "bytes"
+        if timed:
+            a_laid, b_laid = a.contiguous(), b.t().contiguous().t()
+            entry["ms"] = time_ms(lambda: torch._scaled_mm(a_laid, b_laid, scale_a=sa, scale_b=sb,
+                                                           out_dtype=torch.bfloat16), device, iters=FP8_TIMED)
+            entry["bf16_matmul_ms"] = time_ms(lambda: torch.matmul(*bf16[role]), device, iters=FP8_TIMED)
+            entry["plain_ms"] = time_ms(lambda: fp8_plain(a, sa, b, sb), device, iters=FP8_TIMED, warmup=1)
+            entry["bf16_bound_ms"] = 1e3 * max(2 * m * k * n / BF16_PEAK_FLOPS, 2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S)
+            del a_laid, b_laid
+        report[role] = entry
+        broken = entry["limit"]["broken"]
+        if broken:
+            raise RuntimeError(f"fp8 {role} product at {report['shape']}: {broken} elements past the limit "
+                               f"({json.dumps(entry['limit'])})")
+    if timed:
+        report["quantize_ms"] = {
+            name: time_ms(lambda t=t, f=f: pfp8.quantize_fp8(t, f), device, iters=FP8_TIMED)
+            for name, t, f in (("x", x, pfp8.E4M3), ("w", weight.T, pfp8.E4M3), ("g", g, pfp8.E5M2))}
+        # The backward's copies: w (column-major after its quantize) row-major
+        # for dx's second operand, g transposed for dw's first and x for its second.
+        report["layout_ms"] = {
+            name: time_ms(lambda t=t: t.contiguous(), device, iters=FP8_TIMED)
+            for name, t in (("w", wq), ("g_t", gq.t()), ("x_t", xq.t()))}
+    return report
+
+
+def fp8_products_phase(device, model_name="llama-1b", tokens=2 * TRAIN_SEQ, timed=True):
+    """11 (a): the fp8 products of each of `model_name`'s linear shapes at
+    `tokens` tokens, forward, dx and dw (`fp8_product_case`), and the time
+    of one step's products and quantize passes summed over its layers."""
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    config = MODEL_REGISTRY[model_name]()
+    shapes = llama_linear_shapes(config)
+    report = {}
+    for i, (name, (n_in, n_out)) in enumerate(shapes.items()):
+        report[name] = fp8_product_case(device, tokens, n_in, n_out, seed=i, timed=timed)
+        log(f"[fp8] {name}: {json.dumps(report[name])}")
+        free_memory(device)
+    pfp8.reset_product_counts()
+    if timed:
+        per_step = {"fp8_products_ms": 0.0, "bf16_matmuls_ms": 0.0, "quantize_ms": 0.0, "layout_ms": 0.0}
+        for name, case in report.items():
+            n = 1 if name == "lm_head" else config.num_hidden_layers
+            per_step["fp8_products_ms"] += n * sum(case[r]["ms"] for r in ("fwd", "dx", "dw"))
+            per_step["bf16_matmuls_ms"] += n * sum(case[r]["bf16_matmul_ms"] for r in ("fwd", "dx", "dw"))
+            per_step["quantize_ms"] += n * sum(case["quantize_ms"].values())
+            per_step["layout_ms"] += n * sum(case["layout_ms"].values())
+        report["per_step"] = per_step
+        log(f"[fp8] one {model_name} step's products, summed over its layers: {json.dumps(per_step)}")
+    return report
+
+
+def fp8_training_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, timed_steps=8, warmup=2, batch=2, bf16=None,
+                       profile=False):
+    """11 (b): `model_name` at full width and depth trained in fp8 through
+    `train_step` (AdamW as in 5 (b), one repeated batch), beside `bf16`, the
+    bf16 run of 5 (b) on the same batch and seed (run here when None). Gates:
+    finite losses, the last below the first; each bf16 flash kernel launched
+    layers x timed steps times and no other; every linear layer's product in
+    fp8: per step, (7 a layer + the head) forward products, as many dx and
+    dw. Reports step time, tokens/s, MFU (over 989 TFLOP/s, and the same work
+    over the fp8 peak), peak memory and the losses beside bf16's; with
+    `profile`, one more step's device time by part."""
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    config = MODEL_REGISTRY[model_name]()
+    on_card = device.type == "cuda"
+    layers = config.num_hidden_layers
+    runs = {}
+    for mode in ("bf16", "fp8") if bf16 is None else ("fp8",):
+        def before_step(i, step_fn):
+            if i == warmup:
+                fa.reset_launch_counts()
+                pfp8.reset_product_counts()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(device)
+
+        losses, seconds, pmodel, step_fn, last_batch = train(device, config, mode, batch=batch, steps=timed_steps,
+                                                             seq=seq, warmup=warmup, on_step=before_step)
+        launches, products = dict(fa.LAUNCHES), dict(pfp8.PRODUCTS)
+        run = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+        run.update(losses=losses, fp8_products=products)
+        if on_card:
+            run["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        log(f"[fp8] {mode} {model_name}: {json.dumps(run)}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{mode} training on a repeated batch: losses {losses} (finite, falling)")
+        if on_card and launches != expected_launches(layers * timed_steps, torch.bfloat16):
+            raise RuntimeError(f"{mode} timed steps: flash launches {launches}, expected {layers} x {timed_steps}")
+        if profile and mode == "fp8":
+            run["profile"] = profile_fp8_step(step_fn, last_batch, device, run["step_ms_median"] / 1e3)
+        runs[mode] = run
+        del pmodel, step_fn, last_batch
+        free_memory(device)
+    fp8, bf16 = runs["fp8"], bf16 if bf16 is not None else runs["bf16"]
+    per_step = (7 * layers + 1) * timed_steps
+    if fp8["fp8_products"] != {"fwd": per_step, "dx": per_step, "dw": per_step}:
+        raise RuntimeError(f"fp8 timed steps ran {fp8['fp8_products']} fp8 products, expected {per_step} each "
+                           f"(7 x {layers} layers + the head, x {timed_steps} steps)")
+    fp8["mfu_over_fp8_peak"] = fp8["mfu"] * BF16_PEAK_FLOPS / FP8_PEAK_FLOPS
+    fp8["bf16"] = {key: bf16[key] for key in ("step_ms_median", "tokens_per_s", "mfu", "losses", "peak_memory_bytes")
+                   if key in bf16}
+    fp8["step_time_over_bf16"] = fp8["step_ms_median"] / bf16["step_ms_median"]
+    fp8["max_abs_loss_diff_from_bf16"] = max(abs(a - b) for a, b in zip(fp8["losses"], bf16["losses"]))
+    return fp8
+
+
+def profile_fp8_step(step_fn, batch, device, unprofiled_step_s):
+    """Device time of one more fp8 step under `torch.profiler`, by part:
+    `_scaled_mm`, the quantize passes (``fp8_quantize``: amax, scale, cast),
+    the operand copies for `_scaled_mm`'s layout (``fp8_layout``), AdamW
+    (`Optimizer.step#AdamW.step`), K3-K5, and the rest; each part is the
+    device time of the kernels launched inside its op or range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step_fn(batch))
+    rows = prof.key_averages()
+    kernels = [(row.self_device_time_total, row.key) for row in rows
+               if row.device_type == DeviceType.CUDA and row.self_device_time_total > 0
+               and not getattr(row, "is_user_annotation", False)]
+    total_us = sum(us for us, _ in kernels)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+
+    def inside(match):
+        """Device time (us) of the kernels launched inside the host ops or ranges `match` picks."""
+        return sum(row.device_time_total for row in rows if row.device_type == DeviceType.CPU and match(row.key))
+
+    parts = {
+        "scaled_mm": inside(lambda key: key == "aten::_scaled_mm"),
+        "fp8_quantize": inside(lambda key: key == "fp8_quantize"),
+        "fp8_layout": inside(lambda key: key == "fp8_layout"),
+        "adamw": inside(lambda key: key.startswith("Optimizer.step#AdamW")),
+        "flash_attention": sum(us for us, key in kernels if "flash_" in key.lower() and "kernel" in key.lower()),
+    }
+    parts["rest"] = total_us - sum(parts.values())
+    kernels.sort(reverse=True)
+    out = {
+        "device_busy_ms": total_us / 1e3,
+        "busy_share_of_unprofiled_step": total_us / 1e6 / unprofiled_step_s,
+        "ms": {k: v / 1e3 for k, v in parts.items()},
+        "share": {k: v / total_us for k, v in parts.items()},
+        "top_kernels": [{"name": name[:140], "ms": us / 1e3, "share": us / total_us} for us, name in kernels[:15]],
+    }
+    log(f"[fp8] profile: {json.dumps(out)}")
+    return out
+
+
+def fp8_remat_phase(device, model_name="llama-1b", layers=FP8_REMAT_LAYERS, seq=TRAIN_SEQ, steps=3):
+    """11 (c): fp8 (f32 masters, bf16 copies) at full width cut to `layers`
+    layers, batch 1, `steps` steps, without remat and under
+    `remat_policy="full"`: equal losses (rtol 1e-6). The recompute runs in
+    the backward, on the autograd engine's device thread, under the recipe
+    the forward captured: K3 and every forward product launched twice per
+    layer step, K4, K5, dx and dw once."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    config = dataclasses.replace(MODEL_REGISTRY[model_name](), num_hidden_layers=layers)
+    on_card = device.type == "cuda"
+    runs = {}
+    for policy in (None, "full"):
+        fa.reset_launch_counts()
+        pfp8.reset_product_counts()
+        losses = train(device, config, "fp8", batch=1, steps=steps, seq=seq, remat_policy=policy)[0]
+        launches, products = dict(fa.LAUNCHES), dict(pfp8.PRODUCTS)
+        runs[str(policy)] = {"losses": losses, "launches": launches, "fp8_products": products}
+        log(f"[fp8] remat_policy={policy}, {layers} layers: {json.dumps(runs[str(policy)])}")
+        once = (7 * layers + 1) * steps
+        want = {"fwd": once + (7 * layers * steps if policy else 0), "dx": once, "dw": once}
+        if products != want:
+            raise RuntimeError(f"fp8 remat_policy={policy}: fp8 products {products}, expected {want}")
+        if on_card and launches != remat_launches(layers * steps, policy, torch.bfloat16):
+            raise RuntimeError(f"fp8 remat_policy={policy}: flash launches {launches}, expected "
+                               f"{remat_launches(layers * steps, policy, torch.bfloat16)}")
+        free_memory(device)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(runs["full"]["losses"], runs["None"]["losses"]))
+    if not all(np.isfinite(runs["None"]["losses"])) or diff > REMAT_F32_RTOL:
+        raise RuntimeError(f"fp8 losses under remat {runs['full']['losses']} differ from those without "
+                           f"{runs['None']['losses']} (rtol {diff})")
+    return {"layers": layers, "runs": runs, "max_rel_diff": diff, "rtol": REMAT_F32_RTOL}
+
+
+def resnet_phase(device, config=None, shape=RESNET):
+    """11 (d): ResNet (ResNet-50 by default, random weights from seed 0)
+    through `Accelerator.prepare` and `backward` with AdamW, bf16 mixed
+    precision, one repeated batch of NHWC images (numpy seed 0, labels over
+    the classes). Gates: losses finite and falling; every BatchNorm buffer
+    unchanged bit for bit. Reports step time (loss read back each step),
+    images/s and peak memory."""
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader
+    from accelerate_tpu_torch.models.resnet import create_resnet_model, resnet50
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    config = config or resnet50()
+    on_card = device.type == "cuda"
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    batch, size = shape["batch"], shape["size"]
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(batch, size, size, config.num_channels)).astype(np.float32)
+    labels = rng.integers(0, config.num_classes, size=batch)
+    data = [{"pixel_values": images[i], "labels": labels[i]} for i in range(batch)]
+    model = create_resnet_model(config, seed=0, device=device)
+    accelerator = Accelerator(mixed_precision="bf16", cpu=not on_card)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=shape["lr"], weight_decay=shape["weight_decay"])
+    pmodel, optimizer, loader = accelerator.prepare(model, optimizer, SimpleDataLoader(data, BatchSampler(range(batch),
+                                                                                                       batch)))
+    b = next(iter(loader))
+    buffers = {name: t.clone() for name, t in model.named_buffers()}
+    losses, seconds = [], []
+    for i in range(shape["warmup"] + shape["timed_steps"]):
+        if i == shape["warmup"] and on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        if on_card:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        loss = accelerator.backward(pmodel.loss, b)
+        optimizer.step()
+        optimizer.zero_grad()
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    step_s = float(np.median(seconds[shape["warmup"]:]))
+    report = {"parameters": pmodel.num_parameters, "batch": batch, "image_size": size, "losses": losses,
+              "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * s for s in seconds], "images_per_s": batch / step_s}
+    if on_card:
+        report["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    changed = [name for name, t in model.named_buffers() if not torch.equal(t, buffers[name])]
+    report["batchnorm_buffers"] = len(buffers)
+    log(f"[resnet] {json.dumps(report)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"ResNet training on a repeated batch: losses {losses} (finite, falling)")
+    if changed:
+        raise RuntimeError(f"ResNet training moved BatchNorm buffers: {changed}")
+    return report
+
+
+def fp8_phase(device, bf16=None, profile=False):
+    """Phase 11: (a) the fp8 products at Llama-1B's linear shapes, (b) Llama-1B
+    trained in fp8 beside `bf16` (5 (b)'s run), (c) fp8 under remat, (d)
+    ResNet-50 in bf16."""
+    report = {}
+    for key, run in (("products", lambda: fp8_products_phase(device)),
+                     ("training", lambda: fp8_training_phase(device, bf16=bf16, profile=profile)),
+                     ("remat", lambda: fp8_remat_phase(device)),
+                     ("resnet", lambda: resnet_phase(device))):
+        t0 = time.perf_counter()
+        report[key] = run()
+        log(f"[time] fp8 ({key}) {time.perf_counter() - t0:.1f}s")
+        free_memory(device)
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -3226,6 +3600,8 @@ def main(argv=None) -> int:
                              "remat policy, one BERT-base step, for the families one NeoX-20B engine "
                              "run, one generate call and one training step each, and one T5 training "
                              "step and one T5 generate call: device time by kernel, busy share")
+    parser.add_argument("--fp8-only", action="store_true",
+                        help="run only the build and phase 11 (fp8 and ResNet; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -3256,6 +3632,10 @@ def main(argv=None) -> int:
         for line in ptxas_report(text):
             log(f"[build] {name}: {line}")
 
+    if args.fp8_only:
+        log(f"[fp8] summary: {json.dumps(fp8_phase(device, profile=args.profile))}")
+        log(card)
+        return 0
     t0 = time.perf_counter()
     kernels = kernel_phase(device)
     kernels.update(quantized_kernel_phase(device))
@@ -3301,6 +3681,8 @@ def main(argv=None) -> int:
     log(f"[remat] summary: {json.dumps(remat)}")
     log(f"[time] training (f) remat {time.perf_counter() - t0:.1f}s")
     free_memory(device)
+    fp8 = fp8_phase(device, training["bf16"], profile=args.profile)
+    log(f"[fp8] summary: {json.dumps(fp8)}")
     t0 = time.perf_counter()
     bert = bert_phase(device, profile=args.profile)
     log(f"[bert] summary: {json.dumps(bert)}")
@@ -3345,7 +3727,9 @@ def main(argv=None) -> int:
     # the families at each head dim
     wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"], 128: mixtral_train}
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
-    rows += flash_rows(flash, training["bf16"]["launches"], training["fp16"]["launches"], FLASH_SHAPE)
+    # Llama-1B's bf16 K3-K5 run under bf16 and under fp8 (whose attention is bf16).
+    bf16_launches = {k: v + fp8["training"]["launches"][k] for k, v in training["bf16"]["launches"].items()}
+    rows += flash_rows(flash, bf16_launches, training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
     for d, shape in FAMILY_FLASH_SHAPES.items():
         run = wide_runs[d]

@@ -5,8 +5,10 @@ an emulation of the tensor-core kernels' bf16 and fp16 arithmetic, fp16's
 range scaling included, at every head dim the kernels are built for), its
 profile's attribution of the grouped-query repeat, the refusal of its
 `--compare` mode to run without a card, its generate phase rehearsed at
-llama_tiny, and the families' and Mixtral's phases and `kernels` rows
-rehearsed at their tiny configs."""
+llama_tiny, the families' and Mixtral's phases and `kernels` rows
+rehearsed at their tiny configs, and the fp8 and ResNet phase with the
+limit of its fp8 products (held against an emulation of the tensor cores'
+shortened accumulation)."""
 
 import os
 import subprocess
@@ -643,3 +645,66 @@ def test_mixtral_phases_rehearse_on_the_cpu(monkeypatch):
                                  design=chip_smoke.WIDE_FLASH_DESIGN[128])
     assert [row["name"] for row in rows][:3] == ["flash_fwd_d128", "flash_bwd_dkv_d128", "flash_bwd_dq_d128"]
     assert all(row["shape"]["d"] == 128 and row["shape"]["hq"] == 32 for row in rows)
+
+
+def _truncated(v, bits):
+    """`v` with its significand cut to `bits` bits, toward zero."""
+    mantissa, exponent = torch.frexp(v)
+    return torch.ldexp(torch.trunc(mantissa * 2.0 ** bits) / 2.0 ** bits, exponent)
+
+
+def _fp8_operands(m, k, n, seed=0):
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    gen = torch.Generator().manual_seed(seed)
+    a, sa = pfp8.quantize_fp8(torch.randn(m, k, generator=gen).bfloat16())
+    b, sb = pfp8.quantize_fp8(torch.randn(k, n, generator=gen).bfloat16() * 1e-3, pfp8.E5M2)
+    return a, sa, b, sb
+
+
+@pytest.mark.parametrize("k", [512, 2048, 8192])
+def test_fp8_limit_takes_the_tensor_cores_accumulation_and_catches_a_lost_tile(k):
+    """Phase 11 (a)'s limit on an fp8 product: a sum that keeps 13 bits of
+    each partial sum of 32 products (Hopper's fp8 MMA keeps about 14 inside
+    the core) before adding it in f32 stays within it; the same with one
+    32-wide slice of K left out breaks it."""
+    a, sa, b, sb = _fp8_operands(64, k, 48)
+    ref = chip_smoke.fp8_plain(a, sa, b, sb)
+    acc = (a.float().abs() @ b.float().abs()) * (sa * sb)
+    parts = [_truncated(a[:, i:i + 32].float() @ b[i:i + 32].float(), 13) for i in range(0, k, 32)]
+    emulated = (torch.stack(parts).sum(0) * (sa * sb)).bfloat16()
+    report = chip_smoke.limit_report(emulated, ref, 0.0, chip_smoke.FP8_RTOL, chip_smoke.FP8_ACC * acc)
+    assert report["broken"] == 0 and report["share"] < 1, report
+    lost = (torch.stack(parts[1:]).sum(0) * (sa * sb)).bfloat16()
+    assert chip_smoke.limit_report(lost, ref, 0.0, chip_smoke.FP8_RTOL, chip_smoke.FP8_ACC * acc)["broken"] > 0
+
+
+def test_fp8_phases_rehearse_on_the_cpu():
+    """Phase 11 at tiny sizes on the CPU: (a) llama_tiny's linear shapes
+    through the port's autograd path, each product equal to its plain
+    version (the CPU runs it); (b) llama_tiny in fp8 beside bf16 on the same
+    batch, every linear layer's product in fp8; (c) fp8 losses under "full"
+    remat equal those without, the forward products run twice; (d)
+    resnet_tiny learns in bf16 and leaves its BatchNorm buffers as they
+    were (the flash gate stays shut here: no launch is counted)."""
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.models.resnet import resnet_tiny
+
+    cpu = torch.device("cpu")
+    products = chip_smoke.fp8_products_phase(cpu, "llama-tiny", tokens=64, timed=False)
+    assert sorted(products) == sorted(["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"])
+    for case in products.values():
+        assert all(case[role]["max_abs_err"] == 0.0 and case[role]["bound_ms"] > 0 for role in ("fwd", "dx", "dw"))
+    assert products["lm_head"]["dw"]["dtypes"] == ["torch.float8_e5m2", "torch.float8_e4m3fn"]
+    trained = chip_smoke.fp8_training_phase(cpu, "llama-tiny", seq=64, timed_steps=2, warmup=1)
+    n = 7 * 2 + 1
+    assert trained["fp8_products"] == {"fwd": 2 * n, "dx": 2 * n, "dw": 2 * n}
+    assert trained["losses"][-1] < trained["losses"][0] and len(trained["bf16"]["losses"]) == 3
+    assert trained["mfu_over_fp8_peak"] == pytest.approx(trained["mfu"] / 2.001, rel=1e-3)
+    remat = chip_smoke.fp8_remat_phase(cpu, "llama-tiny", layers=2, seq=64, steps=2)
+    assert remat["max_rel_diff"] == 0.0 and remat["runs"]["full"]["fp8_products"]["fwd"] == 2 * (2 * 14 + 1)
+    resnet = chip_smoke.resnet_phase(cpu, resnet_tiny(), shape=dict(batch=8, size=32, warmup=1, timed_steps=3,
+                                                                    lr=1e-3, weight_decay=1e-4))
+    assert resnet["batchnorm_buffers"] == 27 and resnet["losses"][-1] < resnet["losses"][0]
+    shapes = chip_smoke.llama_linear_shapes(MODEL_REGISTRY["llama-1b"]())
+    assert (shapes["wk"], shapes["w_down"], shapes["lm_head"]) == ((2048, 512), (8192, 2048), (2048, 128256))

@@ -1020,3 +1020,27 @@ def test_hf_checkpoint_loads_into_a_bf16_llama_on_the_card(cuda, tmp_path):
     engine = ContinuousBatcher(card, num_slots=2, max_length=128, chunk_size=4)
     out = engine.run([Request(0, np.arange(1, 30), max_new_tokens=8)])
     assert len(out[0]) == 8 and pa.LAUNCHES["decode"] == card.config.num_hidden_layers * engine.stats["decode_steps"]
+
+
+@pytest.mark.parametrize("tokens,n_in,n_out", [(64, 128, 96), (4096, 2048, 512), (96, 32, 16)])
+def test_fp8_products_run_scaled_mm_within_the_limit(cuda, tokens, n_in, n_out):
+    """`fp8_matmul` on CUDA tensors runs `_scaled_mm`: forward, dx and dw
+    (HYBRID: the gradient in e5m2) within `chip_smoke`'s fp8 limit of the
+    plain version on the same fp8 operands and scales (one bf16 rounding and
+    the tensor cores' accumulation), each counted once."""
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    pfp8.reset_product_counts()
+    report = chip_smoke.fp8_product_case(cuda, tokens, n_in, n_out, timed=False)
+    assert pfp8.PRODUCTS == {"fwd": 1, "dx": 1, "dw": 1}
+    assert all(report[role]["limit"]["broken"] == 0 for role in ("fwd", "dx", "dw")), report
+
+
+def test_fp8_product_of_a_shape_scaled_mm_refuses_raises(cuda):
+    """A dimension that is not a multiple of 16 raises on the card: nothing
+    falls back to the plain product."""
+    from accelerate_tpu_torch.ops import fp8 as pfp8
+
+    x = torch.randn(8, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        pfp8.fp8_matmul(x, torch.randn(24, 8, device=cuda, dtype=torch.bfloat16))

@@ -318,8 +318,8 @@ def test_sync_boundary_and_data_loader(weights):
 def test_mixed_precision_contract(weights, mixed_precision, dtype):
     """bf16 and fp16: the forward runs on copies in the compute dtype cast
     inside the autograd graph, logits come back f32, and the gradients land
-    on the f32 masters; the module's own parameters are never cast. fp8 is
-    not ported and raises."""
+    on the f32 masters; the module's own parameters are never cast. fp8
+    runs on bf16 copies too, under the default recipe."""
     model = _port_model(weights)
     accelerator = port.Accelerator(mixed_precision=mixed_precision, cpu=True)
     pmodel = accelerator.prepare(model)
@@ -331,6 +331,8 @@ def test_mixed_precision_contract(weights, mixed_precision, dtype):
     torch.testing.assert_close(logits, expect, rtol=0, atol=0)
     pmodel.loss({"input_ids": ids}).backward()
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32 for p in model.parameters())
-    with pytest.raises(NotImplementedError, match="fp8"):
-        AcceleratorState._reset_state()
-        port.Accelerator(mixed_precision="fp8", cpu=True)
+    AcceleratorState._reset_state()
+    fp8 = port.Accelerator(mixed_precision="fp8", cpu=True)
+    prepared = fp8.prepare(_port_model(weights))
+    assert fp8.state.compute_dtype == torch.bfloat16 and prepared.compute_dtype == torch.bfloat16
+    assert prepared.fp8_recipe == port.FP8RecipeKwargs()
