@@ -25,7 +25,11 @@ config) trains through the same surface and generates through
 into every family and writes them back. Mixtral (`models/mixtral.py`,
 Mixtral-8x7B's config) trains and generates through the same entry points,
 its MLP a top-k mixture of experts (`parallel/expert.py`) whose router
-losses ride beside the loss.
+losses ride beside the loss. The engine and the `Accelerator` carry JAX's
+telemetry (`telemetry/`: metrics, spans, the flight recorder, the step
+timeline, the profiler, the exporters) and its trace guard
+(`analysis/trace_guard.py`, which catches kernel builds and host syncs in a
+steady-state step).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -41,6 +45,7 @@ from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_mixtral_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
+from .telemetry import MetricsRegistry, ProfilerManager, StepTimeline, TrackerBridge
 from .utils import (
     CompilationConfig,
     FP8RecipeKwargs,
@@ -64,8 +69,10 @@ __all__ = [
     "GradientAccumulationPlugin",
     "Int8Linear",
     "KV_CACHE_DTYPES",
+    "MetricsRegistry",
     "Model",
     "PreparedModel",
+    "ProfilerManager",
     "ProjectConfiguration",
     "QueueFull",
     "Request",
@@ -73,6 +80,8 @@ __all__ = [
     "SeedableRandomSampler",
     "Seq2SeqGenerator",
     "SimpleDataLoader",
+    "StepTimeline",
+    "TrackerBridge",
     "WEIGHT_DTYPES",
     "create_llama_model",
     "create_mixtral_model",

@@ -28,6 +28,21 @@ runs every linear layer's product in fp8 (`ops/fp8.py`), the rest in bf16.
 Metrics: ``Accelerator(log_with="json", project_dir=...)``, then
 `init_trackers`, `log` and `end_training`, and `gather_for_metrics`.
 
+Telemetry, as JAX's (`telemetry/`): `accelerator.telemetry` (a
+`MetricsRegistry`), `.tracer` (from ``tracer=`` or the env protocol
+``ACCELERATE_TPU_TRACE_DIR``/``_ID``/``_PARENT``; with a trace directory the
+exit dumps, the kernel-build listener and the hang watchdog,
+``ACCELERATE_TPU_HANG_DEADLINE_S`` seconds, 300 by default, arm with it),
+`.timeline` (a `StepTimeline` over every `train_step()` call: the
+"dispatch" phase, a ``train.step`` span, goodput), `.profiler` (a
+`ProfilerManager` armed by ``ACCELERATE_TPU_PROFILE_DIR``), `profile()` and
+`save_memory_profile()`; `save_state`/`load_state` run in
+``checkpoint.save``/``checkpoint.load`` spans and charge the goodput
+ledger's "checkpoint"/"restart" causes. ``Accelerator(analyze=True)`` wraps
+every `train_step()` in a raising `TraceGuard` after 2 warm-up calls: a
+steady-state step that builds a kernel or makes an unsanctioned host sync
+raises `TraceGuardViolation`.
+
 The model is an `nn.Module` (or a `modeling.Model` bundle) whose parameters
 the optimizer was built over; the optimizer a `torch.optim.Optimizer`; the
 loader a `SimpleDataLoader`, a torch `DataLoader` or any iterable of
@@ -41,6 +56,7 @@ import contextlib
 import logging
 import os
 import re
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -55,6 +71,10 @@ from .modeling import Model, PreparedModel
 from .optimizer import AcceleratedOptimizer, GradScaler
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .telemetry.metrics import MetricsRegistry
+from .telemetry.profiler import ProfilerManager
+from .telemetry.timeline import StepTimeline
+from .telemetry.tracing import default_tracer
 from .tracking import LOGGER_TYPE_TO_CLASS, GeneralTracker, filter_trackers
 from .train_step import FusedTrainStep, detached
 from .utils.dataclasses import (
@@ -82,7 +102,18 @@ class Accelerator:
         log_with=None,
         project_dir: Optional[str] = None,
         compilation_config: Optional[CompilationConfig] = None,
+        analyze: bool = False,
+        tracer=None,
     ):
+        # analyze=True: every train_step() is wrapped in a TraceGuard that,
+        # after a warmup allowance, raises when a steady-state step builds a
+        # kernel or makes an unsanctioned host sync.
+        self.analyze = bool(analyze)
+        self.trace_guard = None
+        if self.analyze:
+            from .analysis.trace_guard import TraceGuard
+
+            self.trace_guard = TraceGuard(name="train-step", on_violation="raise")
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -112,6 +143,31 @@ class Accelerator:
         self._custom_objects: list = []
         self._last_steps_per_call = 1
         self.step = 0
+        self._init_telemetry(tracer)
+
+    def _init_telemetry(self, tracer):
+        """The registry, tracer, hang watchdog, step timeline, profiler and
+        checkpoint instruments, built as JAX's `Accelerator.__init__` builds
+        them. All host-only, and free when nothing was requested."""
+        self.telemetry = MetricsRegistry()
+        self.tracer = tracer if tracer is not None else default_tracer()
+        self.hang_watchdog = None
+        recorder = getattr(self.tracer, "recorder", None)
+        if recorder is not None and getattr(recorder, "log_dir", None):
+            recorder.install_exit_hooks()
+            self.tracer.attach_compile_listener()
+            deadline = float(os.environ.get("ACCELERATE_TPU_HANG_DEADLINE_S", "300") or 0)
+            if deadline > 0:
+                self.hang_watchdog = recorder.start_watchdog(deadline_s=deadline, tracer=self.tracer)
+        self.timeline = StepTimeline(self.telemetry, prefix="train", tracer=self.tracer)
+        self.profiler = ProfilerManager.from_env(registry=self.telemetry)
+        self._m_ckpt_saves = self.telemetry.counter("checkpoint_saves_total", help="save_state() completions")
+        self._m_ckpt_seconds = self.telemetry.histogram(
+            "checkpoint_save_seconds", help="wall-clock per save_state()"
+        )
+        self._m_ckpt_loads = self.telemetry.counter(
+            "checkpoint_loads_total", help="load_state() completions (restart recoveries)"
+        )
 
     # ------------------------------------------------------------ state
     @property
@@ -297,9 +353,10 @@ class Accelerator:
         max_grad_norm: Optional[float] = None,
         accumulation_steps: Optional[int] = None,
         steps_per_call: int = 1,
-    ) -> FusedTrainStep:
-        """The fused step `step_fn(batch) -> loss` (see `train_step.py`).
-        `accumulation_steps` defaults to the accelerator's
+    ) -> Callable:
+        """The fused step `step_fn(batch) -> loss` (see `train_step.py`),
+        instrumented (`_instrument_step`) and, under ``analyze=True``,
+        guarded. `accumulation_steps` defaults to the accelerator's
         `gradient_accumulation_steps`; pass one batch stacking the
         microbatches along dim 0."""
         model = self._resolve_model(model)
@@ -309,7 +366,7 @@ class Accelerator:
         self._last_steps_per_call = steps_per_call
         if steps_per_call > 1 and self._schedulers:
             self._warn_scheduler_coarsened(steps_per_call)
-        return FusedTrainStep(
+        fused = FusedTrainStep(
             model,
             optimizer,
             loss_fn=loss_fn,
@@ -317,7 +374,45 @@ class Accelerator:
             accumulation_steps=accumulation_steps,
             gradient_state=self.gradient_state,
             steps_per_call=steps_per_call,
+            tracer=self.tracer,
         )
+        step = fused
+        if self.trace_guard is not None:
+            # warmup=2, as JAX's: steady-state steps must neither build a
+            # kernel nor make an unsanctioned host sync.
+            step = self.trace_guard.wrap(step, warmup=2)
+        instrumented = self._instrument_step(step)
+        # The fused step's model and optimizer ride on the wrapper.
+        instrumented.model, instrumented.optimizer = fused.model, fused.optimizer
+        return instrumented
+
+    def _instrument_step(self, step_fn: Callable) -> Callable:
+        """Telemetry shim around the fused step, as JAX's: each call is timed
+        as the timeline's "dispatch" phase (host perf_counter arithmetic, no
+        device sync), wrapped in a ``train.step`` span, heartbeats the hang
+        watchdog, and polls the ProfilerManager and the flight recorder, so
+        touch-file / SIGUSR2 captures and dump requests are served at step
+        boundaries. Exceptions (a TraceGuardViolation under analyze=True too)
+        propagate untouched."""
+        timeline, profiler = self.timeline, self.profiler
+        tracer, recorder = self.tracer, self.tracer.recorder
+        counter = {"step": 0}
+
+        def instrumented(*args, **kwargs):
+            counter["step"] += 1
+            with timeline.phase("dispatch"), tracer.span("train.step", category="train", step=counter["step"]):
+                out = step_fn(*args, **kwargs)
+            timeline.step_done(out)
+            recorder.heartbeat()
+            profiler.poll()
+            recorder.poll()
+            return out
+
+        instrumented.__wrapped__ = step_fn  # type: ignore[attr-defined]
+        guard = getattr(step_fn, "trace_guard", None)
+        if guard is not None:
+            instrumented.trace_guard = guard  # type: ignore[attr-defined]
+        return instrumented
 
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: int = 2, model=None):
         """Clip the accumulated gradients by global norm, unscaled first
@@ -384,6 +479,32 @@ class Accelerator:
         for tracker in self.trackers:
             tracker.finish()
 
+    # ------------------------------------------------------------ profiling
+    @contextlib.contextmanager
+    def profile(self, log_dir: Optional[str] = None):
+        """Capture a `torch.profiler` trace (CPU and CUDA) of the wrapped
+        block through the `ProfilerManager`; the Chrome trace lands in a
+        ``capture_NNN`` directory under `log_dir` (default: the launch's
+        profile directory, else ``<logging_dir or project_dir or .>/profile``),
+        for Perfetto or chrome://tracing."""
+        manager = self.profiler
+        if log_dir is not None or not manager.enabled:
+            if log_dir is None:
+                base = self.logging_dir or self.project_dir or "."
+                log_dir = os.path.join(str(base), "profile")
+            # A transient manager sharing this Accelerator's registry.
+            manager = ProfilerManager(log_dir=str(log_dir), registry=self.telemetry)
+        with manager.trace():
+            yield
+
+    def save_memory_profile(self, path: str):
+        """Dump the CUDA allocator snapshot (`torch.cuda.memory._dump_snapshot`;
+        not JAX's pprof) to `path`; raises without CUDA."""
+        manager = self.profiler if self.profiler.enabled else ProfilerManager(
+            log_dir=os.path.dirname(os.path.abspath(path)) or ".", registry=self.telemetry
+        )
+        return manager.save_memory_snapshot(path)
+
     # ------------------------------------------------------------ checkpoints
     def register_for_checkpointing(self, *objects):
         """Save and restore these objects' `state_dict` with the training
@@ -414,7 +535,21 @@ class Accelerator:
         through `checkpoint_manager()` (staged, digest manifest, one atomic
         rename, `latest`, rotation); else write into `output_dir` in place,
         each file atomically, and finish with the digest manifest. Returns
-        the checkpoint's directory."""
+        the checkpoint's directory. The save runs in a ``checkpoint.save``
+        span, its wall clock is charged to the goodput ledger's
+        "checkpoint" cause (failed saves too), and a completed one bumps
+        ``checkpoint_saves_total`` and ``checkpoint_save_seconds``."""
+        t0 = time.perf_counter()
+        try:
+            with self.tracer.span("checkpoint.save", category="checkpoint", step=int(self.save_iteration)):
+                result = self._save_state_inner(output_dir)
+        finally:
+            self.timeline.charge("checkpoint", time.perf_counter() - t0)
+        self._m_ckpt_saves.inc()
+        self._m_ckpt_seconds.observe(time.perf_counter() - t0)
+        return result
+
+    def _save_state_inner(self, output_dir: Optional[str]) -> str:
         if self.project_configuration.automatic_checkpoint_naming:
             output_dir = self.checkpoint_manager().save(self.save_iteration, self._write_state)
         else:
@@ -432,7 +567,19 @@ class Accelerator:
         manifest), a `CheckpointManager` base directory, or ``"latest"`` /
         None for the newest checkpoint under this run's manager that
         verifies, past a torn newest one. With automatic naming, the next
-        save numbers on from the restored checkpoint."""
+        save numbers on from the restored checkpoint. The load runs in a
+        ``checkpoint.load`` span, its wall clock is charged to the "restart"
+        cause, and a completed one bumps ``checkpoint_loads_total``."""
+        t0 = time.perf_counter()
+        try:
+            with self.tracer.span("checkpoint.load", category="checkpoint"):
+                result = self._load_state_inner(input_dir)
+        finally:
+            self.timeline.charge("restart", time.perf_counter() - t0)
+        self._m_ckpt_loads.inc()
+        return result
+
+    def _load_state_inner(self, input_dir: Optional[str]):
         if input_dir in (None, "latest"):
             input_dir = self.checkpoint_manager().resolve()
         elif CheckpointManager.is_manager_dir(input_dir):

@@ -134,10 +134,12 @@ class CausalPrograms:
         self.attention_impl = attention_impl
 
     @torch.no_grad()
-    def prefill(self, input_ids, positions, kv_pools, page_row):
+    def prefill(self, input_ids, positions, kv_pools, page_row, span):
         """[1, S] ids at [1, S] consecutive absolute positions through
         `page_row` ([1, pages] int32, covering every position) -> [1, S, V]
-        logits.
+        logits. `span` is ``(first position, last position + 1)`` as host
+        ints, as JAX's insert takes the matched length and the length as
+        operands: reading them back from `positions` would sync the host.
 
         As JAX's paged insert: the row's pages are gathered into a dense
         view (dequantized for a quantized pool), the tokens' K/V are written
@@ -149,7 +151,7 @@ class CausalPrograms:
         prompt never attends its own quantized K/V."""
         row = page_row.reshape(-1)
         page_size = kv_pools[0][0].shape[1]
-        start, end = int(positions[0, 0]), int(positions[0, -1]) + 1
+        start, end = span
         dense = gather_pages(kv_pools, row, self.model.get_input_embeddings().weight.dtype)
         logits = self.model(input_ids, positions=positions, kv_cache=dense)
         zero_cache_tail(dense, end)

@@ -8,18 +8,25 @@ library is never loaded. Several sources build in parallel, one ``nvcc`` each.
 
 Nothing here runs at import: a wrapper calls `load` only when it is handed a
 CUDA tensor, so the CPU tests import every module without ``nvcc``.
+
+A build is the only compile an eager port makes: `build` calls each of
+`BUILD_LISTENERS` once per library it really compiles, with the source's
+name and the build's seconds (the counterpart of JAX's backend-compile
+duration event, which the tracer, the step timeline and the trace guard
+listen to). A library already on disk emits nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "accelerate_tpu_torch"
@@ -33,6 +40,31 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: registers, shared memory and spills per kernel), and its build seconds.
 BUILD_LOG: Dict[str, str] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+#: ``listener(name, seconds)``, called once per library compiled.
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
+
+logger = logging.getLogger(__name__)
+
+
+def add_build_listener(listener: Callable[[str, float], None]) -> Callable[[str, float], None]:
+    """Register `listener` (once; registering it again is a no-op)."""
+    if listener not in BUILD_LISTENERS:
+        BUILD_LISTENERS.append(listener)
+    return listener
+
+
+def remove_build_listener(listener: Callable[[str, float], None]):
+    """Unregister `listener` (a no-op when it is not registered)."""
+    if listener in BUILD_LISTENERS:
+        BUILD_LISTENERS.remove(listener)
+
+
+def _notify_built(name: str, seconds: float):
+    for listener in list(BUILD_LISTENERS):
+        try:
+            listener(name, seconds)
+        except Exception:  # noqa: BLE001 — telemetry never fails a build
+            logger.warning("build listener %r failed for %s", listener, name, exc_info=True)
 
 
 def _nvcc() -> str:
@@ -78,6 +110,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             failures.append(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+        _notify_built(name, BUILD_SECONDS[name])
     if failures:
         raise RuntimeError("\n".join(failures))
     return {name: BUILD_SECONDS[name] for name in started}

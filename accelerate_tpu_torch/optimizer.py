@@ -23,6 +23,7 @@ from typing import Iterable, List, Optional
 
 import torch
 
+from .analysis.trace_guard import allow_sync
 from .state import GradientState
 from .utils.dataclasses import GradScalerKwargs
 
@@ -126,7 +127,9 @@ class AcceleratedOptimizer:
         when the step was skipped."""
         skipped = False
         if self.use_scaler:
-            skipped = bool(self.unscale_().item())
+            found_inf = self.unscale_()
+            with allow_sync():  # the fp16 step's one readback (JAX's `bool(finite)`)
+                skipped = bool(found_inf.item())
             self.scaler.update(skipped)
         if not skipped:
             self.optimizer.step()

@@ -34,7 +34,20 @@ byte per value with ``[num_pages, Hkv]`` f32 scales per layer, which the
 decode and verify kernels read through their fused-dequant mode.
 
 The host reads back once per chunk, not once per token: the chunk's tokens,
-emission masks and the slots' new state come back in one copy. Stale K/V of a
+emission masks and the slots' new state come back in one copy. That copy,
+the chunk's state uploads and the insert's pushes and first-token read are
+the engine's sanctioned syncs (`analysis.allow_sync`): an armed `TraceGuard`
+(``trace_guard=``) flags any other.
+
+Telemetry is JAX's: every health counter lives in a `MetricsRegistry`
+(``registry=``, shareable and exportable), under JAX's instrument names, and
+`stats` is a read-only view over it; a `Tracer` (``tracer=``, the
+process-wide default otherwise) records one ``serve.request`` span per
+request (``submitted``, ``admitted``, ``first_token`` events, its
+``finish_reason`` and ``tokens``), one ``serve.insert`` child span per
+admission and one ``serve.decode_chunk`` span per chunk. The port has no
+`trace_counts`: eager torch traces nothing, and the kernels' launch counters
+play that part. Stale K/V of a
 slot's earlier occupant is never visible, because each query attends only
 ``cols <= its own position``. Failures are isolated per request: an insert
 that raises errors only its request; a chunk that raises errors every
@@ -53,6 +66,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .analysis.trace_guard import allow_sync
 from .device import DeviceLike, make_generator, resolve_device
 from .generation import CausalPrograms, GenerationConfig, _apply_repetition_penalty, _presence, _sample
 from .ops.attention import SLOT_ATTENTION_IMPLS
@@ -64,6 +78,8 @@ from .speculative import (
     greedy_accept_length,
     propose_ngram_drafts,
 )
+from .telemetry.metrics import MetricsRegistry
+from .telemetry.tracing import default_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -141,6 +157,9 @@ class ContinuousBatcher:
         use_repetition_penalty: bool = False,
         seed: int = 0,
         max_queue: Optional[int] = None,
+        trace_guard=None,
+        registry: Optional[MetricsRegistry] = None,
+        tracer=None,
         paged: bool = True,
         page_size: int = 16,
         num_pages: Optional[int] = None,
@@ -240,7 +259,6 @@ class ContinuousBatcher:
         self._generator = make_generator(seed, self.device)
         self._pools = self._init_pools()
         self._presence = self._init_presence()
-        self.pool = PagePool(self.num_pages, self.page_size) if self.paged else None
 
         S = self.num_slots
         # Host mirror of the per-slot state, pushed once per chunk.
@@ -269,14 +287,88 @@ class ContinuousBatcher:
         self._deadlines: Dict[int, float] = {}
         self._closed = False
         self._draining = False
-        self._counts: Dict[str, int] = dict.fromkeys(
-            (
-                "inserts", "chunks", "decode_steps", "prefix_hits", "prefix_misses",
-                "prefill_tokens_saved", "verify_steps", "drafted", "accepted", "rejected",
-            ),
-            0,
+        # An analysis.TraceGuard (assignable after construction too): the
+        # fault isolation swallows per-step exceptions, so guarded syncs are
+        # observe()d before they are isolated.
+        self.trace_guard = trace_guard
+        self._init_telemetry(registry, tracer)
+
+    def _init_telemetry(self, registry, tracer):
+        """JAX's instruments under JAX's names (`stats` reads them back), the
+        page pool, whose eviction count one of them follows, and the tracer. Every
+        update is host-scalar arithmetic."""
+        m = self.metrics = registry if registry is not None else MetricsRegistry()
+        self._m_submitted = m.counter("serving_requests_submitted_total", help="requests accepted by submit()")
+        self._m_inserts = m.counter("serving_inserts_total", help="successful insert (prefill+admit) dispatches")
+        self._m_chunks = m.counter("serving_chunks_total", help="decode-chunk dispatches")
+        self._m_decode_steps = m.counter(
+            "serving_decode_steps_total", help="decode loop iterations (chunks * chunk_size)"
         )
-        self._finish_counts: Dict[str, int] = dict.fromkeys(FINISH_REASONS, 0)
+        self._m_finish = {
+            reason: m.counter(
+                "serving_requests_finished_total", help="finished requests by finish_reason",
+                labels={"reason": reason},
+            )
+            for reason in FINISH_REASONS
+        }
+        self._m_queue_depth = m.gauge("serving_queue_depth", help="requests waiting for a slot")
+        self._m_queue_peak = m.gauge(
+            "serving_queue_peak", help="queue-depth high-water mark (sized against max_queue)"
+        )
+        self._m_slots_in_use = m.gauge("serving_slots_in_use", help="slots occupied by in-flight requests")
+        self._m_slot_utilization = m.gauge("serving_slot_utilization", help="slots_in_use / num_slots")
+        self._m_ttft = m.histogram("serving_ttft_seconds", help="submit() -> first token (host wall clock)")
+        self._m_inter_token = m.histogram(
+            "serving_inter_token_seconds", help="per-token gap between stream drains for an in-flight slot"
+        )
+        self._m_chunk_latency = m.histogram("serving_chunk_seconds", help="decode-chunk dispatch+drain wall clock")
+        self._submit_times: Dict[int, float] = {}  # request_id -> submit() perf_counter
+        self._slot_last_event = np.zeros(self.num_slots, np.float64)  # last drain time per slot
+        self.tracer = tracer if tracer is not None else default_tracer()
+        self._request_spans: Dict[int, Any] = {}
+        self.pool = None
+        if self.paged:
+            self._m_pages_total = m.gauge(
+                "serving_pages_total", help="usable KV pool pages (excludes the scratch page)"
+            )
+            self._m_pages_in_use = m.gauge("serving_pages_in_use", help="pool pages referenced by in-flight requests")
+            self._m_prefix_hits = m.counter(
+                "serving_prefix_cache_hits_total", help="prompt pages served from the shared-prefix cache"
+            )
+            self._m_prefix_misses = m.counter(
+                "serving_prefix_cache_misses_total",
+                help="full prompt pages that had to be prefilled (no cached prefix)",
+            )
+            self._m_prefix_evictions = m.counter(
+                "serving_prefix_cache_evictions_total",
+                help="unreferenced cached prefix pages reclaimed by the allocator",
+            )
+            self._m_prefill_saved = m.counter(
+                "prefill_tokens_saved_total", help="prompt tokens whose prefill FLOPs the prefix cache skipped"
+            )
+            self.pool = PagePool(self.num_pages, self.page_size)
+            self._evictions_counted = 0  # the pool's count the counter has caught up with
+            self._m_pages_total.set(self.pool.pages_total)
+        if self.speculative:
+            self._m_spec_steps = m.counter(
+                "serving_spec_verify_steps_total",
+                help="verify-block loop iterations with an active slot (each emits >= 1 token)",
+            )
+            self._m_spec_drafted = m.counter(
+                "serving_spec_draft_tokens_total",
+                help="draft tokens proposed by the n-gram drafter (valid proposals only)",
+            )
+            self._m_spec_accepted = m.counter(
+                "serving_spec_accepted_draft_tokens_total", help="draft tokens confirmed by verification and emitted"
+            )
+            self._m_spec_rejected = m.counter(
+                "serving_spec_rejected_draft_tokens_total", help="draft tokens the verify step discarded"
+            )
+            self._m_spec_hist = m.histogram(
+                "serving_spec_accepted_tokens",
+                help="tokens emitted per verify step (accepted drafts + 1 bonus)",
+                buckets=[float(i) for i in range(1, self.draft_tokens + 2)],
+            )
 
     def _init_pools(self) -> List[Tuple[torch.Tensor, ...]]:
         """One zeroed (k_pool, v_pool) pair per layer, [num_pages, page_size,
@@ -335,42 +427,61 @@ class ContinuousBatcher:
 
     @property
     def stats(self) -> Dict[str, Any]:
-        c = self._counts
+        """Health view, read from the metrics registry and rebuilt per
+        access."""
         view: Dict[str, Any] = {
             "attention_impl": self.attention_impl,
             "weight_dtype": self.weight_dtype,
             "kv_cache_dtype": self.kv_cache_dtype,
-            "inserts": c["inserts"],
-            "chunks": c["chunks"],
-            "decode_steps": c["decode_steps"],
-            "finish_reasons": dict(self._finish_counts),
+            "inserts": int(self._m_inserts.value),
+            "chunks": int(self._m_chunks.value),
+            "decode_steps": int(self._m_decode_steps.value),
+            "finish_reasons": {reason: int(counter.value) for reason, counter in self._m_finish.items()},
         }
         if self.paged:
             view["pages_total"] = self.pool.pages_total
             view["pages_in_use"] = self.pool.pages_in_use
             view["prefix_cache"] = {
                 "enabled": self.use_prefix_cache,
-                "hits": c["prefix_hits"],
-                "misses": c["prefix_misses"],
+                "hits": int(self._m_prefix_hits.value),
+                "misses": int(self._m_prefix_misses.value),
                 "evictions": self.pool.evictions,
-                "prefill_tokens_saved": c["prefill_tokens_saved"],
+                "prefill_tokens_saved": int(self._m_prefill_saved.value),
                 "entries": self.pool.prefix_entries,
                 "cached_pages": self.pool.pages_cached,
             }
         if self.speculative:
-            steps = c["verify_steps"]
+            steps = int(self._m_spec_steps.value)
+            accepted = int(self._m_spec_accepted.value)
             view["speculative"] = {
                 "draft_tokens": self.draft_tokens,
                 "draft_ngram": self.draft_ngram,
                 "verify_steps": steps,
-                "drafted": c["drafted"],
-                "accepted": c["accepted"],
-                "rejected": c["rejected"],
+                "drafted": int(self._m_spec_drafted.value),
+                "accepted": accepted,
+                "rejected": int(self._m_spec_rejected.value),
                 # Mean tokens emitted per (verify step, active slot): 1.0 means
                 # speculation never helped, draft_tokens + 1 is the ceiling.
-                "accepted_tokens_per_step": (steps + c["accepted"]) / steps if steps else None,
+                "accepted_tokens_per_step": (steps + accepted) / steps if steps else None,
             }
         return view
+
+    def _update_occupancy_gauges(self):
+        """Refresh the point-in-time gauges, wherever the queue or the slot
+        map changes."""
+        depth = len(self._queue)
+        self._m_queue_depth.set(depth)
+        self._m_queue_peak.set_max(depth)
+        in_use = sum(r is not None for r in self._slot_request)
+        self._m_slots_in_use.set(in_use)
+        self._m_slot_utilization.set(in_use / self.num_slots)
+        if self.paged:
+            self._m_pages_in_use.set(self.pool.pages_in_use)
+            # The pool counts its evictions; the counter follows it here.
+            evicted = self.pool.evictions - self._evictions_counted
+            if evicted:
+                self._m_prefix_evictions.inc(evicted)
+                self._evictions_counted = self.pool.evictions
 
     def submit(self, request: Request) -> int:
         """Validate and enqueue. Raises `ValueError` for a malformed request,
@@ -408,7 +519,17 @@ class ContinuousBatcher:
         )
         if request.deadline_s is not None:
             self._deadlines[request.request_id] = time.perf_counter() + float(request.deadline_s)
+        self._submit_times[request.request_id] = time.perf_counter()
         self._queue.append(dataclasses.replace(request, input_ids=ids))
+        self._m_submitted.inc()
+        span = self.tracer.start_span(
+            "serve.request", category="serve",
+            request_id=int(request.request_id), prompt_tokens=int(ids.size),
+            max_new_tokens=int(request.max_new_tokens),
+        )
+        span.event("submitted", queue_depth=len(self._queue))
+        self._request_spans[request.request_id] = span
+        self._update_occupancy_gauges()
         return request.request_id
 
     def _pages_needed(self, prompt_tokens: int, max_new: int) -> int:
@@ -424,6 +545,10 @@ class ContinuousBatcher:
         request errors (partial tokens kept), the pools are rebuilt from
         zeros, and every page and prefix registration is dropped."""
         now = time.perf_counter()
+        self.tracer.event(
+            "serve.blast_radius", category="serve",
+            errored_requests=sum(r is not None for r in self._slot_request), error=repr(exc),
+        )
         for slot, result in enumerate(self._slot_request):
             if result is not None:
                 self._finish(result, "error", now=now, slot=slot, error=repr(exc))
@@ -433,6 +558,7 @@ class ContinuousBatcher:
         self._history[:] = 0
         if self.paged:
             self.pool.reset()
+            self._m_pages_in_use.set(0)
         self._page_table[:] = SCRATCH_PAGE
         self._slot_pages = [[] for _ in range(self.num_slots)]
 
@@ -451,8 +577,15 @@ class ContinuousBatcher:
         result.finish_reason = reason
         if error is not None:
             result.error = error
-        self._finish_counts[reason] += 1
+        span = self._request_spans.pop(result.request_id, None)
+        if span is not None:
+            span.annotate(finish_reason=reason, tokens=len(result.tokens))
+            if error is not None:
+                span.annotate(error=error)
+            span.end()
+        self._m_finish[reason].inc()
         self._deadlines.pop(result.request_id, None)
+        self._submit_times.pop(result.request_id, None)
         if slot is not None:
             self._slot_request[slot] = None
             self._active[slot] = False
@@ -460,6 +593,7 @@ class ContinuousBatcher:
                 self.pool.release(self._slot_pages[slot])
                 self._slot_pages[slot] = []
             self._page_table[slot] = SCRATCH_PAGE
+        self._update_occupancy_gauges()
 
     def _drop_queued(self, request_id: int) -> bool:
         before = len(self._queue)
@@ -493,14 +627,17 @@ class ContinuousBatcher:
         shared prefix page. Contiguous: straight into the slot's rows (the
         whole prompt; there is no prefix cache). A penalty engine seeds the
         slot's presence row from the prompt (the whole prompt: its prefix
-        cache is off) and the first token."""
+        cache is off) and the first token. The pushes of the suffix and the
+        page row and the first token's read are the insert's sanctioned
+        syncs (JAX's `jnp.asarray` operands and `int(token)`)."""
         dev = self.device
         p = int(ids.size)
-        suffix = torch.as_tensor(ids[matched_len:], device=dev)[None]
+        with allow_sync():
+            suffix = torch.as_tensor(ids[matched_len:], device=dev)[None]
+            row = torch.as_tensor(page_row[: pages_for(p, self.page_size)], device=dev)[None] if self.paged else None
         positions = torch.arange(matched_len, p, device=dev)[None]
         if self.paged:
-            row = torch.as_tensor(page_row[: pages_for(p, self.page_size)], device=dev)[None]
-            logits = self.programs.prefill(suffix, positions, self._pools, row)
+            logits = self.programs.prefill(suffix, positions, self._pools, row, (matched_len, p))
         else:
             rows = [(k[slot : slot + 1, :p], v[slot : slot + 1, :p]) for k, v in self._pools]
             logits = self.programs.prefill_rows(suffix, positions, rows)
@@ -512,7 +649,8 @@ class ContinuousBatcher:
         if self._presence is not None:
             seen[0, token[0]] = True
             self._presence[slot] = seen[0]
-        return int(token[0])
+        with allow_sync():
+            return int(token[0])
 
     def _reserve(self, req: Request):
         """A paged admission's pages: the prompt's prefix-cache hits, then
@@ -535,9 +673,10 @@ class ContinuousBatcher:
                 self.pool.release(shared)
             return None
         if self.use_prefix_cache:
-            self._counts["prefix_hits"] += matched_pages
-            self._counts["prefix_misses"] += max(p // self.page_size - matched_pages, 0)
-            self._counts["prefill_tokens_saved"] += matched_pages * self.page_size
+            self._m_prefix_hits.inc(matched_pages)
+            self._m_prefix_misses.inc(max(p // self.page_size - matched_pages, 0))
+            if matched_pages:
+                self._m_prefill_saved.inc(matched_pages * self.page_size)
         return shared + private, matched_pages, hashes
 
     def _admit(self) -> List[Tuple[int, List[int]]]:
@@ -563,13 +702,33 @@ class ContinuousBatcher:
                 pages, matched_pages, hashes = reserved
                 page_row = np.zeros((self.pages_per_slot,), np.int32)
                 page_row[: len(pages)] = pages
+            # The port pads nothing: its insert "bucket" is the suffix itself.
+            bucket = p - matched_pages * self.page_size
+            rspan = self._request_spans.get(req.request_id)
+            admit_t0 = time.perf_counter()
+            if rspan is not None:
+                submitted_at = self._submit_times.get(req.request_id)
+                rspan.event(
+                    "admitted", slot=slot, bucket=bucket,
+                    queue_wait_s=round(admit_t0 - submitted_at, 6) if submitted_at is not None else None,
+                    prefix_hit_pages=int(matched_pages), pages_reserved=len(pages),
+                )
+            ispan = self.tracer.start_span(
+                "serve.insert", category="serve", parent=rspan,
+                request_id=int(req.request_id), slot=slot, bucket=bucket,
+                suffix_tokens=bucket, prefix_hit_pages=int(matched_pages),
+            )
             try:
                 token = self._insert(
                     slot, ids, matched_pages * self.page_size, page_row, req.temperature, req.repetition_penalty
                 )
+                ispan.end()
             except Exception as exc:  # noqa: BLE001 — isolate, report, keep serving
+                ispan.annotate(error=repr(exc)).end()
                 if pages:
                     self.pool.release(pages)
+                if self.trace_guard is not None:
+                    self.trace_guard.observe(exc)
                 logger.warning("insert failed for request %s (isolated): %r", req.request_id, exc)
                 self._finish(result, "error", error=repr(exc))
                 continue
@@ -578,7 +737,13 @@ class ContinuousBatcher:
                 # prompt page, so registered content stays frozen.
                 self.pool.register_prefix(hashes[: p // self.page_size], pages, start=matched_pages)
             now = time.perf_counter()
-            self._counts["inserts"] += 1
+            self._m_inserts.inc()
+            submitted_at = self._submit_times.get(req.request_id)
+            if submitted_at is not None:
+                self._m_ttft.observe(now - submitted_at)
+            if rspan is not None:
+                rspan.event("first_token")
+            self._slot_last_event[slot] = now
             result.tokens.append(token)
             result.first_token_time = now
             events.append((req.request_id, [token]))
@@ -607,6 +772,7 @@ class ContinuousBatcher:
                 if pages:
                     self.pool.release(pages)
                 self._finish(result, "eos" if token == eos else "length", now=now)
+        self._update_occupancy_gauges()
         return events
 
     def release(self, request_id: int) -> RequestResult:
@@ -694,34 +860,54 @@ class ContinuousBatcher:
         if not self._active.any():
             return events
         S, dev = self.num_slots, self.device
+        chunk_t0 = time.perf_counter()
+        # One batched span per chunk: every active request rides it, so the
+        # flight recorder's ring grows with dispatches, not tokens.
+        chunk_span = self.tracer.start_span(
+            "serve.decode_chunk", category="serve",
+            chunk_size=self.chunk_size,
+            active_slots=int(self._active.sum()),
+            slots=",".join(str(i) for i in np.nonzero(self._active)[0]),
+            pages_in_use=self.pool.pages_in_use if self.paged else None,
+        )
         pos_before = self._pos.copy()
         try:
             with torch.no_grad():
-                state = torch.as_tensor(
-                    np.stack([self._token, self._pos, self._active, self._rem, self._eos]), device=dev
-                )
+                # The step-boundary state uploads (JAX's `jnp.asarray`
+                # operands): copies from pageable host memory, which
+                # synchronize the stream.
+                with allow_sync():
+                    state = torch.as_tensor(
+                        np.stack([self._token, self._pos, self._active, self._rem, self._eos]), device=dev
+                    )
+                    table = torch.as_tensor(self._page_table, device=dev) if self.paged else None
+                    if self.speculative:
+                        history = torch.as_tensor(self._history, device=dev)
+                    else:
+                        temps = torch.as_tensor(np.stack([self._temp, self._pen]), device=dev)
                 token, pos, rem, eos = state[0], state[1], state[3], state[4]
                 active = state[2].bool()
-                table = torch.as_tensor(self._page_table, device=dev) if self.paged else None
                 if self.speculative:
-                    history = torch.as_tensor(self._history, device=dev)
                     toks, emit, token, pos, active, rem, n_emit, proposed = self._spec_chunk(
                         token, pos, active, rem, eos, table, history
                     )
                     extra = [n_emit.flatten(), proposed.flatten()]
                 else:
-                    temp, pen = torch.as_tensor(np.stack([self._temp, self._pen]), device=dev)[:, :, None]
+                    temp, pen = temps[:, :, None]
                     toks, emit, token, pos, active, rem = self._decode_chunk(
                         token, pos, active, rem, eos, temp, pen, table
                     )
                     extra = []
                 # The one readback of the chunk.
-                flat = torch.cat(
-                    [toks.flatten(), emit.flatten().long(), token, pos, active.long(), rem, *extra]
-                ).cpu().numpy()
+                packed = torch.cat([toks.flatten(), emit.flatten().long(), token, pos, active.long(), rem, *extra])
+                with allow_sync():
+                    flat = packed.cpu().numpy()
         except Exception as exc:  # noqa: BLE001 — the chunk's blast radius, keep serving
+            if self.trace_guard is not None:
+                self.trace_guard.observe(exc)
             in_flight = sum(r is not None for r in self._slot_request)
             logger.warning("decode chunk failed; erroring %d in-flight request(s): %r", in_flight, exc)
+            chunk_span.annotate(error=repr(exc)).end()
             self._abort_in_flight(exc)
             return events
         n = toks.numel()
@@ -731,24 +917,38 @@ class ContinuousBatcher:
             np.arange(S)[None, :, None] if self.speculative else np.arange(S)[None, :],
             toks.shape,
         ).reshape(-1)
-        self._counts["chunks"] += 1
-        self._counts["decode_steps"] += self.chunk_size
+        self._m_chunks.inc()
+        self._m_decode_steps.inc(self.chunk_size)
         if self.speculative:
             cs = self.chunk_size * S
             n_emit_h = flat[2 * n + 4 * S : 2 * n + 4 * S + cs]
             proposed_total = int(flat[2 * n + 4 * S + cs :].sum())
             steps = int((n_emit_h > 0).sum())
-            accepted = int(n_emit_h.sum()) - steps  # each step emits accepted + 1
-            self._counts["verify_steps"] += steps
-            self._counts["drafted"] += proposed_total
-            self._counts["accepted"] += accepted
-            self._counts["rejected"] += proposed_total - accepted
+            emitted_total = int(n_emit_h.sum())
+            accepted = emitted_total - steps  # each step emits accepted + 1
+            self._m_spec_steps.inc(steps)
+            self._m_spec_drafted.inc(proposed_total)
+            self._m_spec_accepted.inc(accepted)
+            self._m_spec_rejected.inc(proposed_total - accepted)
+            for v in n_emit_h[n_emit_h > 0]:
+                self._m_spec_hist.observe(float(v))
+            chunk_span.annotate(
+                spec_verify_steps=steps,
+                spec_tokens_emitted=emitted_total,
+                spec_drafts_accepted=accepted,
+                spec_drafts_proposed=proposed_total,
+            )
 
         # Stream order: time-major over (step, slot[, block index]).
         per_slot: Dict[int, List[int]] = {}
         for slot, tok in zip(slots_h[emit_h], toks_h[emit_h]):
             per_slot.setdefault(int(slot), []).append(int(tok))
         now = time.perf_counter()
+        # The chunk's wall clock, dispatch and readback: it covers the device
+        # work, since the readback waited for it.
+        self._m_chunk_latency.observe(max(now - chunk_t0, 0.0))
+        chunk_span.annotate(tokens_streamed=int(emit_h.sum())).end()
+        self.tracer.recorder.poll()  # serve the flight recorder's touch file
         for slot, toks_list in per_slot.items():
             result = self._slot_request[slot]
             if result is None:
@@ -758,6 +958,14 @@ class ContinuousBatcher:
                 start = int(pos_before[slot]) + 1
                 self._history[slot, start : start + len(toks_list)] = toks_list
             events.append((result.request_id, toks_list))
+            # Inter-token latency: the drain gap spread over the tokens it
+            # delivered, one observation per token.
+            last = self._slot_last_event[slot]
+            if last > 0.0 and toks_list:
+                gap = max(now - last, 0.0) / len(toks_list)
+                for _ in toks_list:
+                    self._m_inter_token.observe(gap)
+            self._slot_last_event[slot] = now
 
         was_active = self._active
         self._token, self._pos, self._rem = state_h[0].copy(), state_h[1].copy(), state_h[3].copy()
@@ -806,4 +1014,5 @@ class ContinuousBatcher:
                 self._finish(result, "cancelled", now=now)
         self._active[:] = False
         self._closed = True
+        self._update_occupancy_gauges()
         return self.results

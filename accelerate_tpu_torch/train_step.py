@@ -19,8 +19,16 @@ caller decides when to read it.
     backward; the gradients are unscaled, checked and clipped, and a step
     with a non-finite gradient is skipped (JAX's fused fp16 step). That
     check is read on the host once per call, the one readback of an fp16
-    step; ``steps_per_call > 1`` refuses an enabled scaler, as in JAX.
+    step (a sanctioned sync for an armed `TraceGuard`); a skipped step drops
+    a ``train.step_skipped`` event (with the new ``loss_scale``) through the
+    `tracer`, as JAX's does; ``steps_per_call > 1`` refuses an enabled
+    scaler, as in JAX.
   - Every call is a full optimizer step: it marks the sync boundary.
+
+JAX's step also drops a ``train.build_program`` event when it builds a jit
+program; an eager step builds none, so the port has no such event (its only
+compile, a kernel build, is a ``compile`` span of the tracer's build
+listener).
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ class FusedTrainStep:
         accumulation_steps: int = 1,
         gradient_state=None,
         steps_per_call: int = 1,
+        tracer=None,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -85,6 +94,8 @@ class FusedTrainStep:
                 "per-step host decisions); use bf16 mixed precision or steps_per_call=1"
             )
         self.gradient_state = gradient_state
+        # Optional telemetry tracer (Accelerator.train_step passes its own).
+        self.tracer = tracer
 
     def _loss_of(self, *args, **kwargs):
         out = self.loss_fn(*args, **kwargs)
@@ -115,7 +126,8 @@ class FusedTrainStep:
         accelerated.unscale_()
         if self.max_grad_norm is not None:
             clip_grad_norm(accelerated._params(), self.max_grad_norm)
-        accelerated.apply_or_skip()
+        if accelerated.apply_or_skip() and self.tracer is not None:
+            self.tracer.event("train.step_skipped", category="train", loss_scale=float(accelerated.scaler.scale))
         opt.zero_grad(set_to_none=True)
         return loss, aux
 

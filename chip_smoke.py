@@ -283,7 +283,49 @@ prints no result):
    launches of 5 (b) and 11 (b), whose attention is bf16), the nvidia-smi
    line, and as the last line `{"ok": true, "device": {...}}`.
 
-`--fp8-only` runs the build and phase 11 alone (prints no result line).
+13. Telemetry and the trace guard on the main paths, run after phase 11:
+   (a) the Llama-1B paged engine of phase 3 (bf16, its 16 requests and
+       engine arguments, full width and depth), plain and speculative, each
+       after a warm-up, run without and with instrumentation (a b b a twice
+       for plain, a b for speculative): instrumented is a fresh
+       `MetricsRegistry`, a `Tracer` over a `FlightRecorder` streaming into
+       a temporary directory (removed however the phase ends) and a
+       record-mode `TraceGuard` ("log": each host sync recorded) armed around
+       the steps. Gates: every run's tokens equal phase 3's (and each
+       other's); 16 submitted, 16 finished, 16 TTFTs;
+       `serving_chunks_total` equals the engine's chunks; 16 `serve.request`
+       and 16 `serve.insert` spans and one `serve.decode_chunk` span per
+       chunk in the stream; the Perfetto JSON written and read back with the
+       same spans; a scrape of `MetricsHTTPServer` (127.0.0.1) equal to the
+       registry series by series; the guard saw 0 kernel builds and 0
+       unsanctioned syncs; K1 (K2) launched layers x dispatches times.
+       Reported: decode tokens/s and TTFT p50 of each run. Then a control:
+       the plain engine once more with its sanctioned syncs unsanctioned
+       (the engine's `allow_sync` a no-op) under a "log" guard, which must
+       record syncs (by site: the chunk's uploads and readback, the
+       insert's pushes and first-token read) and leave the tokens as they
+       were: a guard that records none there sees nothing.
+   (b) Llama-1B bf16 training at full width and depth, 5 (b)'s batch and
+       seed, 2 warm-up and 8 timed steps, through an `Accelerator` without
+       and with `analyze=True` (a b b a; the analyzed one samples the
+       "block" phase every 2nd step). Gates: losses equal within rtol 1e-6
+       (bit for bit reported); `train_steps_total`, the
+       `train_dispatch_seconds` count and `goodput()["steps"]` 10; the
+       guard's 8 steady steps clean (0 builds, 0 syncs); K3-K5 each launched
+       16 x 10 times. Reported: step times and the block share.
+   (c) `Accelerator.profile()` around 2 more analyzed steps (the
+       allocator's history recorded) and a `ProfilerManager` window around
+       one engine step: the Chrome traces name `flash_fwd_wgmma_kernel`,
+       `flash_bwd_dkv_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel` and the
+       paged split and merge kernels; `save_memory_profile` writes a
+       non-empty snapshot.
+   (d) a `.item()` planted in a step that `TraceGuard.wrap` guards: after
+       the warm-up call the raising guard names its file:line in a
+       `TraceGuardViolation`, a record-mode guard counts it once, and the
+       sync debug mode is back to 0.
+
+`--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
+and phase 13 alone (neither prints a result line).
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -817,8 +859,10 @@ def make_requests(vocab, seed=0, n=16, system_len=256):
     return reqs
 
 
-def serve(model, requests, device, **engine_kw):
-    """Run `requests` to completion; returns (engine, tokens, timing)."""
+def serve(model, requests, device, guard=None, **engine_kw):
+    """Run `requests` to completion; returns (engine, tokens, timing). With
+    `guard` (a `TraceGuard`) the engine's steps run inside it."""
+    import contextlib
     import dataclasses
 
     from accelerate_tpu_torch import ContinuousBatcher
@@ -840,8 +884,9 @@ def serve(model, requests, device, **engine_kw):
     for r in requests:
         submitted[r.request_id] = time.perf_counter()
         engine.submit(dataclasses.replace(r, arrival_time=submitted[r.request_id]))
-    while engine.pending:
-        engine.step()
+    with guard if guard is not None else contextlib.nullcontext():
+        while engine.pending:
+            engine.step()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -889,7 +934,9 @@ SPEC_KW = dict(speculative=True, draft_tokens=KERNEL_SHAPE["verify_s"] - 1)
 
 
 def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, system_len=256,
-                 profile=False):
+                 profile=False, tokens_out=None):
+    """Phase 3; `tokens_out`, a dict, receives the bf16 runs' greedy tokens
+    by label ("plain", "speculative")."""
     from accelerate_tpu_torch import create_named_model
 
     engine_kw = {**ENGINE_KW, **(engine_kw or {})}
@@ -902,6 +949,8 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
     engine_parity(model, requests, device, engine_kw, report)
     model = model.to(torch.bfloat16)
     bf16_tokens, bf16_cache_nbytes = engine_timed(model, requests, device, engine_kw, report)
+    if tokens_out is not None:
+        tokens_out.update(bf16_tokens)
     engine_quantized(model, requests, device, engine_kw, report, bf16_tokens, bf16_cache_nbytes)
     if profile:
         report["bf16_plain_profile"] = profile_run(
@@ -1654,7 +1703,7 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
-          after_step=None, remat_policy=None, loader=None, aux_out=None):
+          after_step=None, remat_policy=None, loader=None, aux_out=None, analyze=False, keep=None):
     """Train a model of `config` (its family's, random weights from seed 0)
     through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
@@ -1663,7 +1712,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     `CompilationConfig`. The data is `loader`, or one repeated batch of
     `batch` x `seq` tokens (`repeated_batch_loader`). A loss that returns
     ``(loss, aux)`` (Mixtral's) appends each step's aux, as floats, to
-    `aux_out`."""
+    `aux_out`. `analyze` goes to the `Accelerator`; `keep`, a dict, receives
+    it under "accelerator"."""
     from accelerate_tpu_torch import Accelerator, CompilationConfig
     from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -1672,7 +1722,9 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     GradientState._reset_state()
     model = CREATE_BY_FAMILY[type(config)](config, seed=0, device=device)
     accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu",
-                              compilation_config=CompilationConfig(remat_policy=remat_policy))
+                              compilation_config=CompilationConfig(remat_policy=remat_policy), analyze=analyze)
+    if keep is not None:
+        keep["accelerator"] = accelerator
     optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
                                   weight_decay=TRAIN_WD)
     if loader is None:
@@ -3487,6 +3539,404 @@ def fp8_phase(device, bf16=None, profile=False):
     return report
 
 
+# ---------------------------------------------------------------- telemetry (phase 13)
+TELEMETRY_BLOCK_EVERY = 2  # the analyzed step's sampled block: every 2nd step
+PAGED_KERNEL_NAMES = ("paged_split_", "paged_merge_kernel")
+FLASH_WGMMA_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+
+
+def abba(run, a, b, rounds=1):
+    """`run(label)` in the order a b b a, `rounds` times over, so that drift
+    on the card weighs on both alike; returns {label: [its results in
+    order]}."""
+    out = {a: [], b: []}
+    for label in (a, b, b, a) * rounds:
+        out[label].append(run(label))
+    return out
+
+
+def span_counts(records):
+    """Completed spans by name among flight-recorder records."""
+    counts = {}
+    for record in records:
+        if record.get("kind") == "span":
+            counts[record["name"]] = counts.get(record["name"], 0) + 1
+    return counts
+
+
+def engine_telemetry_gates(registry, records, stats, n_requests):
+    """Phase 13 (a)'s counts: every request submitted, finished and timed to
+    its first token once; `serving_chunks_total` equal to the engine's chunk
+    count; one ``serve.request`` and one ``serve.insert`` span per request
+    and one ``serve.decode_chunk`` span per chunk. Raises on a miss; returns
+    the counts."""
+    from accelerate_tpu_torch.serving import FINISH_REASONS
+
+    counts = {
+        "submitted": registry.value("serving_requests_submitted_total"),
+        "finished": sum(registry.value("serving_requests_finished_total", {"reason": r}) or 0 for r in FINISH_REASONS),
+        "ttft_count": registry.get("serving_ttft_seconds").count,
+        "chunks_total": registry.value("serving_chunks_total"),
+        "chunks": stats["chunks"],
+        "spans": span_counts(records),
+    }
+    spans = counts["spans"]
+    bad = [key for key in ("submitted", "finished", "ttft_count") if counts[key] != n_requests]
+    if counts["chunks_total"] != stats["chunks"]:
+        bad.append("chunks_total")
+    for name, want in (("serve.request", n_requests), ("serve.insert", n_requests),
+                       ("serve.decode_chunk", stats["chunks"])):
+        if spans.get(name, 0) != want:
+            bad.append(f"{name} spans")
+    if bad:
+        raise RuntimeError(f"engine telemetry: {bad} off for {n_requests} requests: {counts}")
+    return counts
+
+
+def scrape_matches(registry, text):
+    """A ``/metrics`` scrape, parsed: each counter and gauge equals the
+    registry's value, each histogram's ``_count`` its count. Raises on a
+    miss; returns the number of series compared."""
+    from accelerate_tpu_torch.telemetry import Histogram, parse_prometheus_text
+
+    parsed = parse_prometheus_text(text)
+    bad, n = [], 0
+    for inst in registry.instruments():
+        name, want = (f"{inst.name}_count", inst.count) if isinstance(inst, Histogram) else (inst.name, inst.value)
+        got = parsed.get(name, {}).get("samples", {}).get(inst.labels)
+        n += 1
+        if got != want:
+            bad.append((name, inst.labels, got, want))
+    if bad:
+        raise RuntimeError(f"the /metrics scrape disagrees with the registry: {bad}")
+    return n
+
+
+def trace_kernel_names(log_dir):
+    """Every event name in the Chrome traces `torch.profiler` wrote under
+    `log_dir`."""
+    names = set()
+    for root, _, files in os.walk(log_dir):
+        for name in files:
+            if name.endswith(".json"):
+                with open(os.path.join(root, name)) as f:
+                    names.update(e.get("name", "") for e in json.load(f).get("traceEvents", []))
+    return names
+
+
+def require_names(names, wanted, where):
+    missing = [w for w in wanted if not any(w in name for name in names)]
+    if missing:
+        raise RuntimeError(f"{where}: the profiler trace names no {missing}")
+
+
+def instrumented_serve(model, requests, device, engine_kw, trace_dir):
+    """One `serve` with a fresh registry, a tracer over a flight recorder
+    streaming into `trace_dir` and a record-mode `TraceGuard` ("log": each
+    sync is recorded, none raises) armed around the steps; the count gates,
+    the Perfetto JSON read back, a ``/metrics`` scrape against the registry
+    and the guard's 0 builds and 0 syncs. Returns (engine, tokens, timing)."""
+    import urllib.request
+
+    from accelerate_tpu_torch.analysis import TraceGuard
+    from accelerate_tpu_torch.telemetry import FlightRecorder, MetricsHTTPServer, MetricsRegistry, Tracer
+    from accelerate_tpu_torch.telemetry import collect_trace_dir
+
+    registry = MetricsRegistry()
+    recorder = FlightRecorder(log_dir=trace_dir)
+    guard = TraceGuard(transfer_guard="log", on_violation="record", name="engine")
+    engine, tokens, timing = serve(model, requests, device, guard=guard, registry=registry,
+                                   tracer=Tracer(recorder=recorder, category="serve"), trace_guard=guard, **engine_kw)
+    recorder.close()
+    counts = engine_telemetry_gates(registry, collect_trace_dir(trace_dir), engine.stats, len(requests))
+    with open(recorder.dump(os.path.join(trace_dir, "trace.json"))) as f:
+        events = json.load(f)["traceEvents"]
+    perfetto = {name: sum(e["ph"] == "X" and e["name"] == name for e in events)
+                for name in ("serve.request", "serve.insert", "serve.decode_chunk")}
+    if perfetto != {k: counts["spans"][k] for k in perfetto}:
+        raise RuntimeError(f"the Perfetto JSON holds {perfetto}, the span stream {counts['spans']}")
+    server = MetricsHTTPServer(registry, port=0)
+    try:
+        with urllib.request.urlopen(server.url, timeout=30) as resp:
+            scraped = scrape_matches(registry, resp.read().decode())
+    finally:
+        server.close()
+    report = guard.report()
+    if report.total_recompiles or report.host_transfers:
+        raise RuntimeError(f"the warm engine under the guard: {report.summary()}: {report.transfer_violations}")
+    timing.update(counts=counts, perfetto_events=perfetto, scraped_series=scraped,
+                  guard={"builds": report.total_recompiles, "syncs": report.host_transfers})
+    return engine, tokens, timing
+
+
+def telemetry_engine(device, model, requests, engine_kw, plain_tokens=None):
+    """Phase 13 (a) and the engine half of (c)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import ContinuousBatcher
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.telemetry import ProfilerManager
+
+    layers = model.config.num_hidden_layers
+    report = {}
+    for label, extra, kind in (("plain", {}, "decode"), ("speculative", SPEC_KW, "verify")):
+        serve(model, requests[:2], device, **engine_kw, **extra)  # warm-up: GEMM handles, allocator
+
+        def run(mode):
+            gc.collect()
+            pa.reset_launch_counts()
+            trace_dir = tempfile.mkdtemp(prefix="telemetry-")
+            try:
+                if mode == "instrumented":
+                    engine, tokens, timing = instrumented_serve(model, requests, device, {**engine_kw, **extra},
+                                                                trace_dir)
+                else:
+                    engine, tokens, timing = serve(model, requests, device, **engine_kw, **extra)
+            finally:
+                shutil.rmtree(trace_dir, ignore_errors=True)
+            launches = dict(pa.LAUNCHES)
+            dispatches = engine.stats["decode_steps"]
+            if device.type == "cuda" and (launches[kind] != layers * dispatches or launches[kind] <= 0):
+                raise RuntimeError(f"{label} {mode}: launches {launches}, expected {kind} = {layers} x {dispatches}")
+            timing.update(launches=launches, dispatches=dispatches)
+            return tokens, timing
+
+        # The speculative engine is paired a b; the plain one a b b a twice.
+        runs = abba(run, "plain", "instrumented", rounds=2) if label == "plain" else {
+            mode: [run(mode)] for mode in ("plain", "instrumented")}
+        streams = [tokens for mode in runs for tokens, _ in runs[mode]]
+        if plain_tokens is not None and label in plain_tokens:
+            streams.append(plain_tokens[label])
+        if any(s != streams[0] for s in streams):
+            raise RuntimeError(f"{label}: the instrumented engine's tokens differ from the plain engine's")
+        if label == "plain":
+            plain_stream = streams[0]
+        entry = {mode: [timing for _, timing in runs[mode]] for mode in runs}
+        entry["tokens_equal_phase_3"] = plain_tokens is not None and label in plain_tokens
+        for key in ("decode_tokens_per_s", "ttft_p50_s"):
+            entry[key] = {mode: [t[key] for t in entry[mode]] for mode in ("plain", "instrumented")}
+            entry[key + "_median"] = {mode: float(np.median(v)) for mode, v in entry[key].items()}
+        log(f"[telemetry] (a) {label}: decode tokens/s {entry['decode_tokens_per_s']}, TTFT p50 s "
+            f"{entry['ttft_p50_s']}; {json.dumps(entry['instrumented'][0]['counts'])}")
+        report[label] = entry
+
+    report["unsanctioned_control"] = sanction_control(model, requests, device, engine_kw, plain_stream)
+
+    # (c) a ProfilerManager window around one engine step that runs a chunk.
+    profile_dir = tempfile.mkdtemp(prefix="telemetry-profile-")
+    try:
+        manager = ProfilerManager(log_dir=profile_dir)
+        engine = ContinuousBatcher(model, max_queue=len(requests), device=device, **engine_kw)
+        for r in requests:
+            engine.submit(r)
+        engine.step()  # admits the first slots and runs a chunk
+        with manager.trace(subdir="engine_step"):
+            engine.step()
+        while engine.pending:
+            engine.step()
+        names = trace_kernel_names(profile_dir)
+        if device.type == "cuda":
+            require_names(names, PAGED_KERNEL_NAMES, "the engine step's window")
+        report["profile_kernels"] = sorted(n for n in names if any(k in n for k in PAGED_KERNEL_NAMES))[:8]
+    finally:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    return report
+
+
+def sanction_control(model, requests, device, engine_kw, plain_tokens):
+    """The engine once more with its sanctioned syncs unsanctioned (the
+    engine's `allow_sync` a no-op) under a "log" guard: the sites the guard
+    then records, by count. A positive control for (a)'s 0: on the card the
+    chunk's uploads and readback and the insert's pushes and first-token
+    read are syncs, and a guard that records none sees nothing."""
+    import contextlib
+
+    from accelerate_tpu_torch import serving
+    from accelerate_tpu_torch.analysis import TraceGuard
+
+    guard = TraceGuard(transfer_guard="log", on_violation="record", name="control")
+    saved = serving.allow_sync
+    serving.allow_sync = contextlib.nullcontext
+    try:
+        engine, tokens, _ = serve(model, requests, device, guard=guard, trace_guard=guard, **engine_kw)
+    finally:
+        serving.allow_sync = saved
+    sites = {}
+    for entry in guard.transfer_violations:
+        path, line = entry.split(": ")[0].rsplit(":", 1)
+        site = f"{os.path.relpath(path)}:{line}"
+        sites[site] = sites.get(site, 0) + 1
+    if device.type == "cuda" and not sites:
+        raise RuntimeError("with the engine's syncs unsanctioned the guard recorded none")
+    if tokens != plain_tokens:
+        raise RuntimeError("the control run's tokens differ from the plain engine's")
+    report = {"sites": sites, "chunks": engine.stats["chunks"], "inserts": engine.stats["inserts"]}
+    log(f"[telemetry] (a) unsanctioned control: {json.dumps(report)}")
+    return report
+
+
+def telemetry_training(device, config, seq, batch, warmup, timed_steps):
+    """Phase 13 (b) and the training half of (c)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    layers, steps = config.num_hidden_layers, warmup + timed_steps
+    keep, profiled = {}, []
+
+    def run(mode):
+        free_memory(device)
+        fa.reset_launch_counts()
+        keep.clear()
+
+        def on_step(i, step_fn):
+            if i == 0 and mode == "analyze":
+                keep["accelerator"].timeline.sample_block_every = TELEMETRY_BLOCK_EVERY
+
+        losses, seconds, pmodel, step_fn, last = train(device, config, "bf16", batch=batch, steps=timed_steps,
+                                                       seq=seq, warmup=warmup, on_step=on_step,
+                                                       analyze=mode == "analyze", keep=keep)
+        launches = dict(fa.LAUNCHES)
+        accelerator = keep["accelerator"]
+        result = {"losses": losses, "step_ms_median": 1e3 * float(np.median(seconds[warmup:])),
+                  "step_ms": [1e3 * s for s in seconds], "launches": launches}
+        if device.type == "cuda" and launches != expected_launches(layers * steps, torch.bfloat16):
+            raise RuntimeError(f"{mode}: flash launches {launches}, expected {layers} x {steps}")
+        registry = accelerator.telemetry
+        counts = {"train_steps_total": registry.value("train_steps_total"),
+                  "train_dispatch_seconds_count": registry.get("train_dispatch_seconds").count,
+                  "goodput_steps": accelerator.timeline.goodput()["steps"]}
+        if set(counts.values()) != {steps}:
+            raise RuntimeError(f"{mode}: step counts {counts}, expected {steps}")
+        result["counts"] = counts
+        if mode == "analyze":
+            guard = accelerator.trace_guard
+            if guard.steps != steps - 2 or guard.total_recompiles or guard.host_transfers:
+                raise RuntimeError(f"analyze: the guard saw {guard.steps} steady steps: {guard.report().summary()}")
+            goodput = accelerator.timeline.goodput()
+            result["guard"] = {"steady_steps": guard.steps, "builds": guard.total_recompiles,
+                               "syncs": guard.host_transfers}
+            result["block_share"] = goodput["phase_s"].get("block", 0.0) / max(goodput["productive_s"], 1e-12)
+            result["block_samples"] = registry.get("train_block_seconds").count
+            if not profiled:  # (c), on the first analyzed run
+                profiled.append(telemetry_profile_steps(device, accelerator, step_fn, last))
+                result["profile"] = profiled[0]
+        del pmodel, step_fn, last
+        keep.clear()
+        return result
+
+    runs = abba(run, "plain", "analyze")
+    base = runs["plain"][0]["losses"]
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for r in runs["plain"] + runs["analyze"]
+                for a, b in zip(r["losses"], base))
+    if worst > 1e-6:
+        raise RuntimeError(f"analyze changed the losses: {[r['losses'] for r in runs['analyze']]} against {base}")
+    report = {mode: runs[mode] for mode in runs}
+    report["losses_max_rel_diff"] = worst
+    report["losses_bit_for_bit"] = all(r["losses"] == base for r in runs["plain"] + runs["analyze"])
+    report["step_ms_median"] = {mode: [r["step_ms_median"] for r in runs[mode]] for mode in runs}
+    log(f"[telemetry] (b) step ms {report['step_ms_median']}, block share "
+        f"{[r['block_share'] for r in runs['analyze']]}, losses bit for bit {report['losses_bit_for_bit']}")
+    free_memory(device)
+    return report
+
+
+def telemetry_profile_steps(device, accelerator, step_fn, batch, steps=2):
+    """(c): `Accelerator.profile()` around `steps` more steps, with the
+    allocator's history recorded, then `save_memory_profile`."""
+    import shutil
+    import tempfile
+
+    log_dir = tempfile.mkdtemp(prefix="telemetry-train-profile-")
+    try:
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.memory._record_memory_history(max_entries=100_000)
+        with accelerator.profile(log_dir=log_dir):
+            for _ in range(steps):
+                step_fn(batch)
+        names = trace_kernel_names(log_dir)
+        report = {"kernels": sorted(n for n in names if any(k in n for k in FLASH_WGMMA_NAMES))[:6]}
+        if on_card:
+            require_names(names, FLASH_WGMMA_NAMES, "the training steps' window")
+            path = os.path.join(log_dir, "memory.pickle")
+            accelerator.save_memory_profile(path)
+            torch.cuda.memory._record_memory_history(enabled=None)
+            report["memory_snapshot_bytes"] = os.path.getsize(path)
+            if report["memory_snapshot_bytes"] <= 0:
+                raise RuntimeError("save_memory_profile wrote an empty snapshot")
+        return report
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def planted_sync_case(device):
+    """(d): a `.item()` on a CUDA tensor inside a step that `wrap` guards,
+    after its warm-up call: the raising guard names the line; a record-mode
+    guard counts it once. On the CPU there is no sync to catch."""
+    from accelerate_tpu_torch.analysis import TraceGuard, TraceGuardViolation
+
+    if device.type != "cuda":
+        return {"skipped": "no CUDA device: nothing syncs"}
+    x = torch.randn(1024, device=device)
+
+    def step(x):
+        y = torch.tanh(x) * 2.0
+        return y.sum().item()  # the planted sync
+
+    site = f"{step.__code__.co_filename}:{step.__code__.co_firstlineno + 2}"
+    raising = TraceGuard(name="planted")
+    wrapped = raising.wrap(step, warmup=1)
+    wrapped(x)
+    try:
+        wrapped(x)
+    except TraceGuardViolation as exc:
+        message = str(exc)
+    else:
+        raise RuntimeError("the planted .item() passed the guard")
+    if site not in message:
+        raise RuntimeError(f"the guard did not name {site}: {message}")
+    recording = TraceGuard(name="planted-record", on_violation="record")
+    wrapped = recording.wrap(step, warmup=1)
+    wrapped(x)
+    try:
+        wrapped(x)
+    except RuntimeError as exc:
+        if isinstance(exc, TraceGuardViolation) or not TraceGuard.is_transfer_violation(exc):
+            raise
+    if recording.host_transfers != 1:
+        raise RuntimeError(f"the record-mode guard counted {recording.host_transfers}: {recording.transfer_violations}")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise RuntimeError("the guard left the sync debug mode set")
+    return {"message": message, "recorded": recording.transfer_violations}
+
+
+def telemetry_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, system_len=256,
+                    seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8, plain_tokens=None):
+    """Phase 13: telemetry and the trace guard on the main paths."""
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    engine_kw = {**ENGINE_KW, **(engine_kw or {})}
+    report = {"model": model_name, "engine": engine_kw}
+    t0 = time.perf_counter()
+    # Phase 3's model: f32 from seed 0, then cast, so its tokens are phase 3's.
+    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device).to(torch.bfloat16)
+    requests = make_requests(model.config.vocab_size, n=n_requests, system_len=system_len)
+    report["engine_runs"] = telemetry_engine(device, model, requests, engine_kw, plain_tokens)
+    del model
+    free_memory(device)
+    log(f"[time] telemetry (a) engine {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["training"] = telemetry_training(device, MODEL_REGISTRY[model_name](), seq, batch, warmup, timed_steps)
+    log(f"[time] telemetry (b) training {time.perf_counter() - t0:.1f}s")
+    report["planted_sync"] = planted_sync_case(device)
+    log(f"[telemetry] (d) planted sync: {json.dumps(report['planted_sync'])}")
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -3602,6 +4052,9 @@ def main(argv=None) -> int:
                              "step and one T5 generate call: device time by kernel, busy share")
     parser.add_argument("--fp8-only", action="store_true",
                         help="run only the build and phase 11 (fp8 and ResNet; prints no result line)")
+    parser.add_argument("--telemetry-only", action="store_true",
+                        help="run only the build and phase 13 (telemetry and the trace guard on the main paths; "
+                             "prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -3636,6 +4089,12 @@ def main(argv=None) -> int:
         log(f"[fp8] summary: {json.dumps(fp8_phase(device, profile=args.profile))}")
         log(card)
         return 0
+    if args.telemetry_only:
+        t0 = time.perf_counter()
+        log(f"[telemetry] summary: {json.dumps(telemetry_phase(device))}")
+        log(f"[time] telemetry phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
     t0 = time.perf_counter()
     kernels = kernel_phase(device)
     kernels.update(quantized_kernel_phase(device))
@@ -3662,7 +4121,8 @@ def main(argv=None) -> int:
         log(card)
         return 0
     t0 = time.perf_counter()
-    engine = engine_phase(device, profile=args.profile)
+    phase3_tokens = {}
+    engine = engine_phase(device, profile=args.profile, tokens_out=phase3_tokens)
     log(f"[engine] summary: {json.dumps(engine)}")
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
@@ -3683,6 +4143,11 @@ def main(argv=None) -> int:
     free_memory(device)
     fp8 = fp8_phase(device, training["bf16"], profile=args.profile)
     log(f"[fp8] summary: {json.dumps(fp8)}")
+    t0 = time.perf_counter()
+    telemetry = telemetry_phase(device, plain_tokens=phase3_tokens)
+    log(f"[telemetry] summary: {json.dumps(telemetry)}")
+    log(f"[time] telemetry phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
     t0 = time.perf_counter()
     bert = bert_phase(device, profile=args.profile)
     log(f"[bert] summary: {json.dumps(bert)}")

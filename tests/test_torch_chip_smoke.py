@@ -708,3 +708,99 @@ def test_fp8_phases_rehearse_on_the_cpu():
     assert resnet["batchnorm_buffers"] == 27 and resnet["losses"][-1] < resnet["losses"][0]
     shapes = chip_smoke.llama_linear_shapes(MODEL_REGISTRY["llama-1b"]())
     assert (shapes["wk"], shapes["w_down"], shapes["lm_head"]) == ((2048, 512), (8192, 2048), (2048, 128256))
+
+
+# ---------------------------------------------------------------- phase 13
+def test_abba_pairs_two_modes_in_turns():
+    order = []
+    runs = chip_smoke.abba(lambda label: order.append(label) or len(order), "plain", "instrumented")
+    assert order == ["plain", "instrumented", "instrumented", "plain"]
+    assert runs == {"plain": [1, 4], "instrumented": [2, 3]}
+    order.clear()
+    chip_smoke.abba(order.append, "a", "b", rounds=2)
+    assert order == ["a", "b", "b", "a"] * 2
+
+
+def _hand_made(n_requests=3, chunks=2, drop=None):
+    """A registry and span records as an engine of `n_requests` requests and
+    `chunks` chunks leaves them, with `drop` (a span name) missing once."""
+    from accelerate_tpu_torch.telemetry import FlightRecorder, MetricsRegistry, Tracer
+
+    registry, recorder = MetricsRegistry(), FlightRecorder()
+    tracer = Tracer(recorder=recorder)
+    for rid in range(n_requests):
+        registry.counter("serving_requests_submitted_total").inc()
+        registry.counter("serving_requests_finished_total", labels={"reason": "length"}).inc()
+        registry.histogram("serving_ttft_seconds").observe(0.01)
+        request = tracer.start_span("serve.request", request_id=rid)
+        tracer.start_span("serve.insert", parent=request).end()
+        request.end()
+    for _ in range(chunks):
+        registry.counter("serving_chunks_total").inc()
+        tracer.start_span("serve.decode_chunk", slots="0").end()
+    records = [r for r in recorder.records() if r["name"] != drop] + [
+        r for r in recorder.records() if r["name"] == drop][1:]
+    return registry, records
+
+
+def test_engine_telemetry_gates_hold_a_hand_made_recorder_and_catch_each_miss():
+    registry, records = _hand_made()
+    counts = chip_smoke.engine_telemetry_gates(registry, records, {"chunks": 2}, 3)
+    assert counts["spans"] == {"serve.request": 3, "serve.insert": 3, "serve.decode_chunk": 2}
+    for drop in ("serve.request", "serve.insert", "serve.decode_chunk"):
+        registry, records = _hand_made(drop=drop)
+        with pytest.raises(RuntimeError, match=drop):
+            chip_smoke.engine_telemetry_gates(registry, records, {"chunks": 2}, 3)
+    registry, records = _hand_made()
+    with pytest.raises(RuntimeError, match="chunks_total"):
+        chip_smoke.engine_telemetry_gates(registry, records, {"chunks": 3}, 3)
+    with pytest.raises(RuntimeError, match="submitted"):
+        chip_smoke.engine_telemetry_gates(registry, records, {"chunks": 2}, 4)
+    # the span stream's start records are not completed spans
+    start = dict(records[0], kind="span_start")
+    assert chip_smoke.span_counts([start] + records) == counts["spans"]
+
+
+def test_scrape_gate_compares_every_series_and_catches_a_changed_one():
+    from accelerate_tpu_torch.telemetry import to_prometheus_text
+
+    registry, _ = _hand_made()
+    text = to_prometheus_text(registry)
+    assert chip_smoke.scrape_matches(registry, text) == len(registry.instruments())
+    with pytest.raises(RuntimeError, match="serving_chunks_total"):
+        chip_smoke.scrape_matches(registry, text.replace("serving_chunks_total 2", "serving_chunks_total 3"))
+    with pytest.raises(RuntimeError, match="serving_ttft_seconds_count"):
+        chip_smoke.scrape_matches(registry, text.replace("serving_ttft_seconds_count 3", ""))
+
+
+def test_telemetry_phase_rehearses_on_the_cpu():
+    """Phase 13 at llama_tiny on the CPU: the instrumented engine's tokens
+    equal the plain one's with every count gate holding, plain and
+    speculative; the analyzed training's losses equal the plain ones bit for
+    bit with 4 steps counted; the planted sync waits for a card."""
+    report = chip_smoke.telemetry_phase(torch.device("cpu"), "llama-tiny", n_requests=4, system_len=16, seq=64,
+                                        warmup=2, timed_steps=2)
+    for label in ("plain", "speculative"):
+        runs = report["engine_runs"][label]
+        assert all(t["guard"] == {"builds": 0, "syncs": 0} for t in runs["instrumented"])
+        assert all(t["counts"]["spans"]["serve.request"] == 4 for t in runs["instrumented"])
+    assert len(report["engine_runs"]["plain"]["decode_tokens_per_s"]["plain"]) == 4  # a b b a, twice
+    assert report["engine_runs"]["unsanctioned_control"]["sites"] == {}  # the CPU makes no sync
+    training = report["training"]
+    assert training["losses_bit_for_bit"] is True
+    assert all(r["counts"]["train_steps_total"] == 4 for r in training["plain"] + training["analyze"])
+    assert training["analyze"][0]["guard"]["steady_steps"] == 2 and training["analyze"][0]["block_samples"] == 2
+    assert "profile" in training["analyze"][0]
+    assert report["planted_sync"] == {"skipped": "no CUDA device: nothing syncs"}
+
+
+def test_telemetry_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--telemetry-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[telemetry]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--telemetry-only" in usage.stdout

@@ -1044,3 +1044,67 @@ def test_fp8_product_of_a_shape_scaled_mm_refuses_raises(cuda):
     x = torch.randn(8, 24, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError):
         pfp8.fp8_matmul(x, torch.randn(24, 8, device=cuda, dtype=torch.bfloat16))
+
+
+def test_trace_guard_names_a_planted_item_and_passes_a_sanctioned_readback(cuda):
+    """The sync guard on the card: a `.item()` on a CUDA tensor inside a
+    wrapped step raises TraceGuardViolation naming its line; the same read
+    under `allow_sync` passes; a record-mode guard counts it once; the
+    sync-debug mode is back to what it was after each window."""
+    from accelerate_tpu_torch.analysis import TraceGuard, TraceGuardViolation, allow_sync
+
+    x = torch.ones(4, device=cuda)
+
+    def step(sanctioned):
+        y = x * 2
+        if sanctioned:
+            with allow_sync():
+                return y.sum().item()
+        return y.sum().item()  # the planted sync
+
+    site = f"{__file__}:{step.__code__.co_firstlineno + 5}"
+    guard = TraceGuard(name="planted")
+    wrapped = guard.wrap(step, warmup=0)
+    assert wrapped(True) == 8.0 and guard.host_transfers == 0
+    with pytest.raises(TraceGuardViolation) as excinfo:
+        wrapped(False)
+    assert site in str(excinfo.value), (site, str(excinfo.value))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    recorder = TraceGuard(name="planted-record", on_violation="record")
+    with pytest.raises(RuntimeError):
+        recorder.wrap(step, warmup=0)(False)
+    assert recorder.host_transfers == 1 and site in recorder.transfer_violations[0]
+    log = TraceGuard(name="planted-log", transfer_guard="log", on_violation="record")
+    with log:
+        assert step(False) == 8.0
+    assert log.host_transfers == 1 and site in log.transfer_violations[0]
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_warm_engine_and_fused_step_make_no_unsanctioned_sync(cuda):
+    """llama_tiny on the card: a warm paged engine's steps and an
+    `Accelerator(analyze=True)` fused step's steady calls build nothing and
+    make no host sync outside the sanctioned pushes and readbacks."""
+    from accelerate_tpu_torch import (Accelerator, BatchSampler, ContinuousBatcher, Request, SimpleDataLoader,
+                                      create_llama_model)
+    from accelerate_tpu_torch.analysis import TraceGuard
+    from accelerate_tpu_torch.models import llama_tiny
+
+    model = create_llama_model(llama_tiny(), seed=1, device=cuda)
+    engine = ContinuousBatcher(model, num_slots=2, max_length=128, chunk_size=4)
+    engine.run([Request(0, np.arange(1, 30), max_new_tokens=8)])
+    guard = TraceGuard(name="engine", transfer_guard="log", on_violation="record")
+    engine.trace_guard = guard
+    with guard:
+        engine.run([Request(1, np.arange(3, 40), max_new_tokens=8), Request(2, np.arange(5, 20), max_new_tokens=6)])
+    assert guard.total_recompiles == 0 and guard.host_transfers == 0, guard.report().summary()
+
+    accelerator = Accelerator(mixed_precision="bf16", analyze=True)
+    train_model = create_llama_model(llama_tiny(), seed=1, device=cuda)
+    ids = np.random.default_rng(0).integers(0, 128, (12, 64))
+    loader = SimpleDataLoader([{"input_ids": row} for row in ids], BatchSampler(range(12), 2))
+    _, _, loader = accelerator.prepare(train_model, torch.optim.AdamW(train_model.parameters(), lr=1e-3), loader)
+    step_fn = accelerator.train_step(max_grad_norm=1.0)
+    losses = [step_fn(batch) for batch in loader]
+    assert accelerator.trace_guard.steps == 4 and accelerator.trace_guard.host_transfers == 0
+    assert all(np.isfinite(float(loss)) for loss in losses)

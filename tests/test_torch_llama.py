@@ -122,7 +122,7 @@ def test_prefill_then_decode_and_verify_match_full_forward(impl):
     pools = _pools(cfg, 12, ps)
     row = torch.tensor([[7, 2, 9, 4, 11, 1]], dtype=torch.int32)  # pages 0..5 of the slot
     programs = CausalPrograms(model, impl)
-    prefill = programs.prefill(ids[:, :n_prompt], torch.arange(n_prompt)[None], pools, row[:, :3])
+    prefill = programs.prefill(ids[:, :n_prompt], torch.arange(n_prompt)[None], pools, row[:, :3], (0, n_prompt))
     torch.testing.assert_close(prefill[0], full[:n_prompt], atol=ATOL, rtol=0)
     for t in range(n_prompt, n_prompt + n_decode):
         step = programs.step(ids[:, t], torch.tensor([t]), pools, row)

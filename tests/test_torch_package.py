@@ -47,6 +47,8 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.models.gpt_neox, accelerate_tpu_torch.models.gptj, accelerate_tpu_torch.models.opt\n"
         "import accelerate_tpu_torch.models.t5, accelerate_tpu_torch.utils.hf_loading, accelerate_tpu_torch.utils.modeling\n"
         "import accelerate_tpu_torch.parallel.expert, accelerate_tpu_torch.models.mixtral\n"
+        "import accelerate_tpu_torch.telemetry, accelerate_tpu_torch.analysis.trace_guard\n"
+        "import accelerate_tpu_torch.test_utils.analysis_fixtures\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
