@@ -29,7 +29,11 @@ losses ride beside the loss. The engine and the `Accelerator` carry JAX's
 telemetry (`telemetry/`: metrics, spans, the flight recorder, the step
 timeline, the profiler, the exporters) and its trace guard
 (`analysis/trace_guard.py`, which catches kernel builds and host syncs in a
-steady-state step).
+steady-state step). Across processes (one per card, NCCL; gloo on the
+CPU) it trains data parallel or sharded as JAX's FSDP/ZeRO strategies place
+a model (`FullyShardedDataParallelPlugin`, `ParallelismConfig`,
+`parallel/fsdp.py`), over the global batch; `debug_launcher` runs a
+function in several CPU processes.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -41,6 +45,7 @@ from .checkpointing import CheckpointManager
 from .data_loader import BatchSampler, SeedableRandomSampler, SimpleDataLoader, prepare_data_loader, skip_first_batches
 from .device import resolve_device
 from .generation import GenerationConfig, Generator, Seq2SeqGenerator, generate
+from .launchers import debug_launcher
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_mixtral_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
@@ -49,8 +54,10 @@ from .telemetry import MetricsRegistry, ProfilerManager, StepTimeline, TrackerBr
 from .utils import (
     CompilationConfig,
     FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    ParallelismConfig,
     ProjectConfiguration,
     set_seed,
 )
@@ -63,6 +70,7 @@ __all__ = [
     "ContinuousBatcher",
     "EngineClosed",
     "FP8RecipeKwargs",
+    "FullyShardedDataParallelPlugin",
     "GradScalerKwargs",
     "GenerationConfig",
     "Generator",
@@ -71,6 +79,7 @@ __all__ = [
     "KV_CACHE_DTYPES",
     "MetricsRegistry",
     "Model",
+    "ParallelismConfig",
     "PreparedModel",
     "ProfilerManager",
     "ProjectConfiguration",
@@ -86,6 +95,7 @@ __all__ = [
     "create_llama_model",
     "create_mixtral_model",
     "create_named_model",
+    "debug_launcher",
     "generate",
     "prepare_data_loader",
     "quantize_model_int8",

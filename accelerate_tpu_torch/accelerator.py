@@ -43,6 +43,17 @@ every `train_step()` in a raising `TraceGuard` after 2 warm-up calls: a
 steady-state step that builds a kernel or makes an unsanctioned host sync
 raises `TraceGuardViolation`.
 
+More than one process (one per card, launched by torchrun or
+`launchers.debug_launcher`): ``Accelerator(fsdp_plugin=FullyShardedDataParallelPlugin(
+sharding_strategy=...), parallelism_config=ParallelismConfig(data=..., fsdp=...))``
+(or ``ACCELERATE_TPU_USE_FSDP=1`` and the ``ACCELERATE_TPU_FSDP_*`` and
+``ACCELERATE_TPU_MESH_*`` variables) places the model as JAX's mesh does
+(`parallel/fsdp.py`); without a plugin the processes are data parallel.
+Each process's loader yields its share of every global batch, the losses
+are the global batch's, `gather`/`gather_for_metrics`/`reduce` run across
+the processes, trackers write on the main process, and
+`save_state`/`load_state` carry the whole state whatever the layout.
+
 The model is an `nn.Module` (or a `modeling.Model` bundle) whose parameters
 the optimizer was built over; the optimizer a `torch.optim.Optimizer`; the
 loader a `SimpleDataLoader`, a torch `DataLoader` or any iterable of
@@ -71,6 +82,7 @@ from .modeling import Model, PreparedModel
 from .optimizer import AcceleratedOptimizer, GradScaler
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .utils import operations as ops
 from .telemetry.metrics import MetricsRegistry
 from .telemetry.profiler import ProfilerManager
 from .telemetry.timeline import StepTimeline
@@ -79,10 +91,14 @@ from .tracking import LOGGER_TYPE_TO_CLASS, GeneralTracker, filter_trackers
 from .train_step import FusedTrainStep, detached
 from .utils.dataclasses import (
     CompilationConfig,
+    DistributedType,
     FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    ParallelismConfig,
     ProjectConfiguration,
+    parse_flag_from_env,
 )
 
 logger = logging.getLogger(__name__)
@@ -104,6 +120,10 @@ class Accelerator:
         compilation_config: Optional[CompilationConfig] = None,
         analyze: bool = False,
         tracer=None,
+        split_batches: bool = False,
+        parallelism_config: Optional[ParallelismConfig] = None,
+        fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+        sharded_save: Optional[bool] = None,
     ):
         # analyze=True: every train_step() is wrapped in a TraceGuard that,
         # after a warmup allowance, raises when a steady-state step builds a
@@ -114,7 +134,21 @@ class Accelerator:
             from .analysis.trace_guard import TraceGuard
 
             self.trace_guard = TraceGuard(name="train-step", on_violation="raise")
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
+        if sharded_save is None:
+            sharded_save = parse_flag_from_env("ACCELERATE_TPU_SHARDED_SAVE")
+        if sharded_save:
+            raise NotImplementedError("sharded_save (a SHARDED_STATE_DICT written by each process) waits for "
+                                      "ROADMAP A item 5, async and sharded checkpoints; the port saves the "
+                                      "whole state from the main process")
+        if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_TPU_USE_FSDP"):
+            fsdp_plugin = FullyShardedDataParallelPlugin()
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
+                                      parallelism_config=parallelism_config, fsdp_plugin=fsdp_plugin)
+        if self.state.mixed_precision == "fp8" and self.num_processes > 1:
+            raise NotImplementedError(
+                "mixed_precision='fp8' across processes waits for ROADMAP A item 5, expert sharding (with fp8's "
+                "global amax): JAX scales by the amax over the global batch, each process here by its own")
+        self.split_batches = split_batches
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
@@ -179,6 +213,39 @@ class Accelerator:
         return self.state.mixed_precision
 
     @property
+    def distributed_type(self) -> DistributedType:
+        return self.state.distributed_type
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def mesh(self):
+        """The ("data", "fsdp") `DeviceMesh`, or None with one process and no group."""
+        return self.state.mesh
+
+    @property
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
 
@@ -215,7 +282,54 @@ class Accelerator:
         only at every `gradient_accumulation_steps`-th entry, or at the end
         of the active loader."""
         self._do_sync()
-        yield
+        if self.sync_gradients:
+            yield
+            return
+        # Mid-accumulation: the backward adds to local gradients only.
+        with contextlib.ExitStack() as stack:
+            for model in models or self._models:
+                if isinstance(model, PreparedModel):
+                    stack.enter_context(model.no_sync())
+            yield
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """Backwards inside add to the local gradients and reduce nothing
+        across processes; the optimizer does not step."""
+        prev = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            with contextlib.ExitStack() as stack:
+                for m in [model] if model is not None else self._models:
+                    if isinstance(m, PreparedModel):
+                        stack.enter_context(m.no_sync())
+                yield
+        finally:
+            self.gradient_state._set_sync_gradients(prev)
+
+    # ------------------------------------------------------------ processes
+    def wait_for_everyone(self):
+        """A barrier over every process."""
+        self.state.wait_for_everyone()
+
+    def on_main_process(self, function):
+        return self.state._partial.on_main_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state._partial.on_process(function, process_index)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state._partial.main_process_first():
+            yield
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state._partial.split_between_processes(inputs, apply_padding=apply_padding)
+
+    def unwrap_model(self, model):
+        """The `nn.Module` under a prepared model (under FSDP, the module
+        FSDP placed)."""
+        return model.module if isinstance(model, PreparedModel) else model
 
     # ------------------------------------------------------------ prepare
     def prepare(self, *args):
@@ -266,8 +380,13 @@ class Accelerator:
         fp8_recipe = None
         if self.mixed_precision == "fp8":
             fp8_recipe = self.fp8_recipe_handler or FP8RecipeKwargs()
-        prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype,
-                                 remat_policy=self.compilation_config.remat_policy, fp8_recipe=fp8_recipe)
+        fsdp = self.state.fsdp_plugin
+        # The CompilationConfig policy wins; the plugin's flag is JAX's "full".
+        remat_policy = self.compilation_config.remat_policy
+        if remat_policy is None and fsdp is not None and fsdp.activation_checkpointing:
+            remat_policy = "full"
+        prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype, remat_policy=remat_policy,
+                                 fp8_recipe=fp8_recipe, mesh=self.mesh, fsdp_plugin=fsdp)
         self._models.append(prepared)
         return prepared
 
@@ -282,16 +401,19 @@ class Accelerator:
             if not self._models:
                 raise ValueError("Prepare the model before (or together with) the optimizer.")
             model = self._models[-1]
-        owned = {id(p) for p in model.parameters()}
-        if not any(id(p) in owned for g in optimizer.param_groups for p in g["params"]):
-            raise ValueError("the optimizer was built over other parameters than the model's")
+        if getattr(model, "layout", None) is None:
+            owned = {id(p) for p in model.parameters()}
+            if not any(id(p) in owned for g in optimizer.param_groups for p in g["params"]):
+                raise ValueError("the optimizer was built over other parameters than the model's")
         prepared = AcceleratedOptimizer(optimizer, model=model, scaler=self.scaler)
         self._optimizers.append(prepared)
         return prepared
 
     def prepare_data_loader(self, data_loader) -> DataLoaderShard:
-        """Batches of `data_loader` on the device, as tensors."""
-        prepared = prepare_data_loader(data_loader, self.device)
+        """This process's batches of `data_loader` on the device, as tensors
+        (its share of every global batch across processes)."""
+        prepared = prepare_data_loader(data_loader, self.device, num_processes=self.num_processes,
+                                       process_index=self.process_index, split_batches=self.split_batches)
         if prepared not in self._dataloaders:
             self._dataloaders.append(prepared)
         return prepared
@@ -423,27 +545,44 @@ class Accelerator:
             raise NotImplementedError("Only the L2 global norm is supported")
         return self._optimizer_for(self._resolve_model(model)).clip_grad_norm_(max_norm)
 
-    # ------------------------------------------------------------ one process
+    # ------------------------------------------------------------ collectives
     def print(self, *args, **kwargs):
-        """`print` on the main process: here, the one process."""
-        print(*args, **kwargs)
+        """`print` on the main process only."""
+        self.state._partial.print(*args, **kwargs)
 
     def gather(self, tensor):
-        """The dim-0 concatenation of `tensor` over the processes: with one
-        process, `tensor` itself."""
-        return tensor
+        """The dim-0 concatenation of `tensor` (tensors and arrays through
+        dicts, lists and tuples) over the processes, on every process; with
+        one process, `tensor` itself."""
+        return ops.gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
-        """`gather` for metrics. The JAX package pads the last batch of a
-        loader to the batch size and cuts the repeats off here; the port's
-        loaders pad nothing, so with one process the data comes back whole:
-        tensors and arrays (through dicts, lists and tuples) as given, other
+        """`gather` for metrics: on the last batch of a loader whose last
+        global batch was topped up (`even_batches`), the repeats are cut off,
+        so an evaluation set of N samples gathers N rows. Tensors and arrays
+        (through dicts, lists and tuples) are gathered as tensors; other
         data, or any with ``use_gather_object``, as a list of objects."""
         leaves = input_data.values() if isinstance(input_data, dict) else (
             input_data if isinstance(input_data, (list, tuple)) else [input_data])
-        if use_gather_object or not all(isinstance(t, (torch.Tensor, np.ndarray)) for t in leaves):
-            return input_data if isinstance(input_data, list) else [input_data]
-        return self.gather(input_data)
+        as_objects = use_gather_object or not all(isinstance(t, (torch.Tensor, np.ndarray)) for t in leaves)
+        if as_objects:
+            data = ops.gather_object(input_data if isinstance(input_data, list) else [input_data])
+        else:
+            data = ops.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+            if as_objects:
+                return data[:remainder]
+            return ops.recursively_apply(lambda t: t[:remainder], data)
+        return data
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        """`tensor` summed (or averaged) over the processes, times `scale`."""
+        return ops.reduce(tensor, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+        """`tensor` padded along `dim` to the largest size any process holds."""
+        return ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first)
 
     # ------------------------------------------------------------ trackers
     def init_trackers(self, project_name: str, config: Optional[dict] = None, init_kwargs: dict = None):
@@ -475,9 +614,10 @@ class Accelerator:
             tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
 
     def end_training(self):
-        """Finish every tracker."""
+        """Finish every tracker, then wait for every process."""
         for tracker in self.trackers:
             tracker.finish()
+        self.wait_for_everyone()
 
     # ------------------------------------------------------------ profiling
     @contextlib.contextmanager
@@ -523,9 +663,8 @@ class Accelerator:
         return CheckpointManager(os.path.join(self.project_dir, "checkpoints"),
                                  keep_last_n=self.project_configuration.total_limit)
 
-    def _write_state(self, output_dir: str):
-        checkpointing.save_accelerator_state(output_dir, self._models, self._optimizers, self._schedulers,
-                                             self._dataloaders)
+    def _write_state(self, output_dir: str, state: dict):
+        checkpointing.write_accelerator_state(output_dir, state)
         for i, obj in enumerate(self._custom_objects):
             checkpointing.save_custom_state(obj, output_dir, i)
 
@@ -550,14 +689,24 @@ class Accelerator:
         return result
 
     def _save_state_inner(self, output_dir: Optional[str]) -> str:
-        if self.project_configuration.automatic_checkpoint_naming:
-            output_dir = self.checkpoint_manager().save(self.save_iteration, self._write_state)
-        else:
-            if output_dir is None:
-                raise ValueError("output_dir is required when automatic_checkpoint_naming is off")
+        # Every process takes part in gathering the whole state; the main
+        # process writes it while the others wait.
+        automatic = self.project_configuration.automatic_checkpoint_naming
+        if not automatic and output_dir is None:
+            raise ValueError("output_dir is required when automatic_checkpoint_naming is off")
+        state = checkpointing.collect_accelerator_state(self._models, self._optimizers, self._schedulers,
+                                                        self._dataloaders)
+        if automatic:
+            manager = self.checkpoint_manager()
+            output_dir = os.path.join(manager.base_dir, f"checkpoint_{self.save_iteration}")
+            if self.is_main_process:
+                output_dir = manager.save(self.save_iteration, lambda d: self._write_state(d, state))
+        elif self.is_main_process:
             os.makedirs(output_dir, exist_ok=True)
-            self._write_state(output_dir)
+            self._write_state(output_dir, state)
             checkpointing.write_checkpoint_manifest(output_dir)
+        del state
+        self.wait_for_everyone()
         self.project_configuration.iteration += 1
         return str(output_dir)
 

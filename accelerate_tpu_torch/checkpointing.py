@@ -1,7 +1,8 @@
 """Checkpoints of a training run (the synchronous, one-process part of
 `accelerate_tpu/checkpointing.py`).
 
-`save_accelerator_state` writes everything a run needs to resume: each
+`save_accelerator_state` writes everything a run needs to resume (across
+processes, gathered whole and written by the main process): each
 model's f32 master weights, each optimizer's state and its fp16 loss
 scaler, each scheduler's step count and learning rate, each seedable
 sampler's epoch with its loader's pass counter, the host and device RNG
@@ -325,44 +326,82 @@ def _find_seedable_sampler(dataloader):
     return None
 
 
-def save_accelerator_state(output_dir, models: list, optimizers: list, schedulers: list,
-                           dataloaders: list) -> str:
-    """Write the training state into `output_dir`: ``model.pt`` (the f32
-    masters), ``optimizer.pt`` and ``scaler_0.json`` (fp16), ``scheduler.pt``,
-    ``sampler.pt`` (format 2: the sampler's state and its loader's
-    `iteration`), ``random_states_0.pt``; a second model, optimizer, ... gets
-    ``model_1.pt`` and so on."""
-    output_dir = Path(output_dir)
-    os.makedirs(output_dir, exist_ok=True)
+def collect_accelerator_state(models: list, optimizers: list, schedulers: list, dataloaders: list) -> dict:
+    """Everything `write_accelerator_state` writes, by file name: each
+    model's whole state dict (the f32 masters), each optimizer's whole state
+    and its fp16 loss scaler, each scheduler's step count and learning rate,
+    each seedable sampler's epoch with its loader's pass counter, and every
+    process's RNG streams. Across processes every process must call it (the
+    sharded tensors are gathered; the result matters on the main process);
+    the tensors come back on the CPU there, and as the prepared objects
+    hold them with one process and no group."""
+    from .utils.operations import gather_object
+
+    state = {}
     for i, model in enumerate(models):
-        _save_tensors(output_dir / _indexed(MODEL_NAME, i, "pt"), model.module.state_dict())
+        state[_indexed(MODEL_NAME, i, "pt")] = model.full_state_dict()
     for i, opt in enumerate(optimizers):
-        _save_tensors(output_dir / _indexed(OPTIMIZER_NAME, i, "pt"), opt.state_dict())
+        state[_indexed(OPTIMIZER_NAME, i, "pt")] = opt.state_dict()
         if opt.scaler is not None:
-            atomic_write_json(output_dir / f"{SCALER_NAME}_{i}.json", opt.scaler.state_dict())
+            state[f"{SCALER_NAME}_{i}.json"] = opt.scaler.state_dict()
     for i, sched in enumerate(schedulers):
-        _save_tensors(output_dir / _indexed(SCHEDULER_NAME, i, "pt"), sched.state_dict())
+        state[_indexed(SCHEDULER_NAME, i, "pt")] = sched.state_dict()
     for i, dl in enumerate(dataloaders):
         sampler = _find_seedable_sampler(dl)
         if sampler is not None:
             # The loader's pass counter tells a mid-pass save (replay this
             # epoch's order, then skip) from one at a pass's end (next epoch).
-            payload = {"format": SAMPLER_FORMAT, "sampler": sampler.state_dict(),
-                       "loader_iteration": getattr(dl, "iteration", None)}
-            _save_tensors(output_dir / _indexed(SAMPLER_NAME, i, "pt"), payload)
-    _save_tensors(output_dir / f"{RNG_STATE_NAME}_0.pt", rng_states())
+            state[_indexed(SAMPLER_NAME, i, "pt")] = {
+                "format": SAMPLER_FORMAT, "sampler": sampler.state_dict(),
+                "loader_iteration": getattr(dl, "iteration", None)}
+    for index, streams in enumerate(gather_object([rng_states()])):
+        state[f"{RNG_STATE_NAME}_{index}.pt"] = streams
+    return state
+
+
+def write_accelerator_state(output_dir, state: dict) -> str:
+    """Write what `collect_accelerator_state` collected into `output_dir`,
+    each file atomically: ``model.pt``, ``optimizer.pt``, ``scaler_0.json``
+    (fp16), ``scheduler.pt``, ``sampler.pt`` (format 2), one
+    ``random_states_<process>.pt`` per process; a second model, optimizer,
+    ... gets ``model_1.pt`` and so on."""
+    output_dir = Path(output_dir)
+    os.makedirs(output_dir, exist_ok=True)
+    for name, obj in state.items():
+        if name.endswith(".json"):
+            atomic_write_json(output_dir / name, obj)
+        else:
+            _save_tensors(output_dir / name, obj)
+    return str(output_dir)
+
+
+def save_accelerator_state(output_dir, models: list, optimizers: list, schedulers: list,
+                           dataloaders: list) -> str:
+    """`collect_accelerator_state`, written into `output_dir` by the main
+    process."""
+    from .state import PartialState
+
+    state = collect_accelerator_state(models, optimizers, schedulers, dataloaders)
+    if PartialState().is_main_process:
+        write_accelerator_state(output_dir, state)
     return str(output_dir)
 
 
 def load_accelerator_state(input_dir, models: list, optimizers: list, schedulers: list, dataloaders: list):
     """Restore what `save_accelerator_state` wrote into the prepared objects:
     weights into each model's own parameters (their dtype and device kept),
-    optimizer state onto its parameters' device."""
+    optimizer state onto its parameters' device. Whatever layout wrote the
+    checkpoint, each process takes its shard of every tensor under its own
+    layout, and its own RNG streams (process 0's where the checkpoint has
+    none for it)."""
+    from .state import PartialState
+
     input_dir = Path(input_dir)
     for i, model in enumerate(models):
-        model.module.load_state_dict(_load_tensors(input_dir / _indexed(MODEL_NAME, i, "pt"), model.device))
+        device = "cpu" if getattr(model, "layout", None) is not None else model.device
+        model.load_full_state_dict(_load_tensors(input_dir / _indexed(MODEL_NAME, i, "pt"), device))
     for i, opt in enumerate(optimizers):
-        device = next((p.device for p in opt._params()), None)
+        device = "cpu" if opt.layout is not None else next((p.device for p in opt._params()), None)
         opt.load_state_dict(_load_tensors(input_dir / _indexed(OPTIMIZER_NAME, i, "pt"), device))
         scaler_path = input_dir / f"{SCALER_NAME}_{i}.json"
         if opt.scaler is not None and scaler_path.exists():
@@ -385,7 +424,9 @@ def load_accelerator_state(input_dir, models: list, optimizers: list, schedulers
         # with epoch 0: realign it to the saved one.
         if payload.get("loader_iteration") is not None and hasattr(dl, "iteration"):
             dl.iteration = payload["loader_iteration"]
-    rng_path = input_dir / f"{RNG_STATE_NAME}_0.pt"
+    rng_path = input_dir / f"{RNG_STATE_NAME}_{PartialState().process_index}.pt"
+    if not rng_path.exists():
+        rng_path = input_dir / f"{RNG_STATE_NAME}_0.pt"
     if rng_path.exists():
         set_rng_states(_load_tensors(rng_path))
 

@@ -18,6 +18,14 @@ other ops than JAX does. With a `remat_policy` the forward runs inside
 `PreparedModel(remat_policy=...)`). With an `fp8_recipe` (mixed precision
 "fp8": bf16 copies) the forward runs inside `ops.fp8.fp8_autocast`, so every
 linear layer's product is an fp8 one.
+
+Under a process group (`mesh`), the module is placed by the FSDP plugin's
+strategy (`parallel.fsdp.ShardedLayout`: data parallel, ZeRO-2 or torch's
+FSDP), after its parameters are cast to the plugin's `param_dtype` and, with
+`sync_module_states`, broadcast from process 0. Under FSDP the managed
+parameters reach the forward already cast by FSDP's mixed-precision policy,
+so `_apply` casts only the rest (the parameters FSDP ignores, and the
+buffers): each tensor is cast once.
 """
 
 from __future__ import annotations
@@ -30,8 +38,14 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from torch.distributed.tensor import DTensor
+
 from .ops.fp8 import fp8_autocast
 from .ops.remat import check_policy, remat_scope
+from .parallel.fsdp import ShardedLayout, broadcast_module_states
+
+#: `FullyShardedDataParallelPlugin`'s dtype names.
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 logger = logging.getLogger(__name__)
 
@@ -45,6 +59,31 @@ class Model:
 
     def parameters(self):
         return self.module.parameters()
+
+    # ------------------------------------------------------------ across processes
+    def no_sync(self):
+        """Microbatches inside reduce no gradient (the step reduces once)."""
+        return self.layout.no_sync() if self.layout is not None else contextlib.nullcontext()
+
+    def reduce_gradients(self):
+        """Average the gradients over the processes, where the strategy
+        leaves that to the step (a no-op with one process and no group)."""
+        if self.layout is not None:
+            self.layout.reduce_gradients()
+
+    def full_state_dict(self) -> dict:
+        """The whole state dict, every tensor unsharded (collective under a
+        group)."""
+        if self.layout is None:
+            return self.module.state_dict()
+        return self.layout.full_state_dict()
+
+    def load_full_state_dict(self, state: dict):
+        """Load a whole state dict, each process taking its shard."""
+        if self.layout is None:
+            self.module.load_state_dict(state)
+        else:
+            self.layout.load_full_state_dict(state)
 
 
 def _cast_floating(tree, dtype):
@@ -64,13 +103,37 @@ class PreparedModel:
     argument to `Accelerator.backward` and the fused step's default)."""
 
     def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None,
-                 remat_policy: Optional[str] = None, fp8_recipe=None):
+                 remat_policy: Optional[str] = None, fp8_recipe=None, mesh=None, fsdp_plugin=None):
         self.module = model.module.to(device)
         self.loss_fn = model.loss_fn
         self.device = device
         self.compute_dtype = compute_dtype
         self.remat_policy = check_policy(remat_policy)
         self.fp8_recipe = fp8_recipe
+        self.param_dtype = _DTYPES[fsdp_plugin.param_dtype] if getattr(fsdp_plugin, "param_dtype", None) else None
+        self.reduce_dtype = _DTYPES[fsdp_plugin.reduce_dtype] if getattr(fsdp_plugin, "reduce_dtype", None) else None
+        if self.param_dtype is not None:
+            for param in self.module.parameters():
+                if param.is_floating_point():
+                    param.data = param.data.to(self.param_dtype)
+        self.layout: Optional[ShardedLayout] = None
+        if mesh is not None:
+            if mesh.size() > 1:
+                from .parallel.expert import MoEBlock
+
+                if any(isinstance(m, MoEBlock) for m in self.module.modules()):
+                    raise NotImplementedError(
+                        "a mixture-of-experts model across processes waits for ROADMAP A item 5, expert "
+                        "sharding: JAX routes over the global token axis (capacity and slot order), which a "
+                        "router on each process's rows would not reproduce")
+                if fp8_recipe is not None:
+                    raise NotImplementedError(
+                        "fp8 across processes waits for ROADMAP A item 5, expert sharding (with fp8's global "
+                        "amax): JAX scales by the amax over the global batch, each process here by its own")
+                if fsdp_plugin is not None and fsdp_plugin.sync_module_states:
+                    broadcast_module_states(self.module)
+            self.layout = ShardedLayout(self.module, mesh, fsdp_plugin, compute_dtype=compute_dtype,
+                                        reduce_dtype=self.reduce_dtype)
         if fp8_recipe is not None and fp8_recipe.scaling == "delayed":
             # The forward never rolls the histories, so every layer keeps
             # the cold scale 1.0: JAX's prepared model computes the same.
@@ -90,10 +153,12 @@ class PreparedModel:
         if self.compute_dtype is None:
             return self.module(*args, **kwargs)
         # The casts are autograd ops: the backward casts each gradient back
-        # to its master's dtype.
+        # to its master's dtype. FSDP casts the parameters it manages (the
+        # DTensors) itself.
         tensors = {
             name: t.to(self.compute_dtype) if t.is_floating_point() else t
             for name, t in (*self.module.named_parameters(), *self.module.named_buffers())
+            if not isinstance(t, DTensor)
         }
         args = _cast_floating(args, self.compute_dtype)
         kwargs = _cast_floating(kwargs, self.compute_dtype)
@@ -111,6 +176,31 @@ class PreparedModel:
 
     def parameters(self):
         return self.module.parameters()
+
+    # ------------------------------------------------------------ across processes
+    def no_sync(self):
+        """Microbatches inside reduce no gradient (the step reduces once)."""
+        return self.layout.no_sync() if self.layout is not None else contextlib.nullcontext()
+
+    def reduce_gradients(self):
+        """Average the gradients over the processes, where the strategy
+        leaves that to the step (a no-op with one process and no group)."""
+        if self.layout is not None:
+            self.layout.reduce_gradients()
+
+    def full_state_dict(self) -> dict:
+        """The whole state dict, every tensor unsharded (collective under a
+        group)."""
+        if self.layout is None:
+            return self.module.state_dict()
+        return self.layout.full_state_dict()
+
+    def load_full_state_dict(self, state: dict):
+        """Load a whole state dict, each process taking its shard."""
+        if self.layout is None:
+            self.module.load_state_dict(state)
+        else:
+            self.layout.load_full_state_dict(state)
 
     @property
     def num_parameters(self) -> int:

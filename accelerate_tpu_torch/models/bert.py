@@ -36,6 +36,7 @@ from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops.attention import dot_product_attention
+from ..ops.losses import global_mean
 from ..ops.remat import maybe_remat
 from .decoder import Dense
 
@@ -143,7 +144,7 @@ def sequence_classification_loss(batch, apply_fn):
     with the parameters implicit in the module."""
     logits = apply_fn(batch["input_ids"], batch.get("attention_mask"), batch.get("token_type_ids"))
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0].mean()
+    return global_mean(-torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0])
 
 
 class BertForSequenceClassification(nn.Module):

@@ -30,6 +30,7 @@ from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops.attention import DecodeCache, attend, decode_cache_mask
+from ..ops.losses import global_mean
 from ..ops.remat import maybe_remat
 
 
@@ -47,7 +48,7 @@ def causal_lm_loss(batch, apply_fn):
     valid = (shift_labels >= 0).float()
     safe_labels = shift_labels.clamp_min(0)
     nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return global_mean(nll, valid)
 
 
 class Dense(nn.Linear):

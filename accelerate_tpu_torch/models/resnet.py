@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
+from ..ops.losses import global_mean
 from .decoder import Dense
 
 # The std of a standard normal truncated to [-2, 2], which flax's
@@ -110,7 +111,7 @@ def image_classification_loss(batch, apply_fn):
     optimizer never moves them."""
     logits = apply_fn(batch["pixel_values"])
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, batch["labels"].long()[:, None])[:, 0].mean()
+    return global_mean(-logp.gather(-1, batch["labels"].long()[:, None])[:, 0])
 
 
 class ResNet(nn.Module):

@@ -38,6 +38,7 @@ from torch import nn
 
 from ..device import DeviceLike
 from ..ops.attention import DecodeCache, decode_cache_attention, decode_cache_mask, dot_product_attention
+from ..ops.losses import global_mean
 from ..ops.remat import maybe_remat
 from .decoder import Dense, flax_tree_to_state_dict, random_init
 from .llama import RMSNorm
@@ -224,7 +225,7 @@ def seq2seq_lm_loss(batch, apply_fn):
     logp = torch.log_softmax(logits.float(), dim=-1)
     valid = (labels >= 0).float()
     nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return global_mean(nll, valid)
 
 
 def _encoder_mask(attention_mask):

@@ -42,6 +42,7 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -118,11 +119,13 @@ def maybe_remat(layer: torch.nn.Module, *args, **kwargs):
     compute-dtype copies through `torch.func.functional_call`), so the
     layer's parameters and buffers are taken now and passed to the
     recompute explicitly: it sees the tensors the forward saw, and the fp8
-    recipe the forward ran under."""
+    recipe the forward ran under. Parameters FSDP manages (`DTensor`s
+    until its hook gathers them at the call) are left to FSDP, which
+    gathers them again for the recompute."""
     name = _REMAT_POLICY.get()
     if name is None or not torch.is_grad_enabled():
         return layer(*args, **kwargs)
-    tensors = dict((*layer.named_parameters(), *layer.named_buffers()))
+    tensors = {n: t for n, t in (*layer.named_parameters(), *layer.named_buffers()) if not isinstance(t, DTensor)}
     fp8 = recompute_recipe(layer)
     calls = []
 

@@ -2,8 +2,9 @@
 
 A `GeneralTracker` base, the JSONL and CSV trackers, which need no other
 package, and `filter_trackers`, which resolves `Accelerator(log_with=...)`.
-The port runs one process, so every tracker method runs where it is called
-(the JAX package gates them on the main process). The JAX package's other
+As in the JAX package, a tracker's constructor, `store_init_configuration`
+and `log` run on the main process only (`on_main_process`): across
+processes only process 0 writes. The JAX package's other
 integrations (TensorBoard, W&B, MLflow, Comet, Aim, ClearML, DVCLive) are
 not ported yet: asking for one raises.
 """
@@ -11,10 +12,27 @@ not ported yet: asking for one raises.
 from __future__ import annotations
 
 import csv
+import functools
 import json
 import os
 import time
 from typing import List, Optional
+
+from .state import PartialState
+
+
+def on_main_process(function):
+    """Run a tracker method on the main process only (unless the tracker's
+    `main_process_only` is False); elsewhere it returns None."""
+
+    @functools.wraps(function)
+    def execute_on_main_process(self, *args, **kwargs):
+        if getattr(self, "main_process_only", True) and not PartialState().is_main_process:
+            return None
+        return function(self, *args, **kwargs)
+
+    return execute_on_main_process
+
 
 def _scalar(v):
     return float(v) if hasattr(v, "item") or isinstance(v, (int, float)) else v
@@ -23,6 +41,8 @@ def _scalar(v):
 class GeneralTracker:
     """Base tracker protocol. Subclass with `name`,
     `requires_logging_directory`, `store_init_configuration` and `log`."""
+
+    main_process_only = True
 
     @property
     def name(self) -> str:
@@ -54,6 +74,7 @@ class JSONTracker(GeneralTracker):
     name = "json"
     requires_logging_directory = True
 
+    @on_main_process
     def __init__(self, run_name: str, logging_dir: str, **kwargs):
         self.run_name = run_name
         self.dir = os.path.join(logging_dir, run_name)
@@ -63,12 +84,14 @@ class JSONTracker(GeneralTracker):
 
     @property
     def tracker(self):
-        return self.path
+        return getattr(self, "path", None)
 
+    @on_main_process
     def store_init_configuration(self, values: dict):
         with open(self._config_path, "w") as f:
             json.dump(values, f, indent=2, default=str)
 
+    @on_main_process
     def log(self, values: dict, step: Optional[int] = None, **kwargs):
         record = {"step": step, "time": time.time()}
         record.update({k: _scalar(v) for k, v in values.items()})
@@ -83,6 +106,7 @@ class CSVTracker(GeneralTracker):
     name = "csv"
     requires_logging_directory = True
 
+    @on_main_process
     def __init__(self, run_name: str, logging_dir: str, **kwargs):
         self.run_name = run_name
         self.dir = os.path.join(logging_dir, run_name)
@@ -92,12 +116,14 @@ class CSVTracker(GeneralTracker):
 
     @property
     def tracker(self):
-        return self.path
+        return getattr(self, "path", None)
 
+    @on_main_process
     def store_init_configuration(self, values: dict):
         with open(os.path.join(self.dir, "config.json"), "w") as f:
             json.dump(values, f, indent=2, default=str)
 
+    @on_main_process
     def log(self, values: dict, step: Optional[int] = None, **kwargs):
         row = {"step": step}
         row.update({k: _scalar(v) for k, v in values.items()})

@@ -24,6 +24,14 @@ caller decides when to read it.
     `tracer`, as JAX's does; ``steps_per_call > 1`` refuses an enabled
     scaler, as in JAX.
   - Every call is a full optimizer step: it marks the sync boundary.
+  - Across processes the gradients are averaged once a call (the
+    optimizer's `reduce_gradients`, or FSDP's own reduce-scatter in the
+    last microbatch's backward): the inner microbatches of an accumulation
+    run under the model's `no_sync`. With the FSDP plugin's `reduce_dtype`
+    the microbatches' gradients add up in that dtype (FSDP does the same
+    for the parameters it manages). The loss each process returns is JAX's
+    loss over the global batch, the same number on every process
+    (`ops.losses.global_mean`).
 
 JAX's step also drops a ``train.build_program`` event when it builds a jit
 program; an eager step builds none, so the port has no such event (its only
@@ -33,11 +41,10 @@ listener).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
-
-from .optimizer import clip_grad_norm
 
 
 def split_leading(batch, n: int, what: str):
@@ -114,10 +121,24 @@ class FusedTrainStep:
             if len(args) != 1 or kwargs:
                 raise ValueError("accumulation_steps > 1 takes exactly one positional batch")
             losses = []
-            for mbatch in split_leading(args[0], k, "accumulation_steps"):
-                loss, _ = self._loss_of(mbatch)
-                (loss * (loss_scale / k) if loss_scale != 1.0 else loss / k).backward()
+            no_sync = getattr(self.model, "no_sync", contextlib.nullcontext)
+            layout = getattr(self.model, "layout", None)
+            reduce_dtype = getattr(self.model, "reduce_dtype", None)
+            sums = {} if reduce_dtype is not None and layout is not None and not layout.uses_fsdp else None
+            for i, mbatch in enumerate(split_leading(args[0], k, "accumulation_steps")):
+                with no_sync() if i < k - 1 else contextlib.nullcontext():
+                    loss, _ = self._loss_of(mbatch)
+                    (loss * (loss_scale / k) if loss_scale != 1.0 else loss / k).backward()
                 losses.append(loss.detach())
+                if sums is not None:
+                    for param in layout.orig.values():
+                        if param.grad is not None:
+                            grad = param.grad.to(reduce_dtype)
+                            sums[param] = grad if param not in sums else sums[param] + grad
+                            param.grad = None
+            if sums:
+                for param, grad in sums.items():
+                    param.grad = grad.to(param.dtype)
             loss = torch.stack(losses).mean()
         else:
             loss, aux = self._loss_of(*args, **kwargs)
@@ -125,7 +146,7 @@ class FusedTrainStep:
             loss, aux = loss.detach(), detached(aux)
         accelerated.unscale_()
         if self.max_grad_norm is not None:
-            clip_grad_norm(accelerated._params(), self.max_grad_norm)
+            accelerated.clip_grad_norm_(self.max_grad_norm)
         if accelerated.apply_or_skip() and self.tracer is not None:
             self.tracer.event("train.step_skipped", category="train", loss_scale=float(accelerated.scaler.scale))
         opt.zero_grad(set_to_none=True)

@@ -2,9 +2,12 @@
 
 from .dataclasses import (
     CompilationConfig,
+    DistributedType,
     FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    ParallelismConfig,
     PrecisionType,
     ProjectConfiguration,
 )
@@ -13,9 +16,12 @@ from .random import set_seed
 
 __all__ = [
     "CompilationConfig",
+    "DistributedType",
     "FP8RecipeKwargs",
+    "FullyShardedDataParallelPlugin",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
+    "ParallelismConfig",
     "PrecisionType",
     "ProjectConfiguration",
     "send_to_device",

@@ -8,12 +8,17 @@ import numpy as np
 import torch
 
 
-def set_seed(seed: int) -> int:
+def set_seed(seed: int, device_specific: bool = False) -> int:
     """Seed Python's, numpy's and torch's global generators (every CUDA
     device's too) for user code that draws from them, and return the seed,
-    as JAX's `set_seed` does. The port itself draws only from explicit
+    as JAX's `set_seed` does. With `device_specific` the process index is
+    added first, so each process draws other noise. The port itself draws only from explicit
     `torch.Generator`s (`device.make_generator`); `Accelerator.save_state`
     saves these global streams and `load_state` restores them."""
+    if device_specific:
+        from ..state import PartialState
+
+        seed += PartialState().process_index
     random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)

@@ -324,8 +324,45 @@ prints no result):
        `TraceGuardViolation`, a record-mode guard counts it once, and the
        sync debug mode is back to 0.
 
+14. Data parallel and FSDP/ZeRO (`parallel/fsdp.py`), run after phase 13.
+   With one card the strategies run through NCCL at world
+   1 (``RANK=0``, ``WORLD_SIZE=1``, ``LOCAL_RANK=0``, a free ``MASTER_PORT``
+   on 127.0.0.1, set for the phase and put back, the process group torn
+   down however it ends), where the group, the placed module, the
+   collectives and the sharded optimizer state are all on the path; runs
+   across processes are held to JAX on the CPU over gloo
+   (`tests/test_torch_distributed*.py`).
+   (a) Llama-1B bf16 with f32 masters at full width and depth, 5 (b)'s
+       batch (2 x 2048), seed and AdamW, 2 warm-up and 8 timed steps, each
+       run through `Accelerator(...).prepare` and `train_step()`: the bare
+       `Accelerator` (no group), then NO_SHARD, SHARD_GRAD_OP and
+       FULL_SHARD, then the same in reverse (bare N S F F S N bare), so each
+       strategy is paired with the bare run in one call. Gates: the backend
+       is "nccl"; NO_SHARD's losses equal the bare run's within rtol 1e-6
+       (bit for bit reported); SHARD_GRAD_OP's and FULL_SHARD's within 1e-2
+       relative at every step (the largest gap reported), finite, the last
+       below the first; K3, K4 and K5 each launched 16 x 10 times per run;
+       a `torch.profiler` window of one more FULL_SHARD step holds the
+       collectives FSDP issues through NCCL (`nccl:*` ops). At one rank NCCL
+       runs each as a device-to-device copy, so the window's NCCL kernels
+       (none) and copies are reported, not gated. Reported per run: median step time, tokens/s, MFU (phase 5's
+       accounting), peak memory, and each strategy's step time over the
+       bare run's.
+   (b) The trace guard on the steady step under NO_SHARD and FULL_SHARD:
+       2 warm-up steps, then 4 under a record-mode `TraceGuard` ("log");
+       reported: kernel builds and host syncs by site, the port's own frame
+       and torch's innermost one. A sync in the port's code fails the phase.
+   (c) A checkpoint across layouts: 2 layers of Llama-1B at full width under
+       FULL_SHARD, `save_state` after step 3 (into a temporary directory,
+       removed however the phase ends), a fresh FULL_SHARD `Accelerator`
+       loads it and takes steps 4-6: losses within rtol 1e-6 of the run
+       that was not cut. A bare `Accelerator` loads the same checkpoint:
+       its weights equal the gathered FULL_SHARD ones bit for bit.
+       Reported: save and load seconds, and bytes.
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
-and phase 13 alone (neither prints a result line).
+and phase 13 alone, `--dist-only` the build and phase 14 alone (none prints a
+result line).
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -918,6 +955,7 @@ def free_memory(device):
     memory count, so a run's peak is its own."""
     gc.collect()
     if device.type == "cuda":
+        torch.cuda.init()  # the allocator's statistics exist once CUDA is initialised
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -1703,7 +1741,8 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
-          after_step=None, remat_policy=None, loader=None, aux_out=None, analyze=False, keep=None):
+          after_step=None, remat_policy=None, loader=None, aux_out=None, analyze=False, keep=None,
+          accelerator_kw=None):
     """Train a model of `config` (its family's, random weights from seed 0)
     through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
@@ -1712,8 +1751,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     `CompilationConfig`. The data is `loader`, or one repeated batch of
     `batch` x `seq` tokens (`repeated_batch_loader`). A loss that returns
     ``(loss, aux)`` (Mixtral's) appends each step's aux, as floats, to
-    `aux_out`. `analyze` goes to the `Accelerator`; `keep`, a dict, receives
-    it under "accelerator"."""
+    `aux_out`. `analyze` and `accelerator_kw` go to the `Accelerator`;
+    `keep`, a dict, receives it under "accelerator"."""
     from accelerate_tpu_torch import Accelerator, CompilationConfig
     from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -1722,7 +1761,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     GradientState._reset_state()
     model = CREATE_BY_FAMILY[type(config)](config, seed=0, device=device)
     accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu",
-                              compilation_config=CompilationConfig(remat_policy=remat_policy), analyze=analyze)
+                              compilation_config=CompilationConfig(remat_policy=remat_policy), analyze=analyze,
+                              **(accelerator_kw or {}))
     if keep is not None:
         keep["accelerator"] = accelerator
     optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
@@ -3937,6 +3977,344 @@ def telemetry_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16
     return report
 
 
+# Data parallel and FSDP/ZeRO (phase 14).
+DIST_STRATEGIES = ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD")
+# NO_SHARD at one process runs the bare step's arithmetic (the all-reduce of
+# one process divides by 1): its losses equal the bare run's.
+DIST_NO_SHARD_RTOL = 1e-6
+# The sharded strategies cast through FSDP's mixed-precision policy or
+# update through shard views: the same bf16 arithmetic in other kernels.
+DIST_SHARDED_RTOL = 1e-2
+DIST_CHECKPOINT_LAYERS = 2
+DIST_GUARD_STEPS = 4
+# The launcher's variables phase 14 sets for its world-1 NCCL group, and
+# puts back after.
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def reset_port_state(partial=False):
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    if partial:
+        PartialState._reset_state()
+
+
+class world_one_group:
+    """A one-process group for the block: the launcher's variables set (a
+    free port on 127.0.0.1), `PartialState` built on them (NCCL on the card,
+    gloo on the CPU), and on exit the group destroyed, the singletons reset
+    and the variables as they were."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        from accelerate_tpu_torch.launchers import free_port
+        from accelerate_tpu_torch.state import PartialState
+
+        self.saved = {k: os.environ.get(k) for k in DIST_ENV}
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(free_port()))
+        reset_port_state(partial=True)
+        try:
+            state = PartialState(cpu=self.device.type == "cpu")
+            backend = torch.distributed.get_backend()
+            if self.device.type == "cuda" and backend != "nccl":
+                raise RuntimeError(f"the card's process group runs {backend!r}, not nccl")
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        self.backend = backend
+        return state
+
+    def __exit__(self, *exc):
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        reset_port_state(partial=True)
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def dist_accelerator_kw(strategy):
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    return {} if strategy == "bare" else {"fsdp_plugin": FullyShardedDataParallelPlugin(sharding_strategy=strategy)}
+
+
+def dist_run(device, config, strategy, batch, seq, warmup, timed_steps, profile_step=False):
+    """One run of phase 14 (a): `train` under `strategy` ("bare": no
+    group), inside a one-process group otherwise."""
+    import contextlib
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    free_memory(device)
+    fa.reset_launch_counts()
+    on_card = device.type == "cuda"
+
+    def before_step(i, step_fn):
+        if i == warmup and on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+
+    group = contextlib.nullcontext() if strategy == "bare" else world_one_group(device)
+    with group:
+        backend = torch.distributed.get_backend() if strategy != "bare" else None
+        losses, seconds, pmodel, step_fn, last = train(
+            device, config, "bf16", batch=batch, steps=timed_steps, seq=seq, warmup=warmup, on_step=before_step,
+            accelerator_kw=dist_accelerator_kw(strategy))
+        launches = dict(fa.LAUNCHES)
+        report = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
+        report.update(strategy=strategy, backend=backend, losses=losses)
+        if on_card:
+            report["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        if profile_step:
+            report["profile"] = dist_profile_step(step_fn, last, device)
+        del pmodel, step_fn, last
+    free_memory(device)
+    return report
+
+
+def dist_profile_step(step_fn, batch, device):
+    """One more step under `torch.profiler`: the collectives issued through
+    NCCL (the host-side `nccl:*` ops, by name), the NCCL kernels and the
+    device-to-device copies on the device, and the total device time. At one
+    rank NCCL runs a collective as a device-to-device copy, not a kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return {"skipped": "no CUDA device"}
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step_fn(batch))
+    events = prof.key_averages()
+    rows = [(row.self_device_time_total, row.key, row.count) for row in events
+            if row.device_type == DeviceType.CUDA and row.self_device_time_total > 0
+            and not getattr(row, "is_user_annotation", False)]
+    total = sum(us for us, _, _ in rows)
+    pick = lambda test: [{"name": name[:120], "calls": calls, "ms": us / 1e3}  # noqa: E731
+                         for us, name, calls in sorted(rows, reverse=True) if test(name)]
+    nccl_ops = {row.key: row.count for row in events
+                if row.device_type == DeviceType.CPU and row.key.lower().startswith("nccl:")}
+    return {"device_busy_ms": total / 1e3, "nccl_ops": nccl_ops,
+            "nccl_kernels": pick(lambda n: "nccl" in n.lower()),
+            "device_copies": pick(lambda n: n.startswith("Memcpy DtoD")),
+            "top_kernels": [{"name": name[:120], "calls": calls, "ms": us / 1e3}
+                            for us, name, calls in sorted(rows, reverse=True)[:10]]}
+
+
+def dist_training(device, config, batch, seq, warmup, timed_steps):
+    """Phase 14 (a)."""
+    layers, steps = config.num_hidden_layers, warmup + timed_steps
+    order = ("bare", *DIST_STRATEGIES, *reversed(DIST_STRATEGIES), "bare")
+    runs = {}
+    for i, strategy in enumerate(order):
+        profile_step = strategy == "FULL_SHARD" and "FULL_SHARD" not in runs
+        run = dist_run(device, config, strategy, batch, seq, warmup, timed_steps, profile_step=profile_step)
+        log(f"[dist] (a) {strategy}: step ms {run['step_ms_median']:.2f}, losses {run['losses']}, "
+            f"launches {run['launches']}, peak {run.get('peak_memory_bytes')}")
+        if device.type == "cuda":
+            if strategy != "bare" and run["backend"] != "nccl":
+                raise RuntimeError(f"{strategy}: backend {run['backend']}, not nccl")
+            if run["launches"] != expected_launches(layers * steps, torch.bfloat16):
+                raise RuntimeError(f"{strategy}: flash launches {run['launches']}, expected {layers} x {steps}")
+        runs.setdefault(strategy, []).append(run)
+    base = runs["bare"][0]["losses"]
+    report = {"order": order, "layers": layers, "batch": batch, "seq": seq, "strategies": {}}
+    bare_ms = float(np.median([r["step_ms_median"] for r in runs["bare"]]))
+    for strategy in ("bare", *DIST_STRATEGIES):
+        rs = runs[strategy]
+        worst = max(abs(a - b) / abs(b) for r in rs for a, b in zip(r["losses"], base))
+        limit = DIST_NO_SHARD_RTOL if strategy in ("bare", "NO_SHARD") else DIST_SHARDED_RTOL
+        for r in rs:
+            if not all(np.isfinite(r["losses"])) or not r["losses"][-1] < r["losses"][0]:
+                raise RuntimeError(f"{strategy}: losses {r['losses']} not finite or not falling")
+        if worst > limit:
+            raise RuntimeError(f"{strategy}: losses {[r['losses'] for r in rs]} part from the bare run's {base} "
+                               f"by {worst} (rtol {limit})")
+        step_ms = float(np.median([r["step_ms_median"] for r in rs]))
+        report["strategies"][strategy] = {
+            "losses_max_rel_diff": worst, "rtol": limit,
+            "losses_bit_for_bit": all(r["losses"] == base for r in rs),
+            "step_ms_median": [r["step_ms_median"] for r in rs], "tokens_per_s": [r["tokens_per_s"] for r in rs],
+            "mfu": [r["mfu"] for r in rs], "peak_memory_bytes": [r.get("peak_memory_bytes") for r in rs],
+            "step_time_over_bare": step_ms / bare_ms, "backend": rs[0]["backend"], "launches": rs[0]["launches"],
+        }
+    profile = runs["FULL_SHARD"][0].get("profile", {})
+    report["full_shard_profile"] = profile
+    log(f"[dist] (a) FULL_SHARD profile: {json.dumps(profile)}")
+    if device.type == "cuda" and not profile.get("nccl_ops"):
+        raise RuntimeError(f"no collective went through NCCL in the FULL_SHARD step: {profile}")
+    return report
+
+
+def sync_sites(step_fn, batch, device):
+    """Every host sync of one step (`torch.cuda.set_sync_debug_mode("warn")`,
+    each warning's Python stack read where it is raised): `site`, the frame
+    that made the synchronizing call, `in_torch` whether that frame is
+    torch's own code, and `port`, the innermost frame of the port above it."""
+    import traceback
+    import warnings
+
+    if device.type != "cuda":
+        return []
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__)) + os.sep
+    sites = []
+    shown = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return shown(message, category, filename, lineno, file, line)
+        frames = [f for f in traceback.extract_stack()[:-1] if not f.filename.endswith("warnings.py")]
+        site = frames[-1]
+        ours = [f for f in frames if os.sep + "accelerate_tpu_torch" + os.sep in f.filename]
+        sites.append({"site": f"{site.filename}:{site.lineno}",
+                      "in_torch": os.path.abspath(site.filename).startswith(torch_dir),
+                      "port": f"{ours[-1].filename}:{ours[-1].lineno}" if ours else None})
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step_fn(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = shown
+    return sites
+
+
+def dist_guard(device, config, batch, seq, warmup=2, steps=DIST_GUARD_STEPS):
+    """Phase 14 (b)."""
+    from accelerate_tpu_torch import Accelerator, create_llama_model
+    from accelerate_tpu_torch.analysis import TraceGuard
+
+    report = {}
+    for strategy in ("NO_SHARD", "FULL_SHARD"):
+        free_memory(device)
+        with world_one_group(device):
+            model = create_llama_model(config, seed=0, device=device)
+            accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu",
+                                      **dist_accelerator_kw(strategy))
+            optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                          weight_decay=TRAIN_WD)
+            pmodel, optimizer, loader = accelerator.prepare(
+                model, optimizer, repeated_batch_loader(config.vocab_size, batch, 1, seq))
+            batch_on_device = next(iter(loader))
+            guard = TraceGuard(transfer_guard="log", on_violation="record", name=f"dist-{strategy}")
+            step_fn = guard.wrap(accelerator.train_step(max_grad_norm=1.0), warmup=warmup)
+            losses = [float(step_fn(batch_on_device)) for _ in range(warmup + steps)]
+            sites = sync_sites(step_fn.__wrapped__, batch_on_device, device)
+            del model, pmodel, optimizer, loader, step_fn, batch_on_device, accelerator
+        free_memory(device)
+        report[strategy] = {"steady_steps": guard.steps, "builds": dict(guard.compiles),
+                            "syncs": list(guard.transfer_violations), "sync_sites": sites, "losses": losses,
+                            "syncs_in_torch": sum(s["in_torch"] for s in sites)}
+        log(f"[dist] (b) {strategy}: {guard.steps} steady steps, builds {guard.compiles}, syncs "
+            f"{guard.transfer_violations}, sites {sites}")
+        if guard.total_recompiles:
+            raise RuntimeError(f"{strategy}: a steady step built a kernel: {guard.compiles}")
+        if not all(s["in_torch"] for s in sites):
+            raise RuntimeError(f"{strategy}: host syncs in the port's own code: {sites}")
+    return report
+
+
+def dist_checkpoint(device, config, seq, batch=1, steps=6, save_after=3):
+    """Phase 14 (c)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import Accelerator, create_llama_model
+
+    rows = np.random.default_rng(9).integers(0, config.vocab_size, (steps, batch, seq)).astype(np.int64)
+    batches = [{"input_ids": torch.as_tensor(r, device=device)} for r in rows]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_dist_checkpoint_")
+    path = os.path.join(directory, "checkpoint")
+
+    def prepared(strategy):
+        reset_port_state()
+        model = create_llama_model(config, seed=0, device=device)
+        accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu", **dist_accelerator_kw(strategy))
+        optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                      weight_decay=TRAIN_WD)
+        pmodel, optimizer = accelerator.prepare(model, optimizer)
+        return accelerator, pmodel, accelerator.train_step(max_grad_norm=1.0)
+
+    report = {"layers": config.num_hidden_layers, "batch": batch, "seq": seq}
+    try:
+        with world_one_group(device):
+            accelerator, pmodel, step = prepared("FULL_SHARD")
+            uncut = [float(step(b)) for b in batches[:save_after]]
+            sync(device)
+            t0 = time.perf_counter()
+            accelerator.save_state(path)
+            report["save_s"] = time.perf_counter() - t0
+            report["bytes"] = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            gathered = pmodel.full_state_dict()
+            uncut += [float(step(b)) for b in batches[save_after:]]
+            del accelerator, pmodel, step
+            free_memory(device)
+            accelerator, pmodel, step = prepared("FULL_SHARD")
+            t0 = time.perf_counter()
+            accelerator.load_state(path)
+            sync(device)
+            report["load_s"] = time.perf_counter() - t0
+            resumed = [float(step(b)) for b in batches[save_after:]]
+            del accelerator, pmodel, step
+        free_memory(device)
+        accelerator, pmodel, _ = prepared("bare")
+        t0 = time.perf_counter()
+        accelerator.load_state(path)
+        sync(device)
+        report["bare_load_s"] = time.perf_counter() - t0
+        loaded = pmodel.module.state_dict()
+        mismatched = [name for name, value in gathered.items() if not torch.equal(loaded[name].cpu(), value)]
+        del accelerator, pmodel
+        reset_port_state()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    free_memory(device)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed, uncut[save_after:]))
+    report.update(losses=uncut, resumed_losses=resumed, max_rel_diff=diff, bare_weights_mismatched=mismatched)
+    log(f"[dist] (c) checkpoint {json.dumps(report)}")
+    if not all(np.isfinite(uncut + resumed)) or diff > 1e-6:
+        raise RuntimeError(f"FULL_SHARD resume: losses {resumed} against {uncut[save_after:]} (rtol {diff}, limit 1e-6)")
+    if mismatched:
+        raise RuntimeError(f"the bare Accelerator loaded other weights than the gathered FULL_SHARD ones: {mismatched}")
+    return report
+
+
+def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8,
+               checkpoint_layers=DIST_CHECKPOINT_LAYERS, guard_steps=DIST_GUARD_STEPS):
+    """Phase 14: data parallel and FSDP/ZeRO through NCCL at world 1."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    config = MODEL_REGISTRY[model_name]()
+    report = {"model": model_name}
+    env_before = {k: os.environ.get(k) for k in DIST_ENV}
+    t0 = time.perf_counter()
+    report["training"] = dist_training(device, config, batch, seq, warmup, timed_steps)
+    log(f"[time] dist (a) training {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["guard"] = dist_guard(device, config, batch, seq, warmup=warmup, steps=guard_steps)
+    log(f"[time] dist (b) guard {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["checkpoint"] = dist_checkpoint(device, dataclasses.replace(config, num_hidden_layers=checkpoint_layers),
+                                           seq)
+    log(f"[time] dist (c) checkpoint {time.perf_counter() - t0:.1f}s")
+    if {k: os.environ.get(k) for k in DIST_ENV} != env_before or torch.distributed.is_initialized():
+        raise RuntimeError("phase 14 left a process group or the launcher's variables behind")
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -4055,6 +4433,9 @@ def main(argv=None) -> int:
     parser.add_argument("--telemetry-only", action="store_true",
                         help="run only the build and phase 13 (telemetry and the trace guard on the main paths; "
                              "prints no result line)")
+    parser.add_argument("--dist-only", action="store_true",
+                        help="run only the build and phase 14 (data parallel and FSDP/ZeRO through NCCL at "
+                             "world 1; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -4093,6 +4474,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[telemetry] summary: {json.dumps(telemetry_phase(device))}")
         log(f"[time] telemetry phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.dist_only:
+        t0 = time.perf_counter()
+        log(f"[dist] summary: {json.dumps(dist_phase(device))}")
+        log(f"[time] dist phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -4147,6 +4534,11 @@ def main(argv=None) -> int:
     telemetry = telemetry_phase(device, plain_tokens=phase3_tokens)
     log(f"[telemetry] summary: {json.dumps(telemetry)}")
     log(f"[time] telemetry phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    dist = dist_phase(device)
+    log(f"[dist] summary: {json.dumps(dist)}")
+    log(f"[time] dist phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
     t0 = time.perf_counter()
     bert = bert_phase(device, profile=args.profile)

@@ -20,6 +20,7 @@ import torch
 
 import chip_smoke
 from accelerate_tpu_torch.ops import flash_attention as fa
+from accelerate_tpu_torch.models import llama_tiny
 from accelerate_tpu_torch.parallel.expert import expert_capacity
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -804,3 +805,63 @@ def test_telemetry_only_refuses_without_a_card_and_is_a_known_flag():
     usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "--telemetry-only" in usage.stdout
+
+
+def test_dist_phase_rehearses_on_the_cpu_and_restores_the_environment(monkeypatch):
+    """Phase 14 at llama_tiny on the CPU, its world-1 group over gloo: every
+    strategy's losses equal the bare run's (here bit for bit), each run in
+    the a-b-b-a order; the guard runs count their steady steps; the
+    checkpoint resumes with equal losses and loads into the bare
+    `Accelerator` unchanged; afterwards no process group is left and the
+    launcher's variables are what they were."""
+    monkeypatch.setenv("MASTER_PORT", "12345")
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    report = chip_smoke.dist_phase(torch.device("cpu"), "llama-tiny", seq=64, warmup=1, timed_steps=2,
+                                   guard_steps=1)
+    training = report["training"]
+    assert training["order"] == ("bare", "NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD", "FULL_SHARD", "SHARD_GRAD_OP",
+                                 "NO_SHARD", "bare")
+    for strategy in ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD"):
+        row = training["strategies"][strategy]
+        assert row["backend"] == "gloo" and row["losses_bit_for_bit"] is True and len(row["step_ms_median"]) == 2
+    assert training["strategies"]["bare"]["backend"] is None
+    assert all(report["guard"][s]["steady_steps"] == 1 for s in ("NO_SHARD", "FULL_SHARD"))
+    assert report["checkpoint"]["max_rel_diff"] == 0.0 and report["checkpoint"]["bare_weights_mismatched"] == []
+    assert not torch.distributed.is_initialized()
+    assert os.environ["MASTER_PORT"] == "12345" and "RANK" not in os.environ and "WORLD_SIZE" not in os.environ
+
+
+def test_dist_gates_catch_parted_losses_and_missing_launches(monkeypatch):
+    """Phase 14 (a)'s gates: a NO_SHARD run whose losses part from the bare
+    run's by more than 1e-6, or a sharded run's by more than 1e-2, fails;
+    so do losses that do not fall."""
+    base = [7.0, 6.0, 5.0]
+
+    def fake_run(losses_by_strategy):
+        def run(device, config, strategy, *args, **kwargs):
+            return {"losses": losses_by_strategy.get(strategy, base), "step_ms_median": 1.0, "tokens_per_s": 1.0,
+                    "mfu": 0.1, "launches": {}, "backend": None if strategy == "bare" else "gloo"}
+        return run
+
+    config = llama_tiny()
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(chip_smoke, "dist_run", fake_run({}))
+    assert chip_smoke.dist_training(cpu, config, 2, 64, 1, 2)["strategies"]["NO_SHARD"]["losses_bit_for_bit"]
+    for strategy, losses in (("NO_SHARD", [7.0, 6.0, 5.0 * (1 + 2e-6)]), ("FULL_SHARD", [7.0, 6.0, 5.1]),
+                             ("SHARD_GRAD_OP", [5.0, 6.0, 7.0])):
+        monkeypatch.setattr(chip_smoke, "dist_run", fake_run({strategy: losses}))
+        with pytest.raises(RuntimeError, match=strategy):
+            chip_smoke.dist_training(cpu, config, 2, 64, 1, 2)
+
+
+def test_dist_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dist-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[dist]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--dist-only" in usage.stdout

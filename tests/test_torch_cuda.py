@@ -1108,3 +1108,27 @@ def test_warm_engine_and_fused_step_make_no_unsanctioned_sync(cuda):
     losses = [step_fn(batch) for batch in loader]
     assert accelerator.trace_guard.steps == 4 and accelerator.trace_guard.host_transfers == 0
     assert all(np.isfinite(float(loss)) for loss in losses)
+
+
+def test_nccl_world_one_strategies_match_the_bare_step(cuda):
+    """NCCL at world 1 (the launcher's variables set for the run and put
+    back; `chip_smoke.world_one_group`): a 2-layer Llama at llama_tiny's
+    widths, 1024 tokens a row so that the flash gate opens, through
+    NO_SHARD and FULL_SHARD beside the bare `Accelerator`. The backend is
+    nccl; NO_SHARD's losses equal the bare step's within rtol 1e-6 and
+    FULL_SHARD's within 1e-2 (`chip_smoke.DIST_*_RTOL`); K3, K4 and K5 are
+    each launched layers x steps times in every run; no group is left."""
+    from accelerate_tpu_torch.models import llama_tiny
+
+    config = llama_tiny()
+    runs = {s: chip_smoke.dist_run(cuda, config, s, batch=2, seq=1024, warmup=1, timed_steps=2)
+            for s in ("bare", "NO_SHARD", "FULL_SHARD")}
+    base = runs["bare"]["losses"]
+    want = chip_smoke.expected_launches(config.num_hidden_layers * 3, torch.bfloat16)
+    for strategy, run in runs.items():
+        assert run["launches"] == want, (strategy, run["launches"])
+        assert run["backend"] == (None if strategy == "bare" else "nccl")
+        assert all(np.isfinite(run["losses"]))
+    np.testing.assert_allclose(runs["NO_SHARD"]["losses"], base, rtol=chip_smoke.DIST_NO_SHARD_RTOL, atol=0)
+    np.testing.assert_allclose(runs["FULL_SHARD"]["losses"], base, rtol=chip_smoke.DIST_SHARDED_RTOL, atol=0)
+    assert not torch.distributed.is_initialized()

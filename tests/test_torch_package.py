@@ -49,6 +49,9 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.parallel.expert, accelerate_tpu_torch.models.mixtral\n"
         "import accelerate_tpu_torch.telemetry, accelerate_tpu_torch.analysis.trace_guard\n"
         "import accelerate_tpu_torch.test_utils.analysis_fixtures\n"
+        "import accelerate_tpu_torch.launchers, accelerate_tpu_torch.parallel.fsdp, accelerate_tpu_torch.parallel.mesh\n"
+        "import accelerate_tpu_torch.parallel.sharding, accelerate_tpu_torch.ops.losses, accelerate_tpu_torch.state\n"
+        "import accelerate_tpu_torch.utils.constants, accelerate_tpu_torch.data_loader, accelerate_tpu_torch.checkpointing\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
