@@ -33,7 +33,15 @@ steady-state step). Across processes (one per card, NCCL; gloo on the
 CPU) it trains data parallel or sharded as JAX's FSDP/ZeRO strategies place
 a model (`FullyShardedDataParallelPlugin`, `ParallelismConfig`,
 `parallel/fsdp.py`), over the global batch; `debug_launcher` runs a
-function in several CPU processes.
+function in several CPU processes. The rest of JAX's one-process
+`Accelerator` surface is here too: the scheduler's step across processes,
+`autocast`, `clip_grad_value_`, `save_model`, `free_memory` with
+`find_executable_batch_size` (`utils/memory.py`), triggers, the
+save/load pre-hooks, `DataLoaderDispatcher`, the synchronized generators
+(`rng_types`), the kwargs handlers, `get_logger` (`logging.py`) and the
+trackers beyond JSON and CSV; `examples/` holds twins of JAX's
+`cv_example` and of its `by_feature` memory, early-stopping and tracking
+scripts.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -42,32 +50,49 @@ imports ``torch`` and never ``jax`` or anything of `accelerate_tpu`.
 
 from .accelerator import Accelerator
 from .checkpointing import CheckpointManager
-from .data_loader import BatchSampler, SeedableRandomSampler, SimpleDataLoader, prepare_data_loader, skip_first_batches
+from .data_loader import (
+    BatchSampler,
+    DataLoaderDispatcher,
+    SeedableRandomSampler,
+    SimpleDataLoader,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .device import resolve_device
 from .generation import GenerationConfig, Generator, Seq2SeqGenerator, generate
 from .launchers import debug_launcher
+from .logging import get_logger
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_mixtral_model, create_named_model
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, Int8Linear, quantize_model_int8
 from .serving import ContinuousBatcher, EngineClosed, QueueFull, Request, RequestResult
 from .telemetry import MetricsRegistry, ProfilerManager, StepTimeline, TrackerBridge
 from .utils import (
+    AutocastKwargs,
     CompilationConfig,
+    DataLoaderConfiguration,
+    DistributedDataParallelKwargs,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    InitProcessGroupKwargs,
     ParallelismConfig,
     ProjectConfiguration,
+    find_executable_batch_size,
     set_seed,
 )
 
 __all__ = [
     "Accelerator",
+    "AutocastKwargs",
     "BatchSampler",
     "CheckpointManager",
     "CompilationConfig",
     "ContinuousBatcher",
+    "DataLoaderConfiguration",
+    "DataLoaderDispatcher",
+    "DistributedDataParallelKwargs",
     "EngineClosed",
     "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
@@ -75,6 +100,7 @@ __all__ = [
     "GenerationConfig",
     "Generator",
     "GradientAccumulationPlugin",
+    "InitProcessGroupKwargs",
     "Int8Linear",
     "KV_CACHE_DTYPES",
     "MetricsRegistry",
@@ -96,7 +122,9 @@ __all__ = [
     "create_mixtral_model",
     "create_named_model",
     "debug_launcher",
+    "find_executable_batch_size",
     "generate",
+    "get_logger",
     "prepare_data_loader",
     "quantize_model_int8",
     "resolve_device",

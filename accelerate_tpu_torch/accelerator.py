@@ -25,8 +25,21 @@ Activation checkpointing: ``Accelerator(compilation_config=CompilationConfig(
 remat_policy="full"))`` checkpoints every in-tree layer (`ops/remat.py`).
 fp8: ``Accelerator(mixed_precision="fp8", kwargs_handlers=[FP8RecipeKwargs(...)])``
 runs every linear layer's product in fp8 (`ops/fp8.py`), the rest in bf16.
-Metrics: ``Accelerator(log_with="json", project_dir=...)``, then
-`init_trackers`, `log` and `end_training`, and `gather_for_metrics`.
+Metrics: ``Accelerator(log_with="json", project_dir=...)`` (or
+"tensorboard", or any installed tracker), then `init_trackers`, `log` and
+`end_training`, and `gather_for_metrics`.
+
+The rest of JAX's surface: `step_scheduler_with_optimizer` (a prepared
+scheduler advances `num_processes` steps per optimizer step unless
+`split_batches`), `kwargs_handlers` (`AutocastKwargs`,
+`InitProcessGroupKwargs`, `DistributedDataParallelKwargs`,
+`GradScalerKwargs`, `FP8RecipeKwargs`), `dataloader_config`
+(`DataLoaderConfiguration`, with `DataLoaderDispatcher`), `rng_types`,
+`device_placement`, `autocast()`, `clip_grad_value_`, `save_model` (sharded
+safetensors with an index), `free_memory`/`clear` (with
+`utils.memory.find_executable_batch_size`), `set_trigger`/`check_trigger`,
+`join_uneven_inputs`, the save and load pre-hooks, and
+`local_main_process_first`/`on_local_main_process`.
 
 Telemetry, as JAX's (`telemetry/`): `accelerator.telemetry` (a
 `MetricsRegistry`), `.tracer` (from ``tracer=`` or the env protocol
@@ -64,6 +77,7 @@ Everything runs on the card unless the caller passes ``cpu=True``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import logging
 import os
 import re
@@ -77,7 +91,13 @@ from torch import nn
 
 from . import checkpointing
 from .checkpointing import CheckpointManager
-from .data_loader import DataLoaderShard, SimpleDataLoader, prepare_data_loader, skip_first_batches
+from .data_loader import (
+    DataLoaderDispatcher,
+    DataLoaderShard,
+    SimpleDataLoader,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .modeling import Model, PreparedModel
 from .optimizer import AcceleratedOptimizer, GradScaler
 from .scheduler import AcceleratedScheduler
@@ -90,12 +110,17 @@ from .telemetry.tracing import default_tracer
 from .tracking import LOGGER_TYPE_TO_CLASS, GeneralTracker, filter_trackers
 from .train_step import FusedTrainStep, detached
 from .utils.dataclasses import (
+    AutocastKwargs,
     CompilationConfig,
+    DataLoaderConfiguration,
+    DistributedDataParallelKwargs,
     DistributedType,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    InitProcessGroupKwargs,
+    KwargsHandler,
     ParallelismConfig,
     ProjectConfiguration,
     parse_flag_from_env,
@@ -109,20 +134,24 @@ class Accelerator:
 
     def __init__(
         self,
+        device_placement: bool = True,
+        split_batches: bool = False,
         mixed_precision: Optional[str] = None,
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
-        gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
-        kwargs_handlers: Optional[list] = None,
-        project_config: Optional[ProjectConfiguration] = None,
+        dataloader_config: Optional[DataLoaderConfiguration] = None,
         log_with=None,
         project_dir: Optional[str] = None,
-        compilation_config: Optional[CompilationConfig] = None,
-        analyze: bool = False,
-        tracer=None,
-        split_batches: bool = False,
+        project_config: Optional[ProjectConfiguration] = None,
+        gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         parallelism_config: Optional[ParallelismConfig] = None,
         fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+        compilation_config: Optional[CompilationConfig] = None,
+        rng_types: Optional[List[str]] = None,
+        kwargs_handlers: Optional[List[KwargsHandler]] = None,
+        step_scheduler_with_optimizer: bool = True,
+        analyze: bool = False,
+        tracer=None,
         sharded_save: Optional[bool] = None,
     ):
         # analyze=True: every train_step() is wrapped in a TraceGuard that,
@@ -140,31 +169,47 @@ class Accelerator:
             raise NotImplementedError("sharded_save (a SHARDED_STATE_DICT written by each process) waits for "
                                       "ROADMAP A item 5, async and sharded checkpoints; the port saves the "
                                       "whole state from the main process")
+        # The kwargs handlers, sorted by kind as JAX's are.
+        self.scaler_handler = None
+        self.init_handler = None
+        self.autocast_handler = None
+        self.ddp_handler = None
+        self.fp8_recipe_handler = None
+        for handler in kwargs_handlers or []:
+            if isinstance(handler, GradScalerKwargs):
+                self.scaler_handler = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                self.init_handler = handler
+            elif isinstance(handler, AutocastKwargs):
+                self.autocast_handler = handler
+            elif isinstance(handler, DistributedDataParallelKwargs):
+                self.ddp_handler = handler  # accepted for parity: no field applies to the flat all-reduce
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe_handler = handler
+        init_kwargs = {}
+        if self.init_handler is not None:
+            init_kwargs = {k: v for k, v in (("timeout", self.init_handler.timeout),
+                                             ("backend", self.init_handler.backend),
+                                             ("init_method", self.init_handler.init_method)) if v is not None}
         if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_TPU_USE_FSDP"):
             fsdp_plugin = FullyShardedDataParallelPlugin()
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      parallelism_config=parallelism_config, fsdp_plugin=fsdp_plugin)
+                                      parallelism_config=parallelism_config, fsdp_plugin=fsdp_plugin, **init_kwargs)
         if self.state.mixed_precision == "fp8" and self.num_processes > 1:
             raise NotImplementedError(
-                "mixed_precision='fp8' across processes waits for ROADMAP A item 5, expert sharding (with fp8's "
-                "global amax): JAX scales by the amax over the global batch, each process here by its own")
+                "mixed_precision='fp8' across processes waits for ROADMAP A item 3, fp8 across processes (an "
+                "all-reduce of each global amax): JAX scales by the amax over the global batch, each process here by its own")
+        self.device_placement = device_placement
         self.split_batches = split_batches
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(split_batches=split_batches)
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        self.rng_types = rng_types or ["python", "numpy"]
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
         self.compilation_config = compilation_config or CompilationConfig()
         self.log_with = filter_trackers(log_with, self.logging_dir)
         self.trackers: List[GeneralTracker] = []
-        self.scaler_handler = None
-        self.fp8_recipe_handler = None
-        for handler in kwargs_handlers or []:
-            if isinstance(handler, GradScalerKwargs):
-                self.scaler_handler = handler
-            elif isinstance(handler, FP8RecipeKwargs):
-                self.fp8_recipe_handler = handler
-            else:
-                raise ValueError(f"unsupported kwargs handler {type(handler).__name__}; the port takes "
-                                 "GradScalerKwargs and FP8RecipeKwargs")
         # fp16's dynamic loss scaling, shared by every prepared optimizer.
         self.scaler = GradScaler(self.scaler_handler) if self.state.mixed_precision == "fp16" else None
         if gradient_accumulation_plugin is None:
@@ -175,8 +220,11 @@ class Accelerator:
         self._schedulers: List[AcceleratedScheduler] = []
         self._dataloaders: List[DataLoaderShard] = []
         self._custom_objects: list = []
+        self._save_model_hooks: List[Callable] = []
+        self._load_model_hooks: List[Callable] = []
         self._last_steps_per_call = 1
         self.step = 0
+        self.flag_tensor = None
         self._init_telemetry(tracer)
 
     def _init_telemetry(self, tracer):
@@ -241,6 +289,10 @@ class Accelerator:
         return self.state.is_last_process
 
     @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
+
+    @property
     def mesh(self):
         """The ("data", "fsdp") `DeviceMesh`, or None with one process and no group."""
         return self.state.mesh
@@ -265,6 +317,9 @@ class Accelerator:
     def save_iteration(self) -> int:
         """The number the next automatically named checkpoint takes."""
         return self.project_configuration.iteration
+
+    def __repr__(self):
+        return repr(self.state._partial) + f"Mixed precision: {self.mixed_precision}\n"
 
     # ------------------------------------------------------------ accumulation
     def _do_sync(self):
@@ -307,6 +362,15 @@ class Accelerator:
         finally:
             self.gradient_state._set_sync_gradients(prev)
 
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches=None):
+        """Taken for JAX's signature: the prepared loaders give every process
+        the same number of batches (`even_batches`), so there are no uneven
+        inputs to join; `even_batches` here only warns."""
+        if even_batches is not None:
+            logger.warning("join_uneven_inputs(even_batches=...) is advisory here; padding is handled by the loader")
+        yield
+
     # ------------------------------------------------------------ processes
     def wait_for_everyone(self):
         """A barrier over every process."""
@@ -314,6 +378,9 @@ class Accelerator:
 
     def on_main_process(self, function):
         return self.state._partial.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state._partial.on_local_main_process(function)
 
     def on_process(self, function=None, process_index=None):
         return self.state._partial.on_process(function, process_index)
@@ -323,24 +390,32 @@ class Accelerator:
         with self.state._partial.main_process_first():
             yield
 
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state._partial.local_main_process_first():
+            yield
+
     def split_between_processes(self, inputs, apply_padding: bool = False):
         return self.state._partial.split_between_processes(inputs, apply_padding=apply_padding)
 
-    def unwrap_model(self, model):
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
         """The `nn.Module` under a prepared model (under FSDP, the module
-        FSDP placed)."""
+        FSDP placed); `keep_fp32_wrapper` is taken for JAX's signature."""
         return model.module if isinstance(model, PreparedModel) else model
 
     # ------------------------------------------------------------ prepare
-    def prepare(self, *args):
+    def prepare(self, *args, device_placement=None):
         """Prepare models, optimizers, loaders and schedulers in one call, in
         any order; optimizers bind to the prepared models, schedulers to the
-        prepared optimizers."""
+        prepared optimizers. `device_placement`, one value or one per
+        argument, overrides the accelerator's for the loaders."""
+        if not isinstance(device_placement, (list, tuple)):
+            device_placement = [device_placement] * len(args)
         first = [
             self.prepare_model(obj) if self._is_model(obj)
-            else self.prepare_data_loader(obj) if self._is_dataloader(obj)
+            else self.prepare_data_loader(obj, device_placement=dp) if self._is_dataloader(obj)
             else obj
-            for obj in args
+            for obj, dp in zip(args, device_placement)
         ]
         second = [self.prepare_optimizer(obj) if self._is_optimizer(obj) else obj for obj in first]
         final = [self.prepare_scheduler(obj) if self._is_scheduler(obj) else obj for obj in second]
@@ -356,7 +431,7 @@ class Accelerator:
 
     @staticmethod
     def _is_dataloader(obj) -> bool:
-        return isinstance(obj, (SimpleDataLoader, DataLoaderShard, torch.utils.data.DataLoader))
+        return isinstance(obj, (SimpleDataLoader, DataLoaderShard, DataLoaderDispatcher, torch.utils.data.DataLoader))
 
     @classmethod
     def _is_scheduler(cls, obj) -> bool:
@@ -366,10 +441,12 @@ class Accelerator:
             return False
         return callable(obj) and not isinstance(obj, type)
 
-    def prepare_model(self, model) -> PreparedModel:
+    def prepare_model(self, model, device_placement=None, evaluation_mode: bool = False) -> PreparedModel:
         """Move the model to the device under this accelerator's precision
-        mode. An `nn.Module` brings its `loss_fn` attribute as the bundled
-        loss, if it has one."""
+        mode (and, with ``AutocastKwargs(enabled=False)``, without its
+        casts). An `nn.Module` brings its `loss_fn` attribute as the bundled
+        loss, if it has one. `device_placement` and `evaluation_mode` are
+        taken for JAX's signature."""
         if isinstance(model, PreparedModel):
             if model not in self._models:
                 self._models.append(model)
@@ -385,12 +462,13 @@ class Accelerator:
         remat_policy = self.compilation_config.remat_policy
         if remat_policy is None and fsdp is not None and fsdp.activation_checkpointing:
             remat_policy = "full"
+        autocast = self.autocast_handler is None or self.autocast_handler.enabled
         prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype, remat_policy=remat_policy,
-                                 fp8_recipe=fp8_recipe, mesh=self.mesh, fsdp_plugin=fsdp)
+                                 fp8_recipe=fp8_recipe, mesh=self.mesh, fsdp_plugin=fsdp, autocast=autocast)
         self._models.append(prepared)
         return prepared
 
-    def prepare_optimizer(self, optimizer, model=None) -> AcceleratedOptimizer:
+    def prepare_optimizer(self, optimizer, device_placement=None, model=None) -> AcceleratedOptimizer:
         """Bind a `torch.optim.Optimizer` (built over the model's parameters)
         to the last prepared model."""
         if isinstance(optimizer, AcceleratedOptimizer):
@@ -409,13 +487,25 @@ class Accelerator:
         self._optimizers.append(prepared)
         return prepared
 
-    def prepare_data_loader(self, data_loader) -> DataLoaderShard:
-        """This process's batches of `data_loader` on the device, as tensors
-        (its share of every global batch across processes)."""
-        prepared = prepare_data_loader(data_loader, self.device, num_processes=self.num_processes,
-                                       process_index=self.process_index, split_batches=self.split_batches)
-        if prepared not in self._dataloaders:
-            self._dataloaders.append(prepared)
+    def prepare_data_loader(self, data_loader, device_placement=None, slice_fn_for_dispatch=None):
+        """This process's batches of `data_loader` as tensors, on the device
+        unless `device_placement` (default: the accelerator's) is False: its
+        share of every global batch across processes, through a sharded
+        `DataLoaderShard` or, under ``dataloader_config.dispatch_batches``,
+        a `DataLoaderDispatcher`."""
+        if isinstance(data_loader, (DataLoaderShard, DataLoaderDispatcher)):
+            if data_loader not in self._dataloaders:
+                self._dataloaders.append(data_loader)
+            return data_loader
+        if device_placement is None:
+            device_placement = self.device_placement
+        cfg = self.dataloader_config
+        prepared = prepare_data_loader(
+            data_loader, self.device, num_processes=self.num_processes, process_index=self.process_index,
+            split_batches=cfg.split_batches or self.split_batches, put_on_device=device_placement,
+            rng_types=list(self.rng_types), dispatch_batches=cfg.dispatch_batches, even_batches=cfg.even_batches,
+            slice_fn_for_dispatch=slice_fn_for_dispatch, use_seedable_sampler=cfg.use_seedable_sampler)
+        self._dataloaders.append(prepared)
         return prepared
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
@@ -423,7 +513,9 @@ class Accelerator:
             if scheduler not in self._schedulers:
                 self._schedulers.append(scheduler)
             return scheduler
-        prepared = AcceleratedScheduler(scheduler, self._optimizers)
+        prepared = AcceleratedScheduler(scheduler, self._optimizers,
+                                        step_with_optimizer=self.step_scheduler_with_optimizer,
+                                        split_batches=self.dataloader_config.split_batches or self.split_batches)
         self._schedulers.append(prepared)
         if self._last_steps_per_call > 1:
             self._warn_scheduler_coarsened(self._last_steps_per_call)
@@ -545,6 +637,78 @@ class Accelerator:
             raise NotImplementedError("Only the L2 global norm is supported")
         return self._optimizer_for(self._resolve_model(model)).clip_grad_norm_(max_norm)
 
+    def clip_grad_value_(self, parameters=None, clip_value: float = 1.0, model=None):
+        """Clamp the accumulated gradients to [-clip_value, clip_value],
+        unscaled first under fp16; a no-op while accumulating."""
+        if not self.sync_gradients:
+            return
+        self._optimizer_for(self._resolve_model(model)).clip_grad_value_(clip_value)
+
+    # ------------------------------------------------------------ triggers
+    def set_trigger(self):
+        """Raise this process's flag; the next `check_trigger` on every
+        process sees it."""
+        self.flag_tensor = torch.tensor([1], dtype=torch.int64)
+
+    def check_trigger(self) -> bool:
+        """True on every process when any process called `set_trigger` since
+        the last check (a sum all-reduce of one int64 across the processes,
+        none with one); the flag is then cleared."""
+        flag = self.flag_tensor if self.flag_tensor is not None else torch.zeros(1, dtype=torch.int64)
+        total = ops.reduce(flag, reduction="sum")
+        if int(total[0]) >= 1:
+            self.flag_tensor = None
+            return True
+        return False
+
+    # ------------------------------------------------------------ precision
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Optional[AutocastKwargs] = None):
+        """The prepared models' compute-dtype policy for the block
+        (`AutocastKwargs().enabled` by default): with ``enabled=False`` a
+        bf16 or fp16 model runs in its masters' dtype, without the casts.
+        The previous policy is restored on exit. A model FSDP manages can
+        not be toggled: FSDP's mixed-precision policy casts its parameters
+        at every forward."""
+        handler = autocast_handler or AutocastKwargs()
+        previous = [(m, m.autocast_enabled) for m in self._models]
+        for m in self._models:
+            if m.autocast_enabled != handler.enabled and m.compute_dtype is not None:
+                if m.layout is not None and m.layout.uses_fsdp:
+                    raise NotImplementedError("autocast() cannot toggle a model that FSDP manages: FSDP's "
+                                              "mixed-precision policy casts its parameters at every forward")
+        try:
+            for m in self._models:
+                if m.compute_dtype is not None:
+                    m.autocast_enabled = handler.enabled
+            yield
+        finally:
+            for m, prev in previous:
+                m.autocast_enabled = prev
+
+    # ------------------------------------------------------------ memory
+    def free_memory(self, *objects):
+        """Forget every prepared object and the step count, and return
+        `objects` as as many `None`s (``model, opt = accelerator.free_memory(model, opt)``);
+        then collect garbage and, on the card, return the caching
+        allocator's free blocks, the memory the next attempt of a
+        `find_executable_batch_size` loop needs."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self._last_steps_per_call = 1
+        self.step = 0
+        objects = [None] * len(objects)
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
+
+    def clear(self, *objects):
+        """`free_memory`."""
+        return self.free_memory(*objects)
+
     # ------------------------------------------------------------ collectives
     def print(self, *args, **kwargs):
         """`print` on the main process only."""
@@ -594,9 +758,12 @@ class Accelerator:
             if isinstance(tracker, GeneralTracker):
                 self.trackers.append(tracker)
                 continue
-            # Every ported tracker writes under the logging directory.
+            tracker_cls = LOGGER_TYPE_TO_CLASS[str(tracker)]
             kwargs = init_kwargs.get(str(tracker), {})
-            self.trackers.append(LOGGER_TYPE_TO_CLASS[str(tracker)](project_name, self.logging_dir, **kwargs))
+            if tracker_cls.requires_logging_directory:
+                self.trackers.append(tracker_cls(project_name, self.logging_dir, **kwargs))
+            else:
+                self.trackers.append(tracker_cls(project_name, **kwargs))
         if config is not None:
             for tracker in self.trackers:
                 tracker.store_init_configuration(config)
@@ -655,6 +822,16 @@ class Accelerator:
                              f"{[type(o).__name__ for o in invalid]}")
         self._custom_objects.extend(objects)
 
+    def register_save_state_pre_hook(self, hook: Callable):
+        """`hook(models, weights, output_dir)` runs on every process in
+        `save_state`, with the prepared models and, as in JAX, None for
+        weights; on the main process before anything is written."""
+        self._save_model_hooks.append(hook)
+
+    def register_load_state_pre_hook(self, hook: Callable):
+        """`hook(models, input_dir)` runs before `load_state` reads."""
+        self._load_model_hooks.append(hook)
+
     def checkpoint_manager(self) -> CheckpointManager:
         """The run's checkpoint store, ``{project_dir}/checkpoints``, rotating
         to `total_limit`."""
@@ -663,7 +840,12 @@ class Accelerator:
         return CheckpointManager(os.path.join(self.project_dir, "checkpoints"),
                                  keep_last_n=self.project_configuration.total_limit)
 
+    def _run_save_hooks(self, output_dir: str):
+        for hook in self._save_model_hooks:
+            hook(self._models, None, output_dir)
+
     def _write_state(self, output_dir: str, state: dict):
+        self._run_save_hooks(output_dir)
         checkpointing.write_accelerator_state(output_dir, state)
         for i, obj in enumerate(self._custom_objects):
             checkpointing.save_custom_state(obj, output_dir, i)
@@ -705,6 +887,10 @@ class Accelerator:
             os.makedirs(output_dir, exist_ok=True)
             self._write_state(output_dir, state)
             checkpointing.write_checkpoint_manifest(output_dir)
+        if not self.is_main_process:
+            # The main process ran the hooks before it wrote (on the staging
+            # directory under automatic naming); the others run them here.
+            self._run_save_hooks(output_dir)
         del state
         self.wait_for_everyone()
         self.project_configuration.iteration += 1
@@ -740,11 +926,51 @@ class Accelerator:
             if number:
                 self.project_configuration.iteration = int(number[0]) + 1
         logger.info("Loading states from %s", input_dir)
+        for hook in self._load_model_hooks:
+            hook(self._models, input_dir)
         checkpointing.load_accelerator_state(input_dir, self._models, self._optimizers, self._schedulers,
                                              self._dataloaders)
         for i, obj in enumerate(self._custom_objects):
             checkpointing.load_custom_state(obj, input_dir, i)
         return input_dir
+
+    def save_model(self, model, save_directory: str, safe_serialization: bool = True, max_shard_size="5GB"):
+        """Write just the model's weights (JAX's `save_model`).
+
+        `safe_serialization` (the default) writes safetensors through the
+        port's own writer, one file, ``model.safetensors``, under
+        `max_shard_size` (``"5GB"``, ``"500MB"``, ``"2GiB"`` or bytes), else
+        ``model-0000i-of-0000n.safetensors`` shards with an HF-style
+        ``model.safetensors.index.json`` (`checkpointing.save_model_safetensors`);
+        without it, ``model.pt``, a `torch.save` of the state dict. Every
+        process calls it; across processes each tensor is gathered whole
+        in turn and the main process writes (the plugin's FULL_STATE_DICT).
+        A SHARDED_STATE_DICT of parameters no process holds whole (FSDP
+        over more than one process) waits for ROADMAP A item 5, async and
+        sharded checkpoints. As in JAX, a
+        non-bool third argument is a shard size (the reference's positional
+        order, ``save_model(model, dir, max_shard_size, safe_serialization)``)."""
+        if not isinstance(safe_serialization, bool):
+            shard_size = safe_serialization
+            safe_serialization = max_shard_size if isinstance(max_shard_size, bool) else True
+            max_shard_size = shard_size
+        os.makedirs(save_directory, exist_ok=True)
+        state_dict_type = getattr(self.state.fsdp_plugin, "state_dict_type", None) or "FULL_STATE_DICT"
+        layout = getattr(model, "layout", None)
+        if state_dict_type == "SHARDED_STATE_DICT" and layout is not None and layout.uses_fsdp and layout.fsdp_size > 1:
+            raise NotImplementedError(
+                "save_model of a SHARDED_STATE_DICT (each process writing its shards) waits for ROADMAP A "
+                "item 5, async and sharded checkpoints; set the plugin's state_dict_type='FULL_STATE_DICT'")
+        if not safe_serialization:
+            state = model.full_state_dict() if isinstance(model, PreparedModel) else model.state_dict()
+            if self.is_main_process:
+                checkpointing.atomic_write(os.path.join(save_directory, checkpointing.WEIGHTS_NAME),
+                                           lambda f: torch.save(state, f))
+            self.wait_for_everyone()
+            return
+        checkpointing.save_model_safetensors(model, save_directory, max_shard_size=max_shard_size,
+                                             is_main=self.is_main_process)
+        self.wait_for_everyone()
 
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         """`dataloader` without its first `num_batches` batches: resume a

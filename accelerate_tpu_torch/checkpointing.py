@@ -22,6 +22,11 @@ newest checkpoint whose digests verify, falling back past a torn one.
 
 Reading a JAX package's checkpoint is not supported: its tensors are
 `.npz` pytrees, these are `torch.save` files.
+
+`save_model_safetensors` writes just a model's weights for
+`Accelerator.save_model`: safetensors through the port's own writer
+(`utils/modeling.py`), split at a size into shards with an HF-style index,
+each file committed atomically and the index last, as JAX's.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from .utils.modeling import save_safetensors
 from .utils.random import rng_states, set_rng_states
 
 logger = logging.getLogger(__name__)
@@ -50,6 +56,11 @@ SCHEDULER_NAME = "scheduler"
 SAMPLER_NAME = "sampler"
 RNG_STATE_NAME = "random_states"
 SCALER_NAME = "scaler"
+SAFE_WEIGHTS_NAME = "model.safetensors"
+SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
+#: `save_model(safe_serialization=False)`'s file: JAX writes MODEL_NAME's
+#: ``model.npz``; the port's is a `torch.save` of the state dict.
+WEIGHTS_NAME = MODEL_NAME + ".pt"
 CHECKPOINT_MANIFEST_NAME = "MANIFEST.json"
 LATEST_POINTER_NAME = "latest"
 _STAGING_PREFIX = ".tmp-"
@@ -448,3 +459,117 @@ def load_custom_state(obj, path, index: int = 0):
         )
     with open(location, "rb") as f:
         obj.load_state_dict(pickle.load(f))
+
+
+# ------------------------------------------------------------------ safetensors export
+def parse_size(size) -> int:
+    """``"5GB"`` / ``"500MB"`` / ``"2GiB"`` / an int -> bytes (JAX's rule)."""
+    if isinstance(size, int):
+        return size
+    s = str(size).strip().upper()
+    for suffix, mult in (("GIB", 2**30), ("MIB", 2**20), ("KIB", 2**10), ("GB", 10**9), ("MB", 10**6), ("KB", 10**3)):
+        if s.endswith(suffix):
+            return int(float(s[: -len(suffix)]) * mult)
+    return int(s)
+
+
+def flax_order(name: str) -> tuple:
+    """The sort key that puts a state dict's names in the order the JAX
+    package writes the same model: its params tree flattens with every
+    dict's keys sorted, and the port's names are the tree's, a layer's
+    index (``layers.3``) standing where the tree has ``layer_3``."""
+    parts = []
+    for part in name.split("."):
+        if part.isdigit() and parts:
+            parts[-1] = f"{parts[-1]}_{part}"
+        else:
+            parts.append(part)
+    return tuple(parts)
+
+
+def _model_tensors(model):
+    """[(name, tensor, FSDP's shard dim or None)] of a model's state dict in
+    the JAX package's order (`flax_order`)."""
+    layout = getattr(model, "layout", None)
+    module = model.module if hasattr(model, "layout") else model
+    fsdp = layout is not None and layout.uses_fsdp
+    entries = [(name, value, layout.param_dims.get(name) if fsdp else None)
+               for name, value in module.state_dict().items()]
+    return sorted(entries, key=lambda e: flax_order(e[0]))
+
+
+def _atomic_save_safetensors(tensors, target):
+    tmp = f"{target}.tmp-{os.getpid()}"
+    try:
+        save_safetensors(tensors, tmp)
+        with open(tmp, "rb+") as f:
+            os.fsync(f.fileno())
+        os.replace(tmp, target)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    _fsync_directory(os.path.dirname(target) or ".")
+
+
+def save_model_safetensors(model, save_directory: str, max_shard_size="5GB", is_main: bool = True) -> list:
+    """Write a model's weights as safetensors (JAX's `save_model_safetensors`).
+
+    The tensors are taken in the JAX package's order (`flax_order`) and cut
+    greedily into shards of at most `max_shard_size` bytes (a tensor larger
+    than that is a shard alone): one shard is ``model.safetensors``; more
+    are ``model-0000i-of-0000n.safetensors`` with
+    ``model.safetensors.index.json`` (``{"metadata": {"total_size"},
+    "weight_map"}``), written last. Each tensor keeps its dtype and its
+    name in the module's state dict. Every process calls it: under FSDP a
+    sharded tensor is gathered whole, one at a time, and only the main
+    process (`is_main`) writes. Returns the paths written."""
+    os.makedirs(save_directory, exist_ok=True)
+    budget = parse_size(max_shard_size)
+    layout = getattr(model, "layout", None)
+    shards, current, current_bytes, total = [], [], 0, 0
+    for entry in _model_tensors(model):
+        nbytes = entry[1].numel() * entry[1].element_size()
+        total += nbytes
+        if current and current_bytes + nbytes > budget:
+            shards.append(current)
+            current, current_bytes = [], 0
+        current.append(entry)
+        current_bytes += nbytes
+    if current:
+        shards.append(current)
+    written, weight_map = [], {}
+    for i, shard in enumerate(shards):
+        fname = SAFE_WEIGHTS_NAME if len(shards) == 1 else f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        # Under FSDP each sharded tensor is gathered whole (every process
+        # takes part, in the same order); the rest are this process's own.
+        tensors = {name: value.detach() if dim is None else layout.gather(value, dim) for name, value, dim in shard}
+        if is_main:
+            _atomic_save_safetensors(tensors, os.path.join(save_directory, fname))
+            written.append(os.path.join(save_directory, fname))
+        weight_map.update({name: fname for name, _, _ in shard})
+        del tensors
+    if is_main and len(shards) > 1:
+        index_path = os.path.join(save_directory, SAFE_WEIGHTS_INDEX_NAME)
+        atomic_write(index_path, lambda f: json.dump({"metadata": {"total_size": total}, "weight_map": weight_map},
+                                                     f, indent=2), mode="w")
+        written.append(index_path)
+    return written
+
+
+def load_model_safetensors(directory: str) -> dict:
+    """The state dict `save_model_safetensors` wrote into `directory` (one
+    file or the shards its index names), as CPU tensors in their dtypes."""
+    from .utils.modeling import load_safetensors_state_dict
+
+    index = os.path.join(directory, SAFE_WEIGHTS_INDEX_NAME)
+    if not os.path.exists(index):
+        return load_safetensors_state_dict(os.path.join(directory, SAFE_WEIGHTS_NAME))
+    with open(index) as f:
+        files = sorted(set(json.load(f)["weight_map"].values()))
+    out = {}
+    for fname in files:
+        out.update(load_safetensors_state_dict(os.path.join(directory, fname)))
+    return out

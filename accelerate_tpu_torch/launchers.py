@@ -8,7 +8,7 @@ port: each child gets the variables torchrun would set (``RANK``,
 ``ACCELERATE_TPU_USE_CPU=1``, so the first `PartialState` it builds joins
 the group. `function` must be importable by name (a module-level function):
 the children are spawned, not forked. `notebook_launcher` and the launch
-CLI wait for ROADMAP A item 6.
+CLI wait for ROADMAP A item 2.
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ cast inside the autograd graph (`torch.func.functional_call`), so the
 gradients land on the masters in their own dtype; floating inputs are cast
 the same way and floating outputs come back as f32. `torch.autocast` would
 not match it: it keeps the norm scales and the embedding in f32 and casts
-other ops than JAX does. With a `remat_policy` the forward runs inside
+other ops than JAX does. `autocast_enabled` (True when there is a compute
+dtype, unless `AutocastKwargs(enabled=False)`; `Accelerator.autocast`
+toggles it) says whether the casts happen: without them the module runs in
+its masters' dtype, as JAX's does. With a `remat_policy` the forward runs inside
 `ops.remat.remat_scope`, so every in-tree layer is checkpointed (JAX's
 `PreparedModel(remat_policy=...)`). With an `fp8_recipe` (mixed precision
 "fp8": bf16 copies) the forward runs inside `ops.fp8.fp8_autocast`, so every
@@ -103,11 +106,13 @@ class PreparedModel:
     argument to `Accelerator.backward` and the fused step's default)."""
 
     def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None,
-                 remat_policy: Optional[str] = None, fp8_recipe=None, mesh=None, fsdp_plugin=None):
+                 remat_policy: Optional[str] = None, fp8_recipe=None, mesh=None, fsdp_plugin=None,
+                 autocast: bool = True):
         self.module = model.module.to(device)
         self.loss_fn = model.loss_fn
         self.device = device
         self.compute_dtype = compute_dtype
+        self.autocast_enabled = autocast and compute_dtype is not None
         self.remat_policy = check_policy(remat_policy)
         self.fp8_recipe = fp8_recipe
         self.param_dtype = _DTYPES[fsdp_plugin.param_dtype] if getattr(fsdp_plugin, "param_dtype", None) else None
@@ -123,16 +128,17 @@ class PreparedModel:
 
                 if any(isinstance(m, MoEBlock) for m in self.module.modules()):
                     raise NotImplementedError(
-                        "a mixture-of-experts model across processes waits for ROADMAP A item 5, expert "
+                        "a mixture-of-experts model across processes waits for ROADMAP A item 3, expert "
                         "sharding: JAX routes over the global token axis (capacity and slot order), which a "
                         "router on each process's rows would not reproduce")
                 if fp8_recipe is not None:
                     raise NotImplementedError(
-                        "fp8 across processes waits for ROADMAP A item 5, expert sharding (with fp8's global "
-                        "amax): JAX scales by the amax over the global batch, each process here by its own")
+                        "fp8 across processes waits for ROADMAP A item 3, fp8 across processes (an all-reduce of "
+                        "each global amax): JAX scales by the amax over the global batch, each process here by its own")
                 if fsdp_plugin is not None and fsdp_plugin.sync_module_states:
                     broadcast_module_states(self.module)
-            self.layout = ShardedLayout(self.module, mesh, fsdp_plugin, compute_dtype=compute_dtype,
+            self.layout = ShardedLayout(self.module, mesh, fsdp_plugin,
+                                        compute_dtype=compute_dtype if self.autocast_enabled else None,
                                         reduce_dtype=self.reduce_dtype)
         if fp8_recipe is not None and fp8_recipe.scaling == "delayed":
             # The forward never rolls the histories, so every layer keeps
@@ -150,7 +156,7 @@ class PreparedModel:
             return self._apply(*args, **kwargs)
 
     def _apply(self, *args, **kwargs):
-        if self.compute_dtype is None:
+        if not self.autocast_enabled:
             return self.module(*args, **kwargs)
         # The casts are autograd ops: the backward casts each gradient back
         # to its master's dtype. FSDP casts the parameters it manages (the

@@ -220,6 +220,24 @@ class AcceleratedOptimizer:
             return None
         return clip_grad_norm(self._params(), max_norm, layout=self.layout)
 
+    def clip_grad_value_(self, clip_value: float):
+        """Unscale (under fp16), then clamp every accumulated gradient to
+        [-clip_value, clip_value], element by element (JAX's
+        `clip_grad_value_`). Under a sharded layout each process clamps its
+        own shards: no collective. As in JAX, the step's non-finite check
+        then reads the clamped gradients, in which only a NaN is left
+        non-finite."""
+        found_inf = self.unscale_()
+        grads = self._grads()
+        if not grads:
+            return
+        torch._foreach_clamp_min_(grads, -clip_value)
+        torch._foreach_clamp_max_(grads, clip_value)
+        if found_inf is not None:
+            self._found_inf = unscale_grads(grads, 1.0)
+            if self.layout is not None and dist.get_world_size() > 1:
+                dist.all_reduce(self._found_inf, op=dist.ReduceOp.MAX)
+
     def set_learning_rate(self, lr: float):
         """Override the learning rate for the following steps."""
         for group in self.optimizer.param_groups:

@@ -18,13 +18,13 @@ import torch.distributed as dist
 from ..utils.constants import DATA_AXES
 from ..utils.dataclasses import ParallelismConfig
 
-#: Axes above 1 that the port refuses, and the ROADMAP A item 5 bullet that ports each.
+#: Axes above 1 that the port refuses, and the ROADMAP A item 3 bullet that ports each.
 WAITING_AXES = {
-    "model": "ROADMAP A item 5, tensor-parallel serving and the planner",
-    "seq": "ROADMAP A item 5, ring attention over the block-level flash entries",
-    "expert": "ROADMAP A item 5, expert sharding",
-    "stage": "ROADMAP A item 5, MPMD pipelines and offload tiers",
-    "pipeline": "ROADMAP A item 5, MPMD pipelines and offload tiers",
+    "model": "ROADMAP A item 3, tensor parallel (serving, training's \"model\" axis and the planner)",
+    "seq": "ROADMAP A item 3, sequence parallel (ring attention over the block-level flash entries)",
+    "expert": "ROADMAP A item 3, expert sharding",
+    "stage": "ROADMAP A item 3, pipelines",
+    "pipeline": "ROADMAP A item 3, pipelines",
 }
 
 

@@ -17,7 +17,7 @@ so a user's `transformer_cls_names_to_wrap` patterns, the size threshold,
 the divisibility rule and the embedding rule mean what they mean in JAX.
 
 The tensor-parallel half (`serving_tp_mesh`, `derive_tp_*`) and the
-planner's rule tables wait for ROADMAP A item 5.
+planner's rule tables wait for ROADMAP A item 3, tensor parallel.
 """
 
 from __future__ import annotations

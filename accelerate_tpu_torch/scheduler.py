@@ -2,22 +2,28 @@
 
 `AcceleratedScheduler` takes a schedule function (``step -> lr``, like an
 optax schedule) or a torch scheduler (anything with ``get_last_lr()``), and
-pushes its learning rate into the prepared optimizers. It advances only
-when the optimizers really stepped: not while gradients accumulate, not
-after a skipped step.
+pushes its learning rate into the prepared optimizers. With
+`step_with_optimizer` (the default) it advances only when the optimizers
+really stepped: not while gradients accumulate, not after a skipped step;
+and then by `num_processes` steps unless `split_batches`, so that the
+schedule's progress follows the global batch, as JAX's does. Without
+`step_with_optimizer` it advances one step per call.
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Union
 
-from .state import GradientState
+from .state import GradientState, PartialState
 
 
 class AcceleratedScheduler:
-    def __init__(self, scheduler: Union[Callable, object], optimizers):
+    def __init__(self, scheduler: Union[Callable, object], optimizers, step_with_optimizer: bool = True,
+                 split_batches: bool = False):
         self.scheduler = scheduler
         self.optimizers = optimizers if isinstance(optimizers, (list, tuple)) else [optimizers]
+        self.split_batches = split_batches
+        self.step_with_optimizer = step_with_optimizer
         self.gradient_state = GradientState()
         self._step_count = 0
         self._last_lr: Optional[List[float]] = None
@@ -40,12 +46,16 @@ class AcceleratedScheduler:
             self._last_lr = [lr]
 
     def step(self, *args, **kwargs):
-        if not self.gradient_state.sync_gradients:
-            return
-        if any(opt.step_was_skipped for opt in self.optimizers):
-            return
-        # One process: the schedule advances one step per optimizer step.
-        self._step_count += 1
+        if self.step_with_optimizer:
+            if not self.gradient_state.sync_gradients:
+                return
+            if any(opt.step_was_skipped for opt in self.optimizers):
+                return
+            # Each process's batch is one of num_processes that make the
+            # global batch, unless the loader's batch is the global one.
+            self._step_count += 1 if self.split_batches else PartialState().num_processes
+        else:
+            self._step_count += 1
         if not callable(self.scheduler) and hasattr(self.scheduler, "step"):
             self.scheduler.step(*args, **kwargs)
         self._apply_lr()

@@ -6,7 +6,10 @@
 `launchers.debug_launcher` set them). On the card the group's backend is
 NCCL, each process bound to its ``LOCAL_RANK``'s device; under ``cpu=True``
 (or ``ACCELERATE_TPU_USE_CPU=1``) it is gloo. Without those variables
-there is no group and one process. `AcceleratorState` adds the precision
+there is no group and one process. `InitProcessGroupKwargs`' `timeout`,
+`backend` and `init_method` reach `init_process_group` through the
+`Accelerator` (the keyword arguments of the first `PartialState`).
+`AcceleratorState` adds the precision
 mode, the `ParallelismConfig`, the FSDP plugin and the ("data", "fsdp")
 `DeviceMesh`; `GradientState` the accumulation bookkeeping that the
 accelerator, the optimizers, the schedulers and the data loaders share.
@@ -61,7 +64,7 @@ class PartialState:
         if dist.is_available() and dist.is_initialized():
             backend = dist.get_backend()
         elif launched:
-            backend = "gloo" if cpu else "nccl"
+            backend = kwargs.get("backend") or ("gloo" if cpu else "nccl")
         else:
             backend = None
         self.local_process_index = int(env.get("LOCAL_RANK", 0))
@@ -86,8 +89,8 @@ class PartialState:
             extra = {"timeout": timeout} if timeout is not None else {}
             if backend == "nccl":
                 extra["device_id"] = self.device
-            dist.init_process_group(backend, init_method="env://", rank=int(env["RANK"]),
-                                    world_size=int(env["WORLD_SIZE"]), **extra)
+            dist.init_process_group(backend, init_method=kwargs.get("init_method") or "env://",
+                                    rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]), **extra)
         self.backend = backend
         self.cpu = self.device.type == "cpu"
         self.num_processes = dist.get_world_size() if backend else 1
@@ -147,6 +150,16 @@ class PartialState:
         if self.is_main_process:
             self.wait_for_everyone()
 
+    @contextmanager
+    def local_main_process_first(self):
+        """The local main process of each node runs the body before the
+        others there."""
+        if not self.is_local_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_local_main_process:
+            self.wait_for_everyone()
+
     def on_main_process(self, function: Callable = None):
         """Decorator: run `function` on the main process only."""
         if not self.initialized:
@@ -155,6 +168,26 @@ class PartialState:
         @wraps(function)
         def _inner(*args, **kwargs):
             if self.is_main_process:
+                return function(*args, **kwargs)
+
+        return _inner
+
+    def on_local_main_process(self, function: Callable = None):
+        """Decorator: run `function` on each node's local main process only."""
+
+        @wraps(function)
+        def _inner(*args, **kwargs):
+            if self.is_local_main_process:
+                return function(*args, **kwargs)
+
+        return _inner
+
+    def on_last_process(self, function: Callable):
+        """Decorator: run `function` on the last process only."""
+
+        @wraps(function)
+        def _inner(*args, **kwargs):
+            if self.is_last_process:
                 return function(*args, **kwargs)
 
         return _inner

@@ -6,7 +6,7 @@ The mesh axes keep JAX's names and order (outer to inner). The port builds
 its `DeviceMesh` over ("data", "fsdp"): the batch is split over both,
 parameters and optimizer state shard over "fsdp" and replicate over
 "data". The other axes (model, seq, expert, stage, pipeline) belong to
-parts of the JAX package the port has not taken yet (ROADMAP A, item 5).
+parts of the JAX package the port has not taken yet (ROADMAP A item 3).
 """
 
 MESH_AXIS_NAMES = ("data", "fsdp", "model", "seq", "expert", "stage", "pipeline")

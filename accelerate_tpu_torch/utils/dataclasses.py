@@ -3,9 +3,11 @@
 
 from __future__ import annotations
 
+import copy
 import enum
 import os
 from dataclasses import asdict, dataclass
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -72,8 +74,85 @@ class GradientAccumulationPlugin:
         return asdict(self)
 
 
+class KwargsHandler:
+    """Base of the handlers passed as `Accelerator(kwargs_handlers=[...])`:
+    `to_kwargs` gives the fields that differ from the defaults."""
+
+    def to_dict(self):
+        return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self):
+        default_dict = self.__class__().to_dict()
+        this_dict = self.to_dict()
+        return {k: v for k, v in this_dict.items() if default_dict[k] != v}
+
+
 @dataclass
-class GradScalerKwargs:
+class AutocastKwargs(KwargsHandler):
+    """The compute-dtype policy of the prepared models' forwards (JAX's
+    `AutocastKwargs`). ``enabled=False`` runs a model in its parameters'
+    dtype, without the casts of its mixed-precision mode, for the whole run
+    (`Accelerator(kwargs_handlers=[...])`) or inside `Accelerator.autocast`.
+    `cache_enabled` is accepted for parity and read by nothing."""
+
+    enabled: bool = True
+    cache_enabled: Optional[bool] = None
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """What `torch.distributed.init_process_group` gets when the
+    `PartialState` builds the process group (JAX's fields). `timeout` is the
+    group's collective timeout, 1800 s by default as in JAX; `backend`
+    None takes the port's choice (NCCL on the card, gloo on the CPU);
+    `init_method` None takes the launcher's variables (``env://``)."""
+
+    backend: Optional[str] = None
+    init_method: Optional[str] = None
+    timeout: Optional[timedelta] = None
+
+    def __post_init__(self):
+        if self.timeout is None:
+            self.timeout = timedelta(seconds=1800)
+
+
+@dataclass
+class DistributedDataParallelKwargs(KwargsHandler):
+    """Accepted for parity with JAX's DDP kwargs, which accepts them from the
+    reference's scripts and reads none. The port's data parallel is
+    `parallel/fsdp.py`'s flat all-reduce of the gradients once a step, not
+    torch's `DistributedDataParallel`: there are no buckets to size, no
+    unused parameters to find and no graph to keep static, so no field here
+    changes anything."""
+
+    dim: int = 0
+    broadcast_buffers: bool = True
+    bucket_cap_mb: int = 25
+    find_unused_parameters: bool = False
+    check_reduction: bool = False
+    gradient_as_bucket_view: bool = False
+    static_graph: bool = False
+
+
+class RNGType(str, enum.Enum):
+    """The generators that `utils.random.synchronize_rng_states` brings into
+    agreement across processes: Python's, numpy's, a loader's sampler
+    (``generator``) and torch's default generator. JAX's list has ``jax``
+    in the last place, a no-op there because its keys agree across
+    processes by construction; a torch generator holds state in each
+    process, so its counterpart, ``torch``, broadcasts process 0's state."""
+
+    PYTHON = "python"
+    NUMPY = "numpy"
+    TORCH = "torch"
+    GENERATOR = "generator"
+
+    def __str__(self):
+        return self.value
+
+
+@dataclass
+class GradScalerKwargs(KwargsHandler):
     """Dynamic loss scaling for ``mixed_precision="fp16"``, with the JAX
     package's defaults; passed to `Accelerator(kwargs_handlers=[...])`."""
 
@@ -85,7 +164,7 @@ class GradScalerKwargs:
 
 
 @dataclass
-class FP8RecipeKwargs:
+class FP8RecipeKwargs(KwargsHandler):
     """The fp8 recipe of ``mixed_precision="fp8"``, with the JAX package's
     fields, defaults and checks; passed to `Accelerator(kwargs_handlers=[...])`.
     `fp8_format` "HYBRID" takes the backward's gradients in e5m2, "E4M3"
@@ -133,6 +212,29 @@ class ProjectConfiguration:
 
     def __post_init__(self):
         self.set_directories(self.project_dir)
+
+
+@dataclass
+class DataLoaderConfiguration:
+    """How `Accelerator.prepare` wraps a loader, with JAX's fields and
+    defaults. `dispatch_batches`: process 0 reads each global batch and
+    sends every process its rows (`data_loader.DataLoaderDispatcher`; None
+    means so for an iterable dataset across processes). `split_batches`:
+    the loader's batch is the global batch, cut across the processes.
+    `even_batches`: the last global batch is topped up so every process
+    gets a full one (`gather_for_metrics` cuts the repeats).
+    `use_seedable_sampler`: a torch loader's `RandomSampler` becomes a
+    `SeedableRandomSampler`. `non_blocking`, `prefetch_size` and
+    `drop_last` are accepted for parity: the port moves each batch when it
+    is taken, with no prefetch thread."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = True
+    non_blocking: bool = True
+    prefetch_size: int = 2
+    drop_last: Optional[bool] = None
 
 
 @dataclass
@@ -203,7 +305,7 @@ class ParallelismConfig:
 
 
 #: What the port has not taken of the plugin yet, and where it waits.
-_OFFLOAD_WAITS = "host and NVMe offload wait for ROADMAP A item 5 (MPMD pipelines and offload tiers)"
+_OFFLOAD_WAITS = "host and NVMe offload wait for ROADMAP A item 4, offload tiers"
 
 
 @dataclass

@@ -360,9 +360,47 @@ prints no result):
        its weights equal the gathered FULL_SHARD ones bit for bit.
        Reported: save and load seconds, and bytes.
 
+15. The user's surface, run after phase 14: the rest of JAX's one-process
+    `Accelerator`, driven as a user's script drives it, on Llama-1B at full
+    width and depth (random weights from seed 0, bf16, batch 2 x 2048, AdamW
+    with decay 1e-4).
+   (a) ``Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2,
+       step_scheduler_with_optimizer=True, dataloader_config=
+       DataLoaderConfiguration(dispatch_batches=True), rng_types=[python,
+       numpy, generator, torch], kwargs_handlers=[AutocastKwargs(),
+       InitProcessGroupKwargs(timeout=5 min)])``, `prepare` of the model,
+       the optimizer, a loader of 8 distinct batches and ``lr / (1 + step)``,
+       then 4 optimizer steps of `accumulate` -> `backward` ->
+       `clip_grad_value_(1.0)` -> `optimizer.step()` -> `scheduler.step()`.
+       Gates: the `DataLoaderDispatcher` was prepared; after each optimizer
+       step the scheduler's count and the optimizer's lr are the schedule's
+       at JAX's count (one a step at one process); K3, K4 and K5 launched
+       16 x 8 times each, in bf16; the same loop over the plain
+       `DataLoaderShard` (``dispatch_batches=False``) gives the same losses
+       bit for bit. Inside ``autocast(AutocastKwargs(enabled=False))`` one
+       forward's logits equal bit for bit those of the same module prepared
+       with ``mixed_precision="no"``, and both ran the f32 K3
+       (`flash_fwd_kernel`), 16 launches each.
+   (b) `save_model` of the trained masters at ``max_shard_size="2GB"`` into
+       a temporary directory (removed however the phase ends): seconds,
+       bytes and shards reported; the shards read back through the port's
+       reader into a fresh model give the same logits bit for bit.
+   (c) The memory twin's loop (`examples/by_feature/memory.py`) on
+       Llama-1B bf16 from batch 64 x 2048: each attempt's batch size, the
+       error `is_oom_exception` caught (a real CUDA out-of-memory error),
+       `torch.cuda.memory_allocated()` before and after each
+       `free_memory`, and the size found. Gates: the sizes halve from 64,
+       every error caught is one, each `free_memory` brings the allocated
+       bytes back within 64 MiB of the phase's start, and the size found
+       trains a step to a finite loss.
+   (d) The twins: `cv_example` in bf16 for 3 epochs (accuracy above 0.5, as
+       JAX's script asserts), `early_stopping` with patience 1 (it stops,
+       and its trigger is clear after), `tracking` with the JSON tracker
+       (its records are the logged epochs).
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
-and phase 13 alone, `--dist-only` the build and phase 14 alone (none prints a
-result line).
+and phase 13 alone, `--dist-only` the build and phase 14 alone,
+`--surface-only` the build and phase 15 alone (none prints a result line).
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -4315,6 +4353,317 @@ def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, 
     return report
 
 
+# ------------------------------------------------------------------ phase 15: the user's surface
+SURFACE = dict(batch=2, accumulation=2, optimizer_steps=4, clip_value=1.0, shard_size="2GB", oom_start=64,
+               memory_slack_bytes=64 * 2**20)
+SURFACE_RNG_TYPES = ["python", "numpy", "generator", "torch"]
+
+
+def surface_schedule(step):
+    """Phase 15's learning rate: ``TRAIN_LR / (1 + step)``."""
+    return TRAIN_LR / (1 + step)
+
+
+def surface_loader(vocab, batch, micro_steps, seq, seed=15):
+    """A `SimpleDataLoader` over `micro_steps` batches of `batch` distinct
+    token rows from numpy `seed`."""
+    from accelerate_tpu_torch import BatchSampler, SimpleDataLoader
+
+    rows = np.random.default_rng(seed).integers(0, vocab, (batch * micro_steps, seq)).astype(np.int64)
+    data = [{"input_ids": rows[i]} for i in range(len(rows))]
+    return SimpleDataLoader(data, BatchSampler(range(len(data)), batch))
+
+
+class flash_dtypes:
+    """Records (kernel, dtype) of each flash kernel launch in the block, as
+    `ops/flash_attention._run` makes it."""
+
+    def __enter__(self):
+        from accelerate_tpu_torch.ops import flash_attention as fa
+
+        self.fa, self.real, self.seen = fa, fa._run, []
+
+        def run(kind, *args):
+            self.seen.append((kind, str(args[0].dtype).split(".")[-1]))
+            return self.real(kind, *args)
+
+        fa._run = run
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.fa._run = self.real
+        return False
+
+
+def surface_accelerator(device, dispatch, accumulation):
+    """Phase 15's `Accelerator`, built as a user's script builds it."""
+    from datetime import timedelta
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        AutocastKwargs,
+        DataLoaderConfiguration,
+        InitProcessGroupKwargs,
+    )
+
+    reset_port_state()
+    return Accelerator(mixed_precision="bf16", cpu=device.type == "cpu", gradient_accumulation_steps=accumulation,
+                       step_scheduler_with_optimizer=True,
+                       dataloader_config=DataLoaderConfiguration(dispatch_batches=dispatch),
+                       rng_types=list(SURFACE_RNG_TYPES),
+                       kwargs_handlers=[AutocastKwargs(), InitProcessGroupKwargs(timeout=timedelta(minutes=5))])
+
+
+def surface_run(device, config, dispatch, seq, batch, accumulation, optimizer_steps, clip_value):
+    """Phase 15 (a): `optimizer_steps` x `accumulation` micro-steps of
+    `accumulate` -> `backward` -> `clip_grad_value_` -> `optimizer.step()`
+    -> `scheduler.step()`. Returns (the accelerator, the prepared model,
+    the first batch, the report)."""
+    from accelerate_tpu_torch import create_llama_model
+    from accelerate_tpu_torch.data_loader import DataLoaderDispatcher, DataLoaderShard
+
+    free_memory(device)
+    acc = surface_accelerator(device, dispatch, accumulation)
+    model = create_llama_model(config, seed=0, device=device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                  weight_decay=TRAIN_WD)
+    pmodel, optimizer, loader, scheduler = acc.prepare(
+        model, optimizer, surface_loader(config.vocab_size, batch, accumulation * optimizer_steps, seq),
+        surface_schedule)
+    kind = DataLoaderDispatcher if dispatch else DataLoaderShard
+    if not isinstance(loader, kind):
+        raise RuntimeError(f"dispatch_batches={dispatch} prepared a {type(loader).__name__}, not a {kind.__name__}")
+    losses, steps, first = [], [], None
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    for b in loader:
+        first = b if first is None else first
+        with acc.accumulate(pmodel):
+            loss = acc.backward(pmodel.loss, b)
+            acc.clip_grad_value_(clip_value=clip_value)
+            optimizer.step()
+            scheduler.step()
+            optimizer.zero_grad()
+        losses.append(float(loss))
+        if acc.sync_gradients:
+            steps.append({"step_count": scheduler.step_count, "lr": scheduler.get_last_lr()[0],
+                          "optimizer_lr": optimizer.learning_rate})
+    report = {"loader": type(loader).__name__, "losses": losses, "steps": steps, "launches": launch_counts(),
+              "seconds": time.perf_counter() - t0}
+    return acc, pmodel, first, report
+
+
+def surface_training(device, config, seq, batch, accumulation, optimizer_steps, clip_value, shard_size):
+    """Phase 15 (a) and (b)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import Accelerator, AutocastKwargs, checkpointing, create_llama_model
+
+    layers, micro = config.num_hidden_layers, accumulation * optimizer_steps
+    report = {"layers": layers, "batch": batch, "seq": seq, "accumulation": accumulation,
+              "optimizer_steps": optimizer_steps, "clip_value": clip_value}
+    acc, pmodel, first, dispatched = surface_run(device, config, True, seq, batch, accumulation, optimizer_steps,
+                                                  clip_value)
+    want = [{"step_count": k, "lr": surface_schedule(k), "optimizer_lr": surface_schedule(k)}
+            for k in range(1, optimizer_steps + 1)]
+    report["dispatcher"] = dispatched
+    report["lr_at_jax_count"] = dispatched["steps"] == want
+    log(f"[surface] (a) dispatcher: {json.dumps(dispatched)}")
+    if not report["lr_at_jax_count"]:
+        raise RuntimeError(f"scheduler steps {dispatched['steps']}, JAX's rule gives {want}")
+    if not all(np.isfinite(dispatched["losses"])):
+        raise RuntimeError(f"non-finite losses {dispatched['losses']}")
+    if device.type == "cuda" and dispatched["launches"] != {**{k: 0 for k in launch_counts()},
+                                                           **expected_launches(layers * micro, torch.bfloat16)}:
+        raise RuntimeError(f"launches {dispatched['launches']}, expected K3-K5 {layers} x {micro} each in bf16")
+    ids = first["input_ids"][:1]
+
+    # (b) save_model, then the shards read back into a fresh model.
+    directory = tempfile.mkdtemp(prefix="chip_smoke_save_model_")
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        acc.save_model(pmodel, directory, max_shard_size=shard_size)
+        save_s = time.perf_counter() - t0
+        files = sorted(os.listdir(directory))
+        nbytes = sum(os.path.getsize(os.path.join(directory, f)) for f in files)
+        t0 = time.perf_counter()
+        fresh = create_llama_model(config, seed=1, device=device)
+        fresh.load_state_dict(checkpointing.load_model_safetensors(directory))
+        sync(device)
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            original, loaded = pmodel.module(ids), fresh(ids)
+        round_trip = bool(torch.equal(original, loaded))
+        del fresh, original, loaded
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    shards = [f for f in files if f.endswith(".safetensors")]
+    report["save_model"] = {"max_shard_size": shard_size, "seconds": save_s, "load_seconds": load_s, "bytes": nbytes,
+                            "shards": len(shards), "files": files, "round_trip_bit_for_bit": round_trip}
+    log(f"[surface] (b) save_model {json.dumps(report['save_model'])}")
+    if not round_trip or not shards:
+        raise RuntimeError(f"save_model round trip failed: {report['save_model']}")
+
+    # (a) autocast off: the f32 masters without the casts, as a "no" model computes.
+    reset_launch_counts()
+    with torch.no_grad(), flash_dtypes() as seen:
+        with acc.autocast(AutocastKwargs(enabled=False)):
+            off = pmodel(ids)
+        restored = pmodel.autocast_enabled
+        reset_port_state()
+        plain = Accelerator(mixed_precision="no", cpu=device.type == "cpu").prepare(pmodel.module)(ids)
+    off_launches = [kind for kind, dtype in seen if dtype == "float32"]
+    report["autocast_off"] = {"logits_dtype": str(off.dtype), "bit_for_bit_with_no": bool(torch.equal(off, plain)),
+                              "restored": restored, "f32_launches": {k: off_launches.count(k) for k in set(off_launches)},
+                              "launch_dtypes": sorted(set(dtype for _, dtype in seen))}
+    log(f"[surface] (a) autocast off {json.dumps(report['autocast_off'])}")
+    if not report["autocast_off"]["bit_for_bit_with_no"] or not restored or off.dtype != torch.float32:
+        raise RuntimeError(f"autocast off: {report['autocast_off']}")
+    if device.type == "cuda" and off_launches != ["flash_fwd"] * (2 * layers):
+        raise RuntimeError(f"autocast off: f32 flash launches {seen}, expected flash_fwd {layers} x 2 (off and 'no')")
+    del acc, pmodel, first, off, plain, ids
+    free_memory(device)
+
+    _, _, _, sharded = surface_run(device, config, False, seq, batch, accumulation, optimizer_steps, clip_value)
+    report["shard_loader"] = sharded
+    report["losses_bit_for_bit"] = sharded["losses"] == dispatched["losses"]
+    log(f"[surface] (a) shard loader: {json.dumps(sharded)}")
+    if not report["losses_bit_for_bit"] or sharded["steps"] != dispatched["steps"]:
+        raise RuntimeError(f"the dispatcher's losses {dispatched['losses']} are not the shard loader's "
+                           f"{sharded['losses']}")
+    free_memory(device)
+    return report
+
+
+def surface_oom(device, config, seq, start, slack, cpu_oom_above=None):
+    """Phase 15 (c): the memory twin's loop on Llama-1B bf16 from batch
+    `start` x `seq`. On the CPU (a rehearsal) nothing runs out of memory:
+    `cpu_oom_above` makes the build raise `torch.cuda.OutOfMemoryError` for
+    larger batches, as the caching allocator would."""
+    from accelerate_tpu_torch import Accelerator, create_llama_model
+    from accelerate_tpu_torch.examples.by_feature.memory import executable_batch_size_loop
+    from accelerate_tpu_torch.utils import memory
+
+    if cpu_oom_above is not None and device.type == "cuda":
+        raise ValueError("cpu_oom_above stands in for the allocator on the CPU only")
+    on_card = device.type == "cuda"
+    allocated = (lambda: torch.cuda.memory_allocated(device)) if on_card else (lambda: None)
+    reset_port_state()
+    free_memory(device)
+    acc = Accelerator(mixed_precision="bf16", cpu=not on_card)
+    base = allocated()
+    attempts, caught = [], []
+    real_free, real_is_oom = acc.free_memory, memory.is_oom_exception
+
+    def free_and_measure(*objects):
+        before = allocated()
+        out = real_free(*objects)
+        attempts.append({"before_free_memory": before, "after_free_memory": allocated()})
+        return out
+
+    def is_oom(e):
+        caught.append({"error": type(e).__name__, "message": str(e).splitlines()[0][:160], "oom": real_is_oom(e)})
+        return caught[-1]["oom"]
+
+    def build(batch_size):
+        attempts[-1]["batch_size"] = batch_size
+        if cpu_oom_above is not None and batch_size > cpu_oom_above:
+            raise torch.cuda.OutOfMemoryError(f"CUDA out of memory. Tried to allocate a batch of {batch_size}")
+        model = create_llama_model(config, seed=0, device=device)
+        optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                      weight_decay=TRAIN_WD)
+        return model, optimizer, repeated_batch_loader(config.vocab_size, batch_size, 1, seq)
+
+    acc.free_memory, memory.is_oom_exception = free_and_measure, is_oom
+    t0 = time.perf_counter()
+    try:
+        found, loss = executable_batch_size_loop(acc, start, build, epochs=1)
+    finally:
+        acc.free_memory, memory.is_oom_exception = real_free, real_is_oom
+    seconds = time.perf_counter() - t0
+    acc.free_memory()
+    report = {"start": start, "seq": seq, "base_allocated": base, "attempts": attempts, "caught": caught,
+              "found": found, "loss": loss, "seconds": seconds, "slack_bytes": slack}
+    log(f"[surface] (c) find_executable_batch_size {json.dumps(report)}")
+    sizes = [a["batch_size"] for a in attempts]
+    if sizes != [start >> i for i in range(len(sizes))] or found != sizes[-1] or len(caught) != len(sizes) - 1:
+        raise RuntimeError(f"batch sizes tried {sizes}, found {found}, errors {caught}")
+    if not caught or not all(c["oom"] and c["error"] == "OutOfMemoryError" for c in caught):
+        raise RuntimeError(f"no out-of-memory error was caught, or one was not taken as one: {caught}")
+    if not np.isfinite(loss):
+        raise RuntimeError(f"batch {found} trained to a non-finite loss {loss}")
+    if on_card and any(a["after_free_memory"] - base > slack for a in attempts):
+        raise RuntimeError(f"free_memory left more than {slack} bytes over the phase's start {base}: {attempts}")
+    free_memory(device)
+    return report
+
+
+def surface_twins(device, cv_args=(), early_args=(), tracking_args=()):
+    """Phase 15 (d): the example twins."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.examples import cv_example
+    from accelerate_tpu_torch.examples.by_feature import early_stopping, tracking
+
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    report = {}
+    reset_port_state()
+    t0 = time.perf_counter()
+    args = cv_example.parse_args([*cv_args, *cpu])
+    accuracy = cv_example.training_function(args)
+    report["cv_example"] = {"mixed_precision": args.mixed_precision, "epochs": args.epochs, "history": args.history,
+                            "accuracy": accuracy, "seconds": time.perf_counter() - t0}
+    reset_port_state()
+    t0 = time.perf_counter()
+    early = early_stopping.training_function(early_stopping.parse_args(["--patience", "1", *early_args, *cpu]))
+    report["early_stopping"] = dict(early, seconds=time.perf_counter() - t0)
+    reset_port_state()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_tracking_")
+    try:
+        t0 = time.perf_counter()
+        logged = tracking.training_function(tracking.parse_args(["--log_with", "json", "--output_dir", directory,
+                                                                 *tracking_args, *cpu]))
+        with open(os.path.join(directory, "tracking_example", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    report["tracking"] = {"logged": logged, "records": len(records), "seconds": time.perf_counter() - t0}
+    reset_port_state()
+    log(f"[surface] (d) twins {json.dumps(report)}")
+    if not accuracy > 0.5:
+        raise RuntimeError(f"cv_example accuracy {accuracy} (JAX's script asserts > 0.5)")
+    if early["stopped_at"] is None or early["trigger_after"] is not False:
+        raise RuntimeError(f"early stopping did not stop and reset its trigger: {early}")
+    if len(records) != len(logged) or [r["epoch"] for r in records] != [v["epoch"] for v in logged]:
+        raise RuntimeError(f"the tracking twin logged {records}, not {logged}")
+    return report
+
+
+def surface_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=SURFACE, cpu_oom_above=None, cv_args=(),
+                  early_args=(), tracking_args=()):
+    """Phase 15: the user's surface."""
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    config = MODEL_REGISTRY[model_name]()
+    report = {"model": model_name}
+    t0 = time.perf_counter()
+    report["training"] = surface_training(device, config, seq, shape["batch"], shape["accumulation"],
+                                          shape["optimizer_steps"], shape["clip_value"], shape["shard_size"])
+    log(f"[time] surface (a, b) training and save_model {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["oom"] = surface_oom(device, config, seq, shape["oom_start"], shape["memory_slack_bytes"],
+                                cpu_oom_above=cpu_oom_above)
+    log(f"[time] surface (c) find_executable_batch_size {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["twins"] = surface_twins(device, cv_args, early_args, tracking_args)
+    log(f"[time] surface (d) twins {time.perf_counter() - t0:.1f}s")
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -4436,6 +4785,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dist-only", action="store_true",
                         help="run only the build and phase 14 (data parallel and FSDP/ZeRO through NCCL at "
                              "world 1; prints no result line)")
+    parser.add_argument("--surface-only", action="store_true",
+                        help="run only the build and phase 15 (the user's surface on Llama-1B and the example "
+                             "twins; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -4480,6 +4832,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[dist] summary: {json.dumps(dist_phase(device))}")
         log(f"[time] dist phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.surface_only:
+        t0 = time.perf_counter()
+        log(f"[surface] summary: {json.dumps(surface_phase(device))}")
+        log(f"[time] surface phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -4541,6 +4899,11 @@ def main(argv=None) -> int:
     log(f"[time] dist phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
     t0 = time.perf_counter()
+    surface = surface_phase(device)
+    log(f"[surface] summary: {json.dumps(surface)}")
+    log(f"[time] surface phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
     bert = bert_phase(device, profile=args.profile)
     log(f"[bert] summary: {json.dumps(bert)}")
     log(f"[time] bert phase {time.perf_counter() - t0:.1f}s")
@@ -4584,8 +4947,12 @@ def main(argv=None) -> int:
     # the families at each head dim
     wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"], 128: mixtral_train}
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
-    # Llama-1B's bf16 K3-K5 run under bf16 and under fp8 (whose attention is bf16).
-    bf16_launches = {k: v + fp8["training"]["launches"][k] for k, v in training["bf16"]["launches"].items()}
+    # Llama-1B's bf16 K3-K5 run under bf16, under fp8 (whose attention is
+    # bf16) and in phase 15's eager loops (the dispatcher's and the shard
+    # loader's).
+    surface_runs = (surface["training"]["dispatcher"], surface["training"]["shard_loader"])
+    bf16_launches = {k: v + fp8["training"]["launches"][k] + sum(r["launches"][k] for r in surface_runs)
+                     for k, v in training["bf16"]["launches"].items()}
     rows += flash_rows(flash, bf16_launches, training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
     for d, shape in FAMILY_FLASH_SHAPES.items():

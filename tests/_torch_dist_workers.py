@@ -1,5 +1,6 @@
 """Worker functions for the port's multi-process tests
-(`tests/test_torch_distributed.py`, `tests/test_torch_distributed_hybrid.py`).
+(`tests/test_torch_distributed.py`, `tests/test_torch_distributed_hybrid.py`,
+`tests/test_torch_surface_distributed.py`).
 
 Each runs in a process `accelerate_tpu_torch.launchers.debug_launcher`
 spawns (gloo on the CPU, one torch thread), reads the inputs the test wrote
@@ -293,5 +294,288 @@ def world4(in_dir, out_dir):
     out = {}
     for strategy in ("HYBRID_SHARD", "HYBRID_SHARD_ZERO2"):
         out["train", strategy] = train(inputs, strategy, mesh=(2, 2))
+    _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+# ------------------------------------------------------------------ the Accelerator's surface
+SCHEDULER_STEPS = 3
+
+
+def schedule(step):
+    return 1.0 / (1 + step)
+
+
+def scheduler_run(split_batches=False, step_with_optimizer=True):
+    """`SCHEDULER_STEPS` optimizer steps of a one-weight model under
+    ``1 / (1 + step)``; without `step_with_optimizer` two micro-steps a sync,
+    with a scheduler step after each. Returns (step_count, lr) after each
+    optimizer step."""
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader
+
+    _reset()
+    accumulation = 1 if step_with_optimizer else 2
+    acc = Accelerator(cpu=True, split_batches=split_batches, step_scheduler_with_optimizer=step_with_optimizer,
+                      gradient_accumulation_steps=accumulation)
+    model = torch.nn.Linear(1, 1)
+    rows = [{"x": np.float32([i])} for i in range(4 * SCHEDULER_STEPS * accumulation)]
+    loader = SimpleDataLoader(rows, BatchSampler(range(len(rows)), 4 if split_batches else 2))
+    pmodel, opt, loader, sched = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=1.0), loader, schedule)
+    seen = []
+    for batch in loader:
+        with acc.accumulate(pmodel):
+            acc.backward(lambda b: pmodel(b["x"]).sum(), batch)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        if acc.sync_gradients:
+            seen.append((sched.step_count, sched.get_last_lr()[0], opt.learning_rate))
+    return seen
+
+
+def trigger():
+    """Rank 1 alone raises the trigger: every rank sees it once."""
+    from accelerate_tpu_torch import Accelerator
+
+    _reset()
+    acc = Accelerator(cpu=True)
+    before = acc.check_trigger()
+    if acc.process_index == 1:
+        acc.set_trigger()
+    return [before, acc.check_trigger(), acc.check_trigger()]
+
+
+def rng_states(generator, gen2):
+    import random
+
+    return {"python": random.random(), "numpy": float(np.random.rand()), "torch": float(torch.rand(1)),
+            "sampler": generator.state_dict(), "generator": float(torch.rand(1, generator=gen2))}
+
+
+def rng_sync():
+    """Each rank seeds its generators by its rank; after
+    `synchronize_rng_states` every rank draws rank 0's numbers. Then a
+    loader prepared with ``rng_types=["generator"]`` over a sampler seeded
+    by rank: its first pass shares rank 0's permutation."""
+    import random
+
+    from accelerate_tpu_torch import Accelerator, BatchSampler, SeedableRandomSampler, SimpleDataLoader
+    from accelerate_tpu_torch.utils.random import synchronize_rng_states
+
+    _reset()
+    rank = int(os.environ["RANK"])
+    acc = Accelerator(cpu=True)
+
+    def seed_all():
+        random.seed(100 + rank)
+        np.random.seed(200 + rank)
+        torch.manual_seed(300 + rank)
+        gen2 = torch.Generator()
+        gen2.manual_seed(400 + rank)
+        return SeedableRandomSampler(num_samples=16, seed=500 + rank, epoch=rank), gen2
+
+    sampler, gen2 = seed_all()
+    unsynced = rng_states(sampler, gen2)
+    sampler, gen2 = seed_all()
+    synchronize_rng_states(["python", "numpy", "torch", "generator"], sampler)
+    synchronize_rng_states(["generator"], gen2)
+    synced = rng_states(sampler, gen2)
+    rows = [{"i": np.int64(i)} for i in range(16)]
+    _reset()
+    acc = Accelerator(cpu=True, rng_types=["generator"])
+    loader = acc.prepare(SimpleDataLoader(rows, BatchSampler(SeedableRandomSampler(num_samples=16, seed=500 + rank), 4)))
+    batches = [b["i"].tolist() for b in loader]
+    return {"unsynced": unsynced, "synced": synced, "loader": batches}
+
+
+def dispatch(split_batches, even_batches=True, skip=0):
+    """A `DataLoaderDispatcher` (``dispatch_batches=True``) over 27 samples,
+    batch 4 a process (8 global with `split_batches`): each rank's batches,
+    their `gather_for_metrics`, and the remainder seen."""
+    from accelerate_tpu_torch import Accelerator, BatchSampler, DataLoaderConfiguration, SimpleDataLoader
+    from accelerate_tpu_torch.data_loader import DataLoaderDispatcher
+
+    _reset()
+    acc = Accelerator(cpu=True, dataloader_config=DataLoaderConfiguration(
+        dispatch_batches=True, split_batches=split_batches, even_batches=even_batches))
+    rows = [{"x": np.arange(3, dtype=np.float32) + 10 * i, "y": np.int64(i)} for i in range(27)]
+    loader = acc.prepare(SimpleDataLoader(rows, BatchSampler(range(27), 8 if split_batches else 4)))
+    assert isinstance(loader, DataLoaderDispatcher)
+    if skip:
+        loader = acc.skip_first_batches(loader, skip)
+    out = {"len": len(loader), "batches": [], "gathered": []}
+    for batch in loader:
+        out["batches"].append({k: v.numpy() for k, v in batch.items()})
+        out["gathered"].append(acc.gather_for_metrics(batch["y"]).numpy())
+    return out
+
+
+class _Counting(torch.utils.data.IterableDataset):
+    def __iter__(self):
+        return iter(torch.arange(20).tolist())
+
+
+def iterable_dispatch():
+    """A torch loader over an iterable dataset is dispatched by default
+    across processes, as JAX decides: each rank's batches."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.data_loader import DataLoaderDispatcher
+
+    _reset()
+    acc = Accelerator(cpu=True)
+    loader = acc.prepare(torch.utils.data.DataLoader(_Counting(), batch_size=4))
+    return {"dispatcher": isinstance(loader, DataLoaderDispatcher), "batches": [b.tolist() for b in loader]}
+
+
+def ordering(out_dir):
+    """`local_main_process_first`: the local main process runs the body,
+    slowly, before the other enters; each writes on entering and leaving."""
+    import time
+
+    from accelerate_tpu_torch import Accelerator
+
+    _reset()
+    acc = Accelerator(cpu=True)
+    path = os.path.join(out_dir, "order.txt")
+    with acc.local_main_process_first():
+        with open(path, "a") as f:
+            f.write(f"enter {acc.process_index}\n")
+        if acc.is_local_main_process:
+            time.sleep(0.5)
+        with open(path, "a") as f:
+            f.write(f"leave {acc.process_index}\n")
+    acc.wait_for_everyone()
+    calls = []
+    acc.on_local_main_process(lambda: calls.append("local main"))()
+    acc.state._partial.on_last_process(lambda: calls.append("last"))()
+    return calls
+
+
+def logger_output(out_dir):
+    """`get_logger`'s adapter: a line for the main process only, then one
+    with ``main_process_only=False, in_order=True`` (every process logs it),
+    each process writing its own file."""
+    import logging
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.logging import get_logger
+
+    _reset()
+    acc = Accelerator(cpu=True)
+    logger = get_logger("surface.dist", log_level="INFO")
+    handler = logging.FileHandler(os.path.join(out_dir, f"log{acc.process_index}.txt"))
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    logger.logger.addHandler(handler)
+    try:
+        logger.info("main only")
+        logger.info("every process %d", acc.process_index, main_process_only=False, in_order=True)
+    finally:
+        logger.logger.removeHandler(handler)
+        handler.close()
+    acc.wait_for_everyone()
+    return True
+
+
+CLIP_ROWS = dict(n=24, seq=16, seed=7, global_batch=8)
+
+
+def clip_rows():
+    c = CLIP_ROWS
+    ids = np.random.default_rng(c["seed"]).integers(0, 512, (c["n"], c["seq"])).astype(np.int64)
+    return [{"input_ids": ids[i]} for i in range(c["n"])]
+
+
+def clip_value_run(strategy, clip_value=2e-3):
+    """3 eager AdamW steps of `llama_tiny` (seed 0) with `clip_grad_value_`
+    before each, over the global batches of `clip_rows` (`split_batches`):
+    the losses and, on rank 0, the whole weights."""
+    from accelerate_tpu_torch import BatchSampler, SimpleDataLoader
+    from accelerate_tpu_torch.models import llama
+
+    acc = _accelerator(strategy, split_batches=True)
+    model = llama.create_llama_model(llama.llama_tiny(), seed=0, device="cpu")
+    pmodel, opt, loader = acc.prepare(model, _adamw(model), SimpleDataLoader(
+        clip_rows(), BatchSampler(range(CLIP_ROWS["n"]), CLIP_ROWS["global_batch"])))
+    losses = []
+    for batch in loader:
+        with acc.accumulate(pmodel):
+            losses.append(acc.backward(pmodel.loss, batch).item())
+            acc.clip_grad_value_(clip_value=clip_value)
+            opt.step()
+            opt.zero_grad()
+    weights = pmodel.full_state_dict()
+    return {"losses": losses, "weights": weights if acc.is_main_process else None}
+
+
+def save_model_run(out_dir):
+    """`save_model` of `llama_tiny` at world 2: data parallel and FULL_SHARD
+    with FULL_STATE_DICT write (rank 0) what the model holds whole, in
+    shards; FULL_SHARD's default SHARDED_STATE_DICT raises. Then the
+    autocast policy under FULL_SHARD: `autocast()` cannot toggle it, an
+    `AutocastKwargs(enabled=False)` handler runs its forward in f32."""
+    from accelerate_tpu_torch import AutocastKwargs, checkpointing
+    from accelerate_tpu_torch.models import llama
+
+    out = {}
+    for strategy, state_dict_type in ((None, None), ("FULL_SHARD", "FULL_STATE_DICT"),
+                                      ("FULL_SHARD", "SHARDED_STATE_DICT")):
+        tag = f"{strategy}-{state_dict_type}"
+        acc = _accelerator(strategy)
+        if state_dict_type is not None:
+            acc.state.fsdp_plugin.state_dict_type = state_dict_type
+        pmodel = acc.prepare(llama.create_llama_model(llama.llama_tiny(), seed=0, device="cpu"))
+        directory = os.path.join(out_dir, "save_model", tag)
+        try:
+            acc.save_model(pmodel, directory, max_shard_size="300KB")
+        except NotImplementedError as e:
+            out[tag] = str(e)
+            continue
+        whole = pmodel.full_state_dict()
+        written = checkpointing.load_model_safetensors(directory) if acc.is_main_process else whole
+        out[tag] = {"files": sorted(os.listdir(directory)) if acc.is_main_process else None,
+                    "equal": all(torch.equal(written[k], v) for k, v in whole.items()) and written.keys() == whole.keys()}
+    acc = _accelerator(None)
+    pmodel = acc.prepare(llama.create_llama_model(llama.llama_tiny(), seed=0, device="cpu"))
+    calls, path = [], os.path.join(out_dir, "hooked_state")
+    acc.register_save_state_pre_hook(lambda models, w, d: calls.append(("save", models == [pmodel], w, d == path)))
+    acc.register_load_state_pre_hook(lambda models, d: calls.append(("load", models == [pmodel], os.path.samefile(d, path))))
+    acc.save_state(path)
+    acc.load_state(path)
+    out["hooks"] = calls
+    acc = _accelerator("FULL_SHARD", mixed_precision="bf16")
+    pmodel = acc.prepare(llama.create_llama_model(llama.llama_tiny(), seed=0, device="cpu"))
+    try:
+        with acc.autocast(AutocastKwargs(enabled=False)):
+            pass
+        out["toggle"] = "no-error"
+    except NotImplementedError as e:
+        out["toggle"] = str(e)
+    acc = _accelerator("FULL_SHARD", mixed_precision="bf16", kwargs_handlers=[AutocastKwargs(enabled=False)])
+    pmodel = acc.prepare(llama.create_llama_model(llama.llama_tiny(), seed=0, device="cpu"))
+    ids = torch.as_tensor(clip_rows()[0]["input_ids"])[None]
+    with torch.no_grad():
+        logits = pmodel(ids)
+    plain = llama.create_llama_model(llama.llama_tiny(), seed=0, device="cpu")
+    with torch.no_grad():
+        out["f32_forward"] = bool(torch.allclose(logits, plain(ids), rtol=1e-5, atol=1e-5))
+    return out
+
+
+def surface2(in_dir, out_dir):
+    """Every scenario of `tests/test_torch_surface_distributed.py`, in order."""
+    out = {
+        "clip": {strategy or "none": clip_value_run(strategy)
+                 for strategy in (None, "NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD")},
+        "save_model": save_model_run(out_dir),
+        "scheduler": {"default": scheduler_run(), "split": scheduler_run(split_batches=True),
+                      "per_call": scheduler_run(step_with_optimizer=False)},
+        "trigger": trigger(),
+        "rng": rng_sync(),
+        "dispatch": {"plain": dispatch(False), "split": dispatch(True), "uneven": dispatch(False, even_batches=False),
+                     "skip": dispatch(False, skip=2)},
+        "iterable": iterable_dispatch(),
+        "ordering": ordering(out_dir),
+        "logger": logger_output(out_dir),
+    }
     _reset()
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))

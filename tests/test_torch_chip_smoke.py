@@ -865,3 +865,79 @@ def test_dist_only_refuses_without_a_card_and_is_a_known_flag():
     usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "--dist-only" in usage.stdout
+
+
+SURFACE_CPU = dict(chip_smoke.SURFACE, oom_start=8, shard_size="300KB")
+SURFACE_TWINS = dict(cv_args=["--mixed_precision", "no"],
+                     early_args=["--mixed_precision", "no", "--train_size", "64", "--eval_size", "32", "--epochs", "6"],
+                     tracking_args=["--train_size", "64"])
+
+
+def test_surface_phase_rehearses_on_the_cpu():
+    """Phase 15 at llama_tiny on the CPU (about 6 s): the dispatcher's
+    losses equal the shard loader's bit for bit, the lr follows JAX's count,
+    `save_model` writes several shards that read back bit for bit, the
+    autocast-off logits equal the "no" model's, the batch-size search halves
+    from 8 past two stand-in out-of-memory errors and trains at 2, and the
+    twins pass (cv_example above 0.5, early stopping stops and clears its
+    trigger, the tracker's records are the logged epochs)."""
+    report = chip_smoke.surface_phase(torch.device("cpu"), "llama-tiny", seq=64, shape=SURFACE_CPU, cpu_oom_above=2,
+                                      **SURFACE_TWINS)
+    training = report["training"]
+    assert training["dispatcher"]["loader"] == "DataLoaderDispatcher"
+    assert training["shard_loader"]["loader"] == "DataLoaderShard"
+    assert training["losses_bit_for_bit"] and training["lr_at_jax_count"]
+    assert [s["step_count"] for s in training["dispatcher"]["steps"]] == [1, 2, 3, 4]
+    assert len(training["dispatcher"]["losses"]) == 8
+    assert training["save_model"]["shards"] > 1 and training["save_model"]["round_trip_bit_for_bit"]
+    assert training["autocast_off"]["bit_for_bit_with_no"] and training["autocast_off"]["restored"]
+    oom = report["oom"]
+    assert [a["batch_size"] for a in oom["attempts"]] == [8, 4, 2] and oom["found"] == 2
+    assert [c["oom"] for c in oom["caught"]] == [True, True]
+    twins = report["twins"]
+    assert twins["cv_example"]["accuracy"] > 0.5 and twins["early_stopping"]["stopped_at"] is not None
+    assert twins["tracking"]["records"] == 2
+
+
+def test_surface_gates_catch_parted_losses_a_wrong_lr_and_a_missed_oom(monkeypatch):
+    """Phase 15's gates: a shard-loader run whose losses differ from the
+    dispatcher's in the last bit, a scheduler off JAX's count, and an error
+    the batch-size search does not take as out of memory each fail the
+    phase."""
+    cpu, config = torch.device("cpu"), llama_tiny()
+    real_run = chip_smoke.surface_run
+
+    def parted(device, config, dispatch, *args):
+        acc, pmodel, first, report = real_run(device, config, dispatch, *args)
+        if not dispatch:
+            report["losses"][-1] = np.nextafter(report["losses"][-1], np.inf)
+        return acc, pmodel, first, report
+
+    args = (cpu, config, 64, 2, 2, 2, 1.0, "300KB")
+    monkeypatch.setattr(chip_smoke, "surface_run", parted)
+    with pytest.raises(RuntimeError, match="not the shard loader's"):
+        chip_smoke.surface_training(*args)
+    monkeypatch.setattr(chip_smoke, "surface_run", real_run)
+    from accelerate_tpu_torch import scheduler
+
+    # A scheduler counting as if it stepped for two processes.
+    monkeypatch.setattr(scheduler, "PartialState", lambda: type("Two", (), {"num_processes": 2})())
+    with pytest.raises(RuntimeError, match="JAX's rule"):
+        chip_smoke.surface_training(*args)
+    from accelerate_tpu_torch.utils import memory
+
+    monkeypatch.setattr(memory, "is_oom_exception", lambda e: False)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="out of memory"):
+        chip_smoke.surface_oom(cpu, config, 64, 8, 64 << 20, cpu_oom_above=2)
+
+
+def test_surface_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--surface-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[surface]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--surface-only" in usage.stdout

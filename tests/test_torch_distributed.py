@@ -552,7 +552,7 @@ def test_offload_and_waiting_axes_raise():
         with pytest.raises(NotImplementedError, match="offload"):
             FullyShardedDataParallelPlugin(**kwargs)
     for axis in ("model", "seq", "expert", "stage", "pipeline"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A item 3"):
             resolve_mesh_sizes(ParallelismConfig(data=1, **{axis: 2}), 2)
     assert resolve_mesh_sizes(ParallelismConfig(data=1, fsdp=-1), 4) == {"data": 1, "fsdp": 4}
     with pytest.raises(NotImplementedError, match="sharded"):

@@ -100,7 +100,7 @@ def test_trackers_write_jax_files(tmp_path, name):
 
 def test_filter_trackers_resolves_names_as_jax_does(tmp_path):
     assert tracking.filter_trackers(None) == []
-    assert tracking.filter_trackers("all", str(tmp_path)) == ["json", "csv"]
+    assert tracking.filter_trackers("all", str(tmp_path)) == jax_tracking.filter_trackers("all", str(tmp_path))
     mine = tracking.JSONTracker("mine", str(tmp_path))
     assert tracking.filter_trackers([mine, "csv"], str(tmp_path)) == [mine, "csv"]
     for bad in ("bogus", "json"):
@@ -108,10 +108,9 @@ def test_filter_trackers_resolves_names_as_jax_does(tmp_path):
             tracking.filter_trackers(bad)
         with pytest.raises(ValueError) as jax_error:
             jax_tracking.filter_trackers(bad)
-        assert str(error.value) == str(jax_error.value).replace(
-            str(sorted(jax_tracking.LOGGER_TYPE_TO_CLASS)), str(sorted(tracking.LOGGER_TYPE_TO_CLASS)))
-    with pytest.raises(ValueError, match="Unknown tracker 'wandb'"):
-        tracking.filter_trackers("wandb", str(tmp_path))
+        assert str(error.value) == str(jax_error.value)
+    # wandb is not installed here: skipped with a warning, as JAX does.
+    assert tracking.filter_trackers("wandb", str(tmp_path)) == jax_tracking.filter_trackers("wandb", str(tmp_path)) == []
 
 
 def test_gather_for_metrics_matches_jax():

@@ -52,6 +52,10 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.launchers, accelerate_tpu_torch.parallel.fsdp, accelerate_tpu_torch.parallel.mesh\n"
         "import accelerate_tpu_torch.parallel.sharding, accelerate_tpu_torch.ops.losses, accelerate_tpu_torch.state\n"
         "import accelerate_tpu_torch.utils.constants, accelerate_tpu_torch.data_loader, accelerate_tpu_torch.checkpointing\n"
+        "import accelerate_tpu_torch.logging, accelerate_tpu_torch.scheduler, accelerate_tpu_torch.utils.memory\n"
+        "import accelerate_tpu_torch.utils.random, accelerate_tpu_torch.utils.imports, accelerate_tpu_torch.utils.tqdm\n"
+        "import accelerate_tpu_torch.examples.cv_example, accelerate_tpu_torch.examples.by_feature.memory\n"
+        "import accelerate_tpu_torch.examples.by_feature.early_stopping, accelerate_tpu_torch.examples.by_feature.tracking\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
