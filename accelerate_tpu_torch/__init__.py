@@ -41,12 +41,18 @@ save/load pre-hooks, `DataLoaderDispatcher`, the synchronized generators
 (`rng_types`), the kwargs handlers, `get_logger` (`logging.py`) and the
 trackers beyond JSON and CSV; `examples/` holds twins of JAX's
 `cv_example` and of its `by_feature` memory, early-stopping and tracking
-scripts.
+scripts. JAX's command line is here too (`commands/`: ``accelerate-tpu-torch
+config``, ``launch``, ``env``, ``test``, ``trace``): `launch` carries JAX's
+``ACCELERATE_TPU_*`` protocol into a script, one process a card, and
+restarts it under `fault_tolerance.Supervisor`; `notebook_launcher` runs a
+function from a notebook; `test_utils/` holds the bundled test scripts.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
 imports ``torch`` and never ``jax`` or anything of `accelerate_tpu`.
 """
+
+__version__ = "0.1.0"
 
 from .accelerator import Accelerator
 from .checkpointing import CheckpointManager

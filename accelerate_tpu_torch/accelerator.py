@@ -213,7 +213,9 @@ class Accelerator:
         # fp16's dynamic loss scaling, shared by every prepared optimizer.
         self.scaler = GradScaler(self.scaler_handler) if self.state.mixed_precision == "fp16" else None
         if gradient_accumulation_plugin is None:
-            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps)
+            # The launcher's variable wins over the argument, as in JAX.
+            gas = int(os.environ.get("ACCELERATE_TPU_GRADIENT_ACCUMULATION_STEPS", gradient_accumulation_steps))
+            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gas)
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self._models: List[PreparedModel] = []
         self._optimizers: List[AcceleratedOptimizer] = []

@@ -1,0 +1,35 @@
+"""``accelerate-tpu-torch``: the subcommand dispatcher (the port of
+`accelerate_tpu/commands/accelerate_cli.py`). It registers the subcommands
+the port has: `config`, `env`, `launch`, `test` and `trace`. JAX's
+`analysis`, `chaos`, `convert`, `estimate`, `plan`, `serve` and `tpu` wait
+for their ROADMAP A items (2, 3, 4, 6 and 7)."""
+
+import argparse
+
+
+def get_command_parser():
+    parser = argparse.ArgumentParser(
+        "accelerate-tpu-torch", usage="accelerate-tpu-torch <command> [<args>]", allow_abbrev=False
+    )
+    subparsers = parser.add_subparsers(help="accelerate-tpu-torch command helpers", dest="command")
+    from . import config, env, launch, test, trace
+
+    config.register_subcommand(subparsers)
+    env.register_subcommand(subparsers)
+    launch.register_subcommand(subparsers)
+    test.register_subcommand(subparsers)
+    trace.register_subcommand(subparsers)
+    return parser
+
+
+def main():
+    parser = get_command_parser()
+    args = parser.parse_args()
+    if not hasattr(args, "func"):
+        parser.print_help()
+        raise SystemExit(1)
+    args.func(args)
+
+
+if __name__ == "__main__":
+    main()

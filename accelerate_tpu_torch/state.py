@@ -9,8 +9,12 @@ NCCL, each process bound to its ``LOCAL_RANK``'s device; under ``cpu=True``
 there is no group and one process. `InitProcessGroupKwargs`' `timeout`,
 `backend` and `init_method` reach `init_process_group` through the
 `Accelerator` (the keyword arguments of the first `PartialState`).
+`PartialState.debug` comes from
+``ACCELERATE_TPU_DEBUG_MODE``: the collectives of `utils.operations` then
+compare their inputs' shapes across the processes first, as JAX's do.
 `AcceleratorState` adds the precision
-mode, the `ParallelismConfig`, the FSDP plugin and the ("data", "fsdp")
+mode (the argument, else ``ACCELERATE_TPU_MIXED_PRECISION`` as the launcher
+sets it, else "no"), the `ParallelismConfig`, the FSDP plugin and the ("data", "fsdp")
 `DeviceMesh`; `GradientState` the accumulation bookkeeping that the
 accelerator, the optimizers, the schedulers and the data loaders share.
 All three are Borg singletons, as in the JAX package: every instance reads
@@ -50,7 +54,8 @@ class PartialState:
 
     Attributes: `device` (this process's card, or the CPU), `backend`
     ("nccl", "gloo" or None without a group), `distributed_type`,
-    `num_processes`, `process_index`, `local_process_index`."""
+    `num_processes`, `process_index`, `local_process_index`, and `debug`
+    (``ACCELERATE_TPU_DEBUG_MODE``: collectives verify shapes first)."""
 
     _shared_state: dict = {}
 
@@ -58,6 +63,7 @@ class PartialState:
         self.__dict__ = self._shared_state
         if self.initialized:
             return
+        self.debug = parse_flag_from_env("ACCELERATE_TPU_DEBUG_MODE")
         cpu = bool(cpu) or parse_flag_from_env("ACCELERATE_TPU_USE_CPU")
         env = os.environ
         launched = all(k in env for k in _LAUNCH_ENV)
@@ -275,7 +281,7 @@ class AcceleratorState:
                     "Call AcceleratorState._reset_state() first (tests) or pass the value once."
                 )
             return
-        mode = mode or "no"
+        mode = mode or str(os.environ.get("ACCELERATE_TPU_MIXED_PRECISION") or "no").lower()
         if mode not in PrecisionType.list():
             raise ValueError(f"mixed_precision must be one of {PrecisionType.list()}, got {mode}")
         self._partial = PartialState(cpu, **kwargs)

@@ -9,6 +9,14 @@ lists and tuples of them, returns the same kinds, and is the identity with
 one process. `pad_input_tensors`, `slice_tensors` and `concatenate` are
 pure.
 
+Debug mode (``ACCELERATE_TPU_DEBUG_MODE=1``, `PartialState.debug`) puts
+JAX's `verify_operation` before `gather`, `broadcast`, `reduce` and
+`pad_across_processes`: one `all_gather_object` of every process's shapes and
+dtypes, and `DistributedOperationException` with JAX's message on every
+process when they part, where the collective itself would hang or fail.
+`gather_object` and `broadcast_object_list` take objects of any size and
+are only re-raised with context (`chained_operation`), as in JAX.
+
 The page helpers work on the serving engine's per-layer pools: a list with
 one ``(k_pool, v_pool)`` pair per layer, ``[num_pages, page_size, Hkv, D]``
 each, or ``(k_pool, v_pool, k_scale, v_scale)`` for an int8/fp8 pool with its
@@ -19,6 +27,7 @@ walk a flax cache pytree instead.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, List, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +37,11 @@ import torch.distributed as dist
 from ..ops.quantization import dequantize_kv_pages, kv_spec_for_dtype, quantize_kv_pages
 
 DenseCache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class DistributedOperationException(Exception):
+    """Raised when processes call a collective with parted shapes (JAX's,
+    in debug mode)."""
 
 
 def send_to_device(batch, device):
@@ -97,12 +111,61 @@ def _collective(fn):
     return apply
 
 
+def get_data_structure(data):
+    """Each tensor leaf's shape and dtype, JAX's skeleton of a tree (dtypes
+    by their numpy names)."""
+
+    def _info(t):
+        dtype = str(t.dtype).replace("torch.", "")
+        return {"shape": tuple(t.shape), "dtype": dtype}
+
+    return recursively_apply(_info, data)
+
+
+def verify_operation(function):
+    """In debug mode across processes, compare the first argument's
+    structure on every process before running the collective."""
+
+    @functools.wraps(function)
+    def wrapper(*args, **kwargs):
+        if _num_processes() == 1 or not _state().debug:
+            return function(*args, **kwargs)
+        operation = f"{function.__module__}.{function.__name__}"
+        tensor = kwargs.get("tensor", args[0] if args else None)
+        output = [None] * _num_processes()
+        dist.all_gather_object(output, get_data_structure(tensor))
+        if output[0] is not None and not all(x == output[0] for x in output):
+            process_shape_str = "\n  - ".join([f"Process {i}: {s}" for i, s in enumerate(output)])
+            raise DistributedOperationException(
+                "Cannot apply desired operation due to shape mismatches. All shapes across devices must be "
+                f"valid.\n\nOperation: `{operation}`\nInput shapes:\n  - {process_shape_str}")
+        return function(*args, **kwargs)
+
+    return wrapper
+
+
+def chained_operation(function):
+    """Re-raise a `DistributedOperationException` with the operation named."""
+
+    @functools.wraps(function)
+    def wrapper(*args, **kwargs):
+        try:
+            return function(*args, **kwargs)
+        except DistributedOperationException as e:
+            operation = f"{function.__module__}.{function.__name__}"
+            raise DistributedOperationException(
+                f"Error found while calling `{operation}`. Please see the earlier error for more details.") from e
+
+    return wrapper
+
+
 def _all_gather(t: torch.Tensor) -> List[torch.Tensor]:
     parts = [torch.empty_like(t) for _ in range(_num_processes())]
     dist.all_gather(parts, t)
     return parts
 
 
+@verify_operation
 def gather(tensor):
     """Every process's leaves concatenated along dim 0, in process order, on
     every process (a 0-d leaf becomes one row per process). The leaves must
@@ -117,6 +180,7 @@ def gather(tensor):
     return recursively_apply(_collective(_one), tensor, error_on_other_type=True)
 
 
+@chained_operation
 def gather_object(object: Any) -> list:
     """Picklable objects from every process, as one list in process order;
     a process's list is spliced in, any other object appended."""
@@ -133,6 +197,7 @@ def gather_object(object: Any) -> list:
     return out
 
 
+@verify_operation
 def broadcast(tensor, from_process: int = 0):
     """`from_process`'s leaves, on every process."""
     if _num_processes() == 1:
@@ -146,6 +211,7 @@ def broadcast(tensor, from_process: int = 0):
     return recursively_apply(_collective(_one), tensor, error_on_other_type=True)
 
 
+@chained_operation
 def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
     """`from_process`'s picklable objects written into `object_list` in
     place on every process; returns it."""
@@ -154,6 +220,7 @@ def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
     return object_list
 
 
+@verify_operation
 def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
     """The leaves summed (``"sum"``) or averaged (``"mean"``) over the
     processes, times `scale`, on every process."""
@@ -171,6 +238,7 @@ def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
     return recursively_apply(_collective(_one), tensor, error_on_other_type=True)
 
 
+@verify_operation
 def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
     """Each leaf padded with `pad_index` along `dim` to the largest size any
     process holds there (at the front with `pad_first`), so that `gather`

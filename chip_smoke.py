@@ -398,9 +398,45 @@ prints no result):
        and its trigger is clear after), `tracking` with the JSON tracker
        (its records are the logged epochs).
 
+16. Launch and the CLI, run after phase 15 and driven as a user drives them:
+    ``python -m accelerate_tpu_torch.commands.accelerate_cli ...`` in fresh
+    processes with the checkout on ``PYTHONPATH`` (the parent frees its card
+    memory before each and logs `memory_allocated`). The user's script
+    (`LAUNCH_SCRIPT`, written to a temporary directory) builds its
+    `Accelerator` from the launcher's variables; the parent runs the same
+    functions of the same file for each comparison.
+   (a) ``config --default --config_file F`` (bf16), then ``launch
+       --config_file F --gradient_accumulation_steps 2 --num_processes 1 S``:
+       phase 15 (a)'s eager loop on Llama-1B at full width and depth
+       (random weights from seed 0, batch 2 x 2048, 8 micro-steps, 4
+       optimizer steps) under ``Accelerator()``. Gates: the child reads
+       bf16, accumulation 2, one process and ``cuda:0``; it built no kernel
+       (its build listener heard nothing: the libraries the parent built are
+       loaded from ``build/``); K3-K5 launched 16 x 8 times each in bf16; its
+       8 losses equal, bit for bit, the same loop in this process under
+       ``Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)``.
+   (b) ``launch --max_restarts 1 --trace_dir D --mixed_precision bf16 S`` on
+       the 2-layer cut at full width (batch 2 x 2048, fused steps): the
+       first attempt saves its state after step 2 and exits 1; the second
+       finds the checkpoint, loads "latest", skips the 2 batches and takes
+       steps 3 and 4. Gates: exactly 2 attempts; the losses of both attempts
+       within rtol 1e-6 of the uninterrupted 4 steps run here; ``trace
+       export D`` (the dispatcher's file commands run in this process: a fresh
+       interpreter costs 10-15 s there) and the span files hold one trace id, 2
+       ``supervisor.attempt`` spans with exit codes 1 and 0, attempt 1's
+       ``checkpoint.save`` and 2 ``train.step`` spans under it and attempt 2's
+       ``checkpoint.load`` and 2 steps under it; ``trace report D`` counts 2
+       crash/exit boundaries; no child built a kernel.
+   (c) ``test`` exits 0 (the bundled script at one process on ``cuda:0``) and
+       ``env`` names the card.
+    Reported: each command's wall time, each child's peak memory, save and
+    load seconds. The children's K3-K5 launches, and the parent's loops',
+    join the Llama rows of the `kernels` line.
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
-`--surface-only` the build and phase 15 alone (none prints a result line).
+`--surface-only` the build and phase 15 alone, `--launch-only` the build and
+phase 16 alone (none prints a result line).
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -4664,6 +4700,427 @@ def surface_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=SURFACE, c
     return report
 
 
+# ------------------------------------------------------------------ phase 16: launch and the CLI
+LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=4, restart_layers=2, restart_steps=4, save_after=2,
+              restart_rows=16)
+CLI = ("-m", "accelerate_tpu_torch.commands.accelerate_cli")
+# The user's script the launched children run. The parent runs the same
+# functions from the same file for the in-process side of each comparison.
+LAUNCH_SCRIPT = '''"""A user's training script: Llama through `Accelerator()`, as launched."""
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+LR, BETAS, EPS, WD = 1e-4, (0.9, 0.999), 1e-8, 1e-4
+
+
+def llama_config(name, layers=None):
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    config = MODEL_REGISTRY[name]()
+    return config if layers is None else dataclasses.replace(config, num_hidden_layers=layers)
+
+
+def rows_loader(vocab, batch, micro_steps, seq, seed=15, sampler_seed=None):
+    """`micro_steps` batches of `batch` distinct rows from numpy `seed`, in
+    order or shuffled by a `SeedableRandomSampler`."""
+    from accelerate_tpu_torch import BatchSampler, SeedableRandomSampler, SimpleDataLoader
+
+    rows = np.random.default_rng(seed).integers(0, vocab, (batch * micro_steps, seq)).astype(np.int64)
+    data = [{"input_ids": rows[i]} for i in range(len(rows))]
+    order = range(len(data)) if sampler_seed is None else SeedableRandomSampler(num_samples=len(data),
+                                                                                seed=sampler_seed)
+    return SimpleDataLoader(data, BatchSampler(order, batch))
+
+
+def eager_loop(accelerator, config, batch, micro_steps, seq):
+    """Phase 15 (a)'s loop: accumulate -> backward -> clip_grad_value_ ->
+    optimizer.step() -> scheduler.step() over `micro_steps` batches."""
+    from accelerate_tpu_torch import create_llama_model
+
+    model = create_llama_model(config, seed=0, device=accelerator.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=LR, betas=BETAS, eps=EPS, weight_decay=WD)
+    pmodel, optimizer, loader, scheduler = accelerator.prepare(
+        model, optimizer, rows_loader(config.vocab_size, batch, micro_steps, seq), lambda step: LR / (1 + step))
+    losses = []
+    for b in loader:
+        with accelerator.accumulate(pmodel):
+            loss = accelerator.backward(pmodel.loss, b)
+            accelerator.clip_grad_value_(clip_value=1.0)
+            optimizer.step()
+            scheduler.step()
+            optimizer.zero_grad()
+        losses.append(float(loss))
+    return losses
+
+
+def fused_steps(accelerator, config, batch, seq, steps, rows, seed, resume_after=None, save_after=None):
+    """The fused step over a shuffled loader; with `resume_after`, load the
+    latest checkpoint and skip that many batches first; with `save_after`,
+    `save_state` after that many steps and stop."""
+    from accelerate_tpu_torch import create_llama_model
+
+    model = create_llama_model(config, seed=seed, device=accelerator.device)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=LR, betas=BETAS, eps=EPS, weight_decay=WD)
+    _, _, loader, schedule = accelerator.prepare(
+        model, optimizer, rows_loader(config.vocab_size, batch, rows // batch, seq, seed=5, sampler_seed=11),
+        lambda step: LR)
+    report = {}
+    if resume_after is not None:
+        t0 = time.perf_counter()
+        report["loaded"] = os.path.basename(str(accelerator.load_state("latest")))
+        report["load_s"] = time.perf_counter() - t0
+        loader = accelerator.skip_first_batches(loader, resume_after)
+    step_fn = accelerator.train_step(max_grad_norm=1.0)
+    losses = []
+    for b in loader:
+        losses.append(float(step_fn(b)))
+        schedule.step()
+        if len(losses) == save_after:
+            t0 = time.perf_counter()
+            report["saved"] = os.path.basename(str(accelerator.save_state()))
+            report["save_s"] = time.perf_counter() - t0
+            break
+        if len(losses) == steps - (resume_after or 0):
+            break
+    report["losses"] = losses
+    return report
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--mode", choices=("eager", "restart"), required=True)
+    parser.add_argument("--model", default="llama-1b")
+    parser.add_argument("--layers", type=int, default=None)
+    parser.add_argument("--batch", type=int, default=2)
+    parser.add_argument("--seq", type=int, default=2048)
+    parser.add_argument("--micro_steps", type=int, default=8)
+    parser.add_argument("--steps", type=int, default=4)
+    parser.add_argument("--save_after", type=int, default=2)
+    parser.add_argument("--rows", type=int, default=16)
+    parser.add_argument("--project_dir", default=None)
+    parser.add_argument("--out", required=True)
+    args = parser.parse_args()
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.utils import ProjectConfiguration
+
+    builds = []
+    _build.add_build_listener(lambda name, seconds: builds.append(name))
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    config = llama_config(args.model, args.layers)
+    if args.mode == "eager":
+        accelerator = Accelerator()
+        report = {"losses": eager_loop(accelerator, config, args.batch, args.micro_steps, args.seq)}
+        exit_code = 0
+    else:
+        accelerator = Accelerator(project_config=ProjectConfiguration(project_dir=args.project_dir,
+                                                                      automatic_checkpoint_naming=True))
+        resume = os.path.isdir(os.path.join(args.project_dir, "checkpoints")) and bool(
+            os.listdir(os.path.join(args.project_dir, "checkpoints")))
+        report = fused_steps(accelerator, config, args.batch, args.seq, args.steps, args.rows, seed=1 if resume else 0,
+                             resume_after=args.save_after if resume else None,
+                             save_after=None if resume else args.save_after)
+        exit_code = 0 if resume else 1  # the first attempt dies after its checkpoint
+    device = accelerator.device
+    cuda = device.type == "cuda"
+    if cuda and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    report.update(
+        mixed_precision=accelerator.mixed_precision, gradient_accumulation_steps=accelerator.gradient_accumulation_steps,
+        num_processes=accelerator.num_processes, device=str(device), launches=dict(fa.LAUNCHES),
+        builds=builds, seconds=time.perf_counter() - t0, pid=os.getpid(),
+        peak_bytes=torch.cuda.max_memory_allocated(accelerator.device) if cuda else None)
+    out = args.out
+    if args.mode == "restart":
+        out = os.path.join(args.out, f"attempt{len(os.listdir(args.out)) + 1}.json")
+    with open(out, "w") as f:
+        json.dump(report, f)
+    sys.exit(exit_code)
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+
+def launch_env():
+    """This environment with the checkout on ``PYTHONPATH`` and no launch
+    variables of its own: what a user's shell gives the CLI."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ACCELERATE_TPU_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def cli(args, timeout, check=True):
+    """``python -m accelerate_tpu_torch.commands.accelerate_cli ARGS`` as a
+    user runs it; the parent frees its card memory first and logs what
+    stays allocated."""
+    held = 0
+    if torch.cuda.is_available():
+        free_memory(torch.device("cuda", 0))
+        held = torch.cuda.memory_allocated()
+    else:
+        gc.collect()
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *CLI, *args], env=launch_env(), capture_output=True, text=True,
+                         timeout=timeout)
+    log(f"[launch] {' '.join(args[:3])} ... exit {run.returncode} in {time.perf_counter() - t0:.1f}s "
+        f"(parent memory_allocated {held} bytes)")
+    if check and run.returncode != 0:
+        raise RuntimeError(f"accelerate_cli {args} exited {run.returncode}:\n{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+    return run
+
+
+def cli_in_process(args):
+    """The dispatcher's ``trace`` commands, which read and write files only,
+    run here through the same parser (a fresh interpreter on the card
+    machine costs 10-15 s of imports); returns what they printed."""
+    import contextlib
+    import io
+
+    from accelerate_tpu_torch.commands.accelerate_cli import get_command_parser
+
+    parsed = get_command_parser().parse_args(args)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        try:
+            parsed.func(parsed)
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise RuntimeError(f"accelerate_cli {args} exited {e.code}: {printed.getvalue()[-2000:]}") from e
+    log(f"[launch] {' '.join(args[:2])} (in process): {printed.getvalue().strip()[:200]}")
+    return printed.getvalue()
+
+
+def load_launch_script(path):
+    import runpy
+
+    return runpy.run_path(str(path), run_name="launch_script")
+
+
+def child_gates(report, device, layers, steps, what):
+    """Every launched child ran on the card (or under --cpu the CPU), built
+    no kernel, and launched K3-K5 `layers` x `steps` times each in bf16."""
+    want_device = "cpu" if device.type == "cpu" else "cuda:0"
+    if report["device"] != want_device or report["builds"]:
+        raise RuntimeError(f"{what}: device {report['device']}, kernel builds {report['builds']} "
+                           f"(expected {want_device}, none)")
+    if device.type == "cuda" and report["launches"] != expected_launches(layers * steps, torch.bfloat16):
+        raise RuntimeError(f"{what}: launches {report['launches']}, expected K3-K5 {layers} x {steps} each in bf16")
+    if not all(np.isfinite(report["losses"])):
+        raise RuntimeError(f"{what}: non-finite losses {report['losses']}")
+
+
+def launched_training(device, model_name, seq, shape, tmp):
+    """(a): ``config --default``, then ``launch --config_file F
+    --gradient_accumulation_steps 2 --num_processes 1 S``, against the same
+    loop in this process."""
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    config_file = os.path.join(tmp, "default_config.yaml")
+    cli(["config", "--default", "--config_file", config_file], timeout=300)
+    from accelerate_tpu_torch.commands.config import load_config_file
+
+    written = load_config_file(config_file)
+    if written.get("mixed_precision") != "bf16":
+        raise RuntimeError(f"config --default wrote {written}")
+    script = os.path.join(tmp, "train.py")
+    micro = shape["accumulation"] * shape["optimizer_steps"]
+    out = os.path.join(tmp, "eager.json")
+    t0 = time.perf_counter()
+    run = cli(["launch", "--config_file", config_file, "--gradient_accumulation_steps", str(shape["accumulation"]),
+               "--num_processes", "1", *cpu, script, "--mode", "eager", "--model", model_name, "--batch",
+               str(shape["batch"]), "--seq", str(seq), "--micro_steps", str(micro), "--out", out], timeout=900)
+    with open(out) as f:
+        child = json.load(f)
+    layers = load_launch_script(script)["llama_config"](model_name).num_hidden_layers
+    report = {"config_file": written, "child": child, "launcher_seconds": time.perf_counter() - t0}
+    log(f"[launch] (a) child {json.dumps(child)}")
+    if (child["mixed_precision"], child["gradient_accumulation_steps"], child["num_processes"]) != (
+            "bf16", shape["accumulation"], 1):
+        raise RuntimeError(f"(a) the launched child read mixed_precision {child['mixed_precision']}, accumulation "
+                           f"{child['gradient_accumulation_steps']}, {child['num_processes']} processes, not bf16, "
+                           f"{shape['accumulation']}, 1 (stdout {run.stdout[-2000:]})")
+    child_gates(child, device, layers, micro, "(a) launched child")
+
+    # The same loop in this process, from the same script.
+    from accelerate_tpu_torch import Accelerator
+
+    reset_port_state()
+    reset_launch_counts()
+    loop = load_launch_script(script)
+    accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=shape["accumulation"],
+                              cpu=device.type == "cpu")
+    losses = loop["eager_loop"](accelerator, loop["llama_config"](model_name), shape["batch"], micro, seq)
+    report["in_process"] = {"losses": losses, "launches": launch_counts()}
+    del accelerator, loop
+    reset_port_state()
+    free_memory(device)
+    report["losses_bit_for_bit"] = losses == child["losses"]
+    log(f"[launch] (a) in-process losses {losses}; bit for bit: {report['losses_bit_for_bit']}")
+    if not report["losses_bit_for_bit"]:
+        raise RuntimeError(f"(a) the launched child's losses {child['losses']} are not the in-process loop's {losses}")
+    return report
+
+
+def trace_records(trace_dir):
+    from accelerate_tpu_torch.telemetry import collect_trace_dir
+
+    return collect_trace_dir(trace_dir)
+
+
+def attempt_of(record, by_id, attempts):
+    """The `supervisor.attempt` span a record sits under (its parent chain),
+    or None."""
+    seen, parent = set(), record.get("parent_id")
+    while parent is not None and parent not in seen:
+        if parent in attempts:
+            return attempts[parent]
+        seen.add(parent)
+        parent = by_id.get(parent, {}).get("parent_id")
+    return None
+
+
+def stitched_trace(trace_dir):
+    """The gates of (b)'s trace: one trace id; two attempt spans with exit
+    codes 1 and 0; attempt 1 holds a ``checkpoint.save`` and its steps,
+    attempt 2 a ``checkpoint.load`` and its steps."""
+    records = trace_records(trace_dir)
+    spans = [r for r in records if r.get("kind") == "span"]
+    by_id = {r["span_id"]: r for r in records if r.get("span_id")}
+    attempts = {r["span_id"]: r["attrs"]["attempt"] for r in spans if r["name"] == "supervisor.attempt"}
+    per_attempt = {}
+    for r in spans:
+        if r["name"] in ("checkpoint.save", "checkpoint.load", "train.step"):
+            per_attempt.setdefault(attempt_of(r, by_id, attempts), []).append(r["name"])
+    out = {
+        "trace_ids": sorted({r.get("trace_id") for r in records}),
+        "attempts": [(r["attrs"]["attempt"], r["attrs"]["exit_code"]) for r in spans
+                     if r["name"] == "supervisor.attempt"],
+        "under_attempt": {str(k): {n: v.count(n) for n in sorted(set(v))} for k, v in per_attempt.items()},
+        "records": len(records),
+    }
+    return out
+
+
+def supervised_restart(device, model_name, seq, shape, tmp):
+    """(b): ``launch --max_restarts 1 --trace_dir D`` of the 2-layer cut: the
+    first attempt saves after step 2 and exits 1, the second resumes and
+    takes steps 3-4; against the uninterrupted run in this process."""
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    script = os.path.join(tmp, "train.py")
+    trace_dir, project_dir, out = (os.path.join(tmp, d) for d in ("trace", "project", "attempts"))
+    for d in (trace_dir, project_dir, out):
+        os.makedirs(d)
+    layers, steps, save_after = shape["restart_layers"], shape["restart_steps"], shape["save_after"]
+    t0 = time.perf_counter()
+    run = cli(["launch", "--max_restarts", "1", "--restart_backoff", "0", "--trace_dir", trace_dir,
+               "--mixed_precision", "bf16", *cpu, script, "--mode", "restart", "--model", model_name, "--layers",
+               str(layers), "--batch", str(shape["batch"]), "--seq", str(seq), "--steps", str(steps), "--save_after",
+               str(save_after), "--rows", str(shape["restart_rows"]), "--project_dir", project_dir, "--out", out],
+              timeout=900)
+    launcher_s = time.perf_counter() - t0
+    attempts = []
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name)) as f:
+            attempts.append(json.load(f))
+    log(f"[launch] (b) attempts {json.dumps(attempts)}")
+    if len(attempts) != 2 or "saved" not in attempts[0] or "loaded" not in attempts[1]:
+        raise RuntimeError(f"(b) expected 2 attempts, a save then a load: {attempts} (stderr {run.stderr[-2000:]})")
+    for i, attempt in enumerate(attempts):
+        child_gates(attempt, device, layers, save_after if i == 0 else steps - save_after, f"(b) attempt {i + 1}")
+
+    from accelerate_tpu_torch import Accelerator
+
+    reset_port_state()
+    reset_launch_counts()
+    loop = load_launch_script(script)
+    accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu")
+    full = loop["fused_steps"](accelerator, loop["llama_config"](model_name, layers), shape["batch"], seq, steps,
+                               shape["restart_rows"], seed=0)["losses"]
+    in_process_launches = launch_counts()
+    del accelerator, loop
+    reset_port_state()
+    free_memory(device)
+    resumed = attempts[1]["losses"]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(attempts[0]["losses"] + resumed, full))
+    export = cli_in_process(["trace", "export", trace_dir, "--out", os.path.join(trace_dir, "trace.json")])
+    report_out = cli_in_process(["trace", "report", trace_dir])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        exported = json.load(f)["traceEvents"]
+    trace = stitched_trace(trace_dir)
+    trace["exported_attempt_events"] = sum(1 for e in exported if e.get("name") == "supervisor.attempt")
+    trace["report"] = report_out.strip().splitlines()
+    report = {"layers": layers, "attempts": attempts, "uninterrupted_losses": full, "resumed_losses": resumed,
+              "max_rel_diff": diff, "launcher_seconds": launcher_s, "trace": trace,
+              "in_process": {"losses": full, "launches": in_process_launches}, "export": export.strip()}
+    log(f"[launch] (b) {json.dumps({k: v for k, v in report.items() if k != 'attempts'})}")
+    if diff > 1e-6 or len(resumed) != steps - save_after or len(full) != steps:
+        raise RuntimeError(f"(b) resumed losses {resumed} (first attempt {attempts[0]['losses']}) against the "
+                           f"uninterrupted {full}: rtol {diff}, limit 1e-6")
+    want_under = {"1": {"checkpoint.save": 1, "train.step": save_after},
+                  "2": {"checkpoint.load": 1, "train.step": steps - save_after}}
+    if (len(trace["trace_ids"]) != 1 or trace["attempts"] != [(1, 1), (2, 0)]
+            or trace["under_attempt"] != want_under or trace["exported_attempt_events"] != 2):
+        raise RuntimeError(f"(b) the trace is not one stitched run of 2 attempts: {trace} (want {want_under})")
+    if not any(line.strip().startswith("crash/exit boundaries: 2") for line in trace["report"]):
+        raise RuntimeError(f"(b) trace report names no crash boundary: {trace['report']}")
+    return report
+
+
+def cli_checks(device):
+    """(c): ``test`` runs the bundled script at one process on the card (or
+    under --cpu the CPU) and exits 0; ``env`` names the card."""
+    test = cli(["test", *(["--cpu"] if device.type == "cpu" else [])], timeout=600)
+    if "All checks passed." not in test.stdout or "Test is a success!" not in test.stdout:
+        raise RuntimeError(f"(c) test: {test.stdout[-3000:]}")
+    env = cli(["env"], timeout=300)
+    name = torch.cuda.get_device_name(0) if device.type == "cuda" else "none"
+    card_names = [line for line in env.stdout.splitlines() if line.startswith("- Card names:")]
+    if not card_names or name not in card_names[0]:
+        raise RuntimeError(f"(c) env does not name the card {name!r}: {env.stdout}")
+    return {"test_checks": test.stdout.count(" ✓"), "env_card_names": card_names[0],
+            "env_power": [line for line in env.stdout.splitlines() if "power limit" in line]}
+
+
+def launch_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=LAUNCH):
+    """Phase 16: launch and the CLI, driven as a user runs them."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    report = {"model": model_name}
+    try:
+        with open(os.path.join(tmp, "train.py"), "w") as f:
+            f.write(LAUNCH_SCRIPT)
+        t0 = time.perf_counter()
+        report["launched"] = launched_training(device, model_name, seq, shape, tmp)
+        log(f"[time] launch (a) launched training {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        report["restart"] = supervised_restart(device, model_name, seq, shape, tmp)
+        log(f"[time] launch (b) supervised restart {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        report["cli"] = cli_checks(device)
+        log(f"[time] launch (c) test and env {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    children = [report["launched"]["child"], *report["restart"]["attempts"]]
+    report["children_peak_bytes"] = [c["peak_bytes"] for c in children]
+    report["launches"] = {k: sum(r["launches"].get(k, 0) for r in (
+        *children, report["launched"]["in_process"], report["restart"]["in_process"])) for k in launch_counts()}
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -4788,6 +5245,9 @@ def main(argv=None) -> int:
     parser.add_argument("--surface-only", action="store_true",
                         help="run only the build and phase 15 (the user's surface on Llama-1B and the example "
                              "twins; prints no result line)")
+    parser.add_argument("--launch-only", action="store_true",
+                        help="run only the build and phase 16 (launch, supervised restart and the CLI on Llama-1B; "
+                             "prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -4838,6 +5298,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[surface] summary: {json.dumps(surface_phase(device))}")
         log(f"[time] surface phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.launch_only:
+        t0 = time.perf_counter()
+        log(f"[launch] summary: {json.dumps(launch_phase(device))}")
+        log(f"[time] launch phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -4904,6 +5370,11 @@ def main(argv=None) -> int:
     log(f"[time] surface phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
     t0 = time.perf_counter()
+    launched = launch_phase(device)
+    log(f"[launch] summary: {json.dumps(launched)}")
+    log(f"[time] launch phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
     bert = bert_phase(device, profile=args.profile)
     log(f"[bert] summary: {json.dumps(bert)}")
     log(f"[time] bert phase {time.perf_counter() - t0:.1f}s")
@@ -4948,11 +5419,11 @@ def main(argv=None) -> int:
     wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"], 128: mixtral_train}
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
     # Llama-1B's bf16 K3-K5 run under bf16, under fp8 (whose attention is
-    # bf16) and in phase 15's eager loops (the dispatcher's and the shard
-    # loader's).
+    # bf16), in phase 15's eager loops (the dispatcher's and the shard
+    # loader's) and in phase 16's launched children and their in-process twins.
     surface_runs = (surface["training"]["dispatcher"], surface["training"]["shard_loader"])
     bf16_launches = {k: v + fp8["training"]["launches"][k] + sum(r["launches"][k] for r in surface_runs)
-                     for k, v in training["bf16"]["launches"].items()}
+                     + launched["launches"][k] for k, v in training["bf16"]["launches"].items()}
     rows += flash_rows(flash, bf16_launches, training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
     for d, shape in FAMILY_FLASH_SHAPES.items():

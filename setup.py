@@ -32,6 +32,8 @@ setup(
         "console_scripts": [
             "accelerate-tpu=accelerate_tpu.commands.accelerate_cli:main",
             "accelerate-tpu-launch=accelerate_tpu.commands.launch:main",
+            "accelerate-tpu-torch=accelerate_tpu_torch.commands.accelerate_cli:main",
+            "accelerate-tpu-torch-launch=accelerate_tpu_torch.commands.launch:main",
         ]
     },
 )

@@ -1,6 +1,6 @@
 """Worker functions for the port's multi-process tests
 (`tests/test_torch_distributed.py`, `tests/test_torch_distributed_hybrid.py`,
-`tests/test_torch_surface_distributed.py`).
+`tests/test_torch_surface_distributed.py`, `tests/test_torch_scripts.py`).
 
 Each runs in a process `accelerate_tpu_torch.launchers.debug_launcher`
 spawns (gloo on the CPU, one torch thread), reads the inputs the test wrote
@@ -579,3 +579,19 @@ def surface2(in_dir, out_dir):
     }
     _reset()
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def scripts2(out_dir):
+    """The bundled `test_ops` and `test_sync` scripts (`tests/test_torch_scripts.py`),
+    each check's line kept in ``rank<i>.txt``."""
+    import contextlib
+    import io
+
+    from accelerate_tpu_torch.test_utils.scripts import test_ops, test_sync
+
+    lines = io.StringIO()
+    with contextlib.redirect_stdout(lines):
+        test_ops.main()
+        test_sync.main()
+    with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.txt"), "w") as f:
+        f.write(lines.getvalue())

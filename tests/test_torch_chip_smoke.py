@@ -6,9 +6,10 @@ range scaling included, at every head dim the kernels are built for), its
 profile's attribution of the grouped-query repeat, the refusal of its
 `--compare` mode to run without a card, its generate phase rehearsed at
 llama_tiny, the families' and Mixtral's phases and `kernels` rows
-rehearsed at their tiny configs, and the fp8 and ResNet phase with the
+rehearsed at their tiny configs, the fp8 and ResNet phase with the
 limit of its fp8 products (held against an emulation of the tensor cores'
-shortened accumulation)."""
+shortened accumulation), and phase 16 (launch, supervised restart and the
+CLI) with its children on the CPU."""
 
 import os
 import subprocess
@@ -941,3 +942,61 @@ def test_surface_only_refuses_without_a_card_and_is_a_known_flag():
     usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "--surface-only" in usage.stdout
+
+
+def test_launch_phase_rehearses_on_the_cpu():
+    """Phase 16 at llama_tiny (sequence 64), its children under ``--cpu``
+    (about 45 s: ten fresh interpreters through the CLI): the launched
+    child reads bf16 from ``config --default``'s file and accumulation 2
+    from the flag, and its 8 losses equal the in-process loop's bit for
+    bit; the supervised run takes exactly 2 attempts (exit codes 1 then 0),
+    resumes within rtol 1e-6 of the uninterrupted run, and its trace is
+    one id with each attempt's checkpoint and step spans under it; ``test``
+    and ``env`` pass; no child built a kernel."""
+    report = chip_smoke.launch_phase(torch.device("cpu"), "llama-tiny", seq=64)
+    launched, restart = report["launched"], report["restart"]
+    child = launched["child"]
+    assert (child["mixed_precision"], child["gradient_accumulation_steps"], child["device"]) == ("bf16", 2, "cpu")
+    assert launched["losses_bit_for_bit"] and len(child["losses"]) == 8
+    assert [len(a["losses"]) for a in restart["attempts"]] == [2, 2] and restart["max_rel_diff"] <= 1e-6
+    assert restart["trace"]["attempts"] == [(1, 1), (2, 0)] and len(restart["trace"]["trace_ids"]) == 1
+    assert all(not c["builds"] for c in (child, *restart["attempts"]))
+    assert report["cli"]["env_card_names"] == "- Card names: none"
+
+
+def test_launch_gates_catch_a_build_and_a_nan_and_walk_the_trace(tmp_path):
+    """Phase 16's child gates fail a child that built a kernel or returned a
+    non-finite loss; the trace reader puts a child's spans under the attempt
+    whose id the child got as its parent (hand-made records, no process
+    started)."""
+    report = {"losses": [1.0, 2.0], "device": "cpu", "builds": [], "launches": {}}
+    chip_smoke.child_gates(report, torch.device("cpu"), 1, 2, "ok")
+    with pytest.raises(RuntimeError, match="kernel builds"):
+        chip_smoke.child_gates({**report, "builds": ["flash_attention"]}, torch.device("cpu"), 1, 2, "built")
+    with pytest.raises(RuntimeError, match="non-finite"):
+        chip_smoke.child_gates({**report, "losses": [float("nan")]}, torch.device("cpu"), 1, 2, "nan")
+    from accelerate_tpu_torch.telemetry import FlightRecorder
+    from accelerate_tpu_torch.telemetry.tracing import Tracer
+
+    tracer = Tracer(recorder=FlightRecorder(log_dir=str(tmp_path)), trace_id="t", category="supervisor")
+    attempt = tracer.start_span("supervisor.attempt", attempt=1, restarts=0)
+    child = Tracer(recorder=FlightRecorder(log_dir=str(tmp_path)), trace_id="t", parent_id=attempt.span_id)
+    with child.span("checkpoint.save"):
+        pass
+    with child.span("train.step"):
+        pass
+    attempt.annotate(exit_code=1).end()
+    trace = chip_smoke.stitched_trace(str(tmp_path))
+    assert trace["attempts"] == [(1, 1)] and trace["under_attempt"] == {"1": {"checkpoint.save": 1, "train.step": 1}}
+
+
+def test_launch_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--launch-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[launch]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--launch-only" in usage.stdout

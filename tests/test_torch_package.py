@@ -1,9 +1,10 @@
 """Package-level rules of the PyTorch/CUDA port (`accelerate_tpu_torch`).
 
   - it imports nothing of JAX (jax, flax, optax, ml_dtypes), nothing of the
-    JAX package and neither `safetensors` nor `transformers` (the chip
-    machine has none of them), at run time (a fresh interpreter) and in its
-    source (an AST scan);
+    JAX package (its jax-free `commands/` and `fault_tolerance.py` neither)
+    and none of `safetensors`, `transformers` and `yaml` (the chip machine
+    has none of them), at run time (a fresh interpreter) and in its source
+    (an AST scan);
   - its entry points run on the card unless the caller asks for the CPU;
   - importing the kernel modules builds nothing, and CPU tensors never reach
     the build;
@@ -28,7 +29,7 @@ from accelerate_tpu_torch.ops import quantization as port_quant
 torch.set_num_threads(2)
 
 PACKAGE = Path(accelerate_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "safetensors", "transformers", "accelerate_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "safetensors", "transformers", "yaml", "accelerate_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -56,6 +57,12 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.utils.random, accelerate_tpu_torch.utils.imports, accelerate_tpu_torch.utils.tqdm\n"
         "import accelerate_tpu_torch.examples.cv_example, accelerate_tpu_torch.examples.by_feature.memory\n"
         "import accelerate_tpu_torch.examples.by_feature.early_stopping, accelerate_tpu_torch.examples.by_feature.tracking\n"
+        "import accelerate_tpu_torch.fault_tolerance, accelerate_tpu_torch.commands.accelerate_cli\n"
+        "import accelerate_tpu_torch.commands.launch, accelerate_tpu_torch.commands.config\n"
+        "import accelerate_tpu_torch.commands.menu, accelerate_tpu_torch.commands.env, accelerate_tpu_torch.commands.test\n"
+        "import accelerate_tpu_torch.commands.trace, accelerate_tpu_torch.test_utils.testing\n"
+        "import accelerate_tpu_torch.test_utils.training, accelerate_tpu_torch.test_utils.scripts.test_ops\n"
+        "import accelerate_tpu_torch.test_utils.scripts.test_sync, accelerate_tpu_torch.test_utils.scripts.test_script\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -65,6 +72,22 @@ def test_import_loads_no_jax_module():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "accelerate_tpu_torch" in loaded
     assert not [m for m in loaded if _forbidden(m)]
+
+
+def test_cli_and_supervisor_keep_their_own_copies():
+    """The port's launch, config, menu, env, test and trace commands and its
+    `Supervisor` are its own modules: none of them, and no other module of
+    the port, imports the JAX package's `commands/` or `fault_tolerance`,
+    though neither imports JAX."""
+    for name in ("accelerate_cli", "launch", "config", "menu", "env", "test", "trace"):
+        assert (PACKAGE / "commands" / f"{name}.py").is_file()
+    assert (PACKAGE / "fault_tolerance.py").is_file()
+    found = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        text = path.read_text()
+        found += [f"{path.name}: {n}" for n in ("accelerate_tpu.commands", "accelerate_tpu.fault_tolerance",
+                                                "import yaml") if n in text]
+    assert not found
 
 
 def test_source_imports_no_jax_module():
