@@ -1,8 +1,8 @@
 """``accelerate-tpu-torch``: the subcommand dispatcher (the port of
 `accelerate_tpu/commands/accelerate_cli.py`). It registers the subcommands
-the port has: `config`, `env`, `launch`, `test` and `trace`. JAX's
-`analysis`, `chaos`, `convert`, `estimate`, `plan`, `serve` and `tpu` wait
-for their ROADMAP A items (2, 3, 4, 6 and 7)."""
+the port has: `config`, `env`, `estimate-memory`, `launch`, `test` and
+`trace`. JAX's `analysis`, `chaos`, `convert`, `plan`, `serve` and `tpu`
+wait for their ROADMAP A items (2, 3, 5, 6 and 7)."""
 
 import argparse
 
@@ -12,10 +12,11 @@ def get_command_parser():
         "accelerate-tpu-torch", usage="accelerate-tpu-torch <command> [<args>]", allow_abbrev=False
     )
     subparsers = parser.add_subparsers(help="accelerate-tpu-torch command helpers", dest="command")
-    from . import config, env, launch, test, trace
+    from . import config, env, estimate, launch, test, trace
 
     config.register_subcommand(subparsers)
     env.register_subcommand(subparsers)
+    estimate.register_subcommand(subparsers)
     launch.register_subcommand(subparsers)
     test.register_subcommand(subparsers)
     trace.register_subcommand(subparsers)

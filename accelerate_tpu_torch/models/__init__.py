@@ -4,7 +4,9 @@ T5, Mixtral and ResNet slices of `accelerate_tpu/models/__init__.py`).
 Each family has its config, its `create_*` factory (random weights from a
 seed, made on the device) and its carry function, ``*_state_dict_from_flax``,
 which takes a JAX params tree to the port's `state_dict`. ResNet, an image
-model, is exported but not registered, as in the JAX package."""
+model, is exported but not registered, as in the JAX package. The causal
+families and T5 have a `LayeredApply` for big-model inference
+(`layered_for_family`, `layered_for_model`)."""
 
 from __future__ import annotations
 
@@ -23,15 +25,25 @@ from .bert import (
 from .gpt_neox import (
     GPTNeoXConfig,
     GPTNeoXForCausalLM,
+    GPTNeoXLayeredApply,
     create_gpt_neox_model,
     gpt_neox_20b,
     gpt_neox_state_dict_from_flax,
     gpt_neox_tiny,
 )
-from .gptj import GPTJConfig, GPTJForCausalLM, create_gptj_model, gptj_6b, gptj_state_dict_from_flax, gptj_tiny
+from .gptj import (
+    GPTJConfig,
+    GPTJForCausalLM,
+    GPTJLayeredApply,
+    create_gptj_model,
+    gptj_6b,
+    gptj_state_dict_from_flax,
+    gptj_tiny,
+)
 from .llama import (
     LlamaConfig,
     LlamaForCausalLM,
+    LlamaLayeredApply,
     create_llama_model,
     llama3_8b,
     llama_1b,
@@ -47,7 +59,15 @@ from .mixtral import (
     mixtral_state_dict_from_flax,
     mixtral_tiny,
 )
-from .opt import OPTConfig, OPTForCausalLM, create_opt_model, opt_30b, opt_state_dict_from_flax, opt_tiny
+from .opt import (
+    OPTConfig,
+    OPTForCausalLM,
+    OPTLayeredApply,
+    create_opt_model,
+    opt_30b,
+    opt_state_dict_from_flax,
+    opt_tiny,
+)
 from .resnet import (
     ResNet,
     ResNetConfig,
@@ -61,6 +81,7 @@ from .resnet import (
 from .t5 import (
     T5Config,
     T5ForConditionalGeneration,
+    T5LayeredApply,
     create_t5_model,
     seq2seq_lm_loss,
     t0pp_11b,
@@ -102,6 +123,58 @@ CREATE_BY_FAMILY = {
     T5Config: create_t5_model,
     MixtralConfig: create_mixtral_model,
 }
+
+
+#: config type -> the family's module class (`big_modeling.init_empty_weights`).
+MODULE_BY_CONFIG = {
+    LlamaConfig: LlamaForCausalLM,
+    BertConfig: BertForSequenceClassification,
+    GPTJConfig: GPTJForCausalLM,
+    GPTNeoXConfig: GPTNeoXForCausalLM,
+    OPTConfig: OPTForCausalLM,
+    T5Config: T5ForConditionalGeneration,
+    MixtralConfig: MixtralForCausalLM,
+}
+
+#: family -> the module class name of the families shipping a
+#: prelude/layers/tail decomposition (JAX's `LAYERED_BY_FAMILY`; T5's
+#: `T5LayeredApply` is constructed directly, as in JAX).
+LAYERED_BY_FAMILY = {
+    "llama": "LlamaForCausalLM",
+    "gpt_neox": "GPTNeoXForCausalLM",
+    "gptj": "GPTJForCausalLM",
+    "opt": "OPTForCausalLM",
+}
+
+_LAYERED_CLASSES = {
+    "LlamaForCausalLM": LlamaLayeredApply,
+    "GPTNeoXForCausalLM": GPTNeoXLayeredApply,
+    "GPTJForCausalLM": GPTJLayeredApply,
+    "OPTForCausalLM": OPTLayeredApply,
+}
+
+
+def layered_for_family(family: str, config):
+    """The family's `LayeredApply`, from its config alone."""
+    cls_name = LAYERED_BY_FAMILY.get(family)
+    if cls_name is None:
+        raise ValueError(
+            f"Family {family!r} ships no LayeredApply decomposition (known: {sorted(LAYERED_BY_FAMILY)})."
+        )
+    return _LAYERED_CLASSES[cls_name](config)
+
+
+def layered_for_model(model):
+    """The model's `LayeredApply`, by its module class; raises ValueError
+    for a family without one."""
+    module = getattr(model, "module", model)
+    layered_cls = _LAYERED_CLASSES.get(type(module).__name__)
+    if layered_cls is None:
+        raise ValueError(
+            f"No LayeredApply decomposition for module {type(module).__name__!r} "
+            f"(known: {sorted(LAYERED_BY_FAMILY.values())}). Pass layered= explicitly."
+        )
+    return layered_cls(module.config)
 
 
 def create_named_model(

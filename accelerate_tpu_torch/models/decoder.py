@@ -280,3 +280,87 @@ def flax_tree_to_state_dict(tree) -> Dict[str, torch.Tensor]:
 
     walk(tree, [])
     return sd
+
+
+class _Call(nn.Module):
+    """A module whose forward is ``fn(model, *args)``, so that
+    `torch.func.functional_call` can run one method of a skeleton model on
+    the tensors it is handed (keys ``model.<name>``)."""
+
+    def __init__(self, model: nn.Module, fn):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def call_with(module: nn.Module, params: Dict[str, torch.Tensor], *args, prefix: str = ""):
+    """``module(*args)`` on `params` ({name within the module: tensor})."""
+    if prefix:
+        params = {prefix + k: v for k, v in params.items()}
+    return torch.func.functional_call(module, params, args, strict=False)
+
+
+class DecoderLayeredApply:
+    """The `big_modeling.LayeredApply` of a `CausalDecoder` family (JAX's
+    `LlamaLayeredApply`, `OPTLayeredApply`, ...): the prelude is
+    ``embed(input_ids, positions)``, a layer one block, the tail
+    ``head(final_norm(hidden))``, each run by `torch.func.functional_call` on
+    a skeleton of the family built on the meta device (one block), so the
+    stream computes what the model's own forward computes, op for op.
+
+    A family names the top-level modules of its prelude and tail
+    (`PRELUDE`, `tail_modules`); a module in both (OPT's tied embedding)
+    is the same tensor in both, which `join` keeps once."""
+
+    model_cls: type = None
+    PRELUDE: tuple = ()
+    TAIL: tuple = ()
+
+    def __init__(self, config):
+        import dataclasses
+
+        self.config = config
+        with torch.device("meta"):
+            self._skeleton = self.model_cls(dataclasses.replace(config, num_hidden_layers=1))
+        self._embed = _Call(self._skeleton, lambda m, ids, pos: m.embed(ids, pos))
+        self._tail = _Call(self._skeleton, lambda m, hidden: m.head(m.final_norm(hidden)))
+
+    def tail_modules(self) -> tuple:
+        return self.TAIL
+
+    def split(self, params):
+        """{name: tensor} of the whole model -> (prelude, [layers], tail);
+        a layer's names are within its block (``attention.wq.weight``)."""
+        def pick(mods):
+            return {k: v for k, v in params.items() if k.split(".")[0] in mods}
+
+        layers = []
+        for i in range(self.config.num_hidden_layers):
+            pre = f"layers.{i}."
+            layers.append({k[len(pre):]: v for k, v in params.items() if k.startswith(pre)})
+        return pick(self.PRELUDE), layers, pick(self.tail_modules())
+
+    def join(self, prelude, layers, tail):
+        out = dict(prelude)
+        for i, layer in enumerate(layers):
+            out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+        out.update(tail)
+        return out
+
+    def apply_prelude(self, prelude_params, input_ids, attention_mask=None):
+        b, s = input_ids.shape
+        positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+        hidden = call_with(self._embed, prelude_params, input_ids, positions, prefix="model.")
+        return hidden, positions, attention_mask
+
+    def apply_layer(self, layer_params, carry):
+        hidden, positions, mask = carry
+        # The arguments `CausalDecoder.forward` gives a block without caches.
+        hidden = call_with(self._skeleton.layers[0], layer_params, hidden, positions, mask, None, None, "gather",
+                           None, None)
+        return hidden, positions, mask
+
+    def apply_tail(self, tail_params, carry):
+        return call_with(self._tail, tail_params, carry[0], prefix="model.")

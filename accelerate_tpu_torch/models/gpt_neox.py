@@ -28,7 +28,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
-from .decoder import CausalDecoder, DecoderAttention, Dense, LayerNorm, random_init, state_dict_from_flax
+from .decoder import (
+    CausalDecoder,
+    DecoderAttention,
+    DecoderLayeredApply,
+    Dense,
+    LayerNorm,
+    random_init,
+    state_dict_from_flax,
+)
 from .llama import rotary_embedding
 
 
@@ -131,6 +139,14 @@ def gpt_neox_state_dict_from_flax(params, config: GPTNeoXConfig):
     """The port's `state_dict` from a JAX GPT-NeoX params tree (numpy
     arrays), per-layer (``layer_{i}``) or scanned (``blocks``)."""
     return state_dict_from_flax(params, config.num_hidden_layers)
+
+
+class GPTNeoXLayeredApply(DecoderLayeredApply):
+    """GPT-NeoX streamed a layer at a time (JAX's `GPTNeoXLayeredApply`)."""
+
+    model_cls = GPTNeoXForCausalLM
+    PRELUDE = ("embed_in",)
+    TAIL = ("final_norm", "embed_out")
 
 
 def gpt_neox_20b() -> GPTNeoXConfig:

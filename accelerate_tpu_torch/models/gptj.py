@@ -24,7 +24,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
-from .decoder import CausalDecoder, DecoderAttention, Dense, LayerNorm, random_init, state_dict_from_flax
+from .decoder import (
+    CausalDecoder,
+    DecoderAttention,
+    DecoderLayeredApply,
+    Dense,
+    LayerNorm,
+    random_init,
+    state_dict_from_flax,
+)
 
 
 @dataclass
@@ -122,6 +130,14 @@ def gptj_state_dict_from_flax(params, config: GPTJConfig):
     """The port's `state_dict` from a JAX GPT-J params tree (numpy arrays),
     per-layer or scanned."""
     return state_dict_from_flax(params, config.num_hidden_layers)
+
+
+class GPTJLayeredApply(DecoderLayeredApply):
+    """GPT-J streamed a layer at a time (JAX's `GPTJLayeredApply`)."""
+
+    model_cls = GPTJForCausalLM
+    PRELUDE = ("wte",)
+    TAIL = ("ln_f", "lm_head")
 
 
 def gptj_6b() -> GPTJConfig:

@@ -44,7 +44,7 @@ from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
 from ..ops.attention import attend
-from .decoder import CausalDecoder, causal_lm_loss  # noqa: F401  (causal_lm_loss: JAX's home for it)
+from .decoder import CausalDecoder, DecoderLayeredApply, causal_lm_loss  # noqa: F401  (causal_lm_loss: JAX's home for it)
 
 
 @dataclass
@@ -245,6 +245,18 @@ def llama_state_dict_from_flax(params, config: LlamaConfig):
             raise ValueError("tie_word_embeddings=False but the params tree has no lm_head")
         sd["lm_head.weight"] = t(tree["lm_head"]["kernel"]).T.contiguous()
     return sd
+
+
+class LlamaLayeredApply(DecoderLayeredApply):
+    """Llama streamed a layer at a time (JAX's `LlamaLayeredApply`); a tied
+    head's tail reads the prelude's embedding."""
+
+    model_cls = LlamaForCausalLM
+    PRELUDE = ("embed_tokens",)
+    TAIL = ("final_norm", "lm_head")
+
+    def tail_modules(self) -> tuple:
+        return self.TAIL + (("embed_tokens",) if self.config.tie_word_embeddings else ())
 
 
 def llama3_8b() -> LlamaConfig:

@@ -27,7 +27,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
-from .decoder import CausalDecoder, DecoderAttention, Dense, LayerNorm, random_init, state_dict_from_flax
+from .decoder import (
+    CausalDecoder,
+    DecoderAttention,
+    DecoderLayeredApply,
+    Dense,
+    LayerNorm,
+    random_init,
+    state_dict_from_flax,
+)
 
 POSITION_OFFSET = 2
 
@@ -105,6 +113,16 @@ def opt_state_dict_from_flax(params, config: OPTConfig):
     per-layer or scanned; a block's ``final_norm`` and the model's stay
     apart by their paths."""
     return state_dict_from_flax(params, config.num_hidden_layers)
+
+
+class OPTLayeredApply(DecoderLayeredApply):
+    """OPT streamed a layer at a time (JAX's `OPTLayeredApply`, the 30B
+    config's CPU- and disk-offload route). The tied head reads the
+    prelude's embedding: `split` gives the one tensor to both."""
+
+    model_cls = OPTForCausalLM
+    PRELUDE = ("embed_tokens", "embed_positions")
+    TAIL = ("final_norm", "embed_tokens")
 
 
 def opt_30b() -> OPTConfig:

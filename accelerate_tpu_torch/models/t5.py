@@ -21,9 +21,9 @@ the decoder's self-attention over a `DecodeCache`, the cross-attention over
 K/V projected from the encoder's output once per prompt.
 
 The engine has no slot cache for T5 (`slot_serving` is False): it refuses
-the model, as JAX's does. The JAX package's layered and pipelined
-decompositions (`T5LayeredApply`, `T5PipelineApply`) wait for the port's
-offload and pipeline work.
+the model, as JAX's does. `T5LayeredApply` streams the model a block at a
+time for big-model inference (`big_modeling`); the pipelined decomposition
+(`T5PipelineApply`) waits for the port's pipeline work.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from ..device import DeviceLike
 from ..ops.attention import DecodeCache, decode_cache_attention, decode_cache_mask, dot_product_attention
 from ..ops.losses import global_mean
 from ..ops.remat import maybe_remat
-from .decoder import Dense, flax_tree_to_state_dict, random_init
+from .decoder import Dense, _Call, call_with, flax_tree_to_state_dict, random_init
 from .llama import RMSNorm
 
 
@@ -314,6 +314,99 @@ class T5ForConditionalGeneration(nn.Module):
         cfg, weight = self.config, self.shared.weight
         return DecodeCache.create(cfg.num_decoder_layers, batch, max_length, cfg.num_heads, cfg.d_kv,
                                   dtype or weight.dtype, device or weight.device)
+
+
+def _reject_tied_head(config: T5Config, what: str):
+    """A v1.0 tied head lives in the shared embedding (the prelude), so the
+    tail would need it too; JAX refuses that split, and so does the port."""
+    if config.tie_word_embeddings:
+        raise NotImplementedError(
+            f"{what} does not support tie_word_embeddings=True (T5 v1.0): the tied head would replicate the "
+            "shared embedding into the tail stage. Use the resident model path, or a v1.1 checkpoint."
+        )
+
+
+class T5LayeredApply:
+    """T5 streamed a block at a time (JAX's `T5LayeredApply`): the layers
+    are the encoder's blocks, then the decoder's; an entry's names carry
+    its kind (``enc.`` or ``dec.``), and the first decoder entry also
+    carries ``enc_final_norm``, applied to the encoder's output once,
+    before any cross-attention reads it. Each part runs the port's own
+    modules (a one-block skeleton on the meta device) through
+    `torch.func.functional_call`, so the stream computes the model's
+    forward op for op."""
+
+    def __init__(self, config: T5Config):
+        _reject_tied_head(config, "T5LayeredApply (tier-streamed execution)")
+        self.config = config
+        with torch.device("meta"):
+            self._skeleton = T5ForConditionalGeneration(dataclasses.replace(config, num_layers=1,
+                                                                            num_decoder_layers=1))
+        self._tail = _Call(self._skeleton, lambda m, hidden: m._head(m.dec_final_norm(hidden)))
+
+    def split(self, params):
+        cfg = self.config
+
+        def under(prefix):
+            return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+        prelude = {k: v for k, v in params.items() if k.split(".")[0] in ("shared", "enc_bias", "dec_bias")}
+        layers = [{f"enc.{k}": v for k, v in under(f"enc_blocks.{i}.").items()} for i in range(cfg.num_layers)]
+        for i in range(cfg.num_decoder_layers):
+            entry = {f"dec.{k}": v for k, v in under(f"dec_blocks.{i}.").items()}
+            if i == 0:
+                entry.update({k: v for k, v in params.items() if k.startswith("enc_final_norm.")})
+            layers.append(entry)
+        tail = {k: v for k, v in params.items() if k.split(".")[0] in ("dec_final_norm", "lm_head")}
+        return prelude, layers, tail
+
+    def join(self, prelude, layers, tail):
+        cfg = self.config
+        out = dict(prelude)
+        for i, entry in enumerate(layers):
+            stack, j = ("enc_blocks", i) if i < cfg.num_layers else ("dec_blocks", i - cfg.num_layers)
+            for k, v in entry.items():
+                out[k if k.startswith("enc_final_norm.") else f"{stack}.{j}.{k.split('.', 1)[1]}"] = v
+        out.update(tail)
+        return out
+
+    def apply_prelude(self, prelude_params, input_ids, decoder_input_ids, attention_mask=None):
+        m = self._skeleton
+        enc_pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        dec_pos = torch.arange(decoder_input_ids.shape[1], device=input_ids.device)
+
+        def under(prefix):
+            return {k[len(prefix):]: v for k, v in prelude_params.items() if k.startswith(prefix)}
+
+        shared = under("shared.")
+        return {
+            "enc": call_with(m.shared, shared, input_ids),
+            "dec": call_with(m.shared, shared, decoder_input_ids),
+            "enc_bias": call_with(m.enc_bias, under("enc_bias."), enc_pos, enc_pos),
+            "dec_bias": call_with(m.dec_bias, under("dec_bias."), dec_pos, dec_pos),
+            "enc_mask": _encoder_mask(attention_mask),
+        }
+
+    def apply_layer(self, layer_params, carry):
+        m = self._skeleton
+        carry = dict(carry)
+
+        def under(prefix):
+            return {k[len(prefix):]: v for k, v in layer_params.items() if k.startswith(prefix)}
+
+        enc = under("enc.")
+        if enc:
+            carry["enc"] = call_with(m.enc_blocks[0], enc, carry["enc"], carry["enc_bias"], carry["enc_mask"])
+            return carry
+        norm = under("enc_final_norm.")
+        if norm:
+            carry["enc"] = call_with(m.enc_final_norm, norm, carry["enc"])
+        carry["dec"] = call_with(m.dec_blocks[0], under("dec."), carry["dec"], carry["enc"], carry["dec_bias"],
+                                 carry["enc_mask"], None, None)
+        return carry
+
+    def apply_tail(self, tail_params, carry):
+        return call_with(self._tail, tail_params, carry["dec"], prefix="model.")
 
 
 @torch.no_grad()

@@ -62,6 +62,15 @@ class PrecisionType(str, enum.Enum):
 COMPUTE_DTYPES = {"no": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16, "fp8": torch.bfloat16}
 
 
+class CustomDtype(enum.Enum):
+    """Sub-byte and non-native dtypes for the planner's size accounting
+    (JAX's `CustomDtype`)."""
+
+    FP8 = "fp8"
+    INT4 = "int4"
+    INT8 = "int8"
+
+
 @dataclass
 class GradientAccumulationPlugin:
     """Gradient accumulation settings: the two of the JAX package's fields

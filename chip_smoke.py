@@ -171,8 +171,9 @@ prints no result):
        bf16 at 44 layers (41.1 GB of weights, 17.7 GB of pools) over the 16
        requests of phase 3, plain (K1) and speculative (K2), timed, launches
        gated as in phase 3; then int8 weights over an int8 and an fp8 cache
-       at 22 layers (the bf16 model the engine copies from and its int8
-       copy both on the card).
+       at 8 layers (22 until PR 18; phase 3 holds int8 weights at full
+       depth; the bf16 model the engine copies from and its int8 copy both
+       on the card).
    (b) `generate` of GPT-NeoX-20B, GPT-J-6B and OPT-30B in bf16 at full
        depth, batch 1 on a 512-token prompt, 128 new tokens: TTFT, decode
        tokens/s, peak memory; no K1-K5 launch.
@@ -223,8 +224,8 @@ prints no result):
        launches are (d)'s.
    (c) `generate` through `Generator(max_length=1024)`: f32 at 2 layers
        and the dropless capacity factor 4.0, the cached greedy tokens equal
-       the full-context greedy loop's for 8 new tokens; bf16 at 24 layers
-       (70.2 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
+       the full-context greedy loop's for 8 new tokens; bf16 at 8 layers
+       (23.7 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
        (128-512 tokens), 128 new tokens each (TTFT, decode tokens/s, peak
        memory), no K1-K5 launch; the tokens the routers dropped at the
        prefill and at each decode step of the batch-8 call, counted by a
@@ -285,14 +286,14 @@ prints no result):
 
 13. Telemetry and the trace guard on the main paths, run after phase 11:
    (a) the Llama-1B paged engine of phase 3 (bf16, its 16 requests and
-       engine arguments, full width and depth), plain and speculative, each
+       engine arguments, full width cut to 4 layers: phase 3 holds the
+       engine at full depth), plain and speculative, each
        after a warm-up, run without and with instrumentation (a b b a twice
        for plain, a b for speculative): instrumented is a fresh
        `MetricsRegistry`, a `Tracer` over a `FlightRecorder` streaming into
        a temporary directory (removed however the phase ends) and a
        record-mode `TraceGuard` ("log": each host sync recorded) armed around
-       the steps. Gates: every run's tokens equal phase 3's (and each
-       other's); 16 submitted, 16 finished, 16 TTFTs;
+       the steps. Gates: every run's tokens equal each other's; 16 submitted, 16 finished, 16 TTFTs;
        `serving_chunks_total` equals the engine's chunks; 16 `serve.request`
        and 16 `serve.insert` spans and one `serve.decode_chunk` span per
        chunk in the stream; the Perfetto JSON written and read back with the
@@ -305,14 +306,15 @@ prints no result):
        record syncs (by site: the chunk's uploads and readback, the
        insert's pushes and first-token read) and leave the tokens as they
        were: a guard that records none there sees nothing.
-   (b) Llama-1B bf16 training at full width and depth, 5 (b)'s batch and
+   (b) Llama-1B bf16 training at full width cut to 4 layers (5 (b) holds
+       the step at full depth), 5 (b)'s batch and
        seed, 2 warm-up and 8 timed steps, through an `Accelerator` without
        and with `analyze=True` (a b b a; the analyzed one samples the
        "block" phase every 2nd step). Gates: losses equal within rtol 1e-6
        (bit for bit reported); `train_steps_total`, the
        `train_dispatch_seconds` count and `goodput()["steps"]` 10; the
        guard's 8 steady steps clean (0 builds, 0 syncs); K3-K5 each launched
-       16 x 10 times. Reported: step times and the block share.
+       4 x 10 times. Reported: step times and the block share.
    (c) `Accelerator.profile()` around 2 more analyzed steps (the
        allocator's history recorded) and a `ProfilerManager` window around
        one engine step: the Chrome traces name `flash_fwd_wgmma_kernel`,
@@ -332,7 +334,8 @@ prints no result):
    collectives and the sharded optimizer state are all on the path; runs
    across processes are held to JAX on the CPU over gloo
    (`tests/test_torch_distributed*.py`).
-   (a) Llama-1B bf16 with f32 masters at full width and depth, 5 (b)'s
+   (a) Llama-1B bf16 with f32 masters at full width cut to 2 layers (5 (b)
+       holds the fused step at full depth), 5 (b)'s
        batch (2 x 2048), seed and AdamW, 2 warm-up and 8 timed steps, each
        run through `Accelerator(...).prepare` and `train_step()`: the bare
        `Accelerator` (no group), then NO_SHARD, SHARD_GRAD_OP and
@@ -341,15 +344,15 @@ prints no result):
        is "nccl"; NO_SHARD's losses equal the bare run's within rtol 1e-6
        (bit for bit reported); SHARD_GRAD_OP's and FULL_SHARD's within 1e-2
        relative at every step (the largest gap reported), finite, the last
-       below the first; K3, K4 and K5 each launched 16 x 10 times per run;
+       below the first; K3, K4 and K5 each launched 2 x 10 times per run;
        a `torch.profiler` window of one more FULL_SHARD step holds the
        collectives FSDP issues through NCCL (`nccl:*` ops). At one rank NCCL
        runs each as a device-to-device copy, so the window's NCCL kernels
        (none) and copies are reported, not gated. Reported per run: median step time, tokens/s, MFU (phase 5's
        accounting), peak memory, and each strategy's step time over the
        bare run's.
-   (b) The trace guard on the steady step under NO_SHARD and FULL_SHARD:
-       2 warm-up steps, then 4 under a record-mode `TraceGuard` ("log");
+   (b) The trace guard on the steady step under NO_SHARD and FULL_SHARD
+       (the 2-layer cut): 2 warm-up steps, then 4 under a record-mode `TraceGuard` ("log");
        reported: kernel builds and host syncs by site, the port's own frame
        and torch's innermost one. A sync in the port's code fails the phase.
    (c) A checkpoint across layouts: 2 layers of Llama-1B at full width under
@@ -407,12 +410,13 @@ prints no result):
     functions of the same file for each comparison.
    (a) ``config --default --config_file F`` (bf16), then ``launch
        --config_file F --gradient_accumulation_steps 2 --num_processes 1 S``:
-       phase 15 (a)'s eager loop on Llama-1B at full width and depth
-       (random weights from seed 0, batch 2 x 2048, 8 micro-steps, 4
+       phase 15 (a)'s eager loop on Llama-1B at full width cut to 2 layers
+       (phase 15 runs it at full depth; random weights from seed 0, batch
+       2 x 2048, 8 micro-steps, 4
        optimizer steps) under ``Accelerator()``. Gates: the child reads
        bf16, accumulation 2, one process and ``cuda:0``; it built no kernel
        (its build listener heard nothing: the libraries the parent built are
-       loaded from ``build/``); K3-K5 launched 16 x 8 times each in bf16; its
+       loaded from ``build/``); K3-K5 launched 2 x 8 times each in bf16; its
        8 losses equal, bit for bit, the same loop in this process under
        ``Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)``.
    (b) ``launch --max_restarts 1 --trace_dir D --mixed_precision bf16 S`` on
@@ -433,10 +437,52 @@ prints no result):
     load seconds. The children's K3-K5 launches, and the parent's loops',
     join the Llama rows of the `kernels` line.
 
+17. Big-model inference and the offload tiers, run right after OPT-30B's
+    generate phase (10 (b)), whose model it takes over (one model, made
+    once), and driven as a user drives them. First bf16 K3 at OPT-30B's
+    generation shape (batch 1, 56 heads of 128, S 2048, causal), held and
+    timed as phase 2 holds and times it. Then OPT-30B at full width and
+    depth (48 layers, 59.9 GB in bf16, random weights from seed 0), a
+    1024-token prompt (batch 1), its first forward's logits and 8 new
+    tokens through `DispatchedModel.generate` (the first forward at 1024
+    tokens, the rest at the 2048 bucket: K3 at every layer of each):
+   (a) `dispatch_model(model, {"": 0})`: the resident reference.
+   (b) `infer_auto_device_map` with 48 GiB for the card (the reference's
+       2 x 24 GB row) and the host's available RAM: 40 layers on the card,
+       8 pinned in host RAM, streamed by `OPTLayeredApply`. A host without
+       the cpu tier's bytes raises, naming them.
+   (c) 40 GiB for the card, 13.6 GB of host RAM, the rest (4 layers, 4.9
+       GB) in the disk store under a temporary directory.
+   Gates for (b) and (c): the first forward's logits equal (a)'s bit for
+   bit and the 8 tokens are (a)'s; K3 launched 48 x 9 times; the bytes on
+   the card after dispatch within the card's budget; the peak during
+   `generate` at most the resident bytes plus two layers plus (a)'s
+   activations (the slack reported); no copy from unpinned host memory.
+   Reported: dispatch seconds and bytes per tier, TTFT and seconds per
+   token, the bare host-to-device GB/s of one layer, the share of the copy
+   hidden under compute (the streamed token against the resident one plus
+   the bare copy), peak memory, host MemAvailable; for (c) the store's
+   write seconds and its read GB/s (the page cache warm from the write).
+   (d) Llama-1B bf16 written by `save_model` (1 GB shards, a temporary
+       directory) and read by `load_checkpoint_and_dispatch` onto
+       `init_empty_weights` with budgets that send blocks to host RAM and
+       disk: logits equal the resident model's bit for bit. Then
+       `cpu_offload_with_hook` on it and a 2-layer model chained after it:
+       after the second runs, the first's weights are in host RAM; both
+       outputs bit for bit.
+   (e) `load_and_quantize_model` on Llama-1B bf16 in int8, int4 and nf4:
+       the codes and scales made on the card equal the CPU's bit for bit
+       (layer 0's weights and the head), the bytes held equal
+       `quantized_nbytes`, the quantized logits finite.
+   (f) ``estimate-memory opt_30b llama-1b`` through the dispatcher: its bf16
+       totals equal the parameter bytes of (a)'s and (d)'s models.
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
 `--surface-only` the build and phase 15 alone, `--launch-only` the build and
-phase 16 alone (none prints a result line).
+phase 16 alone, `--bigmodel-only` the build and phase 17 alone (none prints a
+result line). Each phase prints its wall time on a `[time]` line, and the
+whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
 
@@ -634,8 +680,8 @@ FP32_UNIT = 2.0 ** -24
 FAMILIES = ("gpt-neox-20b", "gptj-6b", "opt-30b")
 FAMILY_TRAIN_LAYERS = {"gpt-neox-20b": 2, "gptj-6b": 4, "opt-30b": 2}
 # NeoX-20B's int8-weight engine quantizes a copy of a bf16 model cut to this
-# depth (20.6 GB bf16, 10.1 GB int8, the int8 pools 4.4 GB).
-NEOX_W8_LAYERS = 22
+# depth (phase 3 holds int8 weights at full depth on Llama-1B).
+NEOX_W8_LAYERS = 8
 FAMILY_TIMED_STEPS, FAMILY_WARMUP, FAMILY_FP16_STEPS = 4, 2, 2
 
 # T5 (phase 8): T0pp-11B at its published widths. Training is cut to this
@@ -665,11 +711,11 @@ T5_TINY_SEQ = 1024
 # 14336, top 2, capacity factor 1.25; 32 heads of 128 over 8 KV heads; vocab
 # 32000). Its 46.70e9 parameters are 93.4 GB in bf16, past the card's 80 GB,
 # so each run is cut in depth: a layer is 1.4513e9 parameters (2.903 GB in
-# bf16), the embedding and the head 0.524 GB together. Generation runs 24 of
-# the 32 layers (70.2 GB) over a 1024-token cache (prompt 512 + 128 new);
-# its f32 dropless check 2 layers.
+# bf16), the embedding and the head 0.524 GB together. Generation runs 8 of
+# the 32 layers (23.7 GB; 24 until PR 18 cut it for the script's time) over
+# a 1024-token cache (prompt 512 + 128 new); its f32 dropless check 2 layers.
 MIXTRAL_MODEL = "mixtral-8x7b"
-MIXTRAL_GENERATE = dict(layers=24, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
+MIXTRAL_GENERATE = dict(layers=8, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
                         parity_layers=2, parity_batch=2, parity_prompt=64, parity_new=8, profile_new=16)
 # Training runs 2 layers (3.165e9 parameters: f32 masters and gradients,
 # AdamW's two moments and the bf16 copies, about 57 GB) on batch 1 x 2048.
@@ -1048,7 +1094,7 @@ SPEC_KW = dict(speculative=True, draft_tokens=KERNEL_SHAPE["verify_s"] - 1)
 def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, system_len=256,
                  profile=False, tokens_out=None):
     """Phase 3; `tokens_out`, a dict, receives the bf16 runs' greedy tokens
-    by label ("plain", "speculative")."""
+    by label ("plain", "speculative"), which phase 13 gates at full depth."""
     from accelerate_tpu_torch import create_named_model
 
     engine_kw = {**ENGINE_KW, **(engine_kw or {})}
@@ -1550,7 +1596,7 @@ def limit_report(got, ref, atol, rtol, bound=None):
 
 
 def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True, causal=True, scale=None,
-                       dtypes=(torch.float32, torch.bfloat16, torch.float16)):
+                       dtypes=(torch.float32, torch.bfloat16, torch.float16), names=tuple(FLASH_KERNELS)):
     """K3, K4 and K5 against their plain versions in each of `dtypes`, at
     `shape` (``sk``, the key length, defaults to ``s``), `causal` or not, at
     `scale` (1/sqrt(D) by default); each kernel check is one launch. K4 and
@@ -1558,7 +1604,8 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True, causal=True, scale
     bf16 and fp16 K3's o, K4's dk and dv and K5's dq also report the element
     nearest to breaking the limit without the rounding bound, and SDPA's
     output under both limits. Then, with fp16 among `dtypes`, fp16 K4 and
-    K5 on the range case (`flash_range_case`)."""
+    K5 on the range case (`flash_range_case`). `names` limits the kernels
+    held (the backward's references are made only for K4 or K5)."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     scale = shape["d"] ** -0.5 if scale is None else scale
@@ -1572,11 +1619,13 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True, causal=True, scale
         ref_o, ref_lse = fa.flash_fwd_reference(*wide[:3], causal, scale)
         ref_delta = fa._delta(ref_o, wide[3])
         lse, delta = ref_lse.float(), ref_delta.float()
-        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*wide, ref_lse, ref_delta, causal, scale)
-        ref_dq = fa.flash_bwd_dq_reference(*wide, ref_lse, ref_delta, causal, scale)
+        backward = names != ("flash_fwd",)
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*wide, ref_lse, ref_delta, causal, scale) if backward else (None,) * 2
+        ref_dq = fa.flash_bwd_dq_reference(*wide, ref_lse, ref_delta, causal, scale) if backward else None
         lib_fwd, lib_bwd = sdpa_flash_yardsticks(q, k, v, do, shape["b"], shape["hq"], causal, scale)
-        sdpa = dict(zip(("dq", "dk", "dv"), lib_bwd()), o=lib_fwd().detach())
-        refs = {"o": ref_o, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv}
+        sdpa = dict(zip(("dq", "dk", "dv"), lib_bwd() if backward else ()), o=lib_fwd().detach())
+        refs = {key: ref for key, ref in {"o": ref_o, "dq": ref_dq, "dk": ref_dk, "dv": ref_dv}.items()
+                if ref is not None}
         sdpa_err = {key: float((sdpa[key].reshape(ref.shape).float() - ref.float()).abs().max())
                     for key, ref in refs.items()}
         calls = {
@@ -1592,6 +1641,8 @@ def flash_kernel_phase(device, shape=FLASH_SHAPE, timed=True, causal=True, scale
         expect = {"flash_fwd": {"o": ref_o, "lse": ref_lse}, "flash_bwd_dkv": {"dk": ref_dk, "dv": ref_dv},
                   "flash_bwd_dq": {"dq": ref_dq}}
         for name, call in calls.items():
+            if name not in names:
+                continue
             got = launch_checked(device, name, dtype, call, expect[name])
             row = {"max_abs_err": 0.0, "errors": {}}
             for key, ref in expect[name].items():
@@ -2494,16 +2545,18 @@ def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_lay
     return report
 
 
-def family_generate_phase(device, model_name, shape=GENERATE_SHAPE, profile=False):
+def family_generate_phase(device, model_name, shape=GENERATE_SHAPE, profile=False, model=None):
     """`generate` of `model_name` in bf16 at full width and depth (random
-    weights from seed 0): batch 1 on a `timed_prompt`-token prompt,
-    `timed_new` new tokens (`timed_generate`: TTFT, decode tokens/s, peak
-    memory), after a warm-up; every K1-K5 count stays 0 over it. With
-    `profile`, device time by kernel group of one more such call."""
+    weights from seed 0, or `model` when the caller made it): batch 1 on a
+    `timed_prompt`-token prompt, `timed_new` new tokens (`timed_generate`:
+    TTFT, decode tokens/s, peak memory), after a warm-up; every K1-K5 count
+    stays 0 over it. With `profile`, device time by kernel group of one
+    more such call."""
     from accelerate_tpu_torch import GenerationConfig, Generator, create_named_model
 
     t0 = time.perf_counter()
-    model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+    if model is None:
+        model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
     log_model(f"[family] {model_name} bf16", model, t0)
     report = {"model": model_name, "layers": model.config.num_hidden_layers,
               "parameters": sum(p.numel() for p in model.parameters()), "build_s": time.perf_counter() - t0}
@@ -3655,6 +3708,7 @@ def fp8_phase(device, bf16=None, profile=False):
 
 # ---------------------------------------------------------------- telemetry (phase 13)
 TELEMETRY_BLOCK_EVERY = 2  # the analyzed step's sampled block: every 2nd step
+TELEMETRY_LAYERS = 4  # phase 13's depth: phase 3 and 5 (b) hold its paths at full depth
 PAGED_KERNEL_NAMES = ("paged_split_", "paged_merge_kernel")
 FLASH_WGMMA_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
 
@@ -4028,23 +4082,31 @@ def planted_sync_case(device):
 
 
 def telemetry_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, system_len=256,
-                    seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8, plain_tokens=None):
-    """Phase 13: telemetry and the trace guard on the main paths."""
-    from accelerate_tpu_torch import create_named_model
+                    seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8, plain_tokens=None, layers=TELEMETRY_LAYERS):
+    """Phase 13: telemetry and the trace guard on the main paths, at
+    `layers` (phase 3 and 5 (b) hold those paths at full depth);
+    `plain_tokens`, phase 3's, gate the engine's only at full depth."""
+    import dataclasses
+
+    from accelerate_tpu_torch import create_llama_model
     from accelerate_tpu_torch.models import MODEL_REGISTRY
 
+    full = MODEL_REGISTRY[model_name]()
+    config = dataclasses.replace(full, num_hidden_layers=min(layers, full.num_hidden_layers))
+    if config.num_hidden_layers != full.num_hidden_layers:
+        plain_tokens = None
     engine_kw = {**ENGINE_KW, **(engine_kw or {})}
-    report = {"model": model_name, "engine": engine_kw}
+    report = {"model": model_name, "layers": config.num_hidden_layers, "engine": engine_kw}
     t0 = time.perf_counter()
-    # Phase 3's model: f32 from seed 0, then cast, so its tokens are phase 3's.
-    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device).to(torch.bfloat16)
+    # Phase 3's model: f32 from seed 0, then cast, so at full depth its tokens are phase 3's.
+    model = create_llama_model(config, seed=0, dtype=torch.float32, device=device).to(torch.bfloat16)
     requests = make_requests(model.config.vocab_size, n=n_requests, system_len=system_len)
     report["engine_runs"] = telemetry_engine(device, model, requests, engine_kw, plain_tokens)
     del model
     free_memory(device)
     log(f"[time] telemetry (a) engine {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    report["training"] = telemetry_training(device, MODEL_REGISTRY[model_name](), seq, batch, warmup, timed_steps)
+    report["training"] = telemetry_training(device, config, seq, batch, warmup, timed_steps)
     log(f"[time] telemetry (b) training {time.perf_counter() - t0:.1f}s")
     report["planted_sync"] = planted_sync_case(device)
     log(f"[telemetry] (d) planted sync: {json.dumps(report['planted_sync'])}")
@@ -4060,6 +4122,7 @@ DIST_NO_SHARD_RTOL = 1e-6
 # update through shard views: the same bf16 arithmetic in other kernels.
 DIST_SHARDED_RTOL = 1e-2
 DIST_CHECKPOINT_LAYERS = 2
+DIST_TRAIN_LAYERS = 2  # (a) and (b): 5 (b) holds the fused step at full depth
 DIST_GUARD_STEPS = 4
 # The launcher's variables phase 14 sets for its world-1 NCCL group, and
 # puts back after.
@@ -4365,13 +4428,14 @@ def dist_checkpoint(device, config, seq, batch=1, steps=6, save_after=3):
 
 
 def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8,
-               checkpoint_layers=DIST_CHECKPOINT_LAYERS, guard_steps=DIST_GUARD_STEPS):
+               checkpoint_layers=DIST_CHECKPOINT_LAYERS, guard_steps=DIST_GUARD_STEPS, layers=DIST_TRAIN_LAYERS):
     """Phase 14: data parallel and FSDP/ZeRO through NCCL at world 1."""
     import dataclasses
 
     from accelerate_tpu_torch.models import MODEL_REGISTRY
 
-    config = MODEL_REGISTRY[model_name]()
+    full = MODEL_REGISTRY[model_name]()
+    config = dataclasses.replace(full, num_hidden_layers=min(layers, full.num_hidden_layers))
     report = {"model": model_name}
     env_before = {k: os.environ.get(k) for k in DIST_ENV}
     t0 = time.perf_counter()
@@ -4381,7 +4445,7 @@ def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, 
     report["guard"] = dist_guard(device, config, batch, seq, warmup=warmup, steps=guard_steps)
     log(f"[time] dist (b) guard {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    report["checkpoint"] = dist_checkpoint(device, dataclasses.replace(config, num_hidden_layers=checkpoint_layers),
+    report["checkpoint"] = dist_checkpoint(device, dataclasses.replace(full, num_hidden_layers=checkpoint_layers),
                                            seq)
     log(f"[time] dist (c) checkpoint {time.perf_counter() - t0:.1f}s")
     if {k: os.environ.get(k) for k in DIST_ENV} != env_before or torch.distributed.is_initialized():
@@ -4701,8 +4765,9 @@ def surface_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=SURFACE, c
 
 
 # ------------------------------------------------------------------ phase 16: launch and the CLI
-LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=4, restart_layers=2, restart_steps=4, save_after=2,
-              restart_rows=16)
+# (a)'s eager loop runs at `eager_layers`: phase 15 holds that loop at full depth.
+LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=4, eager_layers=2, restart_layers=2, restart_steps=4,
+              save_after=2, restart_rows=16)
 CLI = ("-m", "accelerate_tpu_torch.commands.accelerate_cli")
 # The user's script the launched children run. The parent runs the same
 # functions from the same file for the in-process side of each comparison.
@@ -4883,9 +4948,10 @@ def cli(args, timeout, check=True):
 
 
 def cli_in_process(args):
-    """The dispatcher's ``trace`` commands, which read and write files only,
-    run here through the same parser (a fresh interpreter on the card
-    machine costs 10-15 s of imports); returns what they printed."""
+    """The dispatcher's commands that read and write files or print only
+    (``trace``, ``config --default``, ``env``, ``estimate-memory``), run
+    here through the same parser (a fresh interpreter on the card machine
+    costs 10-15 s of imports); returns what they printed."""
     import contextlib
     import io
 
@@ -4928,7 +4994,7 @@ def launched_training(device, model_name, seq, shape, tmp):
     loop in this process."""
     cpu = ["--cpu"] if device.type == "cpu" else []
     config_file = os.path.join(tmp, "default_config.yaml")
-    cli(["config", "--default", "--config_file", config_file], timeout=300)
+    cli_in_process(["config", "--default", "--config_file", config_file])
     from accelerate_tpu_torch.commands.config import load_config_file
 
     written = load_config_file(config_file)
@@ -4939,11 +5005,12 @@ def launched_training(device, model_name, seq, shape, tmp):
     out = os.path.join(tmp, "eager.json")
     t0 = time.perf_counter()
     run = cli(["launch", "--config_file", config_file, "--gradient_accumulation_steps", str(shape["accumulation"]),
-               "--num_processes", "1", *cpu, script, "--mode", "eager", "--model", model_name, "--batch",
-               str(shape["batch"]), "--seq", str(seq), "--micro_steps", str(micro), "--out", out], timeout=900)
+               "--num_processes", "1", *cpu, script, "--mode", "eager", "--model", model_name, "--layers",
+               str(shape["eager_layers"]), "--batch", str(shape["batch"]), "--seq", str(seq), "--micro_steps",
+               str(micro), "--out", out], timeout=900)
     with open(out) as f:
         child = json.load(f)
-    layers = load_launch_script(script)["llama_config"](model_name).num_hidden_layers
+    layers = shape["eager_layers"]
     report = {"config_file": written, "child": child, "launcher_seconds": time.perf_counter() - t0}
     log(f"[launch] (a) child {json.dumps(child)}")
     if (child["mixed_precision"], child["gradient_accumulation_steps"], child["num_processes"]) != (
@@ -4961,7 +5028,7 @@ def launched_training(device, model_name, seq, shape, tmp):
     loop = load_launch_script(script)
     accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=shape["accumulation"],
                               cpu=device.type == "cpu")
-    losses = loop["eager_loop"](accelerator, loop["llama_config"](model_name), shape["batch"], micro, seq)
+    losses = loop["eager_loop"](accelerator, loop["llama_config"](model_name, layers), shape["batch"], micro, seq)
     report["in_process"] = {"losses": losses, "launches": launch_counts()}
     del accelerator, loop
     reset_port_state()
@@ -5084,13 +5151,13 @@ def cli_checks(device):
     test = cli(["test", *(["--cpu"] if device.type == "cpu" else [])], timeout=600)
     if "All checks passed." not in test.stdout or "Test is a success!" not in test.stdout:
         raise RuntimeError(f"(c) test: {test.stdout[-3000:]}")
-    env = cli(["env"], timeout=300)
+    env = cli_in_process(["env"])
     name = torch.cuda.get_device_name(0) if device.type == "cuda" else "none"
-    card_names = [line for line in env.stdout.splitlines() if line.startswith("- Card names:")]
+    card_names = [line for line in env.splitlines() if line.startswith("- Card names:")]
     if not card_names or name not in card_names[0]:
-        raise RuntimeError(f"(c) env does not name the card {name!r}: {env.stdout}")
+        raise RuntimeError(f"(c) env does not name the card {name!r}: {env}")
     return {"test_checks": test.stdout.count(" ✓"), "env_card_names": card_names[0],
-            "env_power": [line for line in env.stdout.splitlines() if "power limit" in line]}
+            "env_power": [line for line in env.splitlines() if "power limit" in line]}
 
 
 def launch_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=LAUNCH):
@@ -5119,6 +5186,430 @@ def launch_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=LAUNCH):
     report["launches"] = {k: sum(r["launches"].get(k, 0) for r in (
         *children, report["launched"]["in_process"], report["restart"]["in_process"])) for k in launch_counts()}
     return report
+
+
+# ------------------------------------------------------------ big-model inference
+BIGMODEL = dict(
+    model="opt-30b", prompt=1024, new=8,
+    # (b) mirrors the reference's 2 x 24 GB row: 48 GiB of card for the weights.
+    budget_b={0: "48GiB"},
+    # (c) about 4 layers (4.9 GB) on disk: the checkout's filesystem is slow.
+    budget_c={0: "40GiB", "cpu": "13.6GB"},
+    llama="llama-1b", llama_prompt=1024,
+    # (d) Llama-1B bf16: 7 layers on the card beside the embedding, 4 in host RAM, the rest and the head on disk.
+    budget_d={0: "2GB", "cpu": "0.6GB"},
+    hook_layers=2,
+)
+OPT_FLASH_SHAPE = dict(b=1, hq=56, s=2048, d=128)
+#: The weights (flax path prefixes) phase 17 (e) also quantizes on the CPU:
+#: one layer's and the head (262M elements), whose codes must equal the card's.
+QUANT_CPU_CHECKED = ("params/layer_0/", "params/lm_head/")
+QUANT_MODES = {"int8": dict(load_in_8bit=True), "int4": dict(load_in_4bit=True, quant_type="int4"),
+               "nf4": dict(load_in_4bit=True, quant_type="nf4")}
+
+
+def tier_bytes(dm):
+    """Bytes placed on each tier of a `DispatchedModel` (a tied tensor once)."""
+    seen, out = set(), {}
+    for name, leaf in dm._leaves.items():
+        if id(leaf) in seen:
+            continue
+        seen.add(id(leaf))
+        tier = str(dm.tier_of[name])
+        n = 1
+        for d in leaf.shape:
+            n *= d
+        out[tier] = out.get(tier, 0) + n * leaf.dtype.itemsize
+    return out
+
+
+def bigmodel_run(dm, ids, device, new, what, reference=None, activations=None, layer_bytes=0, budget=None, base=0):
+    """One layout's run: the first forward's logits (timed: TTFT), then
+    `generate` of `new` tokens (seconds per token after the first, peak
+    memory, K3 launches), held to `reference` (the resident run's logits and
+    tokens, bit for bit) and to the memory gates."""
+    n_layers = dm.module.config.num_hidden_layers
+    report = {"layout": what, "resident_bytes": int(torch.cuda.memory_allocated(device) - base)
+              if device.type == "cuda" else None, "tiers": tier_bytes(dm)}
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    logits = dm(ids)
+    sync(device)
+    report["ttft_s"] = time.perf_counter() - t0
+    logits = logits.cpu()
+    if not torch.isfinite(logits.float()).all():
+        raise RuntimeError(f"{what}: non-finite logits")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    copies = dict(dm.transfer_stats)
+    t0 = time.perf_counter()
+    out = dm.generate(ids, max_new_tokens=new)
+    sync(device)
+    report["generate_s"] = time.perf_counter() - t0
+    report["s_per_token"] = (report["generate_s"] - report["ttft_s"]) / max(new - 1, 1)
+    tokens = out[:, ids.shape[1]:].cpu()
+    report["tokens"] = tokens.tolist()
+    report["k3_launches"] = launch_counts()["flash_fwd"]
+    report["copies"] = {k: dm.transfer_stats[k] - copies[k] for k in copies}
+    forwards = 1 + new
+    if device.type == "cuda":
+        report["peak_bytes"] = int(torch.cuda.max_memory_allocated(device) - base)
+        if report["k3_launches"] != n_layers * forwards:
+            raise RuntimeError(f"{what}: K3 launched {report['k3_launches']} times, expected {n_layers} x {forwards}")
+    if tokens.shape != (ids.shape[0], new):
+        raise RuntimeError(f"{what}: generate returned {tuple(out.shape)}")
+    if reference is not None:
+        report["logits_bit_for_bit"] = bool(torch.equal(logits, reference["logits"]))
+        report["tokens_equal"] = report["tokens"] == reference["tokens"]
+        if not report["logits_bit_for_bit"]:
+            diff = (logits.float() - reference["logits"].float()).abs().max().item()
+            raise RuntimeError(f"{what}: the first forward's logits differ from the resident run's (max {diff})")
+        if not report["tokens_equal"]:
+            raise RuntimeError(f"{what}: tokens {report['tokens']} differ from the resident run's "
+                               f"{reference['tokens']}")
+    if device.type == "cuda" and budget is not None:
+        report["budget_bytes"] = budget
+        if report["resident_bytes"] > budget:
+            raise RuntimeError(f"{what}: {report['resident_bytes']} bytes on the card after dispatch, budget {budget}")
+        bound = report["resident_bytes"] + 2 * layer_bytes + activations
+        report["peak_bound_bytes"], report["peak_slack_bytes"] = bound, bound - report["peak_bytes"]
+        if report["peak_bytes"] > bound:
+            raise RuntimeError(f"{what}: peak {report['peak_bytes']} past resident + two layers + activations {bound}")
+        if report["copies"]["pageable"]:
+            raise RuntimeError(f"{what}: {report['copies']['pageable']} copies from unpinned host memory")
+    log(f"[bigmodel] {what}: {json.dumps({k: v for k, v in report.items() if k != 'tokens'})}")
+    return report, {"logits": logits, "tokens": report["tokens"]}
+
+
+def host_to_device_rate(dm, device, repeats=3):
+    """GB/s of a bare copy of one offloaded layer from its pinned host
+    tensors to the card (CUDA events, the median of `repeats`), and the
+    layer's bytes."""
+    name = next(n for n, t in dm.tier_of.items() if t == "cpu" and n.startswith("layers."))
+    prefix = ".".join(name.split(".")[:2]) + "."
+    host = [t for n, t in dm._leaves.items() if n.startswith(prefix)]
+    dst = [torch.empty_like(t, device=device) for t in host]
+    nbytes = sum(t.numel() * t.element_size() for t in host)
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for d, h in zip(dst, host):
+            d.copy_(h, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    del dst
+    return nbytes / float(np.median(times)) / 1e9, nbytes
+
+
+def overlap_share(resident_s, streamed_s, copy_s):
+    """Share of the bare copy time hidden under compute: 1 when the streamed
+    forward takes the resident one's time, 0 when it takes that plus the
+    whole copy."""
+    return (resident_s + copy_s - streamed_s) / copy_s if copy_s > 0 else None
+
+
+def bigmodel_layouts(device, model, shape=BIGMODEL, offload_dir=None):
+    """(a) resident, (b) under the device budget with host RAM, (c) mixed
+    with disk, on one model made once; returns the report."""
+    from accelerate_tpu_torch.big_modeling import dispatch_model
+    from accelerate_tpu_torch.models import layered_for_model
+    from accelerate_tpu_torch.utils.environment import get_available_host_memory_bytes
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes, get_max_memory, infer_auto_device_map
+
+    # What else the card holds: the layouts' bytes are counted above it.
+    base = torch.cuda.memory_allocated(device) - sum(
+        p.numel() * p.element_size() for p in model.parameters() if p.is_cuda) if device.type == "cuda" else 0
+    vocab = model.config.vocab_size
+    ids = torch.from_numpy(np.random.default_rng(17).integers(0, vocab, (1, shape["prompt"]))).to(device)
+    sizes = compute_module_sizes(model)
+    layer_bytes = sizes["params/layer_0"]
+    report = {"model": shape["model"], "parameter_bytes": sizes[""], "layer_bytes": layer_bytes,
+              "prompt": shape["prompt"], "new_tokens": shape["new"],
+              "host_mem_available_bytes": get_available_host_memory_bytes()}
+    layered = layered_for_model(model)
+
+    # (a) Every block on the card: the module's own forward.
+    t0 = time.perf_counter()
+    dm = dispatch_model(model, {"": 0}, device=device)
+    sync(device)
+    report["a"], reference = bigmodel_run(dm, ids, device, shape["new"], "(a) resident", base=base)
+    report["a"]["dispatch_s"] = time.perf_counter() - t0 - report["a"]["generate_s"] - report["a"]["ttft_s"]
+    activations = report["a"].get("peak_bytes", 0) - (report["a"]["resident_bytes"] or 0)
+    report["activation_bytes"] = activations
+
+    # (b) The device budget, the rest pinned in host RAM.
+    unbounded = infer_auto_device_map(model, {**shape["budget_b"], "cpu": float("inf")})
+    cpu_need = sum(sizes[b] for b, t in unbounded.items() if t == "cpu")
+    report["b_cpu_tier_bytes"] = cpu_need
+    if cpu_need > report["host_mem_available_bytes"]:
+        raise RuntimeError(f"(b) the host tier needs {cpu_need} bytes; MemAvailable is "
+                           f"{report['host_mem_available_bytes']}")
+    budget = {**shape["budget_b"], "cpu": report["host_mem_available_bytes"]}
+    device_map = infer_auto_device_map(model, budget)
+    if "disk" in device_map.values():
+        raise RuntimeError(f"(b) the map sends blocks to disk: {device_map}")
+    del dm
+    free_memory(device)
+    t0 = time.perf_counter()
+    dm = dispatch_model(model, device_map, layered=layered, device=device)
+    sync(device)
+    dispatch_s = time.perf_counter() - t0
+    run, _ = bigmodel_run(dm, ids, device, shape["new"], "(b) cpu offload", reference, activations, layer_bytes,
+                          get_max_memory(shape["budget_b"])[0], base)
+    run["dispatch_s"] = dispatch_s
+    run["layers_on"] = {t: sum(1 for b, v in device_map.items() if b.startswith("params/layer_") and v == t)
+                        for t in set(device_map.values())}
+    if device.type == "cuda":
+        rate, nbytes = host_to_device_rate(dm, device)
+        run["h2d_gb_per_s"] = rate
+        offloaded = run["tiers"].get("cpu", 0)
+        run["copy_s_per_forward"] = offloaded / rate / 1e9
+        run["overlap_share"] = overlap_share(report["a"]["s_per_token"], run["s_per_token"],
+                                             run["copy_s_per_forward"])
+        run["streamed_gb_per_s"] = offloaded / run["s_per_token"] / 1e9
+    report["b"] = run
+    log(f"[bigmodel] (b) dispatch {dispatch_s:.2f}s, layers {run['layers_on']}, "
+        f"h2d {run.get('h2d_gb_per_s')} GB/s, overlap share {run.get('overlap_share')}")
+
+    # Back on the card whole, then (c): a smaller budget, a little host RAM, the rest on disk.
+    model.load_state_dict(dm.materialize_params(), assign=True)
+    del dm
+    free_memory(device)
+    device_map = infer_auto_device_map(model, {**shape["budget_c"], "disk": float("inf")})
+    t0 = time.perf_counter()
+    dm = dispatch_model(model, device_map, offload_folder=offload_dir, layered=layered, device=device)
+    sync(device)
+    dispatch_s = time.perf_counter() - t0
+    store = dm._disk_store
+    disk_names = [n for n, t in dm.tier_of.items() if t == "disk"]
+    t0 = time.perf_counter()
+    for name in disk_names:
+        store.read(name)
+    read_s = time.perf_counter() - t0
+    run, _ = bigmodel_run(dm, ids, device, shape["new"], "(c) cpu and disk", reference, activations, layer_bytes,
+                          get_max_memory(shape["budget_c"])[0], base)
+    run.update(dispatch_s=dispatch_s, disk_write_s=store.write_seconds, disk_bytes=store.bytes_written,
+               disk_read_gb_per_s=store.bytes_written / read_s / 1e9, disk_read_s=read_s,
+               disk_filesystem=filesystem(offload_dir),
+               layers_on={t: sum(1 for b, v in device_map.items() if b.startswith("params/layer_") and v == t)
+                          for t in set(device_map.values())})
+    if device.type == "cuda":
+        run["copy_s_per_forward"] = (run["tiers"].get("cpu", 0) + run["tiers"].get("disk", 0)) / (
+            report["b"]["h2d_gb_per_s"] * 1e9)
+        run["overlap_share"] = overlap_share(report["a"]["s_per_token"], run["s_per_token"],
+                                             run["copy_s_per_forward"])
+    if "disk" not in device_map.values() or "cpu" not in device_map.values():
+        raise RuntimeError(f"(c) the map is not mixed: {device_map}")
+    report["c"] = run
+    log(f"[bigmodel] (c) dispatch {dispatch_s:.2f}s (disk write {store.write_seconds:.2f}s for "
+        f"{store.bytes_written} bytes), layers {run['layers_on']}, disk read {run['disk_read_gb_per_s']:.2f} GB/s "
+        "(the page cache warm from the write)")
+    store.close()
+    del dm, store
+    model.to("meta")  # spent: the caller's reference holds no memory
+    free_memory(device)
+    return report
+
+
+def bigmodel_checkpoint(device, model_name, shape, tmp):
+    """(d) `save_model` of Llama-1B bf16, loaded by
+    `load_checkpoint_and_dispatch` onto an empty model with budgets that
+    send blocks to host RAM and disk: logits bit for bit; then
+    `cpu_offload_with_hook` on two chained models."""
+    from accelerate_tpu_torch import Accelerator, create_named_model
+    from accelerate_tpu_torch.big_modeling import init_empty_weights, load_checkpoint_and_dispatch
+    from accelerate_tpu_torch.hooks import cpu_offload_with_hook
+    from accelerate_tpu_torch.models import MODEL_REGISTRY, LlamaLayeredApply, create_llama_model
+
+    config = MODEL_REGISTRY[model_name]()
+    model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+    ids = torch.from_numpy(np.random.default_rng(18).integers(0, config.vocab_size, (1, shape["llama_prompt"])))
+    ids = ids.to(device)
+    with torch.no_grad():
+        resident = model(ids).cpu()
+    directory, offload = os.path.join(tmp, "llama"), os.path.join(tmp, "llama_offload")
+    reset_port_state()
+    t0 = time.perf_counter()
+    Accelerator(cpu=device.type == "cpu").save_model(model, directory, max_shard_size="1GB")
+    report = {"save_s": time.perf_counter() - t0, "files": sorted(os.listdir(directory))}
+    reset_port_state()
+    t0 = time.perf_counter()
+    dm = load_checkpoint_and_dispatch(init_empty_weights(config, dtype=torch.bfloat16), checkpoint=directory,
+                                      max_memory=shape["budget_d"], offload_folder=offload,
+                                      layered=LlamaLayeredApply(config), device=device)
+    sync(device)
+    report["load_dispatch_s"] = time.perf_counter() - t0
+    report["tiers"] = tier_bytes(dm)
+    report["parameter_bytes"] = sum(report["tiers"].values())
+    report["map"] = {str(t): sum(1 for v in dm.hf_device_map.values() if v == t) for t in set(dm.hf_device_map.values())}
+    if not {"cpu", "disk"} <= set(report["tiers"]):
+        raise RuntimeError(f"(d) the budgets {shape['budget_d']} gave tiers {report['tiers']}")
+    loaded = dm(ids).cpu()
+    report["logits_bit_for_bit"] = bool(torch.equal(loaded, resident))
+    report["pageable_copies"] = dm.transfer_stats["pageable"]
+    if not report["logits_bit_for_bit"] or dm.transfer_stats["pageable"]:
+        raise RuntimeError(f"(d) the dispatched checkpoint's logits differ from the resident model's "
+                           f"(max {(loaded.float() - resident.float()).abs().max().item()}) or it copied from "
+                           f"pageable memory ({dm.transfer_stats})")
+    dm._disk_store.close()
+    del dm, loaded
+
+    # Two models chained: running the second sends the first's weights home.
+    import dataclasses
+
+    second = create_llama_model(dataclasses.replace(config, num_hidden_layers=shape["hook_layers"]), seed=1,
+                                dtype=torch.bfloat16, device=device)
+    with torch.no_grad():
+        second_plain = second(ids).cpu()
+    first, first_hook = cpu_offload_with_hook(model, execution_device=device)
+    second, _ = cpu_offload_with_hook(second, execution_device=device, prev_module_hook=first_hook)
+    with torch.no_grad():
+        first_out = first(ids).cpu()
+        on_device_after_first = {p.device.type for p in first.parameters()}
+        second_out = second(ids).cpu()
+    after = {p.device.type for p in first.parameters()}
+    report["hooks"] = {"first_on": sorted(on_device_after_first), "first_after_second": sorted(after),
+                       "first_bit_for_bit": bool(torch.equal(first_out, resident)),
+                       "second_bit_for_bit": bool(torch.equal(second_out, second_plain))}
+    if after != {"cpu"} or not report["hooks"]["first_bit_for_bit"] or not report["hooks"]["second_bit_for_bit"]:
+        raise RuntimeError(f"(d) hooks: {report['hooks']}")
+    log(f"[bigmodel] (d) {json.dumps(report)}")
+    del first, second, model
+    free_memory(device)
+    return report
+
+
+def bigmodel_quantization(device, model_name):
+    """(e) `load_and_quantize_model` on Llama-1B bf16 in int8, int4 and nf4:
+    the codes and scales made on the card equal the CPU's bit for bit (for
+    the weights of QUANT_CPU_CHECKED), and the bytes the quantized model
+    holds (its codes' and scales' storage, its dense tensors) equal
+    `quantized_nbytes`; the allocator's change is reported beside them."""
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.utils.modeling import flax_leaves
+    from accelerate_tpu_torch.utils.quantization import (
+        QuantizationConfig,
+        is_quant_entry,
+        load_and_quantize_model,
+        quantize_params,
+        quantized_nbytes,
+    )
+
+    report = {}
+    host = None
+    for mode, kw in QUANT_MODES.items():
+        model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+        if host is None:  # the checked weights on the host, in JAX's layout
+            host = {path: p.detach().permute(dims).contiguous().cpu() for path, _, p, dims in flax_leaves(model)
+                    if path.startswith(QUANT_CPU_CHECKED)}
+        config = QuantizationConfig(**kw)
+        sync(device)
+        before = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        quantized_weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters() if p.dim() >= 2)
+        t0 = time.perf_counter()
+        qmodel = load_and_quantize_model(model, config)
+        sync(device)
+        row = {"seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        on_cpu = quantize_params(host, config)
+        row["cpu_seconds"] = time.perf_counter() - t0
+        entries = [k for k, v in qmodel.qparams.items() if is_quant_entry(v)]
+        checked = [k for k in on_cpu if is_quant_entry(on_cpu[k])]
+        equal = bool(checked) and all(torch.equal(qmodel.qparams[k].q.cpu(), on_cpu[k].q)
+                                      and torch.equal(qmodel.qparams[k].scale.cpu(), on_cpu[k].scale)
+                                      for k in checked)
+        dense = sum(v.numel() * v.element_size() for v in qmodel.qparams.values() if not is_quant_entry(v))
+        held = dense + sum(t.untyped_storage().nbytes() for k in entries
+                           for t in (qmodel.qparams[k].q, qmodel.qparams[k].scale))
+        row.update(quantized=len(entries), cpu_checked=len(checked), codes_bit_for_bit=equal,
+                   quantized_nbytes=quantized_nbytes(qmodel.qparams), held_bytes=held, dense_bytes=dense,
+                   weight_bytes_before=quantized_weight_bytes)
+        if device.type == "cuda":
+            row["allocated_delta"] = torch.cuda.memory_allocated(device) - before
+        with torch.no_grad():
+            ids = torch.arange(64, device=device)[None] * 7 % model.config.vocab_size
+            logits = qmodel(ids)
+        row["logits_finite"] = bool(torch.isfinite(logits.float()).all())
+        log(f"[bigmodel] (e) {mode}: {json.dumps(row)}")
+        if not equal or not row["logits_finite"] or held != row["quantized_nbytes"]:
+            raise RuntimeError(f"(e) {mode}: {row}")
+        report[mode] = row
+        del qmodel, model, on_cpu, logits
+        free_memory(device)
+    return report
+
+
+def bigmodel_phase(device, shape=BIGMODEL, model=None, timed=True):
+    """Phase 17: big-model inference and the offload tiers, as a user drives
+    them: OPT-30B resident, under a 48 GiB budget with host RAM and over
+    mixed tiers with disk; a checkpoint dispatched; hooks; quantization;
+    the estimate. `model` is the OPT model when the caller made it."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch import create_named_model
+
+    report = {}
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        log(f"[flash] OPT-30B's generation shape: {json.dumps(OPT_FLASH_SHAPE)}")
+        report["k3"] = flash_kernel_phase(device, OPT_FLASH_SHAPE, timed=timed, dtypes=(torch.bfloat16,),
+                                          names=("flash_fwd",))
+        log(f"[time] bigmodel K3 at OPT-30B's shape {time.perf_counter() - t0:.1f}s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bigmodel_")
+    try:
+        t0 = time.perf_counter()
+        if model is None:
+            model = create_named_model(shape["model"], seed=0, dtype=torch.bfloat16, device=device)
+            log_model(f"[bigmodel] {shape['model']} bf16", model, t0)
+        report["layouts"] = bigmodel_layouts(device, model, shape, offload_dir=os.path.join(tmp, "offload"))
+        del model
+        log(f"[time] bigmodel (a-c) layouts {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        report["checkpoint"] = bigmodel_checkpoint(device, shape["llama"], shape, tmp)
+        log(f"[time] bigmodel (d) checkpoint and hooks {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    report["quantization"] = bigmodel_quantization(device, shape["llama"])
+    log(f"[time] bigmodel (e) quantization {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    printed = cli_in_process(["estimate-memory", shape["model"].replace("-", "_"), shape["llama"],
+                              "--dtypes", "bf16"])
+    from accelerate_tpu_torch.commands.estimate import gather_data
+
+    class _Args:
+        dtypes, trust_remote_code = ["bf16"], False
+
+    totals = {name: gather_data(_Args(), name)[1][0]["total_size"] for name in (shape["model"], shape["llama"])}
+    want = {shape["model"]: report["layouts"]["parameter_bytes"], shape["llama"]: report["checkpoint"]["parameter_bytes"]}
+    report["estimate"] = {"bf16_totals": totals, "parameter_bytes": want, "printed": printed.splitlines()[:3]}
+    if totals != want:
+        raise RuntimeError(f"(f) estimate-memory's bf16 totals {totals} are not the models' bytes {want}")
+    log(f"[time] bigmodel (f) estimate {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+def bigmodel_k3_row(k3, launches):
+    """The `kernels` line's row of bf16 K3 at OPT-30B's generation shape
+    (batch 1, 56 heads of 128, the 2048 bucket, causal), launched by phase
+    17's forwards."""
+    replaces, _ = FLASH_KERNELS["flash_fwd"]
+    bf16 = k3["flash_fwd"]["bfloat16"]
+    return {
+        "name": "flash_fwd_opt30b", "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+        "launches": launches, "max_abs_err": bf16["max_abs_err"],
+        "tolerance": bf16["errors"]["o"]["tolerance"], "errors": bf16["errors"],
+        "ms": bf16["ms"], "kernel_ms": bf16["ms"], "device_ms": bf16["device_ms"],
+        "library_device_ms": bf16["library_device_ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+        "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+        "library_call": "F.scaled_dot_product_attention(is_causal=True)", "dtype": "bfloat16",
+        "shape": dict(OPT_FLASH_SHAPE, causal=True),
+        "design": FLASH_DESIGN["flash_fwd"] + " At D 128 on OPT-30B's big-model generate (phase 17).",
+    }
 
 
 def paged_rows(kernels, engine, shape, design, suffix=""):
@@ -5248,12 +5739,16 @@ def main(argv=None) -> int:
     parser.add_argument("--launch-only", action="store_true",
                         help="run only the build and phase 16 (launch, supervised restart and the CLI on Llama-1B; "
                              "prints no result line)")
+    parser.add_argument("--bigmodel-only", action="store_true",
+                        help="run only the build and phase 17 (big-model inference over the offload tiers on "
+                             "OPT-30B, checkpoint, hooks, quantization, estimate; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
                         help="--compare's head dimension (default: the training shape's)")
     parser.add_argument("--compare-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -5306,6 +5801,12 @@ def main(argv=None) -> int:
         log(f"[time] launch phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
+    if args.bigmodel_only:
+        t0 = time.perf_counter()
+        log(f"[bigmodel] summary: {json.dumps(bigmodel_phase(device))}")
+        log(f"[time] bigmodel phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
     t0 = time.perf_counter()
     kernels = kernel_phase(device)
     kernels.update(quantized_kernel_phase(device))
@@ -5332,8 +5833,7 @@ def main(argv=None) -> int:
         log(card)
         return 0
     t0 = time.perf_counter()
-    phase3_tokens = {}
-    engine = engine_phase(device, profile=args.profile, tokens_out=phase3_tokens)
+    engine = engine_phase(device, profile=args.profile)
     log(f"[engine] summary: {json.dumps(engine)}")
     log(f"[time] engine phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
@@ -5355,7 +5855,7 @@ def main(argv=None) -> int:
     fp8 = fp8_phase(device, training["bf16"], profile=args.profile)
     log(f"[fp8] summary: {json.dumps(fp8)}")
     t0 = time.perf_counter()
-    telemetry = telemetry_phase(device, plain_tokens=phase3_tokens)
+    telemetry = telemetry_phase(device)
     log(f"[telemetry] summary: {json.dumps(telemetry)}")
     log(f"[time] telemetry phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
@@ -5386,8 +5886,21 @@ def main(argv=None) -> int:
     family_generate, family_train = {}, {}
     for name in FAMILIES:
         t0 = time.perf_counter()
-        family_generate[name] = family_generate_phase(device, name, profile=args.profile)
+        # Phase 17 takes OPT-30B over from its generate phase: one model, made once.
+        shared = None
+        if name == BIGMODEL["model"]:
+            from accelerate_tpu_torch import create_named_model
+
+            shared = create_named_model(name, seed=0, dtype=torch.bfloat16, device=device)
+        family_generate[name] = family_generate_phase(device, name, profile=args.profile, model=shared)
         log(f"[time] {name} generate phase {time.perf_counter() - t0:.1f}s")
+        if shared is not None:
+            t0 = time.perf_counter()
+            bigmodel = bigmodel_phase(device, model=shared)
+            del shared
+            free_memory(device)
+            log(f"[bigmodel] summary: {json.dumps(bigmodel)}")
+            log(f"[time] bigmodel phase {time.perf_counter() - t0:.1f}s")
     for name in FAMILIES:
         t0 = time.perf_counter()
         family_train[name] = family_training_phase(device, name, FAMILY_TRAIN_LAYERS[name], profile=args.profile)
@@ -5435,6 +5948,9 @@ def main(argv=None) -> int:
     # At head dim 16 the path is T5-tiny's cross-attention: non-causal, scale 1.0.
     rows += flash_rows(d16["non_causal"], d16["t5"]["bfloat16"]["launches"], d16["t5"]["float16"]["launches"],
                        D16_FLASH_SHAPE, suffix="_d16", design=WIDE_FLASH_DESIGN[16], causal=False, scale=1.0)
+    layouts = bigmodel["layouts"]
+    rows.append(bigmodel_k3_row(bigmodel["k3"], sum(layouts[k]["k3_launches"] for k in ("a", "b", "c"))))
+    log(f"[time] whole script {time.perf_counter() - script_t0:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

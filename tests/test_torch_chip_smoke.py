@@ -1000,3 +1000,86 @@ def test_launch_only_refuses_without_a_card_and_is_a_known_flag():
     usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "--launch-only" in usage.stdout
+
+
+def _bigmodel_tiny_shape():
+    """Phase 17's shape at opt_tiny and llama_tiny: budgets from their bf16
+    sizes that give (b) one layer on the device and one in host RAM, (c)
+    one in host RAM and one on disk, (d) blocks on all three tiers."""
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes
+
+    opt = compute_module_sizes(create_named_model("opt-tiny", dtype=torch.bfloat16, device="cpu"))
+    layer = opt["params/layer_0"]
+    rest = opt["params/embed_tokens"] + opt["params/embed_positions"] + opt["params/final_norm"]
+    ll = compute_module_sizes(create_named_model("llama-tiny", dtype=torch.bfloat16, device="cpu"))
+    largest = max(ll["params/embed_tokens"], ll["params/layer_0"], ll["params/lm_head"])
+    return dict(chip_smoke.BIGMODEL, model="opt-tiny", prompt=16, new=4, llama="llama-tiny", llama_prompt=16,
+                budget_b={0: rest + 2 * layer + 1}, budget_c={0: rest + layer + 1, "cpu": layer + 1},
+                budget_d={0: ll["params/embed_tokens"] + ll["params/final_norm"] + largest + 1,
+                          "cpu": ll["params/layer_0"] + 1})
+
+
+def test_bigmodel_phase_rehearses_on_the_cpu():
+    """Phase 17 at opt_tiny and llama_tiny on the CPU (about 5 s): (b) and
+    (c) give (a)'s first logits bit for bit and its tokens over host RAM
+    and over host RAM and disk; (d) the dispatched checkpoint's logits and
+    both chained models' outputs bit for bit; (e) each mode's codes equal
+    the host's and the bytes held equal `quantized_nbytes`; (f) the
+    estimate's bf16 totals equal the models' bytes. On the CPU the flash
+    gate stays shut, so no K3 launch and no K3 row."""
+    report = chip_smoke.bigmodel_phase(torch.device("cpu"), shape=_bigmodel_tiny_shape())
+    layouts = report["layouts"]
+    assert "k3" not in report
+    assert layouts["b"]["layers_on"] == {0: 1, "cpu": 1} and layouts["c"]["layers_on"] == {0: 0, "cpu": 1, "disk": 1}
+    for key in ("b", "c"):
+        assert layouts[key]["logits_bit_for_bit"] and layouts[key]["tokens"] == layouts["a"]["tokens"]
+        assert layouts[key]["copies"]["pageable"] == 0
+    assert layouts["c"]["disk_bytes"] == layouts["layer_bytes"]
+    checkpoint = report["checkpoint"]
+    assert checkpoint["logits_bit_for_bit"] and set(checkpoint["tiers"]) == {"0", "cpu", "disk"}
+    assert checkpoint["hooks"]["first_after_second"] == ["cpu"] and checkpoint["hooks"]["second_bit_for_bit"]
+    for mode in ("int8", "int4", "nf4"):
+        row = report["quantization"][mode]
+        assert row["codes_bit_for_bit"] and row["held_bytes"] == row["quantized_nbytes"] and row["cpu_checked"] == 8
+    assert report["estimate"]["bf16_totals"] == report["estimate"]["parameter_bytes"]
+
+
+def test_bigmodel_gates_catch_other_logits_and_tokens():
+    """A run whose first logits or tokens are not the reference's fails
+    phase 17, naming which."""
+    from accelerate_tpu_torch import create_named_model
+    from accelerate_tpu_torch.big_modeling import dispatch_model
+
+    dm = dispatch_model(create_named_model("opt-tiny", device="cpu"), {"": 0}, device="cpu")
+    ids = torch.arange(16)[None]
+    _, reference = chip_smoke.bigmodel_run(dm, ids, torch.device("cpu"), 3, "reference")
+    chip_smoke.bigmodel_run(dm, ids, torch.device("cpu"), 3, "same", reference)
+    moved = dict(reference, logits=reference["logits"].clone())
+    moved["logits"][0, 0, 0] += 1e-3
+    with pytest.raises(RuntimeError, match="logits differ"):
+        chip_smoke.bigmodel_run(dm, ids, torch.device("cpu"), 3, "moved", moved)
+    with pytest.raises(RuntimeError, match="tokens"):
+        chip_smoke.bigmodel_run(dm, ids, torch.device("cpu"), 3, "other", dict(reference, tokens=[[0, 0, 0]]))
+
+
+def test_bigmodel_k3_row_has_every_key_of_the_kernels_line():
+    row = {"max_abs_err": 0.01, "errors": {"o": {"tolerance": {"atol": 2e-3}}}, "ms": 0.18, "device_ms": 0.19,
+           "library_device_ms": 0.13, "plain_ms": 7.0, "bound_ms": 0.06, "bound_by": "operations", "library_ms": 0.13}
+    got = chip_smoke.bigmodel_k3_row({"flash_fwd": {"bfloat16": row}}, 1296)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    assert all(k in got for k in keys) and got["launches"] == 1296 and got["route"] == "cuda"
+    assert got["shape"] == dict(b=1, hq=56, s=2048, d=128, causal=True)
+
+
+def test_bigmodel_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--bigmodel-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[bigmodel]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--bigmodel-only" in usage.stdout

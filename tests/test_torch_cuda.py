@@ -1132,3 +1132,47 @@ def test_nccl_world_one_strategies_match_the_bare_step(cuda):
     np.testing.assert_allclose(runs["NO_SHARD"]["losses"], base, rtol=chip_smoke.DIST_NO_SHARD_RTOL, atol=0)
     np.testing.assert_allclose(runs["FULL_SHARD"]["losses"], base, rtol=chip_smoke.DIST_SHARDED_RTOL, atol=0)
     assert not torch.distributed.is_initialized()
+
+
+def _deep_opt(layers=7):
+    import dataclasses
+
+    from accelerate_tpu_torch.models import create_opt_model, opt_tiny
+
+    cfg = dataclasses.replace(opt_tiny(), num_hidden_layers=layers, max_position_embeddings=2048)
+    return cfg, lambda: create_opt_model(cfg, seed=3, dtype=torch.bfloat16, device="cuda")
+
+
+@pytest.mark.parametrize("pattern", [("cpu", 0, "disk", "disk", 0, "cpu", "cpu"), ("disk",) * 7])
+def test_streamed_opt_equals_resident_through_pinned_copies(cuda, pattern, tmp_path):
+    """A 7-layer bf16 OPT streamed over pinned host RAM and the disk store
+    on the side stream: the first logits and 4 greedy tokens equal the
+    resident model's bit for bit at 1024 tokens (K3 at every layer), every
+    copy came from pinned memory, and a second call reuses the slots."""
+    from accelerate_tpu_torch.big_modeling import dispatch_model
+    from accelerate_tpu_torch.models import OPTLayeredApply
+
+    cfg, make = _deep_opt()
+    ids = torch.randint(0, cfg.vocab_size, (1, 1024), generator=torch.Generator().manual_seed(0)).cuda()
+    resident = dispatch_model(make(), {"": 0})
+    want, want_tokens = resident(ids), resident.generate(ids, max_new_tokens=4)
+    device_map = {"params/embed_positions": 0, "params/embed_tokens": 0, "params/final_norm": 0,
+                  **{f"params/layer_{i}": tier for i, tier in enumerate(pattern)}}
+    dm = dispatch_model(make(), device_map, offload_folder=str(tmp_path), layered=OPTLayeredApply(cfg))
+    before = dict(fa.LAUNCHES)
+    assert torch.equal(dm(ids), want) and torch.equal(dm(ids), want)
+    assert fa.LAUNCHES["flash_fwd"] - before["flash_fwd"] == 2 * cfg.num_hidden_layers
+    assert torch.equal(dm.generate(ids, max_new_tokens=4), want_tokens)
+    assert dm.transfer_stats["pageable"] == 0 and dm.transfer_stats["copies"] > 0
+
+
+def test_quantized_codes_on_the_card_equal_the_cpus(cuda):
+    """int8, int4 and nf4 codes and scales made on the card equal the CPU's
+    bit for bit (CUDA divides by a Python number through its reciprocal;
+    the port divides by a device tensor)."""
+    from accelerate_tpu_torch.utils import quantization as q
+
+    w = torch.randn(257, 384, generator=torch.Generator().manual_seed(1)) * 0.05
+    for fn in (q.quantize_int8, q.quantize_int4, q.quantize_nf4):
+        cpu, card = fn(w), fn(w.cuda())
+        assert torch.equal(card.q.cpu(), cpu.q) and torch.equal(card.scale.cpu(), cpu.scale)

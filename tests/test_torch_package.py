@@ -63,6 +63,10 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.commands.trace, accelerate_tpu_torch.test_utils.testing\n"
         "import accelerate_tpu_torch.test_utils.training, accelerate_tpu_torch.test_utils.scripts.test_ops\n"
         "import accelerate_tpu_torch.test_utils.scripts.test_sync, accelerate_tpu_torch.test_utils.scripts.test_script\n"
+        "import accelerate_tpu_torch.big_modeling, accelerate_tpu_torch.hooks, accelerate_tpu_torch.native\n"
+        "import accelerate_tpu_torch.native.offload, accelerate_tpu_torch.utils.offload\n"
+        "import accelerate_tpu_torch.utils.quantization, accelerate_tpu_torch.utils.environment\n"
+        "import accelerate_tpu_torch.utils.other, accelerate_tpu_torch.commands.estimate\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
