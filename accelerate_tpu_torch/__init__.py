@@ -46,6 +46,11 @@ config``, ``launch``, ``env``, ``test``, ``trace``): `launch` carries JAX's
 ``ACCELERATE_TPU_*`` protocol into a script, one process a card, and
 restarts it under `fault_tolerance.Supervisor`; `notebook_launcher` runs a
 function from a notebook; `test_utils/` holds the bundled test scripts.
+A model past the card trains with its optimizer's state (and with
+`cpu_offload` its f32 masters) in pinned host RAM or on disk, streamed
+through the card a parameter group at a time (`optimizer.py`'s offload
+tiers; `DeepSpeedPlugin` and `MegatronLMPlugin` lower as in JAX), and
+`LocalSGD` averages data-parallel processes every K steps.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package
@@ -67,6 +72,7 @@ from .data_loader import (
 from .device import resolve_device
 from .generation import GenerationConfig, Generator, Seq2SeqGenerator, generate
 from .launchers import debug_launcher
+from .local_sgd import LocalSGD
 from .logging import get_logger
 from .modeling import Model, PreparedModel
 from .models import create_llama_model, create_mixtral_model, create_named_model
@@ -77,12 +83,14 @@ from .utils import (
     AutocastKwargs,
     CompilationConfig,
     DataLoaderConfiguration,
+    DeepSpeedPlugin,
     DistributedDataParallelKwargs,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     InitProcessGroupKwargs,
+    MegatronLMPlugin,
     ParallelismConfig,
     ProjectConfiguration,
     find_executable_batch_size,
@@ -98,6 +106,7 @@ __all__ = [
     "ContinuousBatcher",
     "DataLoaderConfiguration",
     "DataLoaderDispatcher",
+    "DeepSpeedPlugin",
     "DistributedDataParallelKwargs",
     "EngineClosed",
     "FP8RecipeKwargs",
@@ -109,6 +118,8 @@ __all__ = [
     "InitProcessGroupKwargs",
     "Int8Linear",
     "KV_CACHE_DTYPES",
+    "LocalSGD",
+    "MegatronLMPlugin",
     "MetricsRegistry",
     "Model",
     "ParallelismConfig",

@@ -67,6 +67,12 @@ are the global batch's, `gather`/`gather_for_metrics`/`reduce` run across
 the processes, trackers write on the main process, and
 `save_state`/`load_state` carry the whole state whatever the layout.
 
+Past the card: the plugin's `offload_optimizer_state`, `cpu_offload` and
+``offload_optimizer_device="disk"`` (or ``deepspeed_plugin=DeepSpeedPlugin(
+hf_ds_config=...)``, lowered as JAX lowers it; ``megatron_lm_plugin=`` lowers
+to the mesh) keep the optimizer's state, and the masters, off the card
+between steps (`optimizer.py`, `modeling.py`).
+
 The model is an `nn.Module` (or a `modeling.Model` bundle) whose parameters
 the optimizer was built over; the optimizer a `torch.optim.Optimizer`; the
 loader a `SimpleDataLoader`, a torch `DataLoader` or any iterable of
@@ -113,6 +119,7 @@ from .utils.dataclasses import (
     AutocastKwargs,
     CompilationConfig,
     DataLoaderConfiguration,
+    DeepSpeedPlugin,
     DistributedDataParallelKwargs,
     DistributedType,
     FP8RecipeKwargs,
@@ -121,6 +128,7 @@ from .utils.dataclasses import (
     GradScalerKwargs,
     InitProcessGroupKwargs,
     KwargsHandler,
+    MegatronLMPlugin,
     ParallelismConfig,
     ProjectConfiguration,
     parse_flag_from_env,
@@ -146,6 +154,8 @@ class Accelerator:
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         parallelism_config: Optional[ParallelismConfig] = None,
         fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+        deepspeed_plugin: Optional[DeepSpeedPlugin] = None,
+        megatron_lm_plugin: Optional[MegatronLMPlugin] = None,
         compilation_config: Optional[CompilationConfig] = None,
         rng_types: Optional[List[str]] = None,
         kwargs_handlers: Optional[List[KwargsHandler]] = None,
@@ -194,7 +204,9 @@ class Accelerator:
         if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_TPU_USE_FSDP"):
             fsdp_plugin = FullyShardedDataParallelPlugin()
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      parallelism_config=parallelism_config, fsdp_plugin=fsdp_plugin, **init_kwargs)
+                                      parallelism_config=parallelism_config, fsdp_plugin=fsdp_plugin,
+                                      deepspeed_plugin=deepspeed_plugin, megatron_lm_plugin=megatron_lm_plugin,
+                                      **init_kwargs)
         if self.state.mixed_precision == "fp8" and self.num_processes > 1:
             raise NotImplementedError(
                 "mixed_precision='fp8' across processes waits for ROADMAP A item 3, fp8 across processes (an "
@@ -466,7 +478,8 @@ class Accelerator:
             remat_policy = "full"
         autocast = self.autocast_handler is None or self.autocast_handler.enabled
         prepared = PreparedModel(model, self.device, compute_dtype=compute_dtype, remat_policy=remat_policy,
-                                 fp8_recipe=fp8_recipe, mesh=self.mesh, fsdp_plugin=fsdp, autocast=autocast)
+                                 fp8_recipe=fp8_recipe, mesh=self.mesh, fsdp_plugin=fsdp, autocast=autocast,
+                                 offload_params=bool(getattr(fsdp, "offload_params", False)))
         self._models.append(prepared)
         return prepared
 
@@ -485,7 +498,7 @@ class Accelerator:
             owned = {id(p) for p in model.parameters()}
             if not any(id(p) in owned for g in optimizer.param_groups for p in g["params"]):
                 raise ValueError("the optimizer was built over other parameters than the model's")
-        prepared = AcceleratedOptimizer(optimizer, model=model, scaler=self.scaler)
+        prepared = AcceleratedOptimizer(optimizer, model=model, scaler=self.scaler, fsdp_plugin=self.state.fsdp_plugin)
         self._optimizers.append(prepared)
         return prepared
 

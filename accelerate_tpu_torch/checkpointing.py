@@ -401,18 +401,21 @@ def save_accelerator_state(output_dir, models: list, optimizers: list, scheduler
 def load_accelerator_state(input_dir, models: list, optimizers: list, schedulers: list, dataloaders: list):
     """Restore what `save_accelerator_state` wrote into the prepared objects:
     weights into each model's own parameters (their dtype and device kept),
-    optimizer state onto its parameters' device. Whatever layout wrote the
-    checkpoint, each process takes its shard of every tensor under its own
-    layout, and its own RNG streams (process 0's where the checkpoint has
-    none for it)."""
+    optimizer state onto its parameters' device or into its offload tier.
+    Whatever layout wrote the checkpoint, each process takes its shard of
+    every tensor under its own layout, and its own RNG streams (process 0's
+    where the checkpoint has none for it)."""
     from .state import PartialState
 
     input_dir = Path(input_dir)
     for i, model in enumerate(models):
-        device = "cpu" if getattr(model, "layout", None) is not None else model.device
+        host = getattr(model, "layout", None) is not None or getattr(model, "offload_params", False)
+        device = "cpu" if host else model.device
         model.load_full_state_dict(_load_tensors(input_dir / _indexed(MODEL_NAME, i, "pt"), device))
     for i, opt in enumerate(optimizers):
-        device = "cpu" if opt.layout is not None else next((p.device for p in opt._params()), None)
+        # An offloaded state goes straight to its tier, never whole onto the card.
+        host = opt.layout is not None or opt.offload_opt_state
+        device = "cpu" if host else next((p.device for p in opt._params()), None)
         opt.load_state_dict(_load_tensors(input_dir / _indexed(OPTIMIZER_NAME, i, "pt"), device))
         scaler_path = input_dir / f"{SCALER_NAME}_{i}.json"
         if opt.scaler is not None and scaler_path.exists():

@@ -29,6 +29,13 @@ FSDP), after its parameters are cast to the plugin's `param_dtype` and, with
 parameters reach the forward already cast by FSDP's mixed-precision policy,
 so `_apply` casts only the rest (the parameters FSDP ignores, and the
 buffers): each tensor is cast once.
+
+With `offload_params` (JAX's parameter tier) the masters live in one
+pinned host arena between steps: `to_compute_memory` copies them to the
+card before a forward, outside the autograd graph, so the gradients land
+on the card; the optimizer's step updates them there and
+`to_storage_memory` writes them back. A forward without gradients puts
+them back unchanged right after.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from torch.distributed.tensor import DTensor
 from .ops.fp8 import fp8_autocast
 from .ops.remat import check_policy, remat_scope
 from .parallel.fsdp import ShardedLayout, broadcast_module_states
+from .utils.offload import HostArena
 
 #: `FullyShardedDataParallelPlugin`'s dtype names.
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -107,7 +115,7 @@ class PreparedModel:
 
     def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None,
                  remat_policy: Optional[str] = None, fp8_recipe=None, mesh=None, fsdp_plugin=None,
-                 autocast: bool = True):
+                 autocast: bool = True, offload_params: bool = False):
         self.module = model.module.to(device)
         self.loss_fn = model.loss_fn
         self.device = device
@@ -140,6 +148,11 @@ class PreparedModel:
             self.layout = ShardedLayout(self.module, mesh, fsdp_plugin,
                                         compute_dtype=compute_dtype if self.autocast_enabled else None,
                                         reduce_dtype=self.reduce_dtype)
+        self.offload_params = bool(offload_params)
+        self._param_arena: Optional[HostArena] = None
+        self._params_on_device = True
+        if self.offload_params:
+            self._offload_params()
         if fp8_recipe is not None and fp8_recipe.scaling == "delayed":
             # The forward never rolls the histories, so every layer keeps
             # the cold scale 1.0: JAX's prepared model computes the same.
@@ -150,10 +163,58 @@ class PreparedModel:
                 "fp8_autocast(recipe, update_meta=True)."
             )
 
+    # ------------------------------------------------------------ parameter tier
+    def _offload_params(self):
+        if self.layout is not None and any(d is not None for d in (*self.layout.param_dims.values(),
+                                                                   *self.layout.opt_dims.values())):
+            raise NotImplementedError(
+                "offload_params across processes under a sharded strategy waits for ROADMAP A item 4, offload "
+                "tiers (the parameter tier under ZeRO-2 shard views and FSDP); the optimizer-state tiers run under "
+                "every strategy")
+        params = [p for p in self.module.parameters()]
+        self._offloaded = params
+        self._param_arena = HostArena([(i, tuple(p.shape), p.dtype) for i, p in enumerate(params)],
+                                      pin=self.device.type == "cuda")
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                self._param_arena.views[i].copy_(p.data)
+                p.data = self._param_arena.views[i]
+        self._params_on_device = False
+
+    @torch.no_grad()
+    def to_compute_memory(self):
+        """The masters copied to the card (a no-op when they are there or
+        not offloaded); outside the autograd graph."""
+        if self._params_on_device:
+            return
+        for p in self._offloaded:
+            p.data = p.data.to(self.device, non_blocking=True)
+        self._params_on_device = True
+
+    @torch.no_grad()
+    def to_storage_memory(self, write: bool = True):
+        """The masters back in the host arena: copied there when `write`
+        (after an update), else only pointed back (nothing changed them)."""
+        if self._params_on_device and self._param_arena is not None:
+            for i, p in enumerate(self._offloaded):
+                view = self._param_arena.views[i]
+                if write:
+                    view.copy_(p.data, non_blocking=True)
+                p.data = view
+            self._params_on_device = False
+
+    def _synchronize_params(self):
+        if self._param_arena is not None and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def _mp_apply(self, *args, **kwargs):
+        self.to_compute_memory()
         fp8 = contextlib.nullcontext() if self.fp8_recipe is None else fp8_autocast(self.fp8_recipe)
         with fp8, remat_scope(self.remat_policy):
-            return self._apply(*args, **kwargs)
+            out = self._apply(*args, **kwargs)
+        if self.offload_params and not torch.is_grad_enabled():
+            self.to_storage_memory(write=False)
+        return out
 
     def _apply(self, *args, **kwargs):
         if not self.autocast_enabled:
@@ -197,12 +258,15 @@ class PreparedModel:
     def full_state_dict(self) -> dict:
         """The whole state dict, every tensor unsharded (collective under a
         group)."""
+        self._synchronize_params()
         if self.layout is None:
             return self.module.state_dict()
         return self.layout.full_state_dict()
 
     def load_full_state_dict(self, state: dict):
-        """Load a whole state dict, each process taking its shard."""
+        """Load a whole state dict, each process taking its shard (copied
+        into the module's own tensors: the caller's are not kept)."""
+        self._synchronize_params()
         if self.layout is None:
             self.module.load_state_dict(state)
         else:

@@ -61,6 +61,7 @@ class NativeOffloadStore:
         num_threads = max(1, min(int(num_threads), os.cpu_count() or 1))
         self._pool = self.lib.atl_pool_create(int(num_threads))
         self._read_fd: Optional[int] = None
+        self._write_fd: Optional[int] = None
         # A readahead needs a core to run on; on a 1-core host group prefetch
         # becomes inline reads at read() time.
         self._allow_prefetch = (os.cpu_count() or 1) > 1
@@ -92,6 +93,50 @@ class NativeOffloadStore:
         if flush_index:
             self.flush_index()
 
+    def write(self, name: str, tensor: torch.Tensor):
+        """Overwrite `name` in place (a tensor of the same byte size), else
+        append it: the disk optimizer tier rewrites every group each step,
+        and `save`'s append-only layout would grow the blob without bound.
+        The bytes go out by `pwrite` from `tensor` itself (a host tensor;
+        another device's is copied to the host first), so reads that follow
+        see them."""
+        meta = self.index.get(name)
+        if tensor.device.type != "cpu":
+            tensor = tensor.detach().to("cpu")
+        tensor = tensor.detach().contiguous()
+        if meta is None or self._meta(name)[3] != tensor.numel() * tensor.element_size():
+            self.save({name: tensor})
+            return
+        t0 = time.perf_counter()
+        if self._write_fd is None:
+            self._write_fd = os.open(self.blob_path, os.O_WRONLY)
+        view = memoryview(_bytes_view(tensor)) if tensor.numel() else memoryview(b"")
+        offset, done = meta["offset"], 0
+        while done < len(view):
+            done += os.pwrite(self._write_fd, view[done:], offset + done)
+        self.bytes_written += done
+        self.write_seconds += time.perf_counter() - t0
+        shape, dtype = list(tensor.shape), str(tensor.dtype).replace("torch.", "")
+        if shape != meta["shape"] or dtype != meta["dtype"]:
+            meta["shape"], meta["dtype"] = shape, dtype
+            self.flush_index()
+
+    def reserve(self, entries: Iterable[tuple]):
+        """Index (name, shape, dtype) entries at the blob's end without
+        writing their bytes (the file grows sparse; a read before the first
+        `write` gives zeros): room that `write` then fills in place."""
+        self._close_store()
+        size = os.path.getsize(self.blob_path) if os.path.exists(self.blob_path) else 0
+        for name, shape, dtype in entries:
+            self.index[name] = {"offset": size, "shape": list(shape), "dtype": str(dtype).replace("torch.", "")}
+            numel = 1
+            for d in shape:
+                numel *= int(d)
+            size += numel * torch.empty((), dtype=dtype).element_size()
+        with open(self.blob_path, "ab") as f:
+            f.truncate(size)
+        self.flush_index()
+
     def flush_index(self):
         with open(self.index_path, "w") as f:
             json.dump(self.index, f)
@@ -103,9 +148,7 @@ class NativeOffloadStore:
         for path in (self.blob_path, self.index_path):
             if os.path.exists(path):
                 os.unlink(path)
-        if self._read_fd is not None:
-            os.close(self._read_fd)
-            self._read_fd = None
+        self._close_fds()
         self.index = {}
 
     # -- read ---------------------------------------------------------------------
@@ -121,8 +164,18 @@ class NativeOffloadStore:
             self.lib.atl_store_close(self._store)
             self._store = None
 
+    def _close_fds(self):
+        for attr in ("_read_fd", "_write_fd"):
+            fd = getattr(self, attr)
+            if fd is not None:
+                os.close(fd)
+                setattr(self, attr, None)
+
     def keys(self):
         return self.index.keys()
+
+    def __contains__(self, name) -> bool:
+        return name in self.index
 
     def _meta(self, name):
         meta = self.index[name]
@@ -217,9 +270,7 @@ class NativeOffloadStore:
             self.lib.atl_wait(self._pool, entry[0])
         self._tickets.clear()
         self._close_store()
-        if self._read_fd is not None:
-            os.close(self._read_fd)
-            self._read_fd = None
+        self._close_fds()
         if self._pool is not None:
             self.lib.atl_pool_destroy(self._pool)
             self._pool = None

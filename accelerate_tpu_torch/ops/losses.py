@@ -11,10 +11,42 @@ times the process count, which the strategies' gradient average
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+
+_LOCAL = {"depth": 0}
+
+
+@contextlib.contextmanager
+def local_means():
+    """Inside, `global_mean` is each process's own mean (its gradient this
+    process's alone, with no factor for an average to undo), its value the
+    mean of the processes' means: Local SGD's loss (JAX's `LocalSGD`
+    differentiates each replica's own mean and reports their mean)."""
+    _LOCAL["depth"] += 1
+    try:
+        yield
+    finally:
+        _LOCAL["depth"] -= 1
+
+
+class _MeanOfMeans(torch.autograd.Function):
+    """Forward: the mean of every process's value. Backward: the gradient
+    as it is."""
+
+    @staticmethod
+    def forward(ctx, local):
+        total = local.detach().clone()
+        dist.all_reduce(total)
+        return total / dist.get_world_size()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
 
 
 def data_parallel_world() -> int:
@@ -48,6 +80,10 @@ def global_mean(values: torch.Tensor, weights: Optional[torch.Tensor] = None) ->
     every process returns the same global value. Averaging each process's
     own mean instead would be another function whenever the processes hold
     different numbers of valid rows."""
+    if data_parallel_world() > 1 and _LOCAL["depth"]:
+        if weights is None:
+            return _MeanOfMeans.apply(values.mean())
+        return _MeanOfMeans.apply((values * weights).sum() / weights.sum().clamp_min(1.0))
     if data_parallel_world() == 1:
         if weights is None:
             return values.mean()

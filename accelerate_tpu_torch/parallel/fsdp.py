@@ -105,6 +105,8 @@ class ShardedLayout:
                     self.update[name] = nn.Parameter(param.detach().narrow(dim, self.fsdp_index * size, size))
             self.shard_dims = dict(self.opt_dims)
         self._sharded_ids = {id(self.update[n]) for n, d in self.shard_dims.items() if d is not None}
+        #: False while each process steps on its own gradients (`LocalSGD`).
+        self.sync_gradients = True
         self._names_by_id.update({id(t): n for n, t in self.update.items()})
 
     # ------------------------------------------------------------ placement
@@ -164,7 +166,10 @@ class ShardedLayout:
         """Average the gradients FSDP does not reduce itself over every
         process: the replicated ones in one all-reduce per dtype; under
         ZeRO-2 each sharded one reduce-scattered onto its shard (whose
-        `.grad` it becomes; the full gradient is dropped)."""
+        `.grad` it becomes; the full gradient is dropped). Nothing while
+        `sync_gradients` is off."""
+        if not self.sync_gradients:
+            return
         replicated: Dict[torch.dtype, List[torch.Tensor]] = {}
         for name, param in self.orig.items():
             grad = param.grad

@@ -28,13 +28,19 @@ WAITING_AXES = {
 }
 
 
+def refuse_waiting_axes(sizes: dict):
+    """Raise for an axis above 1 that the port does not run, naming the
+    bullet that ports it."""
+    for axis, bullet in WAITING_AXES.items():
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(f"mesh axis {axis!r} of size {sizes[axis]}: waits for {bullet}")
+
+
 def resolve_mesh_sizes(parallelism: Optional[ParallelismConfig], num_processes: int) -> dict:
     """{"data": n, "fsdp": m} for `num_processes` ranks; raises for an axis
     the port does not run."""
     sizes = (parallelism or ParallelismConfig()).resolve(num_processes)
-    for axis, bullet in WAITING_AXES.items():
-        if sizes[axis] > 1:
-            raise NotImplementedError(f"mesh axis {axis!r} of size {sizes[axis]}: waits for {bullet}")
+    refuse_waiting_axes(sizes)
     return {axis: sizes[axis] for axis in DATA_AXES}
 
 

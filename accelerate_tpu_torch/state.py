@@ -265,12 +265,21 @@ class PartialState:
 
 
 class AcceleratorState:
-    """Precision mode, parallelism and FSDP plugin over `PartialState`."""
+    """Precision mode, parallelism and the FSDP plugin over `PartialState`;
+    a `DeepSpeedPlugin` lowers to the FSDP plugin and a `MegatronLMPlugin`
+    to the parallelism config, as in JAX."""
 
     _shared_state: dict = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
-                 parallelism_config: Optional[ParallelismConfig] = None, fsdp_plugin=None, **kwargs):
+                 parallelism_config: Optional[ParallelismConfig] = None, fsdp_plugin=None, deepspeed_plugin=None,
+                 megatron_lm_plugin=None, **kwargs):
+        if megatron_lm_plugin is not None and parallelism_config is None:
+            # A Megatron degree the port's mesh does not run raises, with or
+            # without a process group, before the singleton is touched.
+            from .parallel.mesh import refuse_waiting_axes
+
+            refuse_waiting_axes(megatron_lm_plugin.to_parallelism_config().axis_sizes())
         self.__dict__ = self._shared_state
         mode = None if mixed_precision is None else str(mixed_precision).lower()
         if self.initialized:
@@ -292,8 +301,16 @@ class AcceleratorState:
         else:
             self.device = resolve_device("cpu" if cpu or parse_flag_from_env("ACCELERATE_TPU_USE_CPU") else None)
         self._mixed_precision = mode
+        # The compatibility plugins lower to the mesh and the FSDP plugin, as
+        # in JAX.
+        if megatron_lm_plugin is not None and parallelism_config is None:
+            parallelism_config = megatron_lm_plugin.to_parallelism_config()
+        if deepspeed_plugin is not None and fsdp_plugin is None:
+            fsdp_plugin = deepspeed_plugin.to_fsdp_plugin()
         self.parallelism_config = parallelism_config or ParallelismConfig.from_env()
         self.fsdp_plugin = fsdp_plugin
+        self.deepspeed_plugin = deepspeed_plugin
+        self.megatron_lm_plugin = megatron_lm_plugin
         self._mesh = None
 
     def __getattr__(self, name):

@@ -24,6 +24,11 @@ caller decides when to read it.
     `tracer`, as JAX's does; ``steps_per_call > 1`` refuses an enabled
     scaler, as in JAX.
   - Every call is a full optimizer step: it marks the sync boundary.
+  - With the optimizer's state offloaded (JAX's offload mode) the call
+    computes the gradients, unscales, checks and clips them over the whole
+    model, then runs the chunked update group by group
+    (`optimizer.py`'s tiers); ``steps_per_call > 1`` raises JAX's error,
+    at construction and per call.
   - Across processes the gradients are averaged once a call (the
     optimizer's `reduce_gradients`, or FSDP's own reduce-scatter in the
     last microbatch's backward): the inner microbatches of an accumulation
@@ -100,6 +105,11 @@ class FusedTrainStep:
                 "steps_per_call > 1 cannot honor dynamic fp16 loss scaling (scale updates are "
                 "per-step host decisions); use bf16 mixed precision or steps_per_call=1"
             )
+        if self.steps_per_call > 1 and optimizer.offload_opt_state:
+            raise ValueError(
+                "steps_per_call > 1 is incompatible with offloaded optimizer "
+                "state (each step streams state through HBM group by group)"
+            )
         self.gradient_state = gradient_state
         # Optional telemetry tracer (Accelerator.train_step passes its own).
         self.tracer = tracer
@@ -153,6 +163,13 @@ class FusedTrainStep:
         return loss, aux
 
     def __call__(self, *args, **kwargs):
+        if self.optimizer.offload_opt_state and self.steps_per_call > 1:
+            # Guarded at construction, but the tier can change after it
+            # (LocalSGD's collapse turns it off; a user may turn it on).
+            raise ValueError(
+                "steps_per_call > 1 is incompatible with offloaded optimizer state "
+                "(toggled on after train_step was built); rebuild with steps_per_call=1"
+            )
         if self.steps_per_call > 1:
             if len(args) != 1 or kwargs:
                 raise ValueError("steps_per_call > 1 takes exactly one positional batch")

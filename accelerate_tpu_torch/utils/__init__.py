@@ -4,6 +4,7 @@ from .dataclasses import (
     AutocastKwargs,
     CompilationConfig,
     DataLoaderConfiguration,
+    DeepSpeedPlugin,
     DistributedDataParallelKwargs,
     DistributedType,
     FP8RecipeKwargs,
@@ -12,6 +13,7 @@ from .dataclasses import (
     GradScalerKwargs,
     InitProcessGroupKwargs,
     KwargsHandler,
+    MegatronLMPlugin,
     ParallelismConfig,
     PrecisionType,
     ProjectConfiguration,
@@ -25,6 +27,7 @@ __all__ = [
     "AutocastKwargs",
     "CompilationConfig",
     "DataLoaderConfiguration",
+    "DeepSpeedPlugin",
     "DistributedDataParallelKwargs",
     "DistributedType",
     "FP8RecipeKwargs",
@@ -33,6 +36,7 @@ __all__ = [
     "GradientAccumulationPlugin",
     "InitProcessGroupKwargs",
     "KwargsHandler",
+    "MegatronLMPlugin",
     "ParallelismConfig",
     "PrecisionType",
     "ProjectConfiguration",

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import weakref
 from collections.abc import Mapping
 from typing import Dict, Optional
 
@@ -109,3 +110,50 @@ def extract_submodule_state(params, prefix: str) -> dict:
     from .modeling import _path_leaves
 
     return {path: leaf for path, leaf in _path_leaves(params) if path.startswith(prefix)}
+
+
+def _unregister(buffer: torch.Tensor):
+    torch.cuda.cudart().cudaHostUnregister(buffer.data_ptr())
+
+
+class HostArena:
+    """One block of host memory with tensor views into it: the training
+    offload tiers' home for the f32 masters and the optimizer's state
+    between steps. It is pinned once, whole, when `pin` (a run on the
+    card): a plain host allocation of the exact size, registered with CUDA
+    (`cudaHostRegister`) and unregistered when the arena goes; torch's
+    caching host allocator would round it up to a power of two (48.4 GB
+    to 64 GiB) and keep it after, and a copy from pageable memory would
+    not be asynchronous. Views start on `ALIGN`-byte boundaries. The
+    memory stays registered while the arena lives: a holder of its views
+    keeps the arena too (a view outliving it reads pageable memory)."""
+
+    ALIGN = 512
+
+    def __init__(self, entries, pin: bool):
+        """`entries`: (key, shape, dtype) in order; `views[key]` is each
+        one's tensor."""
+        offsets, total = [], 0
+        for key, shape, dtype in entries:
+            offsets.append(total)
+            numel = 1
+            for d in shape:
+                numel *= int(d)
+            total += -(-numel * torch.empty((), dtype=dtype).element_size() // self.ALIGN) * self.ALIGN
+        self.nbytes = total
+        self.pinned = bool(pin)
+        self.buffer = torch.empty(max(total, 1), dtype=torch.uint8)
+        if self.pinned:
+            cudart = torch.cuda.cudart()
+            rc = cudart.cudaHostRegister(self.buffer.data_ptr(), self.buffer.numel(), 0)
+            if int(rc) != 0:
+                raise RuntimeError(f"cudaHostRegister of {self.buffer.numel()} bytes failed with error {int(rc)}")
+            # The finalizer holds the buffer: it is freed after it is unregistered.
+            weakref.finalize(self, _unregister, self.buffer)
+        self.views: Dict = {}
+        for (key, shape, dtype), offset in zip(entries, offsets):
+            numel = 1
+            for d in shape:
+                numel *= int(d)
+            size = numel * torch.empty((), dtype=dtype).element_size()
+            self.views[key] = self.buffer[offset:offset + size].view(dtype).view(tuple(shape))

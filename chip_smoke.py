@@ -125,15 +125,11 @@ prints no result):
        for the skip pattern; the last loss below the first where two or more
        steps were applied; each fp16 flash kernel launched 16 layers x 8
        steps times, skipped steps included.
-   (e) a checkpoint round trip, bf16, Llama-1B's widths cut to 2 layers,
-       batch 1, over 8 distinct seeded rows shuffled by a
-       `SeedableRandomSampler`: 4 steps with `save_state` after step 2 into
-       a `CheckpointManager` directory under `tempfile.mkdtemp()`, then a
-       fresh run (state reset, weights from another seed) that restores
-       "latest" and takes steps 3 and 4 from the restored loader position:
-       their losses equal the uninterrupted run's within rtol 1e-6. Reports
-       the bytes written and the save and load seconds; the directory is
-       removed however the phase ends.
+   (e) the checkpoint round trip of the 2-layer cut runs in phase 16 (b):
+       the same `CheckpointManager` save after step 2 of 4
+       over a `SeedableRandomSampler`, "latest" restored into fresh weights
+       and the loader skipped to its position, the losses within rtol 1e-6
+       of the uninterrupted run's, there across two launched processes.
    (f) activation checkpointing, `Accelerator(compilation_config=
        CompilationConfig(remat_policy=...))` under None, "full" and "dots":
        f32 at Llama-1B's widths cut to 2 layers, batch 1, 3 steps each,
@@ -171,7 +167,7 @@ prints no result):
        bf16 at 44 layers (41.1 GB of weights, 17.7 GB of pools) over the 16
        requests of phase 3, plain (K1) and speculative (K2), timed, launches
        gated as in phase 3; then int8 weights over an int8 and an fp8 cache
-       at 8 layers (22 until PR 18; phase 3 holds int8 weights at full
+       at 4 layers (phase 3 holds int8 weights at full
        depth; the bf16 model the engine copies from and its int8 copy both
        on the card).
    (b) `generate` of GPT-NeoX-20B, GPT-J-6B and OPT-30B in bf16 at full
@@ -224,8 +220,8 @@ prints no result):
        launches are (d)'s.
    (c) `generate` through `Generator(max_length=1024)`: f32 at 2 layers
        and the dropless capacity factor 4.0, the cached greedy tokens equal
-       the full-context greedy loop's for 8 new tokens; bf16 at 8 layers
-       (23.7 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
+       the full-context greedy loop's for 8 new tokens; bf16 at 4 layers
+       (11.9 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
        (128-512 tokens), 128 new tokens each (TTFT, decode tokens/s, peak
        memory), no K1-K5 launch; the tokens the routers dropped at the
        prefill and at each decode step of the batch-8 call, counted by a
@@ -477,11 +473,42 @@ prints no result):
    (f) ``estimate-memory opt_30b llama-1b`` through the dispatcher: its bf16
        totals equal the parameter bytes of (a)'s and (d)'s models.
 
+18. Training past the card, run after the families' training phases: the
+    offload tiers of the optimizer's state and the masters on GPT-J-6B
+    (full width, random weights from seed 0), bf16 with f32 masters, batch
+    1 x 2048 on one repeated batch, torch AdamW (lr 1e-4, decay 1e-4,
+    `foreach=True`), clip 1.0, through `accelerator.train_step()`. First
+    the host's MemTotal/MemAvailable and a bare copy of 1 GiB between a
+    pinned arena and the card, each way.
+   (a) Cut to 2 layers, 2 steps each: resident; the optimizer's state in
+       pinned host RAM (`offload_optimizer_state=True`); it and the masters
+       (`cpu_offload=True`); the state in the disk store under a temporary
+       directory (`offload_optimizer_device="disk"`); `DeepSpeedPlugin`
+       with ``offload_optimizer: {"device": "nvme"}``. Gates: each run's
+       losses and its masters after the second update equal the resident
+       run's bit for bit; K3-K5 launched 2 x 2 times. Reported per run:
+       peak memory, step and update seconds, bytes moved a step; for the
+       disk runs the store's write and (warm) read GB/s.
+   (b) Full depth (28 layers, 6,050,882,784 parameters) through
+       ``Accelerator(mixed_precision="bf16", deepspeed_plugin=DeepSpeedPlugin(
+       hf_ds_config={"zero_optimization": {"stage": 2, "offload_optimizer":
+       {"device": "cpu"}}}))``, the reference's ZeRO-Offload config: 2
+       warm-up and 3 timed steps. Resident AdamW would need 18 bytes a
+       parameter before activations (f32 masters, gradients and two
+       moments, bf16 copies), past the card; with the moments in pinned
+       host RAM, 10. Gates: losses finite and the last below the first;
+       K3-K5 launched 28 x 5 times; the peak below the card's memory and
+       the resident reckoning. Reported: the peak beside both reckonings
+       (the port's size accounting), step time split into forward and
+       backward and the update, the update beside its copy bound (the
+       moments' bytes each way at the bare copy's rate), tokens/s, MFU.
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
 `--surface-only` the build and phase 15 alone, `--launch-only` the build and
-phase 16 alone, `--bigmodel-only` the build and phase 17 alone (none prints a
-result line). Each phase prints its wall time on a `[time]` line, and the
+phase 16 alone, `--bigmodel-only` the build and phase 17 alone,
+`--offload-train-only` the build and phase 18 alone (none prints a result
+line). Each phase prints its wall time on a `[time]` line, and the
 whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -510,6 +537,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -681,7 +709,7 @@ FAMILIES = ("gpt-neox-20b", "gptj-6b", "opt-30b")
 FAMILY_TRAIN_LAYERS = {"gpt-neox-20b": 2, "gptj-6b": 4, "opt-30b": 2}
 # NeoX-20B's int8-weight engine quantizes a copy of a bf16 model cut to this
 # depth (phase 3 holds int8 weights at full depth on Llama-1B).
-NEOX_W8_LAYERS = 8
+NEOX_W8_LAYERS = 4
 FAMILY_TIMED_STEPS, FAMILY_WARMUP, FAMILY_FP16_STEPS = 4, 2, 2
 
 # T5 (phase 8): T0pp-11B at its published widths. Training is cut to this
@@ -711,11 +739,11 @@ T5_TINY_SEQ = 1024
 # 14336, top 2, capacity factor 1.25; 32 heads of 128 over 8 KV heads; vocab
 # 32000). Its 46.70e9 parameters are 93.4 GB in bf16, past the card's 80 GB,
 # so each run is cut in depth: a layer is 1.4513e9 parameters (2.903 GB in
-# bf16), the embedding and the head 0.524 GB together. Generation runs 8 of
-# the 32 layers (23.7 GB; 24 until PR 18 cut it for the script's time) over
+# bf16), the embedding and the head 0.524 GB together. Generation runs 4 of
+# the 32 layers (11.9 GB, cut for the script's time) over
 # a 1024-token cache (prompt 512 + 128 new); its f32 dropless check 2 layers.
 MIXTRAL_MODEL = "mixtral-8x7b"
-MIXTRAL_GENERATE = dict(layers=8, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
+MIXTRAL_GENERATE = dict(layers=4, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
                         parity_layers=2, parity_batch=2, parity_prompt=64, parity_new=8, profile_new=16)
 # Training runs 2 layers (3.165e9 parameters: f32 masters and gradients,
 # AdamW's two moments and the bf16 copies, about 57 GB) on batch 1 x 2048.
@@ -1975,7 +2003,7 @@ def f32_flash_parity(device, config, seq, steps=3):
 
 
 def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ, timed_steps=8,
-                   warmup=2, batch=2, profile=False, checkpoint_layers=2):
+                   warmup=2, batch=2, profile=False):
     import dataclasses
 
     from accelerate_tpu_torch.models import MODEL_REGISTRY
@@ -2023,12 +2051,6 @@ def training_phase(device, model_name="llama-1b", parity_layers=2, seq=TRAIN_SEQ
     log(f"[time] training (d) fp16 {time.perf_counter() - t0:.1f}s")
     free_memory(device)
 
-    # (e) a bf16 checkpoint round trip at full width, cut to `checkpoint_layers` layers.
-    t0 = time.perf_counter()
-    report["checkpoint"] = checkpoint_phase(device, dataclasses.replace(config, num_hidden_layers=checkpoint_layers),
-                                            seq)
-    log(f"[time] training (e) checkpoint {time.perf_counter() - t0:.1f}s")
-    free_memory(device)
     return report
 
 
@@ -2094,75 +2116,6 @@ def fp16_phase(device, config, batch, seq, timed_steps, warmup):
     want = expected_launches(config.num_hidden_layers * timed_steps, torch.float16)
     if on_card and launches != want:
         raise RuntimeError(f"fp16 timed steps: flash launches {launches}, expected {want}")
-    return out
-
-
-def checkpoint_phase(device, config, seq, steps=4, save_after=2, n_batches=8):
-    """(e): bf16 training of `config` (batch 1) over a `SimpleDataLoader` of
-    `n_batches` distinct seeded rows shuffled by a `SeedableRandomSampler`;
-    `save_state` after step `save_after` into a `CheckpointManager` under a
-    fresh temporary directory, then a fresh run (state reset, weights from
-    another seed) that restores "latest" and takes the remaining steps from
-    the restored loader position. Its losses equal the uninterrupted run's
-    within rtol 1e-6. The directory is removed however the phase ends."""
-    import shutil
-    import tempfile
-
-    from accelerate_tpu_torch import Accelerator, BatchSampler, SimpleDataLoader, create_llama_model
-    from accelerate_tpu_torch.data_loader import SeedableRandomSampler
-    from accelerate_tpu_torch.state import AcceleratorState, GradientState
-    from accelerate_tpu_torch.utils import ProjectConfiguration
-
-    rows = np.random.default_rng(5).integers(0, config.vocab_size, (n_batches, seq)).astype(np.int64)
-    data = [{"input_ids": r} for r in rows]
-    project_dir = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
-
-    def run(seed, resume):
-        AcceleratorState._reset_state()
-        GradientState._reset_state()
-        model = create_llama_model(config, seed=seed, device=device)
-        accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu", project_config=ProjectConfiguration(
-            project_dir=project_dir, automatic_checkpoint_naming=True))
-        optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
-                                      weight_decay=TRAIN_WD)
-        loader = SimpleDataLoader(data, BatchSampler(SeedableRandomSampler(num_samples=n_batches, seed=11), 1))
-        _, _, loader, schedule = accelerator.prepare(model, optimizer, loader, lambda step: TRAIN_LR)
-        timing = {"parameters": sum(p.numel() for p in model.parameters())}
-        if resume:
-            t0 = time.perf_counter()
-            path = accelerator.load_state("latest")
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            timing.update(load_s=time.perf_counter() - t0, loaded=os.path.basename(path))
-            loader = accelerator.skip_first_batches(loader, save_after)
-        step_fn = accelerator.train_step(max_grad_norm=1.0)
-        losses = []
-        for b in loader:
-            losses.append(float(step_fn(b)))
-            schedule.step()
-            if not resume and len(losses) == save_after:
-                t0 = time.perf_counter()
-                path = accelerator.save_state()
-                timing.update(save_s=time.perf_counter() - t0, saved=os.path.basename(path),
-                              bytes_written=sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
-                              files=sorted(os.listdir(path)))
-            if len(losses) == (steps - save_after if resume else steps):
-                break
-        return losses, timing
-
-    try:
-        full, saved = run(seed=0, resume=False)
-        free_memory(device)
-        resumed, loaded = run(seed=1, resume=True)
-    finally:
-        shutil.rmtree(project_dir, ignore_errors=True)
-    diff = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[save_after:]))
-    out = {"layers": config.num_hidden_layers, "losses": full, "resumed_losses": resumed, "max_rel_diff": diff,
-           **saved, **loaded}
-    log(f"[train] checkpoint {json.dumps(out)}")
-    if not all(np.isfinite(full + resumed)) or len(resumed) != steps - save_after or diff > 1e-6:
-        raise RuntimeError(f"checkpoint resume: losses {resumed} differ from the uninterrupted {full[save_after:]} "
-                           f"(rtol {diff}, limit 1e-6)")
     return out
 
 
@@ -5612,6 +5565,323 @@ def bigmodel_k3_row(k3, launches):
     }
 
 
+# ------------------------------------------------------------------ phase 18: training past the card
+OFFLOAD_TRAIN = dict(model="gptj-6b", parity_layers=2, parity_steps=2, batch=1, warmup=2, timed_steps=3,
+                     # None: the model's full depth (GPT-J-6B's 28 layers).
+                     layers=None, copy_bytes=1 << 30)
+#: Phase 18 (a)'s runs, each against the first.
+OFFLOAD_RUNS = ("resident", "optimizer_state", "cpu_offload", "disk", "deepspeed_nvme")
+#: Phase 18 (b): the reference's ZeRO-Offload config.
+ZERO_OFFLOAD_CONFIG = {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}
+
+
+def host_memory():
+    """MemTotal and MemAvailable of the host (/proc/meminfo), in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def offload_accelerator_kw(run, directory):
+    """The `Accelerator` arguments of phase 18 (a)'s `run`."""
+    from accelerate_tpu_torch import DeepSpeedPlugin, FullyShardedDataParallelPlugin
+
+    return {
+        "resident": {},
+        "optimizer_state": {"fsdp_plugin": FullyShardedDataParallelPlugin(offload_optimizer_state=True)},
+        "cpu_offload": {"fsdp_plugin": FullyShardedDataParallelPlugin(cpu_offload=True)},
+        "disk": {"fsdp_plugin": FullyShardedDataParallelPlugin(offload_optimizer_device="disk",
+                                                               offload_dir=directory)},
+        "deepspeed_nvme": {"deepspeed_plugin": DeepSpeedPlugin(hf_ds_config={
+            "zero_optimization": {"stage": 2, "offload_optimizer": {"device": "nvme"}}})},
+    }[run]
+
+
+def copy_rates(device, nbytes):
+    """GB/s of a bare copy of `nbytes` between host memory and the card,
+    each way (CUDA events, the median of 3 after one unmeasured): from a
+    tensor of torch's pinned host allocator (phase 17's measure, ``pinned_*``)
+    and from a `HostArena` (the tiers' own registered memory, ``arena_*``)."""
+    from accelerate_tpu_torch.utils.offload import HostArena
+
+    on_card = device.type == "cuda"
+    arena = HostArena([("x", (nbytes,), torch.uint8)], pin=on_card)  # registered while it lives
+    hosts = {"pinned": torch.empty(nbytes, dtype=torch.uint8, pin_memory=on_card), "arena": arena.views["x"]}
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    out = {}
+    for (kind, host), (way, flip) in itertools.product(hosts.items(), (("h2d", False), ("d2h", True))):
+        dst, src = (host, dev) if flip else (dev, host)
+        times = []
+        for _ in range(4):
+            if device.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                dst.copy_(src, non_blocking=True)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                dst.copy_(src)
+                times.append(time.perf_counter() - t0)
+        out[f"{kind}_{way}_gb_s"] = nbytes / float(np.median(times[1:])) / 1e9
+    if on_card:
+        # Both ways at once, each on a stream of its own (the offloaded
+        # update's pattern): the bytes of both over the wall time.
+        back = HostArena([("x", (nbytes,), torch.uint8)], pin=True)
+        dev2 = torch.empty_like(dev)
+        streams = (torch.cuda.Stream(device), torch.cuda.Stream(device))
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(streams[0]):
+                dev.copy_(arena.views["x"], non_blocking=True)
+            with torch.cuda.stream(streams[1]):
+                back.views["x"].copy_(dev2, non_blocking=True)
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        out["arena_duplex_gb_s"] = 2 * nbytes / float(np.median(times[1:])) / 1e9
+    return out
+
+
+def store_read_rate(tier):
+    """GB/s of reading every entry of a disk tier's store once into its
+    pinned staging buffers, a group at a time (warm: the page cache holds
+    what the steps wrote)."""
+    t0, nbytes = time.perf_counter(), 0
+    for k in range(len(tier.groups)):
+        for (i, key), view in tier._views(k).items():
+            tier.store.read(tier.name(i, key), out=view)
+            nbytes += view.numel() * view.element_size()
+    return nbytes / (time.perf_counter() - t0) / 1e9, nbytes
+
+
+def offload_train(device, config, accelerator_kw, rows, steps, masters=False):
+    """`steps` bf16 steps of `config` (random weights from seed 0, AdamW with
+    `foreach=True`, clip 1.0) through `Accelerator(mixed_precision="bf16",
+    **accelerator_kw).train_step()` on one repeated batch `rows`: per-step
+    losses and seconds, each update's seconds (the device synchronised
+    around it), the tier's bytes moved a step, peak memory, flash launches;
+    with `masters`, the f32 masters after the last update on the host."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import CREATE_BY_FAMILY
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    reset_port_state()
+    free_memory(device)
+    t0 = time.perf_counter()
+    model = CREATE_BY_FAMILY[type(config)](config, seed=0, device=device)
+    accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu", **accelerator_kw)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                  weight_decay=TRAIN_WD, foreach=True)
+    pmodel, popt = accelerator.prepare(model, optimizer)
+    step_fn = accelerator.train_step(max_grad_norm=1.0)
+    sync(device)
+    report = {"prepare_s": time.perf_counter() - t0, "tier": getattr(popt.offload, "tier", None),
+              "offload_params": pmodel.offload_params, "parameters": pmodel.num_parameters,
+              "groups": len(popt.offload.groups) if popt.offload is not None else None}
+    update_s = []
+    apply_update = popt._apply_update
+
+    def timed_update():
+        sync(device)
+        t = time.perf_counter()
+        apply_update()
+        sync(device)
+        update_s.append(time.perf_counter() - t)
+
+    popt._apply_update = timed_update
+    param_bytes = sum(p.numel() * p.element_size() for p in pmodel.parameters())
+    batch = {"input_ids": rows}
+    losses, seconds, moved = [], [], []
+    fa.reset_launch_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(steps):
+        before = dict(popt.offload.stats) if popt.offload is not None else None
+        sync(device)
+        t = time.perf_counter()
+        loss = step_fn(batch)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t)
+        tier_bytes = 0 if before is None else sum(popt.offload.stats[k] - before[k] for k in ("bytes_in", "bytes_out"))
+        if before is not None and popt.offload.stats["pageable"] != before["pageable"]:
+            raise RuntimeError(f"phase 18: {popt.offload.stats['pageable'] - before['pageable']} of the tier's copies "
+                               "ran from pageable host memory")
+        moved.append(tier_bytes + (2 * param_bytes if pmodel.offload_params else 0))
+    report.update(losses=losses, step_s=seconds, update_s=update_s, bytes_moved_per_step=moved,
+                  launches=dict(fa.LAUNCHES))
+    if device.type == "cuda":
+        report["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    if masters:
+        report["masters"] = {k: v.detach().to("cpu", copy=True) for k, v in pmodel.full_state_dict().items()}
+    if report["tier"] == "disk":
+        tier = popt.offload
+        store = tier.store
+        report["store_write_gb_s"] = store.bytes_written / store.write_seconds / 1e9 if store.write_seconds else None
+        report["store_read_gb_s"], report["store_bytes"] = store_read_rate(tier)
+        report["store_dir"] = tier.directory
+        tier.close()
+    del pmodel, popt, step_fn, accelerator, model, optimizer
+    reset_port_state()
+    free_memory(device)
+    return report
+
+
+def offload_parity(device, config, shape, seq):
+    """Phase 18 (a): every tier against the resident run, at full width
+    cut to `shape["parity_layers"]` layers: the same 2 steps, the losses
+    and the masters after the second update bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    config = dataclasses.replace(config, num_hidden_layers=shape["parity_layers"])
+    rows = torch.as_tensor(np.random.default_rng(18).integers(0, config.vocab_size, (shape["batch"], seq)),
+                           device=device)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_offload_")
+    runs, reference = {}, None
+    try:
+        for run in OFFLOAD_RUNS:
+            report = offload_train(device, config, offload_accelerator_kw(run, os.path.join(directory, run)),
+                                   rows, shape["parity_steps"], masters=True)
+            masters = report.pop("masters")
+            if reference is None:
+                reference = (report["losses"], masters)
+            else:
+                report["losses_bit_for_bit"] = ([float.hex(x) for x in report["losses"]]
+                                                == [float.hex(x) for x in reference[0]])
+                report["masters_mismatched"] = sorted(k for k, v in masters.items()
+                                                      if not torch.equal(v, reference[1][k]))
+            del masters
+            if device.type == "cuda" and report["launches"] != expected_launches(
+                    config.num_hidden_layers * shape["parity_steps"], torch.bfloat16):
+                raise RuntimeError(f"phase 18 (a) {run}: flash launches {report['launches']}")
+            log(f"[offload] (a) {run} {json.dumps(report)}")
+            runs[run] = report
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for run, report in runs.items():
+        if run == "resident":
+            continue
+        if not report["losses_bit_for_bit"] or report["masters_mismatched"]:
+            raise RuntimeError(f"phase 18 (a) {run}: losses {report['losses']} against the resident "
+                               f"{runs['resident']['losses']}, masters mismatched {report['masters_mismatched'][:5]}")
+        if "store_dir" in report and os.path.exists(report["store_dir"]) and run == "deepspeed_nvme":
+            raise RuntimeError(f"phase 18 (a) {run}: the tier left its store behind in {report['store_dir']}")
+    if not all(np.isfinite(runs["resident"]["losses"])):
+        raise RuntimeError(f"phase 18 (a): resident losses {runs['resident']['losses']}")
+    return {"layers": config.num_hidden_layers, "batch": shape["batch"], "seq": seq, "runs": runs}
+
+
+def past_the_card(device, config, shape, seq, copy):
+    """Phase 18 (b): GPT-J-6B at full width and depth through the
+    reference's ZeRO-Offload config (stage 2, the optimizer's state in
+    pinned host RAM), at one process."""
+    import dataclasses
+
+    from accelerate_tpu_torch import DeepSpeedPlugin
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes
+
+    if shape["layers"] is not None:
+        config = dataclasses.replace(config, num_hidden_layers=shape["layers"])
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+
+    skeleton = init_empty_weights(config)
+    f32 = compute_module_sizes(skeleton)[""]
+    bf16 = compute_module_sizes(skeleton, dtype=torch.bfloat16)[""]
+    params = sum(p.numel() for p in skeleton.parameters())
+    del skeleton
+    reckoning = {"f32_masters": f32, "f32_grads": f32, "bf16_copies": bf16, "f32_moments": 2 * f32,
+                 "resident_bytes": 4 * f32 + bf16, "offloaded_bytes": 2 * f32 + bf16}
+    card = torch.cuda.get_device_properties(device).total_memory if device.type == "cuda" else None
+    host = host_memory()
+    log(f"[offload] (b) {config.num_hidden_layers} layers, {params:,} parameters; reckoning "
+        f"{json.dumps(reckoning)}; card {card} bytes; host {json.dumps(host)}")
+    if host["MemAvailable"] < 2 * f32 + (1 << 30):
+        raise RuntimeError(f"phase 18 (b): the host has {host['MemAvailable']} bytes available, the moments "
+                           f"need {2 * f32} pinned")
+    rows = torch.as_tensor(np.random.default_rng(18).integers(0, config.vocab_size, (shape["batch"], seq)),
+                           device=device)
+    steps = shape["warmup"] + shape["timed_steps"]
+    report = offload_train(device, config, {"deepspeed_plugin": DeepSpeedPlugin(hf_ds_config=ZERO_OFFLOAD_CONFIG)},
+                           rows, steps)
+    warm = shape["warmup"]
+    step_s = float(np.median(report["step_s"][warm:]))
+    update = float(np.median(report["update_s"][warm:]))
+    report.update(reckoning=reckoning, card_bytes=card, host=host, steps=steps, warmup=warm,
+                  step_s_median=step_s, update_s_median=update, forward_backward_s_median=step_s - update,
+                  update_copy_bound_s=2 * reckoning["f32_moments"] / (copy["arena_h2d_gb_s"] * 1e9),
+                  update_duplex_bound_s=(2 * reckoning["f32_moments"] / (copy["arena_duplex_gb_s"] * 1e9)
+                                         if "arena_duplex_gb_s" in copy else None),
+                  tokens_per_s=shape["batch"] * seq / step_s,
+                  mfu=6 * (params - config.vocab_size * config.hidden_size) * shape["batch"] * seq / step_s
+                  / BF16_PEAK_FLOPS)
+    log(f"[offload] (b) {json.dumps(report)}")
+    losses = report["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"phase 18 (b): losses {losses}")
+    if report["tier"] != "pinned_host" or report["offload_params"]:
+        raise RuntimeError(f"phase 18 (b): the ZeRO-Offload config lowered to {report['tier']}, "
+                           f"offload_params {report['offload_params']}")
+    if device.type == "cuda":
+        if report["launches"] != expected_launches(config.num_hidden_layers * steps, torch.bfloat16):
+            raise RuntimeError(f"phase 18 (b): flash launches {report['launches']}, expected "
+                               f"{config.num_hidden_layers} x {steps}")
+        peak = report["peak_memory_bytes"]
+        if not peak < min(card, reckoning["resident_bytes"]):
+            raise RuntimeError(f"phase 18 (b): peak {peak} bytes, the card {card}, the resident reckoning "
+                               f"{reckoning['resident_bytes']}")
+    return report
+
+
+def offload_launches(report):
+    """The flash launch counts of every run of phase 18 (GPT-J-6B's D 256)."""
+    runs = list(report["tiers"]["runs"].values()) + ([report["past_card"]] if "past_card" in report else [])
+    return [r["launches"] for r in runs]
+
+
+def offload_summary(report):
+    """Phase 18's report without the per-run detail its lines printed."""
+    keep = ("losses", "peak_memory_bytes", "step_s", "update_s", "bytes_moved_per_step", "store_write_gb_s",
+            "store_read_gb_s")
+    out = {k: v for k, v in report.items() if k not in ("tiers", "past_card")}
+    out["tiers"] = {run: {k: r[k] for k in keep if k in r} for run, r in report["tiers"]["runs"].items()}
+    if "past_card" in report:
+        b = report["past_card"]
+        out["past_card"] = {k: b[k] for k in ("losses", "peak_memory_bytes", "step_s_median", "update_s_median",
+                                              "forward_backward_s_median", "update_copy_bound_s", "update_duplex_bound_s",
+                                              "tokens_per_s",
+                                              "mfu", "launches") if k in b}
+    return out
+
+
+def offload_train_phase(device, model_name=OFFLOAD_TRAIN["model"], shape=OFFLOAD_TRAIN, seq=TRAIN_SEQ,
+                        past_card=True):
+    """Phase 18: training past the card (the optimizer's state in pinned
+    host RAM and on disk, the masters in host RAM)."""
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    config = MODEL_REGISTRY[model_name]()
+    report = {"model": model_name, "host": host_memory()}
+    log(f"[offload] host {json.dumps(report['host'])}")
+    report["copy"] = copy_rates(device, shape["copy_bytes"])
+    log(f"[offload] bare pinned copy {json.dumps(report['copy'])}")
+    t0 = time.perf_counter()
+    report["tiers"] = offload_parity(device, config, shape, seq)
+    log(f"[time] offload (a) tiers {time.perf_counter() - t0:.1f}s")
+    if past_card:
+        t0 = time.perf_counter()
+        report["past_card"] = past_the_card(device, config, shape, seq, report["copy"])
+        log(f"[time] offload (b) past the card {time.perf_counter() - t0:.1f}s")
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -5742,6 +6012,9 @@ def main(argv=None) -> int:
     parser.add_argument("--bigmodel-only", action="store_true",
                         help="run only the build and phase 17 (big-model inference over the offload tiers on "
                              "OPT-30B, checkpoint, hooks, quantization, estimate; prints no result line)")
+    parser.add_argument("--offload-train-only", action="store_true",
+                        help="run only the build and phase 18 (training past the card: the offload tiers against "
+                             "the resident run, GPT-J-6B under ZeRO-Offload; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -5805,6 +6078,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[bigmodel] summary: {json.dumps(bigmodel_phase(device))}")
         log(f"[time] bigmodel phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.offload_train_only:
+        t0 = time.perf_counter()
+        log(f"[offload] summary: {json.dumps(offload_summary(offload_train_phase(device)))}")
+        log(f"[time] offload train phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -5908,6 +6187,11 @@ def main(argv=None) -> int:
         log(f"[time] {name} training phase {time.perf_counter() - t0:.1f}s")
     log(f"[family] generate summary: {json.dumps(family_generate)}")
     t0 = time.perf_counter()
+    offload = offload_train_phase(device)
+    log(f"[offload] summary: {json.dumps(offload_summary(offload))}")
+    log(f"[time] offload train phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
     t5_train = t5_training_phase(device, profile=args.profile)
     log(f"[t5] training summary: {json.dumps(t5_train)}")
     log(f"[time] t5 training phase {time.perf_counter() - t0:.1f}s")
@@ -5941,8 +6225,9 @@ def main(argv=None) -> int:
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
     for d, shape in FAMILY_FLASH_SHAPES.items():
         run = wide_runs[d]
-        rows += flash_rows(wide_flash[d], run["bf16"]["launches"], run["fp16"]["launches"], shape,
-                           suffix=f"_d{d}", design=WIDE_FLASH_DESIGN[d])
+        bf16_runs = [run["bf16"]["launches"]] + (offload_launches(offload) if d == 256 else [])
+        rows += flash_rows(wide_flash[d], {k: sum(r[k] for r in bf16_runs) for k in bf16_runs[0]},
+                           run["fp16"]["launches"], shape, suffix=f"_d{d}", design=WIDE_FLASH_DESIGN[d])
     rows += flash_rows(t5_flash, t5_train["bf16"]["launches"], None, T5_CROSS_FLASH_SHAPE, suffix="_t5cross",
                        design=T5_CROSS_DESIGN, causal=False, scale=1.0)
     # At head dim 16 the path is T5-tiny's cross-attention: non-causal, scale 1.0.

@@ -1,6 +1,7 @@
 """Worker functions for the port's multi-process tests
 (`tests/test_torch_distributed.py`, `tests/test_torch_distributed_hybrid.py`,
-`tests/test_torch_surface_distributed.py`, `tests/test_torch_scripts.py`).
+`tests/test_torch_surface_distributed.py`, `tests/test_torch_scripts.py`,
+`tests/test_torch_offload_distributed.py`, `tests/test_torch_local_sgd.py`).
 
 Each runs in a process `accelerate_tpu_torch.launchers.debug_launcher`
 spawns (gloo on the CPU, one torch thread), reads the inputs the test wrote
@@ -35,8 +36,9 @@ def _accelerator(strategy=None, mixed_precision="no", mesh=None, **kwargs):
 
     _reset()
     world = int(os.environ["WORLD_SIZE"])
-    plugin_kw = {k: kwargs.pop(k) for k in ("sync_module_states", "min_num_params", "reduce_dtype", "activation_checkpointing")
-                 if k in kwargs}
+    plugin_kw = {k: kwargs.pop(k) for k in ("sync_module_states", "min_num_params", "reduce_dtype", "activation_checkpointing",
+                                            "offload_optimizer_state", "cpu_offload", "offload_optimizer_device",
+                                            "offload_dir") if k in kwargs}
     plugin_kw.setdefault("min_num_params", 1000)
     plugin = None if strategy is None else FullyShardedDataParallelPlugin(sharding_strategy=strategy, **plugin_kw)
     if mesh is None:
@@ -294,6 +296,14 @@ def world4(in_dir, out_dir):
     out = {}
     for strategy in ("HYBRID_SHARD", "HYBRID_SHARD_ZERO2"):
         out["train", strategy] = train(inputs, strategy, mesh=(2, 2))
+    # The optimizer's state in pinned host memory and in the disk store, a
+    # group a parameter, under HYBRID_SHARD's 2-D FSDP mesh.
+    os.environ["ACCELERATE_TPU_OFFLOAD_CHUNK_MB"] = "0"
+    out["train", "HYBRID_SHARD", "optimizer_state"] = train(inputs, "HYBRID_SHARD", mesh=(2, 2),
+                                                            offload_optimizer_state=True)
+    out["train", "HYBRID_SHARD", "disk"] = train(
+        inputs, "HYBRID_SHARD", mesh=(2, 2), offload_optimizer_device="disk",
+        offload_dir=os.path.join(out_dir, f"disk{os.environ['RANK']}"))
     _reset()
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
 
@@ -595,3 +605,180 @@ def scripts2(out_dir):
         test_sync.main()
     with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.txt"), "w") as f:
         f.write(lines.getvalue())
+
+
+# ------------------------------------------------------------------ the offload tiers and LocalSGD
+OFFLOAD_TIERS = {"resident": {}, "optimizer_state": {"offload_optimizer_state": True},
+                 "disk": {"offload_optimizer_device": "disk"}, "cpu_offload": {"cpu_offload": True}}
+
+
+def offload_checkpoint(inputs, out_dir):
+    """FULL_SHARD with the disk tier: save after 2 of 4 steps, go on, load,
+    and take steps 3 and 4 again."""
+    rank = int(os.environ["RANK"])
+    acc = _accelerator("FULL_SHARD", offload_optimizer_device="disk",
+                       offload_dir=os.path.join(out_dir, f"ckpt_disk{rank}"))
+    model = _llama(inputs["llama_cfg"], inputs["sd"])
+    pmodel, popt = acc.prepare(model, _adamw(model))
+    step = acc.train_step(max_grad_norm=1.0)
+    batches = [_tensors(b) for b in inputs["local_batches"]["checkpoint"][rank]]
+    losses = [step(b).item() for b in batches[:2]]
+    path = os.path.join(out_dir, "offload_ckpt")
+    acc.save_state(path)
+    uncut = [step(b).item() for b in batches[2:]]
+    acc.load_state(path)
+    resumed = [step(b).item() for b in batches[2:]]
+    return {"losses": losses, "uncut": uncut, "resumed": resumed}
+
+
+def offload2(in_dir, out_dir):
+    """Every strategy under each offload tier, 3 fused AdamW steps over the
+    prepared loader; the masters' tier under the sharded strategies is
+    refused."""
+    os.environ["ACCELERATE_TPU_OFFLOAD_CHUNK_MB"] = "0"  # a group a parameter
+    rank = int(os.environ["RANK"])
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    out = {}
+    for strategy in ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD"):
+        for tier, kw in OFFLOAD_TIERS.items():
+            if tier == "disk":
+                kw = dict(kw, offload_dir=os.path.join(out_dir, f"disk_{strategy}_{rank}"))
+            try:
+                out["train", strategy, tier] = train(inputs, strategy, **kw)
+            except NotImplementedError as e:
+                out["train", strategy, tier] = str(e)
+    out["checkpoint"] = offload_checkpoint(inputs, out_dir)
+    _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _regression(weights):
+    """The one-weight regression model of `tests/test_torch_local_sgd.py`,
+    its loss JAX's mean over the global batch (`ops.losses.global_mean`)."""
+    from accelerate_tpu_torch import Model
+    from accelerate_tpu_torch.ops.losses import global_mean
+
+    module = torch.nn.Linear(1, 1)
+    with torch.no_grad():
+        module.weight.copy_(torch.as_tensor(weights["kernel"]).T)
+        module.bias.copy_(torch.as_tensor(weights["bias"]))
+
+    def loss_fn(batch, apply_fn):
+        return global_mean((apply_fn(batch["x"])[:, 0] - batch["y"]) ** 2)
+
+    return Model(module, loss_fn=loss_fn)
+
+
+def local_sgd_train(inputs, local_sgd_steps=None, key="k1", enabled=True, tier=None, after=0):
+    """JAX's `_run` at world 2: eager `backward`/`step`/`zero_grad` over
+    the prepared loader (each process its half of the global batch of
+    16), inside `LocalSGD` unless `local_sgd_steps` is None; losses and the
+    weights after every step (each process's own, to see them part and
+    meet), then `after` more steps past the block."""
+    from accelerate_tpu_torch import BatchSampler, LocalSGD, SimpleDataLoader
+
+    rows, batch = inputs["local_sgd_rows"][key], inputs["local_sgd_batch"][key]
+    kw = {} if tier is None else OFFLOAD_TIERS[tier]
+    if tier == "disk":
+        kw = dict(kw, offload_dir=os.path.join(inputs["out_dir"], f"lsgd_disk{os.environ['RANK']}"))
+    acc = _accelerator("NO_SHARD" if tier else None, mesh=(int(os.environ["WORLD_SIZE"]), 1), split_batches=True,
+                       **kw)
+    model = _regression(inputs["regression"])
+    optimizer = (torch.optim.SGD(model.module.parameters(), lr=inputs["local_sgd_lr"]) if tier is None else
+                 torch.optim.AdamW(model.module.parameters(), lr=inputs["local_sgd_lr"], foreach=True))
+    pmodel, popt = acc.prepare(model, optimizer)
+    loader = acc.prepare_data_loader(SimpleDataLoader(rows, BatchSampler(range(len(rows)), batch)))
+    losses, weights, out = [], [], {}
+
+    def weights_now():
+        lin = pmodel.module
+        return np.concatenate([lin.weight.detach().numpy().ravel(), lin.bias.detach().numpy().ravel()])
+
+    def one(b):
+        losses.append(acc.backward(pmodel.loss, b).item())
+        popt.step()
+        popt.zero_grad()
+
+    if local_sgd_steps is None:
+        for b in loader:
+            one(b)
+            weights.append(weights_now())
+    else:
+        try:
+            with LocalSGD(accelerator=acc, model=pmodel, local_sgd_steps=local_sgd_steps, enabled=enabled) as lsgd:
+                out["enabled"] = lsgd.enabled
+                for b in loader:
+                    one(b)
+                    lsgd.step()
+                    weights.append(weights_now())
+        except NotImplementedError as e:
+            return {"refused": str(e)}
+    out["offload_after"] = None if popt.offload is None else popt.offload.tier
+    for _ in range(after):
+        for b in loader:
+            one(b)
+    out.update(losses=losses, weights=weights, final=weights_now())
+    return out
+
+
+def local_sgd_refusal():
+    """LocalSGD over a mesh whose "fsdp" axis is 2."""
+    from accelerate_tpu_torch import LocalSGD
+
+    acc = _accelerator("SHARD_GRAD_OP", mesh=(1, int(os.environ["WORLD_SIZE"])))
+    model = torch.nn.Linear(4, 4)
+    pmodel = acc.prepare(model)
+    try:
+        LocalSGD(accelerator=acc, model=pmodel, local_sgd_steps=2)
+        return "no-error"
+    except NotImplementedError as e:
+        return str(e)
+
+
+def local_sgd2(in_dir, out_dir):
+    """Every scenario of `tests/test_torch_local_sgd.py`, in order."""
+    import logging
+
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    inputs["out_dir"] = out_dir
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logging.getLogger("accelerate_tpu_torch.local_sgd").addHandler(Keep())
+    out = {
+        "dp": local_sgd_train(inputs, None),
+        "k1": local_sgd_train(inputs, 1),
+        "k2": local_sgd_train(inputs, 2),
+        "disabled": local_sgd_train(inputs, 1, enabled=False),
+        "exit": local_sgd_train(inputs, 2, key="exit", after=1),
+        "fsdp_refused": local_sgd_refusal(),
+        "pinned": local_sgd_train(inputs, 2, tier="optimizer_state", after=1),
+        "pinned_resident": local_sgd_train(inputs, 2, tier="resident", after=1),
+        "disk": local_sgd_train(inputs, 2, tier="disk"),
+    }
+    out["warnings"] = records
+    _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def local_sgd_example(in_dir, out_dir):
+    """The `by_feature/local_sgd.py` twin at 2 processes, JAX's initial
+    BERT weights carried in: each epoch's printed loss."""
+    from accelerate_tpu_torch.examples.by_feature import local_sgd as twin
+    from accelerate_tpu_torch.models import bert
+
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+
+    def create(config, device=None, **kwargs):
+        model = bert.create_bert_model(config, device=device)
+        model.load_state_dict(bert.bert_state_dict_from_flax(inputs["bert_params"], config))
+        return model
+
+    twin.create_bert_model = create
+    _reset()
+    losses = twin.training_function(twin.parse_args(inputs["argv"]))
+    _reset()
+    torch.save(losses, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))

@@ -697,7 +697,8 @@ def test_rich_installs_its_traceback_handler():
 SURFACE = {
     "__init__": ["device_placement", "split_batches", "mixed_precision", "gradient_accumulation_steps", "cpu",
                  "dataloader_config", "log_with", "project_dir", "project_config", "gradient_accumulation_plugin",
-                 "parallelism_config", "fsdp_plugin", "compilation_config", "rng_types", "kwargs_handlers",
+                 "parallelism_config", "fsdp_plugin", "deepspeed_plugin", "megatron_lm_plugin", "compilation_config",
+                 "rng_types", "kwargs_handlers",
                  "step_scheduler_with_optimizer", "analyze", "tracer", "sharded_save"],
     "prepare": None, "prepare_model": None, "prepare_optimizer": None, "prepare_data_loader": None,
     "prepare_scheduler": None, "autocast": None, "clip_grad_value_": None, "clip_grad_norm_": None,

@@ -1083,3 +1083,34 @@ def test_bigmodel_only_refuses_without_a_card_and_is_a_known_flag():
     usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "--bigmodel-only" in usage.stdout
+
+
+def test_offload_train_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 18 at gptj_tiny on the CPU, one parameter a group (about 5 s):
+    (a) every tier's losses and masters equal the resident run's bit for
+    bit, the disk runs report the store's rates and the DeepSpeed run's own
+    temporary directory is gone; (b) the ZeRO-Offload config trains on the
+    pinned host tier, losses finite and falling, the reckonings from the
+    size accounting (18 and 10 bytes a parameter). No flash launch on the
+    CPU."""
+    monkeypatch.setenv("ACCELERATE_TPU_OFFLOAD_CHUNK_MB", "0")
+    shape = dict(chip_smoke.OFFLOAD_TRAIN, layers=2, copy_bytes=1 << 20)
+    report = chip_smoke.offload_train_phase(torch.device("cpu"), "gptj-tiny", shape=shape, seq=64)
+    runs = report["tiers"]["runs"]
+    assert list(runs) == list(chip_smoke.OFFLOAD_RUNS)
+    for name, run in runs.items():
+        if name != "resident":
+            assert run["losses_bit_for_bit"] and run["masters_mismatched"] == []
+            assert run["groups"] > 1 and run["bytes_moved_per_step"][1] > 0
+    for name in ("disk", "deepspeed_nvme"):
+        assert runs[name]["tier"] == "disk" and runs[name]["store_read_gb_s"] > 0
+    assert not os.path.exists(runs["deepspeed_nvme"]["store_dir"])
+    assert runs["cpu_offload"]["offload_params"] and runs["cpu_offload"]["tier"] == "pinned_host"
+    past = report["past_card"]
+    params = past["parameters"]
+    assert past["tier"] == "pinned_host" and not past["offload_params"]
+    assert past["reckoning"]["resident_bytes"] == 18 * params and past["reckoning"]["offloaded_bytes"] == 10 * params
+    assert all(np.isfinite(past["losses"])) and past["losses"][-1] < past["losses"][0]
+    assert past["launches"] == chip_smoke.expected_launches(0)
+    summary = chip_smoke.offload_summary(report)
+    assert set(summary["tiers"]) == set(runs) and "mfu" in summary["past_card"]

@@ -547,10 +547,15 @@ def test_offload_and_waiting_axes_raise():
     from accelerate_tpu_torch.parallel.mesh import resolve_mesh_sizes
     from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
 
+    from accelerate_tpu.utils import FullyShardedDataParallelPlugin as JaxFSDPPlugin
+
+    # The offload fields are taken since the training half of the offload
+    # tiers (ROADMAP A item 4): each lowers as JAX's plugin does.
+    fields = ("cpu_offload", "offload_optimizer_state", "offload_params", "offload_optimizer_device")
     for kwargs in (dict(cpu_offload=True), dict(offload_params=True), dict(offload_optimizer_state=True),
                    dict(offload_optimizer_device="nvme")):
-        with pytest.raises(NotImplementedError, match="offload"):
-            FullyShardedDataParallelPlugin(**kwargs)
+        plugin, jax_plugin = FullyShardedDataParallelPlugin(**kwargs), JaxFSDPPlugin(**kwargs)
+        assert {f: getattr(plugin, f) for f in fields} == {f: getattr(jax_plugin, f) for f in fields}
     for axis in ("model", "seq", "expert", "stage", "pipeline"):
         with pytest.raises(NotImplementedError, match="ROADMAP A item 3"):
             resolve_mesh_sizes(ParallelismConfig(data=1, **{axis: 2}), 2)

@@ -3,7 +3,9 @@
 ZeRO-2 form HYBRID_SHARD_ZERO2, held to JAX's `train_step` on the global
 batch. One `debug_launcher` run of four processes
 (`tests/_torch_dist_workers.py:world4`); tolerances as in
-`tests/test_torch_distributed.py`.
+`tests/test_torch_distributed.py`. HYBRID_SHARD also runs with the
+optimizer's state in pinned host memory and in the disk store: bit for bit
+with its resident run.
 """
 
 import os
@@ -74,3 +76,17 @@ def test_hybrid_layout_shards_over_fsdp_and_replicates_over_data(world4):
         assert not any(v[0] for v in zero2["params"].values())
         halved = [n for n, shape in zero2["moments"].items() if shape != zero2["params"][n][2]]
         assert sorted(halved) == sorted(sharded)
+
+
+@pytest.mark.parametrize("tier", ["optimizer_state", "disk"])
+def test_hybrid_shard_offload_tiers_equal_the_resident_run(world4, tier):
+    """Losses on every process, gathered masters and moments bit for bit."""
+    for rank, result in enumerate(world4["results"]):
+        got, want = result["train", "HYBRID_SHARD", tier], result["train", "HYBRID_SHARD"]
+        assert [float.hex(x) for x in got["losses"]] == [float.hex(x) for x in want["losses"]]
+        assert got["world_weights_digest"] == want["world_weights_digest"]
+        if rank == 0:
+            assert all(torch.equal(got["weights"][k], want["weights"][k]) for k in want["weights"])
+            for i, entry in want["moments"]["state"].items():
+                assert all(torch.equal(torch.as_tensor(got["moments"]["state"][i][k]), torch.as_tensor(v))
+                           for k, v in entry.items())

@@ -67,6 +67,9 @@ def test_import_loads_no_jax_module():
         "import accelerate_tpu_torch.native.offload, accelerate_tpu_torch.utils.offload\n"
         "import accelerate_tpu_torch.utils.quantization, accelerate_tpu_torch.utils.environment\n"
         "import accelerate_tpu_torch.utils.other, accelerate_tpu_torch.commands.estimate\n"
+        "import accelerate_tpu_torch.local_sgd, accelerate_tpu_torch.optimizer, accelerate_tpu_torch.modeling\n"
+        "import accelerate_tpu_torch.examples.by_feature.deepspeed_with_config_support\n"
+        "import accelerate_tpu_torch.examples.by_feature.local_sgd\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
