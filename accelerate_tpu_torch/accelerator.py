@@ -11,7 +11,17 @@
 Checkpoints: ``Accelerator(project_config=ProjectConfiguration(project_dir=...,
 automatic_checkpoint_naming=True))``, then `save_state()` every so often and,
 in a fresh process, `load_state("latest")` and
-`skip_first_batches(loader, steps_done_in_the_pass)`.
+`skip_first_batches(loader, steps_done_in_the_pass)`. As in JAX,
+``async_save=True`` (or ``ACCELERATE_TPU_ASYNC_SAVE=1``, `launch
+--async_save`) makes a save block only for the copy of the state to host
+memory and the wait for the previous commit, the files being written by a
+background committer (`drain_checkpoints`, `poll_async_checkpoint`,
+`abort_async_checkpoint`); ``sharded_save=True`` (``--sharded_save``) has
+each process write its own shards under ``host_*/``;
+``save_interval=N`` or ``"auto"`` (against ``lost_checkpoint_s``) drives
+`maybe_save_state` at each step boundary; and
+`register_preemption_checkpoint` with `check_preemption` saves and exits
+143 on a SIGTERM.
 
 or the eager surface, as in the JAX package:
 
@@ -162,7 +172,10 @@ class Accelerator:
         step_scheduler_with_optimizer: bool = True,
         analyze: bool = False,
         tracer=None,
+        async_save: Optional[bool] = None,
         sharded_save: Optional[bool] = None,
+        save_interval=None,
+        lost_checkpoint_s: float = 300.0,
     ):
         # analyze=True: every train_step() is wrapped in a TraceGuard that,
         # after a warmup allowance, raises when a steady-state step builds a
@@ -173,12 +186,26 @@ class Accelerator:
             from .analysis.trace_guard import TraceGuard
 
             self.trace_guard = TraceGuard(name="train-step", on_violation="raise")
+        # Asynchronous and sharded saves (the launcher's variables by
+        # default); `save_interval` ("auto" or a number of steps) arms
+        # `maybe_save_state`.
+        if async_save is None:
+            async_save = parse_flag_from_env("ACCELERATE_TPU_ASYNC_SAVE")
         if sharded_save is None:
             sharded_save = parse_flag_from_env("ACCELERATE_TPU_SHARDED_SAVE")
-        if sharded_save:
-            raise NotImplementedError("sharded_save (a SHARDED_STATE_DICT written by each process) waits for "
-                                      "ROADMAP A item 5, async and sharded checkpoints; the port saves the "
-                                      "whole state from the main process")
+        self.async_save = bool(async_save)
+        self.sharded_save = bool(sharded_save)
+        self._async_committer: Optional[checkpointing.AsyncCommitter] = None
+        self._checkpoint_managers = {}
+        self._host_staging: Optional[checkpointing.HostStaging] = None
+        self.save_controller: Optional[checkpointing.AdaptiveSaveInterval] = None
+        if save_interval == "auto":
+            self.save_controller = checkpointing.AdaptiveSaveInterval(lost_checkpoint_s=lost_checkpoint_s)
+        elif save_interval is not None:
+            self.save_controller = checkpointing.AdaptiveSaveInterval(lost_checkpoint_s=lost_checkpoint_s,
+                                                                      fixed_interval=int(save_interval))
+        self._steps_since_save = 0
+        self._last_step_boundary: Optional[float] = None
         # The kwargs handlers, sorted by kind as JAX's are.
         self.scaler_handler = None
         self.init_handler = None
@@ -264,6 +291,12 @@ class Accelerator:
         self._m_ckpt_loads = self.telemetry.counter(
             "checkpoint_loads_total", help="load_state() completions (restart recoveries)"
         )
+        self._m_ckpt_commit_seconds = self.telemetry.histogram(
+            "checkpoint_async_commit_seconds",
+            help="background (async) checkpoint commit wall-clock, overlapped with training and not charged "
+                 "to the goodput ledger")
+        self._g_ckpt_in_flight = self.telemetry.gauge(
+            "checkpoint_commits_in_flight", help="async checkpoint commits currently running")
 
     # ------------------------------------------------------------ state
     @property
@@ -796,7 +829,9 @@ class Accelerator:
             tracker.log(values, step=step, **log_kwargs.get(tracker.name, {}))
 
     def end_training(self):
-        """Finish every tracker, then wait for every process."""
+        """Wait for the last asynchronous commit (its failure raises), finish
+        every tracker, then wait for every process."""
+        self.drain_checkpoints()
         for tracker in self.trackers:
             tracker.finish()
         self.wait_for_everyone()
@@ -847,13 +882,19 @@ class Accelerator:
         """`hook(models, input_dir)` runs before `load_state` reads."""
         self._load_model_hooks.append(hook)
 
-    def checkpoint_manager(self) -> CheckpointManager:
-        """The run's checkpoint store, ``{project_dir}/checkpoints``, rotating
-        to `total_limit`."""
-        if self.project_dir is None:
-            raise ValueError("checkpoints need ProjectConfiguration(project_dir=...)")
-        return CheckpointManager(os.path.join(self.project_dir, "checkpoints"),
-                                 keep_last_n=self.project_configuration.total_limit)
+    def checkpoint_manager(self, base_dir: Optional[str] = None) -> CheckpointManager:
+        """The run's checkpoint store, ``{project_dir}/checkpoints`` (or
+        `base_dir`), rotating to `total_limit`. One manager per (base
+        directory, limit): its record of the saves in flight is what keeps
+        `next_step` and a background commit from taking one step twice."""
+        if base_dir is None:
+            if self.project_dir is None:
+                raise ValueError("checkpoints need ProjectConfiguration(project_dir=...)")
+            base_dir = os.path.join(self.project_dir, "checkpoints")
+        key = (str(base_dir), self.project_configuration.total_limit)
+        if key not in self._checkpoint_managers:
+            self._checkpoint_managers[key] = CheckpointManager(key[0], keep_last_n=key[1])
+        return self._checkpoint_managers[key]
 
     def _run_save_hooks(self, output_dir: str):
         for hook in self._save_model_hooks:
@@ -865,7 +906,35 @@ class Accelerator:
         for i, obj in enumerate(self._custom_objects):
             checkpointing.save_custom_state(obj, output_dir, i)
 
-    def save_state(self, output_dir: Optional[str] = None) -> str:
+    def maybe_save_state(self, output_dir: Optional[str] = None, **save_kwargs) -> Optional[str]:
+        """The `save_interval` cadence at a step boundary (JAX's): call once a step. It
+        times the step since the last call, asks the controller whether a
+        save is due and, when it is, runs `save_state(output_dir,
+        **save_kwargs)` and feeds the controller the seconds the goodput
+        ledger charged it (an asynchronous save's blocking seconds only).
+        Returns the checkpoint's path when it saved, else None."""
+        if self.save_controller is None:
+            raise RuntimeError("maybe_save_state() needs a cadence: construct the Accelerator with "
+                               'save_interval="auto" (goodput-driven) or save_interval=<steps>')
+        now = time.perf_counter()
+        if self._last_step_boundary is not None:
+            self.save_controller.observe_step(now - self._last_step_boundary)
+        self._last_step_boundary = now
+        self._steps_since_save += 1
+        if not self.save_controller.should_save(self._steps_since_save):
+            return None
+        charged_before = self.timeline.goodput()["lost_s"].get("checkpoint", 0.0)
+        t0 = time.perf_counter()
+        path = self.save_state(output_dir, **save_kwargs)
+        blocked = time.perf_counter() - t0
+        charged = self.timeline.goodput()["lost_s"].get("checkpoint", 0.0) - charged_before
+        self.save_controller.observe_save(charged if charged > 0 else blocked)
+        self._steps_since_save = 0
+        self._last_step_boundary = time.perf_counter()  # a save's time is not a step's
+        return path
+
+    def save_state(self, output_dir: Optional[str] = None, async_save: Optional[bool] = None,
+                   sharded: Optional[bool] = None, **save_model_kwargs) -> str:
         """Save every prepared and registered object. With
         `automatic_checkpoint_naming`, commit ``checkpoint_{save_iteration}``
         through `checkpoint_manager()` (staged, digest manifest, one atomic
@@ -874,50 +943,257 @@ class Accelerator:
         the checkpoint's directory. The save runs in a ``checkpoint.save``
         span, its wall clock is charged to the goodput ledger's
         "checkpoint" cause (failed saves too), and a completed one bumps
-        ``checkpoint_saves_total`` and ``checkpoint_save_seconds``."""
+        ``checkpoint_saves_total`` and ``checkpoint_save_seconds``.
+
+        `async_save` and `sharded` override the accelerator's settings for
+        this call. A sharded save has each process write its own shards
+        under ``host_*/``. An asynchronous one blocks only for the wait on
+        the previous commit and the copy of the state to host memory, and
+        only that is charged; a background thread writes and publishes it
+        in a ``checkpoint.commit`` span, timed by
+        ``checkpoint_async_commit_seconds``; a failed commit raises
+        `CheckpointCommitError` at the next save or `drain_checkpoints()`.
+        The path returned is where it will publish: drain before reading
+        it. Across processes an asynchronous save must be sharded (the
+        committer may run no collective). `save_model_kwargs` are accepted
+        for JAX's signature and unused, as there."""
+        async_save = self.async_save if async_save is None else bool(async_save)
+        sharded = self.sharded_save if sharded is None else bool(sharded)
+        if async_save:
+            return self._save_state_async(output_dir, sharded)
         t0 = time.perf_counter()
         try:
             with self.tracer.span("checkpoint.save", category="checkpoint", step=int(self.save_iteration)):
-                result = self._save_state_inner(output_dir)
+                result = self._save_state_inner(output_dir, sharded)
         finally:
             self.timeline.charge("checkpoint", time.perf_counter() - t0)
         self._m_ckpt_saves.inc()
         self._m_ckpt_seconds.observe(time.perf_counter() - t0)
         return result
 
-    def _save_state_inner(self, output_dir: Optional[str]) -> str:
+    def _sharded_manifest(self, sharded: bool):
+        return checkpointing.sharded_manifest_extra(self.num_processes) if sharded else None
+
+    def _save_managed(self, manager: CheckpointManager, step: int, sharded: bool) -> str:
+        """One synchronous save into `manager` as ``checkpoint_{step}``, on
+        every process."""
+        if sharded:
+            snapshot = self._snapshot(sharded=True)
+            return manager.save(step, lambda d: self._commit_snapshot(d, snapshot), is_main=self.is_main_process,
+                                barrier=self.wait_for_everyone, manifest_extra=self._sharded_manifest(True))
         # Every process takes part in gathering the whole state; the main
         # process writes it while the others wait.
-        automatic = self.project_configuration.automatic_checkpoint_naming
-        if not automatic and output_dir is None:
-            raise ValueError("output_dir is required when automatic_checkpoint_naming is off")
         state = checkpointing.collect_accelerator_state(self._models, self._optimizers, self._schedulers,
                                                         self._dataloaders)
-        if automatic:
-            manager = self.checkpoint_manager()
-            output_dir = os.path.join(manager.base_dir, f"checkpoint_{self.save_iteration}")
-            if self.is_main_process:
-                output_dir = manager.save(self.save_iteration, lambda d: self._write_state(d, state))
-        elif self.is_main_process:
-            os.makedirs(output_dir, exist_ok=True)
-            self._write_state(output_dir, state)
-            checkpointing.write_checkpoint_manifest(output_dir)
-        if not self.is_main_process:
+        output_dir = os.path.join(manager.base_dir, f"checkpoint_{step}")
+        if self.is_main_process:
+            output_dir = manager.save(step, lambda d: self._write_state(d, state))
+        else:
             # The main process ran the hooks before it wrote (on the staging
-            # directory under automatic naming); the others run them here.
+            # directory); the others run them here.
             self._run_save_hooks(output_dir)
         del state
         self.wait_for_everyone()
+        return output_dir
+
+    def _save_state_inner(self, output_dir: Optional[str], sharded: bool = False) -> str:
+        automatic = self.project_configuration.automatic_checkpoint_naming
+        if not automatic and output_dir is None:
+            raise ValueError("output_dir is required when automatic_checkpoint_naming is off")
+        if automatic:
+            output_dir = self._save_managed(self.checkpoint_manager(), self.save_iteration, sharded)
+        elif sharded:
+            snapshot = self._snapshot(sharded=True)
+            self.wait_for_everyone()
+            os.makedirs(output_dir, exist_ok=True)
+            self._commit_snapshot(output_dir, snapshot)
+            self.wait_for_everyone()  # every process's shards land before the digest scan
+            if self.is_main_process:
+                checkpointing.write_checkpoint_manifest(output_dir, extra=self._sharded_manifest(True))
+            self.wait_for_everyone()
+        else:
+            state = checkpointing.collect_accelerator_state(self._models, self._optimizers, self._schedulers,
+                                                            self._dataloaders)
+            if self.is_main_process:
+                os.makedirs(output_dir, exist_ok=True)
+                self._write_state(output_dir, state)
+                checkpointing.write_checkpoint_manifest(output_dir)
+            else:
+                self._run_save_hooks(output_dir)
+            del state
+            self.wait_for_everyone()
         self.project_configuration.iteration += 1
         return str(output_dir)
+
+    # ------------------------------------------------------------ async checkpoints
+    def _committer(self) -> checkpointing.AsyncCommitter:
+        if self._async_committer is None:
+            self._async_committer = checkpointing.AsyncCommitter()
+        return self._async_committer
+
+    def _snapshot(self, sharded: bool, staging: Optional[checkpointing.HostStaging] = None) -> dict:
+        return checkpointing.snapshot_accelerator_state(
+            self._models, self._optimizers, self._schedulers, self._dataloaders, sharded=sharded,
+            custom_objects=tuple(self._custom_objects), staging=staging)
+
+    def _commit_snapshot(self, output_dir: str, snapshot: dict, abort=None):
+        """Write a snapshot: the save hooks (on the committer thread for an
+        asynchronous save, against the live objects), then its files."""
+        self._run_save_hooks(output_dir)
+        checkpointing.write_accelerator_snapshot(snapshot, output_dir, process_index=self.process_index,
+                                                 num_processes=self.num_processes, is_main=self.is_main_process,
+                                                 abort=abort)
+
+    def _save_state_async(self, output_dir: Optional[str], sharded: bool) -> str:
+        """Snapshot, then commit in the background (JAX's): the caller pays
+        for the wait on the previous commit and the copy of the state into
+        the kept host buffers (`HostStaging`); only that is charged to the
+        goodput ledger."""
+        if self.num_processes > 1 and not sharded:
+            raise ValueError(
+                "async_save with num_processes > 1 requires sharded=True: the background committer cannot run "
+                "collective barriers, so cross-host commits coordinate through the per-host shard sentinels")
+        t0 = time.perf_counter()
+        committer = self._committer()
+        step = int(self.save_iteration)
+        try:
+            with self.tracer.span("checkpoint.save", category="checkpoint", step=step, mode="async"):
+                # The previous commit finishes before this one snapshots (one
+                # commit in flight bounds the host memory), and its failure
+                # raises here.
+                committer.wait()
+                if self._save_model_hooks:
+                    logger.warning("async_save runs registered save-state hooks on the committer thread against "
+                                   "live objects; use synchronous saves if a hook reads state that training mutates")
+                if self._host_staging is None:
+                    self._host_staging = checkpointing.HostStaging()
+                snapshot = self._snapshot(sharded, staging=self._host_staging)
+                extra = self._sharded_manifest(sharded)
+                if self.project_configuration.automatic_checkpoint_naming:
+                    manager = self.checkpoint_manager()
+                    final = os.path.join(manager.base_dir, f"checkpoint_{step}")
+
+                    def writer(abort):
+                        manager.save(step, lambda staging: self._commit_snapshot(staging, snapshot, abort),
+                                     is_main=self.is_main_process, abort=abort, manifest_extra=extra)
+                else:
+                    if output_dir is None:
+                        raise ValueError("output_dir is required when automatic_checkpoint_naming is off")
+                    final = str(output_dir)
+
+                    def writer(abort):
+                        os.makedirs(final, exist_ok=True)
+                        self._commit_snapshot(final, snapshot, abort)
+                        if self.is_main_process:
+                            checkpointing.write_checkpoint_manifest(final, extra=extra)
+
+                self.project_configuration.iteration += 1
+        finally:
+            blocking = time.perf_counter() - t0
+            self.timeline.charge("checkpoint", blocking)
+        self._m_ckpt_seconds.observe(blocking)
+        logger.info("Async save of step %d accepted; committing to %s in background", step, final)
+
+        def timed_commit(abort):
+            c0 = time.perf_counter()
+            try:
+                with self.tracer.span("checkpoint.commit", category="checkpoint", step=step, mode="async"):
+                    writer(abort)
+            finally:
+                self._g_ckpt_in_flight.set(0)
+                self._m_ckpt_commit_seconds.observe(time.perf_counter() - c0)
+            self._m_ckpt_saves.inc()  # completions only, as the synchronous path
+
+        # In flight from the submit: the gauge reads 1 as soon as this returns.
+        self._g_ckpt_in_flight.set(1)
+        try:
+            committer.submit(timed_commit, label=f"checkpoint_{step}")
+        except BaseException:
+            self._g_ckpt_in_flight.set(0)
+            raise
+        return final
+
+    def drain_checkpoints(self, timeout: Optional[float] = None):
+        """Wait for the asynchronous commit in flight; its failure raises
+        `CheckpointCommitError`. Call before reading a checkpoint just
+        saved, at the end of training, before a preemption's save."""
+        if self._async_committer is not None:
+            self._async_committer.drain(timeout)
+
+    def poll_async_checkpoint(self):
+        """Without blocking, raise a commit's process-death failure (a kill,
+        a KeyboardInterrupt); an ordinary failure waits for the next save or
+        drain. Call at step boundaries."""
+        if self._async_committer is not None:
+            self._async_committer.poll()
+
+    def abort_async_checkpoint(self, timeout: float = 30.0):
+        """Hard shutdown: abort the commit in flight (it will not publish)
+        and join it without raising; returns what it failed with, if
+        anything. The next asynchronous save builds a fresh committer."""
+        committer, self._async_committer = self._async_committer, None
+        if committer is None:
+            return None
+        return committer.abort_and_join(timeout)
+
+    # ------------------------------------------------------------ preemption
+    def register_preemption_checkpoint(self, output_dir: Optional[str] = None, exit_on_save: bool = True):
+        """Latch SIGTERM (`fault_tolerance.PreemptionHandler`); then
+        `check_preemption()` saves at the next step boundary. `output_dir` is
+        a `CheckpointManager` base: each preemption save commits an atomically
+        published ``checkpoint_N`` in it (the last 2 kept), so a kill racing
+        the save never leaves a torn checkpoint, and `load_state(output_dir)`
+        resumes from the newest that verifies. Off the main thread the latch
+        warns and does nothing. Returns the handler."""
+        from .fault_tolerance import PreemptionHandler
+
+        self._preemption_handler = PreemptionHandler()
+        self._preemption_dir = output_dir
+        self._preemption_exit = exit_on_save
+        return self._preemption_handler
+
+    @property
+    def preemption_requested(self) -> bool:
+        handler = getattr(self, "_preemption_handler", None)
+        return handler is not None and handler.preemption_requested
+
+    def check_preemption(self) -> bool:
+        """At a step boundary: without a latched SIGTERM, False. With one,
+        wait for the asynchronous commit in flight (its failure is logged:
+        the preemption's save supersedes it), save synchronously (into the
+        registered base, else as `save_state` would), and raise
+        ``SystemExit(143)``, or return True under ``exit_on_save=False``."""
+        if not self.preemption_requested:
+            return False
+        from .fault_tolerance import PREEMPTED_EXIT_CODE
+
+        try:
+            self.drain_checkpoints()
+        except checkpointing.CheckpointCommitError as exc:
+            logger.warning("in-flight async checkpoint commit failed during preemption flush (%s); the preemption "
+                           "checkpoint will supersede it", exc)
+        preemption_dir = getattr(self, "_preemption_dir", None)
+        if preemption_dir is not None and not self.project_configuration.automatic_checkpoint_naming:
+            manager = CheckpointManager(preemption_dir, keep_last_n=2)
+            path = self._save_managed(manager, manager.next_step(), self.sharded_save)
+        else:
+            # Always synchronous: the process exits right after this save.
+            path = self.save_state(preemption_dir, async_save=False)
+        self.print(f"preemption checkpoint saved to {path}")
+        if getattr(self, "_preemption_exit", True):
+            raise SystemExit(PREEMPTED_EXIT_CODE)
+        return True
 
     def load_state(self, input_dir: Optional[str] = None):
         """Restore a checkpoint into the prepared and registered objects.
         `input_dir` is a checkpoint directory (verified against its digest
         manifest), a `CheckpointManager` base directory, or ``"latest"`` /
         None for the newest checkpoint under this run's manager that
-        verifies, past a torn newest one. With automatic naming, the next
-        save numbers on from the restored checkpoint. The load runs in a
+        verifies, past a torn newest one. A sharded checkpoint (``host_*/``)
+        is gathered and taken under the current layout, whatever wrote it.
+        With automatic naming, the next save numbers on from the restored
+        checkpoint. An asynchronous commit in flight lands first (its
+        failure is logged and passed over). The load runs in a
         ``checkpoint.load`` span, its wall clock is charged to the "restart"
         cause, and a completed one bumps ``checkpoint_loads_total``."""
         t0 = time.perf_counter()
@@ -930,6 +1206,10 @@ class Accelerator:
         return result
 
     def _load_state_inner(self, input_dir: Optional[str]):
+        try:
+            self.drain_checkpoints()
+        except checkpointing.CheckpointCommitError as exc:
+            logger.warning("async commit failed before load_state (%s); resolving past it", exc)
         if input_dir in (None, "latest"):
             input_dir = self.checkpoint_manager().resolve()
         elif CheckpointManager.is_manager_dir(input_dir):
@@ -943,8 +1223,9 @@ class Accelerator:
         logger.info("Loading states from %s", input_dir)
         for hook in self._load_model_hooks:
             hook(self._models, input_dir)
-        checkpointing.load_accelerator_state(input_dir, self._models, self._optimizers, self._schedulers,
-                                             self._dataloaders)
+        load = (checkpointing.load_sharded_accelerator_state if checkpointing.is_sharded_checkpoint_dir(input_dir)
+                else checkpointing.load_accelerator_state)
+        load(input_dir, self._models, self._optimizers, self._schedulers, self._dataloaders)
         for i, obj in enumerate(self._custom_objects):
             checkpointing.load_custom_state(obj, input_dir, i)
         return input_dir
@@ -961,8 +1242,9 @@ class Accelerator:
         process calls it; across processes each tensor is gathered whole
         in turn and the main process writes (the plugin's FULL_STATE_DICT).
         A SHARDED_STATE_DICT of parameters no process holds whole (FSDP
-        over more than one process) waits for ROADMAP A item 5, async and
-        sharded checkpoints. As in JAX, a
+        over more than one process) raises: JAX writes it in orbax's
+        layout, which the port does not write (ROADMAP A item 1);
+        `save_state(sharded=True)` writes each process's shards. As in JAX, a
         non-bool third argument is a shard size (the reference's positional
         order, ``save_model(model, dir, max_shard_size, safe_serialization)``)."""
         if not isinstance(safe_serialization, bool):
@@ -974,8 +1256,9 @@ class Accelerator:
         layout = getattr(model, "layout", None)
         if state_dict_type == "SHARDED_STATE_DICT" and layout is not None and layout.uses_fsdp and layout.fsdp_size > 1:
             raise NotImplementedError(
-                "save_model of a SHARDED_STATE_DICT (each process writing its shards) waits for ROADMAP A "
-                "item 5, async and sharded checkpoints; set the plugin's state_dict_type='FULL_STATE_DICT'")
+                "save_model of a SHARDED_STATE_DICT (each process writing its shards) waits for ROADMAP A item 1: "
+                "JAX writes it in orbax's layout, which the port does not write yet; set the plugin's "
+                "state_dict_type='FULL_STATE_DICT', or save_state(sharded=True) for each process's shards")
         if not safe_serialization:
             state = model.full_state_dict() if isinstance(model, PreparedModel) else model.state_dict()
             if self.is_main_process:

@@ -42,7 +42,6 @@ from .config import MESH_AXES, load_config_file
 
 _CLUSTER = "waits for ROADMAP A item 2, the GPU-host counterpart of tpu.py and cloud.py"
 _FLEET = "waits for ROADMAP A item 6, the serving fleet (chaos plans, replicas)"
-_CHECKPOINTS = "waits for ROADMAP A item 5, async and sharded checkpoints"
 _SEQUENCE = "waits for ROADMAP A item 3, sequence parallel"
 
 
@@ -99,8 +98,13 @@ def add_launch_args(parser):
     parser.add_argument("--crash_loop_threshold", type=int, default=None,
                         help="Stop after N identical fast crashes in a row (default 3; 0 disables)")
     parser.add_argument("--fault_plan", default=None, help=f"Refused: {_FLEET}")
-    parser.add_argument("--async_save", action="store_true", help=f"Refused: {_CHECKPOINTS}")
-    parser.add_argument("--sharded_save", action="store_true", help=f"Refused: {_CHECKPOINTS}")
+    parser.add_argument("--async_save", action="store_true",
+                        help="Asynchronous checkpoints in every worker (ACCELERATE_TPU_ASYNC_SAVE): save_state blocks "
+                             "only for the copy of the state to host memory; a background committer writes and "
+                             "publishes it")
+    parser.add_argument("--sharded_save", action="store_true",
+                        help="Per-process sharded checkpoints (ACCELERATE_TPU_SHARDED_SAVE): each process writes "
+                             "its own shards into its host_*/ subdirectory; a load gathers them")
     parser.add_argument("--replicas", type=int, default=None, help=f"Refused: {_FLEET}")
     parser.add_argument("--tpu_use_cluster", action="store_true", help=f"Refused: {_CLUSTER}")
     parser.add_argument("--tpu_name", default=None)
@@ -125,10 +129,6 @@ def refuse_unported(args, config: dict):
         found.append(f"--fault_plan / fault_plan (a chaos fault plan) {_FLEET}")
     if args.replicas or config.get("replicas"):
         found.append(f"--replicas / replicas (a serving fleet) {_FLEET}")
-    if args.async_save or config.get("async_save"):
-        found.append(f"--async_save / async_save {_CHECKPOINTS}")
-    if args.sharded_save or config.get("sharded_save"):
-        found.append(f"--sharded_save / sharded_save {_CHECKPOINTS}")
     if config.get("sequence_parallel_config"):
         found.append(f"sequence_parallel_config {_SEQUENCE}")
     mesh_cfg = config.get("mesh", {}) or {}
@@ -186,6 +186,10 @@ def build_launch_env(args, config: dict) -> dict:
             env[f"ACCELERATE_TPU_MESH_{axis.upper()}"] = str(val)
     if args.debug or config.get("debug"):
         env["ACCELERATE_TPU_DEBUG_MODE"] = "1"
+    if args.async_save or config.get("async_save"):
+        env["ACCELERATE_TPU_ASYNC_SAVE"] = "1"
+    if args.sharded_save or config.get("sharded_save"):
+        env["ACCELERATE_TPU_SHARDED_SAVE"] = "1"
     profile_dir = pick(args.profile_dir, "profile_dir")
     if profile_dir:
         env["ACCELERATE_TPU_PROFILE_DIR"] = str(profile_dir)

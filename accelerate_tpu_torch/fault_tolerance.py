@@ -20,8 +20,10 @@ into the child's environment through `Tracer.inject_env`; the worker's
 default tracer reads it back (`Tracer.from_env`), so a restarted run
 stitches into one trace.
 
-JAX's `PreemptionHandler` (the in-process SIGTERM latch behind
-`Accelerator.check_preemption`) waits for ROADMAP A item 5, preemption.
+`PreemptionHandler` is the worker's side: a latch on SIGTERM (and SIGINT
+when asked) that `Accelerator.register_preemption_checkpoint` installs and
+`Accelerator.check_preemption` reads at a step boundary, where it saves
+and exits with `PREEMPTED_EXIT_CODE`, which ends supervision.
 
 The supervisor is not one of the group's processes: it logs through plain
 `logging` and builds no `PartialState`.
@@ -33,6 +35,7 @@ import logging
 import os
 import signal
 import subprocess
+import threading
 import time
 from typing import Callable, List, Optional
 
@@ -202,3 +205,56 @@ class Supervisor:
         finally:
             signal.signal(signal.SIGTERM, prev_term)
             signal.signal(signal.SIGINT, prev_int)
+
+
+class PreemptionHandler:
+    """A latch on SIGTERM (and SIGINT with `catch_sigint`) for a graceful
+    preemption (JAX's): the signal sets `preemption_requested`, and
+    `on_preempt` runs in the handler. Standalone::
+
+        handler = PreemptionHandler()
+        for batch in loader:
+            ...
+            if handler.preemption_requested:
+                accelerator.save_state(ckpt_dir); sys.exit(PREEMPTED_EXIT_CODE)
+
+    `signal.signal` works on the main thread only: built on another, the
+    handler warns and stays a latch that never sets (`installed` False)
+    rather than raise in the script it protects."""
+
+    def __init__(self, catch_sigint: bool = False, on_preempt: Optional[Callable] = None):
+        self._requested = threading.Event()
+        self.on_preempt = on_preempt
+        self._prev = {}
+        self.installed = True
+        for sig in [signal.SIGTERM] + ([signal.SIGINT] if catch_sigint else []):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except ValueError:
+                self.installed = False
+                self._prev = {}
+                logger.warning(
+                    "PreemptionHandler constructed off the main thread; SIGTERM latch disabled "
+                    "(preemption_requested will stay False). Construct the handler, or call "
+                    "register_preemption_checkpoint, from the main thread to enable graceful preemption "
+                    "checkpoints.")
+                break
+
+    def _handle(self, signum, frame):
+        logger.warning("preemption signal %d received; will checkpoint at step boundary", signum)
+        self._requested.set()
+        if self.on_preempt is not None:
+            self.on_preempt()
+
+    @property
+    def preemption_requested(self) -> bool:
+        return self._requested.is_set()
+
+    def reset(self):
+        self._requested.clear()
+
+    def uninstall(self):
+        """Put back the handlers that were there before."""
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        self._prev = {}

@@ -263,6 +263,22 @@ class PreparedModel:
             return self.module.state_dict()
         return self.layout.full_state_dict()
 
+    def state_shards(self) -> list:
+        """(name, this process's tensor, whole shape, ``[[start, stop],
+        ...]``) of every entry of the state dict, without a collective: a
+        parameter FSDP shards is this process's shard with its bounds in the
+        whole tensor; the rest (every parameter under ZeRO-2, whose moments
+        are sharded instead) whole. The sharded checkpoint's entries."""
+        self._synchronize_params()
+        fsdp = self.layout is not None and self.layout.uses_fsdp
+        out = []
+        for name, value in self.module.state_dict().items():
+            if self.layout is None:
+                out.append((name, value.detach(), tuple(value.shape), [[0, int(d)] for d in value.shape]))
+            else:
+                out.append((name, *self.layout.local_entry(value, self.layout.param_dims.get(name) if fsdp else None)))
+        return out
+
     def load_full_state_dict(self, state: dict):
         """Load a whole state dict, each process taking its shard (copied
         into the module's own tensors: the caller's are not kept)."""

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import inspect
 import os
 import shutil
@@ -709,6 +710,34 @@ class AcceleratedOptimizer:
             if self.offload is not None:  # torch packs the live per-parameter dicts
                 state = {**state, "state": {i: dict(entry) for i, entry in state["state"].items()}}
             return state
+
+    def state_shards(self):
+        """(the state dict with None for each tensor, [(path, this process's
+        tensor, whole shape, ``[[start, stop], ...]``)]) without a
+        collective: under ZeRO-2 and FSDP a moment is this process's shard
+        with its bounds in the whole moment, a step count whole; an
+        offloaded state is read where it lives. A path is
+        ``state/<index>/<key>``. The sharded checkpoint's entries."""
+        with self.offload.materialized() if self.offload is not None else contextlib.nullcontext():
+            state = self.optimizer.state_dict()
+            names = None if self.layout is None else self.layout._optimizer_names(self.optimizer)
+            skeleton, entries = {}, []
+            for index, entry in state["state"].items():
+                skeleton[index] = {}
+                for key, value in entry.items():
+                    if not torch.is_tensor(value):
+                        skeleton[index][key] = value
+                        continue
+                    skeleton[index][key] = None
+                    path = f"state/{index}/{key}"
+                    if names is None or value.dim() == 0:
+                        local = _local(value).detach()
+                        entries.append((path, local, tuple(local.shape), [[0, int(d)] for d in local.shape]))
+                    else:
+                        name = names[index]
+                        entries.append((path, *self.layout.local_entry(value, self.layout.shard_dims[name],
+                                                                       self.layout.orig[name].shape)))
+        return {"state": skeleton, "param_groups": copy.deepcopy(state["param_groups"])}, entries
 
     def load_state_dict(self, state: dict):
         """Load a whole state dict (from any layout), each process taking its

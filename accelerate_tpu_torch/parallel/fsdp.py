@@ -232,6 +232,22 @@ class ShardedLayout:
         """This process's shard of a whole tensor on `dim`."""
         return full.chunk(self.fsdp_size, dim=dim)[self.fsdp_index]
 
+    def local_entry(self, value: torch.Tensor, dim: Optional[int], global_shape=None):
+        """(this process's tensor, the whole shape, its ``[[start, stop],
+        ...]`` in the whole tensor) of `value`, sharded on `dim` over
+        "fsdp" or, with `dim` None, whole. The shard is `torch.chunk`'s part
+        (FSDP's and `shard`'s split): the bounds span its own elements,
+        never a padding. No collective."""
+        local = _local(value).detach()
+        shape = tuple(int(d) for d in (value.shape if global_shape is None else global_shape))
+        bounds = [[0, d] for d in shape]
+        if dim is not None:
+            start = min(self.fsdp_index * -(-shape[dim] // self.fsdp_size), shape[dim])
+            bounds[dim] = [start, start + int(local.shape[dim])]
+        if [b - a for a, b in bounds] != list(local.shape):
+            raise ValueError(f"a shard of shape {tuple(local.shape)} does not lie in {shape} on dim {dim}")
+        return local, shape, bounds
+
     def full_state_dict(self) -> dict:
         """The module's state dict with every tensor whole, on the CPU
         (collective: every process calls it)."""

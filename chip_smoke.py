@@ -59,15 +59,17 @@ prints no result):
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
    of them sharing a 256-token system prompt.
-   (a) f32: greedy tokens of the "paged_kernel" engine equal the "gather"
-       engine's, plain (K1's path) and speculative (K2's path).
+   (a) f32 at full width cut to 4 layers (`PARITY_LAYERS`; (b) and (e)
+       hold the engine at full depth): greedy tokens of the "paged_kernel"
+       engine equal the "gather" engine's, plain (K1's path) and
+       speculative (K2's path).
    (b) bf16: the "paged_kernel" engine, plain and speculative, timed; every
        request finishes; each kernel's launch count, zeroed just before the
        run, equals layers x dispatches of that run and is > 0.
-   (c) f32, KV cache quantized to int8 and to fp8 e4m3: greedy tokens of
+   (c) f32 (the 4-layer cut), KV cache quantized to int8 and to fp8 e4m3: greedy tokens of
        the "paged_kernel" engine equal the "gather" engine's, plain and
        speculative; both read the same quantized pool.
-   (d) f32: with only the cache quantized, every request that does not
+   (d) f32 (the 4-layer cut): with only the cache quantized, every request that does not
        share the system prompt has the unquantized engine's first token.
    (e) bf16 with int8 weights and an int8, then an fp8 e4m3 cache, plain
        and speculative, timed: decode tokens/s, TTFT p50, peak memory, the
@@ -81,7 +83,8 @@ prints no result):
    cache (one shared write index, a persistent pad mask, the plain masked
    attention over the written prefix; JAX runs no Pallas kernel there
    either).
-   (a) f32, greedy, gated: 4 prompts of 256 tokens, 32 new tokens each,
+   (a) f32 at full width cut to 4 layers ((b) holds the path at full
+       depth), greedy, gated: 4 prompts of 256 tokens, 32 new tokens each,
        give the "paged_kernel" engine's tokens (K1's path) row for row; the
        same with draft_tokens=4 gives the plain loop's; a left-padded batch
        of 64-256 tokens gives each prompt generated alone; a repetition
@@ -282,7 +285,7 @@ prints no result):
 
 13. Telemetry and the trace guard on the main paths, run after phase 11:
    (a) the Llama-1B paged engine of phase 3 (bf16, its 16 requests and
-       engine arguments, full width cut to 4 layers: phase 3 holds the
+       engine arguments, full width cut to 2 layers: phase 3 holds the
        engine at full depth), plain and speculative, each
        after a warm-up, run without and with instrumentation (a b b a twice
        for plain, a b for speculative): instrumented is a fresh
@@ -302,7 +305,7 @@ prints no result):
        record syncs (by site: the chunk's uploads and readback, the
        insert's pushes and first-token read) and leave the tokens as they
        were: a guard that records none there sees nothing.
-   (b) Llama-1B bf16 training at full width cut to 4 layers (5 (b) holds
+   (b) Llama-1B bf16 training at full width cut to 2 layers (5 (b) holds
        the step at full depth), 5 (b)'s batch and
        seed, 2 warm-up and 8 timed steps, through an `Accelerator` without
        and with `analyze=True` (a b b a; the analyzed one samples the
@@ -310,7 +313,7 @@ prints no result):
        (bit for bit reported); `train_steps_total`, the
        `train_dispatch_seconds` count and `goodput()["steps"]` 10; the
        guard's 8 steady steps clean (0 builds, 0 syncs); K3-K5 each launched
-       4 x 10 times. Reported: step times and the block share.
+       2 x 10 times. Reported: step times and the block share.
    (c) `Accelerator.profile()` around 2 more analyzed steps (the
        allocator's history recorded) and a `ProfilerManager` window around
        one engine step: the Chrome traces name `flash_fwd_wgmma_kernel`,
@@ -503,12 +506,59 @@ prints no result):
        backward and the update, the update beside its copy bound (the
        moments' bytes each way at the bare copy's rate), tokens/s, MFU.
 
+19. Async and sharded checkpoints and preemption, run after phase 18, on
+    Llama-1B at full width cut to 2 layers (646,981,632 parameters: 7.76 GB
+    of f32 masters and AdamW moments), random weights from seed 0, bf16
+    with f32 masters, batch 2 x 2048 on one repeated batch, AdamW (lr 1e-4,
+    decay 1e-4), clip 1.0, through `accelerator.train_step()`; the
+    checkpoints under a temporary directory (its filesystem reported),
+    removed however the phase ends. One commit serves (a), (b) and (d).
+   (a) ``Accelerator(mixed_precision="bf16", async_save=True,
+       save_interval=4, project_config=ProjectConfiguration(
+       automatic_checkpoint_naming=True, total_limit=2))``,
+       `maybe_save_state(sharded=True)` after each step: the save after
+       step 4 goes to the committer (the first save, which makes and pins
+       the host buffers), and 16 more steps run while it commits,
+       `poll_async_checkpoint()` after each. Gates: its masters and moments
+       equal a host copy taken right after step 4 bit for bit ((d) gathers
+       them), and every one differs from the state at the drain;
+       `checkpoint_commits_in_flight` read 1 after the save and 0 after the
+       drain; `checkpoint_async_commit_seconds` has one observation; the
+       ledger's "checkpoint" charge is the save's blocking seconds while it
+       commits, below the commit's. Reported: blocking and commit seconds,
+       the host buffers' setup seconds and bytes, and the median step
+       before, during and after the commit.
+   (b) `register_preemption_checkpoint(D, exit_on_save=False)` (D the
+       project's checkpoint base) and SIGTERM to this process while (a)'s
+       commit is in flight; after the next step `check_preemption()` drains
+       it, saves synchronously under D and returns True. Gates: the commit
+       was in flight at the signal, both checkpoints verify ((c)'s and
+       (d)'s loads verify them), (a)'s published first; the ledger then holds
+       (a)'s blocking seconds and the synchronous save's. Reported: the
+       drain's and the synchronous save's seconds. Then 4 more steps, and a
+       warm async save (the buffers kept) whose blocking seconds are
+       reported, aborted with `abort_async_checkpoint()`: it never
+       publishes. Each save's blocking seconds beside the synchronous
+       save's is what the committer buys on this filesystem.
+   (c) A fresh accelerator (weights from seed 1) `load_state(D)`s its
+       newest verified checkpoint (the preemption's) and takes those 4
+       steps: losses within rtol 1e-6 of the first accelerator's (bit for
+       bit reported).
+   (d) A FULL_SHARD `Accelerator` at world 1 over NCCL (phase 14's
+       strategy, torch's `fully_shard`) loads (a)'s sharded checkpoint
+       (``host_0000/``, its ``SHARD_DONE``, the manifest's ``"sharded"``
+       block, each checked): its gathered masters and moments equal the
+       copy after step 4 bit for bit.
+   Gates over the phase: K3-K5 launched 2 x 29 times each in bf16 (joining
+   the Llama rows of the `kernels` line), and no kernel built.
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
 `--surface-only` the build and phase 15 alone, `--launch-only` the build and
 phase 16 alone, `--bigmodel-only` the build and phase 17 alone,
-`--offload-train-only` the build and phase 18 alone (none prints a result
-line). Each phase prints its wall time on a `[time]` line, and the
+`--offload-train-only` the build and phase 18 alone, `--checkpoint-only` the
+build and phase 19 alone, and `--kernels-only` stops after phase 2 (none
+prints a result line). Each phase prints its wall time on a `[time]` line, and the
 whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -1116,6 +1166,21 @@ def agreement(base, other):
 
 
 ENGINE_KW = dict(num_slots=8, page_size=16, max_length=2048, chunk_size=8)
+# The depth of the f32 identities of phases 3 and 4 (a): their bf16 runs hold
+# the engine's and `generate`'s paths at full depth.
+PARITY_LAYERS = 4
+
+
+def parity_model(model_name, device, layers=PARITY_LAYERS):
+    """The registered Llama at full width cut to `layers` layers, f32 from seed 0."""
+    import dataclasses
+
+    from accelerate_tpu_torch import create_llama_model
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    full = MODEL_REGISTRY[model_name]()
+    config = dataclasses.replace(full, num_hidden_layers=min(layers, full.num_hidden_layers))
+    return create_llama_model(config, seed=0, dtype=torch.float32, device=device)
 SPEC_KW = dict(speculative=True, draft_tokens=KERNEL_SHAPE["verify_s"] - 1)
 
 
@@ -1129,11 +1194,14 @@ def engine_phase(device, model_name="llama-1b", engine_kw=None, n_requests=16, s
     report = {"model": model_name, "engine": engine_kw, "draft_tokens": SPEC_KW["draft_tokens"]}
 
     t0 = time.perf_counter()
-    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device)
+    model = parity_model(model_name, device)
     requests = make_requests(model.config.vocab_size, n=n_requests, system_len=system_len)
     log_model(f"[engine] {model_name} f32", model, t0)
+    report["parity_layers"] = model.config.num_hidden_layers
     engine_parity(model, requests, device, engine_kw, report)
-    model = model.to(torch.bfloat16)
+    del model
+    free_memory(device)
+    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device).to(torch.bfloat16)
     bf16_tokens, bf16_cache_nbytes = engine_timed(model, requests, device, engine_kw, report)
     if tokens_out is not None:
         tokens_out.update(bf16_tokens)
@@ -1418,7 +1486,8 @@ def generate_phase(device, model_name="llama-1b", shape=GENERATE_SHAPE, n_reques
     new, pen = shape["new"], shape["penalty"]
     report = {"model": model_name, "shape": shape}
     t0 = time.perf_counter()
-    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device)
+    model = parity_model(model_name, device)
+    report["parity_layers"] = model.config.num_hidden_layers
     vocab = model.config.vocab_size
     gen = Generator(model, max_length=shape["max_length"], device=device)
     rng = np.random.default_rng(1)
@@ -1460,7 +1529,10 @@ def generate_phase(device, model_name="llama-1b", shape=GENERATE_SHAPE, n_reques
     # (b) bf16, timed. The paged engine first, then everything the K1-K5
     # counts must stay 0 over.
     t0 = time.perf_counter()
-    model = model.to(torch.bfloat16)
+    del model, gen
+    free_memory(device)
+    model = create_named_model(model_name, seed=0, dtype=torch.float32, device=device).to(torch.bfloat16)
+    gen = Generator(model, max_length=shape["max_length"], device=device)
     serve(model, requests[:2], device, **engine_kw)  # warm-up
     serve(model, requests[:2], device, paged=False, **engine_kw)
     engines = {}
@@ -3661,7 +3733,7 @@ def fp8_phase(device, bf16=None, profile=False):
 
 # ---------------------------------------------------------------- telemetry (phase 13)
 TELEMETRY_BLOCK_EVERY = 2  # the analyzed step's sampled block: every 2nd step
-TELEMETRY_LAYERS = 4  # phase 13's depth: phase 3 and 5 (b) hold its paths at full depth
+TELEMETRY_LAYERS = 2  # phase 13's depth: phase 3 and 5 (b) hold its paths at full depth
 PAGED_KERNEL_NAMES = ("paged_split_", "paged_merge_kernel")
 FLASH_WGMMA_NAMES = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
 
@@ -5882,6 +5954,314 @@ def offload_train_phase(device, model_name=OFFLOAD_TRAIN["model"], shape=OFFLOAD
     return report
 
 
+# ------------------------------------------------------------ async and sharded checkpoints
+CHECKPOINT = dict(layers=2, batch=2, save_interval=4, overlap_steps=16, resume_steps=4)
+
+
+def checkpoint_steps(shape):
+    """The fused steps phase 19 takes: (a)'s on its first accelerator, the
+    one after the signal, (c)'s on both accelerators."""
+    return shape["save_interval"] + shape["overlap_steps"] + 1 + 2 * shape["resume_steps"]
+
+
+def host_state(pmodel, optimizer):
+    """A host copy of the masters and of every tensor of the optimizer's
+    state (whole: a sharded layout's are gathered)."""
+    from accelerate_tpu_torch.checkpointing import tensor_leaves
+
+    state = {f"model/{k}": v.detach().to("cpu", copy=True) for k, v in pmodel.full_state_dict().items()}
+    state.update({f"optimizer/{k}": v.detach().to("cpu", copy=True)
+                  for k, v in tensor_leaves(optimizer.state_dict()["state"])})
+    return state
+
+
+def checkpoint_accelerator(device, config, seed, **kwargs):
+    """A fresh bf16 `Accelerator` with `kwargs`, over a Llama model of
+    `config` (random weights from `seed`) and AdamW: (accelerator,
+    prepared model, optimizer, fused step)."""
+    from accelerate_tpu_torch import Accelerator, create_llama_model
+
+    reset_port_state()
+    model = create_llama_model(config, seed=seed, device=device)
+    accelerator = Accelerator(mixed_precision="bf16", cpu=device.type == "cpu", **kwargs)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, betas=TRAIN_BETAS, eps=TRAIN_EPS,
+                                  weight_decay=TRAIN_WD)
+    pmodel, optimizer = accelerator.prepare(model, optimizer)
+    return accelerator, pmodel, optimizer, accelerator.train_step(max_grad_norm=1.0)
+
+
+class _CheckpointRun:
+    """The first accelerator of phase 19 and what its steps and saves
+    measured."""
+
+    def __init__(self, device, accelerator, pmodel, optimizer, step_fn, batch):
+        self.device, self.accelerator, self.pmodel, self.optimizer = device, accelerator, pmodel, optimizer
+        self.step_fn, self.batch = step_fn, batch
+        self.losses, self.step_s = [], []
+
+    def step(self):
+        sync(self.device)
+        t0 = time.perf_counter()
+        self.losses.append(float(self.step_fn(self.batch)))
+        self.step_s.append(time.perf_counter() - t0)
+
+    def charged(self):
+        return self.accelerator.timeline.goodput()["lost_s"].get("checkpoint", 0.0)
+
+
+def checkpoint_async(run, shape, report):
+    """Phase 19 (a): `maybe_save_state(sharded=True)` after each step; the
+    save after step `save_interval` goes to the committer, and the run steps
+    on (polling) while it commits. Returns the host copy of the state it
+    saved."""
+    acc = run.accelerator
+    path = None
+    for i in range(shape["save_interval"]):
+        run.step()
+        if i + 1 == shape["save_interval"]:
+            expected = host_state(run.pmodel, run.optimizer)  # right after the step, before the save
+            charged_before = run.charged()
+        path = acc.maybe_save_state(sharded=True) or path
+    if path is None:
+        raise RuntimeError(f"maybe_save_state() saved nothing in {shape['save_interval']} steps")
+    report.update(path=path, checkpoint=os.path.basename(path), blocking_s=run.charged() - charged_before,
+                  staging_setup_s=acc._host_staging.setup_s, staging_bytes=acc._host_staging.nbytes,
+                  in_flight_gauge_during=acc.telemetry.value("checkpoint_commits_in_flight"))
+    report["commit_in_flight"] = []
+    for _ in range(shape["overlap_steps"]):
+        run.step()
+        acc.poll_async_checkpoint()
+        report["commit_in_flight"].append(acc._async_committer.in_flight)
+    # Still committing: the ledger holds the blocking seconds and nothing of the commit.
+    report["charged_while_committing_s"] = run.charged() - charged_before
+    report["charged_before"] = charged_before
+    return expected
+
+
+def checkpoint_preemption(run, base, report):
+    """Phase 19 (b): SIGTERM while (a)'s commit is in flight; after the
+    next step `check_preemption()` drains it and saves synchronously under
+    `base`."""
+    import signal
+
+    acc = run.accelerator
+    handler = acc.register_preemption_checkpoint(base, exit_on_save=False)
+    if not handler.installed:
+        raise RuntimeError("the SIGTERM latch could not be installed (not on the main thread)")
+    try:
+        report["commit_in_flight_at_signal"] = acc._async_committer.in_flight
+        os.kill(os.getpid(), signal.SIGTERM)
+        report["latched"] = acc.preemption_requested
+        run.step()
+        saved_before = acc._m_ckpt_seconds.sum
+        t0 = time.perf_counter()
+        report["returned"] = acc.check_preemption()
+        report["check_preemption_s"] = time.perf_counter() - t0
+        report["sync_save_s"] = acc._m_ckpt_seconds.sum - saved_before
+        report["drain_s"] = report["check_preemption_s"] - report["sync_save_s"]
+    finally:
+        handler.uninstall()
+    from accelerate_tpu_torch.checkpointing import CheckpointManager
+
+    report["path"] = CheckpointManager(base).checkpoints()[-1][1]  # verified by (c)'s load
+    report["preemption"] = os.path.basename(report["path"])
+    report["bytes"] = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(report["path"]) for f in fs)
+
+
+def checkpoint_warm_abort(run, report):
+    """A later async save, the host buffers kept: its blocking seconds; then
+    `abort_async_checkpoint()`, which stops the commit before it publishes."""
+    acc = run.accelerator
+    charged_before = run.charged()
+    t0 = time.perf_counter()
+    path = acc.save_state(sharded=True)  # (a)'s kind of save, into (a)'s buffers
+    report["call_s"] = time.perf_counter() - t0
+    report["blocking_s"] = run.charged() - charged_before
+    report["staging_setup_s"] = acc._host_staging.setup_s
+    t0 = time.perf_counter()
+    error = acc.abort_async_checkpoint()
+    report["abort_s"] = time.perf_counter() - t0
+    report["abort_error"] = type(error).__name__ if error is not None else None
+    report["published"] = os.path.isdir(path)
+    report["in_flight_gauge_after"] = acc.telemetry.value("checkpoint_commits_in_flight")
+
+
+def checkpoint_sharded_load(device, config, path, expected, report):
+    """Phase 19 (d): a FULL_SHARD accelerator at world 1 loads (a)'s sharded
+    checkpoint; returns its gathered masters and moments."""
+    from accelerate_tpu_torch.checkpointing import SHARD_DONE_NAME, shard_host_dir
+
+    host = os.path.join(path, shard_host_dir(0))
+    with open(os.path.join(path, "MANIFEST.json")) as f:
+        report["manifest_sharded"] = json.load(f).get("sharded")
+    with open(os.path.join(host, SHARD_DONE_NAME)) as f:
+        report["shard_done"] = json.load(f)
+    report["host_files"] = sorted(os.listdir(host))
+    with world_one_group(device):
+        report["backend"] = torch.distributed.get_backend()
+        accelerator, pmodel, optimizer, _ = checkpoint_accelerator(device, config, seed=2,
+                                                                   **dist_accelerator_kw("FULL_SHARD"))
+        report["fsdp"] = pmodel.layout is not None and pmodel.layout.uses_fsdp
+        t0 = time.perf_counter()
+        accelerator.load_state(path)  # verifies the directory against its digests
+        sync(device)
+        report["load_s"] = time.perf_counter() - t0
+        gathered = host_state(pmodel, optimizer)
+        del accelerator, pmodel, optimizer
+    report["mismatched"] = sorted(k for k, v in expected.items() if not torch.equal(gathered.get(k, v.new_empty(0)), v))
+    report["verified"] = True
+
+
+def checkpoint_phase(device, model_name="llama-1b", shape=CHECKPOINT, seq=TRAIN_SEQ):
+    """Phase 19: async and sharded checkpoints and preemption on Llama-1B
+    at full width cut to `shape["layers"]` layers, bf16 with f32 masters."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.checkpointing import SHARD_DONE_NAME, shard_host_dir
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.utils import ProjectConfiguration
+
+    config = dataclasses.replace(MODEL_REGISTRY[model_name](), num_hidden_layers=shape["layers"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    base = os.path.join(tmp, "checkpoints")
+    rows = np.random.default_rng(0).integers(0, config.vocab_size, (shape["batch"], seq)).astype(np.int64)
+    batch = {"input_ids": torch.as_tensor(rows, device=device)}
+    report = {"model": model_name, "layers": shape["layers"], "batch": shape["batch"], "seq": seq,
+              "filesystem": filesystem(tmp), "a": {}, "b": {}, "warm": {}, "c": {}, "d": {}}
+    a, b, warm, c, d = (report[k] for k in ("a", "b", "warm", "c", "d"))
+    built = []
+    listener = _build.add_build_listener(lambda name, seconds: built.append(name))
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        # The checkpoints' base is the project's: the preemption's save lands beside (a)'s.
+        run = _CheckpointRun(device, *checkpoint_accelerator(
+            device, config, seed=0, async_save=True, save_interval=shape["save_interval"],
+            project_config=ProjectConfiguration(project_dir=tmp, automatic_checkpoint_naming=True, total_limit=2)),
+            batch)
+        report["parameters"] = sum(p.numel() for p in run.pmodel.module.parameters())
+        expected = checkpoint_async(run, shape, a)
+        log(f"[time] checkpoint (a) async save and overlapped steps {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        checkpoint_preemption(run, base, b)
+        live = host_state(run.pmodel, run.optimizer)  # the state at the drain
+        a["equal_to_live_at_drain"] = sorted(k for k in expected if torch.equal(live[k], expected[k]))
+        del live
+        acc = run.accelerator
+        a["in_flight_gauge_after"] = acc.telemetry.value("checkpoint_commits_in_flight")
+        a["commit_s"], a["commits"] = acc._m_ckpt_commit_seconds.sum, acc._m_ckpt_commit_seconds.count
+        a["charged_after_preemption_s"] = run.charged() - a.pop("charged_before")
+        stamp = lambda p: os.stat(os.path.join(p, "MANIFEST.json")).st_mtime_ns  # noqa: E731
+        b["inflight"] = a["checkpoint"]
+        b["inflight_published_first"] = stamp(a["path"]) <= stamp(b["path"]) and a["path"] != b["path"]
+        log(f"[checkpoint] (b) {json.dumps(b)}")
+        log(f"[time] checkpoint (b) preemption {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        for _ in range(shape["resume_steps"]):
+            run.step()
+        c["uncut_losses"] = run.losses[-shape["resume_steps"]:]
+        checkpoint_warm_abort(run, warm)
+        log(f"[checkpoint] warm save, aborted {json.dumps(warm)}")
+        n = shape["save_interval"]
+        during = [s for s, open_ in zip(run.step_s[n:n + shape["overlap_steps"]], a["commit_in_flight"]) if open_]
+        a.update(losses=run.losses, step_s=run.step_s, step_ms_before_median=1e3 * float(np.median(run.step_s[1:n])),
+                 step_ms_during_commit_median=1e3 * float(np.median(during)) if during else None,
+                 steps_during_commit=len(during),
+                 step_ms_after_median=1e3 * float(np.median(run.step_s[-shape["resume_steps"]:])))
+        log(f"[checkpoint] (a) {json.dumps({k: v for k, v in a.items() if k != 'path'})}")
+        del run, acc
+        free_memory(device)
+        accelerator, pmodel, optimizer, step_fn = checkpoint_accelerator(device, config, seed=1)
+        t1 = time.perf_counter()
+        c["loaded"] = os.path.basename(str(accelerator.load_state(base)))  # its newest that verifies
+        sync(device)
+        c["load_s"] = time.perf_counter() - t1
+        c["resumed_losses"] = [float(step_fn(batch)) for _ in range(shape["resume_steps"])]
+        del accelerator, pmodel, optimizer, step_fn
+        free_memory(device)
+        c["max_rel_diff"] = max(abs(x - y) / abs(y) for x, y in zip(c["resumed_losses"], c["uncut_losses"]))
+        c["bit_for_bit"] = c["resumed_losses"] == c["uncut_losses"]
+        log(f"[checkpoint] (c) {json.dumps(c)}")
+        log(f"[time] checkpoint (c) resume and the warm save {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        d["checkpoint"] = a["checkpoint"]
+        checkpoint_sharded_load(device, config, a["path"], expected, d)
+        del expected
+        log(f"[checkpoint] (d) {json.dumps(d)}")
+        log(f"[time] checkpoint (d) sharded load {time.perf_counter() - t0:.1f}s")
+    finally:
+        _build.remove_build_listener(listener)
+        shutil.rmtree(tmp, ignore_errors=True)
+        reset_port_state()
+    free_memory(device)
+    report["launches"] = launch_counts()
+    report["builds"] = built
+    report["a_blocking_over_b_sync_save"] = a["blocking_s"] / b["sync_save_s"]
+    report["warm_blocking_over_b_sync_save"] = warm["blocking_s"] / b["sync_save_s"]
+    gates = []
+    # (a)
+    if d["mismatched"]:
+        gates.append(f"(a) the async checkpoint differs from the state after step {shape['save_interval']}: "
+                     f"{d['mismatched'][:5]}")
+    if a["equal_to_live_at_drain"]:
+        gates.append(f"(a) tensors unchanged by the steps during the commit: {a['equal_to_live_at_drain'][:5]}")
+    if (a["in_flight_gauge_during"], a["in_flight_gauge_after"]) != (1, 0):
+        gates.append(f"(a) checkpoint_commits_in_flight read {a['in_flight_gauge_during']} during the commit and "
+                     f"{a['in_flight_gauge_after']} after it (1 and 0 expected)")
+    if a["commits"] != 1:
+        gates.append(f"(a) checkpoint_async_commit_seconds has {a['commits']} observations, not 1")
+    if (abs(a["charged_while_committing_s"] - a["blocking_s"]) > 1e-5 or not a["blocking_s"] < a["commit_s"]
+            or abs(a["charged_after_preemption_s"] - a["blocking_s"] - b["sync_save_s"]) > 1e-3):
+        gates.append(f"(a) the goodput ledger charged {a['charged_while_committing_s']} s while committing and "
+                     f"{a['charged_after_preemption_s']} s after the preemption's save; the save blocked "
+                     f"{a['blocking_s']} s, committed in {a['commit_s']} s, the sync save took {b['sync_save_s']} s")
+    if not all(np.isfinite(a["losses"])):
+        gates.append(f"(a) losses {a['losses']}")
+    # (b): (d)'s load verified (a)'s checkpoint, (c)'s the preemption's
+    if not (b["latched"] and b["returned"] is True and b["commit_in_flight_at_signal"]):
+        gates.append(f"(b) SIGTERM latched {b['latched']} with a commit in flight {b['commit_in_flight_at_signal']}, "
+                     f"check_preemption() returned {b['returned']!r}")
+    if not b["inflight_published_first"]:
+        gates.append(f"(b) {a['checkpoint']} did not publish before {b['preemption']}")
+    if warm["published"] or warm["in_flight_gauge_after"] != 0:
+        gates.append(f"the aborted save published ({warm['published']}) or left the gauge at "
+                     f"{warm['in_flight_gauge_after']}")
+    # (c)
+    if c["loaded"] != b["preemption"]:
+        gates.append(f"(c) load_state({base}) restored {c['loaded']}, not the preemption checkpoint {b['preemption']}")
+    if not all(np.isfinite(c["uncut_losses"] + c["resumed_losses"])) or c["max_rel_diff"] > 1e-6:
+        gates.append(f"(c) resumed losses {c['resumed_losses']} against {c['uncut_losses']} "
+                     f"(rtol {c['max_rel_diff']}, limit 1e-6)")
+    # (d)
+    if d["manifest_sharded"] != {"num_hosts": 1, "hosts": [shard_host_dir(0)]}:
+        gates.append(f"(d) the manifest's sharded block is {d['manifest_sharded']}")
+    if d["shard_done"] != {"process_index": 0, "files": ["model.pt", "optimizer.pt"]} or SHARD_DONE_NAME not in d[
+            "host_files"]:
+        gates.append(f"(d) {shard_host_dir(0)} holds {d['host_files']}, SHARD_DONE {d['shard_done']}")
+    if not d["fsdp"]:
+        gates.append("(d) the FULL_SHARD accelerator did not place the model through fully_shard")
+    want = (expected_launches(shape["layers"] * checkpoint_steps(shape), torch.bfloat16)
+            if device.type == "cuda" else expected_launches(0))
+    if any(report["launches"][k] != v for k, v in want.items()):
+        gates.append(f"launches {report['launches']}, expected {want}")
+    if built:
+        gates.append(f"kernels built during the phase: {built}")
+    if gates:
+        raise RuntimeError("phase 19 failed: " + "; ".join(gates))
+    return report
+
+
+def checkpoint_summary(report):
+    """Phase 19's report without the per-step lists its lines printed."""
+    out = {k: v for k, v in report.items() if k != "a"}
+    out["a"] = {k: v for k, v in report["a"].items() if k not in ("step_s", "losses", "commit_in_flight", "path")}
+    out["b"] = {k: v for k, v in report["b"].items() if k != "path"}
+    return out
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -6015,6 +6395,9 @@ def main(argv=None) -> int:
     parser.add_argument("--offload-train-only", action="store_true",
                         help="run only the build and phase 18 (training past the card: the offload tiers against "
                              "the resident run, GPT-J-6B under ZeRO-Offload; prints no result line)")
+    parser.add_argument("--checkpoint-only", action="store_true",
+                        help="run only the build and phase 19 (async and sharded checkpoints and preemption on "
+                             "Llama-1B; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -6084,6 +6467,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[offload] summary: {json.dumps(offload_summary(offload_train_phase(device)))}")
         log(f"[time] offload train phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.checkpoint_only:
+        t0 = time.perf_counter()
+        log(f"[checkpoint] summary: {json.dumps(checkpoint_summary(checkpoint_phase(device)))}")
+        log(f"[time] checkpoint phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -6192,6 +6581,11 @@ def main(argv=None) -> int:
     log(f"[time] offload train phase {time.perf_counter() - t0:.1f}s")
     free_memory(device)
     t0 = time.perf_counter()
+    checkpoint = checkpoint_phase(device)
+    log(f"[checkpoint] summary: {json.dumps(checkpoint_summary(checkpoint))}")
+    log(f"[time] checkpoint phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
     t5_train = t5_training_phase(device, profile=args.profile)
     log(f"[t5] training summary: {json.dumps(t5_train)}")
     log(f"[time] t5 training phase {time.perf_counter() - t0:.1f}s")
@@ -6217,10 +6611,12 @@ def main(argv=None) -> int:
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
     # Llama-1B's bf16 K3-K5 run under bf16, under fp8 (whose attention is
     # bf16), in phase 15's eager loops (the dispatcher's and the shard
-    # loader's) and in phase 16's launched children and their in-process twins.
+    # loader's), in phase 16's launched children and their in-process twins,
+    # and in phase 19's checkpointed runs.
     surface_runs = (surface["training"]["dispatcher"], surface["training"]["shard_loader"])
     bf16_launches = {k: v + fp8["training"]["launches"][k] + sum(r["launches"][k] for r in surface_runs)
-                     + launched["launches"][k] for k, v in training["bf16"]["launches"].items()}
+                     + launched["launches"][k] + checkpoint["launches"][k]
+                     for k, v in training["bf16"]["launches"].items()}
     rows += flash_rows(flash, bf16_launches, training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")
     for d, shape in FAMILY_FLASH_SHAPES.items():

@@ -1,7 +1,8 @@
 """Worker functions for the port's multi-process tests
 (`tests/test_torch_distributed.py`, `tests/test_torch_distributed_hybrid.py`,
 `tests/test_torch_surface_distributed.py`, `tests/test_torch_scripts.py`,
-`tests/test_torch_offload_distributed.py`, `tests/test_torch_local_sgd.py`).
+`tests/test_torch_offload_distributed.py`, `tests/test_torch_local_sgd.py`,
+`tests/test_torch_checkpoint_sharded.py`).
 
 Each runs in a process `accelerate_tpu_torch.launchers.debug_launcher`
 spawns (gloo on the CPU, one torch thread), reads the inputs the test wrote
@@ -12,7 +13,9 @@ Every scenario runs on every process in the same order (each is one
 program across the processes).
 """
 
+import copy
 import os
+import time
 
 import numpy as np
 import torch
@@ -782,3 +785,102 @@ def local_sgd_example(in_dir, out_dir):
     losses = twin.training_function(twin.parse_args(inputs["argv"]))
     _reset()
     torch.save(losses, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+# ------------------------------------------------------------------ sharded checkpoints
+ODD_STEPS, ODD_GLOBAL_BATCH = 4, 8
+
+
+def odd_mlp(seed):
+    """A small MLP one of whose weights, [5, 14], has a dim 0 that 2 does
+    not divide (FSDP shards it on dim 1, and leaves its bias of 5 and the
+    head [3, 5] whole); its loss JAX's mean over the global batch."""
+    from accelerate_tpu_torch import Model
+    from accelerate_tpu_torch.ops.losses import global_mean
+
+    torch.manual_seed(seed)
+    module = torch.nn.Module()
+    module.layers = torch.nn.ModuleList([torch.nn.Linear(12, 14), torch.nn.Linear(14, 5)])
+    module.head = torch.nn.Linear(5, 3)
+
+    def apply(x):
+        h = torch.tanh(module.layers[0](x))
+        return module.head(torch.tanh(module.layers[1](h)))
+
+    module.forward = apply
+
+    def loss_fn(batch, apply_fn):
+        return global_mean(((apply_fn(batch["x"]) - batch["y"]) ** 2).mean(-1))
+
+    return Model(module, loss_fn=loss_fn)
+
+
+def odd_batches(rank, world):
+    """`ODD_STEPS` global batches of `ODD_GLOBAL_BATCH` rows (numpy seed 0),
+    this process's contiguous share of each."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(ODD_STEPS, ODD_GLOBAL_BATCH, 12)).astype(np.float32)
+    y = rng.normal(size=(ODD_STEPS, ODD_GLOBAL_BATCH, 3)).astype(np.float32)
+    n = ODD_GLOBAL_BATCH // world
+    return [{"x": torch.as_tensor(x[i, rank * n:(rank + 1) * n]), "y": torch.as_tensor(y[i, rank * n:(rank + 1) * n])}
+            for i in range(ODD_STEPS)]
+
+
+def sharded_checkpoint_run(out_dir, strategy, mode):
+    """2 fused AdamW steps, a sharded save (synchronous or async) into a
+    directory, 2 more steps; then a fresh accelerator of the same strategy
+    (weights from another seed) loads it and takes those 2 steps again."""
+    from accelerate_tpu_torch.checkpointing import shard_host_dir
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    batches = odd_batches(rank, world)
+
+    def prepared(seed):
+        acc = _accelerator(strategy, min_num_params=1)
+        model = odd_mlp(seed)
+        pmodel, popt = acc.prepare(model, _adamw(model.module))
+        return acc, pmodel, popt, acc.train_step(max_grad_norm=1.0)
+
+    acc, pmodel, popt, step = prepared(0)
+    losses = [step(b).item() for b in batches[:2]]
+    path = os.path.join(out_dir, f"{strategy}_{mode}")
+    t0 = time.perf_counter()
+    acc.save_state(path, async_save=mode == "async", sharded=True)
+    blocking_s = time.perf_counter() - t0
+    acc.drain_checkpoints()
+    acc.wait_for_everyone()  # the main process's manifest is in before anyone reads
+    # A copy: the whole state keeps the live step counts, which the next steps advance.
+    gathered, moments = pmodel.full_state_dict(), copy.deepcopy(popt.state_dict())
+    uncut = [step(b).item() for b in batches[2:]]
+    acc, pmodel, popt, step = prepared(1)
+    acc.load_state(path)
+    resumed = [step(b).item() for b in batches[2:]]
+    host = os.path.join(path, shard_host_dir(rank))
+    bounds = {}
+    for name in ("model.pt", "optimizer.pt"):
+        payload = torch.load(os.path.join(host, name), weights_only=True)
+        bounds[name] = {p: [s["bounds"] for s in shards] for p, shards in zip(payload["paths"], payload["shards"])}
+    dims = dict(pmodel.layout.param_dims if pmodel.layout.uses_fsdp else pmodel.layout.opt_dims)
+    return {"losses": losses, "uncut": uncut, "resumed": resumed, "bounds": bounds, "dims": dims,
+            "blocking_s": blocking_s, "gathered": gathered if rank == 0 else None,
+            "moments": moments if rank == 0 else None}
+
+
+def checkpoint_sharded2(in_dir, out_dir):
+    """SHARD_GRAD_OP and FULL_SHARD, each saved sharded synchronously and
+    asynchronously; and an async save without `sharded` refused."""
+    rank = int(os.environ["RANK"])
+    out = {}
+    for strategy in ("SHARD_GRAD_OP", "FULL_SHARD"):
+        for mode in ("sync", "async"):
+            out[strategy, mode] = sharded_checkpoint_run(out_dir, strategy, mode)
+    acc = _accelerator("FULL_SHARD", min_num_params=1)
+    model = odd_mlp(0)
+    acc.prepare(model, _adamw(model.module))
+    try:
+        acc.save_state(os.path.join(out_dir, "refused"), async_save=True, sharded=False)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))

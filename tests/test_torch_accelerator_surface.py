@@ -699,12 +699,17 @@ SURFACE = {
                  "dataloader_config", "log_with", "project_dir", "project_config", "gradient_accumulation_plugin",
                  "parallelism_config", "fsdp_plugin", "deepspeed_plugin", "megatron_lm_plugin", "compilation_config",
                  "rng_types", "kwargs_handlers",
-                 "step_scheduler_with_optimizer", "analyze", "tracer", "sharded_save"],
+                 "step_scheduler_with_optimizer", "analyze", "tracer", "async_save", "sharded_save", "save_interval",
+                 "lost_checkpoint_s"],
     "prepare": None, "prepare_model": None, "prepare_optimizer": None, "prepare_data_loader": None,
     "prepare_scheduler": None, "autocast": None, "clip_grad_value_": None, "clip_grad_norm_": None,
     "save_model": None, "free_memory": None, "clear": None, "set_trigger": None, "check_trigger": None,
     "join_uneven_inputs": None, "register_save_state_pre_hook": None, "register_load_state_pre_hook": None,
     "local_main_process_first": None, "on_local_main_process": None, "unwrap_model": None,
+    # Async and sharded checkpoints and preemption (ROADMAP A item 5).
+    "save_state": None, "maybe_save_state": None, "drain_checkpoints": None, "poll_async_checkpoint": None,
+    "abort_async_checkpoint": None, "register_preemption_checkpoint": None, "check_preemption": None,
+    "checkpoint_manager": None,
 }
 
 

@@ -14,6 +14,7 @@ CLI) with its children on the CPU."""
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -1114,3 +1115,85 @@ def test_offload_train_phase_rehearses_on_the_cpu(monkeypatch):
     assert past["launches"] == chip_smoke.expected_launches(0)
     summary = chip_smoke.offload_summary(report)
     assert set(summary["tiers"]) == set(runs) and "mfu" in summary["past_card"]
+
+
+def test_checkpoint_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 19 at llama_tiny on the CPU (about 5 s), each model file's write
+    slowed by 0.3 s so that a commit is still in flight where the card's is:
+    (a) the async sharded save's checkpoint holds the state after its step
+    bit for bit (gathered by (d)) and none of the state at the drain, the
+    gauge reads 1 then 0, the ledger charges the blocking seconds only; (b)
+    SIGTERM latched with that commit in flight, `check_preemption()` drains
+    it and saves; the warm save, aborted, never publishes; (c) the resumed
+    losses equal the uncut ones; (d) FULL_SHARD at world 1 over gloo. No
+    flash launch and no build on the CPU; the SIGTERM handler is put back."""
+    import signal
+
+    from accelerate_tpu_torch import checkpointing
+
+    save = checkpointing._save_tensors
+
+    def slow(path, obj):
+        if str(path).endswith("model.pt"):
+            time.sleep(0.3)
+        return save(path, obj)
+
+    monkeypatch.setattr(checkpointing, "_save_tensors", slow)
+    before = signal.getsignal(signal.SIGTERM)
+    shape = dict(chip_smoke.CHECKPOINT, overlap_steps=2, resume_steps=2)
+    report = chip_smoke.checkpoint_phase(torch.device("cpu"), "llama-tiny", shape=shape, seq=64)
+    assert signal.getsignal(signal.SIGTERM) == before
+    a, b, warm, c, d = (report[k] for k in ("a", "b", "warm", "c", "d"))
+    assert a["equal_to_live_at_drain"] == [] and d["mismatched"] == [] and d["verified"]
+    assert (a["in_flight_gauge_during"], a["in_flight_gauge_after"], a["commits"]) == (1, 0, 1)
+    assert a["charged_while_committing_s"] == pytest.approx(a["blocking_s"], abs=1e-5)
+    assert a["charged_after_preemption_s"] == pytest.approx(a["blocking_s"] + b["sync_save_s"], abs=1e-3)
+    assert len(a["losses"]) == chip_smoke.checkpoint_steps(shape) - shape["resume_steps"] == 4 + 2 + 1 + 2
+    assert b["latched"] and b["returned"] and b["commit_in_flight_at_signal"] and b["inflight_published_first"]
+    assert (b["inflight"], b["preemption"]) == ("checkpoint_0", "checkpoint_1") and b["drain_s"] > 0.1
+    assert not warm["published"] and warm["abort_error"] == "CheckpointCommitError"
+    assert warm["staging_setup_s"] == a["staging_setup_s"]  # the warm save made no buffer
+    assert c["loaded"] == "checkpoint_1" and c["bit_for_bit"]
+    assert d["fsdp"] and d["backend"] == "gloo"
+    assert d["shard_done"] == {"process_index": 0, "files": ["model.pt", "optimizer.pt"]}
+    assert set(report["launches"].values()) == {0} and report["builds"] == []
+    summary = chip_smoke.checkpoint_summary(report)
+    assert "step_s" not in summary["a"] and "path" not in summary["b"] and summary["b"]["sync_save_s"] > 0
+
+
+def test_checkpoint_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--checkpoint-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[checkpoint]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--checkpoint-only" in usage.stdout
+
+
+def test_docstring_lists_every_phase_and_its_flag():
+    """Phases 1-19 each head a paragraph of the docstring, each `--*-only`
+    flag the parser takes is named there, and phase 19's count of launches
+    is the phase's own."""
+    import re
+
+    doc = chip_smoke.__doc__
+    numbers = [int(n) for n in re.findall(r"^ ?(\d+)\. ", doc, flags=re.M)]
+    assert numbers == list(range(1, 20))
+    flags = re.findall(r"--[a-z0-9-]+-only", open(os.path.join(ROOT, "chip_smoke.py")).read())
+    assert "--checkpoint-only" in flags and all(flag in doc for flag in set(flags))
+    steps = chip_smoke.checkpoint_steps(chip_smoke.CHECKPOINT)
+    assert f"2 x {steps} times" in " ".join(doc.split())
+
+
+def test_the_script_imports_nothing_of_the_jax_package():
+    import ast
+
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    names = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import) for alias in node.names]
+    names += [node.module or "" for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)]
+    roots = {name.split(".")[0] for name in names}
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "accelerate_tpu"}, roots
+    assert "accelerate_tpu_torch" in roots

@@ -13,7 +13,9 @@ of it three launches of 2 gloo processes.
     platform's differ (``ACCELERATE_TPU_USE_CPU`` in the port;
     ``JAX_PLATFORMS``/``XLA_FLAGS`` in JAX), with torch's group variables
     beside JAX's coordinator ones.
-  - Every flag and key the port cannot serve is refused, naming its item.
+  - Every flag and key the port cannot serve is refused, naming its item;
+    ``--async_save``/``--sharded_save`` and their keys export JAX's
+    variables, which each launched worker's `Accelerator()` reads.
   - ``launch --cpu --num_processes 2`` of a script: both ranks report world 2
     over gloo, the configuration from the file and the flags, and in debug
     mode a gather whose shapes part raises `DistributedOperationException`
@@ -124,6 +126,7 @@ CONFIGS = {
                                        "state_dict_type": "FULL_STATE_DICT",
                                        "transformer_cls_names_to_wrap": ["LlamaDecoderLayer", "layer_[0-9]+"]}),
     "dirs": dict(mixed_precision="fp16", profile_dir="/tmp/prof", trace_dir="/tmp/trace"),
+    "checkpoints": dict(async_save=True, sharded_save=True),
 }
 FLAGS = {
     "bare": [],
@@ -131,6 +134,7 @@ FLAGS = {
     "mesh": ["--mesh_data", "2", "--mesh_fsdp", "1", "--trace_dir", "/tmp/t2", "--profile_dir", "/tmp/p2"],
     "coordinator": ["--num_processes", "2", "--coordinator_address", "10.0.0.2:8476", "--process_id", "1"],
     "cpu": ["--cpu", "--mixed_precision", "bf16"],
+    "checkpoints": ["--async_save", "--sharded_save"],
 }
 
 
@@ -186,8 +190,6 @@ REFUSED = {
     "fault_plan": (["--fault_plan", "plan.json"], {}, "item 6"),
     "replicas": (["--replicas", "2"], {}, "item 6"),
     "replicas_key": ([], {"replicas": 2}, "item 6"),
-    "async_save": (["--async_save"], {}, "item 5"),
-    "sharded_save": ([], {"sharded_save": True}, "item 5"),
     "sequence_parallel": ([], {"sequence_parallel_config": {"mode": "ring", "block_size": 256}}, "item 3, sequence"),
     "mesh_model_flag": (["--mesh_model", "2"], {}, "item 3, tensor parallel"),
     "mesh_seq_key": ([], {"mesh": {"data": -1, "seq": 2}}, "item 3, sequence"),
@@ -212,9 +214,9 @@ def test_unported_flags_and_keys_are_refused(case):
 
 def test_cli_refusal_exits_2_with_the_reason(tmp_path):
     result = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.commands.accelerate_cli", "launch",
-                             "--async_save", "--cpu", str(tmp_path / "never.py")],
+                             "--tpu_use_cluster", "--cpu", str(tmp_path / "never.py")],
                             capture_output=True, text=True, timeout=120, env=_cli_env())
-    assert result.returncode == 2 and "item 5" in result.stderr, result.stderr
+    assert result.returncode == 2 and "item 2" in result.stderr, result.stderr
 
 
 # ------------------------------------------------------------------ launched groups
@@ -230,7 +232,7 @@ WORKER = textwrap.dedent('''
     report = dict(rank=acc.process_index, world=acc.num_processes, backend=state.backend,
                   device=str(acc.device), mixed_precision=acc.mixed_precision,
                   gradient_accumulation_steps=acc.gradient_accumulation_steps, debug=state.debug,
-                  local_rank=state.local_process_index)
+                  local_rank=state.local_process_index, async_save=acc.async_save, sharded_save=acc.sharded_save)
     if acc.process_index == fail_rank:
         sys.exit(3)
     if state.debug:
@@ -289,6 +291,26 @@ def test_launch_cpu_group_carries_the_configuration_and_debug_mode(tmp_path, mon
         jax_ops.gather(torch.ones(2, 3).numpy())
     want = str(jax_error.value).replace("accelerate_tpu.utils", "accelerate_tpu_torch.utils")
     assert [r["debug_error"] for r in reports] == [want, want]
+
+
+@pytest.mark.parametrize("via", ["flags", "config"])
+def test_async_and_sharded_save_reach_the_launched_workers(tmp_path, via):
+    """``launch --async_save --sharded_save`` (or the configuration file's
+    keys) at 2 processes: each worker's `Accelerator()` saves
+    asynchronously and sharded, as under JAX's launcher; without them,
+    neither."""
+    if via == "flags":
+        argv = ["--async_save", "--sharded_save"]
+    else:
+        argv = ["--config_file", port_config.write_basic_config(str(tmp_path / "config.yaml"), async_save=True,
+                                                                sharded_save=True)]
+    result, out = _launch(tmp_path, [*argv, "--cpu", "--num_processes", "2"])
+    assert result.returncode == 0, result.stdout + result.stderr
+    assert [(r["async_save"], r["sharded_save"]) for r in _reports(out, 2)] == [(True, True)] * 2
+    if via == "flags":
+        result, out = _launch(tmp_path, ["--cpu"])
+        assert result.returncode == 0, result.stdout + result.stderr
+        assert (_reports(out, 1)[0]["async_save"], _reports(out, 1)[0]["sharded_save"]) == (False, False)
 
 
 def test_coordinator_invocations_meet_as_one_group(tmp_path):

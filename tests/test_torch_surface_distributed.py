@@ -161,14 +161,16 @@ def test_save_model_across_processes_writes_what_the_model_holds(surface2):
     """At world 2 the main process writes `save_model`'s shards: data
     parallel, and FULL_SHARD gathered a tensor at a time
     (FULL_STATE_DICT); they read back equal to the whole state dict.
-    FULL_SHARD's default SHARDED_STATE_DICT raises, naming ROADMAP A item 5."""
+    FULL_SHARD's default SHARDED_STATE_DICT raises, naming ROADMAP A item 1
+    and orbax's layout, which JAX writes it in."""
     r0, r1 = (r["save_model"] for r in surface2["results"])
     for tag in ("None-None", "FULL_SHARD-FULL_STATE_DICT"):
         assert r0[tag]["equal"] and r1[tag]["equal"]
         assert len(r0[tag]["files"]) > 2 and "model.safetensors.index.json" in r0[tag]["files"]
     assert r0["None-None"]["files"] == r0["FULL_SHARD-FULL_STATE_DICT"]["files"]
     for run in (r0, r1):
-        assert "ROADMAP A item 5" in run["FULL_SHARD-SHARDED_STATE_DICT"]
+        assert "ROADMAP A item 1" in run["FULL_SHARD-SHARDED_STATE_DICT"]
+        assert "orbax" in run["FULL_SHARD-SHARDED_STATE_DICT"]
 
 
 def test_save_and_load_pre_hooks_run_on_every_process(surface2):
