@@ -40,17 +40,21 @@ function in several CPU processes. The rest of JAX's one-process
 save/load pre-hooks, `DataLoaderDispatcher`, the synchronized generators
 (`rng_types`), the kwargs handlers, `get_logger` (`logging.py`) and the
 trackers beyond JSON and CSV; `examples/` holds twins of JAX's
-`cv_example` and of its `by_feature` memory, early-stopping and tracking
-scripts. JAX's command line is here too (`commands/`: ``accelerate-tpu-torch
+`cv_example`, `complete_nlp_example`, its `inference/` distributed and
+quantized scripts and all but two of its `by_feature` scripts (the
+schedule-free one over the port's `utils/schedule_free.py`), which
+`test_utils/examples.py` keeps in the canonical shape. JAX's command line is here too (`commands/`: ``accelerate-tpu-torch
 config``, ``launch``, ``env``, ``test``, ``trace``): `launch` carries JAX's
 ``ACCELERATE_TPU_*`` protocol into a script, one process a card, and
 restarts it under `fault_tolerance.Supervisor`; `notebook_launcher` runs a
-function from a notebook; `test_utils/` holds the bundled test scripts.
+function from a notebook; `test_utils/` holds the bundled test scripts and
+the launched quality gate (`scripts/test_performance.py`).
 A model past the card trains with its optimizer's state (and with
 `cpu_offload` its f32 masters) in pinned host RAM or on disk, streamed
 through the card a parameter group at a time (`optimizer.py`'s offload
 tiers; `DeepSpeedPlugin` and `MegatronLMPlugin` lower as in JAX), and
-`LocalSGD` averages data-parallel processes every K steps.
+`LocalSGD` averages data-parallel processes every K steps. fp8 trains
+across processes too, each product scaled by the global batch's amax.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel is replaced by its plain PyTorch version. The package

@@ -34,7 +34,8 @@ or the eager surface, as in the JAX package:
 Activation checkpointing: ``Accelerator(compilation_config=CompilationConfig(
 remat_policy="full"))`` checkpoints every in-tree layer (`ops/remat.py`).
 fp8: ``Accelerator(mixed_precision="fp8", kwargs_handlers=[FP8RecipeKwargs(...)])``
-runs every linear layer's product in fp8 (`ops/fp8.py`), the rest in bf16.
+runs every linear layer's product in fp8 (`ops/fp8.py`), the rest in bf16;
+across processes each product is scaled by the global batch's amax.
 Metrics: ``Accelerator(log_with="json", project_dir=...)`` (or
 "tensorboard", or any installed tracker), then `init_trackers`, `log` and
 `end_training`, and `gather_for_metrics`.
@@ -234,10 +235,6 @@ class Accelerator:
                                       parallelism_config=parallelism_config, fsdp_plugin=fsdp_plugin,
                                       deepspeed_plugin=deepspeed_plugin, megatron_lm_plugin=megatron_lm_plugin,
                                       **init_kwargs)
-        if self.state.mixed_precision == "fp8" and self.num_processes > 1:
-            raise NotImplementedError(
-                "mixed_precision='fp8' across processes waits for ROADMAP A item 3, fp8 across processes (an "
-                "all-reduce of each global amax): JAX scales by the amax over the global batch, each process here by its own")
         self.device_placement = device_placement
         self.split_batches = split_batches
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(split_batches=split_batches)

@@ -1,8 +1,9 @@
 """``accelerate-tpu-torch``: the subcommand dispatcher (the port of
 `accelerate_tpu/commands/accelerate_cli.py`). It registers the subcommands
 the port has: `config`, `env`, `estimate-memory`, `launch`, `test` and
-`trace`. JAX's `analysis`, `chaos`, `convert`, `plan`, `serve` and `tpu`
-wait for their ROADMAP A items (2, 3, 5, 6 and 7)."""
+`trace`. JAX's others wait for their ROADMAP A items: `convert` and `tpu`
+for item 2, `plan` for item 3 (tensor parallel's planner), `chaos` and
+`serve` for item 6, `analysis` for item 7."""
 
 import argparse
 

@@ -77,8 +77,8 @@ def training_function(args):
     return {"eval_loss": eval_loss, "stopped_at": stopped_at, "trigger_after": accelerator.check_trigger()}
 
 
-def parse_args(argv=None):
-    parser = argparse.ArgumentParser()
+def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The script's flags, on `parser`."""
     parser.add_argument("--mixed_precision", default="bf16", choices=["no", "bf16", "fp16"])
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--lr", type=float, default=5e-4)
@@ -88,8 +88,12 @@ def parse_args(argv=None):
     parser.add_argument("--train_size", type=int, default=128)
     parser.add_argument("--eval_size", type=int, default=64)
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU (the plain PyTorch path)")
-    return parser.parse_args(argv)
+    return parser
+
+
+def parse_args(argv=None):
+    return add_arguments(argparse.ArgumentParser()).parse_args(argv)
 
 
 if __name__ == "__main__":
-    training_function(parse_args())
+    training_function(add_arguments(argparse.ArgumentParser()).parse_args())

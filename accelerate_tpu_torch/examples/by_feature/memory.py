@@ -62,16 +62,20 @@ def training_function(args):
     return used
 
 
-def parse_args(argv=None):
-    parser = argparse.ArgumentParser()
+def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The script's flags, on `parser`."""
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--lr", type=float, default=5e-4)
     parser.add_argument("--epochs", type=int, default=1)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--train_size", type=int, default=256)
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU (the plain PyTorch path)")
-    return parser.parse_args(argv)
+    return parser
+
+
+def parse_args(argv=None):
+    return add_arguments(argparse.ArgumentParser()).parse_args(argv)
 
 
 if __name__ == "__main__":
-    training_function(parse_args())
+    training_function(add_arguments(argparse.ArgumentParser()).parse_args())

@@ -63,8 +63,8 @@ def training_function(args):
     return logged
 
 
-def parse_args(argv=None):
-    parser = argparse.ArgumentParser()
+def add_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The script's flags, on `parser`."""
     parser.add_argument("--log_with", default="json", help="json, csv, tensorboard, wandb, mlflow, all (comma-separated)")
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--lr", type=float, default=5e-4)
@@ -75,8 +75,12 @@ def parse_args(argv=None):
     parser.add_argument("--output_dir",
                         default=os.path.join(tempfile.gettempdir(), "accelerate_tpu_torch_tracking_example"))
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU (the plain PyTorch path)")
-    return parser.parse_args(argv)
+    return parser
+
+
+def parse_args(argv=None):
+    return add_arguments(argparse.ArgumentParser()).parse_args(argv)
 
 
 if __name__ == "__main__":
-    training_function(parse_args())
+    training_function(add_arguments(argparse.ArgumentParser()).parse_args())

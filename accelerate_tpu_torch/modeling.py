@@ -20,7 +20,8 @@ its masters' dtype, as JAX's does. With a `remat_policy` the forward runs inside
 `ops.remat.remat_scope`, so every in-tree layer is checkpointed (JAX's
 `PreparedModel(remat_policy=...)`). With an `fp8_recipe` (mixed precision
 "fp8": bf16 copies) the forward runs inside `ops.fp8.fp8_autocast`, so every
-linear layer's product is an fp8 one.
+linear layer's product is an fp8 one; under a process group its amaxes are
+the global batch's (`fp8_group`, an all-reduce of each over the processes).
 
 Under a process group (`mesh`), the module is placed by the FSDP plugin's
 strategy (`parallel.fsdp.ShardedLayout`: data parallel, ZeRO-2 or torch's
@@ -46,6 +47,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from torch.distributed.tensor import DTensor
@@ -139,15 +141,17 @@ class PreparedModel:
                         "a mixture-of-experts model across processes waits for ROADMAP A item 3, expert "
                         "sharding: JAX routes over the global token axis (capacity and slot order), which a "
                         "router on each process's rows would not reproduce")
-                if fp8_recipe is not None:
-                    raise NotImplementedError(
-                        "fp8 across processes waits for ROADMAP A item 3, fp8 across processes (an all-reduce of "
-                        "each global amax): JAX scales by the amax over the global batch, each process here by its own")
                 if fsdp_plugin is not None and fsdp_plugin.sync_module_states:
                     broadcast_module_states(self.module)
             self.layout = ShardedLayout(self.module, mesh, fsdp_plugin,
                                         compute_dtype=compute_dtype if self.autocast_enabled else None,
                                         reduce_dtype=self.reduce_dtype)
+        #: The process group whose fp8 amaxes are reduced together: the
+        #: mesh's, whose ("data", "fsdp") axes span every process of the
+        #: default group (`parallel.mesh.build_mesh`); None without a mesh.
+        self.fp8_group = None
+        if fp8_recipe is not None and mesh is not None:
+            self.fp8_group = dist.group.WORLD
         self.offload_params = bool(offload_params)
         self._param_arena: Optional[HostArena] = None
         self._params_on_device = True
@@ -209,7 +213,8 @@ class PreparedModel:
 
     def _mp_apply(self, *args, **kwargs):
         self.to_compute_memory()
-        fp8 = contextlib.nullcontext() if self.fp8_recipe is None else fp8_autocast(self.fp8_recipe)
+        fp8 = contextlib.nullcontext() if self.fp8_recipe is None else fp8_autocast(self.fp8_recipe,
+                                                                                      group=self.fp8_group)
         with fp8, remat_scope(self.remat_policy):
             out = self._apply(*args, **kwargs)
         if self.offload_params and not torch.is_grad_enabled():

@@ -33,8 +33,24 @@ thread. Under the delayed recipe each layer keeps its forward histories in
 ``module.fp8_meta``, rolled only inside ``fp8_autocast(recipe,
 update_meta=True)`` (flax's ``mutable=["fp8_meta"]``).
 
+Across processes every amax that JAX takes over the batch-sharded
+activations is the amax over the global batch: GSPMD reduces JAX's
+``jnp.max(jnp.abs(x))`` across the devices, and the port all-reduces (max)
+each process's amax over the recipe's `group`, which `PreparedModel` fills
+with the process group of its ("data", "fsdp") mesh. That covers the
+forward's x amax, the backward's g amax and, under the delayed recipe, the
+observed x and g amaxes rolled into the histories, so the scales and the
+histories are the same on every process. The weight's amax needs no
+collective: every strategy's forward sees the whole weight (replicated
+under NO_SHARD and SHARD_GRAD_OP, all-gathered by torch's FSDP under
+FULL_SHARD). A recompute (`maybe_remat`) runs the forward again and
+reduces again, as JAX's recompute does, on the same inputs, so it gets the
+forward's scale; every process issues the reductions in the same order.
+Without a group nothing is reduced.
+
 `PRODUCTS` counts the fp8 products run since the last reset, by role: the
-forward's ``fwd`` and the backward's ``dx`` and ``dw``. While a profiler
+forward's ``fwd`` and the backward's ``dx`` and ``dw``; `AMAX_REDUCES`
+counts the amax all-reduces issued (``all_reduce``). While a profiler
 records, the quantize passes (amax, scale, cast) run inside a
 ``fp8_quantize`` range and the operand copies `_scaled_mm`'s layout needs
 inside ``fp8_layout``; otherwise no range is opened.
@@ -48,6 +64,7 @@ import threading
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.autograd import profiler
@@ -60,11 +77,14 @@ E5M2_MAX = 57344.0
 
 #: fp8 products since the last reset, by role.
 PRODUCTS: Dict[str, int] = {"fwd": 0, "dx": 0, "dw": 0}
+#: amax all-reduces over a recipe's process group since the last reset.
+AMAX_REDUCES: Dict[str, int] = {"all_reduce": 0}
 
 
 def reset_product_counts():
-    for key in PRODUCTS:
-        PRODUCTS[key] = 0
+    for counts in (PRODUCTS, AMAX_REDUCES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _span(name: str):
@@ -75,14 +95,21 @@ def _fmax(dtype) -> float:
     return E4M3_MAX if dtype == E4M3 else E5M2_MAX
 
 
-def _amax(x):
-    return x.detach().abs().amax().float()
+def _amax(x, group=None):
+    """x's amax in f32; with a process group, the amax over every process's
+    x (one all-reduce, max)."""
+    amax = x.detach().abs().amax().float()
+    if group is not None:
+        AMAX_REDUCES["all_reduce"] += 1
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return amax
 
 
-def quantize_fp8(x, dtype=E4M3):
-    """Per-tensor dynamic scaling: returns (x_fp8, scale) with x ≈ x_fp8 * scale."""
+def quantize_fp8(x, dtype=E4M3, group=None):
+    """Per-tensor dynamic scaling: returns (x_fp8, scale) with x ≈ x_fp8 * scale.
+    With a process `group` the scale is the one of the processes' x together."""
     with _span("fp8_quantize"):
-        scale = _amax(x).clamp_min(1e-12) / _fmax(dtype)
+        scale = _amax(x, group).clamp_min(1e-12) / _fmax(dtype)
         return (x.float() / scale).to(dtype), scale
 
 
@@ -124,27 +151,29 @@ def _grad_dtype(hybrid: bool):
 
 class _Fp8Matmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, hybrid):
-        xq, sx = quantize_fp8(x, E4M3)
+    def forward(ctx, x, w, hybrid, group):
+        xq, sx = quantize_fp8(x, E4M3, group)
         wq, sw = quantize_fp8(w, E4M3)
         ctx.save_for_backward(xq, sx, wq, sw)
-        ctx.hybrid = hybrid
+        ctx.hybrid, ctx.group = hybrid, group
         return _forward_product(xq, sx, wq, sw, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         xq, sx, wq, sw = ctx.saved_tensors
-        gq, sg = quantize_fp8(g, _grad_dtype(ctx.hybrid))
-        return (*_backward_products(ctx, xq, sx, wq, sw, gq, sg, g.dtype), None)
+        gq, sg = quantize_fp8(g, _grad_dtype(ctx.hybrid), ctx.group)
+        return (*_backward_products(ctx, xq, sx, wq, sw, gq, sg, g.dtype), None, None)
 
 
-def fp8_matmul(x, w, hybrid: bool = True):
+def fp8_matmul(x, w, hybrid: bool = True, group=None):
     """`x @ w` with fp8 operands and fp32 accumulation.
 
     x: [..., K], w: [K, N]. Forward casts both to e4m3; backward casts the
-    cotangent to e5m2 when `hybrid` (TE HYBRID recipe) else e4m3.
+    cotangent to e5m2 when `hybrid` (TE HYBRID recipe) else e4m3. With a
+    process `group`, x and the cotangent are scaled by their amax over
+    every process's rows (w is whole on each process).
     """
-    return _Fp8Matmul.apply(x, w, hybrid)
+    return _Fp8Matmul.apply(x, w, hybrid, group)
 
 
 # ------------------------------------------------------------- delayed scaling
@@ -178,13 +207,13 @@ def _quantize_with_scale(x, scale, dtype):
 
 class _Fp8Delayed(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, hx, hw, hg, hybrid, algo):
+    def forward(ctx, x, w, hx, hw, hg, hybrid, algo, group):
         sx = _history_scale(hx, E4M3_MAX, algo)
         sw = _history_scale(hw, E4M3_MAX, algo)
         xq = _quantize_with_scale(x, sx, E4M3)
         wq = _quantize_with_scale(w, sw, E4M3)
-        ctx.save_for_backward(xq, sx, wq, sw, hx, hw, hg, _amax(x), _amax(w))
-        ctx.hybrid, ctx.algo = hybrid, algo
+        ctx.save_for_backward(xq, sx, wq, sw, hx, hw, hg, _amax(x, group), _amax(w))
+        ctx.hybrid, ctx.algo, ctx.group = hybrid, algo, group
         return _forward_product(xq, sx, wq, sw, x.dtype)
 
     @staticmethod
@@ -194,10 +223,11 @@ class _Fp8Delayed(torch.autograd.Function):
         sg = _history_scale(hg, _fmax(gdtype), ctx.algo)
         gq = _quantize_with_scale(g, sg, gdtype)
         dx, dw = _backward_products(ctx, xq, sx, wq, sw, gq, sg, g.dtype)
-        return (dx, dw, _roll_amax(hx, amax_x), _roll_amax(hw, amax_w), _roll_amax(hg, _amax(g)), None, None)
+        return (dx, dw, _roll_amax(hx, amax_x), _roll_amax(hw, amax_w), _roll_amax(hg, _amax(g, ctx.group)),
+                None, None, None)
 
 
-def fp8_matmul_delayed(x, w, meta, hybrid: bool = True, amax_algo: str = "max"):
+def fp8_matmul_delayed(x, w, meta, hybrid: bool = True, amax_algo: str = "max", group=None):
     """`x @ w` in fp8 under the DELAYED recipe: forward scales from
     ``meta['x_amax_history']`` / ``['w_amax_history']``, the backward's
     gradient scale from ``meta['g_amax_history']``. The gradient with
@@ -208,33 +238,34 @@ def fp8_matmul_delayed(x, w, meta, hybrid: bool = True, amax_algo: str = "max"):
         grads = torch.autograd.grad(loss, [x, w, *meta.values()])
         # the next step uses dict(zip(meta, grads[2:]))
 
-    x: [..., K], w: [K, N].
+    x: [..., K], w: [K, N]. With a process `group` the observed x and g
+    amaxes are the global ones, so the histories stay equal on every process.
     """
     return _Fp8Delayed.apply(x, w, meta["x_amax_history"], meta["w_amax_history"], meta["g_amax_history"],
-                             hybrid, amax_algo)
+                             hybrid, amax_algo, group)
 
 
 class _Fp8Scaled(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, sx, sw, hybrid):
+    def forward(ctx, x, w, sx, sw, hybrid, group):
         xq = _quantize_with_scale(x, sx, E4M3)
         wq = _quantize_with_scale(w, sw, E4M3)
         ctx.save_for_backward(xq, sx, wq, sw)
-        ctx.hybrid = hybrid
+        ctx.hybrid, ctx.group = hybrid, group
         return _forward_product(xq, sx, wq, sw, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         xq, sx, wq, sw = ctx.saved_tensors
-        gq, sg = quantize_fp8(g, _grad_dtype(ctx.hybrid))
-        return (*_backward_products(ctx, xq, sx, wq, sw, gq, sg, g.dtype), None, None, None)
+        gq, sg = quantize_fp8(g, _grad_dtype(ctx.hybrid), ctx.group)
+        return (*_backward_products(ctx, xq, sx, wq, sw, gq, sg, g.dtype), None, None, None, None)
 
 
-def _fp8_matmul_fwd_scaled(x, w, sx, sw, hybrid: bool = True):
+def _fp8_matmul_fwd_scaled(x, w, sx, sw, hybrid: bool = True, group=None):
     """Forward with external scales, backward with dynamic gradient scaling:
     the autocast's delayed mode (the layer owns its forward histories; the
     gradient's has no channel back to it)."""
-    return _Fp8Scaled.apply(x, w, sx, sw, hybrid)
+    return _Fp8Scaled.apply(x, w, sx, sw, hybrid, group)
 
 
 # ------------------------------------------------------------- the autocast
@@ -243,8 +274,10 @@ def _fp8_matmul_fwd_scaled(x, w, sx, sw, hybrid: bool = True):
 @dataclasses.dataclass(frozen=True)
 class Fp8Recipe:
     """What `fp8_autocast` runs under: the fields of `FP8RecipeKwargs` it
-    reads, whether delayed histories roll (`update_meta`), and, for a
-    recompute, each layer's histories as its forward read them (`metas`)."""
+    reads, whether delayed histories roll (`update_meta`), the process group
+    whose amaxes are reduced together (`group`: None with one process), and,
+    for a recompute, each layer's histories as its forward read them
+    (`metas`)."""
 
     hybrid: bool = True
     scaling: str = "dynamic"
@@ -252,17 +285,19 @@ class Fp8Recipe:
     amax_algo: str = "max"
     update_meta: bool = False
     metas: Optional[dict] = None
+    group: Optional[object] = None
 
     @classmethod
-    def of(cls, fp8_recipe=None, update_meta: bool = False) -> "Fp8Recipe":
+    def of(cls, fp8_recipe=None, update_meta: bool = False, group=None) -> "Fp8Recipe":
         if fp8_recipe is None:
-            return cls(update_meta=update_meta)
+            return cls(update_meta=update_meta, group=group)
         return cls(
             hybrid=getattr(fp8_recipe, "fp8_format", "HYBRID") != "E4M3",
             scaling=getattr(fp8_recipe, "scaling", "dynamic"),
             history_len=int(getattr(fp8_recipe, "amax_history_len", 16) or 16),
             amax_algo=getattr(fp8_recipe, "amax_compute_algo", "max"),
             update_meta=update_meta,
+            group=group,
         )
 
 
@@ -290,7 +325,7 @@ def fp8_dense_apply(module: nn.Linear, x):
     if recipe.scaling == "delayed":
         y = _fp8_dense_apply_delayed(module, x, w, recipe)
     else:
-        y = fp8_matmul(x, w, recipe.hybrid)
+        y = fp8_matmul(x, w, recipe.hybrid, recipe.group)
     if module.bias is not None:
         y = y + module.bias.to(y.dtype)
     return y
@@ -308,9 +343,10 @@ def _fp8_dense_apply_delayed(module, x, w, recipe: Fp8Recipe):
     hx, hw = meta["x_amax_history"], meta["w_amax_history"]
     sx = _history_scale(hx, E4M3_MAX, recipe.amax_algo)
     sw = _history_scale(hw, E4M3_MAX, recipe.amax_algo)
-    y = _fp8_matmul_fwd_scaled(x, w, sx, sw, recipe.hybrid)
+    y = _fp8_matmul_fwd_scaled(x, w, sx, sw, recipe.hybrid, recipe.group)
     if recipe.update_meta:
-        module.fp8_meta = {"x_amax_history": _roll_amax(hx, _amax(x)), "w_amax_history": _roll_amax(hw, _amax(w))}
+        module.fp8_meta = {"x_amax_history": _roll_amax(hx, _amax(x, recipe.group)),
+                           "w_amax_history": _roll_amax(hw, _amax(w))}
     return y
 
 
@@ -382,13 +418,15 @@ def recipe_scope(recipe: Optional[Fp8Recipe]):
         _hold_hooks(-1)
 
 
-def fp8_autocast(fp8_recipe=None, update_meta: bool = False):
+def fp8_autocast(fp8_recipe=None, update_meta: bool = False, group=None):
     """Run every linear layer (`nn.Linear`) called inside this context through
     the fp8 path, under `fp8_recipe` (an `FP8RecipeKwargs`; None: dynamic
     scaling, HYBRID). With ``scaling="delayed"`` the forward scales come from
     each layer's own histories, which roll with this call's amaxes when
-    `update_meta` is set (JAX's ``apply(..., mutable=["fp8_meta"])``)."""
-    return recipe_scope(Fp8Recipe.of(fp8_recipe, update_meta))
+    `update_meta` is set (JAX's ``apply(..., mutable=["fp8_meta"])``). With a
+    process `group` every activation and gradient amax is the one over the
+    group's processes (each process holding its rows of the global batch)."""
+    return recipe_scope(Fp8Recipe.of(fp8_recipe, update_meta, group))
 
 
 def recompute_recipe(layer: nn.Module) -> Optional[Fp8Recipe]:
@@ -412,7 +450,7 @@ class Fp8Linear(nn.Linear):
 
     def forward(self, x):
         recipe = active_recipe() or _DEFAULT
-        y = fp8_matmul(x, self.weight.T.to(x.dtype), recipe.hybrid)
+        y = fp8_matmul(x, self.weight.T.to(x.dtype), recipe.hybrid, recipe.group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

@@ -21,7 +21,7 @@ hand-written fused kernel is not part of the port yet.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -252,6 +252,28 @@ class QuantizedModel(nn.Module):
 
     def forward(self, *args, **kwargs):
         return torch.func.functional_call(self.module, self.dequantized(), args, kwargs, strict=False)
+
+    # ------------------------------------------------------------ generation
+    # What `generation.Generator` reads of a causal LM, so that a quantized
+    # model generates as JAX's `Generator(qmodel)` does: every step's
+    # forward dequantizes the weights.
+    @property
+    def config(self):
+        return self.module.config
+
+    def get_input_embeddings(self) -> nn.Module:
+        """The input embedding as the forward sees it: dequantized to
+        `compute_dtype` where its weight is quantized."""
+        embedding = self.module.get_input_embeddings()
+        if embedding.weight.device.type != "meta":
+            return embedding
+        name = next(n for n, m in self.module.named_modules() if m is embedding)
+        return nn.Embedding.from_pretrained(self.dequantized()[f"{name}.weight"])
+
+    def make_decode_cache(self, batch: int, max_length: int, dtype: Optional[torch.dtype] = None, device=None):
+        weight = self.get_input_embeddings().weight
+        return self.module.make_decode_cache(batch, max_length, dtype=dtype or weight.dtype,
+                                             device=device or weight.device)
 
 
 def load_and_quantize_model(model, config: QuantizationConfig):

@@ -338,8 +338,8 @@ prints no result):
        batch (2 x 2048), seed and AdamW, 2 warm-up and 8 timed steps, each
        run through `Accelerator(...).prepare` and `train_step()`: the bare
        `Accelerator` (no group), then NO_SHARD, SHARD_GRAD_OP and
-       FULL_SHARD, then the same in reverse (bare N S F F S N bare), so each
-       strategy is paired with the bare run in one call. Gates: the backend
+       FULL_SHARD, each paired with the bare run in one call (one pass
+       since (d) runs the same strategies in fp8). Gates: the backend
        is "nccl"; NO_SHARD's losses equal the bare run's within rtol 1e-6
        (bit for bit reported); SHARD_GRAD_OP's and FULL_SHARD's within 1e-2
        relative at every step (the largest gap reported), finite, the last
@@ -361,6 +361,20 @@ prints no result):
        that was not cut. A bare `Accelerator` loads the same checkpoint:
        its weights equal the gathered FULL_SHARD ones bit for bit.
        Reported: save and load seconds, and bytes.
+   (d) fp8 across the strategies: (a)'s setup with
+       ``mixed_precision="fp8"`` and the default dynamic recipe, bare, then
+       NO_SHARD, SHARD_GRAD_OP and FULL_SHARD, 2 warm-up and 4 timed steps
+       each. Under a group every amax of an activation and a gradient is
+       all-reduced (max) over it (`ops.fp8.AMAX_REDUCES`). Gates: NO_SHARD's
+       losses equal the bare run's within rtol 1e-6 (bit for bit
+       reported), the sharded ones within 1e-2 relative at every step,
+       finite and falling; 15 fp8 products a step by role (7 a layer and
+       the head's); the amax all-reduces exactly 2 x 15 a step under each
+       strategy (each product's input and gradient) and 0 in the bare run;
+       K3, K4 and K5 each launched 2 x 6 times per run (joining the Llama
+       rows of the `kernels` line); no kernel built. Reported: each run's
+       median step time beside the bare fp8 run's (at world 1 the gap is
+       the cost of the amax collectives) and (a)'s bf16 step times.
 
 15. The user's surface, run after phase 14: the rest of JAX's one-process
     `Accelerator`, driven as a user's script drives it, on Llama-1B at full
@@ -401,9 +415,11 @@ prints no result):
        (its records are the logged epochs).
 
 16. Launch and the CLI, run after phase 15 and driven as a user drives them:
-    ``python -m accelerate_tpu_torch.commands.accelerate_cli ...`` in fresh
-    processes with the checkout on ``PYTHONPATH`` (the parent frees its card
-    memory before each and logs `memory_allocated`). The user's script
+    ``python -m accelerate_tpu_torch.commands.accelerate_cli ...`` with the
+    checkout on ``PYTHONPATH`` (the parent frees its card memory before each
+    and logs `memory_allocated`); (b)'s in a fresh process, (a)'s ``launch``
+    and (c)'s ``test`` with the dispatcher in this process (each fresh
+    interpreter costs 10-17 s here), their children fresh processes. The user's script
     (`LAUNCH_SCRIPT`, written to a temporary directory) builds its
     `Accelerator` from the launcher's variables; the parent runs the same
     functions of the same file for each comparison.
@@ -552,13 +568,37 @@ prints no result):
    Gates over the phase: K3-K5 launched 2 x 29 times each in bf16 (joining
    the Llama rows of the `kernels` line), and no kernel built.
 
+20. The example twins and the quality gate, run last, in this process (a
+    fresh interpreter costs 10-17 s here):
+   (a) These twins of `accelerate_tpu_torch/examples/`, each at
+       the arguments JAX's `tests/test_examples.py` gives its script:
+       gradient_accumulation, automatic_gradient_accumulation,
+       checkpointing (one epoch saved, then a resume to two),
+       cross_validation, multi_process_metrics (35 eval rows),
+       device_training_loop, profiler, fsdp (in a world-1 NCCL group, so
+       torch's FSDP places BERT), schedule_free, complete_nlp_example (one
+       epoch saved by epoch, then a resume to two with tracking),
+       distributed_inference (in a world-1 NCCL group) and
+       quantized_inference (8-bit, then 4-bit). Gates: the line JAX's test
+       looks for is in the twin's output, every printed loss is finite,
+       and every parameter of the models it built is on the card (a
+       quantized one is codes on the card). The output directories are
+       removed however the phase ends. Reported: each twin's seconds.
+   (b) The quality gate (`test_utils/scripts/test_performance.py`) through
+       its `main`: "dp" at JAX's full recipe (`text_pair`, 14 epochs,
+       bf16): accuracy at least 0.82 and a gathered count of 128 (the
+       script raises otherwise); "full_shard", "shard_grad_op" and
+       "offload" in a world-1 NCCL group for one epoch, JAX's fast tier: a
+       final loss finite and below 1.0. Reported: each strategy's
+       accuracy, final loss, peak memory and seconds.
+
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
 `--surface-only` the build and phase 15 alone, `--launch-only` the build and
 phase 16 alone, `--bigmodel-only` the build and phase 17 alone,
 `--offload-train-only` the build and phase 18 alone, `--checkpoint-only` the
-build and phase 19 alone, and `--kernels-only` stops after phase 2 (none
-prints a result line). Each phase prints its wall time on a `[time]` line, and the
+build and phase 19 alone, `--examples-only` the build and phase 20 alone,
+and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
 whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -590,6 +630,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4149,6 +4190,7 @@ DIST_SHARDED_RTOL = 1e-2
 DIST_CHECKPOINT_LAYERS = 2
 DIST_TRAIN_LAYERS = 2  # (a) and (b): 5 (b) holds the fused step at full depth
 DIST_GUARD_STEPS = 4
+DIST_FP8_STEPS = (2, 4)  # (d): warm-up and timed steps of each fp8 run
 # The launcher's variables phase 14 sets for its world-1 NCCL group, and
 # puts back after.
 DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
@@ -4209,15 +4251,18 @@ def dist_accelerator_kw(strategy):
     return {} if strategy == "bare" else {"fsdp_plugin": FullyShardedDataParallelPlugin(sharding_strategy=strategy)}
 
 
-def dist_run(device, config, strategy, batch, seq, warmup, timed_steps, profile_step=False):
-    """One run of phase 14 (a): `train` under `strategy` ("bare": no
-    group), inside a one-process group otherwise."""
+def dist_run(device, config, strategy, batch, seq, warmup, timed_steps, profile_step=False, mixed_precision="bf16"):
+    """One run of phase 14 (a) or (d): `train` under `strategy` ("bare": no
+    group), inside a one-process group otherwise; under fp8 it also
+    reports the fp8 products and the amax all-reduces of the run."""
     import contextlib
 
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8 as pfp8
 
     free_memory(device)
     fa.reset_launch_counts()
+    pfp8.reset_product_counts()
     on_card = device.type == "cuda"
 
     def before_step(i, step_fn):
@@ -4228,11 +4273,13 @@ def dist_run(device, config, strategy, batch, seq, warmup, timed_steps, profile_
     with group:
         backend = torch.distributed.get_backend() if strategy != "bare" else None
         losses, seconds, pmodel, step_fn, last = train(
-            device, config, "bf16", batch=batch, steps=timed_steps, seq=seq, warmup=warmup, on_step=before_step,
-            accelerator_kw=dist_accelerator_kw(strategy))
+            device, config, mixed_precision, batch=batch, steps=timed_steps, seq=seq, warmup=warmup,
+            on_step=before_step, accelerator_kw=dist_accelerator_kw(strategy))
         launches = dict(fa.LAUNCHES)
         report = step_report(batch, seq, seconds, warmup, pmodel.num_parameters, config, launches)
         report.update(strategy=strategy, backend=backend, losses=losses)
+        if mixed_precision == "fp8":
+            report.update(fp8_products=dict(pfp8.PRODUCTS), amax_all_reduces=pfp8.AMAX_REDUCES["all_reduce"])
         if on_card:
             report["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
         if profile_step:
@@ -4274,7 +4321,7 @@ def dist_profile_step(step_fn, batch, device):
 def dist_training(device, config, batch, seq, warmup, timed_steps):
     """Phase 14 (a)."""
     layers, steps = config.num_hidden_layers, warmup + timed_steps
-    order = ("bare", *DIST_STRATEGIES, *reversed(DIST_STRATEGIES), "bare")
+    order = ("bare", *DIST_STRATEGIES)
     runs = {}
     for i, strategy in enumerate(order):
         profile_step = strategy == "FULL_SHARD" and "FULL_SHARD" not in runs
@@ -4313,6 +4360,67 @@ def dist_training(device, config, batch, seq, warmup, timed_steps):
     log(f"[dist] (a) FULL_SHARD profile: {json.dumps(profile)}")
     if device.type == "cuda" and not profile.get("nccl_ops"):
         raise RuntimeError(f"no collective went through NCCL in the FULL_SHARD step: {profile}")
+    return report
+
+
+def fp8_amax_reduces(config, steps, strategy):
+    """The amax all-reduces an fp8 run of `steps` steps issues: none
+    without a group; under one, one for each forward product's input (7 a
+    Llama layer and the head's) and one for each backward's gradient."""
+    products = 7 * config.num_hidden_layers + 1
+    return 0 if strategy == "bare" else 2 * products * steps
+
+
+def dist_fp8(device, config, batch, seq, warmup=DIST_FP8_STEPS[0], timed_steps=DIST_FP8_STEPS[1], bf16=None):
+    """Phase 14 (d): fp8 across the strategies at world 1."""
+    from accelerate_tpu_torch.ops import _build
+
+    layers, steps = config.num_hidden_layers, warmup + timed_steps
+    products = 7 * layers + 1
+    report = {"layers": layers, "batch": batch, "seq": seq, "warmup": warmup, "timed_steps": timed_steps,
+              "strategies": {}}
+    builds = []
+    listener = _build.add_build_listener(lambda name, seconds: builds.append(name))
+    try:
+        runs = {strategy: dist_run(device, config, strategy, batch, seq, warmup, timed_steps, mixed_precision="fp8")
+                for strategy in ("bare", *DIST_STRATEGIES)}
+    finally:
+        _build.remove_build_listener(listener)
+    base = runs["bare"]
+    for strategy, run in runs.items():
+        log(f"[dist] (d) fp8 {strategy}: step ms {run['step_ms_median']:.2f}, losses {run['losses']}, launches "
+            f"{run['launches']}, products {run['fp8_products']}, amax all-reduces {run['amax_all_reduces']}")
+        if device.type == "cuda":
+            if strategy != "bare" and run["backend"] != "nccl":
+                raise RuntimeError(f"fp8 {strategy}: backend {run['backend']}, not nccl")
+            if run["launches"] != expected_launches(layers * steps, torch.bfloat16):
+                raise RuntimeError(f"fp8 {strategy}: flash launches {run['launches']}, expected {layers} x {steps}")
+        if run["fp8_products"] != {"fwd": products * steps, "dx": products * steps, "dw": products * steps}:
+            raise RuntimeError(f"fp8 {strategy}: products {run['fp8_products']}, expected {products} x {steps} each")
+        expected = fp8_amax_reduces(config, steps, strategy)
+        if run["amax_all_reduces"] != expected:
+            raise RuntimeError(f"fp8 {strategy}: {run['amax_all_reduces']} amax all-reduces, expected {expected}")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
+        limit = DIST_NO_SHARD_RTOL if strategy in ("bare", "NO_SHARD") else DIST_SHARDED_RTOL
+        if not all(np.isfinite(run["losses"])) or not run["losses"][-1] < run["losses"][0]:
+            raise RuntimeError(f"fp8 {strategy}: losses {run['losses']} not finite or not falling")
+        if worst > limit:
+            raise RuntimeError(f"fp8 {strategy}: losses {run['losses']} part from the bare run's {base['losses']} "
+                               f"by {worst} (rtol {limit})")
+        report["strategies"][strategy] = {
+            "losses": run["losses"], "losses_max_rel_diff": worst, "rtol": limit,
+            "losses_bit_for_bit": run["losses"] == base["losses"], "step_ms_median": run["step_ms_median"],
+            "step_time_over_bare_fp8": run["step_ms_median"] / base["step_ms_median"],
+            "step_ms_over_bare_fp8": run["step_ms_median"] - base["step_ms_median"],
+            "amax_all_reduces_per_step": run["amax_all_reduces"] / steps, "tokens_per_s": run["tokens_per_s"],
+            "peak_memory_bytes": run.get("peak_memory_bytes"), "backend": run["backend"],
+            "launches": run["launches"],
+        }
+    if builds:
+        raise RuntimeError(f"phase 14 (d) built kernels after the first build: {builds}")
+    if bf16 is not None:
+        report["bf16_step_ms_median"] = {s: bf16["strategies"][s]["step_ms_median"] for s in ("bare", *DIST_STRATEGIES)}
+    report["launches"] = {k: sum(r["launches"][k] for r in runs.values()) for k in base["launches"]}
     return report
 
 
@@ -4453,7 +4561,8 @@ def dist_checkpoint(device, config, seq, batch=1, steps=6, save_after=3):
 
 
 def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8,
-               checkpoint_layers=DIST_CHECKPOINT_LAYERS, guard_steps=DIST_GUARD_STEPS, layers=DIST_TRAIN_LAYERS):
+               checkpoint_layers=DIST_CHECKPOINT_LAYERS, guard_steps=DIST_GUARD_STEPS, layers=DIST_TRAIN_LAYERS,
+               fp8_steps=DIST_FP8_STEPS):
     """Phase 14: data parallel and FSDP/ZeRO through NCCL at world 1."""
     import dataclasses
 
@@ -4473,6 +4582,11 @@ def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, 
     report["checkpoint"] = dist_checkpoint(device, dataclasses.replace(full, num_hidden_layers=checkpoint_layers),
                                            seq)
     log(f"[time] dist (c) checkpoint {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["fp8"] = dist_fp8(device, config, batch, seq, warmup=fp8_steps[0], timed_steps=fp8_steps[1],
+                             bf16=report["training"])
+    log(f"[dist] (d) fp8 {json.dumps(report['fp8'])}")
+    log(f"[time] dist (d) fp8 {time.perf_counter() - t0:.1f}s")
     if {k: os.environ.get(k) for k in DIST_ENV} != env_before or torch.distributed.is_initialized():
         raise RuntimeError("phase 14 left a process group or the launcher's variables behind")
     return report
@@ -4972,6 +5086,50 @@ def cli(args, timeout, check=True):
     return run
 
 
+def cli_dispatch(args):
+    """``accelerate_cli ARGS`` as `cli` runs it, but with the dispatcher in
+    this process (its children are fresh interpreters, as a user's are; a
+    fresh one for the dispatcher costs 10-17 s here): the parent frees its
+    card memory first, the command sees `launch_env()`, and what it and its
+    children print on stdout is returned (the file descriptor's, the
+    children's, and then `sys.stdout`'s, the dispatcher's own)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from accelerate_tpu_torch.commands.accelerate_cli import get_command_parser
+
+    if torch.cuda.is_available():
+        free_memory(torch.device("cuda", 0))
+    parsed = get_command_parser().parse_args(args)
+    environ = dict(os.environ)
+    code = 0
+    own = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile(mode="w+") as captured:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(captured.fileno(), 1)
+        os.environ.clear()
+        os.environ.update(launch_env())
+        try:
+            with contextlib.redirect_stdout(own):
+                parsed.func(parsed)
+        except SystemExit as e:
+            code = e.code
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+            os.environ.clear()
+            os.environ.update(environ)
+        captured.seek(0)
+        out = captured.read() + own.getvalue()
+    log(f"[launch] {' '.join(args[:3])} ... (dispatcher in process) exit {code} in {time.perf_counter() - t0:.1f}s")
+    if code not in (0, None):
+        raise RuntimeError(f"accelerate_cli {args} exited {code}:\n{out[-4000:]}")
+    return out
+
+
 def cli_in_process(args):
     """The dispatcher's commands that read and write files or print only
     (``trace``, ``config --default``, ``env``, ``estimate-memory``), run
@@ -5029,10 +5187,10 @@ def launched_training(device, model_name, seq, shape, tmp):
     micro = shape["accumulation"] * shape["optimizer_steps"]
     out = os.path.join(tmp, "eager.json")
     t0 = time.perf_counter()
-    run = cli(["launch", "--config_file", config_file, "--gradient_accumulation_steps", str(shape["accumulation"]),
-               "--num_processes", "1", *cpu, script, "--mode", "eager", "--model", model_name, "--layers",
-               str(shape["eager_layers"]), "--batch", str(shape["batch"]), "--seq", str(seq), "--micro_steps",
-               str(micro), "--out", out], timeout=900)
+    printed = cli_dispatch(["launch", "--config_file", config_file, "--gradient_accumulation_steps",
+                            str(shape["accumulation"]), "--num_processes", "1", *cpu, script, "--mode", "eager",
+                            "--model", model_name, "--layers", str(shape["eager_layers"]), "--batch",
+                            str(shape["batch"]), "--seq", str(seq), "--micro_steps", str(micro), "--out", out])
     with open(out) as f:
         child = json.load(f)
     layers = shape["eager_layers"]
@@ -5042,7 +5200,7 @@ def launched_training(device, model_name, seq, shape, tmp):
             "bf16", shape["accumulation"], 1):
         raise RuntimeError(f"(a) the launched child read mixed_precision {child['mixed_precision']}, accumulation "
                            f"{child['gradient_accumulation_steps']}, {child['num_processes']} processes, not bf16, "
-                           f"{shape['accumulation']}, 1 (stdout {run.stdout[-2000:]})")
+                           f"{shape['accumulation']}, 1 (stdout {printed[-2000:]})")
     child_gates(child, device, layers, micro, "(a) launched child")
 
     # The same loop in this process, from the same script.
@@ -5173,15 +5331,15 @@ def supervised_restart(device, model_name, seq, shape, tmp):
 def cli_checks(device):
     """(c): ``test`` runs the bundled script at one process on the card (or
     under --cpu the CPU) and exits 0; ``env`` names the card."""
-    test = cli(["test", *(["--cpu"] if device.type == "cpu" else [])], timeout=600)
-    if "All checks passed." not in test.stdout or "Test is a success!" not in test.stdout:
-        raise RuntimeError(f"(c) test: {test.stdout[-3000:]}")
+    test = cli_dispatch(["test", *(["--cpu"] if device.type == "cpu" else [])])
+    if "All checks passed." not in test or "Test is a success!" not in test:
+        raise RuntimeError(f"(c) test: {test[-3000:]}")
     env = cli_in_process(["env"])
     name = torch.cuda.get_device_name(0) if device.type == "cuda" else "none"
     card_names = [line for line in env.splitlines() if line.startswith("- Card names:")]
     if not card_names or name not in card_names[0]:
         raise RuntimeError(f"(c) env does not name the card {name!r}: {env}")
-    return {"test_checks": test.stdout.count(" ✓"), "env_card_names": card_names[0],
+    return {"test_checks": test.count(" ✓"), "env_card_names": card_names[0],
             "env_power": [line for line in env.splitlines() if "power limit" in line]}
 
 
@@ -6262,6 +6420,192 @@ def checkpoint_summary(report):
     return out
 
 
+# The example twins and the quality gate (phase 20).
+#: Each twin with the arguments JAX's `tests/test_examples.py` gives its
+#: script, the line it looks for, and whether it runs in a world-1 group.
+EXAMPLE_TWINS = (
+    ("by_feature.gradient_accumulation", ("--train_size", "64"), "accumulation", False),
+    ("by_feature.automatic_gradient_accumulation", ("--train_size", "64", "--epochs", "1"), "effective", False),
+    ("by_feature.checkpointing", ("--train_size", "64", "--epochs", "1"), "(state saved)", False),
+    ("by_feature.checkpointing", ("--train_size", "64", "--epochs", "2", "--resume_from_checkpoint", "latest"),
+     "resumed from", False),
+    ("by_feature.cross_validation", ("--train_size", "96", "--epochs", "1", "--num_folds", "2"),
+     "cross-validation mean accuracy", False),
+    ("by_feature.multi_process_metrics", ("--train_size", "64", "--eval_size", "35", "--epochs", "1"), "exact count",
+     False),
+    ("by_feature.device_training_loop", ("--train_size", "64", "--epochs", "1"), "dispatches (steps_per_call=4)",
+     False),
+    ("by_feature.profiler", ("--train_size", "64"), "trace written", False),
+    ("by_feature.fsdp", ("--train_size", "64"), "peak HBM", True),
+    ("by_feature.schedule_free", ("--train_size", "64", "--eval_size", "32", "--epochs", "1"),
+     "schedule-free eval params", False),
+    ("complete_nlp_example", ("--train_size", "128", "--eval_size", "64", "--epochs", "1", "--checkpointing_steps",
+                              "epoch"), "accuracy", False),
+    ("complete_nlp_example", ("--train_size", "128", "--eval_size", "64", "--epochs", "2", "--checkpointing_steps",
+                              "epoch", "--resume_from_checkpoint", "latest", "--with_tracking"), "resumed from", False),
+    ("inference.distributed_inference", ("--num_prompts", "4", "--prompt_len", "16", "--max_new_tokens", "8"),
+     "completions across", True),
+    ("inference.quantized_inference", ("--bits", "8"), "at the quantized footprint", False),
+    ("inference.quantized_inference", ("--bits", "4"), "at the quantized footprint", False),
+)
+#: The twins whose runs share an output directory (the second resumes the first).
+EXAMPLE_OUTPUT_DIRS = ("by_feature.checkpointing", "by_feature.profiler", "complete_nlp_example")
+#: Phase 20 (b): JAX's full recipe for "dp", its fast tier (one epoch) for the rest.
+GATE_RUNS = (("dp", ()), ("full_shard", ("--epochs", "1")), ("shard_grad_op", ("--epochs", "1")),
+             ("offload", ("--epochs", "1")))
+
+
+class tee_stdout:
+    """Copy what the block prints to stdout into `text`, and print it too."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, data):
+        self.parts.append(data)
+        return self.stream.write(data)
+
+    def flush(self):
+        self.stream.flush()
+
+    @property
+    def text(self):
+        return "".join(self.parts)
+
+    def __enter__(self):
+        self.stream, sys.stdout = sys.stdout, self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.stream
+        return False
+
+
+def example_losses(text):
+    """Every ``loss <number>`` the twin printed."""
+    return [float(x) for x in re.findall(r"loss (-?[0-9.]+|nan|inf)", text)]
+
+
+def run_twin(device, name, argv, output_dir=None):
+    """One twin's entry point in this process on `device`: its printed text,
+    seconds, result, and the devices of the models it built."""
+    import importlib
+
+    module = importlib.import_module(f"accelerate_tpu_torch.examples.{name}")
+    built = []
+    creator = "create_llama_model" if name.startswith("inference.") else "create_bert_model"
+    create = getattr(module, creator)
+
+    def recording(*args, **kwargs):
+        model = create(*args, **kwargs)
+        built.append(model)
+        return model
+
+    argv = [*argv, *(["--output_dir", output_dir] if output_dir else []), *(["--cpu"] if device.type == "cpu" else [])]
+    reset_port_state()
+    setattr(module, creator, recording)
+    try:
+        with tee_stdout() as out:
+            t0 = time.perf_counter()
+            args = module.parse_args(argv)
+            result = module.main(args) if name.startswith("inference.") else module.training_function(args)
+            sync(device)
+            seconds = time.perf_counter() - t0
+    finally:
+        setattr(module, creator, create)
+        reset_port_state()
+    devices = sorted({p.device.type for m in built for p in m.parameters() if p.device.type != "meta"})
+    return out.text, seconds, result, devices
+
+
+def example_twins(device, twins=EXAMPLE_TWINS):
+    """Phase 20 (a)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    report = []
+    try:
+        for name, argv, marker, grouped in twins:
+            output_dir = os.path.join(directory, name) if name in EXAMPLE_OUTPUT_DIRS else None
+            group = world_one_group(device) if grouped else contextlib.nullcontext()
+            with group:
+                text, seconds, result, devices = run_twin(device, name, argv, output_dir)
+            losses = example_losses(text)
+            row = {"twin": name, "argv": list(argv), "marker": marker, "seconds": seconds, "losses": losses,
+                   "devices": devices, "group": grouped}
+            log(f"[examples] (a) {json.dumps(row)}")
+            if marker not in text:
+                raise RuntimeError(f"{name} {list(argv)}: {marker!r} not in its output: {text!r}")
+            if not all(np.isfinite(losses)):
+                raise RuntimeError(f"{name} {list(argv)}: losses {losses} not finite")
+            if devices != [device.type]:
+                raise RuntimeError(f"{name} {list(argv)}: its models' parameters are on {devices}, not {device.type}")
+            if name.startswith("inference.") and not name.endswith("distributed_inference") \
+                    and result.device.type != device.type:
+                raise RuntimeError(f"{name}: generated ids on {result.device}")
+            report.append(row)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    free_memory(device)
+    return report
+
+
+def quality_gate(device, runs=GATE_RUNS, floor=0.82):
+    """Phase 20 (b)."""
+    import contextlib
+
+    from accelerate_tpu_torch.test_utils.scripts import test_performance
+
+    report = {}
+    for strategy, extra in runs:
+        free_memory(device)
+        full = strategy == "dp" and "--epochs" not in extra
+        argv = ["--strategy", strategy, *extra, "--performance_lower_bound", str(floor) if full else "0.0",
+                *(["--cpu"] if device.type == "cpu" else [])]
+        backend = None
+        with world_one_group(device) if strategy != "dp" else contextlib.nullcontext():
+            if strategy != "dp":
+                backend = torch.distributed.get_backend()
+            reset_port_state()
+            try:
+                with tee_stdout() as out:
+                    t0 = time.perf_counter()
+                    result = test_performance.main(argv)
+                    sync(device)
+                    seconds = time.perf_counter() - t0
+            finally:
+                reset_port_state()
+        row = dict(result, seconds=seconds, full_recipe=full, backend=backend)
+        log(f"[examples] (b) {json.dumps(row)}")
+        if "Performance gate passed" not in out.text:
+            raise RuntimeError(f"{strategy}: the gate did not pass: {out.text!r}")
+        if full and not result["accuracy"] >= floor:
+            raise RuntimeError(f"{strategy}: accuracy {result['accuracy']} below {floor}")
+        if not (np.isfinite(result["final_loss"]) and result["final_loss"] < 1.0):
+            raise RuntimeError(f"{strategy}: final loss {result['final_loss']} not finite or not below 1.0")
+        if device.type == "cuda" and strategy != "dp" and backend != "nccl":
+            raise RuntimeError(f"{strategy}: backend {row['backend']}, not nccl")
+        report[strategy] = row
+    free_memory(device)
+    return report
+
+
+def examples_phase(device, twins=EXAMPLE_TWINS, gate_runs=GATE_RUNS):
+    """Phase 20: the example twins and the quality gate."""
+    env_before = {k: os.environ.get(k) for k in DIST_ENV}
+    t0 = time.perf_counter()
+    report = {"twins": example_twins(device, twins)}
+    log(f"[time] examples (a) twins {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report["gate"] = quality_gate(device, gate_runs)
+    log(f"[time] examples (b) gate {time.perf_counter() - t0:.1f}s")
+    if {k: os.environ.get(k) for k in DIST_ENV} != env_before or torch.distributed.is_initialized():
+        raise RuntimeError("phase 20 left a process group or the launcher's variables behind")
+    return report
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -6398,6 +6742,9 @@ def main(argv=None) -> int:
     parser.add_argument("--checkpoint-only", action="store_true",
                         help="run only the build and phase 19 (async and sharded checkpoints and preemption on "
                              "Llama-1B; prints no result line)")
+    parser.add_argument("--examples-only", action="store_true",
+                        help="run only the build and phase 20 (the example twins and the quality gate; prints no "
+                             "result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -6473,6 +6820,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[checkpoint] summary: {json.dumps(checkpoint_summary(checkpoint_phase(device)))}")
         log(f"[time] checkpoint phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.examples_only:
+        t0 = time.perf_counter()
+        log(f"[examples] summary: {json.dumps(examples_phase(device))}")
+        log(f"[time] examples phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -6605,17 +6958,24 @@ def main(argv=None) -> int:
     hf = hf_phase(device)
     log(f"[hf] summary: {json.dumps(hf)}")
     log(f"[time] hf phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    examples = examples_phase(device)
+    log(f"[examples] summary: {json.dumps(examples)}")
+    log(f"[time] examples phase {time.perf_counter() - t0:.1f}s")
 
     # the families at each head dim
     wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"], 128: mixtral_train}
     rows = paged_rows(kernels, engine, KERNEL_SHAPE, PAGED_DESIGN)
     # Llama-1B's bf16 K3-K5 run under bf16, under fp8 (whose attention is
-    # bf16), in phase 15's eager loops (the dispatcher's and the shard
-    # loader's), in phase 16's launched children and their in-process twins,
-    # and in phase 19's checkpointed runs.
+    # bf16), in phase 14 (d)'s fp8 runs across the strategies, in phase 15's
+    # eager loops (the dispatcher's and the shard loader's), in phase 16's
+    # launched children and their in-process twins, and in phase 19's
+    # checkpointed runs.
     surface_runs = (surface["training"]["dispatcher"], surface["training"]["shard_loader"])
-    bf16_launches = {k: v + fp8["training"]["launches"][k] + sum(r["launches"][k] for r in surface_runs)
-                     + launched["launches"][k] + checkpoint["launches"][k]
+    bf16_launches = {k: v + fp8["training"]["launches"][k] + dist["fp8"]["launches"][k]
+                     + sum(r["launches"][k] for r in surface_runs) + launched["launches"][k]
+                     + checkpoint["launches"][k]
                      for k, v in training["bf16"]["launches"].items()}
     rows += flash_rows(flash, bf16_launches, training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")

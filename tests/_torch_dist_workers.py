@@ -2,7 +2,7 @@
 (`tests/test_torch_distributed.py`, `tests/test_torch_distributed_hybrid.py`,
 `tests/test_torch_surface_distributed.py`, `tests/test_torch_scripts.py`,
 `tests/test_torch_offload_distributed.py`, `tests/test_torch_local_sgd.py`,
-`tests/test_torch_checkpoint_sharded.py`).
+`tests/test_torch_checkpoint_sharded.py`, `tests/test_torch_fp8_distributed.py`).
 
 Each runs in a process `accelerate_tpu_torch.launchers.debug_launcher`
 spawns (gloo on the CPU, one torch thread), reads the inputs the test wrote
@@ -251,7 +251,8 @@ def checkpoint(inputs, out_dir):
 
 
 def refusals(inputs):
-    """Mixtral and fp8 across processes raise, naming what they wait for."""
+    """Mixtral across processes raises, naming what it waits for; an fp8
+    `Accelerator` builds ("no-error")."""
     from accelerate_tpu_torch.models import mixtral
 
     out = {}
@@ -884,3 +885,90 @@ def checkpoint_sharded2(in_dir, out_dir):
         out["refused"] = str(e)
     _reset()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ------------------------------------------------------------------ fp8 across processes
+FP8_STEPS = 3
+
+
+def fp8_steps(acc, model, batches):
+    """`FP8_STEPS` fused fp8 AdamW steps (clip 1.0) of `model` under `acc`
+    on `batches`: per step the loss, every scale `quantize_fp8` took, in
+    call order, as (format, scale) (e4m3: a forward's x and w; e5m2: a
+    backward's g), the fp8 product counts and the amax all-reduces."""
+    from accelerate_tpu_torch.ops import fp8
+
+    pmodel, popt = acc.prepare(model, _adamw(model))
+    step = acc.train_step(max_grad_norm=1.0)
+    real = fp8.quantize_fp8
+    scales = []
+
+    def recording(x, dtype=fp8.E4M3, group=None):
+        q, s = real(x, dtype, group)
+        scales[-1].append((str(dtype).split("_")[-1], s.item()))
+        return q, s
+
+    fp8.quantize_fp8 = recording
+    out = {"losses": [], "scales": [], "products": [], "reduces": []}
+    try:
+        for batch in batches:
+            fp8.reset_product_counts()
+            scales.append([])
+            out["losses"].append(step(_tensors(batch)).item())
+            out["products"].append(dict(fp8.PRODUCTS))
+            out["reduces"].append(dict(fp8.AMAX_REDUCES))
+    finally:
+        fp8.quantize_fp8 = real
+    out["scales"] = scales
+    return out
+
+
+def fp8_train(inputs, strategy, remat=None):
+    """llama_tiny's fp8 `train_step` under `strategy` on this process's
+    share of each global batch."""
+    from accelerate_tpu_torch.utils.dataclasses import CompilationConfig
+
+    rank = int(os.environ["RANK"])
+    acc = _accelerator(strategy, mixed_precision="fp8", compilation_config=CompilationConfig(remat_policy=remat))
+    model = _llama(inputs["llama_cfg"], inputs["sd"])
+    return fp8_steps(acc, model, inputs["local_batches"][rank])
+
+
+def fp8_delayed(inputs):
+    """The delayed recipe across the processes: llama_tiny's histories
+    rolled by two forwards under ``fp8_autocast(recipe, update_meta=True)``,
+    and one explicit `fp8_matmul_delayed` product's rolled x, w and g
+    histories, each process on its share of the rows."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.utils import FP8RecipeKwargs
+
+    rank = int(os.environ["RANK"])
+    recipe = FP8RecipeKwargs(scaling="delayed", amax_history_len=4)
+    model = _llama(inputs["llama_cfg"], inputs["sd"])
+    for batch in inputs["local_batches"][rank][:2]:
+        with fp8.fp8_autocast(recipe, update_meta=True, group=dist.group.WORLD):
+            loss = model.loss_fn(_tensors(batch), model)
+        loss.backward()
+    histories = {name: {k: v.clone() for k, v in m.fp8_meta.items()}
+                 for name, m in model.named_modules() if hasattr(m, "fp8_meta")}
+    x, w = (torch.as_tensor(a) for a in inputs["delayed_xw"])
+    n = x.shape[0] // int(os.environ["WORLD_SIZE"])
+    x = x[rank * n:(rank + 1) * n].requires_grad_()
+    meta = {k: v.requires_grad_() for k, v in fp8.init_fp8_meta(4).items()}
+    out = fp8.fp8_matmul_delayed(x, w, meta, group=dist.group.WORLD)
+    rolled = torch.autograd.grad(torch.sum(out ** 2), list(meta.values()))
+    return {"histories": histories, "rolled": dict(zip(meta, rolled))}
+
+
+def fp8_world2(in_dir, out_dir):
+    """Every scenario of `tests/test_torch_fp8_distributed.py`, in order."""
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    out = {}
+    for remat in (None, "full"):
+        for strategy in ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD"):
+            out[strategy, remat] = fp8_train(inputs, strategy, remat)
+    out["delayed"] = fp8_delayed(inputs)
+    _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))

@@ -811,8 +811,8 @@ def test_telemetry_only_refuses_without_a_card_and_is_a_known_flag():
 
 def test_dist_phase_rehearses_on_the_cpu_and_restores_the_environment(monkeypatch):
     """Phase 14 at llama_tiny on the CPU, its world-1 group over gloo: every
-    strategy's losses equal the bare run's (here bit for bit), each run in
-    the a-b-b-a order; the guard runs count their steady steps; the
+    strategy's losses equal the bare run's (here bit for bit), the runs in
+    one pass; the guard runs count their steady steps; the
     checkpoint resumes with equal losses and loads into the bare
     `Accelerator` unchanged; afterwards no process group is left and the
     launcher's variables are what they were."""
@@ -822,14 +822,20 @@ def test_dist_phase_rehearses_on_the_cpu_and_restores_the_environment(monkeypatc
     report = chip_smoke.dist_phase(torch.device("cpu"), "llama-tiny", seq=64, warmup=1, timed_steps=2,
                                    guard_steps=1)
     training = report["training"]
-    assert training["order"] == ("bare", "NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD", "FULL_SHARD", "SHARD_GRAD_OP",
-                                 "NO_SHARD", "bare")
+    assert training["order"] == ("bare", "NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD")
     for strategy in ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD"):
         row = training["strategies"][strategy]
-        assert row["backend"] == "gloo" and row["losses_bit_for_bit"] is True and len(row["step_ms_median"]) == 2
+        assert row["backend"] == "gloo" and row["losses_bit_for_bit"] is True and len(row["step_ms_median"]) == 1
     assert training["strategies"]["bare"]["backend"] is None
     assert all(report["guard"][s]["steady_steps"] == 1 for s in ("NO_SHARD", "FULL_SHARD"))
     assert report["checkpoint"]["max_rel_diff"] == 0.0 and report["checkpoint"]["bare_weights_mismatched"] == []
+    fp8 = report["fp8"]
+    assert fp8["strategies"]["bare"]["amax_all_reduces_per_step"] == 0
+    for strategy in ("NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD"):
+        row = fp8["strategies"][strategy]
+        assert row["backend"] == "gloo" and row["losses_bit_for_bit"] is True
+        assert row["amax_all_reduces_per_step"] == 2 * (7 * 2 + 1)
+    assert set(fp8["bf16_step_ms_median"]) == {"bare", "NO_SHARD", "SHARD_GRAD_OP", "FULL_SHARD"}
     assert not torch.distributed.is_initialized()
     assert os.environ["MASTER_PORT"] == "12345" and "RANK" not in os.environ and "WORLD_SIZE" not in os.environ
 
@@ -855,6 +861,36 @@ def test_dist_gates_catch_parted_losses_and_missing_launches(monkeypatch):
         monkeypatch.setattr(chip_smoke, "dist_run", fake_run({strategy: losses}))
         with pytest.raises(RuntimeError, match=strategy):
             chip_smoke.dist_training(cpu, config, 2, 64, 1, 2)
+
+
+def test_fp8_amax_count_follows_the_products_and_its_gate_catches_a_miss(monkeypatch):
+    """Phase 14 (d)'s expected amax all-reduces: none without a group, one
+    for each fp8 product's input and one for its gradient under one (2 x
+    15 a step at Llama's 2 layers). A run that reduces one amax fewer, or
+    whose products are not 15 a step by role, fails the phase."""
+    config = llama_tiny()
+    assert chip_smoke.fp8_amax_reduces(config, 6, "bare") == 0
+    assert chip_smoke.fp8_amax_reduces(config, 6, "FULL_SHARD") == 2 * 15 * 6
+
+    def fake_run(reduces_off=0, products_off=0):
+        def run(device, config, strategy, batch, seq, warmup, timed_steps, **kwargs):
+            steps = warmup + timed_steps
+            n = 15 * steps
+            return {"losses": [7.0, 6.0, 5.0], "step_ms_median": 1.0, "tokens_per_s": 1.0, "launches": {},
+                    "backend": None if strategy == "bare" else "gloo",
+                    "fp8_products": {"fwd": n - (products_off if strategy == "FULL_SHARD" else 0), "dx": n, "dw": n},
+                    "amax_all_reduces": chip_smoke.fp8_amax_reduces(config, steps, strategy)
+                    - (reduces_off if strategy == "NO_SHARD" else 0)}
+        return run
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(chip_smoke, "dist_run", fake_run())
+    report = chip_smoke.dist_fp8(cpu, config, 2, 64, warmup=1, timed_steps=2)
+    assert report["strategies"]["SHARD_GRAD_OP"]["amax_all_reduces_per_step"] == 30
+    for kwargs, strategy in ((dict(reduces_off=1), "NO_SHARD"), (dict(products_off=1), "FULL_SHARD")):
+        monkeypatch.setattr(chip_smoke, "dist_run", fake_run(**kwargs))
+        with pytest.raises(RuntimeError, match=strategy):
+            chip_smoke.dist_fp8(cpu, config, 2, 64, warmup=1, timed_steps=2)
 
 
 def test_dist_only_refuses_without_a_card_and_is_a_known_flag():
@@ -1173,17 +1209,66 @@ def test_checkpoint_only_refuses_without_a_card_and_is_a_known_flag():
     assert usage.returncode == 0 and "--checkpoint-only" in usage.stdout
 
 
+def test_examples_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 20 on the CPU (about 25 s): every twin prints its marker with
+    finite losses and its models on the CPU, the fsdp and
+    distributed_inference twins in a world-1 gloo group; the gate's "dp"
+    runs `token_parity` here (JAX's full recipe takes minutes on the CPU,
+    `tests/test_torch_performance_gate.py`), then FULL_SHARD for one
+    epoch; no group or launcher variable is left behind."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        report = chip_smoke.examples_phase(
+            torch.device("cpu"),
+            gate_runs=(("dp", ("--task", "token_parity")), ("full_shard", ("--task", "token_parity", "--epochs", "1"))))
+    finally:
+        torch.set_num_threads(threads)
+    assert [row["twin"] for row in report["twins"]] == [t[0] for t in chip_smoke.EXAMPLE_TWINS]
+    assert all(row["devices"] == ["cpu"] and row["seconds"] > 0 for row in report["twins"])
+    assert [row["group"] for row in report["twins"]].count(True) == 2
+    assert report["gate"]["dp"]["full_recipe"] and report["gate"]["dp"]["accuracy"] >= 0.82
+    assert report["gate"]["full_shard"]["backend"] == "gloo" and report["gate"]["full_shard"]["final_loss"] < 1.0
+    assert not torch.distributed.is_initialized() and "RANK" not in os.environ
+
+
+def test_examples_gates_catch_a_missing_marker(monkeypatch):
+    """Phase 20 (a) fails a twin whose output lacks its marker, and one whose
+    model is not on the phase's device."""
+    cpu = torch.device("cpu")
+    twin = [("by_feature.gradient_accumulation", ("--train_size", "32", "--epochs", "1"), "not printed", False)]
+    with pytest.raises(RuntimeError, match="not printed"):
+        chip_smoke.example_twins(cpu, twin)
+    monkeypatch.setattr(chip_smoke, "run_twin", lambda *a, **k: ("accumulation loss 1.0", 1.0, None, ["meta"]))
+    with pytest.raises(RuntimeError, match="parameters are on"):
+        chip_smoke.example_twins(cpu, [(twin[0][0], twin[0][1], "accumulation", False)])
+
+
+def test_examples_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--examples-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[examples]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--examples-only" in usage.stdout
+
+
 def test_docstring_lists_every_phase_and_its_flag():
-    """Phases 1-19 each head a paragraph of the docstring, each `--*-only`
+    """Phases 1-20 each head a paragraph of the docstring, each `--*-only`
     flag the parser takes is named there, and phase 19's count of launches
     is the phase's own."""
     import re
 
     doc = chip_smoke.__doc__
     numbers = [int(n) for n in re.findall(r"^ ?(\d+)\. ", doc, flags=re.M)]
-    assert numbers == list(range(1, 20))
+    assert numbers == list(range(1, 21))
     flags = re.findall(r"--[a-z0-9-]+-only", open(os.path.join(ROOT, "chip_smoke.py")).read())
-    assert "--checkpoint-only" in flags and all(flag in doc for flag in set(flags))
+    assert {"--checkpoint-only", "--examples-only"} <= set(flags) and all(flag in doc for flag in set(flags))
     steps = chip_smoke.checkpoint_steps(chip_smoke.CHECKPOINT)
     assert f"2 x {steps} times" in " ".join(doc.split())
 

@@ -538,9 +538,11 @@ def test_world_1_checkpoint_loads_under_full_shard_at_world_2(world2):
 
 # ------------------------------------------------------------------ refusals and seams
 def test_mixtral_and_fp8_refuse_more_than_one_process(world2):
+    """Mixtral still refuses; fp8 is taken since ROADMAP A item 3's fp8
+    bullet (`tests/test_torch_fp8_distributed.py` holds it to JAX)."""
     refused = world2["results"][0]["refusals"]
     assert "expert sharding" in refused["mixtral"]
-    assert "global amax" in refused["fp8"]
+    assert refused["fp8"] == "no-error"
 
 
 def test_offload_and_waiting_axes_raise():
