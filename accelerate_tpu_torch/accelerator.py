@@ -116,7 +116,9 @@ from .data_loader import (
     skip_first_batches,
 )
 from .modeling import Model, PreparedModel
+from .ops.losses import batch_group
 from .optimizer import AcceleratedOptimizer, GradScaler
+from .parallel.mesh import data_parallel_group, mesh_sizes
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils import operations as ops
@@ -338,7 +340,7 @@ class Accelerator:
 
     @property
     def mesh(self):
-        """The ("data", "fsdp") `DeviceMesh`, or None with one process and no group."""
+        """The ("data", "fsdp"[, "model"]) `DeviceMesh`, or None with one process and no group."""
         return self.state.mesh
 
     @property
@@ -496,7 +498,8 @@ class Accelerator:
                 self._models.append(model)
             return model
         if isinstance(model, nn.Module):
-            model = Model(model, loss_fn=getattr(model, "loss_fn", None))
+            model = Model(model, loss_fn=getattr(model, "loss_fn", None),
+                          sharding_rules=getattr(model, "sharding_rules", None))
         compute_dtype = None if self.mixed_precision == "no" else self.state.compute_dtype
         fp8_recipe = None
         if self.mixed_precision == "fp8":
@@ -545,8 +548,11 @@ class Accelerator:
         if device_placement is None:
             device_placement = self.device_placement
         cfg = self.dataloader_config
+        # Over a "model" axis the ranks of one data shard take the same batches.
+        model = 1 if self.mesh is None else mesh_sizes(self.mesh)["model"]
         prepared = prepare_data_loader(
-            data_loader, self.device, num_processes=self.num_processes, process_index=self.process_index,
+            data_loader, self.device, num_processes=self.num_processes // model,
+            process_index=self.process_index // model,
             split_batches=cfg.split_batches or self.split_batches, put_on_device=device_placement,
             rng_types=list(self.rng_types), dispatch_batches=cfg.dispatch_batches, even_batches=cfg.even_batches,
             slice_fn_for_dispatch=slice_fn_for_dispatch, use_seedable_sampler=cfg.use_seedable_sampler)
@@ -595,7 +601,8 @@ class Accelerator:
         into the parameters' ``.grad``; returns the (undivided, unscaled,
         detached) loss, or ``(loss, aux)``. `model` is taken for the JAX
         signature: autograd finds the parameters itself."""
-        out = loss_fn(*args, **kwargs)
+        with batch_group(data_parallel_group(self.mesh)):
+            out = loss_fn(*args, **kwargs)
         loss, aux = out if isinstance(out, tuple) else (out, None)
         if self.scaler is not None and self.scaler.enabled:
             (loss * (self.scaler.scale / self.gradient_state.num_steps)).backward()

@@ -20,8 +20,10 @@ directory, `MANIFEST.json` with each file's SHA-256 is written last, one
 rotation keeps the last `keep_last_n`. `resolve("latest")` returns the
 newest checkpoint whose digests verify, falling back past a torn one.
 
-Reading a JAX package's checkpoint is not supported: its tensors are
-`.npz` pytrees, these are `torch.save` files.
+A training checkpoint is the port's own (`torch.save` files), not JAX's
+`.npz` pytrees. The native pytree file, which `convert` writes and reads,
+is JAX's layout exactly (`save_pytree` / `load_pytree`): a file written by
+either package loads in the other.
 
 `save_model_safetensors` writes just a model's weights for
 `Accelerator.save_model`: safetensors through the port's own writer
@@ -57,6 +59,7 @@ import concurrent.futures
 import contextlib
 import copy
 import hashlib
+import io
 import json
 import logging
 import os
@@ -69,6 +72,7 @@ import weakref
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .utils.modeling import save_safetensors
@@ -1280,3 +1284,223 @@ def load_model_safetensors(directory: str) -> dict:
     for fname in files:
         out.update(load_safetensors_state_dict(os.path.join(directory, fname)))
     return out
+
+
+# ------------------------------------------------------------------ the native pytree file
+# JAX's `save_pytree` / `load_pytree` layout, written and read without jax:
+# ``<path>.npz`` holds the leaves as ``arr_{i}`` in the tree's flatten order
+# (every dict's keys sorted), compressed, bf16 stored as its uint16 bits;
+# ``<path>.manifest.json`` holds each leaf's '/'-joined path and dtype
+# (``"bfloat16"`` for the bf16 view), the npz's SHA-256 and the tree's
+# structure: the hex of a pickled jax `PyTreeDef`.
+#
+# That pickle is a plain stream in jax 0.9.0: ``PyTreeDef.__new__`` of the
+# global ``jaxlib._jax.pytree.PyTreeDef``, then its state, a pair of the
+# global ``jax._src.tree_util.default_registry`` and a list of nodes in
+# post-order, each ``(kind, arity, node data, None, leaves, nodes)`` (a
+# dict's node data is its sorted keys). The port writes that stream itself
+# and reads it with an unpickler that resolves those two names only, so a
+# crafted manifest names a global and raises before anything runs: the
+# port never calls `pickle.loads` on a manifest.
+_BF16_MARKER = "bfloat16"
+_TREEDEF_CLASS = ("jaxlib._jax.pytree", "PyTreeDef")
+_TREEDEF_REGISTRY = ("jax._src.tree_util", "default_registry")
+#: jaxlib's `PyTreeKind` codes for the nodes the port writes and reads.
+_LEAF, _NONE, _TUPLE, _LIST, _DICT = 0, 1, 2, 4, 5
+
+
+def _tree_nodes(tree, prefix: str, paths: list, leaves: list, nodes: list) -> Tuple[int, int]:
+    """Flatten `tree` as jax does (dict keys sorted; None a node with no
+    leaf), appending leaf paths, leaves and post-order node tuples; returns
+    (leaves, nodes) below and at `tree`."""
+    if tree is None:
+        nodes.append((_NONE, 0, None, None, 0, 1))
+        return 0, 1
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        kind, data, children = _DICT, list(keys), [(str(k), tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        kind, data = (_LIST if isinstance(tree, list) else _TUPLE), None
+        children = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        paths.append(prefix)
+        leaves.append(tree)
+        nodes.append((_LEAF, 0, None, None, 1, 1))
+        return 1, 1
+    n_leaves, n_nodes = 0, 1
+    for key, child in children:
+        sub = _tree_nodes(child, f"{prefix}/{key}" if prefix else key, paths, leaves, nodes)
+        n_leaves, n_nodes = n_leaves + sub[0], n_nodes + sub[1]
+    nodes.append((kind, len(children), data, None, n_leaves, n_nodes))
+    return n_leaves, n_nodes
+
+
+def _treedef_pickle(nodes: list) -> bytes:
+    """The pickle stream of jax's `PyTreeDef` for `nodes` (protocol 2)."""
+    body = pickle.dumps(nodes, protocol=2)[2:-1]  # the list alone: no PROTO, no STOP
+    module, name = _TREEDEF_CLASS
+    reg_module, reg_name = _TREEDEF_REGISTRY
+    return (b"\x80\x02c" + f"{module}\n{name}\n".encode() + b")\x81"  # GLOBAL, EMPTY_TUPLE, NEWOBJ
+            + b"c" + f"{reg_module}\n{reg_name}\n".encode() + body  # the state: (registry, nodes)
+            + b"\x86b.")  # TUPLE2, BUILD, STOP
+
+
+class _TreeDefState:
+    """What the manifest's pickle builds: its state, nothing else."""
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+_REGISTRY = object()
+
+
+class _TreeDefUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == _TREEDEF_CLASS:
+            return _TreeDefState
+        if (module, name) == _TREEDEF_REGISTRY:
+            return _REGISTRY
+        raise CheckpointCorruptError(
+            f"manifest treedef names the global {module}.{name}; a native pytree file may name only "
+            f"{'.'.join(_TREEDEF_CLASS)} and {'.'.join(_TREEDEF_REGISTRY)}")
+
+
+def _treedef_nodes(hex_stream: str) -> list:
+    """The node list of a manifest's treedef, read without running code."""
+    obj = _TreeDefUnpickler(io.BytesIO(bytes.fromhex(hex_stream))).load()
+    state = getattr(obj, "state", None) if isinstance(obj, _TreeDefState) else None
+    if not (isinstance(state, tuple) and len(state) == 2 and state[0] is _REGISTRY and isinstance(state[1], list)):
+        raise CheckpointCorruptError("manifest treedef is not a jax PyTreeDef over the default registry")
+    return state[1]
+
+
+def _unflatten(nodes: list, leaves: list):
+    stack, it = [], iter(leaves)
+    for node in nodes:
+        kind, arity, data = node[0], node[1], node[2]
+        if kind == _LEAF:
+            stack.append(next(it))
+            continue
+        if kind == _NONE:
+            stack.append(None)
+            continue
+        if arity > len(stack):
+            raise CheckpointCorruptError("manifest treedef is malformed (a node has more children than exist)")
+        children = stack[len(stack) - arity:] if arity else []
+        del stack[len(stack) - arity:]
+        if kind == _TUPLE:
+            stack.append(tuple(children))
+        elif kind == _LIST:
+            stack.append(list(children))
+        elif kind == _DICT and isinstance(data, list) and len(data) == arity:
+            stack.append(dict(zip(data, children)))
+        else:
+            raise CheckpointCorruptError(f"manifest treedef has a node of kind {kind} the port does not read "
+                                         "(namedtuple, custom and dataclass nodes)")
+    if len(stack) != 1:
+        raise CheckpointCorruptError("manifest treedef is malformed (it does not close into one tree)")
+    return stack[0]
+
+
+def _pytree_paths(path: str) -> Tuple[str, str]:
+    path = str(path)
+    base = path[: -len(".npz")] if path.endswith(".npz") else path
+    return base + ".npz", base + ".manifest.json"
+
+
+def _leaf_array(leaf):
+    """A leaf as numpy, and its manifest dtype (bf16 as its uint16 bits)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.uint16), _BF16_MARKER
+        arr = leaf.numpy()
+    else:
+        arr = np.asarray(leaf)
+    if arr.dtype.name == _BF16_MARKER:  # an ml_dtypes array handed over
+        return arr.view(np.uint16), _BF16_MARKER
+    return arr, str(arr.dtype)
+
+
+#: The payload's deflate level. JAX's `np.savez_compressed` deflates at
+#: zlib's default (6); level 1 writes the same layout, which `np.load` and
+#: JAX's `load_pytree` read alike, about 3x faster, and random bf16 weights
+#: compress to 0.80 of their bytes at either level (0.79 at 6).
+PYTREE_DEFLATE_LEVEL = 1
+
+
+def _savez_deflated(f, arrays: Dict[str, np.ndarray]):
+    """`np.savez_compressed`'s zip (one deflated ``<name>.npy`` member per
+    array) at `PYTREE_DEFLATE_LEVEL`."""
+    import zipfile
+
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_DEFLATED, allowZip64=True,
+                         compresslevel=PYTREE_DEFLATE_LEVEL) as zf:
+        for name, arr in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as member:
+                np.lib.format.write_array(member, np.asanyarray(arr), allow_pickle=False)
+
+
+def save_pytree(tree, path: str):
+    """Write a tree of tensors or arrays (nested dicts, lists, tuples, None)
+    as JAX's native pytree file: `<path>` (.npz) and
+    `<path>.manifest.json`, which JAX's `load_pytree` reads. The payload is
+    committed first, then the manifest carrying its digest (JAX's order:
+    the manifest never describes a payload that is not on disk)."""
+    paths, leaves, nodes = [], [], []
+    _tree_nodes(tree, "", paths, leaves, nodes)
+    arrays, dtypes = {}, []
+    for i, leaf in enumerate(leaves):
+        arrays[f"arr_{i}"], dtype = _leaf_array(leaf)
+        dtypes.append(dtype)
+    npz_path, manifest_path = _pytree_paths(path)
+    os.makedirs(os.path.dirname(npz_path) or ".", exist_ok=True)
+    atomic_write(npz_path, lambda f: _savez_deflated(f, arrays))
+    manifest = {"paths": paths, "dtypes": dtypes, "treedef": _treedef_pickle(nodes).hex(),
+                "npz_sha256": file_sha256(npz_path)}
+    atomic_write_json(manifest_path, manifest)
+
+
+def load_pytree(path: str, verify: bool = True):
+    """The tree `save_pytree` (the port's or JAX's) wrote, its leaves CPU
+    tensors (bf16 restored from its bits). With `verify` the payload's
+    SHA-256 is checked against the manifest's first: a mismatch (a torn or
+    truncated npz, bit rot) raises `CheckpointCorruptError`. Manifests
+    without a digest load unverified, as in JAX."""
+    npz_path, manifest_path = _pytree_paths(path)
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    expected = manifest.get("npz_sha256")
+    if verify and expected is not None:
+        actual = file_sha256(npz_path)
+        if actual != expected:
+            raise CheckpointCorruptError(
+                f"{npz_path}: SHA-256 mismatch (manifest {expected[:12]}…, file {actual[:12]}…) "
+                "— torn or corrupted checkpoint artifact")
+    nodes = _treedef_nodes(manifest["treedef"])
+    dtypes = manifest["dtypes"]
+
+    def read(indices):
+        # A zip read by two threads through one handle can see another
+        # member's header ("Overlapped entries"): each thread opens its own.
+        out = []
+        with np.load(npz_path) as data:
+            for i in indices:
+                arr = data[f"arr_{i}"]
+                if not arr.flags.writeable:  # a member read from the zip is a read-only buffer
+                    arr = arr.copy()
+                if dtypes[i] == _BF16_MARKER:
+                    out.append(torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16))
+                else:
+                    out.append(torch.from_numpy(arr))
+        return out
+
+    # The members inflate in threads (zlib releases the GIL), every
+    # `threads`-th member in each.
+    threads = max(1, min(8, os.cpu_count() or 1, len(dtypes)))
+    leaves = [None] * len(dtypes)
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for t, part in enumerate(pool.map(read, [range(t, len(dtypes), threads) for t in range(threads)])):
+            leaves[t::threads] = part
+    return _unflatten(nodes, leaves)

@@ -1,8 +1,9 @@
 """``accelerate-tpu-torch``: the subcommand dispatcher (the port of
 `accelerate_tpu/commands/accelerate_cli.py`). It registers the subcommands
-the port has: `config`, `env`, `estimate-memory`, `launch`, `test` and
-`trace`. JAX's others wait for their ROADMAP A items: `convert` and `tpu`
-for item 2, `plan` for item 3 (tensor parallel's planner), `chaos` and
+the port has: `config`, `convert` (with `merge`, which raises until ROADMAP
+A's order step 6), `env`, `estimate-memory`, `launch`, `test` and `trace`.
+JAX's others wait for their ROADMAP A items: `tpu` for item 2's GPU-host
+bullet, `plan` for item 3 (the planner, after tensor parallel), `chaos` and
 `serve` for item 6, `analysis` for item 7."""
 
 import argparse
@@ -13,9 +14,10 @@ def get_command_parser():
         "accelerate-tpu-torch", usage="accelerate-tpu-torch <command> [<args>]", allow_abbrev=False
     )
     subparsers = parser.add_subparsers(help="accelerate-tpu-torch command helpers", dest="command")
-    from . import config, env, estimate, launch, test, trace
+    from . import config, convert, env, estimate, launch, test, trace
 
     config.register_subcommand(subparsers)
+    convert.register_subcommand(subparsers)
     env.register_subcommand(subparsers)
     estimate.register_subcommand(subparsers)
     launch.register_subcommand(subparsers)
@@ -24,9 +26,10 @@ def get_command_parser():
     return parser
 
 
-def main():
+def main(argv=None):
+    """Dispatch `argv` (the command line's arguments by default)."""
     parser = get_command_parser()
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     if not hasattr(args, "func"):
         parser.print_help()
         raise SystemExit(1)

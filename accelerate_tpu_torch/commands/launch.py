@@ -132,7 +132,7 @@ def refuse_unported(args, config: dict):
     if config.get("sequence_parallel_config"):
         found.append(f"sequence_parallel_config {_SEQUENCE}")
     mesh_cfg = config.get("mesh", {}) or {}
-    for axis in ("model", "seq", "expert", "stage"):
+    for axis in ("seq", "expert", "stage"):  # "model" runs since ROADMAP A item 3's tensor parallel
         size = getattr(args, f"mesh_{axis}")
         size = mesh_cfg.get(axis) if size is None else size
         if size is not None and int(size) != 1:

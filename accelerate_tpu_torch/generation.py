@@ -127,7 +127,10 @@ class CausalPrograms:
     writes the pages back; its attention is the plain one, as the JAX
     package's prefill takes its XLA branch. `step` advances every slot one
     token and `verify` scores a [B, s] token block; both attend through
-    `attention_impl`."""
+    `attention_impl`. The two prefills compute the head on the last
+    position only ([1, 1, V]): the insert samples from it alone (and a
+    tensor-parallel head gathers one row over the ranks, not the
+    prompt's)."""
 
     def __init__(self, model, attention_impl: str):
         self.model = model
@@ -136,10 +139,11 @@ class CausalPrograms:
     @torch.no_grad()
     def prefill(self, input_ids, positions, kv_pools, page_row, span):
         """[1, S] ids at [1, S] consecutive absolute positions through
-        `page_row` ([1, pages] int32, covering every position) -> [1, S, V]
-        logits. `span` is ``(first position, last position + 1)`` as host
-        ints, as JAX's insert takes the matched length and the length as
-        operands: reading them back from `positions` would sync the host.
+        `page_row` ([1, pages] int32, covering every position) -> [1, 1, V]
+        logits of the last position. `span` is ``(first position, last
+        position + 1)`` as host ints, as JAX's insert takes the matched
+        length and the length as operands: reading them back from
+        `positions` would sync the host.
 
         As JAX's paged insert: the row's pages are gathered into a dense
         view (dequantized for a quantized pool), the tokens' K/V are written
@@ -153,7 +157,7 @@ class CausalPrograms:
         page_size = kv_pools[0][0].shape[1]
         start, end = span
         dense = gather_pages(kv_pools, row, self.model.get_input_embeddings().weight.dtype)
-        logits = self.model(input_ids, positions=positions, kv_cache=dense)
+        logits = self.model(input_ids, positions=positions, kv_cache=dense, last_only=True)
         zero_cache_tail(dense, end)
         write_row = row.clone()
         write_row[: start // page_size] = SCRATCH_PAGE
@@ -164,11 +168,11 @@ class CausalPrograms:
     def prefill_rows(self, input_ids, positions, rows):
         """The contiguous engine's insert: [1, S] ids at [1, S] positions
         written straight into the slot's own rows (`rows`, one ([1, L, Hkv,
-        D], ...) view pair per layer) and attended there -> [1, S, V]
-        logits. JAX prefills a batch-1 cache and scatters it into the slot
-        row (`tree_scatter_rows`); writing through the row's view is the
-        same write without the copy."""
-        return self.model(input_ids, positions=positions, kv_cache=rows)
+        D], ...) view pair per layer) and attended there -> [1, 1, V]
+        logits of the last position. JAX prefills a batch-1 cache and
+        scatters it into the slot row (`tree_scatter_rows`); writing through
+        the row's view is the same write without the copy."""
+        return self.model(input_ids, positions=positions, kv_cache=rows, last_only=True)
 
     @torch.no_grad()
     def step(self, token, position, kv_pools, page_table):

@@ -23,6 +23,8 @@ its masters' dtype, as JAX's does. With a `remat_policy` the forward runs inside
 linear layer's product is an fp8 one; under a process group its amaxes are
 the global batch's (`fp8_group`, an all-reduce of each over the processes).
 
+Over a "model" axis the module is first split by its family's Megatron
+table (`Model.sharding_rules`, `parallel.tensor`): tensor parallel.
 Under a process group (`mesh`), the module is placed by the FSDP plugin's
 strategy (`parallel.fsdp.ShardedLayout`: data parallel, ZeRO-2 or torch's
 FSDP), after its parameters are cast to the plugin's `param_dtype` and, with
@@ -53,8 +55,11 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from .ops.fp8 import fp8_autocast
+from .ops.losses import batch_group
 from .ops.remat import check_policy, remat_scope
 from .parallel.fsdp import ShardedLayout, broadcast_module_states
+from .parallel.mesh import data_parallel_group, mesh_sizes
+from .parallel.sharding import refuse_auto
 from .utils.offload import HostArena
 
 #: `FullyShardedDataParallelPlugin`'s dtype names.
@@ -69,6 +74,9 @@ class Model:
 
     module: nn.Module
     loss_fn: Optional[Callable] = None
+    #: The family's Megatron table (`(path regex, spec)` pairs) that places
+    #: the module over a "model" axis; ``"auto"`` (the planner) waits.
+    sharding_rules: Optional[object] = None
 
     def parameters(self):
         return self.module.parameters()
@@ -118,8 +126,13 @@ class PreparedModel:
     def __init__(self, model: Model, device: torch.device, compute_dtype: Optional[torch.dtype] = None,
                  remat_policy: Optional[str] = None, fp8_recipe=None, mesh=None, fsdp_plugin=None,
                  autocast: bool = True, offload_params: bool = False):
-        self.module = model.module.to(device)
+        # Over a "model" axis the module is split where it lies and only this
+        # rank's split moves to the device: a model too large for one card
+        # comes in on the host.
+        split_first = mesh is not None and mesh_sizes(mesh)["model"] > 1
+        self.module = model.module if split_first else model.module.to(device)
         self.loss_fn = model.loss_fn
+        self.sharding_rules = model.sharding_rules
         self.device = device
         self.compute_dtype = compute_dtype
         self.autocast_enabled = autocast and compute_dtype is not None
@@ -132,6 +145,8 @@ class PreparedModel:
                 if param.is_floating_point():
                     param.data = param.data.to(self.param_dtype)
         self.layout: Optional[ShardedLayout] = None
+        #: The group a loss's global mean runs over (`ops.losses.batch_group`).
+        self.data_group = data_parallel_group(mesh)
         if mesh is not None:
             if mesh.size() > 1:
                 from .parallel.expert import MoEBlock
@@ -142,10 +157,18 @@ class PreparedModel:
                         "sharding: JAX routes over the global token axis (capacity and slot order), which a "
                         "router on each process's rows would not reproduce")
                 if fsdp_plugin is not None and fsdp_plugin.sync_module_states:
-                    broadcast_module_states(self.module)
+                    broadcast_module_states(self.module, device)
+            if mesh_sizes(mesh)["model"] > 1:
+                refuse_auto(self.sharding_rules)
+                if fp8_recipe is not None:
+                    raise NotImplementedError(
+                        "fp8 mixed precision over a \"model\" axis waits for ROADMAP A item 3, fp8 with tensor "
+                        "parallel (each split product's amax over its own rows and columns)")
             self.layout = ShardedLayout(self.module, mesh, fsdp_plugin,
                                         compute_dtype=compute_dtype if self.autocast_enabled else None,
-                                        reduce_dtype=self.reduce_dtype)
+                                        reduce_dtype=self.reduce_dtype, rules=self.sharding_rules)
+            if split_first:
+                self.module.to(device)  # in place: the layout's tensors are the module's own
         #: The process group whose fp8 amaxes are reduced together: the
         #: mesh's, whose ("data", "fsdp") axes span every process of the
         #: default group (`parallel.mesh.build_mesh`); None without a mesh.
@@ -241,10 +264,12 @@ class PreparedModel:
         return self._mp_apply(*args, **kwargs)
 
     def loss(self, batch):
-        """The bundled loss under this model's precision policy."""
+        """The bundled loss under this model's precision policy, its mean
+        over the mesh's data ranks (`data_group`)."""
         if self.loss_fn is None:
             raise ValueError("This model bundle has no loss_fn; pass your own loss to backward()")
-        return self.loss_fn(batch, self._mp_apply)
+        with batch_group(self.data_group):
+            return self.loss_fn(batch, self._mp_apply)
 
     def parameters(self):
         return self.module.parameters()

@@ -92,7 +92,9 @@ from .t5 import (
 )
 
 #: name -> config factory, the subset of the JAX package's MODEL_REGISTRY the
-#: port runs.
+#: port runs. JAX's entries pair each factory with its interchange family;
+#: the port reads the family off the config's type (`FAMILY_BY_CONFIG`,
+#: `get_model_family`), so an entry added here needs nothing more.
 MODEL_REGISTRY = {
     "llama-3-8b": llama3_8b,
     "llama-1b": llama_1b,
@@ -111,6 +113,18 @@ MODEL_REGISTRY = {
     "t5-tiny-v1-0": t5_tiny_v1_0,
     "mixtral-8x7b": mixtral_8x7b,
     "mixtral-tiny": mixtral_tiny,
+}
+
+#: config type -> the interchange family (`utils/hf_loading.py`'s keys, and
+#: BERT's), JAX's ``MODEL_REGISTRY[name][0]``.
+FAMILY_BY_CONFIG = {
+    LlamaConfig: "llama",
+    BertConfig: "bert",
+    GPTJConfig: "gptj",
+    GPTNeoXConfig: "gpt_neox",
+    OPTConfig: "opt",
+    T5Config: "t5",
+    MixtralConfig: "mixtral",
 }
 
 #: config type -> the family's model factory (JAX's CREATE_BY_FAMILY).
@@ -185,3 +199,63 @@ def create_named_model(
         raise ValueError(f"unknown model {name!r}; expected one of {sorted(MODEL_REGISTRY)}")
     config = MODEL_REGISTRY[name]()
     return CREATE_BY_FAMILY[type(config)](config, seed=seed, dtype=dtype, device=device)
+
+
+def get_model_family(name: str):
+    """(interchange family, config) for a registered model name (JAX's
+    `get_model_family`)."""
+    key = name.lower()
+    if key not in MODEL_REGISTRY:
+        raise ValueError(f"Unknown in-tree model {name!r}; known: {sorted(MODEL_REGISTRY)}")
+    config = MODEL_REGISTRY[key]()
+    return FAMILY_BY_CONFIG[type(config)], config
+
+
+def state_dict_to_flax(state, config) -> dict:
+    """The inverse of the family's ``*_state_dict_from_flax``: a `state_dict`
+    (or a module) -> JAX's params tree ``{"params": {...}}`` of numpy-able
+    tensors, per layer (``layer_{i}``). Each parameter's flax path and dim
+    order come from `parallel.sharding.flax_view` on a skeleton of the
+    family built on the meta device; a tied parameter appears once, under
+    its first name, as in JAX's tree."""
+    from ..parallel.sharding import flax_view
+
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    with torch.device("meta"):
+        skeleton = MODULE_BY_CONFIG[type(config)](config)
+    tree: dict = {}
+    for view in flax_view(skeleton):
+        parts = view.keys
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = state[view.name].detach().permute(*view.torch_dims).contiguous()
+    return tree
+
+
+def state_dict_from_flax(params, config) -> dict:
+    """`state_dict_to_flax`'s inverse: JAX's per-layer params tree (tensors
+    or arrays, bf16 tensors kept bit for bit) -> the port's `state_dict`,
+    a tied parameter under each of its names. A scanned tree
+    (``scan_layers=True``) goes through the family's own
+    ``*_state_dict_from_flax``, which unstacks it."""
+    from ..parallel.sharding import flax_view
+
+    tree = params["params"] if "params" in params else params
+    with torch.device("meta"):
+        skeleton = MODULE_BY_CONFIG[type(config)](config)
+    by_view = {}
+    for view in flax_view(skeleton):
+        node = tree
+        for part in view.keys[1:]:
+            if not isinstance(node, dict) or part not in node:
+                raise KeyError(f"the params tree has no {view.path} (a {type(config).__name__} per-layer tree "
+                               "is expected; a scanned one loads through the family's *_state_dict_from_flax)")
+            node = node[part]
+        leaf = torch.as_tensor(node) if not isinstance(node, torch.Tensor) else node
+        inverse = [view.torch_dims.index(d) for d in range(len(view.torch_dims))]
+        by_view[view.name] = leaf.permute(*inverse).contiguous()
+    names = {id(p): n for n, p in skeleton.named_parameters()}
+    return {name: by_view[names[id(t)]] for name, t in skeleton.state_dict(keep_vars=True).items()
+            if id(t) in names}

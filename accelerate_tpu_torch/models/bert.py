@@ -45,6 +45,19 @@ from .decoder import Dense
 _TRUNCATED_STD = 0.87962566103423978
 
 
+#: JAX's Megatron table for the family (`accelerate_tpu/models/bert.py`'s BERT_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+BERT_SHARDING_RULES = [
+    (r"qkv/kernel", (None, "model")),
+    (r"attn_out/kernel", ("model", None)),
+    (r"mlp_up/kernel", (None, "model")),
+    (r"mlp_down/kernel", ("model", None)),
+    (r"word_embeddings/embedding", ("model", None)),
+]
+
+
 @dataclass
 class BertConfig:
     vocab_size: int = 30522
@@ -148,6 +161,9 @@ def sequence_classification_loss(batch, apply_fn):
 
 
 class BertForSequenceClassification(nn.Module):
+
+    sharding_rules = BERT_SHARDING_RULES
+
     #: The loss `Accelerator.prepare` bundles with this model, as JAX's
     #: `create_bert_model` bundles it.
     loss_fn = staticmethod(sequence_classification_loss)

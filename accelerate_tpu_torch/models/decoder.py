@@ -92,7 +92,8 @@ class DecoderAttention(nn.Module):
 
     def forward(self, hidden, positions, *modes):
         b, s, _ = hidden.shape
-        q, k, v = (w(hidden).reshape(b, s, self.heads, self.head_dim) for w in (self.wq, self.wk, self.wv))
+        # The head count is the projections' (a tensor-parallel rank's holds its own heads).
+        q, k, v = (w(hidden).reshape(b, s, -1, self.head_dim) for w in (self.wq, self.wk, self.wv))
         if self.rotary is not None:
             q, k = self.rotary(q, positions), self.rotary(k, positions)
         return self.wo(attend(q, k, v, positions, *modes).reshape(b, s, -1))
@@ -111,6 +112,8 @@ class CausalDecoder(nn.Module):
 
     loss_fn = staticmethod(causal_lm_loss)
     slot_serving = True
+    #: Whether `parallel.tensor.shard_module` splits this family over "model".
+    tensor_parallel = False
 
     def get_input_embeddings(self) -> nn.Embedding:
         raise NotImplementedError
@@ -123,7 +126,7 @@ class CausalDecoder(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, positions=None, kv_pools=None, page_table=None,
                 attention_impl: str = "gather", kv_cache=None, decode_cache: Optional[DecodeCache] = None,
-                return_aux: bool = False):
+                return_aux: bool = False, last_only: bool = False):
         """[B, S] token ids -> [B, S, vocab] logits; the first three arguments
         in JAX's order (`LlamaForCausalLM.__call__`).
 
@@ -148,7 +151,8 @@ class CausalDecoder(nn.Module):
         A block may return ``(hidden, aux)``, a dict of scalar losses
         (Mixtral's router losses); with `return_aux` the forward returns
         ``(logits, aux)``, each entry summed over the layers and divided by
-        their number, as JAX's `MixtralForCausalLM` does."""
+        their number, as JAX's `MixtralForCausalLM` does. With `last_only`
+        the head runs on the last position alone ([B, 1, vocab] logits)."""
         b, s = input_ids.shape
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
@@ -169,6 +173,8 @@ class CausalDecoder(nn.Module):
                 hidden = out
         if decode_cache is not None:
             decode_cache.index += s
+        if last_only:
+            hidden = hidden[:, -1:]
         logits = self.head(self.final_norm(hidden))
         if not return_aux:
             return logits

@@ -40,6 +40,20 @@ from .decoder import (
 from .llama import rotary_embedding
 
 
+#: JAX's Megatron table for the family (`accelerate_tpu/models/gpt_neox.py`'s GPT_NEOX_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+GPT_NEOX_SHARDING_RULES = [
+    (r"(wq|wk|wv)/kernel", (None, "model")),
+    (r"wo/kernel", ("model", None)),
+    (r"dense_h_to_4h/kernel", (None, "model")),
+    (r"dense_4h_to_h/kernel", ("model", None)),
+    (r"embed_in/embedding", ("model", None)),
+    (r"embed_out/kernel", (None, "model")),
+]
+
+
 @dataclass
 class GPTNeoXConfig:
     """JAX's fields the port runs (its XLA-only `scan_layers` and
@@ -107,6 +121,13 @@ class GPTNeoXBlock(nn.Module):
 
 
 class GPTNeoXForCausalLM(CausalDecoder):
+
+    sharding_rules = GPT_NEOX_SHARDING_RULES
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`);
+    #: the head's logits are gathered over the vocab.
+    tensor_parallel = True
+    tp_gathered = ("embed_out",)
+
     def __init__(self, cfg: GPTNeoXConfig):
         super().__init__()
         self.config = cfg

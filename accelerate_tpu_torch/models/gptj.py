@@ -35,6 +35,20 @@ from .decoder import (
 )
 
 
+#: JAX's Megatron table for the family (`accelerate_tpu/models/gptj.py`'s GPTJ_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+GPTJ_SHARDING_RULES = [
+    (r"(wq|wk|wv)/kernel", (None, "model")),
+    (r"wo/kernel", ("model", None)),
+    (r"fc_in/kernel", (None, "model")),
+    (r"fc_out/kernel", ("model", None)),
+    (r"wte/embedding", ("model", None)),
+    (r"lm_head/kernel", (None, "model")),
+]
+
+
 @dataclass
 class GPTJConfig:
     vocab_size: int = 50400
@@ -93,6 +107,9 @@ class GPTJBlock(nn.Module):
 
 
 class GPTJForCausalLM(CausalDecoder):
+
+    sharding_rules = GPTJ_SHARDING_RULES
+
     slot_serving = False
 
     def __init__(self, cfg: GPTJConfig):

@@ -47,6 +47,20 @@ from ..ops.attention import attend
 from .decoder import CausalDecoder, DecoderLayeredApply, causal_lm_loss  # noqa: F401  (causal_lm_loss: JAX's home for it)
 
 
+#: JAX's Megatron table for the family (`accelerate_tpu/models/llama.py`'s LLAMA_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+LLAMA_SHARDING_RULES = [
+    (r"(wq|wk|wv)/kernel", (None, "model")),
+    (r"wo/kernel", ("model", None)),
+    (r"(w_gate|w_up)/kernel", (None, "model")),
+    (r"w_down/kernel", ("model", None)),
+    (r"embed_tokens/embedding", ("model", None)),
+    (r"lm_head/kernel", (None, "model")),
+]
+
+
 @dataclass
 class LlamaConfig:
     vocab_size: int = 128256
@@ -109,12 +123,14 @@ class LlamaAttention(nn.Module):
         then the block's decode mask (`decode_cache_mask`)."""
         cfg = self.cfg
         b, s, _ = hidden.shape
-        hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = rotary_embedding(self.wq(hidden).reshape(b, s, hq, d), positions, cfg.rope_theta)
-        k = rotary_embedding(self.wk(hidden).reshape(b, s, hkv, d), positions, cfg.rope_theta)
-        v = self.wv(hidden).reshape(b, s, hkv, d)
+        d = cfg.head_dim
+        # The head counts are the projections' (a tensor-parallel rank's
+        # wq holds its query heads, wk and wv its KV heads).
+        q = rotary_embedding(self.wq(hidden).reshape(b, s, -1, d), positions, cfg.rope_theta)
+        k = rotary_embedding(self.wk(hidden).reshape(b, s, -1, d), positions, cfg.rope_theta)
+        v = self.wv(hidden).reshape(b, s, -1, d)
         out = attend(q, k, v, positions, attention_mask, kv_pool, page_table, attention_impl, kv_cache, decode_cache)
-        return self.wo(out.reshape(b, s, hq * d))
+        return self.wo(out.reshape(b, s, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -150,6 +166,12 @@ class LlamaForCausalLM(CausalDecoder):
     the embedding when `tie_word_embeddings`. Its `loss_fn` is
     `causal_lm_loss`, as JAX's `create_llama_model` bundles it."""
 
+    sharding_rules = LLAMA_SHARDING_RULES
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`);
+    #: the head's logits are gathered over the vocab.
+    tensor_parallel = True
+    tp_gathered = ("lm_head",)
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.config = cfg
@@ -163,7 +185,8 @@ class LlamaForCausalLM(CausalDecoder):
 
     def head(self, hidden):
         if self.lm_head is None:
-            return hidden @ self.embed_tokens.weight.T
+            tied = getattr(self.embed_tokens, "logits", None)  # a vocab-parallel table's own head
+            return tied(hidden) if tied is not None else hidden @ self.embed_tokens.weight.T
         return self.lm_head(hidden)
 
 

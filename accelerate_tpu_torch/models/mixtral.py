@@ -31,9 +31,22 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike
-from ..parallel.expert import MoEBlock
+from ..parallel.expert import EXPERT_SHARDING_RULES, MoEBlock
 from .decoder import CausalDecoder, random_init, state_dict_from_flax
 from .llama import LlamaAttention, LlamaConfig, RMSNorm
+
+
+#: JAX's Megatron table for the family (`accelerate_tpu/models/mixtral.py`'s MIXTRAL_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+MIXTRAL_SHARDING_RULES = [
+    (r"(wq|wk|wv)/kernel", (None, "model")),
+    (r"wo/kernel", ("model", None)),
+    (r"embed_tokens/embedding", ("model", None)),
+    (r"lm_head/kernel", (None, "model")),
+    (r"router/kernel", ()),  # tiny; replicate
+] + EXPERT_SHARDING_RULES
 
 
 @dataclass
@@ -111,6 +124,8 @@ class MixtralForCausalLM(CausalDecoder):
     """`CausalDecoder.forward` over Mixtral's layers, with an untied
     `lm_head`; its `loss_fn` is `make_moe_causal_lm_loss(config)`, as
     JAX's `create_mixtral_model` bundles it."""
+
+    sharding_rules = MIXTRAL_SHARDING_RULES
 
     slot_serving = False
 

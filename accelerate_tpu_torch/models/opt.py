@@ -40,6 +40,19 @@ from .decoder import (
 POSITION_OFFSET = 2
 
 
+#: JAX's Megatron table for the family (`accelerate_tpu/models/opt.py`'s OPT_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+OPT_SHARDING_RULES = [
+    (r"(wq|wk|wv)/kernel", (None, "model")),
+    (r"wo/kernel", ("model", None)),
+    (r"fc1/kernel", (None, "model")),
+    (r"fc2/kernel", ("model", None)),
+    (r"embed_tokens/embedding", ("model", None)),
+]
+
+
 @dataclass
 class OPTConfig:
     vocab_size: int = 50272
@@ -74,6 +87,9 @@ class OPTBlock(nn.Module):
 
 
 class OPTForCausalLM(CausalDecoder):
+
+    sharding_rules = OPT_SHARDING_RULES
+
     slot_serving = False
 
     def __init__(self, cfg: OPTConfig):

@@ -44,6 +44,20 @@ from .decoder import Dense, _Call, call_with, flax_tree_to_state_dict, random_in
 from .llama import RMSNorm
 
 
+#: JAX's Megatron table for the family (`accelerate_tpu/models/t5.py`'s T5_SHARDING_RULES):
+#: `(path regex, PartitionSpec)` over the flax tree's paths, first match
+#: wins. `parallel.sharding.spec_for_param` reads it on the flax view of
+#: the port's parameters.
+T5_SHARDING_RULES = [
+    (r"(wq|wk|wv)/kernel", (None, "model")),
+    (r"wo/kernel", ("model", None)),
+    (r"(wi_0|wi_1)/kernel", (None, "model")),
+    (r"wo_ff/kernel", ("model", None)),
+    (r"shared/embedding", ("model", None)),
+    (r"lm_head/kernel", (None, "model")),
+]
+
+
 @dataclass
 class T5Config:
     """JAX's fields the port runs (`param_dtype` is the factory's `dtype`;
@@ -237,6 +251,8 @@ class T5ForConditionalGeneration(nn.Module):
     decoder_input_ids, attention_mask)`, teacher-forced) or split as cached
     generation uses it: `encode` once, then `decode` a block at a time over
     a `DecodeCache` (`make_decode_cache`)."""
+
+    sharding_rules = T5_SHARDING_RULES
 
     loss_fn = staticmethod(seq2seq_lm_loss)
     slot_serving = False

@@ -34,6 +34,28 @@ def local_means():
         _LOCAL["depth"] -= 1
 
 
+_GROUP = {"group": None}
+
+
+@contextlib.contextmanager
+def batch_group(group):
+    """Inside, `global_mean` reduces over `group`, the ranks whose batch
+    rows differ. None is every process. Under a "model" axis the ranks of
+    one data shard see the same rows: the caller that owns the mesh (the
+    prepared model's `loss`, the fused step, `Accelerator.backward`)
+    enters its ("data", "fsdp") group (`parallel.mesh.data_parallel_group`)."""
+    saved = _GROUP["group"]
+    _GROUP["group"] = group
+    try:
+        yield
+    finally:
+        _GROUP["group"] = saved
+
+
+def _data_group():
+    return _GROUP["group"]
+
+
 class _MeanOfMeans(torch.autograd.Function):
     """Forward: the mean of every process's value. Backward: the gradient
     as it is."""
@@ -41,8 +63,8 @@ class _MeanOfMeans(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local):
         total = local.detach().clone()
-        dist.all_reduce(total)
-        return total / dist.get_world_size()
+        dist.all_reduce(total, group=_data_group())
+        return total / data_parallel_world()
 
     @staticmethod
     def backward(ctx, grad):
@@ -50,8 +72,11 @@ class _MeanOfMeans(torch.autograd.Function):
 
 
 def data_parallel_world() -> int:
-    """The number of processes a gradient is averaged over (1 without a group)."""
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    """The number of processes a gradient is averaged over (1 without a
+    group): the world, or its ("data", "fsdp") ranks under a "model" axis."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size(_data_group())
 
 
 class _GlobalSum(torch.autograd.Function):
@@ -61,9 +86,9 @@ class _GlobalSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, share):
-        ctx.world = dist.get_world_size()
+        ctx.world = data_parallel_world()
         total = share.detach().clone()
-        dist.all_reduce(total)
+        dist.all_reduce(total, group=_data_group())
         return total
 
     @staticmethod
@@ -94,5 +119,5 @@ def global_mean(values: torch.Tensor, weights: Optional[torch.Tensor] = None) ->
     else:
         total = (values * weights).sum()
         count = weights.sum().detach().clone()
-    dist.all_reduce(count)
+    dist.all_reduce(count, group=_data_group())
     return _GlobalSum.apply(total / count.clamp_min(1.0))

@@ -185,23 +185,30 @@ class Int8Linear(nn.Module):
         self.register_buffer("bias", bias)
 
     @classmethod
-    def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
+    def from_linear(cls, linear: nn.Linear, device=None) -> "Int8Linear":
+        """`linear` quantized; with `device`, the arithmetic runs there and
+        the int8 weight and scale come back to the layer's device."""
         bias = None if linear.bias is None else linear.bias.detach()
-        return cls(*quantize_weight_int8(linear.weight), bias)
+        home = linear.weight.device
+        q, scale = quantize_weight_int8(linear.weight if device is None else linear.weight.to(device))
+        return cls(q.to(home), scale.to(home), bias)
 
     def forward(self, x):
         y = (F.linear(x, self.q.to(x.dtype)).float() * self.scale).to(x.dtype)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
-def quantize_model_int8(model: nn.Module) -> nn.Module:
+def quantize_model_int8(model: nn.Module, device=None) -> nn.Module:
     """A copy of `model` whose every `nn.Linear` is an `Int8Linear` (for
     Llama: wq, wk, wv, wo, w_gate, w_up, w_down and an untied lm_head; for
     GPT-NeoX its biased projections and `embed_out`); embeddings, norms and
     the linear layers' biases are the caller's own tensors, shared, not
     copied.
     The caller's model is not changed, and a model with no `nn.Linear` left
-    comes back as a copy with the same tensors (idempotent)."""
+    comes back as a copy with the same tensors (idempotent). With `device`
+    each layer is quantized there, one at a time, and kept where the model
+    lies (a host model's layers on the card: the card's arithmetic, at
+    one layer's memory)."""
     import copy
 
     memo = {}
@@ -213,7 +220,8 @@ def quantize_model_int8(model: nn.Module) -> nn.Module:
         else:
             for t in [*module.parameters(recurse=False), *module.buffers(recurse=False)]:
                 memo[id(t)] = t  # shared
-    quantized = {name: Int8Linear.from_linear(m) for name, m in model.named_modules() if isinstance(m, nn.Linear)}
+    quantized = {name: Int8Linear.from_linear(m, device) for name, m in model.named_modules()
+                 if isinstance(m, nn.Linear)}
     out = copy.deepcopy(model, memo)
     for name, layer in quantized.items():
         parent_name, _, child = name.rpartition(".")

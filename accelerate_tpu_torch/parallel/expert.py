@@ -31,6 +31,15 @@ from torch import nn
 from ..models.decoder import Dense
 
 
+#: JAX's expert rules (`accelerate_tpu/parallel/expert.py`): the experts'
+#: [E, in, out] kernels over ("expert", ..., "model"). Mixtral's table ends
+#: with them; the "expert" axis waits for ROADMAP A item 3, expert sharding.
+EXPERT_SHARDING_RULES = [
+    (r"experts/(w_gate|w_up)/kernel", ("expert", None, "model")),
+    (r"experts/w_down/kernel", ("expert", "model", None)),
+]
+
+
 def expert_capacity(num_tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
     """Slots per expert: the even share times top_k times the slack (GShard's
     rule), at least 1."""

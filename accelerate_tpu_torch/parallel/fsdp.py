@@ -22,8 +22,20 @@ optimizer state follow (the port of what GSPMD does for the JAX package's
   - NO_SHARD, and no plugin: data parallel, every gradient all-reduced in
     one flat buffer per dtype.
 
-Every reduction averages over all the processes; the losses' global mean
-(`ops.losses.global_mean`) gives each the gradient that average expects.
+With a "model" axis above 1 (tensor parallel; "fsdp" is then 1 and the
+plugin, if any, NO_SHARD), the module is first split by the family's
+Megatron rules (`parallel.tensor.shard_module`): each rank holds its split
+of every rule-matched weight, and its optimizer state follows. The
+gradients are then averaged over "data" only: the "model" ranks of one
+data shard hold the same batch, a replicated parameter (a norm) gets the
+same gradient on each, and a split one its own part. The global norm sums
+each split parameter's squares over "model" and counts a replicated one
+once; the whole state dict and the whole optimizer state gather each split
+tensor over "model", and a whole one loads split again.
+
+Every reduction averages over the processes of the batch's axes; the
+losses' global mean (`ops.losses.global_mean`) gives each the gradient
+that average expects.
 """
 
 from __future__ import annotations
@@ -36,15 +48,24 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from .mesh import MODEL_WITH_FSDP, mesh_sizes
 from .sharding import derive_opt_state_placements, derive_param_placements
+from .tensor import TPGroup, shard_module
 
 
 @torch.no_grad()
-def broadcast_module_states(module: nn.Module):
+def broadcast_module_states(module: nn.Module, device: Optional[torch.device] = None):
     """Every parameter and buffer of `module` as process 0 holds it (FSDP's
-    `sync_module_states`); run before anything is sharded."""
+    `sync_module_states`); run before anything is sharded. Under NCCL a
+    tensor on the host goes through `device`, one tensor at a time."""
+    nccl = dist.get_backend() == "nccl"
     for tensor in (*module.parameters(), *module.buffers()):
-        dist.broadcast(tensor.data, src=0)
+        if nccl and tensor.device.type == "cpu":
+            staged = tensor.data.to(device)
+            dist.broadcast(staged, src=0)
+            tensor.data.copy_(staged)
+        else:
+            dist.broadcast(tensor.data, src=0)
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -70,21 +91,34 @@ class ShardedLayout:
     tables it was built from."""
 
     def __init__(self, module: nn.Module, mesh, fsdp_plugin=None, compute_dtype: Optional[torch.dtype] = None,
-                 reduce_dtype: Optional[torch.dtype] = None):
+                 reduce_dtype: Optional[torch.dtype] = None, rules=None):
         self.module = module
         self.mesh = mesh
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-        self.data_size, self.fsdp_size = int(sizes["data"]), int(sizes["fsdp"])
+        sizes = mesh_sizes(mesh)
+        self.data_size, self.fsdp_size, self.model_size = sizes["data"], sizes["fsdp"], sizes["model"]
         self.world = self.data_size * self.fsdp_size
         self.fsdp_group = mesh["fsdp"].get_group()
         self.data_group = mesh["data"].get_group()
         self.fsdp_index = mesh["fsdp"].get_local_rank()
+        # The optimizer a user built holds the original parameters: `adopt`
+        # finds them by id (the names outlive a tensor-parallel split).
+        self._names_by_id = {id(p): n for n, p in module.named_parameters()}
+        #: The "model" group and {name: torch dim split over it} under tensor parallel.
+        self.tp: Optional[TPGroup] = None
+        self.tp_dims: Dict[str, int] = {}
+        # The gradient average's group: every process, or "data" under a "model" axis.
+        self._grad_group = None
+        if self.model_size > 1:
+            if fsdp_plugin is not None and (fsdp_plugin.shards_params or fsdp_plugin.shards_opt_state):
+                raise NotImplementedError(
+                    f"{fsdp_plugin.sharding_strategy} over a \"model\" axis of size {self.model_size}: waits "
+                    f"for {MODEL_WITH_FSDP}")
+            self.tp = TPGroup(mesh["model"].get_group())
+            self.tp_dims = shard_module(module, rules, self.tp)
+            self._grad_group = self.data_group
         self.param_dims = derive_param_placements(module, sizes, fsdp_plugin, shard_single=True)
         self.opt_dims = derive_opt_state_placements(module, sizes, fsdp_plugin, shard_single=True)
         params = dict(module.named_parameters())
-        # The optimizer a user built holds the original parameters: `adopt`
-        # finds them by id.
-        self._names_by_id = {id(p): n for n, p in params.items()}
         self.uses_fsdp = any(d is not None for d in self.param_dims.values())
         if self.uses_fsdp:
             self._wrap(params, compute_dtype, reduce_dtype)
@@ -105,6 +139,7 @@ class ShardedLayout:
                     self.update[name] = nn.Parameter(param.detach().narrow(dim, self.fsdp_index * size, size))
             self.shard_dims = dict(self.opt_dims)
         self._sharded_ids = {id(self.update[n]) for n, d in self.shard_dims.items() if d is not None}
+        self._tp_ids = {id(self.update[n]) for n in self.tp_dims if n in self.update}
         #: False while each process steps on its own gradients (`LocalSGD`).
         self.sync_gradients = True
         self._names_by_id.update({id(t): n for n, t in self.update.items()})
@@ -168,7 +203,7 @@ class ShardedLayout:
         ZeRO-2 each sharded one reduce-scattered onto its shard (whose
         `.grad` it becomes; the full gradient is dropped). Nothing while
         `sync_gradients` is off."""
-        if not self.sync_gradients:
+        if not self.sync_gradients or (self.model_size > 1 and self.world == 1):
             return
         replicated: Dict[torch.dtype, List[torch.Tensor]] = {}
         for name, param in self.orig.items():
@@ -188,7 +223,7 @@ class ShardedLayout:
             param.grad = None
         for grads in replicated.values():
             flat = torch._utils._flatten_dense_tensors(grads)
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self._grad_group)
             flat.div_(self.world)
             for grad, synced in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
                 grad.copy_(synced)
@@ -209,8 +244,16 @@ class ShardedLayout:
         the per-tensor norms): a sharded gradient's norm is the root of its
         shards' squares summed over "fsdp" (one all-reduce for all of them;
         over a one-member axis the shard is the whole gradient)."""
-        entries = [(self.is_sharded(p), torch.linalg.vector_norm(_local(p.grad).float()))
-                   for p in params if p.grad is not None]
+        params = [p for p in params if p.grad is not None]
+        entries = [(self.is_sharded(p), torch.linalg.vector_norm(_local(p.grad).float())) for p in params]
+        split = [id(p) in self._tp_ids for p in params]
+        if any(split):
+            # A tensor-parallel split's norm: the root of its parts' squares
+            # summed over "model"; a replicated gradient counts once.
+            squares = torch.stack([norm for s, (_, norm) in zip(split, entries) if s]).square()
+            squares = self.tp.all_reduce(squares)
+            roots = iter(squares.sqrt().unbind(0))
+            entries = [(sharded, next(roots) if s else norm) for s, (sharded, norm) in zip(split, entries)]
         if self.fsdp_size > 1 and any(sharded for sharded, _ in entries):
             squares = torch.stack([norm for sharded, norm in entries if sharded]).square()
             dist.all_reduce(squares, group=self.fsdp_group)
@@ -232,12 +275,33 @@ class ShardedLayout:
         """This process's shard of a whole tensor on `dim`."""
         return full.chunk(self.fsdp_size, dim=dim)[self.fsdp_index]
 
+    def gather_model(self, part: torch.Tensor, name: str) -> torch.Tensor:
+        """The whole of a tensor-parallel split (collective over "model"), or
+        `part` itself for a tensor `name` does not split."""
+        dim = self.tp_dims.get(name)
+        if dim is None:
+            return part
+        part = _local(part).detach()
+        chunks = part.movedim(dim, 0).contiguous()
+        parts = [torch.empty_like(chunks) for _ in range(self.model_size)]
+        dist.all_gather(parts, chunks, group=self.tp.group)
+        return torch.cat(parts, dim=0).movedim(0, dim)
+
+    def split_model(self, full: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's split of a whole tensor `name`, or the tensor whole."""
+        dim = self.tp_dims.get(name)
+        return full if dim is None else full.chunk(self.model_size, dim=dim)[self.tp.rank]
+
     def local_entry(self, value: torch.Tensor, dim: Optional[int], global_shape=None):
         """(this process's tensor, the whole shape, its ``[[start, stop],
         ...]`` in the whole tensor) of `value`, sharded on `dim` over
         "fsdp" or, with `dim` None, whole. The shard is `torch.chunk`'s part
         (FSDP's and `shard`'s split): the bounds span its own elements,
         never a padding. No collective."""
+        if self.model_size > 1:
+            raise NotImplementedError(
+                "a sharded checkpoint over a \"model\" axis waits for ROADMAP A item 3, tensor parallel's "
+                "sharded checkpoints; save_state(sharded=False) writes the whole tree")
         local = _local(value).detach()
         shape = tuple(int(d) for d in (value.shape if global_shape is None else global_shape))
         bounds = [[0, d] for d in shape]
@@ -256,7 +320,7 @@ class ShardedLayout:
             dim = self.param_dims.get(name) if self.uses_fsdp else None
             if dim is not None:
                 value = self.gather(value, dim)
-            out[name] = _local(value).detach().to("cpu", copy=True)
+            out[name] = self.gather_model(_local(value).detach(), name).to("cpu", copy=True)
         return out
 
     @torch.no_grad()
@@ -270,7 +334,7 @@ class ShardedLayout:
         if missing or unexpected:
             raise KeyError(f"state dict does not match the model: missing {missing[:5]}, unexpected {unexpected[:5]}")
         for name, target in current.items():
-            value = state[name]
+            value = self.split_model(state[name], name)
             dim = self.param_dims.get(name) if self.uses_fsdp else None
             if dim is not None:
                 value = self.shard(value, dim)
@@ -286,9 +350,11 @@ class ShardedLayout:
         names = self._optimizer_names(optimizer)
         packed = {}
         for index, entry in state["state"].items():
-            dim = self.shard_dims[names[index]]
+            name = names[index]
+            dim = self.shard_dims[name]
             packed[index] = {
-                key: (self.gather(value, dim) if dim is not None else _local(value)).detach().to("cpu", copy=True)
+                key: self.gather_model((self.gather(value, dim) if dim is not None else _local(value)).detach(),
+                                       name).to("cpu", copy=True)
                 if torch.is_tensor(value) and value.dim() > 0 else value
                 for key, value in entry.items()
             }
@@ -306,7 +372,7 @@ class ShardedLayout:
             placed[index] = {}
             for key, value in entry.items():
                 if torch.is_tensor(value) and value.dim() > 0:
-                    value = value.to(_local(param).device)
+                    value = self.split_model(value.to(_local(param).device), names[index]).contiguous()
                     if dim is not None:
                         value = self.shard(value, dim).contiguous()
                     if isinstance(param, DTensor):

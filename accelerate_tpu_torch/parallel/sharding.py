@@ -16,22 +16,37 @@ dim" is torch dim 0; a flax conv kernel is [kh, kw, in, out], a torch one
 so a user's `transformer_cls_names_to_wrap` patterns, the size threshold,
 the divisibility rule and the embedding rule mean what they mean in JAX.
 
-The tensor-parallel half (`serving_tp_mesh`, `derive_tp_*`) and the
-planner's rule tables wait for ROADMAP A item 3, tensor parallel.
+The tensor-parallel half is JAX's too: `spec_for_param` takes the family's
+Megatron rules (`LLAMA_SHARDING_RULES`, ...) first, a rule's "model" dim
+extended by "fsdp" where both apply, as JAX's does; `serving_tp_mesh` picks
+a serving engine's ranks; `derive_tp_param_shardings` and
+`derive_tp_cache_shardings` are JAX's tables over the flax view of the
+engine's weights and a named view of its pools (`tp_cache_tree`), and
+`tree_device_nbytes` counts the bytes this rank holds. `parallel.tensor`
+applies the tables: each rank keeps its split of every rule-matched weight
+and of the KV pool's heads. The planner (`sharding_rules="auto"`) waits
+for ROADMAP A item 3's planner bullet.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from torch import nn
 
 from ..utils.constants import DATA_AXES
 
 _SMALL_PARAM_DEFAULT = 2**16  # below this, sharding costs more than it saves (JAX's threshold)
+
+#: The ROADMAP A item 3 bullet that lowers ``sharding_rules="auto"``.
+PLANNER = "ROADMAP A item 3, the planner (parallel/planner.py and commands/plan.py)"
+
+logger = logging.getLogger(__name__)
 
 
 def tree_paths_and_leaves(tree, prefix: str = "") -> List[Tuple[str, object]]:
@@ -64,24 +79,50 @@ def _fsdp_dim(path: str, shape, fsdp_size: int, taken_dims: set) -> Optional[int
     return max(candidates, key=lambda i: shape[i])
 
 
+def _axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def refuse_auto(rules):
+    """``sharding_rules="auto"`` names the planner, which waits."""
+    if isinstance(rules, str):
+        raise NotImplementedError(
+            f"sharding_rules={rules!r}: the cost-model planner that lowers it to a rules table waits for "
+            f"{PLANNER}; pass the family's table (the default) or a rules list")
+
+
 def spec_for_param(path: str, shape: Sequence[int], mesh_sizes: dict, fsdp_plugin=None,
-                   min_shard_size: Optional[int] = None, shard_single: bool = False) -> tuple:
-    """JAX's spec for one parameter in flax layout: a tuple with "fsdp" at
-    the sharded dim (trailing Nones dropped), or ``()``. `mesh_sizes` maps
-    axis names to sizes. The wrap policy decides which parameters join
-    the shard group: SIZE_BASED_WRAP or None a size threshold
-    (`min_num_params`, else 2**16); TRANSFORMER_BASED_WRAP only paths
-    matching a `transformer_cls_names_to_wrap` pattern; NO_WRAP every
-    divisible parameter.
+                   min_shard_size: Optional[int] = None, shard_single: bool = False,
+                   rules: Optional[Sequence] = None) -> tuple:
+    """JAX's spec for one parameter in flax layout: a tuple with the mesh
+    axes of each sharded dim (trailing Nones dropped), or ``()``.
+    `mesh_sizes` maps axis names to sizes. The first of `rules` (``(path
+    regex, spec)`` pairs, the family's Megatron table) that matches the
+    path gives the tensor-parallel spec; then "fsdp" joins it. A rule's
+    sharded dim is extended by "fsdp" where the group divides it (JAX's
+    Megatron+ZeRO convention), else "fsdp" takes a free dim. The wrap
+    policy decides which parameters join the shard group: SIZE_BASED_WRAP
+    or None a size threshold (`min_num_params`, else 2**16);
+    TRANSFORMER_BASED_WRAP only paths matching a
+    `transformer_cls_names_to_wrap` pattern; NO_WRAP every divisible
+    parameter.
 
     `shard_single`: over a one-member "fsdp" axis a shard is the whole
     tensor, and JAX's table is all replicated; with it, the table instead
     names the dim each parameter would shard on, so `prepare` can run the
     sharded machinery (the group, the wrapped module, the collectives) at
     one process. The placement is the same."""
+    refuse_auto(rules)
     shape = tuple(shape)
     size = int(np.prod(shape)) if shape else 1
     spec = [None] * len(shape)
+    matched = False
+    for pattern, rule_spec in rules or ():
+        if re.search(pattern, path):
+            rule_spec = tuple(rule_spec)[: len(shape)]
+            spec = list(rule_spec) + [None] * (len(shape) - len(rule_spec))
+            matched = True
+            break
     fsdp_size = int(mesh_sizes.get("fsdp", 1))
     shards_params = fsdp_plugin is not None and fsdp_plugin.shards_params
     policy = getattr(fsdp_plugin, "auto_wrap_policy", None) if fsdp_plugin else None
@@ -94,10 +135,21 @@ def spec_for_param(path: str, shape: Sequence[int], mesh_sizes: dict, fsdp_plugi
         wrap_names = getattr(fsdp_plugin, "transformer_cls_names_to_wrap", None) or []
         if not any(re.search(pat, path) for pat in wrap_names):
             shards_params = False
-    if (fsdp_size > 1 or shard_single) and shards_params and size >= threshold:
-        dim = _fsdp_dim(path, shape, fsdp_size, set())
-        if dim is not None:
-            spec[dim] = "fsdp"
+    used = {axis for entry in spec for axis in _axes(entry)}
+    if (fsdp_size > 1 or shard_single) and shards_params and size >= threshold and "fsdp" not in used:
+        taken = {i for i, entry in enumerate(spec) if entry is not None}
+        extended = False
+        if matched and taken:
+            for i in sorted(taken, reverse=True):
+                group = fsdp_size * int(np.prod([mesh_sizes.get(a, 1) for a in _axes(spec[i])]))
+                if shape[i] % group == 0 and shape[i] >= group:
+                    spec[i] = _axes(spec[i]) + ("fsdp",)
+                    extended = True
+                    break
+        if not extended:
+            dim = _fsdp_dim(path, shape, fsdp_size, taken)
+            if dim is not None and spec[dim] is None:
+                spec[dim] = "fsdp"
     while spec and spec[-1] is None:
         spec.pop()
     return tuple(spec)
@@ -134,6 +186,12 @@ class ParamView:
     path: str
     flax_shape: Tuple[int, ...]
     torch_dims: Tuple[int, ...]
+    leaf: str = ""  # the path's last key (``kernel``; a bare parameter's ``w_gate/kernel``)
+
+    @property
+    def keys(self) -> List[str]:
+        """The path's keys in JAX's tree (a leaf name may hold a '/')."""
+        return self.path[: -len(self.leaf) - 1].split("/") + [self.leaf]
 
     def torch_dim(self, spec: tuple) -> Optional[int]:
         """The torch dim a flax spec shards, or None."""
@@ -189,7 +247,7 @@ def flax_view(module: nn.Module) -> List[ParamView]:
             mpath = _flax_module_path(mod_name)
             path = "params/" + (f"{mpath}/" if mpath else "") + leaf
             shape = tuple(param.shape[d] for d in dims)
-            views.append(ParamView(f"{mod_name}.{pname}" if mod_name else pname, path, shape, dims))
+            views.append(ParamView(f"{mod_name}.{pname}" if mod_name else pname, path, shape, dims, leaf))
     order = {name: i for i, (name, _) in enumerate(module.named_parameters())}
     return sorted(views, key=lambda v: order.get(v.name, len(order)))
 
@@ -217,3 +275,147 @@ def data_spec(mesh_sizes: Optional[dict] = None) -> tuple:
     `data_spec`; rank r of the row-major mesh takes the r-th contiguous
     share of the global batch."""
     return (DATA_AXES,)
+
+
+# ------------------------------------------------------------------ tensor parallel
+def serving_tp_mesh(tp: int, devices: Optional[Sequence[int]] = None, group: int = 0) -> List[int]:
+    """The ranks of a `tp`-wide serving engine (JAX's one-axis ("model",)
+    submesh, over the process group's ranks): `devices` names them, else
+    the g-th disjoint block of `tp` ranks, wrapping, with JAX's warning,
+    when the world has fewer than ``(group + 1) * tp`` ranks."""
+    import torch.distributed as dist
+
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError("tp must be >= 1")
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if devices is None:
+        groups = max(world // tp, 1)
+        g = int(group)
+        if g >= groups:
+            logger.warning(
+                "serving_tp_mesh: group %d wraps onto rank block %d — only %d disjoint %d-rank group(s) exist "
+                "across %d rank(s), so this engine SHARES ranks with group %d. Fine for CPU smoke runs; on real "
+                "hardware shrink replicas or tp.", g, g % groups, groups, tp, world, g % groups)
+        start = (g % groups) * tp
+        devices = list(range(world))[start:start + tp]
+    devices = [int(d) for d in devices]
+    if len(devices) != tp:
+        raise ValueError(f"tensor-parallel degree {tp} needs exactly {tp} devices, got {len(devices)} "
+                         f"(of {world} visible)")
+    return devices
+
+
+def _check_tp_divisible(path: str, shape, spec, mesh_sizes: dict):
+    """A rule-sharded dim must divide by its axis group: an indivisible rule
+    is a hard error naming the leaf (JAX's), never a silent replication."""
+    for i, entry in enumerate(spec):
+        axes = _axes(entry)
+        group = int(np.prod([mesh_sizes.get(a, 1) for a in axes])) if axes else 1
+        if group > 1 and shape[i] % group:
+            raise ValueError(
+                f"TP rule shards {path} dim {i} (size {shape[i]}) over axes {axes} (group size {group}), which "
+                f"does not divide — pick a tp that divides the model's head/hidden dims")
+
+
+def tp_views(module: nn.Module) -> List[ParamView]:
+    """`flax_view` plus the leaves of each `Int8Linear` (JAX's quantized
+    entry under the kernel's path: ``kernel/q`` [in, out] int8 and
+    ``kernel/scale`` [out], and the layer's ``bias``), so the serving
+    tables cover an int8 engine's weights as JAX's cover its tree."""
+    from ..ops.quantization import Int8Linear
+
+    views = flax_view(module)
+    for mod_name, mod in module.named_modules():
+        if not isinstance(mod, Int8Linear):
+            continue
+        base = "params/" + (f"{_flax_module_path(mod_name)}/" if mod_name else "")
+        prefix = f"{mod_name}." if mod_name else ""
+        views.append(ParamView(prefix + "q", base + "kernel/q", tuple(mod.q.shape[::-1]), (1, 0), "q"))
+        views.append(ParamView(prefix + "scale", base + "kernel/scale", tuple(mod.scale.shape), (0,), "scale"))
+        if mod.bias is not None:
+            views.append(ParamView(prefix + "bias", base + "bias", tuple(mod.bias.shape), (0,), "bias"))
+    return views
+
+
+def tp_spec(path: str, shape, mesh_sizes: dict, rules) -> tuple:
+    """JAX's serving spec of one leaf (`derive_tp_param_shardings`'s rule):
+    a quantized kernel's scale vector follows the kernel's output dim (the
+    rule's last entry: column-parallel scales shard, row-parallel ones
+    replicate); every other leaf takes `spec_for_param` with the rules and
+    no fsdp. Raises for a rule that does not divide its dim."""
+    refuse_auto(rules)
+    shape = tuple(shape)
+    if path.endswith("kernel/scale") and len(shape) == 1:
+        axis = None
+        for pattern, rule_spec in rules or ():
+            if re.search(pattern, path):
+                axis = tuple(rule_spec)[-1] if tuple(rule_spec) else None
+                break
+        spec = (axis,) if axis is not None else ()
+    else:
+        spec = spec_for_param(path, shape, mesh_sizes, None, rules=rules)
+    _check_tp_divisible(path, shape, spec, mesh_sizes)
+    return spec
+
+
+def derive_tp_param_shardings(module: nn.Module, mesh_sizes: dict, rules) -> Dict[str, tuple]:
+    """{flax path: spec} for a serving engine's weights, Megatron rules only
+    (JAX's `derive_tp_param_shardings` over the flax view, `tp_views`)."""
+    return {v.path: tp_spec(v.path, v.flax_shape, mesh_sizes, rules) for v in tp_views(module)}
+
+
+def _tp_cache_spec(path: str, ndim: int, axis: str = "model") -> tuple:
+    """The spec of one slot-cache leaf, by leaf name (JAX's): K/V pools or
+    rows ([..., heads, head_dim]) shard their heads dim, the quantized
+    pools' [num_pages, heads] scales their trailing heads dim, anything
+    else replicates."""
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf in ("cached_key", "cached_value") and ndim >= 2:
+        spec = [None] * ndim
+        spec[ndim - 2] = axis
+        return tuple(spec)
+    if leaf in ("key_scale", "value_scale") and ndim >= 1:
+        spec = [None] * ndim
+        spec[ndim - 1] = axis
+        return tuple(spec)
+    return ()
+
+
+_CACHE_LEAVES = ("cached_key", "cached_value", "key_scale", "value_scale")
+
+
+def tp_cache_tree(pools) -> dict:
+    """The engine's pools (one (k, v[, k_scale, v_scale]) tuple per layer)
+    named as JAX's slot cache names its leaves: ``layer_{i}/attention/
+    cached_key`` and so on."""
+    return {f"layer_{i}": {"attention": dict(zip(_CACHE_LEAVES, layer))} for i, layer in enumerate(pools)}
+
+
+def derive_tp_cache_shardings(cache, mesh_sizes: dict, axis: str = "model") -> Dict[str, tuple]:
+    """{path: spec} for a slot cache tree (`tp_cache_tree`, shapes or
+    tensors): K/V by KV head over `axis`, scale pools by head, the rest
+    replicated, each checked to divide (JAX's `derive_tp_cache_shardings`).
+
+    JAX's `constrain_tp_cache` (a sharding constraint inside each program,
+    so GSPMD keeps the pool's layout) has no counterpart: each rank's pools
+    are plain tensors that hold only its own heads, from construction on."""
+    out = {}
+    for path, leaf in tree_paths_and_leaves(cache):
+        shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
+        spec = _tp_cache_spec(path, len(shape), axis)
+        _check_tp_divisible(path, shape, spec, mesh_sizes)
+        out[path] = spec
+    return out
+
+
+def tree_device_nbytes(tree) -> int:
+    """Stored bytes this rank holds of a tree of tensors, or of a module's
+    parameters and buffers, each tensor once: under tensor parallel a
+    sharded leaf counts its local split, a replicated one its whole size."""
+    if isinstance(tree, nn.Module):
+        leaves = [*tree.parameters(), *tree.buffers()]
+    else:
+        leaves = [leaf for _, leaf in tree_paths_and_leaves(tree)]
+    seen = {id(t): t.numel() * t.element_size() for t in leaves if isinstance(t, torch.Tensor)}
+    return int(sum(seen.values()))

@@ -1,0 +1,345 @@
+"""Tensor parallel over the mesh's "model" axis: Megatron's building blocks,
+placed by the family's rule table (the port of what GSPMD does for the JAX
+package when a parameter's `PartitionSpec` names "model").
+
+JAX states the layout as specs on the flax tree (`LLAMA_SHARDING_RULES`:
+``(None, "model")`` on q/k/v and the MLP's up projections, ``("model",
+None)`` on the output projections, the embedding's vocab rows and the
+head's vocab columns) and lets XLA insert the collectives. The port, which
+runs one process a rank, applies the same table to the module
+(`shard_module`): each rule-matched layer is replaced by its rank's split,
+whose forward issues the collectives Megatron's layers issue.
+
+  - A flax kernel is [in, out] and a torch weight [out, in]: a kernel split
+    on its output dim (``(None, "model")``) is a column-parallel layer, the
+    torch weight's rows split; on its input dim (``("model", None)``) a
+    row-parallel layer, the columns split.
+  - Column-parallel: the input enters through `copy_to_model` (identity
+    forward, all-reduce backward) and the output stays split by head or by
+    hidden unit, unless the layer is the head, whose logits are gathered
+    over the vocab (`gather_from_model`), so the loss and the sampler see
+    JAX's full logits. A bias splits with the output.
+  - Row-parallel: each rank multiplies its split of the input by its
+    columns; `reduce_from_model` (all-reduce forward, identity backward)
+    sums the partial products, and the bias, whole on every rank, is added
+    after the sum.
+  - The vocab-parallel embedding holds rows [start, stop) of the table: an
+    id outside them reads a zero row, and the all-reduce sums the one rank
+    that holds it.
+  - An `Int8Linear` (the int8 engine's) splits its int8 matrix like the
+    kernel and its per-output-channel scale by the rule's output dim, as
+    JAX's `derive_tp_param_shardings` places ``kernel/scale``.
+
+The attention and MLP modules read their per-rank head counts and widths
+off their layers' shapes, so the rotary embedding, the grouped-query
+grouping and `attend` (K1-K5 included) see only the rank's heads. At a
+"model" size of 1 `shard_module` changes nothing: the layers stay plain,
+and no collective runs. `COLLECTIVES` counts the collectives issued, by
+kind (every rank of a group must issue the same sequence).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.quantization import Int8Linear
+from .sharding import _flax_module_path, spec_for_param, tp_spec
+
+#: The ROADMAP A item 3 bullet for families whose forward has no tensor-parallel split yet.
+OTHER_FAMILIES = ("ROADMAP A item 3, tensor parallel for the other families (GPT-J, OPT, T5 and BERT; "
+                  "Mixtral with expert sharding)")
+
+#: Collectives issued by the blocks, by kind.
+COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+
+
+def reset_collectives():
+    for key in COLLECTIVES:
+        COLLECTIVES[key] = 0
+
+
+class TPGroup:
+    """The "model" process group of one rank: `group` (None for the default
+    group), this rank's index in it and its size."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    def __deepcopy__(self, memo):
+        return self  # a process group is not copied with a module
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        COLLECTIVES["all_reduce"] += 1
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        COLLECTIVES["all_gather"] += 1
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=-1)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over "model" (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.all_reduce(grad.clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial products summed over "model"; identity backward (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The last dim gathered over "model"; the backward takes this rank's
+    part (every rank computes the same loss on the gathered tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.width = tp, x.shape[-1]
+        return tp.all_gather_last(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.tp.rank * ctx.width
+        return grad[..., start:start + ctx.width].contiguous(), None
+
+
+def copy_to_model(x, tp: TPGroup):
+    return _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x, tp: TPGroup):
+    return _ReduceFromModel.apply(x, tp)
+
+
+def gather_from_model(x, tp: TPGroup):
+    return _GatherFromModel.apply(x, tp)
+
+
+class ColumnParallel:
+    """A linear layer holding the rows of its torch weight (the flax
+    kernel's output columns) this rank owns."""
+
+    tp: TPGroup
+    gather_output: bool = False
+
+    def forward(self, x):
+        y = super().forward(copy_to_model(x, self.tp))
+        return gather_from_model(y, self.tp) if self.gather_output else y
+
+
+class RowParallel:
+    """A linear layer holding the columns of its torch weight (the flax
+    kernel's input rows) this rank owns; the bias, whole, is added after
+    the sum."""
+
+    tp: TPGroup
+
+    def _product(self, x):
+        raise NotImplementedError
+
+    def forward(self, x):
+        y = reduce_from_model(self._product(x), self.tp)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class ColumnParallelLinear(ColumnParallel, nn.Linear):
+    pass
+
+
+class RowParallelLinear(RowParallel, nn.Linear):
+    def _product(self, x):
+        return F.linear(x, self.weight)
+
+
+def _dense():
+    from ..models.decoder import Dense
+
+    return Dense
+
+
+class ColumnParallelInt8Linear(ColumnParallel, Int8Linear):
+    pass
+
+
+class RowParallelInt8Linear(RowParallel, Int8Linear):
+    def _product(self, x):
+        return (F.linear(x, self.q.to(x.dtype)).float() * self.scale).to(x.dtype)
+
+
+_DENSE_CLASSES: Dict[str, type] = {}
+
+
+def _dense_classes():
+    """The column- and row-parallel forms of the models' `Dense` (flax's
+    promoting dense), made once."""
+    if not _DENSE_CLASSES:
+        dense = _dense()
+
+        class ColumnParallelDense(ColumnParallel, dense):
+            pass
+
+        class RowParallelDense(RowParallel, dense):
+            def _product(self, x):
+                dtype = torch.promote_types(x.dtype, self.weight.dtype)
+                return F.linear(x.to(dtype), self.weight.to(dtype))
+
+        _DENSE_CLASSES.update(column=ColumnParallelDense, row=RowParallelDense)
+    return _DENSE_CLASSES["column"], _DENSE_CLASSES["row"]
+
+
+class VocabParallelEmbedding(nn.Embedding):
+    """Rows [vocab_start, vocab_start + rows) of an embedding table: an id
+    outside them reads zeros, and the all-reduce gives every rank the row
+    of the rank that holds it. `logits` is the tied head over the same
+    rows, gathered over the vocab."""
+
+    tp: TPGroup
+    vocab_start: int = 0
+
+    def forward(self, ids):
+        local = ids - self.vocab_start
+        inside = (local >= 0) & (local < self.num_embeddings)
+        rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), self.weight)
+        return reduce_from_model(rows * inside[..., None].to(rows.dtype), self.tp)
+
+    def logits(self, hidden):
+        return gather_from_model(copy_to_model(hidden, self.tp) @ self.weight.T, self.tp)
+
+
+def _param(value: torch.Tensor, like: nn.Parameter) -> nn.Parameter:
+    return nn.Parameter(value.detach().clone(), requires_grad=like.requires_grad)
+
+
+def _split(t: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    return t.chunk(tp.size, dim=dim)[tp.rank]
+
+
+def _linear_split(layer, kind: str, tp: TPGroup, gather_output: bool):
+    """`layer` (an `nn.Linear`, a `Dense` or an `Int8Linear`) as its
+    rank's column- or row-parallel split."""
+    column = kind == "column"
+    if isinstance(layer, Int8Linear):
+        cls = ColumnParallelInt8Linear if column else RowParallelInt8Linear
+        q = _split(layer.q, 0 if column else 1, tp).clone()
+        scale = _split(layer.scale, 0, tp).clone() if column else layer.scale
+        bias = None if layer.bias is None else (_split(layer.bias, 0, tp).clone() if column else layer.bias)
+        new = cls(q, scale, bias)
+    else:
+        dense = _dense()
+        if isinstance(layer, dense):
+            cls = _dense_classes()[0 if column else 1]
+        elif type(layer) is nn.Linear:
+            cls = ColumnParallelLinear if column else RowParallelLinear
+        else:
+            raise NotImplementedError(f"no tensor-parallel form of {type(layer).__name__}")
+        weight = _split(layer.weight, 0 if column else 1, tp)
+        with torch.device("meta"):
+            new = cls(weight.shape[1], weight.shape[0], bias=layer.bias is not None)
+        new.weight = _param(weight, layer.weight)
+        if layer.bias is not None:
+            new.bias = _param(_split(layer.bias, 0, tp) if column else layer.bias, layer.bias)
+    new.tp, new.gather_output = tp, gather_output
+    return new
+
+
+def _embedding_split(layer: nn.Embedding, tp: TPGroup) -> VocabParallelEmbedding:
+    weight = _split(layer.weight, 0, tp)
+    with torch.device("meta"):
+        new = VocabParallelEmbedding(weight.shape[0], weight.shape[1])
+    new.weight = _param(weight, layer.weight)
+    new.tp, new.vocab_start = tp, tp.rank * weight.shape[0]
+    return new
+
+
+def refuse_family(module: nn.Module):
+    """A family whose forward has no tensor-parallel split raises, naming
+    the bullet that ports it."""
+    if not getattr(module, "tensor_parallel", False):
+        raise NotImplementedError(
+            f"{type(module).__name__} over a \"model\" axis above 1 waits for {OTHER_FAMILIES}")
+
+
+def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGroup]) -> Dict[str, int]:
+    """Replace, in place, every layer of `module` that `rules` shards over
+    "model" by this rank's split (JAX's spec on the flax view of its
+    kernel or embedding). Returns {name in the state dict: torch dim split
+    over "model"} of the split tensors. With no group, or a group of one,
+    nothing changes."""
+    if tp is None or tp.size == 1:
+        return {}
+    refuse_family(module)
+    sizes = {"model": tp.size}
+    gathered = set(getattr(module, "tp_gathered", ()))
+    dims: Dict[str, int] = {}
+    for name, layer in list(module.named_modules()):
+        base = "params/" + (f"{_flax_module_path(name)}/" if name else "")
+        if isinstance(layer, (nn.Linear, Int8Linear)):
+            shape = (layer.in_features, layer.out_features)
+            spec = tp_spec(base + "kernel", shape, sizes, rules)
+            if not spec:
+                continue
+            kind = {(None, "model"): "column", ("model",): "row", ("model", None): "row"}.get(tuple(spec))
+            if kind is None:
+                raise NotImplementedError(f"{base}kernel: spec {spec} is neither column- nor row-parallel")
+            new = _linear_split(layer, kind, tp, gather_output=name in gathered)
+            weight = "q" if isinstance(layer, Int8Linear) else "weight"
+            dims[f"{name}.{weight}"] = 0 if kind == "column" else 1
+            if kind == "column":
+                if layer.bias is not None:
+                    dims[f"{name}.bias"] = 0
+                if isinstance(layer, Int8Linear):
+                    dims[f"{name}.scale"] = 0
+        elif isinstance(layer, nn.Embedding):
+            spec = spec_for_param(base + "embedding", tuple(layer.weight.shape), sizes, rules=rules)
+            if not spec:
+                continue
+            if tuple(spec) != ("model",):
+                raise NotImplementedError(f"{base}embedding: spec {spec} is not vocab-parallel")
+            tp_spec(base + "embedding", tuple(layer.weight.shape), sizes, rules)  # the divisibility check
+            new = _embedding_split(layer, tp)
+            dims[f"{name}.weight"] = 0
+        else:
+            continue
+        parent, _, child = name.rpartition(".")
+        setattr(module.get_submodule(parent) if parent else module, child, new)
+    return dims
+
+
+def tensor_parallel_copy(module: nn.Module, rules, tp: Optional[TPGroup]) -> nn.Module:
+    """A copy of `module` sharded by `shard_module` (the caller's module is
+    untouched; its replicated tensors are shared, not copied). With no
+    group, or a group of one, the module itself."""
+    import copy
+
+    if tp is None or tp.size == 1:
+        return module
+    memo = {id(t): t for t in [*module.parameters(), *module.buffers()]}
+    out = copy.deepcopy(module, memo)
+    shard_module(out, rules, tp)
+    return out

@@ -39,6 +39,26 @@ the chunk's state uploads and the insert's pushes and first-token read are
 the engine's sanctioned syncs (`analysis.allow_sync`): an armed `TraceGuard`
 (``trace_guard=``) flags any other.
 
+Tensor parallel (``tp=N``, JAX's mesh-spanning engine): JAX's engine is one
+controller over N devices; the port's is SPMD over N processes of a
+`torch.distributed` group. Every rank of the engine's "model" group runs
+the same engine loop on the same requests, holds its split of the weights
+(the family's Megatron table, `parallel.tensor`) and a KV pool of its own
+KV heads (and, for an int8 or fp8 pool, those heads' scales). The contract
+that keeps the ranks in lockstep without a broadcast: the page tables, the
+slot states, the sampling scalars and the sampler's generator (one seed)
+are the same on every rank, because everything the engine decides is a
+function of the requests and of values every rank holds alike (the logits
+are gathered whole on every rank, and a collective's result is the same
+bits on each). What it decides: admission (FIFO, the page pool's
+reservations and the prefix cache's sha256 chain hashes, in insertion
+order), the chunk's tokens and state (the same logits and generator), the
+finishes (the same tokens), and deadlines, the one clock-based choice: with
+deadlines pending the ranks all-reduce (max) each request's "expired" flag
+once a step, so a request expires on every rank or on none. `submit`,
+`cancel` and `close` are the caller's, who makes the same calls on every
+rank. ``tp=1`` is the one-process engine, byte for byte.
+
 Telemetry is JAX's: every health counter lives in a `MetricsRegistry`
 (``registry=``, shareable and exportable), under JAX's instrument names, and
 `stats` is a read-only view over it; a `Tracer` (``tracer=``, the
@@ -65,6 +85,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .analysis.trace_guard import allow_sync
 from .device import DeviceLike, make_generator, resolve_device
@@ -72,6 +93,15 @@ from .generation import CausalPrograms, GenerationConfig, _apply_repetition_pena
 from .ops.attention import SLOT_ATTENTION_IMPLS
 from .ops.quantization import KV_CACHE_DTYPES, WEIGHT_DTYPES, kv_quant_spec, quantize_model_int8
 from .paging import SCRATCH_PAGE, PagePool, chain_hashes, pages_for
+from .parallel.sharding import (
+    derive_tp_cache_shardings,
+    derive_tp_param_shardings,
+    refuse_auto,
+    serving_tp_mesh,
+    tp_cache_tree,
+    tree_device_nbytes,
+)
+from .parallel.tensor import TPGroup, refuse_family, tensor_parallel_copy
 from .speculative import (
     DEFAULT_DRAFT_NGRAM,
     DEFAULT_DRAFT_TOKENS,
@@ -127,6 +157,21 @@ class RequestResult:
     error: Optional[str] = None  # repr of the exception when finish_reason == "error"
 
 
+def _on_device(model, device: torch.device):
+    """`model` itself where it lies on `device`, else its copy there (the
+    caller's host model untouched)."""
+    if model.get_input_embeddings().weight.device.type == device.type:
+        return model
+    import copy
+
+    memo = {}
+    for t in [*model.parameters(), *model.buffers()]:
+        moved = t.detach().to(device)
+        memo[id(t)] = torch.nn.Parameter(moved, requires_grad=t.requires_grad) \
+            if isinstance(t, torch.nn.Parameter) else moved
+    return copy.deepcopy(model, memo)
+
+
 class ContinuousBatcher:
     """Slot-based in-flight batching over a paged (or, with ``paged=False``,
     contiguous) KV cache.
@@ -140,10 +185,19 @@ class ContinuousBatcher:
             for request_id, new_tokens in engine.step():
                 stream(request_id, new_tokens)
 
-    The engine runs on the model's device, which must be the resolved
-    `device` (``cuda`` unless ``device="cpu"``). `attention_impl` defaults
+    The engine runs on the resolved `device` (``cuda`` unless
+    ``device="cpu"``). A model there is served as it is; a model on the
+    host is copied there (int8 weights quantized there one layer at a
+    time), and over "model" only this rank's split is: a model larger than
+    one card comes in on the host. `attention_impl` defaults
     to ``"paged_kernel"`` for a paged engine and to the plain read
-    (``"gather"``) for a contiguous one."""
+    (``"gather"``) for a contiguous one.
+
+    ``tp=N > 1`` spans the ranks `serving_tp_mesh(N, tp_devices,
+    tp_group)` picks of the process group (every one of them builds the
+    engine, on the full model, and drives it alike); `sharding_rules` is
+    the Megatron table (None or ``"rules"``: the model's own; a list: the
+    caller's; ``"auto"``, the planner, waits)."""
 
     def __init__(
         self,
@@ -170,6 +224,10 @@ class ContinuousBatcher:
         attention_impl: Optional[str] = None,
         weight_dtype: str = "bf16",
         kv_cache_dtype: str = "bf16",
+        tp: int = 1,
+        tp_devices=None,
+        tp_group: int = 0,
+        sharding_rules: Any = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -179,7 +237,7 @@ class ContinuousBatcher:
                 "slot-batched serving yet (generate() runs it)"
             )
         weight = model.get_input_embeddings().weight
-        if weight.device.type != self.device.type:
+        if weight.device.type not in (self.device.type, "cpu"):
             raise ValueError(f"the model lives on {weight.device}, the engine on {self.device}")
         cfg = model.config
         self.config = cfg
@@ -232,8 +290,37 @@ class ContinuousBatcher:
                 "a quantized KV cache requires the paged layout (paged=True): "
                 "the per-page-per-head scale pools have no contiguous twin"
             )
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError("tp must be >= 1")
+        if sharding_rules is None or sharding_rules == "rules":
+            self._tp_rules = list(getattr(model, "sharding_rules", None) or [])
+        elif isinstance(sharding_rules, (list, tuple)):
+            self._tp_rules = list(sharding_rules)
+        elif sharding_rules == "auto":
+            refuse_auto(sharding_rules)
+        else:
+            raise ValueError(f"sharding_rules must be a rules list, None, 'rules' or 'auto'; got {sharding_rules!r}")
+        self._tp = None
+        if self.tp > 1:
+            if not self._tp_rules:
+                raise ValueError(
+                    f"{type(model).__name__} carries no sharding_rules — this model family has no Megatron TP "
+                    "layout to span a mesh with; pass tp=1")
+            if cfg.num_key_value_heads % self.tp:
+                raise ValueError(
+                    f"tp={self.tp} must divide the model's KV head count ({cfg.num_key_value_heads}): the KV "
+                    "pool shards by KV head over the \"model\" axis")
+            refuse_family(model)
+            self._tp = _tp_process_group(serving_tp_mesh(self.tp, tp_devices, tp_group))
+        self.kv_heads = cfg.num_key_value_heads // self.tp
         if self.weight_dtype == "int8":
-            model = quantize_model_int8(model)  # the engine's own copy; the caller's is untouched
+            model = quantize_model_int8(model, self.device)  # the engine's own copy; the caller's is untouched
+        # JAX's placement table over the whole weights, then this rank's split
+        # (a copy sharing the replicated tensors); tp=1 keeps the model.
+        self._param_specs = derive_tp_param_shardings(model, {"model": self.tp}, self._tp_rules)
+        model = _on_device(tensor_parallel_copy(model, self._tp_rules, self._tp), self.device)
+        self.model = model
         self.page_size = int(page_size)
         if self.paged:
             if self.page_size < 1:
@@ -378,9 +465,9 @@ class ContinuousBatcher:
         Hkv, D] pair per layer."""
         cfg = self.config
         if self.paged:
-            shape = (self.num_pages, self.page_size, cfg.num_key_value_heads, cfg.head_dim)
+            shape = (self.num_pages, self.page_size, self.kv_heads, cfg.head_dim)
         else:
-            shape = (self.num_slots, self.max_length, cfg.num_key_value_heads, cfg.head_dim)
+            shape = (self.num_slots, self.max_length, self.kv_heads, cfg.head_dim)
         spec = kv_quant_spec(self.kv_cache_dtype)
         dtype = self.dtype if spec is None else spec[0]
         pools = []
@@ -388,7 +475,7 @@ class ContinuousBatcher:
             layer = tuple(torch.zeros(shape, dtype=dtype, device=self.device) for _ in range(2))
             if spec is not None:
                 layer += tuple(
-                    torch.zeros((self.num_pages, cfg.num_key_value_heads), device=self.device) for _ in range(2)
+                    torch.zeros((self.num_pages, self.kv_heads), device=self.device) for _ in range(2)
                 )
             pools.append(layer)
         return pools
@@ -424,6 +511,34 @@ class ContinuousBatcher:
         """Stored bytes of the whole slot cache: pools and scale pools, or
         the contiguous layout's rows."""
         return sum(t.numel() * t.element_size() for layer in self._pools for t in layer)
+
+    @property
+    def per_device_weight_nbytes(self) -> int:
+        """Weight bytes this rank holds: a tensor-parallel split counts its
+        part, a replicated tensor (a norm, a row-parallel bias) its whole."""
+        return tree_device_nbytes(self.model)
+
+    @property
+    def per_device_kv_cache_nbytes(self) -> int:
+        """Slot-cache bytes this rank holds (its KV heads, and their scales)."""
+        return tree_device_nbytes(tp_cache_tree(self._pools))
+
+    def tp_sharding_report(self) -> Dict[str, Dict[str, str]]:
+        """{'params': {path: spec}, 'cache': {path: spec}}, JAX's audit
+        surface: the tables this engine was split by, each spec as a tuple
+        of mesh axes (``()`` replicated). A tp=1 engine reports every leaf
+        as 'single-device', as JAX's does."""
+        params = self._param_specs
+        # The whole pool's shapes: each rank's holds its heads (the last dim
+        # of a scale pool, the one before it of a K/V pool).
+        whole = [tuple(torch.empty(t.shape[:-2] + (t.shape[-2] * self.tp, t.shape[-1]) if t.dim() > 2
+                                   else t.shape[:-1] + (t.shape[-1] * self.tp,), device="meta") for t in layer)
+                 for layer in self._pools]
+        cache = derive_tp_cache_shardings(tp_cache_tree(whole), {"model": self.tp})
+        if self.tp == 1:
+            return {"params": {p: "single-device" for p in params}, "cache": {p: "single-device" for p in cache}}
+        return {"params": {p: str(spec) for p, spec in params.items()},
+                "cache": {p: str(spec) for p, spec in cache.items()}}
 
     @property
     def stats(self) -> Dict[str, Any]:
@@ -604,7 +719,16 @@ class ContinuousBatcher:
         if not self._deadlines:
             return
         now = time.perf_counter()
-        for request_id in [rid for rid, t in self._deadlines.items() if now >= t]:
+        expired = [rid for rid, t in self._deadlines.items() if now >= t]
+        if self._tp is not None:
+            # The one clock-based decision: a request expires on every rank
+            # of the engine or on none (every rank holds the same deadlines).
+            pending = sorted(self._deadlines)
+            with allow_sync():
+                flags = torch.tensor([rid in expired for rid in pending], dtype=torch.int32, device=self.device)
+                dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._tp.group)
+                expired = [rid for rid, flag in zip(pending, flags.tolist()) if flag]
+        for request_id in expired:
             result = self.results[request_id]
             self._drop_queued(request_id)
             self._finish(result, "timeout", now=now, slot=self._slot_of(request_id))
@@ -1016,3 +1140,16 @@ class ContinuousBatcher:
         self._closed = True
         self._update_occupancy_gauges()
         return self.results
+
+
+def _tp_process_group(ranks: List[int]) -> TPGroup:
+    """The "model" group of a tensor-parallel engine over `ranks` (the
+    default group when they are all of it)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"tp={len(ranks)} spans processes: it needs a torch.distributed group (a launcher's), "
+                         "none is initialized")
+    if dist.get_rank() not in ranks:
+        raise ValueError(f"rank {dist.get_rank()} is not one of the engine's ranks {ranks}")
+    if ranks == list(range(dist.get_world_size())):
+        return TPGroup(None)
+    return TPGroup(dist.new_group(ranks, use_local_synchronization=True))

@@ -48,6 +48,22 @@ from .utils.dataclasses import (
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE")
 
 
+def gloo_card(local_rank: int, share_device: bool = False) -> torch.device:
+    """The card of a rank of a gloo group on the card: ``cuda:LOCAL_RANK``,
+    as under NCCL. Ranks past the host's card count share its cards
+    (``LOCAL_RANK`` modulo the count) only with `share_device`: NCCL takes
+    one rank a device, so ranks that share one run gloo, each collective
+    staged through the host. Without a card this raises."""
+    count = torch.cuda.device_count()
+    if count and local_rank >= count and not share_device:
+        raise RuntimeError(
+            f"a gloo rank with LOCAL_RANK {local_rank} on a host with {count} card(s): pass share_device=True "
+            "to put ranks on a shared card, or cpu=True for the CPU path")
+    device = resolve_device(torch.device("cuda", local_rank % max(count, 1)))
+    torch.cuda.set_device(device)
+    return device
+
+
 class PartialState:
     """The processes of this run and their control primitives (JAX's
     `PartialState`, over `torch.distributed`).
@@ -55,7 +71,9 @@ class PartialState:
     Attributes: `device` (this process's card, or the CPU), `backend`
     ("nccl", "gloo" or None without a group), `distributed_type`,
     `num_processes`, `process_index`, `local_process_index`, and `debug`
-    (``ACCELERATE_TPU_DEBUG_MODE``: collectives verify shapes first)."""
+    (``ACCELERATE_TPU_DEBUG_MODE``: collectives verify shapes first).
+    Under gloo on the card each rank takes ``cuda:LOCAL_RANK`` (`gloo_card`;
+    ``share_device=True`` lets ranks share a card)."""
 
     _shared_state: dict = {}
 
@@ -79,12 +97,8 @@ class PartialState:
             # resolves, and refuses, its own device).
             self.device = torch.device("cuda" if not cpu and torch.cuda.is_available() else "cpu")
         elif backend == "gloo":
-            if not cpu:
-                raise RuntimeError(
-                    "a gloo process group on the card: the port's card path runs NCCL; pass cpu=True "
-                    "for the CPU path"
-                )
-            self.device = torch.device("cpu")
+            self.device = torch.device("cpu") if cpu else gloo_card(self.local_process_index,
+                                                                     bool(kwargs.get("share_device")))
         elif backend == "nccl":
             self.device = resolve_device(torch.device("cuda", self.local_process_index))
             torch.cuda.set_device(self.device)

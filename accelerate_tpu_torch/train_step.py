@@ -51,6 +51,8 @@ from typing import Callable, Optional
 
 import torch
 
+from .ops.losses import batch_group
+
 
 def split_leading(batch, n: int, what: str):
     """`batch` (a dict, list or tuple of tensors, or a tensor) cut into `n`
@@ -115,7 +117,8 @@ class FusedTrainStep:
         self.tracer = tracer
 
     def _loss_of(self, *args, **kwargs):
-        out = self.loss_fn(*args, **kwargs)
+        with batch_group(getattr(self.model, "data_group", None)):
+            out = self.loss_fn(*args, **kwargs)
         if isinstance(out, tuple):
             return out
         return out, None

@@ -3,10 +3,12 @@ JAX package's tables (`accelerate_tpu/utils/constants.py`), which it may not
 import.
 
 The mesh axes keep JAX's names and order (outer to inner). The port builds
-its `DeviceMesh` over ("data", "fsdp"): the batch is split over both,
-parameters and optimizer state shard over "fsdp" and replicate over
-"data". The other axes (model, seq, expert, stage, pipeline) belong to
-parts of the JAX package the port has not taken yet (ROADMAP A item 3).
+its `DeviceMesh` over ("data", "fsdp") and, for tensor parallel, "model":
+the batch is split over the first two, parameters and optimizer state
+shard over "fsdp" and replicate over "data", and the family's Megatron
+table splits them over "model". The other axes (seq, expert, stage,
+pipeline) belong to parts of the JAX package the port has not taken yet
+(ROADMAP A item 3).
 """
 
 MESH_AXIS_NAMES = ("data", "fsdp", "model", "seq", "expert", "stage", "pipeline")

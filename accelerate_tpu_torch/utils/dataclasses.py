@@ -262,8 +262,9 @@ class ParallelismConfig:
     """Mesh shape: one size per axis of `constants.MESH_AXIS_NAMES`, with
     JAX's fields, defaults and checks. -1 absorbs the devices left over (at
     most one axis; by default "data"). `resolve(world)` gives the concrete
-    sizes; the port's mesh (`parallel.mesh.build_mesh`) takes "data" and
-    "fsdp" and refuses any other axis above 1."""
+    sizes; the port's mesh (`parallel.mesh.build_mesh`) takes "data",
+    "fsdp" and "model" ("model" not with "fsdp") and refuses any other axis
+    above 1."""
 
     data: int = -1
     fsdp: int = 1
@@ -491,8 +492,9 @@ class MegatronLMPlugin:
     compatibility shim: tensor parallel to the "model" axis, pipeline to
     "stage", sequence parallel to "seq" (the tensor-parallel degree by
     default), expert parallel to "expert", data the rest. The port's mesh
-    refuses a degree above 1 on each of them, naming the ROADMAP bullet
-    that ports it (`parallel.mesh.WAITING_AXES`)."""
+    runs "model" (tensor parallel) and refuses a degree above 1 on each of
+    the others, naming the ROADMAP bullet that ports it
+    (`parallel.mesh.WAITING_AXES`)."""
 
     tp_degree: int = 1
     pp_degree: int = 1

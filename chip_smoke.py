@@ -587,10 +587,52 @@ prints no result):
    (b) The quality gate (`test_utils/scripts/test_performance.py`) through
        its `main`: "dp" at JAX's full recipe (`text_pair`, 14 epochs,
        bf16): accuracy at least 0.82 and a gathered count of 128 (the
-       script raises otherwise); "full_shard", "shard_grad_op" and
-       "offload" in a world-1 NCCL group for one epoch, JAX's fast tier: a
-       final loss finite and below 1.0. Reported: each strategy's
+       script raises otherwise); "full_shard" and "offload" (FULL_SHARD
+       with the optimizer state in pinned host memory) in a world-1 NCCL
+       group for one epoch, JAX's fast tier (phase 14 runs SHARD_GRAD_OP
+       on Llama-1B): a final loss finite and below 1.0. Reported: each strategy's
        accuracy, final loss, peak memory and seconds.
+21. Convert and tensor parallel, run after phase 20. Two ranks share card 0
+    over gloo (NCCL takes one rank a device), so every collective is staged
+    through the host: their times say nothing of NVLink.
+   (a) Llama-1B's 2 layers and norms at full width, seed 0, bf16 (the
+       embedding and head cut to 1024 rows: the whole 2-layer file's
+       deflated write passed 40 s), written as HF safetensors
+       (`save_hf_checkpoint`), `convert` to the native pytree file
+       through the dispatcher's `main` in this process, loaded back, and
+       `convert --direction to_hf`. Gates: the loaded parameters equal the
+       original's bit for bit, the manifest's digest verifies, and the
+       round trip's safetensors hold the same keys and tensors. Reported:
+       each direction's seconds and MB.
+   (b) Llama-1B at full width and depth from seed 0, bf16, served by
+       `ContinuousBatcher(tp=2)` in a spawned world of 2 (16 query and 4 KV
+       heads a rank, K1 and K2 at those heads) at phase 3's setting: bf16
+       pools, int8 weights with int8 pools, and speculative (draft 3; the
+       int8 and speculative runs decode at most 16 tokens a request); the
+       tp=1 engine runs the same requests here first. Each rank holds the
+       model on the host and each engine moves only the rank's split to
+       the card. Gates: both ranks'
+       tokens and prefill logits equal; each request's prefill logits
+       within 0.05 of the largest |logit| of tp=1's; each first token
+       tp=1's unless tp=1's top two logits lie within that limit; a rank's
+       weight and pool bytes, and its `max_memory_allocated` over the run
+       (the engine's build included), at most 1/1.6 of tp=1's; the ranks issue the
+       same collectives; K1 (K2 for speculative) launched on each rank; no
+       rank builds a kernel. Reported: the share of tokens equal to tp=1's,
+       tp=1's top-two gap where a request's tokens first part, decode
+       tokens/s and TTFT at tp=2 beside tp=1's. Before them, K1/K2 (bf16
+       and int8 pools) and K3-K5 (bf16) are held and timed at a rank's
+       heads (`TP_KERNEL_SHAPE`, `TP_FLASH_SHAPE`).
+   (c) In the same world, Llama-1B cut to 2 layers through `prepare` and
+       `train_step()` under `ParallelismConfig(model=2)`: bf16 with f32
+       masters, 2 x 2048, AdamW lr 1e-4, decay 1e-4, clip 1.0, 2 warm-up
+       and 4 timed steps, against the same run at tp=1 here. Gates: the
+       ranks' losses and pre-clip norms equal; losses finite, falling, and
+       within 1e-2 relative of tp=1's at every step; norms within 1e-3;
+       K3-K5 launched 2 x 6 times on each rank. The ranks hand `prepare`
+       the model on the host, which splits it there and moves the split.
+       Reported: the median step time and the steps' peak card memory
+       beside tp=1's.
 
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
@@ -598,7 +640,7 @@ and phase 13 alone, `--dist-only` the build and phase 14 alone,
 phase 16 alone, `--bigmodel-only` the build and phase 17 alone,
 `--offload-train-only` the build and phase 18 alone, `--checkpoint-only` the
 build and phase 19 alone, `--examples-only` the build and phase 20 alone,
-and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
+`--tp-only` the build and phase 21 alone, and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
 whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -1028,14 +1070,14 @@ def sdpa_yardstick(q, k, v, table, pos):
     return lambda: fn(qd, kd, vd, attn_mask=mask, enable_gqa=True)
 
 
-def kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
+def kernel_phase(device, shape=KERNEL_SHAPE, timed=True, dtypes=(torch.float32, torch.bfloat16)):
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     results = {}
     for kind, s in (("decode", 1), ("verify", shape["verify_s"])):
         fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
         entry = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, table, pos = kernel_case(device, dtype, s, seed=11 + s, **shape)
             before = pa.LAUNCHES[kind]
             out = fn(q, k, v, table, pos)
@@ -1062,7 +1104,8 @@ def kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
     return results
 
 
-def quantized_kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
+def quantized_kernel_phase(device, shape=KERNEL_SHAPE, timed=True, dtypes=(torch.float32, torch.bfloat16),
+                           kv_dtypes=KV_DTYPES):
     """K1 and K2's fused-dequant mode at the engine's shapes: the pools of
     `kernel_case` (scratch page poisoned) quantized whole-page to int8 and to
     fp8 e4m3, f32 and bf16 queries, each kernel launch held against the plain
@@ -1073,11 +1116,11 @@ def quantized_kernel_phase(device, shape=KERNEL_SHAPE, timed=True):
     results = {}
     for kind, s in (("decode", 1), ("verify", shape["verify_s"])):
         fn = pa.paged_decode_attention if s == 1 else pa.paged_verify_attention
-        for kv_dtype in KV_DTYPES:
+        for kv_dtype in kv_dtypes:
             key = f"{kind}_{kv_dtype}"
             spec = qz.kv_quant_spec(kv_dtype)
             entry = {}
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 q, k, v, table, pos = kernel_case(device, torch.float32, s, seed=11 + s, **shape)
                 (kq, ks), (vq, vs) = qz.quantize_kv_pages(k, spec), qz.quantize_kv_pages(v, spec)
                 del k, v
@@ -2008,7 +2051,7 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
           after_step=None, remat_policy=None, loader=None, aux_out=None, analyze=False, keep=None,
-          accelerator_kw=None):
+          accelerator_kw=None, on_host=False):
     """Train a model of `config` (its family's, random weights from seed 0)
     through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
@@ -2018,7 +2061,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     `batch` x `seq` tokens (`repeated_batch_loader`). A loss that returns
     ``(loss, aux)`` (Mixtral's) appends each step's aux, as floats, to
     `aux_out`. `analyze` and `accelerator_kw` go to the `Accelerator`;
-    `keep`, a dict, receives it under "accelerator"."""
+    `keep`, a dict, receives it under "accelerator". `on_host` hands
+    `prepare` the model on the host (made on the device, then moved)."""
     from accelerate_tpu_torch import Accelerator, CompilationConfig
     from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -2026,6 +2070,9 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     AcceleratorState._reset_state()
     GradientState._reset_state()
     model = CREATE_BY_FAMILY[type(config)](config, seed=0, device=device)
+    if on_host:
+        model = model.cpu()
+        free_memory(device)
     accelerator = Accelerator(mixed_precision=mixed_precision, cpu=device.type == "cpu",
                               compilation_config=CompilationConfig(remat_policy=remat_policy), analyze=analyze,
                               **(accelerator_kw or {}))
@@ -6451,8 +6498,11 @@ EXAMPLE_TWINS = (
 #: The twins whose runs share an output directory (the second resumes the first).
 EXAMPLE_OUTPUT_DIRS = ("by_feature.checkpointing", "by_feature.profiler", "complete_nlp_example")
 #: Phase 20 (b): JAX's full recipe for "dp", its fast tier (one epoch) for the rest.
-GATE_RUNS = (("dp", ()), ("full_shard", ("--epochs", "1")), ("shard_grad_op", ("--epochs", "1")),
-             ("offload", ("--epochs", "1")))
+# Not "shard_grad_op", for the script's time: phase 14 runs SHARD_GRAD_OP
+# on Llama-1B in a world-1 NCCL group, a deeper run of the same path.
+# "offload" (FULL_SHARD with the optimizer state in pinned host memory, in
+# an NCCL group) runs nowhere else.
+GATE_RUNS = (("dp", ()), ("full_shard", ("--epochs", "1")), ("offload", ("--epochs", "1")))
 
 
 class tee_stdout:
@@ -6606,6 +6656,447 @@ def examples_phase(device, twins=EXAMPLE_TWINS, gate_runs=GATE_RUNS):
     return report
 
 
+# ------------------------------------------------------------------ phase 21: convert and tensor parallel
+# (b) and (c) run two ranks over gloo, both on card 0 (NCCL takes one rank a
+# device): each collective is staged through the host, so the tp=2 times
+# say nothing of NVLink.
+# (a) converts the 2 layers and the norms at full width with the embedding
+# and head cut to `convert_vocab` rows: the whole 1.29 GB file's deflated
+# write passed the phase's 40 s (59.7 s at level 1, 146.8 s at zlib's 6).
+TP = dict(tp=2, convert_layers=2, convert_vocab=1024, train_layers=2, batch=2, warmup=2, timed_steps=4,
+          n_requests=16, system_len=256, draft_tokens=3, timeout_s=600)
+TP_ENGINE_RUNS = {
+    "bf16": {},
+    "w8_int8": dict(weight_dtype="int8", kv_cache_dtype="int8"),
+    "spec": dict(speculative=True),
+}
+# For the phase's time the int8 and speculative runs decode at most 16
+# tokens a request (the bf16 run all 16-48): every request's prefill, first
+# token and logits are still held to tp=1's.
+TP_RUN_MAX_NEW = {"w8_int8": 16, "spec": 16}
+# The prefill logits of tp=2 against tp=1's, bf16 both: the largest
+# difference over each request's last-position logits, relative to the
+# largest |logit| of tp=1's (a row-parallel output is a sum of two bf16
+# partial products, rounded where tp=1 rounds once, through every layer).
+TP_LOGITS_RTOL = 0.05
+TP_LOSS_RTOL = 1e-2
+TP_NORM_RTOL = 1e-3
+TP_FOOTPRINT = 1.6  # JAX's audit: tp=1's weight + pool bytes over a tp=2 rank's
+TP_KERNEL_SHAPE = dict(KERNEL_SHAPE, hq=KERNEL_SHAPE["hq"] // 2, hkv=KERNEL_SHAPE["hkv"] // 2)
+TP_FLASH_SHAPE = dict(FLASH_SHAPE, hq=FLASH_SHAPE["hq"] // 2)
+TP_CONVERT_NAME = "llama-1b-convert-cut"
+
+
+def cut_config(name, layers):
+    """The registered config `name` cut to `layers` layers."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    return dataclasses.replace(MODEL_REGISTRY[name](), num_hidden_layers=layers)
+
+
+class prefill_logits:
+    """Inside, every paged insert's last-position logits are kept, in
+    admission order, as f32 CPU rows."""
+
+    def __enter__(self):
+        from accelerate_tpu_torch import generation
+
+        self.rows, cls = [], generation.CausalPrograms
+        self.original = original = cls.prefill
+
+        def capture(programs, *args, **kwargs):
+            logits = original(programs, *args, **kwargs)
+            self.rows.append(logits[0, -1].float().cpu())
+            return logits
+
+        cls.prefill = capture
+        return self.rows
+
+    def __exit__(self, *exc):
+        from accelerate_tpu_torch import generation
+
+        generation.CausalPrograms.prefill = self.original
+        return False
+
+
+def tp_serve_runs(device, model, requests, engine_kw, **tp_kw):
+    """The engine runs of phase 21 (b) on `model`: tokens, prefill logits,
+    timing, K1/K2 launches, collectives and this rank's bytes, per run."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.parallel import tensor
+
+    import dataclasses
+
+    out = {}
+    serve(model, requests[:2], device, **engine_kw, **tp_kw)  # warm-up: GEMM handles, allocator, the group's pairs
+    for run, kw in TP_ENGINE_RUNS.items():
+        cap = TP_RUN_MAX_NEW.get(run)
+        reqs = [r if cap is None else dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, cap))
+                for r in requests]
+        free_memory(device)
+        pa.reset_launch_counts()
+        tensor.reset_collectives()
+        with prefill_logits() as logits:
+            engine, tokens, timing = serve(model, reqs, device, **engine_kw, **kw, **tp_kw)
+        # What this process held on the card at most, the engine's build included.
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        out[run] = dict(tokens=tokens, logits=torch.stack(logits), timing=timing, launches=dict(pa.LAUNCHES),
+                        collectives=dict(tensor.COLLECTIVES), weight_bytes=engine.per_device_weight_nbytes,
+                        kv_bytes=engine.per_device_kv_cache_nbytes, peak_bytes=peak)
+        del engine
+    return out
+
+
+def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False):
+    """Phase 21 (c)'s run: `train` in bf16 with the pre-clip global norm of
+    every step; returns the losses, step seconds, norms, K3-K5 launches and
+    the steps' peak card memory."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    free_memory(device)
+    fa.reset_launch_counts()
+    norms = []
+
+    def record_norm(i, step_fn):
+        if i == 0:
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)  # the steps' peak, after the model's placement
+            clip = step_fn.optimizer.clip_grad_norm_
+
+            def clipped(max_norm):
+                norm = clip(max_norm)
+                norms.append(norm.detach().float())
+                return norm
+
+            step_fn.optimizer.clip_grad_norm_ = clipped
+
+    losses, seconds, pmodel, step_fn, _ = train(device, config, "bf16", batch=shape["batch"],
+                                                steps=shape["timed_steps"], seq=seq, warmup=shape["warmup"],
+                                                on_step=record_norm, accelerator_kw=accelerator_kw,
+                                                on_host=on_host)
+    report = dict(losses=losses, step_s=seconds, norms=[float(n) for n in norms], launches=dict(fa.LAUNCHES),
+                  step_ms_median=1e3 * float(np.median(seconds[shape["warmup"]:])),
+                  peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None)
+    del pmodel, step_fn
+    free_memory(device)
+    return report
+
+
+def tp_worker(out_dir, model_name, shape, seq, engine_kw, cpu):
+    """One rank of phase 21 (b) and (c): a gloo group of `shape["tp"]`
+    processes that share the parent's card (or, `cpu`, the CPU). It starts
+    while the parent runs tp=1, and begins its runs once the parent has
+    written ``go`` into `out_dir`."""
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.utils import InitProcessGroupKwargs, ParallelismConfig
+    from accelerate_tpu_torch import create_named_model
+
+    builds = []
+    _build.add_build_listener(lambda name, seconds: builds.append(name))
+    state = PartialState(cpu=cpu, backend="gloo", share_device=True)
+    device = state.device
+    rank = torch.distributed.get_rank()
+    go, deadline = os.path.join(out_dir, "go"), time.monotonic() + shape["timeout_s"]
+    while not os.path.exists(go):
+        if os.path.exists(os.path.join(out_dir, "abort")):
+            raise RuntimeError("the parent's tp=1 runs failed")
+        if time.monotonic() > deadline:
+            raise TimeoutError("the parent never started phase 21's runs")
+        time.sleep(0.05)
+    # The weights tp=1 serves, made on the card from the seed, then held on
+    # the host: each engine moves only this rank's split to the card.
+    model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device).cpu()
+    requests = make_requests(model.config.vocab_size, n=shape["n_requests"], system_len=shape["system_len"])
+    report = {"rank": rank, "device": str(device), "backend": torch.distributed.get_backend()}
+    t0 = time.perf_counter()
+    report["serve"] = tp_serve_runs(device, model, requests, engine_kw, tp=shape["tp"])
+    report["serve_s"] = time.perf_counter() - t0
+    del model
+    t0 = time.perf_counter()
+    report["train"] = tp_train_run(device, cut_config(model_name, shape["train_layers"]), shape, seq, dict(
+        parallelism_config=ParallelismConfig(model=shape["tp"]),
+        kwargs_handlers=[InitProcessGroupKwargs(backend="gloo")]), on_host=True)
+    report["train_s"] = time.perf_counter() - t0
+    report["builds"] = builds
+    reset_port_state()
+    torch.save(report, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def tp_world(device, out_dir, model_name, shape, seq, engine_kw, while_starting):
+    """`shape["tp"]` ranks of `tp_worker`, spawned once; their reports.
+    `while_starting()` runs here while they start (their interpreters,
+    imports and group; the launcher waits in a thread), then ``go`` lets
+    them begin (``abort`` stops them if it raised)."""
+    import threading
+
+    from accelerate_tpu_torch.launchers import _launch_functions, free_port
+
+    env = {"WORLD_SIZE": str(shape["tp"]), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    if device.type == "cpu":
+        env["ACCELERATE_TPU_USE_CPU"] = "1"
+    failure = []
+
+    def launch():
+        try:
+            _launch_functions(tp_worker, (out_dir, model_name, shape, seq, engine_kw, device.type == "cpu"),
+                              shape["tp"], env, shape["timeout_s"], "phase 21's tensor-parallel world")
+        except BaseException as e:
+            failure.append(e)
+
+    launcher = threading.Thread(target=launch, name="phase-21-launcher")
+    launcher.start()
+    try:
+        while_starting()
+    except BaseException:
+        open(os.path.join(out_dir, "abort"), "w").close()
+        launcher.join()
+        raise
+    open(os.path.join(out_dir, "go"), "w").close()
+    launcher.join()
+    if failure:
+        raise failure[0]
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(shape["tp"])]
+
+
+def convert_run(device, model_name, layers, vocab, tmp):
+    """Phase 21 (a): `model_name` cut to `layers` (and its embedding and
+    head to `vocab` rows) from seed 0 in bf16 as HF safetensors
+    (`save_hf_checkpoint`), `convert` to the native pytree file by the
+    dispatcher's `main` in this process, loaded back, and `convert
+    --direction to_hf`; each direction's seconds and MB."""
+    from accelerate_tpu_torch import checkpointing, models
+    from accelerate_tpu_torch.commands.accelerate_cli import main as cli_main
+    from accelerate_tpu_torch.utils.hf_loading import save_hf_checkpoint
+    from accelerate_tpu_torch.utils.modeling import load_safetensors_state_dict
+
+    import dataclasses
+
+    config = dataclasses.replace(cut_config(model_name, layers), vocab_size=vocab)
+    models.MODEL_REGISTRY[TP_CONVERT_NAME] = lambda: config
+    try:
+        model = models.create_named_model(TP_CONVERT_NAME, seed=0, dtype=torch.bfloat16, device=device)
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        hf, native, back = (os.path.join(tmp, name) for name in ("hf.safetensors", "native", "back.safetensors"))
+        t0 = time.perf_counter()
+        save_hf_checkpoint(state, "llama", config, hf)
+        report = {"layers": layers, "vocab": vocab, "export_s": time.perf_counter() - t0,
+                  "hf_mb": os.path.getsize(hf) / 1e6}
+        args = ["--model_type", "llama", "--model", TP_CONVERT_NAME]
+        t0 = time.perf_counter()
+        cli_main(["convert", hf, native, *args])
+        report["from_hf_s"] = time.perf_counter() - t0
+        report["native_mb"] = os.path.getsize(native + ".npz") / 1e6
+        with open(native + ".manifest.json") as f:
+            manifest = json.load(f)
+        report["digest_verifies"] = checkpointing.file_sha256(native + ".npz") == manifest["npz_sha256"]
+        t0 = time.perf_counter()
+        loaded = models.state_dict_from_flax(checkpointing.load_pytree(native), config)
+        report["load_s"] = time.perf_counter() - t0
+        report["mismatched"] = sorted(k for k in state if k not in loaded or not torch.equal(loaded[k], state[k]))
+        t0 = time.perf_counter()
+        cli_main(["convert", native, back, *args, "--direction", "to_hf"])
+        report["to_hf_s"] = time.perf_counter() - t0
+        report["to_hf_mb"] = os.path.getsize(back) / 1e6
+        a, b = load_safetensors_state_dict(hf), load_safetensors_state_dict(back)
+        report["round_trip_keys_equal"] = sorted(a) == sorted(b)
+        report["round_trip_mismatched"] = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
+    finally:
+        models.MODEL_REGISTRY.pop(TP_CONVERT_NAME, None)
+    return report
+
+
+def first_divergences(model, requests, base, other, device):
+    """For each request whose `other` tokens part from `base` (tp=1's), the
+    step where they first part and tp=1's gap between its top two logits
+    there (a full-context forward of tp=1's model over the prompt and
+    tp=1's tokens before it)."""
+    out = []
+    for r in requests:
+        a, b = base[r.request_id], other[r.request_id]
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ids = torch.as_tensor(np.concatenate([r.input_ids, np.asarray(a[:j], np.int64)]), device=device)[None]
+        with torch.no_grad():
+            top = model(ids)[0, -1].float().topk(2).values
+        out.append({"request": r.request_id, "step": j, "top2_gap": float(top[0] - top[1])})
+    return out
+
+
+def tp_gates(name, base, ranks, tol):
+    """Phase 21 (b)'s gates for one engine run; returns its report."""
+    tokens = [r["serve"][name]["tokens"] for r in ranks]
+    if any(t != tokens[0] for t in tokens[1:]):
+        raise RuntimeError(f"tp=2 {name}: the ranks' tokens differ")
+    logits = ranks[0]["serve"][name]["logits"]
+    if any(not torch.equal(r["serve"][name]["logits"], logits) for r in ranks[1:]):
+        raise RuntimeError(f"tp=2 {name}: the ranks' prefill logits differ")
+    ref = base["logits"]
+    diff = (logits - ref).abs()
+    scale = float(ref.abs().max())
+    limit = tol * scale
+    report = {"logits_max_abs_diff": float(diff.max()), "logits_scale": scale, "logits_limit": limit,
+              "logits_rms_diff_over_rms": float(diff.square().mean().sqrt() / ref.square().mean().sqrt())}
+    if not torch.isfinite(logits).all() or report["logits_max_abs_diff"] > limit:
+        raise RuntimeError(f"tp=2 {name}: prefill logits {report}")
+    # The first token is the prefill's argmax (greedy): it must be tp=1's
+    # unless tp=1's top two logits lie closer than the logits' limit.
+    firsts = []
+    for i, (row_ref, row) in enumerate(zip(ref, logits)):
+        top = row_ref.topk(2)
+        gap = float(top.values[0] - top.values[1])
+        same = int(row.argmax()) == int(top.indices[0])
+        firsts.append({"insert": i, "same": same, "top2_gap": gap})
+        if not same and gap > limit:
+            raise RuntimeError(f"tp=2 {name}: insert {i}'s first token differs from tp=1's with a top-two gap of "
+                               f"{gap} > {limit}")
+    report["first_tokens_equal"] = sum(f["same"] for f in firsts)
+    report["first_tokens_near_tie"] = [f for f in firsts if not f["same"]]
+    report["agreement"] = agreement(base["tokens"], tokens[0])
+    return report
+
+
+def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=None, timed=True):
+    """Phase 21: convert (a), then Llama over two tensor-parallel ranks
+    sharing the card: serving (b) and training (c) against tp=1."""
+    import tempfile
+
+    engine_kw = dict(ENGINE_KW if engine_kw is None else engine_kw, draft_tokens=shape["draft_tokens"])
+    report = {"model": model_name, "tp": shape["tp"]}
+    env_before = {k: os.environ.get(k) for k in DIST_ENV}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        t1 = time.perf_counter()
+        report["convert"] = conv = convert_run(device, model_name, shape["convert_layers"], shape["convert_vocab"],
+                                               tmp)
+        log(f"[tp] (a) convert {json.dumps(conv)}")
+        log(f"[time] tp (a) convert {time.perf_counter() - t1:.1f}s")
+        if conv["mismatched"] or not conv["digest_verifies"] or not conv["round_trip_keys_equal"] \
+                or conv["round_trip_mismatched"]:
+            raise RuntimeError(f"phase 21 (a): the converted checkpoint is not the original: {conv}")
+        if timed:
+            t1 = time.perf_counter()
+            report["kernels"] = kernel_phase(device, TP_KERNEL_SHAPE, dtypes=(torch.bfloat16,))
+            report["kernels"].update(quantized_kernel_phase(device, TP_KERNEL_SHAPE, dtypes=(torch.bfloat16,),
+                                                            kv_dtypes=("int8",)))
+            report["flash"] = flash_kernel_phase(device, TP_FLASH_SHAPE, dtypes=(torch.bfloat16,))
+            log(f"[time] tp (kernels at a rank's heads) {time.perf_counter() - t1:.1f}s")
+        from accelerate_tpu_torch import create_named_model
+
+        refs = {}
+
+        def tp1_references():
+            # tp=1 on the card while the ranks start (their runs wait for ``go``).
+            t2 = time.perf_counter()
+            refs["model"] = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
+            refs["requests"] = make_requests(refs["model"].config.vocab_size, n=shape["n_requests"],
+                                             system_len=shape["system_len"])
+            refs["serve"] = tp_serve_runs(device, refs["model"], refs["requests"], engine_kw)
+            refs["train"] = tp_train_run(device, cut_config(model_name, shape["train_layers"]), shape, seq)
+            log(f"[time] tp (tp=1 references) {time.perf_counter() - t2:.1f}s")
+
+        t1 = time.perf_counter()
+        ranks = tp_world(device, tmp, model_name, shape, seq, engine_kw, tp1_references)
+        report["world_s"] = time.perf_counter() - t1
+        log(f"[time] tp (b)-(c) tp=1, then the world of {shape['tp']} {report['world_s']:.1f}s "
+            f"(serve {ranks[0]['serve_s']:.1f}s, train {ranks[0]['train_s']:.1f}s)")
+        model, requests, base, base_train = refs["model"], refs["requests"], refs["serve"], refs["train"]
+
+        # (b) serving
+        serving = report["serving"] = {}
+        for name in TP_ENGINE_RUNS:
+            run = serving[name] = tp_gates(name, base[name], ranks, TP_LOGITS_RTOL)
+            one, rank_runs = base[name], [r["serve"][name] for r in ranks]
+            run["tp1_decode_tokens_per_s"] = one["timing"]["decode_tokens_per_s"]
+            run["tp2_decode_tokens_per_s"] = rank_runs[0]["timing"]["decode_tokens_per_s"]
+            run["tp1_ttft_p50_s"], run["tp2_ttft_p50_s"] = one["timing"]["ttft_p50_s"], rank_runs[0]["timing"]["ttft_p50_s"]
+            run["footprint_ratio"] = [(one["weight_bytes"] + one["kv_bytes"]) / (r["weight_bytes"] + r["kv_bytes"])
+                                      for r in rank_runs]
+            run["bytes"] = {"tp1": [one["weight_bytes"], one["kv_bytes"]],
+                            "tp2": [[r["weight_bytes"], r["kv_bytes"]] for r in rank_runs]}
+            run["launches"] = [r["launches"] for r in rank_runs]
+            run["collectives"] = [r["collectives"] for r in rank_runs]
+            if device.type == "cuda":
+                run["peak_bytes"] = {"tp1": one["peak_bytes"], "tp2": [r["peak_bytes"] for r in rank_runs]}
+                run["peak_ratio"] = [one["peak_bytes"] / r["peak_bytes"] for r in rank_runs]
+            if name != "w8_int8":
+                run["divergences"] = first_divergences(model, requests, one["tokens"], rank_runs[0]["tokens"], device)
+            log(f"[tp] (b) {name} {json.dumps(run)}")
+            if min(run["footprint_ratio"]) < TP_FOOTPRINT or min(run.get("peak_ratio", [TP_FOOTPRINT])) < TP_FOOTPRINT:
+                raise RuntimeError(f"tp=2 {name}: a rank holds more than 1/{TP_FOOTPRINT} of tp=1's bytes: {run}")
+            if any(c != run["collectives"][0] for c in run["collectives"]):
+                raise RuntimeError(f"tp=2 {name}: the ranks issued different collectives {run['collectives']}")
+            key = {"bf16": "decode", "w8_int8": "decode_int8", "spec": "verify"}[name]
+            if device.type == "cuda" and any(n[key] < 1 for n in run["launches"]):
+                raise RuntimeError(f"tp=2 {name}: a rank never launched its {key} kernel: {run['launches']}")
+        del model
+        free_memory(device)
+        # (c) training
+        losses = [r["train"]["losses"] for r in ranks]
+        train_report = report["training"] = {
+            "tp1": {k: base_train[k] for k in ("losses", "norms", "step_ms_median", "peak_bytes")},
+            "tp2": {k: ranks[0]["train"][k] for k in ("losses", "norms", "step_ms_median", "peak_bytes")},
+            "launches": [r["train"]["launches"] for r in ranks],
+            "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses[0], base_train["losses"])),
+            "norm_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["train"]["norms"], base_train["norms"])),
+        }
+        log(f"[tp] (c) training {json.dumps(train_report)}")
+        if any(l != losses[0] for l in losses[1:]) or any(r["train"]["norms"] != ranks[0]["train"]["norms"]
+                                                           for r in ranks[1:]):
+            raise RuntimeError(f"model=2 training: the ranks' losses or norms differ: {losses}")
+        if not all(np.isfinite(losses[0])) or losses[0][-1] >= losses[0][0]:
+            raise RuntimeError(f"model=2 training: losses {losses[0]} are not finite and falling")
+        if train_report["loss_rel_diff"] > TP_LOSS_RTOL or train_report["norm_rel_diff"] > TP_NORM_RTOL:
+            raise RuntimeError(f"model=2 training against tp=1: {train_report}")
+        steps = shape["warmup"] + shape["timed_steps"]
+        want = expected_launches(shape["train_layers"] * steps, torch.bfloat16)
+        if device.type == "cuda" and any(r["train"]["launches"] != want for r in ranks):
+            raise RuntimeError(f"model=2 training: K3-K5 launches {train_report['launches']}, expected {want}")
+        builds = [r["builds"] for r in ranks]
+        report["rank_builds"] = builds
+        if any(builds):
+            raise RuntimeError(f"phase 21's ranks built kernels: {builds}")
+    if {k: os.environ.get(k) for k in DIST_ENV} != env_before or torch.distributed.is_initialized():
+        raise RuntimeError("phase 21 left a process group or the launcher's variables behind")
+    return report
+
+
+def tp_summary(report):
+    """Phase 21's numbers without the logits and tokens."""
+    keep = dict(report)
+    keep.pop("kernels", None), keep.pop("flash", None)
+    return keep
+
+
+def tp_rows(report):
+    """The `kernels` line's rows of K1/K2 (bf16 and int8 pools) and K3-K5 at
+    a tensor-parallel rank's heads, launches summed over the ranks."""
+    serving, training = report["serving"], report["training"]
+    rows = []
+    for key, run in (("decode", "bf16"), ("verify", "spec"), ("decode_int8", "w8_int8"), ("verify_int8", "spec")):
+        if key == "verify_int8":
+            continue  # the int8 run is plain decode; no phase-21 run verifies over an int8 pool
+        kind = key.partition("_")[0]
+        bf16 = report["kernels"][key]["bfloat16"]
+        rows.append({
+            "name": f"paged_{key}_tp2", "route": "cuda", "source": SOURCE, "replaces": REPLACES[kind],
+            "launches": sum(n[key] for n in serving[run]["launches"]),
+            "max_abs_err": bf16["max_abs_err"], "tolerance": bf16["tolerance"], "ms": bf16["ms"],
+            "device_ms": bf16["device_ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+            "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+            "library_call": "F.scaled_dot_product_attention over pre-gathered dense K/V (yardstick, never called by "
+                            "the port)", "dtype": "bfloat16", "kv_dtype": "int8" if "int8" in key else "bfloat16",
+            "shape": dict(TP_KERNEL_SHAPE, s=1 if kind == "decode" else TP_KERNEL_SHAPE["verify_s"]),
+        })
+    launches = {k: sum(r[k] for r in training["launches"]) for k in training["launches"][0]}
+    rows += flash_rows(report["flash"], launches, None, TP_FLASH_SHAPE, suffix="_tp2",
+                       design=" (one tensor-parallel rank's 16 heads of Llama-1B's 32)")
+    return rows
+
+
 def paged_rows(kernels, engine, shape, design, suffix=""):
     """The `kernels` line's K1/K2 rows (unquantized and both quantized
     modes, bf16 queries) from a kernel phase at `shape` and the launches of
@@ -6650,7 +7141,7 @@ def flash_rows(flash, bf16_launches, fp16_launches, shape, suffix="", design="",
     sdpa = f"F.scaled_dot_product_attention(is_causal={causal}" + ("" if scale is None else f", scale={scale}") + ")"
     rows = []
     for name, (replaces, _) in FLASH_KERNELS.items():
-        bf16, f32 = flash[name]["bfloat16"], flash[name]["float32"]
+        bf16, f32 = flash[name]["bfloat16"], flash[name].get("float32")
         rows.append({
             "name": name + suffix,
             "route": "cuda",
@@ -6745,6 +7236,9 @@ def main(argv=None) -> int:
     parser.add_argument("--examples-only", action="store_true",
                         help="run only the build and phase 20 (the example twins and the quality gate; prints no "
                              "result line)")
+    parser.add_argument("--tp-only", action="store_true",
+                        help="run only the build and phase 21 (convert, then Llama-1B over two tensor-parallel "
+                             "ranks sharing the card: serving and training against tp=1; prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -6826,6 +7320,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[examples] summary: {json.dumps(examples_phase(device))}")
         log(f"[time] examples phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.tp_only:
+        t0 = time.perf_counter()
+        tp = tp_phase(device)
+        log(f"[tp] summary: {json.dumps(tp_summary(tp))}")
+        log(f"[tp] rows: {json.dumps(tp_rows(tp))}")
+        log(f"[time] tp phase {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     t0 = time.perf_counter()
@@ -6963,6 +7465,11 @@ def main(argv=None) -> int:
     examples = examples_phase(device)
     log(f"[examples] summary: {json.dumps(examples)}")
     log(f"[time] examples phase {time.perf_counter() - t0:.1f}s")
+    free_memory(device)
+    t0 = time.perf_counter()
+    tp = tp_phase(device)
+    log(f"[tp] summary: {json.dumps(tp_summary(tp))}")
+    log(f"[time] tp phase {time.perf_counter() - t0:.1f}s")
 
     # the families at each head dim
     wide_runs = {96: family_train["gpt-neox-20b"], 256: family_train["gptj-6b"], 128: mixtral_train}
@@ -6991,6 +7498,7 @@ def main(argv=None) -> int:
                        D16_FLASH_SHAPE, suffix="_d16", design=WIDE_FLASH_DESIGN[16], causal=False, scale=1.0)
     layouts = bigmodel["layouts"]
     rows.append(bigmodel_k3_row(bigmodel["k3"], sum(layouts[k]["k3_launches"] for k in ("a", "b", "c"))))
+    rows += tp_rows(tp)
     log(f"[time] whole script {time.perf_counter() - script_t0:.1f}s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -972,3 +972,229 @@ def fp8_world2(in_dir, out_dir):
     out["delayed"] = fp8_delayed(inputs)
     _reset()
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+# ------------------------------------------------------------------ tensor parallel
+TP_VARIANTS = {
+    "paged": {"page_size": 4},
+    "contiguous": {"paged": False},
+    "paged-spec": {"page_size": 4, "speculative": True, "draft_tokens": 3},
+    "contiguous-spec": {"paged": False, "speculative": True, "draft_tokens": 3},
+    "int8kv": {"page_size": 4, "kv_cache_dtype": "int8"},
+    "int8kv-spec": {"page_size": 4, "kv_cache_dtype": "int8", "speculative": True, "draft_tokens": 3},
+    "int8w": {"page_size": 4, "weight_dtype": "int8"},
+}
+
+
+def tp_requests(n=4, max_new=8, first_id=0, **kw):
+    """JAX's `tests/test_tensor_parallel.py` requests."""
+    from accelerate_tpu_torch.serving import Request
+
+    return [Request(first_id + i, list(range(3 + i, 10 + i)) + [2, 5, 2, 5], max_new_tokens=max_new, **kw)
+            for i in range(n)]
+
+
+def tp_model(inputs, family):
+    from accelerate_tpu_torch.models import gpt_neox, llama
+
+    make = {"llama": llama.create_llama_model, "gpt_neox": gpt_neox.create_gpt_neox_model}[family]
+    model = make(inputs["cfgs"][family], device="cpu")
+    model.load_state_dict(inputs["sds"][family])
+    return model
+
+
+def tp_engine_runs(inputs, tp):
+    """Every variant of JAX's matrix (and int8 weights) for both families
+    through `ContinuousBatcher(tp=tp)`: tokens, collectives and bytes."""
+    from accelerate_tpu_torch.parallel import tensor
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    out = {}
+    for family in ("llama", "gpt_neox"):
+        model = tp_model(inputs, family)
+        for name, variant in TP_VARIANTS.items():
+            tensor.reset_collectives()
+            engine = ContinuousBatcher(model, num_slots=2, chunk_size=4, tp=tp, device="cpu", **variant)
+            tokens = engine.run(tp_requests())
+            out[family, name] = {
+                "tokens": {rid: [int(t) for t in ts] for rid, ts in tokens.items()},
+                "collectives": dict(tensor.COLLECTIVES),
+                "bytes": (engine.per_device_weight_nbytes, engine.per_device_kv_cache_nbytes),
+                "report": engine.tp_sharding_report(),
+            }
+    return out
+
+
+def tp_deadlines(inputs):
+    """Rank 1 sleeps past every request's deadline after the first step,
+    rank 0 does not: the engine's one clock-based decision must still be
+    the same on both (a request expires on every rank or none)."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.parallel import tensor
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    engine = ContinuousBatcher(tp_model(inputs, "llama"), num_slots=2, chunk_size=2, page_size=4, tp=2,
+                               device="cpu")
+    tensor.reset_collectives()
+    for r in tp_requests(max_new=32, first_id=100, deadline_s=0.4):
+        engine.submit(r)
+    engine.step()
+    if dist.get_rank() == 1:
+        time.sleep(0.6)
+    while engine.pending:
+        engine.step()
+    return {"finish": {rid: (r.finish_reason, list(r.tokens)) for rid, r in engine.results.items()},
+            "collectives": dict(tensor.COLLECTIVES)}
+
+
+def tp_serving2(in_dir, out_dir):
+    """Every scenario of `tests/test_torch_tensor_parallel.py`, in order."""
+    from accelerate_tpu_torch.state import PartialState
+
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    PartialState(cpu=True)
+    out = {"tp2": tp_engine_runs(inputs, 2), "deadlines": tp_deadlines(inputs)}
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def tp_train(inputs, family, remat=None, parallelism=None, batches=None, save_dir=None, load_dir=None,
+             after_save=None):
+    """`train_step` (clip 1.0, AdamW) of `family`'s tiny model over a
+    "model" axis: each rank takes its data shard of every global batch
+    (the "model" ranks of one shard the same rows); the pre-clip norms and,
+    on rank 0, the gathered weights. `load_dir` resumes before the steps;
+    `save_dir` saves after them, then `after_save` more batches run."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, CompilationConfig
+    from accelerate_tpu_torch.parallel.mesh import mesh_sizes
+
+    _reset()
+    acc = Accelerator(cpu=True, parallelism_config=parallelism,
+                      compilation_config=CompilationConfig(remat_policy=remat))
+    model = tp_model(inputs, family)
+    full_numel = sum(p.numel() for p in model.parameters())
+    moved = []
+    move = model.to
+
+    def recording_to(*args, **kwargs):  # what `prepare` hands to the device
+        moved.append(sum(p.numel() for p in model.parameters()))
+        return move(*args, **kwargs)
+
+    model.to = recording_to
+    pmodel, popt = acc.prepare(model, _adamw(model))
+    del model.to
+    norms = []
+    clip = popt.clip_grad_norm_
+    popt.clip_grad_norm_ = lambda max_norm: norms.append(float(clip(max_norm))) or norms[-1]
+    step = acc.train_step(max_grad_norm=1.0)
+    sizes = mesh_sizes(acc.mesh)
+    dp = sizes["data"] * sizes["fsdp"]
+    index = dist.get_rank() // sizes["model"]
+
+    def mine(batch):
+        n = len(batch["input_ids"]) // dp
+        return {k: torch.as_tensor(v[index * n:(index + 1) * n]) for k, v in batch.items()}
+
+    if load_dir is not None:
+        acc.load_state(load_dir)
+    losses = [float(step(mine(b))) for b in (batches if batches is not None else inputs["batches"])]
+    out = {"losses": losses, "norms": norms, "mesh": sizes, "moved_numel": moved, "full_numel": full_numel,
+           "rank_numel": sum(p.numel() for p in pmodel.module.parameters())}
+    if save_dir is not None:
+        acc.save_state(save_dir)
+        out["after_save"] = [float(step(mine(b))) for b in after_save]
+    weights = pmodel.full_state_dict()
+    out["weights"] = weights if dist.get_rank() == 0 else None
+    out["weights_digest"] = float(sum(v.double().sum() for v in weights.values()))
+    _reset()
+    return out
+
+
+def tp_refusals(inputs):
+    """The refusals over a "model" axis at world 2: FSDP's sharding
+    strategies, fp8 and a family with no tensor-parallel forward."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import gptj
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin, ParallelismConfig
+
+    out = {}
+    cases = {
+        "full_shard": (dict(fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")), "llama"),
+        "shard_grad_op": (dict(fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="SHARD_GRAD_OP")), "llama"),
+        "fp8": (dict(mixed_precision="fp8"), "llama"),
+        "gptj": ({}, "gptj"),
+    }
+    for name, (kwargs, family) in cases.items():
+        _reset()
+        acc = Accelerator(cpu=True, parallelism_config=ParallelismConfig(model=2), **kwargs)
+        model = (gptj.create_gptj_model(gptj.gptj_tiny(), device="cpu") if family == "gptj"
+                 else tp_model(inputs, family))
+        try:
+            acc.prepare(model, _adamw(model))
+            out[name] = "no-error"
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    _reset()
+    return out
+
+
+def tp_train2(in_dir, out_dir):
+    """Every world-2 scenario of `tests/test_torch_tp_training.py`, in a
+    world launched by ``accelerate-tpu-torch launch --mesh_model 2``: the
+    "model" size comes from the launcher's variable."""
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    out = {}
+    for family in ("llama", "gpt_neox"):
+        for remat in (None, "full"):
+            out[family, remat] = tp_train(inputs, family, remat)
+    head, tail = inputs["batches"][:2], inputs["batches"][2:]
+    out["save"] = tp_train(inputs, "llama", batches=head, save_dir=os.path.join(out_dir, "ckpt_model2"),
+                           after_save=tail)
+    out["load"] = tp_train(inputs, "llama", batches=tail, load_dir=inputs["ckpt_model1"])
+    out["refusals"] = tp_refusals(inputs)
+    out["means_after"] = mean_scopes()
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def mean_scopes():
+    """`global_mean` of each rank's index after the model=2 runs: outside
+    any scope over every process, inside the "data" group of a model=2
+    mesh over that group alone (each rank its own data shard here)."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.ops.losses import batch_group, global_mean
+    from accelerate_tpu_torch.parallel.mesh import data_parallel_group
+    from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
+
+    value = torch.tensor([float(dist.get_rank())])
+    out = {"outside": float(global_mean(value))}
+    _reset()
+    mesh = Accelerator(cpu=True, parallelism_config=ParallelismConfig(model=2)).mesh
+    with batch_group(data_parallel_group(mesh)):
+        out["model2_data_group"] = float(global_mean(value))
+    out["after_scope"] = float(global_mean(value))
+    _reset()
+    return out
+
+
+def tp_train4(in_dir, out_dir):
+    """data 2 x model 2 at world 4; then "model" with "fsdp" refused."""
+    from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
+
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    out = {}
+    for family in ("llama", "gpt_neox"):
+        out[family] = tp_train(inputs, family, parallelism=ParallelismConfig(data=2, model=2))
+    _reset()
+    try:
+        from accelerate_tpu_torch import Accelerator
+
+        Accelerator(cpu=True, parallelism_config=ParallelismConfig(fsdp=2, model=2)).mesh
+        out["model_with_fsdp"] = "no-error"
+    except NotImplementedError as exc:
+        out["model_with_fsdp"] = str(exc)
+    _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))

@@ -1258,17 +1258,86 @@ def test_examples_only_refuses_without_a_card_and_is_a_known_flag():
     assert usage.returncode == 0 and "--examples-only" in usage.stdout
 
 
+TP_REHEARSAL = dict(chip_smoke.TP, n_requests=4, system_len=16, timeout_s=300)
+
+
+def test_tp_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 21 on the CPU at llama-tiny (about 15 s): (a) converts a 2-layer
+    checkpoint both ways bit for bit; (b) and (c) spawn one
+    world of 2 over gloo, whose ranks agree on tokens, logits, losses and
+    norms, hold tp=1's within the gates, issue the same collectives and
+    hold half of tp=1's bytes; nothing is left behind."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        report = chip_smoke.tp_phase(torch.device("cpu"), "llama-tiny", shape=TP_REHEARSAL, seq=64,
+                                     engine_kw=dict(chip_smoke.ENGINE_KW, max_length=768), timed=False)
+    finally:
+        torch.set_num_threads(threads)
+    conv = report["convert"]
+    assert not conv["mismatched"] and conv["digest_verifies"] and conv["round_trip_keys_equal"]
+    for name in chip_smoke.TP_ENGINE_RUNS:
+        run = report["serving"][name]
+        assert min(run["footprint_ratio"]) >= 1.9 and run["collectives"][0]["all_gather"] > 0
+        assert run["first_tokens_equal"] + len(run["first_tokens_near_tie"]) == TP_REHEARSAL["n_requests"]
+    assert report["training"]["loss_rel_diff"] < 1e-2 and report["training"]["norm_rel_diff"] < 1e-3
+    assert not torch.distributed.is_initialized() and "RANK" not in os.environ
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    assert chip_smoke.TP_CONVERT_NAME not in MODEL_REGISTRY
+
+
+def test_tp_gates_catch_parted_ranks_far_logits_and_a_wrong_first_token():
+    """Phase 21 (b)'s gates: ranks whose tokens part, prefill logits past
+    0.05 of the logits' scale, and a first token other than tp=1's where
+    tp=1's top two are far apart each fail; a near tie passes, reported."""
+    ref = torch.tensor([[4.0, 1.0, 0.0], [2.0, 1.99, 0.0]])
+    base = {"logits": ref, "tokens": {0: [0, 1], 1: [0, 1]}}
+
+    def rank(logits, tokens=None):
+        return {"serve": {"bf16": {"logits": logits, "tokens": tokens or {0: [0, 1], 1: [0, 1]}}}}
+
+    near = torch.tensor([[4.0, 1.0, 0.0], [1.99, 2.0, 0.0]])
+    report = chip_smoke.tp_gates("bf16", base, [rank(near), rank(near)], 0.05)
+    assert report["first_tokens_equal"] == 1 and report["first_tokens_near_tie"][0]["insert"] == 1
+    with pytest.raises(RuntimeError, match="tokens differ"):
+        chip_smoke.tp_gates("bf16", base, [rank(ref), rank(ref, {0: [0, 2], 1: [0, 1]})], 0.05)
+    with pytest.raises(RuntimeError, match="prefill logits"):
+        chip_smoke.tp_gates("bf16", base, [rank(ref + 0.5), rank(ref + 0.5)], 0.05)
+    # Within the logits' limit (0.2) everywhere, yet past a top-two gap (0.3)
+    # wider than the limit.
+    base["logits"] = torch.tensor([[4.0, 3.7, 0.0], [2.0, 1.99, 0.0]])
+    wrong = torch.tensor([[3.85, 3.86, 0.0], [2.0, 1.99, 0.0]])
+    with pytest.raises(RuntimeError, match="first token differs"):
+        chip_smoke.tp_gates("bf16", base, [rank(wrong), rank(wrong)], 0.05)
+
+
+def test_tp_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tp-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[tp]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--tp-only" in usage.stdout
+
+
 def test_docstring_lists_every_phase_and_its_flag():
-    """Phases 1-20 each head a paragraph of the docstring, each `--*-only`
+    """Phases 1-21 each head a paragraph of the docstring, each `--*-only`
     flag the parser takes is named there, and phase 19's count of launches
     is the phase's own."""
     import re
 
     doc = chip_smoke.__doc__
     numbers = [int(n) for n in re.findall(r"^ ?(\d+)\. ", doc, flags=re.M)]
-    assert numbers == list(range(1, 21))
+    assert numbers == list(range(1, 22))
     flags = re.findall(r"--[a-z0-9-]+-only", open(os.path.join(ROOT, "chip_smoke.py")).read())
-    assert {"--checkpoint-only", "--examples-only"} <= set(flags) and all(flag in doc for flag in set(flags))
+    assert {"--checkpoint-only", "--examples-only", "--tp-only"} <= set(flags)
+    assert all(flag in doc for flag in set(flags))
     steps = chip_smoke.checkpoint_steps(chip_smoke.CHECKPOINT)
     assert f"2 x {steps} times" in " ".join(doc.split())
 

@@ -558,10 +558,14 @@ def test_offload_and_waiting_axes_raise():
                    dict(offload_optimizer_device="nvme")):
         plugin, jax_plugin = FullyShardedDataParallelPlugin(**kwargs), JaxFSDPPlugin(**kwargs)
         assert {f: getattr(plugin, f) for f in fields} == {f: getattr(jax_plugin, f) for f in fields}
-    for axis in ("model", "seq", "expert", "stage", "pipeline"):
+    for axis in ("seq", "expert", "stage", "pipeline"):
         with pytest.raises(NotImplementedError, match="ROADMAP A item 3"):
             resolve_mesh_sizes(ParallelismConfig(data=1, **{axis: 2}), 2)
-    assert resolve_mesh_sizes(ParallelismConfig(data=1, fsdp=-1), 4) == {"data": 1, "fsdp": 4}
+    # "model" runs since ROADMAP A item 3's tensor parallel; with "fsdp" it waits.
+    assert resolve_mesh_sizes(ParallelismConfig(data=1, model=2), 2) == {"data": 1, "fsdp": 1, "model": 2}
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 3, tensor parallel with \"fsdp\""):
+        resolve_mesh_sizes(ParallelismConfig(data=1, fsdp=2, model=2), 4)
+    assert resolve_mesh_sizes(ParallelismConfig(data=1, fsdp=-1), 4) == {"data": 1, "fsdp": 4, "model": 1}
     # Sharded saves are taken since ROADMAP A item 5 (tests/test_torch_checkpoint_sharded.py).
     try:
         assert port.Accelerator(cpu=True, sharded_save=True).sharded_save

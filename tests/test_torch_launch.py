@@ -191,7 +191,6 @@ REFUSED = {
     "replicas": (["--replicas", "2"], {}, "item 6"),
     "replicas_key": ([], {"replicas": 2}, "item 6"),
     "sequence_parallel": ([], {"sequence_parallel_config": {"mode": "ring", "block_size": 256}}, "item 3, sequence"),
-    "mesh_model_flag": (["--mesh_model", "2"], {}, "item 3, tensor parallel"),
     "mesh_seq_key": ([], {"mesh": {"data": -1, "seq": 2}}, "item 3, sequence"),
     "mesh_expert_key": ([], {"mesh": {"data": -1, "expert": 4}}, "item 3, expert"),
     "mesh_stage_flag": (["--mesh_stage", "2"], {}, "item 3, pipelines"),
@@ -210,6 +209,16 @@ def test_unported_flags_and_keys_are_refused(case):
     with pytest.raises(port_launch.UnportedLaunchOption, match=item):
         port_launch.build_launch_env(_args(port_launch, argv), config)
     port_launch.build_launch_env(_args(port_launch, []), dict(jax_config.DEFAULT_CONFIG))
+
+
+def test_mesh_model_flag_reaches_the_worker():
+    """``--mesh_model 2`` was refused until ROADMAP A item 3's tensor
+    parallel; it now reaches the workers as JAX's variable, whose
+    `ParallelismConfig.from_env` reads it (a launched world of 2 trains
+    over it in `tests/test_torch_tp_training.py`)."""
+    env = port_launch.build_launch_env(_args(port_launch, ["--mesh_model", "2"]), {})
+    jax_env = jax_launch.build_launch_env(_args(jax_launch, ["--mesh_model", "2"]), {})
+    assert env["ACCELERATE_TPU_MESH_MODEL"] == jax_env["ACCELERATE_TPU_MESH_MODEL"] == "2"
 
 
 def test_cli_refusal_exits_2_with_the_reason(tmp_path):

@@ -111,8 +111,9 @@ def _pools(cfg, num_pages, page_size):
 @pytest.mark.parametrize("impl", ["gather", "paged_kernel"])
 def test_prefill_then_decode_and_verify_match_full_forward(impl):
     """Prefill a prompt into shuffled pool pages, then decode token by token
-    and score a verify block: every position's logits equal the full causal
-    forward over the same sequence."""
+    and score a verify block: the prefill's last-position logits (all it
+    computes) and every later position's equal the full causal forward
+    over the same sequence."""
     _, model = _pair()
     cfg = model.config
     ps, n_prompt, n_decode, s = 4, 9, 4, 3
@@ -123,7 +124,7 @@ def test_prefill_then_decode_and_verify_match_full_forward(impl):
     row = torch.tensor([[7, 2, 9, 4, 11, 1]], dtype=torch.int32)  # pages 0..5 of the slot
     programs = CausalPrograms(model, impl)
     prefill = programs.prefill(ids[:, :n_prompt], torch.arange(n_prompt)[None], pools, row[:, :3], (0, n_prompt))
-    torch.testing.assert_close(prefill[0], full[:n_prompt], atol=ATOL, rtol=0)
+    torch.testing.assert_close(prefill[0], full[n_prompt - 1 : n_prompt], atol=ATOL, rtol=0)
     for t in range(n_prompt, n_prompt + n_decode):
         step = programs.step(ids[:, t], torch.tensor([t]), pools, row)
         torch.testing.assert_close(step[0], full[t], atol=ATOL, rtol=0)

@@ -155,9 +155,10 @@ MEGATRON = {
     "sp_degree": dict(sequence_parallelism=True, sequence_parallel_degree=4),
     "ep": dict(expert_parallel_degree=2),
 }
-#: The ROADMAP A item 3 bullet each Megatron degree waits for in the port.
-MEGATRON_BULLETS = {"tp": "tensor parallel", "pp": "pipelines", "sp_default": "tensor parallel",
-                    "sp_degree": "sequence parallel", "ep": "expert sharding"}
+#: The ROADMAP A item 3 bullet each Megatron degree waits for in the port
+#: ("tp" runs since tensor parallel: the "model" axis).
+MEGATRON_BULLETS = {"pp": "pipelines", "sp_default": "sequence parallel", "sp_degree": "sequence parallel",
+                    "ep": "expert sharding"}
 
 
 @pytest.mark.parametrize("case", sorted(MEGATRON))
@@ -168,6 +169,25 @@ def test_megatron_lowering_is_jaxs_and_unported_degrees_refused(case):
     if case == "defaults":
         acc = port.Accelerator(cpu=True, megatron_lm_plugin=MegatronLMPlugin())
         assert acc.state.parallelism_config.model == 1 and acc.state.megatron_lm_plugin is not None
+        return
+    if case == "tp":
+        # As JAX's `Accelerator`: the plugin lowers to a "model" axis of 2.
+        # JAX's one process spans its 8 CPU devices with it; the port's one
+        # process has no group, so its mesh (and the split) waits for a
+        # world of at least 2 (`tests/test_torch_tp_training.py`).
+        from accelerate_tpu import Accelerator as JaxAccelerator
+        from accelerate_tpu.state import AcceleratorState as JaxAcceleratorState
+
+        acc = port.Accelerator(cpu=True, megatron_lm_plugin=MegatronLMPlugin(**kwargs))
+        JaxAcceleratorState._reset_state()
+        try:
+            jax_acc = JaxAccelerator(megatron_lm_plugin=JaxMegatronLMPlugin(**kwargs))
+            assert (dataclasses.asdict(acc.state.parallelism_config)
+                    == dataclasses.asdict(jax_acc.state.parallelism_config))
+            assert jax_acc.state.mesh.shape["model"] == 2
+        finally:
+            JaxAcceleratorState._reset_state()
+        assert acc.state.parallelism_config.model == 2 and acc.mesh is None
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP A item 3, {MEGATRON_BULLETS[case]}"):
         port.Accelerator(cpu=True, megatron_lm_plugin=MegatronLMPlugin(**kwargs))
