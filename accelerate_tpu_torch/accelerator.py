@@ -500,6 +500,8 @@ class Accelerator:
         if isinstance(model, nn.Module):
             model = Model(model, loss_fn=getattr(model, "loss_fn", None),
                           sharding_rules=getattr(model, "sharding_rules", None))
+        if isinstance(model.sharding_rules, str):
+            self._plan_sharding(model)
         compute_dtype = None if self.mixed_precision == "no" else self.state.compute_dtype
         fp8_recipe = None
         if self.mixed_precision == "fp8":
@@ -515,6 +517,37 @@ class Accelerator:
                                  offload_params=bool(getattr(fsdp, "offload_params", False)))
         self._models.append(prepared)
         return prepared
+
+    def _plan_sharding(self, model: Model):
+        """``sharding_rules="auto"``: the cost-model planner searches the
+        "model" layout for this mesh and, on a mesh with a "data" axis, the
+        ZeRO optimizer-state table (moments over "data" even where the
+        parameters replicate), as JAX's `prepare_model` does; the resolved
+        table replaces the sentinel on the bundle and the opt table goes
+        beside it, so the optimizer's placement reads the same tables. The
+        workload is JAX's: batch 8, seq 512, f32 Adam moments (8 bytes a
+        parameter), on this accelerator's chip."""
+        from .parallel.planner import Workload, default_chip, resolve_sharding_rules
+
+        if model.sharding_rules == "rules":
+            raise ValueError(
+                "sharding_rules='rules' is a serving-engine sentinel (it "
+                "means 'fall back to the Model bundle's family table'); on "
+                "this seam the bundle's sharding_rules IS that table, and "
+                "the sentinel just overwrote it — leave the table in place, "
+                "or pass 'auto' for the planner"
+            )
+        # (A "pipeline" axis, JAX's MPMD route, is refused by the mesh itself,
+        # naming the pipelines bullet.)
+        sizes = mesh_sizes(self.mesh) if self.mesh is not None else {"model": 1}
+        plan_axes = tuple(a for a in ("data", "model") if sizes.get(a, 1) > 1) or ("model",)
+        rules, plan = resolve_sharding_rules(
+            model.sharding_rules, model.module, sizes,
+            plan_kwargs=dict(axes=plan_axes, chip=default_chip(self.device),
+                             workload=Workload(batch=8, seq=512, opt_bytes_per_param=8.0)))
+        model.sharding_rules = rules
+        if plan is not None and plan.opt_rules:
+            model.opt_sharding_rules = list(plan.opt_rules)
 
     def prepare_optimizer(self, optimizer, device_placement=None, model=None) -> AcceleratedOptimizer:
         """Bind a `torch.optim.Optimizer` (built over the model's parameters)
@@ -769,8 +802,11 @@ class Accelerator:
     def gather(self, tensor):
         """The dim-0 concatenation of `tensor` (tensors and arrays through
         dicts, lists and tuples) over the processes, on every process; with
-        one process, `tensor` itself."""
-        return ops.gather(tensor)
+        one process, `tensor` itself. Under a "model" axis above 1 the ranks
+        of one data shard hold the same rows, which JAX's one controller
+        holds once: it gathers over this process's "data" ranks only, so
+        each row comes back once."""
+        return ops.gather(tensor, group=data_parallel_group(self.mesh))
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """`gather` for metrics: on the last batch of a loader whose last
@@ -782,9 +818,10 @@ class Accelerator:
             input_data if isinstance(input_data, (list, tuple)) else [input_data])
         as_objects = use_gather_object or not all(isinstance(t, (torch.Tensor, np.ndarray)) for t in leaves)
         if as_objects:
-            data = ops.gather_object(input_data if isinstance(input_data, list) else [input_data])
+            data = ops.gather_object(input_data if isinstance(input_data, list) else [input_data],
+                                     group=data_parallel_group(self.mesh))
         else:
-            data = ops.gather(input_data)
+            data = self.gather(input_data)
         remainder = self.gradient_state.remainder
         if self.gradient_state.end_of_dataloader and remainder > 0:
             if as_objects:
@@ -793,12 +830,15 @@ class Accelerator:
         return data
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
-        """`tensor` summed (or averaged) over the processes, times `scale`."""
-        return ops.reduce(tensor, reduction=reduction, scale=scale)
+        """`tensor` summed (or averaged) over the processes, times `scale`;
+        over the "data" ranks only under a "model" axis, as `gather`."""
+        return ops.reduce(tensor, reduction=reduction, scale=scale, group=data_parallel_group(self.mesh))
 
     def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
-        """`tensor` padded along `dim` to the largest size any process holds."""
-        return ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first)
+        """`tensor` padded along `dim` to the largest size any process (any
+        "data" rank under a "model" axis, as `gather`) holds."""
+        return ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first,
+                                        group=data_parallel_group(self.mesh))
 
     # ------------------------------------------------------------ trackers
     def init_trackers(self, project_name: str, config: Optional[dict] = None, init_kwargs: dict = None):

@@ -24,7 +24,9 @@ linear layer's product is an fp8 one; under a process group its amaxes are
 the global batch's (`fp8_group`, an all-reduce of each over the processes).
 
 Over a "model" axis the module is first split by its family's Megatron
-table (`Model.sharding_rules`, `parallel.tensor`): tensor parallel.
+table or the planner's (`Model.sharding_rules`, `parallel.tensor`): tensor
+parallel. The planner's ZeRO table (`Model.opt_sharding_rules`) shards
+optimizer moments over "data" (`ShardedLayout`).
 Under a process group (`mesh`), the module is placed by the FSDP plugin's
 strategy (`parallel.fsdp.ShardedLayout`: data parallel, ZeRO-2 or torch's
 FSDP), after its parameters are cast to the plugin's `param_dtype` and, with
@@ -59,7 +61,6 @@ from .ops.losses import batch_group
 from .ops.remat import check_policy, remat_scope
 from .parallel.fsdp import ShardedLayout, broadcast_module_states
 from .parallel.mesh import data_parallel_group, mesh_sizes
-from .parallel.sharding import refuse_auto
 from .utils.offload import HostArena
 
 #: `FullyShardedDataParallelPlugin`'s dtype names.
@@ -75,8 +76,13 @@ class Model:
     module: nn.Module
     loss_fn: Optional[Callable] = None
     #: The family's Megatron table (`(path regex, spec)` pairs) that places
-    #: the module over a "model" axis; ``"auto"`` (the planner) waits.
+    #: the module over a "model" axis, or ``"auto"``: `Accelerator.prepare`
+    #: then plans one (`parallel.planner`) and puts it here.
     sharding_rules: Optional[object] = None
+    #: The planner's ZeRO table for the optimizer state
+    #: (`ShardingPlan.opt_rules`, moments over "data"), stamped by `prepare`
+    #: under ``"auto"``; authoritative for the moments it matches.
+    opt_sharding_rules: Optional[list] = None
 
     def parameters(self):
         return self.module.parameters()
@@ -133,6 +139,7 @@ class PreparedModel:
         self.module = model.module if split_first else model.module.to(device)
         self.loss_fn = model.loss_fn
         self.sharding_rules = model.sharding_rules
+        self.opt_sharding_rules = getattr(model, "opt_sharding_rules", None)
         self.device = device
         self.compute_dtype = compute_dtype
         self.autocast_enabled = autocast and compute_dtype is not None
@@ -159,14 +166,14 @@ class PreparedModel:
                 if fsdp_plugin is not None and fsdp_plugin.sync_module_states:
                     broadcast_module_states(self.module, device)
             if mesh_sizes(mesh)["model"] > 1:
-                refuse_auto(self.sharding_rules)
                 if fp8_recipe is not None:
                     raise NotImplementedError(
                         "fp8 mixed precision over a \"model\" axis waits for ROADMAP A item 3, fp8 with tensor "
                         "parallel (each split product's amax over its own rows and columns)")
             self.layout = ShardedLayout(self.module, mesh, fsdp_plugin,
                                         compute_dtype=compute_dtype if self.autocast_enabled else None,
-                                        reduce_dtype=self.reduce_dtype, rules=self.sharding_rules)
+                                        reduce_dtype=self.reduce_dtype, rules=self.sharding_rules,
+                                        opt_rules=self.opt_sharding_rules)
             if split_first:
                 self.module.to(device)  # in place: the layout's tensors are the module's own
         #: The process group whose fp8 amaxes are reduced together: the

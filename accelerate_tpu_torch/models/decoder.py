@@ -29,9 +29,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..ops.attention import DecodeCache, attend, decode_cache_mask
+from ..ops.attention import DecodeCache, decode_cache_mask
 from ..ops.losses import global_mean
 from ..ops.remat import maybe_remat
+from ..parallel.tensor import attend_heads
 
 
 def causal_lm_loss(batch, apply_fn):
@@ -96,7 +97,7 @@ class DecoderAttention(nn.Module):
         q, k, v = (w(hidden).reshape(b, s, -1, self.head_dim) for w in (self.wq, self.wk, self.wv))
         if self.rotary is not None:
             q, k = self.rotary(q, positions), self.rotary(k, positions)
-        return self.wo(attend(q, k, v, positions, *modes).reshape(b, s, -1))
+        return self.wo(attend_heads(self, q, k, v, positions, *modes).reshape(b, s, -1))
 
 
 class CausalDecoder(nn.Module):

@@ -123,10 +123,8 @@ class GPTNeoXBlock(nn.Module):
 class GPTNeoXForCausalLM(CausalDecoder):
 
     sharding_rules = GPT_NEOX_SHARDING_RULES
-    #: Tensor parallel over "model" splits this family (`parallel.tensor`);
-    #: the head's logits are gathered over the vocab.
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`).
     tensor_parallel = True
-    tp_gathered = ("embed_out",)
 
     def __init__(self, cfg: GPTNeoXConfig):
         super().__init__()

@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..ops.attention import attend
+from ..parallel.tensor import attend_heads
 from .decoder import CausalDecoder, DecoderLayeredApply, causal_lm_loss  # noqa: F401  (causal_lm_loss: JAX's home for it)
 
 
@@ -129,7 +129,8 @@ class LlamaAttention(nn.Module):
         q = rotary_embedding(self.wq(hidden).reshape(b, s, -1, d), positions, cfg.rope_theta)
         k = rotary_embedding(self.wk(hidden).reshape(b, s, -1, d), positions, cfg.rope_theta)
         v = self.wv(hidden).reshape(b, s, -1, d)
-        out = attend(q, k, v, positions, attention_mask, kv_pool, page_table, attention_impl, kv_cache, decode_cache)
+        out = attend_heads(self, q, k, v, positions, attention_mask, kv_pool, page_table, attention_impl, kv_cache,
+                           decode_cache)
         return self.wo(out.reshape(b, s, -1))
 
 
@@ -167,10 +168,8 @@ class LlamaForCausalLM(CausalDecoder):
     `causal_lm_loss`, as JAX's `create_llama_model` bundles it."""
 
     sharding_rules = LLAMA_SHARDING_RULES
-    #: Tensor parallel over "model" splits this family (`parallel.tensor`);
-    #: the head's logits are gathered over the vocab.
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`).
     tensor_parallel = True
-    tp_gathered = ("lm_head",)
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()

@@ -21,6 +21,13 @@ optimizer state follow (the port of what GSPMD does for the JAX package's
     the update.
   - NO_SHARD, and no plugin: data parallel, every gradient all-reduced in
     one flat buffer per dtype.
+  - The planner's ZeRO table (`opt_rules`, ``sharding_rules="auto"`` on a
+    mesh with a "data" axis): the parameters stay replicated over "data";
+    each moment the table shards over "data" runs as ZeRO-2 runs one over
+    "fsdp": its gradient reduce-scattered over "data" onto the shard, the
+    optimizer updating the shard (a view into the parameter), the shards
+    all-gathered back after the update. A dim sharded over ("model",
+    "data") is the data-th chunk of this rank's model split.
 
 With a "model" axis above 1 (tensor parallel; "fsdp" is then 1 and the
 plugin, if any, NO_SHARD), the module is first split by the family's
@@ -51,6 +58,10 @@ from torch.distributed.tensor import DTensor
 from .mesh import MODEL_WITH_FSDP, mesh_sizes
 from .sharding import derive_opt_state_placements, derive_param_placements
 from .tensor import TPGroup, shard_module
+
+#: The ROADMAP A item 3 bullet for the planner's ZeRO table beside a sharding FSDP strategy.
+ZERO_WITH_FSDP = ("ROADMAP A item 3, the planner's ZeRO table (moments over \"data\") with an \"fsdp\" axis or a "
+                  "sharding FSDP strategy")
 
 
 @torch.no_grad()
@@ -88,18 +99,26 @@ class ShardedLayout:
     `update` maps each parameter name to the tensor the optimizer updates
     (the sharded `DTensor` under FSDP, a shard view under ZeRO-2, the
     parameter itself otherwise); `param_dims` and `opt_dims` are the
-    tables it was built from."""
+    tables it was built from. The moments shard over `zero_axis`: "fsdp"
+    (the plugin's ZeRO), or "data" under the planner's `opt_rules`."""
 
     def __init__(self, module: nn.Module, mesh, fsdp_plugin=None, compute_dtype: Optional[torch.dtype] = None,
-                 reduce_dtype: Optional[torch.dtype] = None, rules=None):
+                 reduce_dtype: Optional[torch.dtype] = None, rules=None, opt_rules=None):
         self.module = module
         self.mesh = mesh
         sizes = mesh_sizes(mesh)
         self.data_size, self.fsdp_size, self.model_size = sizes["data"], sizes["fsdp"], sizes["model"]
         self.world = self.data_size * self.fsdp_size
-        self.fsdp_group = mesh["fsdp"].get_group()
         self.data_group = mesh["data"].get_group()
-        self.fsdp_index = mesh["fsdp"].get_local_rank()
+        self.zero_axis = "data" if opt_rules else "fsdp"
+        if opt_rules and (self.fsdp_size > 1 or (fsdp_plugin is not None and (
+                fsdp_plugin.shards_params or fsdp_plugin.shards_opt_state))):
+            raise NotImplementedError(f"optimizer-state rules over \"data\" beside \"fsdp\": waits for {ZERO_WITH_FSDP}")
+        self.zero_group = mesh[self.zero_axis].get_group()
+        self.zero_size = sizes[self.zero_axis]
+        self.zero_index = mesh[self.zero_axis].get_local_rank()
+        # The planner's table reads the whole module (JAX's global shapes).
+        planned = derive_opt_state_placements(module, sizes, opt_rules=opt_rules) if opt_rules else None
         # The optimizer a user built holds the original parameters: `adopt`
         # finds them by id (the names outlive a tensor-parallel split).
         self._names_by_id = {id(p): n for n, p in module.named_parameters()}
@@ -117,7 +136,8 @@ class ShardedLayout:
             self.tp_dims = shard_module(module, rules, self.tp)
             self._grad_group = self.data_group
         self.param_dims = derive_param_placements(module, sizes, fsdp_plugin, shard_single=True)
-        self.opt_dims = derive_opt_state_placements(module, sizes, fsdp_plugin, shard_single=True)
+        self.opt_dims = planned if planned is not None else derive_opt_state_placements(
+            module, sizes, fsdp_plugin, shard_single=True)
         params = dict(module.named_parameters())
         self.uses_fsdp = any(d is not None for d in self.param_dims.values())
         if self.uses_fsdp:
@@ -135,8 +155,8 @@ class ShardedLayout:
                 if dim is None:
                     self.update[name] = param
                 else:
-                    size = param.shape[dim] // self.fsdp_size
-                    self.update[name] = nn.Parameter(param.detach().narrow(dim, self.fsdp_index * size, size))
+                    size = param.shape[dim] // self.zero_size
+                    self.update[name] = nn.Parameter(param.detach().narrow(dim, self.zero_index * size, size))
             self.shard_dims = dict(self.opt_dims)
         self._sharded_ids = {id(self.update[n]) for n, d in self.shard_dims.items() if d is not None}
         self._tp_ids = {id(self.update[n]) for n in self.tp_dims if n in self.update}
@@ -200,9 +220,9 @@ class ShardedLayout:
     def reduce_gradients(self):
         """Average the gradients FSDP does not reduce itself over every
         process: the replicated ones in one all-reduce per dtype; under
-        ZeRO-2 each sharded one reduce-scattered onto its shard (whose
-        `.grad` it becomes; the full gradient is dropped). Nothing while
-        `sync_gradients` is off."""
+        ZeRO-2 each sharded one reduce-scattered over `zero_axis` onto its
+        shard (whose `.grad` it becomes; the full gradient is dropped).
+        Nothing while `sync_gradients` is off."""
         if not self.sync_gradients or (self.model_size > 1 and self.world == 1):
             return
         replicated: Dict[torch.dtype, List[torch.Tensor]] = {}
@@ -215,9 +235,9 @@ class ShardedLayout:
                 replicated.setdefault(grad.dtype, []).append(grad)
                 continue
             chunks = grad.movedim(dim, 0).contiguous()
-            out = chunks.new_empty((chunks.shape[0] // self.fsdp_size, *chunks.shape[1:]))
-            dist.reduce_scatter_tensor(out, chunks, group=self.fsdp_group)
-            if self.data_size > 1:
+            out = chunks.new_empty((chunks.shape[0] // self.zero_size, *chunks.shape[1:]))
+            dist.reduce_scatter_tensor(out, chunks, group=self.zero_group)
+            if self.zero_axis == "fsdp" and self.data_size > 1:
                 dist.all_reduce(out, group=self.data_group)
             self.update[name].grad = out.div_(self.world).movedim(0, dim)
             param.grad = None
@@ -242,8 +262,8 @@ class ShardedLayout:
         """The global L2 norm of the gradients of `params` (the optimizer's
         tensors) in f32, taken as the one-process step takes it (the norm of
         the per-tensor norms): a sharded gradient's norm is the root of its
-        shards' squares summed over "fsdp" (one all-reduce for all of them;
-        over a one-member axis the shard is the whole gradient)."""
+        shards' squares summed over `zero_axis` (one all-reduce for all of
+        them; over a one-member axis the shard is the whole gradient)."""
         params = [p for p in params if p.grad is not None]
         entries = [(self.is_sharded(p), torch.linalg.vector_norm(_local(p.grad).float())) for p in params]
         split = [id(p) in self._tp_ids for p in params]
@@ -254,9 +274,9 @@ class ShardedLayout:
             squares = self.tp.all_reduce(squares)
             roots = iter(squares.sqrt().unbind(0))
             entries = [(sharded, next(roots) if s else norm) for s, (sharded, norm) in zip(split, entries)]
-        if self.fsdp_size > 1 and any(sharded for sharded, _ in entries):
+        if self.zero_size > 1 and any(sharded for sharded, _ in entries):
             squares = torch.stack([norm for sharded, norm in entries if sharded]).square()
-            dist.all_reduce(squares, group=self.fsdp_group)
+            dist.all_reduce(squares, group=self.zero_group)
             roots = iter(squares.sqrt().unbind(0))
             entries = [(sharded, next(roots) if sharded else norm) for sharded, norm in entries]
         return torch.linalg.vector_norm(torch.stack([norm for _, norm in entries]))
@@ -264,16 +284,16 @@ class ShardedLayout:
     # ------------------------------------------------------------ full state
     def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
         """The whole tensor from this process's shard on `dim` (collective
-        over "fsdp")."""
+        over `zero_axis`)."""
         shard = _local(shard).detach()
         chunks = shard.movedim(dim, 0).contiguous()
-        parts = [torch.empty_like(chunks) for _ in range(self.fsdp_size)]
-        dist.all_gather(parts, chunks, group=self.fsdp_group)
+        parts = [torch.empty_like(chunks) for _ in range(self.zero_size)]
+        dist.all_gather(parts, chunks, group=self.zero_group)
         return torch.cat(parts, dim=0).movedim(0, dim)
 
     def shard(self, full: torch.Tensor, dim: int) -> torch.Tensor:
         """This process's shard of a whole tensor on `dim`."""
-        return full.chunk(self.fsdp_size, dim=dim)[self.fsdp_index]
+        return full.chunk(self.zero_size, dim=dim)[self.zero_index]
 
     def gather_model(self, part: torch.Tensor, name: str) -> torch.Tensor:
         """The whole of a tensor-parallel split (collective over "model"), or
@@ -295,7 +315,7 @@ class ShardedLayout:
     def local_entry(self, value: torch.Tensor, dim: Optional[int], global_shape=None):
         """(this process's tensor, the whole shape, its ``[[start, stop],
         ...]`` in the whole tensor) of `value`, sharded on `dim` over
-        "fsdp" or, with `dim` None, whole. The shard is `torch.chunk`'s part
+        `zero_axis` or, with `dim` None, whole. The shard is `torch.chunk`'s part
         (FSDP's and `shard`'s split): the bounds span its own elements,
         never a padding. No collective."""
         if self.model_size > 1:
@@ -306,7 +326,7 @@ class ShardedLayout:
         shape = tuple(int(d) for d in (value.shape if global_shape is None else global_shape))
         bounds = [[0, d] for d in shape]
         if dim is not None:
-            start = min(self.fsdp_index * -(-shape[dim] // self.fsdp_size), shape[dim])
+            start = min(self.zero_index * -(-shape[dim] // self.zero_size), shape[dim])
             bounds[dim] = [start, start + int(local.shape[dim])]
         if [b - a for a, b in bounds] != list(local.shape):
             raise ValueError(f"a shard of shape {tuple(local.shape)} does not lie in {shape} on dim {dim}")

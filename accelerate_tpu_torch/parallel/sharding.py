@@ -24,8 +24,11 @@ a serving engine's ranks; `derive_tp_param_shardings` and
 engine's weights and a named view of its pools (`tp_cache_tree`), and
 `tree_device_nbytes` counts the bytes this rank holds. `parallel.tensor`
 applies the tables: each rank keeps its split of every rule-matched weight
-and of the KV pool's heads. The planner (`sharding_rules="auto"`) waits
-for ROADMAP A item 3's planner bullet.
+and of the KV pool's heads. ``sharding_rules="auto"`` is lowered to such a
+table by the cost-model planner (`parallel.planner`) before it reaches
+these functions; on a training mesh with a "data" axis the planner also
+emits an optimizer-state table (`derive_opt_state_placements`'s
+`opt_rules`: ZeRO moments over "data").
 """
 
 from __future__ import annotations
@@ -42,9 +45,6 @@ from torch import nn
 from ..utils.constants import DATA_AXES
 
 _SMALL_PARAM_DEFAULT = 2**16  # below this, sharding costs more than it saves (JAX's threshold)
-
-#: The ROADMAP A item 3 bullet that lowers ``sharding_rules="auto"``.
-PLANNER = "ROADMAP A item 3, the planner (parallel/planner.py and commands/plan.py)"
 
 logger = logging.getLogger(__name__)
 
@@ -83,12 +83,16 @@ def _axes(entry) -> tuple:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def refuse_auto(rules):
-    """``sharding_rules="auto"`` names the planner, which waits."""
+def check_resolved(rules):
+    """A sentinel (``"auto"``) must be lowered to a table before a spec is
+    derived (JAX's error)."""
     if isinstance(rules, str):
-        raise NotImplementedError(
-            f"sharding_rules={rules!r}: the cost-model planner that lowers it to a rules table waits for "
-            f"{PLANNER}; pass the family's table (the default) or a rules list")
+        raise ValueError(
+            f"rules={rules!r} reached spec derivation unresolved — the 'auto' "
+            "sentinel must be lowered to a table first (parallel.planner."
+            "plan_sharding, or the Accelerator/ContinuousBatcher seams that "
+            "call it)"
+        )
 
 
 def spec_for_param(path: str, shape: Sequence[int], mesh_sizes: dict, fsdp_plugin=None,
@@ -112,7 +116,7 @@ def spec_for_param(path: str, shape: Sequence[int], mesh_sizes: dict, fsdp_plugi
     names the dim each parameter would shard on, so `prepare` can run the
     sharded machinery (the group, the wrapped module, the collectives) at
     one process. The placement is the same."""
-    refuse_auto(rules)
+    check_resolved(rules)
     shape = tuple(shape)
     size = int(np.prod(shape)) if shape else 1
     spec = [None] * len(shape)
@@ -261,11 +265,61 @@ def derive_param_placements(module: nn.Module, mesh_sizes: dict, fsdp_plugin=Non
             for v in flax_view(module)}
 
 
+def spec_legal(spec: tuple, shape, mesh_sizes: dict) -> bool:
+    """True when every sharded dim of `shape` divides by the product of its
+    axes' sizes (JAX's `_spec_legal`)."""
+    for dim, entry in enumerate(spec):
+        group = int(np.prod([int(mesh_sizes.get(a, 1)) for a in _axes(entry)])) if entry is not None else 1
+        if group > 1 and (dim >= len(shape) or shape[dim] % group != 0):
+            return False
+    return True
+
+
+def opt_rule_spec(path: str, shape, opt_rules, mesh_sizes: dict) -> Optional[tuple]:
+    """The optimizer-state table's spec of one moment (JAX's
+    `_opt_rule_spec`): the first matching entry's spec at full rank, ``()``
+    when it does not divide this leaf, None when no entry matches."""
+    for pattern, spec in opt_rules or ():
+        if re.search(pattern, path):
+            full = tuple(spec) + (None,) * (len(shape) - len(spec))
+            return full if spec_legal(full, shape, mesh_sizes) else ()
+    return None
+
+
+def _data_dim(view: ParamView, spec: tuple) -> Optional[int]:
+    """The torch dim of `view` that `spec` shards over "data", or None. A
+    dim sharded over ("model", "data") nests the data shard inside this
+    rank's model chunk (JAX's major-to-minor order), which is what a chunk
+    of the rank's split over "data" is: "data" must come last."""
+    for i, entry in enumerate(spec):
+        axes = _axes(entry)
+        if "data" in axes:
+            if axes[-1] != "data":
+                raise NotImplementedError(f"{view.path}: optimizer-state spec {spec} nests \"data\" outside another "
+                                          "axis of its dim")
+            return view.torch_dims[i]
+    return None
+
+
 def derive_opt_state_placements(module: nn.Module, mesh_sizes: dict, fsdp_plugin=None,
-                                 shard_single: bool = False) -> Dict[str, Optional[int]]:
+                                 shard_single: bool = False, opt_rules=None) -> Dict[str, Optional[int]]:
     """{parameter name: torch dim its optimizer moments shard on, or None}:
     JAX's `derive_opt_state_shardings` (moments shaped like their
-    parameter; a step count is a scalar and replicates)."""
+    parameter; a step count is a scalar and replicates).
+
+    With `opt_rules` (the planner's ZeRO table, `ShardingPlan.opt_rules`)
+    the table is authoritative, as in JAX: a matched moment takes its
+    entry's spec (a spec that does not divide the leaf replicates) and the
+    dim is the one it shards over "data"; a moment no entry matches stays
+    with its parameter (None: it follows the parameter's "model" split, if
+    any). The table is read against the whole module (JAX's global
+    shapes), before a tensor-parallel split."""
+    if opt_rules:
+        out = {}
+        for view in flax_view(module):
+            spec = opt_rule_spec(view.path, view.flax_shape, opt_rules, mesh_sizes)
+            out[view.name] = None if spec is None else _data_dim(view, spec)
+        return out
     plugin = opt_state_plugin(fsdp_plugin)
     return derive_param_placements(module, mesh_sizes, plugin, shard_single=shard_single)
 
@@ -344,7 +398,7 @@ def tp_spec(path: str, shape, mesh_sizes: dict, rules) -> tuple:
     rule's last entry: column-parallel scales shard, row-parallel ones
     replicate); every other leaf takes `spec_for_param` with the rules and
     no fsdp. Raises for a rule that does not divide its dim."""
-    refuse_auto(rules)
+    check_resolved(rules)
     shape = tuple(shape)
     if path.endswith("kernel/scale") and len(shape) == 1:
         axis = None

@@ -1,41 +1,54 @@
 """Tensor parallel over the mesh's "model" axis: Megatron's building blocks,
-placed by the family's rule table (the port of what GSPMD does for the JAX
-package when a parameter's `PartitionSpec` names "model").
+placed by a rules table (the port of what GSPMD does for the JAX package
+when a parameter's `PartitionSpec` names "model").
 
-JAX states the layout as specs on the flax tree (`LLAMA_SHARDING_RULES`:
-``(None, "model")`` on q/k/v and the MLP's up projections, ``("model",
-None)`` on the output projections, the embedding's vocab rows and the
-head's vocab columns) and lets XLA insert the collectives. The port, which
-runs one process a rank, applies the same table to the module
-(`shard_module`): each rule-matched layer is replaced by its rank's split,
-whose forward issues the collectives Megatron's layers issue.
+JAX states the layout as specs on the flax tree (the family's hand table,
+`LLAMA_SHARDING_RULES`, or the planner's, `parallel.planner`) and lets XLA
+insert the collectives. The port, which runs one process a rank, applies
+the same table to the module (`shard_module`): each rule-matched layer is
+replaced by its rank's split, whose forward issues the collectives
+Megatron's layers issue.
 
   - A flax kernel is [in, out] and a torch weight [out, in]: a kernel split
     on its output dim (``(None, "model")``) is a column-parallel layer, the
     torch weight's rows split; on its input dim (``("model", None)``) a
-    row-parallel layer, the columns split.
-  - Column-parallel: the input enters through `copy_to_model` (identity
-    forward, all-reduce backward) and the output stays split by head or by
-    hidden unit, unless the layer is the head, whose logits are gathered
-    over the vocab (`gather_from_model`), so the loss and the sampler see
-    JAX's full logits. A bias splits with the output.
-  - Row-parallel: each rank multiplies its split of the input by its
-    columns; `reduce_from_model` (all-reduce forward, identity backward)
-    sums the partial products, and the bias, whole on every rank, is added
-    after the sum.
-  - The vocab-parallel embedding holds rows [start, stop) of the table: an
-    id outside them reads a zero row, and the all-reduce sums the one rank
-    that holds it.
+    row-parallel layer, the columns split. A bias splits with a column
+    layer's output and stays whole beside a row layer.
+  - A chain: in one block (the layers of one parent module), column layers
+    and one row layer. The columns' input enters through `copy_to_model`
+    (identity forward, all-reduce backward) and their outputs stay split
+    by head or hidden unit into the row layer, whose partial products
+    `reduce_from_model` sums (all-reduce forward, identity backward); the
+    bias, whole, is added after the sum.
+  - A loner column layer (no row layer in its block: the head) gathers its
+    output over "model" (`gather_from_model`), since its consumer reads it
+    whole: the loss and the sampler see JAX's full logits.
+  - A loner row layer (its block's other layers whole) takes this rank's
+    part of its whole input (`split_to_model`: the gradient all-gathered)
+    and all-reduces its product.
+  - An embedding split on its vocab rows (``("model", None)``) holds rows
+    [start, stop): an id outside them reads a zero row, and the all-reduce
+    sums the one rank that holds it. Split on its hidden columns
+    (``(None, "model")``) it looks up this rank's columns and all-gathers
+    the hidden dim. A tied head over either table is the matching product:
+    logits gathered over the vocab, or partial logits over this rank's
+    hidden part all-reduced.
+  - An attention block the table does not split as a chain (a replicated
+    chain, or loners) computes every head; under a cache (the engine's pools hold this
+    rank's KV heads only) it writes and attends over this rank's heads and
+    all-gathers the attention output before its whole output projection
+    (`HeadSplit`). Without a cache (training) it runs whole.
   - An `Int8Linear` (the int8 engine's) splits its int8 matrix like the
     kernel and its per-output-channel scale by the rule's output dim, as
     JAX's `derive_tp_param_shardings` places ``kernel/scale``.
 
-The attention and MLP modules read their per-rank head counts and widths
-off their layers' shapes, so the rotary embedding, the grouped-query
-grouping and `attend` (K1-K5 included) see only the rank's heads. At a
-"model" size of 1 `shard_module` changes nothing: the layers stay plain,
-and no collective runs. `COLLECTIVES` counts the collectives issued, by
-kind (every rank of a group must issue the same sequence).
+A spec that fits none of these raises, naming the leaf. The attention and
+MLP modules read their per-rank head counts and widths off their layers'
+shapes, so the rotary embedding, the grouped-query grouping and `attend`
+(K1-K5 included) see only the rank's heads. At a "model" size of 1
+`shard_module` changes nothing: the layers stay plain, and no collective
+runs. `COLLECTIVES` counts the collectives issued, by kind (every rank of
+a group must issue the same sequence).
 """
 
 from __future__ import annotations
@@ -114,6 +127,21 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _SplitToModel(torch.autograd.Function):
+    """This rank's part of the last dim; the gradient all-gathered over
+    "model" (Megatron's scatter to the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        width = x.shape[-1] // tp.size
+        return x[..., tp.rank * width:(tp.rank + 1) * width].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.all_gather_last(grad), None
+
+
 class _GatherFromModel(torch.autograd.Function):
     """The last dim gathered over "model"; the backward takes this rank's
     part (every rank computes the same loss on the gathered tensor)."""
@@ -141,6 +169,10 @@ def gather_from_model(x, tp: TPGroup):
     return _GatherFromModel.apply(x, tp)
 
 
+def split_to_model(x, tp: TPGroup):
+    return _SplitToModel.apply(x, tp)
+
+
 class ColumnParallel:
     """A linear layer holding the rows of its torch weight (the flax
     kernel's output columns) this rank owns."""
@@ -156,14 +188,18 @@ class ColumnParallel:
 class RowParallel:
     """A linear layer holding the columns of its torch weight (the flax
     kernel's input rows) this rank owns; the bias, whole, is added after
-    the sum."""
+    the sum. A loner (`split_input`) takes this rank's part of a whole
+    input first."""
 
     tp: TPGroup
+    split_input: bool = False
 
     def _product(self, x):
         raise NotImplementedError
 
     def forward(self, x):
+        if self.split_input:
+            x = split_to_model(x, self.tp)
         y = reduce_from_model(self._product(x), self.tp)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
@@ -232,6 +268,61 @@ class VocabParallelEmbedding(nn.Embedding):
         return gather_from_model(copy_to_model(hidden, self.tp) @ self.weight.T, self.tp)
 
 
+class HiddenParallelEmbedding(nn.Embedding):
+    """Columns [r·H/tp, (r+1)·H/tp) of an embedding table: each rank looks
+    up its columns and the hidden dim is all-gathered (the backward keeps
+    this rank's part). `logits` is the tied head over the same columns:
+    this rank's part of the hidden times its columns, all-reduced."""
+
+    tp: TPGroup
+
+    def forward(self, ids):
+        return gather_from_model(F.embedding(ids, self.weight), self.tp)
+
+    def logits(self, hidden):
+        return reduce_from_model(split_to_model(hidden, self.tp) @ self.weight.T, self.tp)
+
+
+class HeadSplit:
+    """The "model" group of an attention block whose projections stay whole
+    (a replicated chain). Under a cache (the engine's pools or its
+    prefill's dense pair, which hold this rank's KV heads only) the block
+    attends over this rank's query heads and KV heads (`attend`, K1/K2 on
+    this rank's heads) and all-gathers the output's heads; without one it
+    attends over every head."""
+
+    def __init__(self, tp: TPGroup):
+        self.tp = tp
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def attend(self, q, k, v, positions, attention_mask=None, kv_pool=None, page_table=None,
+               attention_impl="gather", kv_cache=None, decode_cache=None):
+        from ..ops.attention import attend
+
+        if kv_pool is None and kv_cache is None:
+            return attend(q, k, v, positions, attention_mask, kv_pool, page_table, attention_impl, kv_cache,
+                          decode_cache)
+        n, r = self.tp.size, self.tp.rank
+        q, k, v = (t.chunk(n, dim=2)[r] for t in (q, k, v))
+        out = attend(q, k, v, positions, attention_mask, kv_pool, page_table, attention_impl, kv_cache,
+                     decode_cache)
+        b, s, h, d = out.shape
+        return gather_from_model(out.reshape(b, s, h * d), self.tp).reshape(b, s, h * n, d)
+
+
+def attend_heads(block: nn.Module, q, k, v, positions, *modes):
+    """`attend` for an attention block: through its `HeadSplit` when
+    `shard_module` gave it one."""
+    split = getattr(block, "tp_heads", None)
+    if split is None:
+        from ..ops.attention import attend
+
+        return attend(q, k, v, positions, *modes)
+    return split.attend(q, k, v, positions, *modes)
+
+
 def _param(value: torch.Tensor, like: nn.Parameter) -> nn.Parameter:
     return nn.Parameter(value.detach().clone(), requires_grad=like.requires_grad)
 
@@ -240,9 +331,10 @@ def _split(t: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
     return t.chunk(tp.size, dim=dim)[tp.rank]
 
 
-def _linear_split(layer, kind: str, tp: TPGroup, gather_output: bool):
+def _linear_split(layer, kind: str, tp: TPGroup, loner: bool):
     """`layer` (an `nn.Linear`, a `Dense` or an `Int8Linear`) as its
-    rank's column- or row-parallel split."""
+    rank's column- or row-parallel split; a `loner` column layer gathers
+    its output, a loner row layer takes its part of a whole input."""
     column = kind == "column"
     if isinstance(layer, Int8Linear):
         cls = ColumnParallelInt8Linear if column else RowParallelInt8Linear
@@ -264,16 +356,24 @@ def _linear_split(layer, kind: str, tp: TPGroup, gather_output: bool):
         new.weight = _param(weight, layer.weight)
         if layer.bias is not None:
             new.bias = _param(_split(layer.bias, 0, tp) if column else layer.bias, layer.bias)
-    new.tp, new.gather_output = tp, gather_output
+    new.tp = tp
+    if column:
+        new.gather_output = loner
+    else:
+        new.split_input = loner
     return new
 
 
-def _embedding_split(layer: nn.Embedding, tp: TPGroup) -> VocabParallelEmbedding:
-    weight = _split(layer.weight, 0, tp)
+def _embedding_split(layer: nn.Embedding, dim: int, tp: TPGroup) -> nn.Embedding:
+    """The vocab-parallel (`dim` 0) or hidden-parallel (`dim` 1) split of
+    an embedding table."""
+    weight = _split(layer.weight, dim, tp)
     with torch.device("meta"):
-        new = VocabParallelEmbedding(weight.shape[0], weight.shape[1])
+        new = (VocabParallelEmbedding if dim == 0 else HiddenParallelEmbedding)(weight.shape[0], weight.shape[1])
     new.weight = _param(weight, layer.weight)
-    new.tp, new.vocab_start = tp, tp.rank * weight.shape[0]
+    new.tp = tp
+    if dim == 0:
+        new.vocab_start = tp.rank * weight.shape[0]
     return new
 
 
@@ -285,49 +385,87 @@ def refuse_family(module: nn.Module):
             f"{type(module).__name__} over a \"model\" axis above 1 waits for {OTHER_FAMILIES}")
 
 
+_KINDS = {(None, "model"): "column", ("model",): "row", ("model", None): "row"}
+_EMBEDDING_DIMS = {("model",): 0, ("model", None): 0, (None, "model"): 1}
+_ATTENTION = ("wq", "wk", "wv", "wo")
+
+
+def _chains(kinds: Dict[str, Optional[str]]) -> Dict[str, bool]:
+    """{name: loner} of the split linear layers, from {name: "column",
+    "row" or None (whole)} of every linear layer: a block (one parent's
+    layers) with one row layer and every other layer column is a chain; a
+    row layer among whole ones, or column layers without a row one, are
+    loners. Any other mix raises."""
+    blocks: Dict[str, Dict[str, Optional[str]]] = {}
+    for name, kind in kinds.items():
+        blocks.setdefault(name.rpartition(".")[0], {})[name] = kind
+    loner = {}
+    for block, members in blocks.items():
+        rows = [n for n, k in members.items() if k == "row"]
+        cols = [n for n, k in members.items() if k == "column"]
+        if len(rows) > 1 or (rows and cols and len(rows) + len(cols) != len(members)):
+            raise NotImplementedError(
+                f"block {block or '<root>'!r}: {members} is neither a chain (column layers and one row layer), "
+                "nor loner column layers, nor one loner row layer among whole ones")
+        for n in rows + cols:
+            loner[n] = not (rows and cols)
+    return loner
+
+
 def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGroup]) -> Dict[str, int]:
     """Replace, in place, every layer of `module` that `rules` shards over
     "model" by this rank's split (JAX's spec on the flax view of its
-    kernel or embedding). Returns {name in the state dict: torch dim split
-    over "model"} of the split tensors. With no group, or a group of one,
-    nothing changes."""
+    kernel or embedding), in the form its block gives it (a chain, a loner;
+    see the module's docstring), and give each attention block the table
+    does not split as a chain a `HeadSplit`. Returns {name in the state dict: torch dim
+    split over "model"} of the split tensors. With no group, or a group of
+    one, nothing changes."""
     if tp is None or tp.size == 1:
         return {}
     refuse_family(module)
     sizes = {"model": tp.size}
-    gathered = set(getattr(module, "tp_gathered", ()))
-    dims: Dict[str, int] = {}
-    for name, layer in list(module.named_modules()):
+    kinds: Dict[str, Optional[str]] = {}
+    embeddings: Dict[str, int] = {}
+    for name, layer in module.named_modules():
         base = "params/" + (f"{_flax_module_path(name)}/" if name else "")
         if isinstance(layer, (nn.Linear, Int8Linear)):
-            shape = (layer.in_features, layer.out_features)
-            spec = tp_spec(base + "kernel", shape, sizes, rules)
-            if not spec:
-                continue
-            kind = {(None, "model"): "column", ("model",): "row", ("model", None): "row"}.get(tuple(spec))
-            if kind is None:
+            spec = tuple(tp_spec(base + "kernel", (layer.in_features, layer.out_features), sizes, rules))
+            if spec and spec not in _KINDS:
                 raise NotImplementedError(f"{base}kernel: spec {spec} is neither column- nor row-parallel")
-            new = _linear_split(layer, kind, tp, gather_output=name in gathered)
-            weight = "q" if isinstance(layer, Int8Linear) else "weight"
-            dims[f"{name}.{weight}"] = 0 if kind == "column" else 1
-            if kind == "column":
-                if layer.bias is not None:
-                    dims[f"{name}.bias"] = 0
-                if isinstance(layer, Int8Linear):
-                    dims[f"{name}.scale"] = 0
+            kinds[name] = _KINDS.get(spec)
         elif isinstance(layer, nn.Embedding):
-            spec = spec_for_param(base + "embedding", tuple(layer.weight.shape), sizes, rules=rules)
+            spec = tuple(spec_for_param(base + "embedding", tuple(layer.weight.shape), sizes, rules=rules))
             if not spec:
                 continue
-            if tuple(spec) != ("model",):
-                raise NotImplementedError(f"{base}embedding: spec {spec} is not vocab-parallel")
+            if spec not in _EMBEDDING_DIMS:
+                raise NotImplementedError(f"{base}embedding: spec {spec} is neither vocab- nor hidden-parallel")
             tp_spec(base + "embedding", tuple(layer.weight.shape), sizes, rules)  # the divisibility check
-            new = _embedding_split(layer, tp)
-            dims[f"{name}.weight"] = 0
-        else:
+            embeddings[name] = _EMBEDDING_DIMS[spec]
+    loner = _chains(kinds)
+    dims: Dict[str, int] = {}
+    replaced: Dict[str, nn.Module] = {}
+    for name, kind in kinds.items():
+        if kind is None:
             continue
+        layer = module.get_submodule(name)
+        replaced[name] = _linear_split(layer, kind, tp, loner=loner[name])
+        weight = "q" if isinstance(layer, Int8Linear) else "weight"
+        dims[f"{name}.{weight}"] = 0 if kind == "column" else 1
+        if kind == "column":
+            if layer.bias is not None:
+                dims[f"{name}.bias"] = 0
+            if isinstance(layer, Int8Linear):
+                dims[f"{name}.scale"] = 0
+    for name, dim in embeddings.items():
+        replaced[name] = _embedding_split(module.get_submodule(name), dim, tp)
+        dims[f"{name}.weight"] = dim
+    for name, new in replaced.items():
         parent, _, child = name.rpartition(".")
         setattr(module.get_submodule(parent) if parent else module, child, new)
+    for name, block in module.named_modules():
+        members = [f"{name}.{n}" if name else n for n in _ATTENTION]
+        if all(m in kinds for m in members) and not all(kinds[m] and not loner[m] for m in members):
+            block.tp_heads = HeadSplit(tp)  # not a chain: its heads come out whole
     return dims
 
 

@@ -96,7 +96,6 @@ from .paging import SCRATCH_PAGE, PagePool, chain_hashes, pages_for
 from .parallel.sharding import (
     derive_tp_cache_shardings,
     derive_tp_param_shardings,
-    refuse_auto,
     serving_tp_mesh,
     tp_cache_tree,
     tree_device_nbytes,
@@ -197,7 +196,12 @@ class ContinuousBatcher:
     tp_group)` picks of the process group (every one of them builds the
     engine, on the full model, and drives it alike); `sharding_rules` is
     the Megatron table (None or ``"rules"``: the model's own; a list: the
-    caller's; ``"auto"``, the planner, waits)."""
+    caller's; ``"auto"``: the cost-model planner's, `parallel.planner`, with
+    the engine's pool priced in at its cache dtype, on the engine's chip;
+    `sharding_refine_top_k` >= 1 times the top k plans' one-token forwards
+    and keeps the fastest, every rank taking the slowest rank's time, so
+    every rank keeps the same plan). The chosen plan is
+    `sharding_plan`."""
 
     def __init__(
         self,
@@ -228,6 +232,7 @@ class ContinuousBatcher:
         tp_devices=None,
         tp_group: int = 0,
         sharding_rules: Any = None,
+        sharding_refine_top_k: int = 0,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -293,17 +298,38 @@ class ContinuousBatcher:
         self.tp = int(tp)
         if self.tp < 1:
             raise ValueError("tp must be >= 1")
-        if sharding_rules is None or sharding_rules == "rules":
+        # The rules' source: None / "rules" the model family's table; a list
+        # the caller's; "auto" the cost-model planner, which searches the
+        # layout from the shapes, the "model" size and the pool it prices.
+        self.sharding_mode = "rules" if sharding_rules is None else sharding_rules
+        if isinstance(self.sharding_mode, (list, tuple)):
+            self._tp_rules = list(self.sharding_mode)
+            self.sharding_mode = "explicit"
+        elif self.sharding_mode in ("rules", "auto"):
             self._tp_rules = list(getattr(model, "sharding_rules", None) or [])
-        elif isinstance(sharding_rules, (list, tuple)):
-            self._tp_rules = list(sharding_rules)
-        elif sharding_rules == "auto":
-            refuse_auto(sharding_rules)
         else:
             raise ValueError(f"sharding_rules must be a rules list, None, 'rules' or 'auto'; got {sharding_rules!r}")
+        self.sharding_plan = None
+        # The refined candidates as `refine_plans` measured them, (plan,
+        # seconds) in the order timed; None unless the planner refined.
+        self.sharding_candidates = None
+        self.sharding_refine_top_k = int(sharding_refine_top_k)
+        self.page_size = int(page_size)
+        if self.paged:
+            if self.page_size < 1:
+                raise ValueError("page_size must be >= 1")
+            self.pages_per_slot = -(-self.max_length // self.page_size)
+            self._padded_length = self.pages_per_slot * self.page_size
+            # Default pool: every slot at max_length, plus the scratch page.
+            self.num_pages = (
+                int(num_pages) if num_pages is not None else self.num_slots * self.pages_per_slot + 1
+            )
+        else:
+            self.pages_per_slot = self.num_pages = 0
+            self._padded_length = self.max_length
         self._tp = None
         if self.tp > 1:
-            if not self._tp_rules:
+            if not self._tp_rules and self.sharding_mode != "auto":
                 raise ValueError(
                     f"{type(model).__name__} carries no sharding_rules — this model family has no Megatron TP "
                     "layout to span a mesh with; pass tp=1")
@@ -313,6 +339,8 @@ class ContinuousBatcher:
                     "pool shards by KV head over the \"model\" axis")
             refuse_family(model)
             self._tp = _tp_process_group(serving_tp_mesh(self.tp, tp_devices, tp_group))
+            if self.sharding_mode == "auto":
+                self._plan(model)
         self.kv_heads = cfg.num_key_value_heads // self.tp
         if self.weight_dtype == "int8":
             model = quantize_model_int8(model, self.device)  # the engine's own copy; the caller's is untouched
@@ -321,17 +349,6 @@ class ContinuousBatcher:
         self._param_specs = derive_tp_param_shardings(model, {"model": self.tp}, self._tp_rules)
         model = _on_device(tensor_parallel_copy(model, self._tp_rules, self._tp), self.device)
         self.model = model
-        self.page_size = int(page_size)
-        if self.paged:
-            if self.page_size < 1:
-                raise ValueError("page_size must be >= 1")
-            self.pages_per_slot = -(-self.max_length // self.page_size)
-            # Default pool: every slot at max_length, plus the scratch page.
-            self.num_pages = (
-                int(num_pages) if num_pages is not None else self.num_slots * self.pages_per_slot + 1
-            )
-        else:
-            self.pages_per_slot = self.num_pages = 0
         # The prefix cache's suffix-only insert never sees the whole prompt,
         # which seeding the presence row needs: a penalty engine runs without it.
         self.use_prefix_cache = bool(prefix_cache) and self.paged and not self.use_repetition_penalty
@@ -379,6 +396,33 @@ class ContinuousBatcher:
         # observe()d before they are isolated.
         self.trace_guard = trace_guard
         self._init_telemetry(registry, tracer)
+
+    def _plan(self, model):
+        """``sharding_rules="auto"``: JAX's planner call, before the split and
+        on every rank from values every rank holds (the model's shapes and
+        dtypes, the pool's geometry, the engine's chip). With
+        `sharding_refine_top_k` >= 1 each of the top k plans is placed and
+        its one-token forward timed, in the same order on every rank, and
+        the plan the slowest rank timed fastest wins (`refine_plans`,
+        `measure_forward_step`)."""
+        from .parallel.planner import default_chip, measure_forward_step, plan_serving_sharding, refine_plans
+
+        top_k = max(1, self.sharding_refine_top_k)
+        planned = plan_serving_sharding(
+            model, {"model": self.tp}, self.config,
+            num_slots=self.num_slots, padded_length=self._padded_length, paged=self.paged,
+            page_size=self.page_size, num_pages=self.num_pages, kv_cache_dtype=self.kv_cache_dtype,
+            weight_dtype=self.weight_dtype, chip=default_chip(self.device), top_k=top_k)
+        if self.sharding_refine_top_k >= 1:
+            # refine_top_k=1 still measures: the single candidate gets a
+            # real forward's time stamped on measured_step_s.
+            best, self.sharding_candidates = refine_plans(
+                planned if isinstance(planned, list) else [planned],
+                lambda plan: measure_forward_step(model, self._tp, plan.rules, batch=1, device=self.device))
+            self.sharding_plan = best
+        else:
+            self.sharding_plan = planned
+        self._tp_rules = list(self.sharding_plan.rules)
 
     def _init_telemetry(self, registry, tracer):
         """JAX's instruments under JAX's names (`stats` reads them back), the

@@ -4,7 +4,10 @@ paged insert's page moves (the port of `accelerate_tpu/utils/operations.py`).
 The collectives (`gather`, `gather_object`, `broadcast`,
 `broadcast_object_list`, `reduce`, `pad_across_processes`) run over the
 `PartialState`'s process group through `torch.distributed`: NCCL on the
-card, gloo on the CPU. Each takes a tensor, a numpy array or nested dicts,
+card, gloo on the CPU. `gather`, `gather_object`, `reduce` and
+`pad_across_processes` take a `group` (None: every process); the
+`Accelerator`'s methods pass the "data" ranks under a "model" axis, whose
+ranks of one data shard hold the same rows. Each takes a tensor, a numpy array or nested dicts,
 lists and tuples of them, returns the same kinds, and is the identity with
 one process. `pad_input_tensors`, `slice_tensors` and `concatenate` are
 pure.
@@ -159,35 +162,40 @@ def chained_operation(function):
     return wrapper
 
 
-def _all_gather(t: torch.Tensor) -> List[torch.Tensor]:
-    parts = [torch.empty_like(t) for _ in range(_num_processes())]
-    dist.all_gather(parts, t)
+def _group_size(group) -> int:
+    return _num_processes() if group is None else dist.get_world_size(group)
+
+
+def _all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
+    parts = [torch.empty_like(t) for _ in range(_group_size(group))]
+    dist.all_gather(parts, t, group=group)
     return parts
 
 
 @verify_operation
-def gather(tensor):
+def gather(tensor, group=None):
     """Every process's leaves concatenated along dim 0, in process order, on
-    every process (a 0-d leaf becomes one row per process). The leaves must
-    have one shape across the processes (`pad_across_processes` first when
-    not)."""
-    if _num_processes() == 1:
+    every process (a 0-d leaf becomes one row per process); with `group`,
+    that group's processes only. The leaves must have one shape across the
+    processes (`pad_across_processes` first when not)."""
+    if _group_size(group) == 1:
         return tensor
 
     def _one(t):
-        return torch.cat([p.reshape(1) if p.dim() == 0 else p for p in _all_gather(t)], dim=0)
+        return torch.cat([p.reshape(1) if p.dim() == 0 else p for p in _all_gather(t, group)], dim=0)
 
     return recursively_apply(_collective(_one), tensor, error_on_other_type=True)
 
 
 @chained_operation
-def gather_object(object: Any) -> list:
-    """Picklable objects from every process, as one list in process order;
-    a process's list is spliced in, any other object appended."""
-    if _num_processes() == 1:
+def gather_object(object: Any, group=None) -> list:
+    """Picklable objects from every process (or `group`'s), as one list in
+    process order; a process's list is spliced in, any other object
+    appended."""
+    if _group_size(group) == 1:
         return list(object) if isinstance(object, list) else [object]
-    gathered = [None] * _num_processes()
-    dist.all_gather_object(gathered, object)
+    gathered = [None] * _group_size(group)
+    dist.all_gather_object(gathered, object, group=group)
     out = []
     for obj in gathered:
         if isinstance(obj, list):
@@ -221,35 +229,36 @@ def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
 
 
 @verify_operation
-def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
+def reduce(tensor, reduction: str = "mean", scale: float = 1.0, group=None):
     """The leaves summed (``"sum"``) or averaged (``"mean"``) over the
-    processes, times `scale`, on every process."""
+    processes (or `group`'s), times `scale`, on every process."""
     if reduction not in ("sum", "mean"):
         raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
+    n = _group_size(group)
 
     def _one(t):
         t = t.clone()
-        if _num_processes() > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        if n > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
             if reduction == "mean":
-                t = t / _num_processes()
+                t = t / n
         return t * scale
 
     return recursively_apply(_collective(_one), tensor, error_on_other_type=True)
 
 
 @verify_operation
-def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False, group=None):
     """Each leaf padded with `pad_index` along `dim` to the largest size any
-    process holds there (at the front with `pad_first`), so that `gather`
-    can take it."""
-    if _num_processes() == 1:
+    process (of `group`, where given) holds there (at the front with
+    `pad_first`), so that `gather` can take it."""
+    if _group_size(group) == 1:
         return tensor
 
     def _one(t):
         if t.dim() == 0 or dim >= t.dim():
             return t
-        sizes = torch.stack(_all_gather(torch.tensor(t.shape, device=t.device)))
+        sizes = torch.stack(_all_gather(torch.tensor(t.shape, device=t.device), group))
         max_size = int(sizes[:, dim].max())
         if max_size == t.shape[dim]:
             return t

@@ -14,7 +14,7 @@ prints no result):
    tokens, ragged lengths, shuffled page tables, a poisoned scratch page;
    verify block s = 5), each held against its plain PyTorch version in f32
    (atol 2e-5) and bf16 (atol 2e-3, rtol 1e-2), then timed with CUDA events
-   (median of 60 launches, L2 flushed before each: `ms`, which a call's host
+   (median of 20 launches, L2 flushed before each: `ms`, which a call's host
    work bounds where it outlasts the flush, and `device_ms`, the device
    spun 0.5 ms after the flush so that only its own time counts) beside the
    plain version,
@@ -59,7 +59,7 @@ prints no result):
    weights from a seed) served by `ContinuousBatcher(num_slots=8,
    page_size=16, max_length=2048)` over 16 requests of mixed lengths, half
    of them sharing a 256-token system prompt.
-   (a) f32 at full width cut to 4 layers (`PARITY_LAYERS`; (b) and (e)
+   (a) f32 at full width cut to 2 layers (`PARITY_LAYERS`; (b) and (e)
        hold the engine at full depth): greedy tokens of the "paged_kernel"
        engine equal the "gather" engine's, plain (K1's path) and
        speculative (K2's path).
@@ -83,7 +83,7 @@ prints no result):
    cache (one shared write index, a persistent pad mask, the plain masked
    attention over the written prefix; JAX runs no Pallas kernel there
    either).
-   (a) f32 at full width cut to 4 layers ((b) holds the path at full
+   (a) f32 at full width cut to 2 layers ((b) holds the path at full
        depth), greedy, gated: 4 prompts of 256 tokens, 32 new tokens each,
        give the "paged_kernel" engine's tokens (K1's path) row for row; the
        same with draft_tokens=4 gives the plain loop's; a left-padded batch
@@ -128,7 +128,7 @@ prints no result):
        for the skip pattern; the last loss below the first where two or more
        steps were applied; each fp16 flash kernel launched 16 layers x 8
        steps times, skipped steps included.
-   (e) the checkpoint round trip of the 2-layer cut runs in phase 16 (b):
+   (e) the checkpoint round trip of the 1-layer cut runs in phase 16 (b):
        the same `CheckpointManager` save after step 2 of 4
        over a `SeedableRandomSampler`, "latest" restored into fresh weights
        and the loader skipped to its position, the losses within rtol 1e-6
@@ -167,8 +167,9 @@ prints no result):
        layers, the kernel path's greedy tokens equal the gather path's,
        plain and speculative, unquantized and on int8 and fp8 caches, and
        `generate`'s equal the K1 engine's on 4 prompts of 256 tokens; then
-       bf16 at 44 layers (41.1 GB of weights, 17.7 GB of pools) over the 16
-       requests of phase 3, plain (K1) and speculative (K2), timed, launches
+       bf16 at 44 layers (41.1 GB of weights, 17.7 GB of pools) over the
+       first 8 of phase 3's requests, plain (K1) and
+       speculative (K2), timed, launches
        gated as in phase 3; then int8 weights over an int8 and an fp8 cache
        at 4 layers (phase 3 holds int8 weights at full
        depth; the bf16 model the engine copies from and its int8 copy both
@@ -206,8 +207,9 @@ prints no result):
 9. HF checkpoint interchange: Llama-1B bf16 written with
    `save_hf_checkpoint` into a temporary directory and loaded with
    `load_hf_checkpoint_in_model` into a model from another seed: the same
-   tensors bit for bit, and the paged engine's 16 requests of phase 3,
-   plain (K1) and speculative (K2), give the original's tokens; the file's
+   tensors bit for bit, and the first 8 of phase 3's requests (phase 3
+   serves all 16), plain (K1) and speculative (K2), give the original's
+   tokens; the file's
    bytes, the save and load seconds and the directory's filesystem
    (`df -T`). Then T5 at T0pp-11B's widths cut to 2 + 2 layers round trips
    with bit-equal logits.
@@ -223,8 +225,8 @@ prints no result):
        launches are (d)'s.
    (c) `generate` through `Generator(max_length=1024)`: f32 at 2 layers
        and the dropless capacity factor 4.0, the cached greedy tokens equal
-       the full-context greedy loop's for 8 new tokens; bf16 at 4 layers
-       (11.9 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
+       the full-context greedy loop's for 8 new tokens; bf16 at 2 layers
+       (6.2 GB), batch 1 on a 512-token prompt and a left-padded batch of 8
        (128-512 tokens), 128 new tokens each (TTFT, decode tokens/s, peak
        memory), no K1-K5 launch; the tokens the routers dropped at the
        prefill and at each decode step of the batch-8 call, counted by a
@@ -287,7 +289,7 @@ prints no result):
    (a) the Llama-1B paged engine of phase 3 (bf16, its 16 requests and
        engine arguments, full width cut to 2 layers: phase 3 holds the
        engine at full depth), plain and speculative, each
-       after a warm-up, run without and with instrumentation (a b b a twice
+       after a warm-up, run without and with instrumentation (a b b a
        for plain, a b for speculative): instrumented is a fresh
        `MetricsRegistry`, a `Tracer` over a `FlightRecorder` streaming into
        a temporary directory (removed however the phase ends) and a
@@ -335,7 +337,7 @@ prints no result):
    (`tests/test_torch_distributed*.py`).
    (a) Llama-1B bf16 with f32 masters at full width cut to 2 layers (5 (b)
        holds the fused step at full depth), 5 (b)'s
-       batch (2 x 2048), seed and AdamW, 2 warm-up and 8 timed steps, each
+       batch (2 x 2048), seed and AdamW, 2 warm-up and 4 timed steps, each
        run through `Accelerator(...).prepare` and `train_step()`: the bare
        `Accelerator` (no group), then NO_SHARD, SHARD_GRAD_OP and
        FULL_SHARD, each paired with the bare run in one call (one pass
@@ -354,7 +356,7 @@ prints no result):
        (the 2-layer cut): 2 warm-up steps, then 4 under a record-mode `TraceGuard` ("log");
        reported: kernel builds and host syncs by site, the port's own frame
        and torch's innermost one. A sync in the port's code fails the phase.
-   (c) A checkpoint across layouts: 2 layers of Llama-1B at full width under
+   (c) A checkpoint across layouts: 1 layer of Llama-1B at full width under
        FULL_SHARD, `save_state` after step 3 (into a temporary directory,
        removed however the phase ends), a fresh FULL_SHARD `Accelerator`
        loads it and takes steps 4-6: losses within rtol 1e-6 of the run
@@ -435,7 +437,7 @@ prints no result):
        8 losses equal, bit for bit, the same loop in this process under
        ``Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)``.
    (b) ``launch --max_restarts 1 --trace_dir D --mixed_precision bf16 S`` on
-       the 2-layer cut at full width (batch 2 x 2048, fused steps): the
+       the 1-layer cut at full width (batch 2 x 2048, fused steps): the
        first attempt saves its state after step 2 and exits 1; the second
        finds the checkpoint, loads "latest", skips the 2 batches and takes
        steps 3 and 4. Gates: exactly 2 attempts; the losses of both attempts
@@ -523,7 +525,7 @@ prints no result):
        moments' bytes each way at the bare copy's rate), tokens/s, MFU.
 
 19. Async and sharded checkpoints and preemption, run after phase 18, on
-    Llama-1B at full width cut to 2 layers (646,981,632 parameters: 7.76 GB
+    Llama-1B at full width cut to 1 layer (586,160,128 parameters: 7.03 GB
     of f32 masters and AdamW moments), random weights from seed 0, bf16
     with f32 masters, batch 2 x 2048 on one repeated batch, AdamW (lr 1e-4,
     decay 1e-4), clip 1.0, through `accelerator.train_step()`; the
@@ -565,7 +567,7 @@ prints no result):
        (``host_0000/``, its ``SHARD_DONE``, the manifest's ``"sharded"``
        block, each checked): its gathered masters and moments equal the
        copy after step 4 bit for bit.
-   Gates over the phase: K3-K5 launched 2 x 29 times each in bf16 (joining
+   Gates over the phase: K3-K5 launched 1 x 29 times each in bf16 (joining
    the Llama rows of the `kernels` line), and no kernel built.
 
 20. The example twins and the quality gate, run last, in this process (a
@@ -587,7 +589,7 @@ prints no result):
    (b) The quality gate (`test_utils/scripts/test_performance.py`) through
        its `main`: "dp" at JAX's full recipe (`text_pair`, 14 epochs,
        bf16): accuracy at least 0.82 and a gathered count of 128 (the
-       script raises otherwise); "full_shard" and "offload" (FULL_SHARD
+       script raises otherwise); "offload" (FULL_SHARD
        with the optimizer state in pinned host memory) in a world-1 NCCL
        group for one epoch, JAX's fast tier (phase 14 runs SHARD_GRAD_OP
        on Llama-1B): a final loss finite and below 1.0. Reported: each strategy's
@@ -604,11 +606,12 @@ prints no result):
        original's bit for bit, the manifest's digest verifies, and the
        round trip's safetensors hold the same keys and tensors. Reported:
        each direction's seconds and MB.
+       (a) runs in the parent while the ranks run (b)-(e).
    (b) Llama-1B at full width and depth from seed 0, bf16, served by
        `ContinuousBatcher(tp=2)` in a spawned world of 2 (16 query and 4 KV
-       heads a rank, K1 and K2 at those heads) at phase 3's setting: bf16
-       pools, int8 weights with int8 pools, and speculative (draft 3; the
-       int8 and speculative runs decode at most 16 tokens a request); the
+       heads a rank, K1 and K2 at those heads) at phase 3's setting (8 of
+       its requests): bf16 pools, int8 weights with int8 pools, and speculative (draft 3; the
+       int8 and speculative runs decode at most 8 tokens a request); the
        tp=1 engine runs the same requests here first. Each rank holds the
        model on the host and each engine moves only the rank's split to
        the card. Gates: both ranks'
@@ -625,14 +628,39 @@ prints no result):
        heads (`TP_KERNEL_SHAPE`, `TP_FLASH_SHAPE`).
    (c) In the same world, Llama-1B cut to 2 layers through `prepare` and
        `train_step()` under `ParallelismConfig(model=2)`: bf16 with f32
-       masters, 2 x 2048, AdamW lr 1e-4, decay 1e-4, clip 1.0, 2 warm-up
-       and 4 timed steps, against the same run at tp=1 here. Gates: the
+       masters, 2 x 2048, AdamW lr 1e-4, decay 1e-4, clip 1.0, 1 warm-up
+       and 3 timed steps, against the same run at tp=1 here. Gates: the
        ranks' losses and pre-clip norms equal; losses finite, falling, and
        within 1e-2 relative of tp=1's at every step; norms within 1e-3;
-       K3-K5 launched 2 x 6 times on each rank. The ranks hand `prepare`
+       K3-K5 launched 2 x 4 times on each rank. The ranks hand `prepare`
        the model on the host, which splits it there and moves the split.
        Reported: the median step time and the steps' peak card memory
        beside tp=1's.
+   (d) In the same world, a planned engine: Llama-1B at full width and
+       depth served by `ContinuousBatcher(tp=2, sharding_rules="auto",
+       sharding_refine_top_k=2)` on the card's chip (`h100-sxm`), (b)'s 8
+       requests (4 sharing the 256-token prompt) at 16 new tokens.
+       Gates: both ranks hold the same rules (an all-gathered digest); the
+       rules are one of the top 2 plans the parent computes before the
+       spawn from a `meta` model with the same chip and pool, and each
+       rank measured those candidates in that order; a rank's weight and
+       pool bytes within 10% of the plan's predicted per-chip bytes (JAX's
+       round-trip bound); `max_memory_allocated` at most 1/1.6 of tp=1's;
+       prefill logits and first tokens against (b)'s tp=1 run as (b) gates
+       them; K1 launched on each rank. Reported: each candidate's measured
+       seconds (the slower rank's) beside its predicted step time, the
+       embedding's split, decode tokens/s beside (b)'s hand-table run.
+   (e) Planned training in (c)'s setting under `sharding_rules="auto"`:
+       model=2 (1 warm-up and 3 timed steps) and data=2 (1 x 2048 a rank,
+       the parameters whole, the moments split over "data" by the plan's
+       ZeRO table; 1 warm-up and 2 timed steps), against (c)'s tp=1
+       losses. Gates: losses finite and within 1e-2 relative of tp=1's at
+       every step, equal across the ranks; at data=2 a rank's live moment
+       bytes at most 0.55 of tp=1's and within 1% of the plan's
+       `per_chip_opt_bytes` (the step counts aside); K3-K5 launched on
+       every rank. Reported: each mesh's median step time beside (c)'s.
+       `--plan-only` runs the build and (d)-(e) alone, with the tp=1 runs
+       they are held to.
 
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
@@ -640,7 +668,8 @@ and phase 13 alone, `--dist-only` the build and phase 14 alone,
 phase 16 alone, `--bigmodel-only` the build and phase 17 alone,
 `--offload-train-only` the build and phase 18 alone, `--checkpoint-only` the
 build and phase 19 alone, `--examples-only` the build and phase 20 alone,
-`--tp-only` the build and phase 21 alone, and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
+`--tp-only` the build and phase 21 alone, `--plan-only` the build and
+phase 21 (d)-(e) alone, and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
 whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -690,7 +719,7 @@ F32_ATOL = 2e-5
 # sqrt(e / L): 0.036 at L = 2048), so the absolute limit is kept well below
 # them; the measured error is about 2e-4.
 BF16_ATOL, BF16_RTOL = 2e-3, 1e-2
-TIMED_LAUNCHES = 60
+TIMED_LAUNCHES = 20  # fewer calls for the script's 1200 s limit
 # Device clock cycles `time_ms(spin=True)` spins before each timed call
 # (0.5 ms at the H100's 1.98 GHz boost clock).
 SPIN_CYCLES = 1_000_000
@@ -872,11 +901,11 @@ T5_TINY_SEQ = 1024
 # 14336, top 2, capacity factor 1.25; 32 heads of 128 over 8 KV heads; vocab
 # 32000). Its 46.70e9 parameters are 93.4 GB in bf16, past the card's 80 GB,
 # so each run is cut in depth: a layer is 1.4513e9 parameters (2.903 GB in
-# bf16), the embedding and the head 0.524 GB together. Generation runs 4 of
-# the 32 layers (11.9 GB, cut for the script's time) over
+# bf16), the embedding and the head 0.524 GB together. Generation runs 2 of
+# the 32 layers (6.2 GB, cut for the script's time) over
 # a 1024-token cache (prompt 512 + 128 new); its f32 dropless check 2 layers.
 MIXTRAL_MODEL = "mixtral-8x7b"
-MIXTRAL_GENERATE = dict(layers=4, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
+MIXTRAL_GENERATE = dict(layers=2, max_length=1024, prompt=512, new=128, batch=8, ragged=(128, 512),
                         parity_layers=2, parity_batch=2, parity_prompt=64, parity_new=8, profile_new=16)
 # Training runs 2 layers (3.165e9 parameters: f32 masters and gradients,
 # AdamW's two moments and the bf16 copies, about 57 GB) on batch 1 x 2048.
@@ -1252,7 +1281,7 @@ def agreement(base, other):
 ENGINE_KW = dict(num_slots=8, page_size=16, max_length=2048, chunk_size=8)
 # The depth of the f32 identities of phases 3 and 4 (a): their bf16 runs hold
 # the engine's and `generate`'s paths at full depth.
-PARITY_LAYERS = 4
+PARITY_LAYERS = 2
 
 
 def parity_model(model_name, device, layers=PARITY_LAYERS):
@@ -2051,7 +2080,7 @@ def repeated_batch_loader(vocab, batch, steps, seq, seed=0):
 
 def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0, on_step=None,
           after_step=None, remat_policy=None, loader=None, aux_out=None, analyze=False, keep=None,
-          accelerator_kw=None, on_host=False):
+          accelerator_kw=None, on_host=False, sharding_rules=None):
     """Train a model of `config` (its family's, random weights from seed 0)
     through the user's entry points; returns (per-step losses, per-step seconds, the
     prepared model, the step function, the last batch). `on_step(i,
@@ -2062,7 +2091,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     ``(loss, aux)`` (Mixtral's) appends each step's aux, as floats, to
     `aux_out`. `analyze` and `accelerator_kw` go to the `Accelerator`;
     `keep`, a dict, receives it under "accelerator". `on_host` hands
-    `prepare` the model on the host (made on the device, then moved)."""
+    `prepare` the model on the host (made on the device, then moved).
+    `sharding_rules` (a table or ``"auto"``) replaces the model's own."""
     from accelerate_tpu_torch import Accelerator, CompilationConfig
     from accelerate_tpu_torch.models import CREATE_BY_FAMILY
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
@@ -2070,6 +2100,8 @@ def train(device, config, mixed_precision, batch, steps, seq=TRAIN_SEQ, warmup=0
     AcceleratorState._reset_state()
     GradientState._reset_state()
     model = CREATE_BY_FAMILY[type(config)](config, seed=0, device=device)
+    if sharding_rules is not None:
+        model.sharding_rules = sharding_rules
     if on_host:
         model = model.cpu()
         free_memory(device)
@@ -2593,7 +2625,7 @@ def gqa_repeat_time(prof):
 
 
 # ----------------------------------------------------------------- families
-def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_layers=NEOX_W8_LAYERS, n_requests=16,
+def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_layers=NEOX_W8_LAYERS, n_requests=8,
                       system_len=256, new=32, n_prompts=4, profile=False):
     """GPT-NeoX through the paged engine (K1 and K2 at D 96, G = 1). (a) f32
     at full width cut to `parity_layers` layers: the kernel path's tokens
@@ -3061,13 +3093,14 @@ def filesystem(path):
 
 
 def hf_phase(device, model_name="llama-1b", t5_name=T5_MODEL, t5_layers=T5_TRAIN_LAYERS, engine_kw=None,
-             n_requests=16, system_len=256, mixtral_name=MIXTRAL_MODEL, mixtral_layers=2):
+             n_requests=8, system_len=256, mixtral_name=MIXTRAL_MODEL, mixtral_layers=2):
     """HF checkpoint interchange on the card, through a temporary directory
     (removed however the phase ends): `model_name` in bf16 at full width and
     depth (random weights from seed 0) written with `save_hf_checkpoint`
     and loaded with `load_hf_checkpoint_in_model` into a model built from
     seed 1, which then holds the same tensors bit for bit, in bf16 on the
-    card; the paged engine's 16-request mix, plain (K1) and speculative
+    card; the first `n_requests` of the paged engine's mix (phase 3
+    serves all 16: the weights are already equal), plain (K1) and speculative
     (K2), gives the loaded model the original's tokens, with each kernel's
     launches layers x dispatches. Reports the file's bytes, the save and
     load seconds and the directory's filesystem. Then T5 at `t5_name`'s
@@ -3983,8 +4016,8 @@ def telemetry_engine(device, model, requests, engine_kw, plain_tokens=None):
             timing.update(launches=launches, dispatches=dispatches)
             return tokens, timing
 
-        # The speculative engine is paired a b; the plain one a b b a twice.
-        runs = abba(run, "plain", "instrumented", rounds=2) if label == "plain" else {
+        # The speculative engine is paired a b; the plain one a b b a.
+        runs = abba(run, "plain", "instrumented") if label == "plain" else {
             mode: [run(mode)] for mode in ("plain", "instrumented")}
         streams = [tokens for mode in runs for tokens, _ in runs[mode]]
         if plain_tokens is not None and label in plain_tokens:
@@ -4234,7 +4267,7 @@ DIST_NO_SHARD_RTOL = 1e-6
 # The sharded strategies cast through FSDP's mixed-precision policy or
 # update through shard views: the same bf16 arithmetic in other kernels.
 DIST_SHARDED_RTOL = 1e-2
-DIST_CHECKPOINT_LAYERS = 2
+DIST_CHECKPOINT_LAYERS = 1  # (c): its save and loads on 9p are most of the phase
 DIST_TRAIN_LAYERS = 2  # (a) and (b): 5 (b) holds the fused step at full depth
 DIST_GUARD_STEPS = 4
 DIST_FP8_STEPS = (2, 4)  # (d): warm-up and timed steps of each fp8 run
@@ -4252,6 +4285,9 @@ def reset_port_state(partial=False):
         PartialState._reset_state()
 
 
+WORLD_ONE_PORT_TRIES = 3
+
+
 class world_one_group:
     """A one-process group for the block: the launcher's variables set (a
     free port on 127.0.0.1), `PartialState` built on them (NCCL on the card,
@@ -4266,11 +4302,20 @@ class world_one_group:
         from accelerate_tpu_torch.state import PartialState
 
         self.saved = {k: os.environ.get(k) for k in DIST_ENV}
-        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                          MASTER_PORT=str(free_port()))
-        reset_port_state(partial=True)
         try:
-            state = PartialState(cpu=self.device.type == "cpu")
+            for attempt in range(WORLD_ONE_PORT_TRIES):
+                # A port free when picked can be taken before the store binds
+                # it (another socket's ephemeral port): pick again.
+                os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(free_port()))
+                reset_port_state(partial=True)
+                try:
+                    state = PartialState(cpu=self.device.type == "cpu")
+                    break
+                except torch.distributed.DistNetworkError as e:
+                    if "EADDRINUSE" not in str(e) or attempt + 1 == WORLD_ONE_PORT_TRIES:
+                        raise
+                    log(f"[dist] port {os.environ['MASTER_PORT']} taken before the store bound it; another")
             backend = torch.distributed.get_backend()
             if self.device.type == "cuda" and backend != "nccl":
                 raise RuntimeError(f"the card's process group runs {backend!r}, not nccl")
@@ -4607,7 +4652,7 @@ def dist_checkpoint(device, config, seq, batch=1, steps=6, save_after=3):
     return report
 
 
-def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=8,
+def dist_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, batch=2, warmup=2, timed_steps=4,
                checkpoint_layers=DIST_CHECKPOINT_LAYERS, guard_steps=DIST_GUARD_STEPS, layers=DIST_TRAIN_LAYERS,
                fp8_steps=DIST_FP8_STEPS):
     """Phase 14: data parallel and FSDP/ZeRO through NCCL at world 1."""
@@ -4952,7 +4997,9 @@ def surface_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=SURFACE, c
 
 # ------------------------------------------------------------------ phase 16: launch and the CLI
 # (a)'s eager loop runs at `eager_layers`: phase 15 holds that loop at full depth.
-LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=4, eager_layers=2, restart_layers=2, restart_steps=4,
+# (b)'s restart at 1 layer: its save and load are most of the phase, and the
+# embedding and head most of their bytes.
+LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=4, eager_layers=2, restart_layers=1, restart_steps=4,
               save_after=2, restart_rows=16)
 CLI = ("-m", "accelerate_tpu_torch.commands.accelerate_cli")
 # The user's script the launched children run. The parent runs the same
@@ -5432,8 +5479,10 @@ BIGMODEL = dict(
 )
 OPT_FLASH_SHAPE = dict(b=1, hq=56, s=2048, d=128)
 #: The weights (flax path prefixes) phase 17 (e) also quantizes on the CPU:
-#: one layer's and the head (262M elements), whose codes must equal the card's.
-QUANT_CPU_CHECKED = ("params/layer_0/", "params/lm_head/")
+#: one layer's 7 (60.8M elements, every shape of a layer), whose codes must
+#: equal the card's. Not the head (262M more): its CPU codes took 12 of the
+#: sub-phase's 19 s.
+QUANT_CPU_CHECKED = ("params/layer_0/",)
 QUANT_MODES = {"int8": dict(load_in_8bit=True), "int4": dict(load_in_4bit=True, quant_type="int4"),
                "nf4": dict(load_in_4bit=True, quant_type="nf4")}
 
@@ -6160,7 +6209,9 @@ def offload_train_phase(device, model_name=OFFLOAD_TRAIN["model"], shape=OFFLOAD
 
 
 # ------------------------------------------------------------ async and sharded checkpoints
-CHECKPOINT = dict(layers=2, batch=2, save_interval=4, overlap_steps=16, resume_steps=4)
+# At 1 layer: two saves and two loads of 7.03 GB on the checkout's 9p are
+# most of the phase, and phase 3 and 5 (b) hold the layers at full depth.
+CHECKPOINT = dict(layers=1, batch=2, save_interval=4, overlap_steps=16, resume_steps=4)
 
 
 def checkpoint_steps(shape):
@@ -6497,12 +6548,13 @@ EXAMPLE_TWINS = (
 )
 #: The twins whose runs share an output directory (the second resumes the first).
 EXAMPLE_OUTPUT_DIRS = ("by_feature.checkpointing", "by_feature.profiler", "complete_nlp_example")
-#: Phase 20 (b): JAX's full recipe for "dp", its fast tier (one epoch) for the rest.
-# Not "shard_grad_op", for the script's time: phase 14 runs SHARD_GRAD_OP
-# on Llama-1B in a world-1 NCCL group, a deeper run of the same path.
-# "offload" (FULL_SHARD with the optimizer state in pinned host memory, in
-# an NCCL group) runs nowhere else.
-GATE_RUNS = (("dp", ()), ("full_shard", ("--epochs", "1")), ("offload", ("--epochs", "1")))
+#: Phase 20 (b): JAX's full recipe for "dp", its fast tier (one epoch) for "offload".
+# Not "shard_grad_op" nor "full_shard", for the script's time:
+# phase 14 runs both on Llama-1B in a world-1 NCCL group, a deeper run of the
+# same paths, and "offload" (FULL_SHARD with the optimizer state in pinned
+# host memory, in an NCCL group, which runs nowhere else) runs the gate's
+# FULL_SHARD path with the tier on top.
+GATE_RUNS = (("dp", ()), ("offload", ("--epochs", "1")))
 
 
 class tee_stdout:
@@ -6663,17 +6715,28 @@ def examples_phase(device, twins=EXAMPLE_TWINS, gate_runs=GATE_RUNS):
 # (a) converts the 2 layers and the norms at full width with the embedding
 # and head cut to `convert_vocab` rows: the whole 1.29 GB file's deflated
 # write passed the phase's 40 s (59.7 s at level 1, 146.8 s at zlib's 6).
-TP = dict(tp=2, convert_layers=2, convert_vocab=1024, train_layers=2, batch=2, warmup=2, timed_steps=4,
-          n_requests=16, system_len=256, draft_tokens=3, timeout_s=600)
+# (b) serves 8 requests and (c) takes 1 warm-up and 3 timed steps: the
+# script's time pays for (d) and (e) with them.
+TP = dict(tp=2, convert_layers=2, convert_vocab=1024, train_layers=2, batch=2, warmup=1, timed_steps=3,
+          n_requests=8, system_len=256, draft_tokens=3, timeout_s=600,
+          plan_requests=8, plan_max_new=16, plan_refine_top_k=2, plan_model_steps=3, plan_data_steps=2)
+#: Phase 21's parts: (a) convert, (b) serving and (c) training over the
+#: family's table, (d) serving and (e) training under ``sharding_rules="auto"``.
+TP_PARTS = ("a", "b", "c", "d", "e")
+TP_PLAN_BYTES = 0.10  # JAX's round-trip bound: a rank's weight + pool bytes against the plan's prediction
+TP_ZERO_SHARE = 0.55  # at data=2, a rank's moment bytes over tp=1's, at most
+TP_ZERO_BYTES = 0.01  # ... and within 1% of the plan's per-chip optimizer bytes
 TP_ENGINE_RUNS = {
     "bf16": {},
     "w8_int8": dict(weight_dtype="int8", kv_cache_dtype="int8"),
     "spec": dict(speculative=True),
 }
-# For the phase's time the int8 and speculative runs decode at most 16
-# tokens a request (the bf16 run all 16-48): every request's prefill, first
-# token and logits are still held to tp=1's.
-TP_RUN_MAX_NEW = {"w8_int8": 16, "spec": 16}
+# For the phase's time the int8 and speculative runs serve the first 4
+# requests and decode at most 8 tokens a request (the bf16
+# run all 8, 16-48 tokens): every request's prefill, first token and logits
+# are still held to tp=1's.
+TP_RUN_MAX_NEW = {"w8_int8": 8, "spec": 8}
+TP_RUN_REQUESTS = {"w8_int8": 4, "spec": 4}
 # The prefill logits of tp=2 against tp=1's, bf16 both: the largest
 # difference over each request's last-position logits, relative to the
 # largest |logit| of tp=1's (a row-parallel output is a sum of two bf16
@@ -6734,7 +6797,7 @@ def tp_serve_runs(device, model, requests, engine_kw, **tp_kw):
     for run, kw in TP_ENGINE_RUNS.items():
         cap = TP_RUN_MAX_NEW.get(run)
         reqs = [r if cap is None else dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens, cap))
-                for r in requests]
+                for r in requests[:TP_RUN_REQUESTS.get(run, len(requests))]]
         free_memory(device)
         pa.reset_launch_counts()
         tensor.reset_collectives()
@@ -6749,10 +6812,14 @@ def tp_serve_runs(device, model, requests, engine_kw, **tp_kw):
     return out
 
 
-def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False):
-    """Phase 21 (c)'s run: `train` in bf16 with the pre-clip global norm of
-    every step; returns the losses, step seconds, norms, K3-K5 launches and
-    the steps' peak card memory."""
+def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False, sharding_rules=None, batch=None,
+                 warmup=None, timed_steps=None):
+    """Phase 21 (c)'s and (e)'s run: `train` in bf16 with the pre-clip global
+    norm of every step; returns the losses, step seconds, norms, K3-K5
+    launches, the steps' peak card memory, this rank's live optimizer moment
+    bytes (step counts aside) and its dims of the moments sharded over the
+    layout's ZeRO axis. `batch`, `warmup` and `timed_steps` default to
+    `shape`'s."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     free_memory(device)
@@ -6772,16 +6839,72 @@ def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False)
 
             step_fn.optimizer.clip_grad_norm_ = clipped
 
-    losses, seconds, pmodel, step_fn, _ = train(device, config, "bf16", batch=shape["batch"],
-                                                steps=shape["timed_steps"], seq=seq, warmup=shape["warmup"],
-                                                on_step=record_norm, accelerator_kw=accelerator_kw,
-                                                on_host=on_host)
+    warmup = shape["warmup"] if warmup is None else warmup
+    losses, seconds, pmodel, step_fn, _ = train(device, config, "bf16", batch=batch or shape["batch"],
+                                                steps=shape["timed_steps"] if timed_steps is None else timed_steps,
+                                                seq=seq, warmup=warmup, on_step=record_norm,
+                                                accelerator_kw=accelerator_kw, on_host=on_host,
+                                                sharding_rules=sharding_rules)
+    state = step_fn.optimizer.optimizer.state
+    layout = pmodel.layout
     report = dict(losses=losses, step_s=seconds, norms=[float(n) for n in norms], launches=dict(fa.LAUNCHES),
-                  step_ms_median=1e3 * float(np.median(seconds[shape["warmup"]:])),
-                  peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None)
+                  step_ms_median=1e3 * float(np.median(seconds[warmup:])),
+                  peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+                  moment_bytes=sum(t.numel() * t.element_size() for entry in state.values()
+                                   for t in entry.values() if torch.is_tensor(t) and t.dim() > 0),
+                  param_numel=sum(p.numel() for p in pmodel.module.parameters()),
+                  zero_dims={} if layout is None else {n: d for n, d in layout.opt_dims.items() if d is not None},
+                  zero_axis=None if layout is None else layout.zero_axis,
+                  rules=[[p, list(spec)] for p, spec in pmodel.sharding_rules or []],
+                  opt_rules=[[p, list(spec)] for p, spec in pmodel.opt_sharding_rules or []])
     del pmodel, step_fn
     free_memory(device)
     return report
+
+
+def plan_requests(requests, shape):
+    """(d)'s requests: the first of (b)'s (half of them share its system
+    prompt), each decoding `plan_max_new` tokens."""
+    import dataclasses
+
+    return [dataclasses.replace(r, max_new_tokens=shape["plan_max_new"])
+            for r in requests[:shape["plan_requests"]]]
+
+
+def plan_serve_run(device, model, requests, engine_kw, shape):
+    """Phase 21 (d) on one rank: the planned engine's run (tokens, prefill
+    logits, timing, K1 launches, collectives, this rank's bytes and peak),
+    its plan, each refine candidate as measured, and every rank's digest
+    of the rules."""
+    import hashlib
+
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.parallel import tensor
+
+    free_memory(device)
+    pa.reset_launch_counts()
+    tensor.reset_collectives()
+    with prefill_logits() as logits:
+        engine, tokens, timing = serve(model, requests, device, **engine_kw, tp=shape["tp"], sharding_rules="auto",
+                                       sharding_refine_top_k=shape["plan_refine_top_k"])
+    measured = [{"rules": [[p, list(spec)] for p, spec in plan.rules], "measured_s": seconds,
+                 "predicted_step_s": plan.cost.step_time_s} for plan, seconds in engine.sharding_candidates or ()]
+    plan = engine.sharding_plan
+    rules = [[p, list(spec)] for p, spec in plan.rules]
+    digest = hashlib.sha256(json.dumps(rules).encode()).hexdigest()
+    digests = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(digests, digest)
+    out = dict(tokens=tokens, logits=torch.stack(logits), timing=timing, launches=dict(pa.LAUNCHES),
+               collectives=dict(tensor.COLLECTIVES), weight_bytes=engine.per_device_weight_nbytes,
+               kv_bytes=engine.per_device_kv_cache_nbytes,
+               peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+               rules=rules, digests=digests, candidates=measured,
+               predicted_bytes=[plan.cost.per_chip_param_bytes, plan.cost.per_chip_kv_bytes],
+               embedding={leaf.path: [list(leaf.spec), leaf.role] for leaf in plan.leaves
+                          if leaf.path.endswith("embedding")})
+    del engine
+    free_memory(device)
+    return out
 
 
 def tp_worker(out_dir, model_name, shape, seq, engine_kw, cpu):
@@ -6808,28 +6931,49 @@ def tp_worker(out_dir, model_name, shape, seq, engine_kw, cpu):
         time.sleep(0.05)
     # The weights tp=1 serves, made on the card from the seed, then held on
     # the host: each engine moves only this rank's split to the card.
-    model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device).cpu()
-    requests = make_requests(model.config.vocab_size, n=shape["n_requests"], system_len=shape["system_len"])
+    parts = shape.get("parts", TP_PARTS)
     report = {"rank": rank, "device": str(device), "backend": torch.distributed.get_backend()}
-    t0 = time.perf_counter()
-    report["serve"] = tp_serve_runs(device, model, requests, engine_kw, tp=shape["tp"])
-    report["serve_s"] = time.perf_counter() - t0
-    del model
-    t0 = time.perf_counter()
-    report["train"] = tp_train_run(device, cut_config(model_name, shape["train_layers"]), shape, seq, dict(
-        parallelism_config=ParallelismConfig(model=shape["tp"]),
-        kwargs_handlers=[InitProcessGroupKwargs(backend="gloo")]), on_host=True)
-    report["train_s"] = time.perf_counter() - t0
+    accelerator_kw = dict(kwargs_handlers=[InitProcessGroupKwargs(backend="gloo")])
+    if "b" in parts or "d" in parts:
+        model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device).cpu()
+        requests = make_requests(model.config.vocab_size, n=shape["n_requests"], system_len=shape["system_len"])
+        if "b" in parts:
+            t0 = time.perf_counter()
+            report["serve"] = tp_serve_runs(device, model, requests, engine_kw, tp=shape["tp"])
+            report["serve_s"] = time.perf_counter() - t0
+        if "d" in parts:
+            t0 = time.perf_counter()
+            report["plan_serve"] = plan_serve_run(device, model, plan_requests(requests, shape), engine_kw, shape)
+            report["plan_serve_s"] = time.perf_counter() - t0
+        del model
+    config = cut_config(model_name, shape["train_layers"])
+    if "c" in parts:
+        t0 = time.perf_counter()
+        report["train"] = tp_train_run(device, config, shape, seq, dict(
+            accelerator_kw, parallelism_config=ParallelismConfig(model=shape["tp"])), on_host=True)
+        report["train_s"] = time.perf_counter() - t0
+    if "e" in parts:
+        t0 = time.perf_counter()
+        report["plan_train"] = {
+            "model": tp_train_run(device, config, shape, seq, dict(
+                accelerator_kw, parallelism_config=ParallelismConfig(model=shape["tp"])), on_host=True,
+                sharding_rules="auto", warmup=1, timed_steps=shape["plan_model_steps"]),
+            "data": tp_train_run(device, config, shape, seq, dict(
+                accelerator_kw, parallelism_config=ParallelismConfig(data=shape["tp"])), on_host=True,
+                sharding_rules="auto", warmup=1, timed_steps=shape["plan_data_steps"]),
+        }
+        report["plan_train_s"] = time.perf_counter() - t0
     report["builds"] = builds
     reset_port_state()
     torch.save(report, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def tp_world(device, out_dir, model_name, shape, seq, engine_kw, while_starting):
+def tp_world(device, out_dir, model_name, shape, seq, engine_kw, while_starting, while_running=None):
     """`shape["tp"]` ranks of `tp_worker`, spawned once; their reports.
     `while_starting()` runs here while they start (their interpreters,
     imports and group; the launcher waits in a thread), then ``go`` lets
-    them begin (``abort`` stops them if it raised)."""
+    them begin (``abort`` stops them if it raised); `while_running()`
+    runs here while they run (its error raised once they are done)."""
     import threading
 
     from accelerate_tpu_torch.launchers import _launch_functions, free_port
@@ -6855,7 +6999,11 @@ def tp_world(device, out_dir, model_name, shape, seq, engine_kw, while_starting)
         launcher.join()
         raise
     open(os.path.join(out_dir, "go"), "w").close()
-    launcher.join()
+    try:
+        if while_running is not None:
+            while_running()
+    finally:
+        launcher.join()
     if failure:
         raise failure[0]
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(shape["tp"])]
@@ -6913,9 +7061,11 @@ def first_divergences(model, requests, base, other, device):
     """For each request whose `other` tokens part from `base` (tp=1's), the
     step where they first part and tp=1's gap between its top two logits
     there (a full-context forward of tp=1's model over the prompt and
-    tp=1's tokens before it)."""
+    tp=1's tokens before it); requests a run did not serve are skipped."""
     out = []
     for r in requests:
+        if r.request_id not in base:
+            continue
         a, b = base[r.request_id], other[r.request_id]
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if j is None:
@@ -6960,24 +7110,140 @@ def tp_gates(name, base, ranks, tol):
     return report
 
 
-def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=None, timed=True):
+def meta_serving_plans(model_name, device, shape, engine_kw, dtype=torch.bfloat16):
+    """Phase 21 (d)'s candidates as the parent plans them before the spawn:
+    `plan_serving_sharding` over a `meta` model of `model_name` in the
+    engine's dtype, with the engine's pool and `device`'s chip."""
+    from accelerate_tpu_torch.models import MODEL_REGISTRY, MODULE_BY_CONFIG
+    from accelerate_tpu_torch.parallel.planner import default_chip, plan_serving_sharding
+
+    config = MODEL_REGISTRY[model_name]()
+    with torch.device("meta"):
+        model = MODULE_BY_CONFIG[type(config)](config).to(dtype)
+    length = engine_kw.get("max_length") or config.max_position_embeddings
+    page = engine_kw["page_size"]
+    pages = -(-length // page)
+    plans = plan_serving_sharding(
+        model, {"model": shape["tp"]}, config, num_slots=engine_kw["num_slots"], padded_length=pages * page,
+        paged=True, page_size=page, num_pages=engine_kw["num_slots"] * pages + 1, kv_cache_dtype="bf16",
+        weight_dtype="bf16", chip=default_chip(device), top_k=shape["plan_refine_top_k"])
+    return plans if isinstance(plans, list) else [plans]
+
+
+def meta_train_plan(config, mesh, device):
+    """The plan `prepare` makes under ``"auto"`` on `mesh` ({axis: size}),
+    over a `meta` model of `config` in f32 (the masters): JAX's workload
+    (batch 8, seq 512, f32 Adam moments) on `device`'s chip."""
+    from accelerate_tpu_torch.models import MODULE_BY_CONFIG
+    from accelerate_tpu_torch.parallel.planner import Workload, default_chip, plan_sharding
+
+    with torch.device("meta"):
+        model = MODULE_BY_CONFIG[type(config)](config)
+    axes = tuple(a for a in ("data", "model") if mesh.get(a, 1) > 1) or ("model",)
+    return plan_sharding(model, mesh, axes=axes, chip=default_chip(device),
+                         workload=Workload(batch=8, seq=512, opt_bytes_per_param=8.0))
+
+
+def plan_serve_gates(device, shape, ranks, base, hand, plans):
+    """Phase 21 (d)'s gates against (b)'s tp=1 run `base` (its first inserts)
+    and the parent's candidate `plans`; returns the report."""
+    runs = [r["plan_serve"] for r in ranks]
+    n = len(runs[0]["logits"])
+    report = tp_gates("plan_serve", {"logits": base["logits"][:n], "tokens": base["tokens"]},
+                      [{"serve": {"plan_serve": r}} for r in runs], TP_LOGITS_RTOL)
+    report.pop("agreement")
+    candidates = [[[p, list(spec)] for p, spec in plan.rules] for plan in plans]
+    digests = runs[0]["digests"]
+    report.update(
+        rules_digests=digests, chosen=candidates.index(runs[0]["rules"]) if runs[0]["rules"] in candidates else None,
+        candidates=[dict(c, predicted_step_s=plans[i].cost.step_time_s) for i, c in enumerate(runs[0]["candidates"])],
+        embedding=runs[0]["embedding"], bytes=[[r["weight_bytes"], r["kv_bytes"]] for r in runs],
+        predicted_bytes=runs[0]["predicted_bytes"], launches=[r["launches"] for r in runs],
+        collectives=[r["collectives"] for r in runs],
+        decode_tokens_per_s=runs[0]["timing"]["decode_tokens_per_s"],
+        ttft_p50_s=runs[0]["timing"]["ttft_p50_s"])
+    report["bytes_err"] = [abs(sum(b) - sum(report["predicted_bytes"])) / sum(b) for b in report["bytes"]]
+    if hand is not None:
+        report["hand_tp2_decode_tokens_per_s"] = hand["timing"]["decode_tokens_per_s"]
+    if device.type == "cuda":
+        report["peak_ratio"] = [base["peak_bytes"] / r["peak_bytes"] for r in runs]
+    log(f"[tp] (d) planned engine {json.dumps(report)}")
+    if len(set(digests)) != 1 or any(r["digests"] != digests for r in runs):
+        raise RuntimeError(f"planned engine: the ranks hold different rules {digests}")
+    if report["chosen"] is None or any([c["rules"] for c in r["candidates"]] != candidates for r in runs):
+        raise RuntimeError(f"planned engine: the ranks' candidates or rules are not the parent's plans: {report}")
+    if max(report["bytes_err"]) > TP_PLAN_BYTES:
+        raise RuntimeError(f"planned engine: a rank's bytes part from the plan's by more than {TP_PLAN_BYTES}: {report}")
+    if min(report.get("peak_ratio", [TP_FOOTPRINT])) < TP_FOOTPRINT:
+        raise RuntimeError(f"planned engine: a rank holds more than 1/{TP_FOOTPRINT} of tp=1's peak: {report}")
+    if any(c != report["collectives"][0] for c in report["collectives"]):
+        raise RuntimeError(f"planned engine: the ranks issued different collectives {report['collectives']}")
+    if device.type == "cuda" and any(n["decode"] < 1 for n in report["launches"]):
+        raise RuntimeError(f"planned engine: a rank never launched K1: {report['launches']}")
+    return report
+
+
+def plan_train_gates(device, shape, ranks, base, plans):
+    """Phase 21 (e)'s gates against (c)'s tp=1 run `base` and the parent's
+    `plans` ({mesh name: plan}); returns the report."""
+    report = {"tp1_step_ms_median": base["step_ms_median"]}
+    for name, plan in plans.items():
+        runs = [r["plan_train"][name] for r in ranks]
+        losses = runs[0]["losses"]
+        ref = base["losses"][:len(losses)]
+        run = report[name] = {
+            "losses": losses, "tp1_losses": ref, "step_ms_median": runs[0]["step_ms_median"],
+            "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses, ref)),
+            "launches": [r["launches"] for r in runs], "rules": runs[0]["rules"], "opt_rules": runs[0]["opt_rules"],
+            "zero_axis": runs[0]["zero_axis"], "zero_sharded": len(runs[0]["zero_dims"]),
+            "moment_bytes": [r["moment_bytes"] for r in runs], "tp1_moment_bytes": base["moment_bytes"],
+            "predicted_opt_bytes": plan.cost.per_chip_opt_bytes,
+            "param_numel": [r["param_numel"] for r in runs], "tp1_param_numel": base["param_numel"],
+        }
+        run["moment_share"] = [b / base["moment_bytes"] for b in run["moment_bytes"]]
+        run["moment_err"] = [abs(b - plan.cost.per_chip_opt_bytes) / b for b in run["moment_bytes"]]
+        log(f"[tp] (e) planned training, {name}={shape['tp']} {json.dumps(run)}")
+        if any(r["losses"] != losses for r in runs) or not all(np.isfinite(losses)):
+            raise RuntimeError(f"planned training {name}: the ranks' losses differ or are not finite: {run}")
+        if run["loss_rel_diff"] > TP_LOSS_RTOL:
+            raise RuntimeError(f"planned training {name} against tp=1: {run}")
+        if run["rules"] != [[p, list(spec)] for p, spec in plan.rules] or \
+                run["opt_rules"] != [[p, list(spec)] for p, spec in plan.opt_rules]:
+            raise RuntimeError(f"planned training {name}: prepare's tables are not the parent's plan: {run}")
+        if name == "data":
+            if run["zero_axis"] != "data" or not run["zero_sharded"] or run["param_numel"][0] != base["param_numel"]:
+                raise RuntimeError(f"planned training data: the moments are not split over \"data\" alone: {run}")
+            if max(run["moment_share"]) > TP_ZERO_SHARE or max(run["moment_err"]) > TP_ZERO_BYTES:
+                raise RuntimeError(f"planned training data: the moment bytes part from the plan's: {run}")
+        if device.type == "cuda" and any(min(n[k] for k in FLASH_KERNELS) < 1 for n in run["launches"]):
+            raise RuntimeError(f"planned training {name}: a rank never launched one of K3-K5: {run['launches']}")
+    return report
+
+
+def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=None, timed=True, parts=TP_PARTS):
     """Phase 21: convert (a), then Llama over two tensor-parallel ranks
-    sharing the card: serving (b) and training (c) against tp=1."""
+    sharing the card: serving (b) and training (c) over the family's table
+    against tp=1, then the planner's (d) and (e). `parts` picks which run;
+    (d) and (e) without (b) and (c) run their tp=1 references here."""
     import tempfile
 
     engine_kw = dict(ENGINE_KW if engine_kw is None else engine_kw, draft_tokens=shape["draft_tokens"])
-    report = {"model": model_name, "tp": shape["tp"]}
+    shape = dict(shape, parts=tuple(parts))
+    report = {"model": model_name, "tp": shape["tp"], "parts": list(parts)}
     env_before = {k: os.environ.get(k) for k in DIST_ENV}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        t1 = time.perf_counter()
-        report["convert"] = conv = convert_run(device, model_name, shape["convert_layers"], shape["convert_vocab"],
-                                               tmp)
-        log(f"[tp] (a) convert {json.dumps(conv)}")
-        log(f"[time] tp (a) convert {time.perf_counter() - t1:.1f}s")
-        if conv["mismatched"] or not conv["digest_verifies"] or not conv["round_trip_keys_equal"] \
-                or conv["round_trip_mismatched"]:
-            raise RuntimeError(f"phase 21 (a): the converted checkpoint is not the original: {conv}")
-        if timed:
+        def convert_part():
+            # (a) is host work (zlib), run here while the ranks run (b)-(e).
+            t1 = time.perf_counter()
+            report["convert"] = conv = convert_run(device, model_name, shape["convert_layers"],
+                                                   shape["convert_vocab"], tmp)
+            log(f"[tp] (a) convert {json.dumps(conv)}")
+            log(f"[time] tp (a) convert, beside the world {time.perf_counter() - t1:.1f}s")
+            if conv["mismatched"] or not conv["digest_verifies"] or not conv["round_trip_keys_equal"] \
+                    or conv["round_trip_mismatched"]:
+                raise RuntimeError(f"phase 21 (a): the converted checkpoint is not the original: {conv}")
+
+        if timed and "b" in parts:
             t1 = time.perf_counter()
             report["kernels"] = kernel_phase(device, TP_KERNEL_SHAPE, dtypes=(torch.bfloat16,))
             report["kernels"].update(quantized_kernel_phase(device, TP_KERNEL_SHAPE, dtypes=(torch.bfloat16,),
@@ -6987,6 +7253,13 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
         from accelerate_tpu_torch import create_named_model
 
         refs = {}
+        train_config = cut_config(model_name, shape["train_layers"])
+        if "d" in parts:
+            plans = meta_serving_plans(model_name, device, shape, engine_kw)
+            log(f"[tp] (d) the parent's plans: {json.dumps([plan.to_json()['rules'] for plan in plans])}")
+        if "e" in parts:
+            train_plans = {"model": meta_train_plan(train_config, {"data": 1, "fsdp": 1, "model": shape["tp"]}, device),
+                           "data": meta_train_plan(train_config, {"data": shape["tp"], "fsdp": 1, "model": 1}, device)}
 
         def tp1_references():
             # tp=1 on the card while the ranks start (their runs wait for ``go``).
@@ -6994,67 +7267,91 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
             refs["model"] = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
             refs["requests"] = make_requests(refs["model"].config.vocab_size, n=shape["n_requests"],
                                              system_len=shape["system_len"])
-            refs["serve"] = tp_serve_runs(device, refs["model"], refs["requests"], engine_kw)
-            refs["train"] = tp_train_run(device, cut_config(model_name, shape["train_layers"]), shape, seq)
+            if "b" in parts:
+                refs["serve"] = tp_serve_runs(device, refs["model"], refs["requests"], engine_kw)
+            elif "d" in parts:  # the one run (d) is held to: tp=1 bf16 on (d)'s requests
+                free_memory(device)
+                with prefill_logits() as logits:
+                    _, tokens, timing = serve(refs["model"], plan_requests(refs["requests"], shape), device,
+                                              **engine_kw)
+                refs["serve"] = {"bf16": dict(tokens=tokens, logits=torch.stack(logits), timing=timing,
+                                              peak_bytes=torch.cuda.max_memory_allocated(device)
+                                              if device.type == "cuda" else None)}
+            if "c" in parts or "e" in parts:
+                refs["train"] = tp_train_run(device, train_config, shape, seq)
             log(f"[time] tp (tp=1 references) {time.perf_counter() - t2:.1f}s")
 
         t1 = time.perf_counter()
-        ranks = tp_world(device, tmp, model_name, shape, seq, engine_kw, tp1_references)
+        ranks = tp_world(device, tmp, model_name, shape, seq, engine_kw, tp1_references,
+                         convert_part if "a" in parts else None)
         report["world_s"] = time.perf_counter() - t1
-        log(f"[time] tp (b)-(c) tp=1, then the world of {shape['tp']} {report['world_s']:.1f}s "
-            f"(serve {ranks[0]['serve_s']:.1f}s, train {ranks[0]['train_s']:.1f}s)")
-        model, requests, base, base_train = refs["model"], refs["requests"], refs["serve"], refs["train"]
+        log(f"[time] tp (b)-(e) tp=1, then the world of {shape['tp']} {report['world_s']:.1f}s "
+            + " ".join(f"({key} {ranks[0][key]:.1f}s)" for key in ("serve_s", "train_s", "plan_serve_s", "plan_train_s")
+                       if key in ranks[0]))
+        model, requests, base = refs["model"], refs["requests"], refs.get("serve")
 
         # (b) serving
-        serving = report["serving"] = {}
-        for name in TP_ENGINE_RUNS:
-            run = serving[name] = tp_gates(name, base[name], ranks, TP_LOGITS_RTOL)
-            one, rank_runs = base[name], [r["serve"][name] for r in ranks]
-            run["tp1_decode_tokens_per_s"] = one["timing"]["decode_tokens_per_s"]
-            run["tp2_decode_tokens_per_s"] = rank_runs[0]["timing"]["decode_tokens_per_s"]
-            run["tp1_ttft_p50_s"], run["tp2_ttft_p50_s"] = one["timing"]["ttft_p50_s"], rank_runs[0]["timing"]["ttft_p50_s"]
-            run["footprint_ratio"] = [(one["weight_bytes"] + one["kv_bytes"]) / (r["weight_bytes"] + r["kv_bytes"])
-                                      for r in rank_runs]
-            run["bytes"] = {"tp1": [one["weight_bytes"], one["kv_bytes"]],
-                            "tp2": [[r["weight_bytes"], r["kv_bytes"]] for r in rank_runs]}
-            run["launches"] = [r["launches"] for r in rank_runs]
-            run["collectives"] = [r["collectives"] for r in rank_runs]
-            if device.type == "cuda":
-                run["peak_bytes"] = {"tp1": one["peak_bytes"], "tp2": [r["peak_bytes"] for r in rank_runs]}
-                run["peak_ratio"] = [one["peak_bytes"] / r["peak_bytes"] for r in rank_runs]
-            if name != "w8_int8":
-                run["divergences"] = first_divergences(model, requests, one["tokens"], rank_runs[0]["tokens"], device)
-            log(f"[tp] (b) {name} {json.dumps(run)}")
-            if min(run["footprint_ratio"]) < TP_FOOTPRINT or min(run.get("peak_ratio", [TP_FOOTPRINT])) < TP_FOOTPRINT:
-                raise RuntimeError(f"tp=2 {name}: a rank holds more than 1/{TP_FOOTPRINT} of tp=1's bytes: {run}")
-            if any(c != run["collectives"][0] for c in run["collectives"]):
-                raise RuntimeError(f"tp=2 {name}: the ranks issued different collectives {run['collectives']}")
-            key = {"bf16": "decode", "w8_int8": "decode_int8", "spec": "verify"}[name]
-            if device.type == "cuda" and any(n[key] < 1 for n in run["launches"]):
-                raise RuntimeError(f"tp=2 {name}: a rank never launched its {key} kernel: {run['launches']}")
+        if "b" in parts:
+            serving = report["serving"] = {}
+            for name in TP_ENGINE_RUNS:
+                run = serving[name] = tp_gates(name, base[name], ranks, TP_LOGITS_RTOL)
+                one, rank_runs = base[name], [r["serve"][name] for r in ranks]
+                run["tp1_decode_tokens_per_s"] = one["timing"]["decode_tokens_per_s"]
+                run["tp2_decode_tokens_per_s"] = rank_runs[0]["timing"]["decode_tokens_per_s"]
+                run["tp1_ttft_p50_s"], run["tp2_ttft_p50_s"] = one["timing"]["ttft_p50_s"], rank_runs[0]["timing"]["ttft_p50_s"]
+                run["footprint_ratio"] = [(one["weight_bytes"] + one["kv_bytes"]) / (r["weight_bytes"] + r["kv_bytes"])
+                                          for r in rank_runs]
+                run["bytes"] = {"tp1": [one["weight_bytes"], one["kv_bytes"]],
+                                "tp2": [[r["weight_bytes"], r["kv_bytes"]] for r in rank_runs]}
+                run["launches"] = [r["launches"] for r in rank_runs]
+                run["collectives"] = [r["collectives"] for r in rank_runs]
+                if device.type == "cuda":
+                    run["peak_bytes"] = {"tp1": one["peak_bytes"], "tp2": [r["peak_bytes"] for r in rank_runs]}
+                    run["peak_ratio"] = [one["peak_bytes"] / r["peak_bytes"] for r in rank_runs]
+                if name != "w8_int8":
+                    run["divergences"] = first_divergences(model, requests, one["tokens"], rank_runs[0]["tokens"],
+                                                           device)
+                log(f"[tp] (b) {name} {json.dumps(run)}")
+                if min(run["footprint_ratio"]) < TP_FOOTPRINT or min(run.get("peak_ratio", [TP_FOOTPRINT])) < TP_FOOTPRINT:
+                    raise RuntimeError(f"tp=2 {name}: a rank holds more than 1/{TP_FOOTPRINT} of tp=1's bytes: {run}")
+                if any(c != run["collectives"][0] for c in run["collectives"]):
+                    raise RuntimeError(f"tp=2 {name}: the ranks issued different collectives {run['collectives']}")
+                key = {"bf16": "decode", "w8_int8": "decode_int8", "spec": "verify"}[name]
+                if device.type == "cuda" and any(n[key] < 1 for n in run["launches"]):
+                    raise RuntimeError(f"tp=2 {name}: a rank never launched its {key} kernel: {run['launches']}")
+        # (d) the planned engine
+        if "d" in parts:
+            hand = ranks[0]["serve"]["bf16"] if "b" in parts else None
+            report["plan_serving"] = plan_serve_gates(device, shape, ranks, base["bf16"], hand, plans)
         del model
         free_memory(device)
+        base_train = refs.get("train")
         # (c) training
-        losses = [r["train"]["losses"] for r in ranks]
-        train_report = report["training"] = {
-            "tp1": {k: base_train[k] for k in ("losses", "norms", "step_ms_median", "peak_bytes")},
-            "tp2": {k: ranks[0]["train"][k] for k in ("losses", "norms", "step_ms_median", "peak_bytes")},
-            "launches": [r["train"]["launches"] for r in ranks],
-            "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses[0], base_train["losses"])),
-            "norm_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["train"]["norms"], base_train["norms"])),
-        }
-        log(f"[tp] (c) training {json.dumps(train_report)}")
-        if any(l != losses[0] for l in losses[1:]) or any(r["train"]["norms"] != ranks[0]["train"]["norms"]
-                                                           for r in ranks[1:]):
-            raise RuntimeError(f"model=2 training: the ranks' losses or norms differ: {losses}")
-        if not all(np.isfinite(losses[0])) or losses[0][-1] >= losses[0][0]:
-            raise RuntimeError(f"model=2 training: losses {losses[0]} are not finite and falling")
-        if train_report["loss_rel_diff"] > TP_LOSS_RTOL or train_report["norm_rel_diff"] > TP_NORM_RTOL:
-            raise RuntimeError(f"model=2 training against tp=1: {train_report}")
-        steps = shape["warmup"] + shape["timed_steps"]
-        want = expected_launches(shape["train_layers"] * steps, torch.bfloat16)
-        if device.type == "cuda" and any(r["train"]["launches"] != want for r in ranks):
-            raise RuntimeError(f"model=2 training: K3-K5 launches {train_report['launches']}, expected {want}")
+        if "c" in parts:
+            losses = [r["train"]["losses"] for r in ranks]
+            train_report = report["training"] = {
+                "tp1": {k: base_train[k] for k in ("losses", "norms", "step_ms_median", "peak_bytes")},
+                "tp2": {k: ranks[0]["train"][k] for k in ("losses", "norms", "step_ms_median", "peak_bytes")},
+                "launches": [r["train"]["launches"] for r in ranks],
+                "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses[0], base_train["losses"])),
+                "norm_rel_diff": max(abs(a - b) / abs(b)
+                                     for a, b in zip(ranks[0]["train"]["norms"], base_train["norms"])),
+            }
+            log(f"[tp] (c) training {json.dumps(train_report)}")
+            if any(l != losses[0] for l in losses[1:]) or any(r["train"]["norms"] != ranks[0]["train"]["norms"]
+                                                               for r in ranks[1:]):
+                raise RuntimeError(f"model=2 training: the ranks' losses or norms differ: {losses}")
+            if not all(np.isfinite(losses[0])) or losses[0][-1] >= losses[0][0]:
+                raise RuntimeError(f"model=2 training: losses {losses[0]} are not finite and falling")
+            if train_report["loss_rel_diff"] > TP_LOSS_RTOL or train_report["norm_rel_diff"] > TP_NORM_RTOL:
+                raise RuntimeError(f"model=2 training against tp=1: {train_report}")
+            steps = shape["warmup"] + shape["timed_steps"]
+            want = expected_launches(shape["train_layers"] * steps, torch.bfloat16)
+            if device.type == "cuda" and any(r["train"]["launches"] != want for r in ranks):
+                raise RuntimeError(f"model=2 training: K3-K5 launches {train_report['launches']}, expected {want}")
+        # (e) planned training
+        if "e" in parts:
+            report["plan_training"] = plan_train_gates(device, shape, ranks, base_train, train_plans)
         builds = [r["builds"] for r in ranks]
         report["rank_builds"] = builds
         if any(builds):
@@ -7073,8 +7370,12 @@ def tp_summary(report):
 
 def tp_rows(report):
     """The `kernels` line's rows of K1/K2 (bf16 and int8 pools) and K3-K5 at
-    a tensor-parallel rank's heads, launches summed over the ranks."""
+    a tensor-parallel rank's heads, launches summed over the ranks: K1's
+    bf16 row counts (b)'s and (d)'s engines, K3-K5's (c)'s and (e)'s
+    model=2 run (16 heads a rank; (e)'s data=2 run, at Llama-1B's 32, is
+    counted in the training shape's rows, `tp_data_launches`)."""
     serving, training = report["serving"], report["training"]
+    planned = report["plan_serving"]["launches"]
     rows = []
     for key, run in (("decode", "bf16"), ("verify", "spec"), ("decode_int8", "w8_int8"), ("verify_int8", "spec")):
         if key == "verify_int8":
@@ -7083,7 +7384,7 @@ def tp_rows(report):
         bf16 = report["kernels"][key]["bfloat16"]
         rows.append({
             "name": f"paged_{key}_tp2", "route": "cuda", "source": SOURCE, "replaces": REPLACES[kind],
-            "launches": sum(n[key] for n in serving[run]["launches"]),
+            "launches": sum(n[key] for n in serving[run]["launches"]) + sum(n[key] for n in planned),
             "max_abs_err": bf16["max_abs_err"], "tolerance": bf16["tolerance"], "ms": bf16["ms"],
             "device_ms": bf16["device_ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
             "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
@@ -7091,10 +7392,17 @@ def tp_rows(report):
                             "the port)", "dtype": "bfloat16", "kv_dtype": "int8" if "int8" in key else "bfloat16",
             "shape": dict(TP_KERNEL_SHAPE, s=1 if kind == "decode" else TP_KERNEL_SHAPE["verify_s"]),
         })
-    launches = {k: sum(r[k] for r in training["launches"]) for k in training["launches"][0]}
+    runs = training["launches"] + report["plan_training"]["model"]["launches"]
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     rows += flash_rows(report["flash"], launches, None, TP_FLASH_SHAPE, suffix="_tp2",
                        design=" (one tensor-parallel rank's 16 heads of Llama-1B's 32)")
     return rows
+
+
+def tp_data_launches(report):
+    """K3-K5 launches of phase 21 (e)'s data=2 run, summed over the ranks."""
+    runs = report["plan_training"]["data"]["launches"]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def paged_rows(kernels, engine, shape, design, suffix=""):
@@ -7239,6 +7547,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tp-only", action="store_true",
                         help="run only the build and phase 21 (convert, then Llama-1B over two tensor-parallel "
                              "ranks sharing the card: serving and training against tp=1; prints no result line)")
+    parser.add_argument("--plan-only", action="store_true",
+                        help="run only the build and phase 21 (d)-(e) (Llama-1B served and trained under the "
+                             "planner's layout over two ranks sharing the card, with their tp=1 references; "
+                             "prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -7320,6 +7632,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log(f"[examples] summary: {json.dumps(examples_phase(device))}")
         log(f"[time] examples phase {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.plan_only:
+        t0 = time.perf_counter()
+        tp = tp_phase(device, parts=("d", "e"))
+        log(f"[tp] summary: {json.dumps(tp_summary(tp))}")
+        log(f"[time] tp phase (d)-(e) {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     if args.tp_only:
@@ -7478,11 +7797,11 @@ def main(argv=None) -> int:
     # bf16), in phase 14 (d)'s fp8 runs across the strategies, in phase 15's
     # eager loops (the dispatcher's and the shard loader's), in phase 16's
     # launched children and their in-process twins, and in phase 19's
-    # checkpointed runs.
+    # checkpointed runs, and in phase 21 (e)'s data=2 run (1 x 2048 a rank).
     surface_runs = (surface["training"]["dispatcher"], surface["training"]["shard_loader"])
     bf16_launches = {k: v + fp8["training"]["launches"][k] + dist["fp8"]["launches"][k]
                      + sum(r["launches"][k] for r in surface_runs) + launched["launches"][k]
-                     + checkpoint["launches"][k]
+                     + checkpoint["launches"][k] + tp_data_launches(tp)[k]
                      for k, v in training["bf16"]["launches"].items()}
     rows += flash_rows(flash, bf16_launches, training["fp16"]["launches"], FLASH_SHAPE)
     rows += paged_rows(neox_kernels, neox, NEOX_KERNEL_SHAPE, PAGED_SCALAR_DESIGN, suffix="_neox")

@@ -997,7 +997,8 @@ def tp_requests(n=4, max_new=8, first_id=0, **kw):
 def tp_model(inputs, family):
     from accelerate_tpu_torch.models import gpt_neox, llama
 
-    make = {"llama": llama.create_llama_model, "gpt_neox": gpt_neox.create_gpt_neox_model}[family]
+    make = {"llama": llama.create_llama_model, "tied": llama.create_llama_model,
+            "gpt_neox": gpt_neox.create_gpt_neox_model}[family]
     model = make(inputs["cfgs"][family], device="cpu")
     model.load_state_dict(inputs["sds"][family])
     return model
@@ -1022,6 +1023,53 @@ def tp_engine_runs(inputs, tp):
                 "bytes": (engine.per_device_weight_nbytes, engine.per_device_kv_cache_nbytes),
                 "report": engine.tp_sharding_report(),
             }
+    return out
+
+
+#: Rules lists that force each placement form of `parallel.tensor.shard_module`
+#: on Llama (`tests/test_torch_tensor_parallel.py`, `tests/test_torch_tp_training.py`):
+#: the head and the MLP's up projection column-parallel loners (gathered); the
+#: head and attention's output row-parallel loners (their inputs split); a head
+#: alone split, every chain whole (the engine's attention over its rank's heads).
+TP_FORMS = {
+    "loner_column": [(r"lm_head/kernel", (None, "model")), (r"w_up/kernel", (None, "model"))],
+    "loner_row": [(r"lm_head/kernel", ("model", None)), (r"wo/kernel", ("model", None))],
+    "replicated_chain": [(r"lm_head/kernel", (None, "model"))],
+}
+
+
+def _engine_run(model, tp, **kw):
+    """One `ContinuousBatcher` run of `tp_requests`: tokens, collectives, rules."""
+    from accelerate_tpu_torch.parallel import tensor
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    tensor.reset_collectives()
+    engine = ContinuousBatcher(model, num_slots=2, chunk_size=4, page_size=4, tp=tp, device="cpu", **kw)
+    tokens = engine.run(tp_requests())
+    plan = engine.sharding_plan
+    return {"tokens": {rid: [int(t) for t in ts] for rid, ts in tokens.items()},
+            "collectives": dict(tensor.COLLECTIVES), "rules": list(engine._tp_rules),
+            "measured_s": None if plan is None else plan.measured_step_s,
+            "candidates": None if engine.sharding_candidates is None else
+            [(list(p.rules), seconds) for p, seconds in engine.sharding_candidates],
+            "bytes": (engine.per_device_weight_nbytes, engine.per_device_kv_cache_nbytes),
+            "predicted": None if plan is None else (plan.cost.per_chip_param_bytes, plan.cost.per_chip_kv_bytes)}
+
+
+def tp_planned_runs(inputs, tp):
+    """`sharding_rules="auto"` engines (both families; Llama also refined
+    over the top 2 plans and tied to its embedding), and each forced form
+    on Llama, at `tp`."""
+    out = {}
+    for family in ("llama", "gpt_neox"):
+        if family in inputs["cfgs"]:
+            out["auto", family] = _engine_run(tp_model(inputs, family), tp, sharding_rules="auto")
+    if "llama" in inputs["cfgs"]:
+        model = tp_model(inputs, "llama")
+        out["refine", "llama"] = _engine_run(model, tp, sharding_rules="auto", sharding_refine_top_k=2)
+        for name, rules in TP_FORMS.items():
+            out[name, "llama"] = _engine_run(model, tp, sharding_rules=rules)
+        out["auto", "tied"] = _engine_run(tp_model(inputs, "tied"), tp, sharding_rules="auto")
     return out
 
 
@@ -1054,17 +1102,20 @@ def tp_serving2(in_dir, out_dir):
 
     inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
     PartialState(cpu=True)
-    out = {"tp2": tp_engine_runs(inputs, 2), "deadlines": tp_deadlines(inputs)}
+    out = {"tp2": tp_engine_runs(inputs, 2), "deadlines": tp_deadlines(inputs), "planned": tp_planned_runs(inputs, 2)}
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
 
 
 def tp_train(inputs, family, remat=None, parallelism=None, batches=None, save_dir=None, load_dir=None,
-             after_save=None):
+             after_save=None, sharding_rules=None):
     """`train_step` (clip 1.0, AdamW) of `family`'s tiny model over a
     "model" axis: each rank takes its data shard of every global batch
     (the "model" ranks of one shard the same rows); the pre-clip norms and,
     on rank 0, the gathered weights. `load_dir` resumes before the steps;
-    `save_dir` saves after them, then `after_save` more batches run."""
+    `save_dir` saves after them, then `after_save` more batches run.
+    `sharding_rules` (a list or ``"auto"``) replaces the family's table; the
+    report then carries the resolved tables and this rank's moment bytes
+    and data-sharded moments."""
     import torch.distributed as dist
 
     from accelerate_tpu_torch import Accelerator, CompilationConfig
@@ -1074,6 +1125,8 @@ def tp_train(inputs, family, remat=None, parallelism=None, batches=None, save_di
     acc = Accelerator(cpu=True, parallelism_config=parallelism,
                       compilation_config=CompilationConfig(remat_policy=remat))
     model = tp_model(inputs, family)
+    if sharding_rules is not None:
+        model.sharding_rules = sharding_rules
     full_numel = sum(p.numel() for p in model.parameters())
     moved = []
     move = model.to
@@ -1102,6 +1155,14 @@ def tp_train(inputs, family, remat=None, parallelism=None, batches=None, save_di
     losses = [float(step(mine(b))) for b in (batches if batches is not None else inputs["batches"])]
     out = {"losses": losses, "norms": norms, "mesh": sizes, "moved_numel": moved, "full_numel": full_numel,
            "rank_numel": sum(p.numel() for p in pmodel.module.parameters())}
+    if sharding_rules is not None:
+        state = popt.optimizer.state
+        out.update(rules=list(pmodel.sharding_rules or []), opt_rules=list(pmodel.opt_sharding_rules or []),
+                   moment_bytes=sum(t.numel() * t.element_size() for entry in state.values() for t in entry.values()
+                                    if torch.is_tensor(t) and t.dim() > 0),
+                   param_bytes=sum(p.numel() * p.element_size() for p in pmodel.module.parameters()),
+                   data_sharded={n: d for n, d in pmodel.layout.opt_dims.items() if d is not None}
+                   if pmodel.layout.zero_axis == "data" else {})
     if save_dir is not None:
         acc.save_state(save_dir)
         out["after_save"] = [float(step(mine(b))) for b in after_save]
@@ -1155,7 +1216,56 @@ def tp_train2(in_dir, out_dir):
     out["load"] = tp_train(inputs, "llama", batches=tail, load_dir=inputs["ckpt_model1"])
     out["refusals"] = tp_refusals(inputs)
     out["means_after"] = mean_scopes()
+    for family in ("llama", "gpt_neox"):
+        out["auto", family] = tp_train(inputs, family, sharding_rules="auto")
+    for name in ("loner_column", "loner_row"):
+        out[name] = tp_train(inputs, "llama", sharding_rules=TP_FORMS[name])
+    out["gather"] = gather_scopes(inputs)
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def gather_scopes(inputs, parallelism=None, save_dir=None):
+    """The `Accelerator`'s `gather`, `gather_for_metrics`, `reduce` and
+    `pad_across_processes` of each rank's data shard of the first global
+    batch over a "model" axis: the rows of each data shard once, as JAX's
+    one controller holds them (the "model" ranks of a shard hold the same
+    rows). What needs every process keeps every process there: the
+    module-level `ops.gather` (and with `group=` the data ranks), a trigger
+    that rank 0 alone raises, and the RNG streams a save writes, one file
+    per process (`save_dir`; each rank's Python stream seeded by its rank,
+    and its state returned)."""
+    import random
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.parallel.mesh import data_parallel_group, mesh_sizes
+    from accelerate_tpu_torch.utils import operations as ops
+    from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
+
+    _reset()
+    acc = Accelerator(cpu=True, parallelism_config=parallelism or ParallelismConfig(model=2))
+    sizes = mesh_sizes(acc.mesh)
+    dp = sizes["data"] * sizes["fsdp"]
+    index = dist.get_rank() // sizes["model"]
+    rows = torch.as_tensor(inputs["batches"][0]["input_ids"])
+    n = len(rows) // dp
+    mine = rows[index * n:(index + 1) * n]
+    out = {"mine": mine, "gather": acc.gather(mine), "metrics": acc.gather_for_metrics(mine),
+           "objects": acc.gather_for_metrics([int(index)], use_gather_object=True),
+           "ops_gather": ops.gather(mine), "ops_gather_data": ops.gather(mine, group=data_parallel_group(acc.mesh)),
+           "reduce": float(acc.reduce(torch.tensor([1.0]), "sum")),
+           "padded": tuple(acc.pad_across_processes(mine).shape)}
+    # After the gathers, which built the mesh (as `prepare` does).
+    if dist.get_rank() == 0:
+        acc.set_trigger()
+    out["trigger"] = [acc.check_trigger(), acc.check_trigger()]
+    if save_dir is not None:
+        random.seed(1000 + dist.get_rank())
+        out["python_rng"] = random.getstate()
+        acc.save_state(save_dir)
+    _reset()
+    return out
 
 
 def mean_scopes():
@@ -1184,10 +1294,27 @@ def tp_train4(in_dir, out_dir):
     """data 2 x model 2 at world 4; then "model" with "fsdp" refused."""
     from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
 
+    from accelerate_tpu_torch.state import PartialState
+
     inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
     out = {}
     for family in ("llama", "gpt_neox"):
         out[family] = tp_train(inputs, family, parallelism=ParallelismConfig(data=2, model=2))
+    head, tail = inputs["batches"][:2], inputs["batches"][2:]
+    # Llama saves after two steps (the whole tree, at data 2 x model 2) and
+    # takes the third; the test loads it at one process.
+    out["auto", "llama"] = tp_train(inputs, "llama", parallelism=ParallelismConfig(data=2, model=2),
+                                    sharding_rules="auto", batches=head,
+                                    save_dir=os.path.join(out_dir, "ckpt_auto"), after_save=tail)
+    out["auto", "gpt_neox"] = tp_train(inputs, "gpt_neox", parallelism=ParallelismConfig(data=2, model=2),
+                                       sharding_rules="auto")
+    out["gather"] = gather_scopes(inputs, ParallelismConfig(data=2, model=2),
+                                  save_dir=os.path.join(out_dir, "ckpt_rng"))
+    # GPT-NeoX served at tp=4 (by its table and planned); the world is the engine's group.
+    _reset()
+    PartialState(cpu=True)
+    out["serve4"] = {"hand": _engine_run(tp_model(inputs, "gpt_neox"), 4),
+                     "auto": _engine_run(tp_model(inputs, "gpt_neox"), 4, sharding_rules="auto")}
     _reset()
     try:
         from accelerate_tpu_torch import Accelerator

@@ -787,7 +787,7 @@ def test_telemetry_phase_rehearses_on_the_cpu():
         runs = report["engine_runs"][label]
         assert all(t["guard"] == {"builds": 0, "syncs": 0} for t in runs["instrumented"])
         assert all(t["counts"]["spans"]["serve.request"] == 4 for t in runs["instrumented"])
-    assert len(report["engine_runs"]["plain"]["decode_tokens_per_s"]["plain"]) == 4  # a b b a, twice
+    assert len(report["engine_runs"]["plain"]["decode_tokens_per_s"]["plain"]) == 2  # a b b a
     assert report["engine_runs"]["unsanctioned_control"]["sites"] == {}  # the CPU makes no sync
     training = report["training"]
     assert training["losses_bit_for_bit"] is True
@@ -1078,7 +1078,7 @@ def test_bigmodel_phase_rehearses_on_the_cpu():
     assert checkpoint["hooks"]["first_after_second"] == ["cpu"] and checkpoint["hooks"]["second_bit_for_bit"]
     for mode in ("int8", "int4", "nf4"):
         row = report["quantization"][mode]
-        assert row["codes_bit_for_bit"] and row["held_bytes"] == row["quantized_nbytes"] and row["cpu_checked"] == 8
+        assert row["codes_bit_for_bit"] and row["held_bytes"] == row["quantized_nbytes"] and row["cpu_checked"] == 7
     assert report["estimate"]["bf16_totals"] == report["estimate"]["parameter_bytes"]
 
 
@@ -1262,11 +1262,12 @@ TP_REHEARSAL = dict(chip_smoke.TP, n_requests=4, system_len=16, timeout_s=300)
 
 
 def test_tp_phase_rehearses_on_the_cpu(monkeypatch):
-    """Phase 21 on the CPU at llama-tiny (about 15 s): (a) converts a 2-layer
-    checkpoint both ways bit for bit; (b) and (c) spawn one
+    """Phase 21 on the CPU at llama-tiny (about 20 s): (a) converts a 2-layer
+    checkpoint both ways bit for bit; (b)-(e) spawn one
     world of 2 over gloo, whose ranks agree on tokens, logits, losses and
     norms, hold tp=1's within the gates, issue the same collectives and
-    hold half of tp=1's bytes; nothing is left behind."""
+    hold half of tp=1's bytes, then serve and train under the planner's
+    layouts; nothing is left behind."""
     monkeypatch.delenv("RANK", raising=False)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     threads = torch.get_num_threads()
@@ -1283,6 +1284,9 @@ def test_tp_phase_rehearses_on_the_cpu(monkeypatch):
         assert min(run["footprint_ratio"]) >= 1.9 and run["collectives"][0]["all_gather"] > 0
         assert run["first_tokens_equal"] + len(run["first_tokens_near_tie"]) == TP_REHEARSAL["n_requests"]
     assert report["training"]["loss_rel_diff"] < 1e-2 and report["training"]["norm_rel_diff"] < 1e-3
+    assert report["plan_serving"]["first_tokens_equal"] + len(report["plan_serving"]["first_tokens_near_tie"]) == \
+        TP_REHEARSAL["n_requests"]
+    assert set(report["plan_training"]) == {"tp1_step_ms_median", "model", "data"}
     assert not torch.distributed.is_initialized() and "RANK" not in os.environ
     from accelerate_tpu_torch.models import MODEL_REGISTRY
 
@@ -1326,6 +1330,107 @@ def test_tp_only_refuses_without_a_card_and_is_a_known_flag():
     assert usage.returncode == 0 and "--tp-only" in usage.stdout
 
 
+def test_world_one_group_picks_another_port_when_its_port_is_taken(monkeypatch):
+    """The one-process group of phases 14-20: a port taken between its pick
+    and the store's bind (EADDRINUSE) is picked again; any other error, or
+    the last try's, is raised, and nothing is left behind."""
+    from accelerate_tpu_torch import state
+
+    calls = []
+
+    class Flaky(state.PartialState):
+        def __init__(self, *args, **kwargs):
+            calls.append(os.environ["MASTER_PORT"])
+            if len(calls) == 1:
+                raise torch.distributed.DistNetworkError("failed to listen: EADDRINUSE, address already in use")
+            super().__init__(*args, **kwargs)
+
+    class Taken(state.PartialState):
+        def __init__(self, *args, **kwargs):
+            calls.append(os.environ["MASTER_PORT"])
+            raise torch.distributed.DistNetworkError("failed to listen: EADDRINUSE")
+
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    monkeypatch.setattr(state, "PartialState", Flaky)
+    with chip_smoke.world_one_group(torch.device("cpu")):
+        assert torch.distributed.is_initialized() and len(calls) == 2
+    assert not torch.distributed.is_initialized() and "MASTER_PORT" not in os.environ
+    monkeypatch.setattr(state, "PartialState", Taken)
+    calls.clear()
+    with pytest.raises(torch.distributed.DistNetworkError):
+        with chip_smoke.world_one_group(torch.device("cpu")):
+            pass
+    assert len(calls) == chip_smoke.WORLD_ONE_PORT_TRIES and "MASTER_PORT" not in os.environ
+
+
+def test_plan_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--plan-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[tp]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--plan-only" in usage.stdout
+
+
+def test_plan_phase_rehearses_on_the_cpu(monkeypatch):
+    """`--plan-only`'s phase 21 (d)-(e) on the CPU at llama-tiny (about 12
+    s): the parent's tp=1 references and its `meta` plans, one world of 2
+    serving under ``"auto"`` refined over the top 2 plans and training
+    under ``"auto"`` at model=2 and data=2; every gate holds (the ranks'
+    rules one of the parent's plans, the bytes the plan's, the moments
+    split over "data" at half of tp=1's); nothing is left behind."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        report = chip_smoke.tp_phase(torch.device("cpu"), "llama-tiny", shape=TP_REHEARSAL, seq=64,
+                                     engine_kw=dict(chip_smoke.ENGINE_KW, max_length=768), timed=False,
+                                     parts=("d", "e"))
+    finally:
+        torch.set_num_threads(threads)
+    assert "serving" not in report and "training" not in report and "convert" not in report
+    serving = report["plan_serving"]
+    assert serving["chosen"] in (0, 1) and len(serving["candidates"]) == 2 and max(serving["bytes_err"]) == 0.0
+    assert len(set(serving["rules_digests"])) == 1
+    data = report["plan_training"]["data"]
+    assert data["zero_axis"] == "data" and data["zero_sharded"] and max(data["moment_share"]) < 0.55
+    assert report["plan_training"]["model"]["loss_rel_diff"] < 1e-2
+    assert not torch.distributed.is_initialized() and "RANK" not in os.environ
+
+
+def test_plan_gates_catch_parted_rules_and_far_bytes():
+    """Phase 21 (d)'s gates: ranks holding different rules, rules no parent
+    plan gave, and bytes 10% past the plan's prediction each fail."""
+    base = {"logits": torch.tensor([[4.0, 1.0, 0.0]]), "tokens": {0: [0]}, "peak_bytes": None}
+
+    class Plan:
+        rules = [("a", (None, "model"))]
+        cost = type("Cost", (), {"step_time_s": 1e-3})
+
+    def rank(digest="x", rules=(("a", [None, "model"]),), weight=100):
+        rules = [list(r) for r in rules]
+        return {"plan_serve": {"logits": base["logits"], "tokens": {0: [0]}, "digests": [digest, digest], "rules": rules,
+                               "candidates": [{"rules": rules, "measured_s": 1.0}], "embedding": {},
+                               "weight_bytes": weight, "kv_bytes": 0, "predicted_bytes": [100.0, 0.0],
+                               "launches": {"decode": 1}, "collectives": {}, "peak_bytes": None,
+                               "timing": {"decode_tokens_per_s": 1.0, "ttft_p50_s": 1.0}}}
+
+    cpu = torch.device("cpu")
+    chip_smoke.plan_serve_gates(cpu, {}, [rank(), rank()], base, None, [Plan])
+    with pytest.raises(RuntimeError, match="different rules"):
+        runs = [rank(), rank()]
+        runs[1]["plan_serve"]["digests"] = ["x", "y"]
+        chip_smoke.plan_serve_gates(cpu, {}, runs, base, None, [Plan])
+    with pytest.raises(RuntimeError, match="not the parent's plans"):
+        chip_smoke.plan_serve_gates(cpu, {}, [rank(rules=(("b", [None, "model"]),))] * 2, base, None, [Plan])
+    with pytest.raises(RuntimeError, match="bytes part from the plan's"):
+        chip_smoke.plan_serve_gates(cpu, {}, [rank(weight=120)] * 2, base, None, [Plan])
+
+
 def test_docstring_lists_every_phase_and_its_flag():
     """Phases 1-21 each head a paragraph of the docstring, each `--*-only`
     flag the parser takes is named there, and phase 19's count of launches
@@ -1336,10 +1441,10 @@ def test_docstring_lists_every_phase_and_its_flag():
     numbers = [int(n) for n in re.findall(r"^ ?(\d+)\. ", doc, flags=re.M)]
     assert numbers == list(range(1, 22))
     flags = re.findall(r"--[a-z0-9-]+-only", open(os.path.join(ROOT, "chip_smoke.py")).read())
-    assert {"--checkpoint-only", "--examples-only", "--tp-only"} <= set(flags)
+    assert {"--checkpoint-only", "--examples-only", "--tp-only", "--plan-only"} <= set(flags)
     assert all(flag in doc for flag in set(flags))
     steps = chip_smoke.checkpoint_steps(chip_smoke.CHECKPOINT)
-    assert f"2 x {steps} times" in " ".join(doc.split())
+    assert f"{chip_smoke.CHECKPOINT['layers']} x {steps} times" in " ".join(doc.split())
 
 
 def test_the_script_imports_nothing_of_the_jax_package():

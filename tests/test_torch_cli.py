@@ -45,8 +45,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_dispatcher_registers_the_ported_subcommands(monkeypatch, capsys):
     parser = accelerate_cli.get_command_parser()
     subcommands = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
-    assert sorted(subcommands.choices) == ["config", "convert", "env", "estimate-memory", "launch", "merge", "test",
-                                           "trace"]
+    assert sorted(subcommands.choices) == ["config", "convert", "env", "estimate-memory", "launch", "merge", "plan",
+                                           "test", "trace"]
     monkeypatch.setattr(sys, "argv", ["accelerate-tpu-torch"])
     with pytest.raises(SystemExit) as empty:
         accelerate_cli.main()

@@ -1,10 +1,10 @@
 """Tensor-parallel serving: `ContinuousBatcher(tp=2)` at world 2 over gloo
 on the CPU, held to JAX's mesh-spanning engine (`tests/test_tensor_parallel.py`)
-on the same weights and requests. About 70 s: one `debug_launcher` spawn of
-2 processes running `tests/_torch_dist_workers.py:tp_serving2` (every
-variant of the matrix for both families, then the deadline case), then
-JAX's tp=1 and tp=2 engines here, on the 8-device CPU mesh, and the port's
-tp=1 engine here.
+and its planned engine (`tests/test_planner.py`) on the same weights and
+requests. About 80 s: one `debug_launcher` spawn of 2 processes running
+`tests/_torch_dist_workers.py:tp_serving2` (every variant of the matrix for
+both families, the deadline case, then the planned engines), then JAX's
+engines here, on the 8-device CPU mesh, and the port's tp=1 engine here.
 
 What is held:
   - token parity, JAX's matrix: Llama and GPT-NeoX x {paged, contiguous,
@@ -20,8 +20,15 @@ What is held:
     and its `scale` by the rule's output dim (column-parallel split,
     row-parallel whole), path for path as JAX's; a rank's weight and pool
     bytes at most 1/1.6 of tp=1's;
-  - JAX's validation errors, and ``sharding_rules="auto"`` refused, naming
-    the planner bullet.
+  - ``sharding_rules="auto"`` (JAX's `test_auto_engine_token_parity_and_discipline`
+    and `test_engine_refine_kwarg_measures_and_holds_parity`): Llama,
+    GPT-NeoX and a tied-head Llama at tp=2 give JAX's auto engine's rules
+    and tokens, which equal the hand table's; a refined engine keeps one
+    measured plan on both ranks; a rules list forcing loner column layers,
+    loner row layers or a replicated attention chain gives JAX's tokens
+    under the same list; GPT-NeoX at tp=4 in world 4 is
+    `tests/test_torch_tp_training.py`'s;
+  - JAX's validation errors.
 
 JAX's tests that wait, with their ROADMAP items: the engine's `params`
 setter and its resharding (`test_tp_swap_weights_reshards_at_setter`, A6's
@@ -30,9 +37,8 @@ admin surface), the router over tensor-parallel engines
 (`test_tp_parity_pallas_kernels`: the port's K1/K2 run only on the card,
 where phase 21 of `chip_smoke.py` holds them at a rank's heads), the
 compiled-once pin (`test_tp_decode_compiled_once_and_zero_recompiles`: eager
-torch compiles nothing), the blast-radius rebuild (the port's pools are
-each rank's own heads from construction on), and tp=4 at world 4
-(`test_tp4_parity_across_families`, left for a later spawn budget).
+torch compiles nothing) and the blast-radius rebuild (the port's pools are
+each rank's own heads from construction on).
 """
 
 import dataclasses
@@ -77,13 +83,16 @@ def _port_cfg(cls, jcfg):
 
 
 def _jax_models():
-    """JAX's test models (`tests/test_tensor_parallel.py`'s tiny_llama and tiny_neox)."""
-    jl = jax_llama(JaxLlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
-                                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
-                                  rope_theta=10000.0), seq_len=32)
+    """JAX's test models (`tests/test_tensor_parallel.py`'s tiny_llama and
+    tiny_neox), and tiny_llama with its head tied to the embedding."""
+    llama_cfg = JaxLlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64,
+                               rope_theta=10000.0)
+    jl = jax_llama(llama_cfg, seq_len=32)
     jn = jax_neox(JaxNeoXConfig(vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
                                 num_attention_heads=4, max_position_embeddings=64), seq_len=32)
-    return {"llama": jl, "gpt_neox": jn}
+    jt = jax_llama(dataclasses.replace(llama_cfg, tie_word_embeddings=True), seq_len=32)
+    return {"llama": jl, "gpt_neox": jn, "tied": jt}
 
 
 def _jax_run(model, tp, variant):
@@ -99,7 +108,7 @@ def world(tmp_path_factory):
     inputs = {"cfgs": {}, "sds": {}}
     for family, jm in jmodels.items():
         params = jax.tree_util.tree_map(np.array, jm.params)
-        if family == "llama":
+        if family in ("llama", "tied"):
             cfg = _port_cfg(llama.LlamaConfig, jm.module.config)
             inputs["sds"][family] = llama.llama_state_dict_from_flax(params, cfg)
         else:
@@ -111,13 +120,21 @@ def world(tmp_path_factory):
     debug_launcher(workers.tp_serving2, args=(str(in_dir), str(out_dir)), num_processes=WORLD, timeout=600)
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     jax_runs = {}
-    for family, jm in jmodels.items():
+    for family in FAMILIES:
+        jm = jmodels[family]
         for name, variant in workers.TP_VARIANTS.items():
             for tp in (1, 2):
                 engine, tokens = _jax_run(jm, tp, variant)
                 jax_runs[family, name, tp] = {"tokens": tokens, "report": engine.tp_sharding_report()}
     port_tp1 = {key: value for key, value in workers.tp_engine_runs(inputs, 1).items()}
-    return dict(inputs=inputs, ranks=ranks, jax=jax_runs, port_tp1=port_tp1)
+    planned = {}
+    for family, jm in jmodels.items():
+        engine, tokens = _jax_run(jm, 2, {"page_size": 4, "sharding_rules": "auto"})
+        planned["auto", family] = {"tokens": tokens, "rules": engine.sharding_plan.rules}
+    for name, rules in workers.TP_FORMS.items():
+        planned[name, "llama"] = {"tokens": _jax_run(jmodels["llama"], 2, {"page_size": 4, "sharding_rules": rules})[1]}
+    planned["hand", "tied"] = {"tokens": _jax_run(jmodels["tied"], 1, {"page_size": 4})[1]}
+    return dict(inputs=inputs, ranks=ranks, jax=jax_runs, port_tp1=port_tp1, jax_planned=planned)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -201,8 +218,9 @@ def test_a_rank_holds_at_most_1_over_1_6_of_tp1_bytes(world, family):
 
 
 def test_validation_errors_are_jaxs():
-    """JAX's `test_tp_validation_errors` on the port, plus the planner's
-    sentinel refused (no process group is needed to refuse)."""
+    """JAX's `test_tp_validation_errors` on the port, and the planner's
+    sentinel at one process (tp=2 still needs its group; tp=1 plans
+    nothing, as in JAX)."""
     model = llama.create_llama_model(llama.llama_tiny(), device="cpu")
     with pytest.raises(ValueError, match="KV head"):
         ContinuousBatcher(model, num_slots=2, tp=4, page_size=4, device="cpu")  # 2 KV heads % 4
@@ -212,10 +230,14 @@ def test_validation_errors_are_jaxs():
     bare.sharding_rules = None
     with pytest.raises(ValueError, match="sharding_rules"):
         ContinuousBatcher(bare, num_slots=2, tp=2, page_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 3, the planner"):
+    with pytest.raises(ValueError, match="needs exactly 2 devices"):  # the planner needs the group too
         ContinuousBatcher(model, num_slots=2, tp=2, page_size=4, sharding_rules="auto", device="cpu")
+    with pytest.raises(ValueError, match="sharding_rules must be"):
+        ContinuousBatcher(model, num_slots=2, tp=2, page_size=4, sharding_rules="magic", device="cpu")
     with pytest.raises(ValueError, match="needs exactly 2 devices"):  # one process, no group
         ContinuousBatcher(model, num_slots=2, tp=2, page_size=4, device="cpu")
+    one = ContinuousBatcher(model, num_slots=2, page_size=4, sharding_rules="auto", device="cpu")
+    assert one.sharding_plan is None  # JAX's: tp=1 plans nothing
 
 
 def test_serving_tp_mesh_blocks_and_wraps(caplog):
@@ -248,3 +270,56 @@ def test_a_host_model_is_copied_to_the_engine_device_untouched():
     assert all(t.device.type == "cpu" for t in [*model.parameters(), *model.buffers()])
     assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())
     assert _on_device(model, torch.device("cpu")) is model
+
+
+# ------------------------------------------------------------------ the planned engine
+@pytest.mark.parametrize("family", ("llama", "gpt_neox", "tied"))
+def test_auto_engine_matches_jaxs_auto_and_hand_engines(world, family):
+    """JAX's `test_auto_engine_token_parity_and_discipline` at tp=2 (and
+    Llama with its head tied to a hidden-split embedding): the planned
+    engine's tokens equal JAX's auto engine's, JAX's hand-table engine's
+    and the port's tp=1's; its rules are JAX's plan; both ranks hold the
+    same rules, issue the same collectives, and hold what the plan
+    predicts of weights and pool."""
+    runs = [r["planned"]["auto", family] for r in world["ranks"]]
+    theirs = world["jax_planned"]["auto", family]
+    assert runs[0]["tokens"] == runs[1]["tokens"] == theirs["tokens"]
+    if family == "tied":
+        assert runs[0]["tokens"] == world["jax_planned"]["hand", "tied"]["tokens"]
+    else:
+        assert runs[0]["tokens"] == world["jax"][family, "paged", 2]["tokens"]
+        assert runs[0]["tokens"] == world["port_tp1"][family, "paged"]["tokens"]
+    assert runs[0]["rules"] == runs[1]["rules"] == [tuple(r) for r in theirs["rules"]]
+    assert any(spec == (None, "model") for p, spec in runs[0]["rules"] if "embed" in p)  # the hidden split
+    assert runs[0]["collectives"] == runs[1]["collectives"]
+    for run in runs:
+        assert abs(sum(run["bytes"]) - sum(run["predicted"])) <= 0.10 * sum(run["bytes"])
+
+
+def test_refined_engine_measures_and_holds_parity(world):
+    """JAX's `test_engine_refine_kwarg_measures_and_holds_parity`: with
+    `sharding_refine_top_k=2` the plan carries its measured seconds (the
+    slower rank's, so both ranks keep the same plan) and the tokens equal
+    tp=1's. The engine keeps each candidate as measured, the same on both
+    ranks; the kept plan is the fastest of them. Unrefined engines keep
+    none."""
+    runs = [r["planned"]["refine", "llama"] for r in world["ranks"]]
+    assert runs[0]["measured_s"] > 0 and runs[0]["measured_s"] == runs[1]["measured_s"]
+    candidates = runs[0]["candidates"]
+    assert len(candidates) == 2 and candidates == runs[1]["candidates"]
+    assert runs[0]["measured_s"] == min(seconds for _, seconds in candidates)
+    assert runs[0]["rules"] in [rules for rules, _ in candidates]
+    assert world["ranks"][0]["planned"]["auto", "llama"]["candidates"] is None
+    assert runs[0]["rules"] == runs[1]["rules"]
+    assert runs[0]["tokens"] == runs[1]["tokens"] == world["jax"]["llama", "paged", 1]["tokens"]
+    assert runs[0]["collectives"] == runs[1]["collectives"]
+
+
+@pytest.mark.parametrize("form", sorted(workers.TP_FORMS))
+def test_each_forced_form_serves_jaxs_tokens(world, form):
+    """A rules list that forces loner column layers, loner row layers or a
+    replicated attention chain (its heads attended per rank): the engine's
+    tokens equal JAX's engine's under the same list, on both ranks."""
+    runs = [r["planned"][form, "llama"] for r in world["ranks"]]
+    assert runs[0]["tokens"] == runs[1]["tokens"] == world["jax_planned"][form, "llama"]["tokens"]
+    assert runs[0]["collectives"] == runs[1]["collectives"] and runs[0]["collectives"]["all_gather"] > 0

@@ -1,6 +1,9 @@
 """Training over the mesh's "model" axis (tensor parallel), held to JAX's
-`train_step` under the same `ParallelismConfig` on its 8-device CPU mesh.
-About 50 s: two spawned worlds, one per world size: world 2 launched by
+`train_step` under the same `ParallelismConfig` on its 8-device CPU mesh,
+under the family's tables and the planner's (`sharding_rules="auto"`, its
+ZeRO moments over "data" at data 2 x model 2), with `gather_for_metrics`
+over "model" and GPT-NeoX served at tp=4 at world 4.
+About 85 s: two spawned worlds, one per world size: world 2 launched by
 ``accelerate-tpu-torch launch --cpu --num_processes 2 --mesh_model 2``
 (the "model" size reaches the workers through the launcher's variable) and
 world 4 at data 2 x model 2 by `debug_launcher`, each running its
@@ -24,7 +27,14 @@ Tolerances, those of the data-parallel tests (`tests/test_torch_distributed.py`)
     run that saved it;
   - `prepare` hands the device only the rank's split, and the losses'
     global mean runs over the data ranks only inside the caller's
-    `batch_group`: exact.
+    `batch_group`: exact;
+  - under the planner at data 2 x model 2, JAX's own test's bounds: losses
+    within 2e-4 of the replicated run (the port at one process) and 1e-5
+    of JAX's auto run on a data 2 x model 2 mesh of its devices; the
+    plan's per-rank bytes within 1% of the live parameters and moments;
+    the moments under 0.26 of the replicated run's (a quarter, plus the
+    norms' moments, which the planner's 1024-element ZeRO floor leaves
+    whole; JAX's test asks for a quarter at data 4 x model 2).
 """
 
 import dataclasses
@@ -134,12 +144,19 @@ def _port_one_process(inputs, family, batches, save_dir=None, load_dir=None):
     return {"losses": losses, "norms": norms, "weights": weights}
 
 
-def _jax_train(family, jmodel, batches, remat=None):
+def _jax_train(family, jmodel, batches, remat=None, rules=None, mesh=None):
     """JAX's fused `train_step` under ParallelismConfig(model=2) (data 4 on
-    its 8 CPU devices), clip 1.0, AdamW with decay 1e-4."""
+    its 8 CPU devices), or on `mesh` ({axis: size} over the first devices),
+    clip 1.0, AdamW with decay 1e-4; `rules` (a list or "auto") replaces
+    the bundle's table on a copy."""
     _reset_jax()
-    acc = JaxAccelerator(parallelism_config=JaxParallelismConfig(model=2),
+    acc = JaxAccelerator(parallelism_config=JaxParallelismConfig(model=2) if mesh is None else None,
                          compilation_config=JaxCompilationConfig(remat_policy=remat))
+    if mesh is not None:
+        n = int(np.prod(list(mesh.values())))
+        acc.state.set_mesh(jax_build_mesh(JaxParallelismConfig(**mesh), devices=jax.devices()[:n]))
+    if rules is not None:
+        jmodel = dataclasses.replace(jmodel, sharding_rules=rules)
     tx = optax.adamw(workers.LR, b1=workers.BETAS[0], b2=workers.BETAS[1], eps=workers.EPS, weight_decay=workers.WD)
     pmodel, _ = acc.prepare(jmodel, tx)
     step = acc.train_step(max_grad_norm=1.0)
@@ -185,9 +202,26 @@ def worlds(tmp_path_factory):
     # A world-2 checkpoint, loaded here at model=1.
     loaded_here = _port_one_process(inputs, "llama", inputs["batches"][2:], load_dir=str(out_dir / "ckpt_model2"))
     jax_runs = {family: _jax_train(family, jm, inputs["batches"]) for family, jm in jmodels.items()}
+    for family, jm in jmodels.items():
+        jax_runs["auto2d", family] = _jax_train(family, jm, inputs["batches"], rules="auto",
+                                                mesh={"data": 2, "model": 2})
+    for name in ("loner_column", "loner_row"):
+        jax_runs[name] = _jax_train("llama", jmodels["llama"], inputs["batches"], rules=workers.TP_FORMS[name])
     one = {family: _port_one_process(inputs, family, inputs["batches"]) for family in FAMILIES}
+    # The planned world-4 checkpoint (data 2 x model 2, moments split over "data"), loaded here at one process.
+    loaded_auto = _port_one_process(inputs, "llama", inputs["batches"][2:], load_dir=str(out4 / "ckpt_auto"))
+    jax_serve4 = {}
+    from accelerate_tpu.serving import ContinuousBatcher as JaxBatcher
+    from accelerate_tpu.serving import Request as JaxRequest
+
+    for mode in ("rules", "auto"):
+        engine = JaxBatcher(jmodels["gpt_neox"], num_slots=2, chunk_size=4, page_size=4, tp=4, sharding_rules=mode)
+        reqs = [JaxRequest(r.request_id, list(r.input_ids), max_new_tokens=r.max_new_tokens) for r in workers.tp_requests()]
+        jax_serve4[mode] = {rid: [int(t) for t in ts] for rid, ts in engine.run(reqs).items()}
+        if mode == "auto":
+            jax_serve4["rules_auto"] = engine.sharding_plan.rules
     return dict(inputs=inputs, w2=w2, w4=w4, jax=jax_runs, one=one, saved=saved, resumed_here=resumed_here,
-                loaded_here=loaded_here)
+                loaded_here=loaded_here, loaded_auto=loaded_auto, jax_serve4=jax_serve4, rng_dir=out4 / "ckpt_rng")
 
 
 #: GPT-NeoX's key biases: a key bias adds the same q·b to every score of a
@@ -349,5 +383,139 @@ def test_spec_for_param_with_rules_is_jaxs(mesh, plugin):
 
 
 def test_auto_rules_are_refused_naming_the_planner():
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 3, the planner"):
+    """The sentinel reaching `spec_for_param` unresolved raises JAX's error;
+    `prepare` at one process plans it (no axis above 1: every leaf whole)
+    and the bundle's "rules" sentinel is JAX's error there."""
+    with pytest.raises(ValueError, match="unresolved"):
         sharding.spec_for_param("params/x/kernel", (4, 4), {"model": 2}, rules="auto")
+    from accelerate_tpu_torch.modeling import Model
+
+    _reset_port()
+    acc = port.Accelerator(cpu=True)
+    model = llama.create_llama_model(llama.llama_tiny(), device="cpu")
+    pmodel = acc.prepare(Model(model, loss_fn=model.loss_fn, sharding_rules="auto"))
+    assert pmodel.sharding_rules == [] and pmodel.opt_sharding_rules is None
+    with pytest.raises(ValueError, match="serving-engine sentinel"):
+        acc.prepare(Model(model, loss_fn=model.loss_fn, sharding_rules="rules"))
+    _reset_port()
+
+
+# ------------------------------------------------------------------ the planner's layouts in the worlds
+@pytest.mark.parametrize("family", FAMILIES)
+def test_auto_at_model2_trains_jaxs_losses_with_jaxs_rules(worlds, family):
+    """`prepare` under ``sharding_rules="auto"`` at model=2 (world 2): the
+    ranks resolve the planner's table for this mesh (JAX's plan, as
+    `tests/test_torch_planner.py` holds it; the embedding split on its
+    hidden dim), emit no opt table (no "data" axis), and train JAX's losses
+    on the same mesh within rtol 1e-5 (a layout changes no math), bit for
+    bit across the ranks."""
+    from accelerate_tpu_torch.parallel.planner import Workload, default_chip, plan_sharding
+
+    runs = [r["auto", family] for r in worlds["w2"]]
+    assert all(r["losses"] == runs[0]["losses"] for r in runs) and runs[0]["opt_rules"] == []
+    plan = plan_sharding(workers.tp_model(worlds["inputs"], family), {"data": 1, "fsdp": 1, "model": 2},
+                         axes=("model",), chip=default_chip("cpu"),
+                         workload=Workload(batch=8, seq=512, opt_bytes_per_param=8.0))
+    assert [tuple(r) for r in runs[0]["rules"]] == [tuple(r) for r in plan.rules]
+    assert any(spec == (None, "model") for p, spec in runs[0]["rules"] if "embed" in p)
+    np.testing.assert_allclose(runs[0]["losses"], worlds["jax"][family][0], **LOSS)
+
+
+@pytest.mark.parametrize("form", ("loner_column", "loner_row"))
+def test_each_forced_form_trains_jaxs_losses(worlds, form):
+    """Loner column layers (outputs gathered) and loner row layers (inputs
+    split) in training: JAX's losses under the same rules list, rtol 1e-5."""
+    runs = [r[form] for r in worlds["w2"]]
+    assert runs[0]["losses"] == runs[1]["losses"]
+    np.testing.assert_allclose(runs[0]["losses"], worlds["jax"][form][0], **LOSS)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_auto_2d_trains_at_parity_with_zero_sharded_state(worlds, family):
+    """JAX's `test_prepare_auto_2d_trains_at_parity_with_zero_sharded_state`
+    at data 2 x model 2 (world 4): losses within JAX's 2e-4 of the
+    replicated run (the port at one process) and within 1e-5 of JAX's auto
+    run on the same mesh; the moments split over "data" (the plan's opt
+    table), a quarter of the replicated moments plus the norms' (below the
+    planner's ZeRO floor); the plan's per-rank bytes within 1% of the live
+    parameters and moments."""
+    from accelerate_tpu_torch.parallel.planner import Workload, default_chip, plan_sharding
+
+    runs = [r["auto", family] for r in worlds["w4"]]
+    losses = runs[0]["losses"] + runs[0].get("after_save", [])
+    assert all(r["losses"] + r.get("after_save", []) == losses for r in runs)
+    np.testing.assert_allclose(losses, worlds["one"][family]["losses"], rtol=2e-4, atol=0)
+    np.testing.assert_allclose(losses, worlds["jax"]["auto2d", family][0], **LOSS)
+    assert runs[0]["opt_rules"] and all(r["data_sharded"] for r in runs)
+    model = workers.tp_model(worlds["inputs"], family)
+    replicated = sum(p.numel() * 8 for p in model.parameters())
+    plan = plan_sharding(model, {"data": 2, "fsdp": 1, "model": 2}, axes=("data", "model"), chip=default_chip("cpu"),
+                         workload=Workload(batch=8, seq=512, opt_bytes_per_param=8.0))
+    assert [tuple(r) for r in runs[0]["opt_rules"]] == [tuple(r) for r in plan.opt_rules]
+    for run in runs:
+        assert run["moment_bytes"] < 0.26 * replicated, (run["moment_bytes"], replicated)
+        assert abs(run["moment_bytes"] - plan.cost.per_chip_opt_bytes) <= 0.01 * run["moment_bytes"]
+        assert abs(run["param_bytes"] - plan.cost.per_chip_param_bytes) <= 0.01 * run["param_bytes"]
+
+
+def test_a_planned_2d_checkpoint_loads_at_one_process(worlds):
+    """`save_state` at data 2 x model 2 under the planner (moments split
+    over "data" and "model") writes the whole tree: loaded at one process,
+    the next losses are the world's, rtol 1e-5."""
+    after = worlds["w4"][0]["auto", "llama"]["after_save"]
+    np.testing.assert_allclose(worlds["loaded_auto"]["losses"], after, **LOSS)
+
+
+def test_gpt_neox_served_at_tp4_in_world4(worlds):
+    """JAX's `test_tp4_parity_across_families` and the planner at tp=4:
+    GPT-NeoX (4 KV heads) by its table and planned, at world 4, equal JAX's
+    engines' tokens; the four ranks hold the same rules and issue the same
+    collectives."""
+    runs = [r["serve4"] for r in worlds["w4"]]
+    for mode, key in (("hand", "rules"), ("auto", "auto")):
+        assert all(r[mode]["tokens"] == runs[0][mode]["tokens"] for r in runs)
+        assert all(r[mode]["collectives"] == runs[0][mode]["collectives"] for r in runs)
+        assert runs[0][mode]["tokens"] == worlds["jax_serve4"][key], mode
+    assert all(r["auto"]["rules"] == [tuple(x) for x in worlds["jax_serve4"]["rules_auto"]] for r in runs)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_gather_for_metrics_returns_each_row_once(worlds, world):
+    """Over a "model" axis the `Accelerator`'s `gather`, `gather_for_metrics`
+    (tensors and objects), `reduce` and `pad_across_processes` run over the
+    data ranks, as does `ops.gather` given their group: each data shard's
+    rows come back once, in data order, as JAX's one controller holds the
+    global batch (gathering over every process returned each row once per
+    "model" rank)."""
+    runs = [r["gather"] for r in (worlds["w2"] if world == 2 else worlds["w4"])]
+    data = 1 if world == 2 else 2
+    rows = torch.as_tensor(worlds["inputs"]["batches"][0]["input_ids"])
+    for run in runs:
+        for key in ("gather", "metrics", "ops_gather_data"):
+            assert torch.equal(run[key], rows), key
+        assert run["objects"] == list(range(data)) and run["reduce"] == float(data)
+        assert run["padded"] == tuple(run["mine"].shape)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_process_collectives_keep_every_process_over_model(worlds, world):
+    """What needs every process keeps it over a "model" axis: the
+    module-level `ops.gather` without a group returns every process's rows
+    in process order; a trigger that rank 0 alone raises is seen once by
+    every rank (over the data ranks alone, rank 1 at model=2 would never see
+    it and hang at its next collective); at data 2 x model 2 a save writes
+    each process's own RNG streams into ``random_states_<process>.pt``."""
+    import random
+
+    runs = [r["gather"] for r in (worlds["w2"] if world == 2 else worlds["w4"])]
+    for run in runs:
+        assert torch.equal(run["ops_gather"], torch.cat([r["mine"] for r in runs]))
+        assert run["trigger"] == [True, False]
+    if world == 4:
+        for index, run in enumerate(runs):
+            saved = torch.load(worlds["rng_dir"] / f"random_states_{index}.pt", weights_only=False)
+            stream = random.Random()
+            stream.setstate(saved["python"])
+            want = random.Random()
+            want.setstate(run["python_rng"])
+            assert stream.random() == want.random() == random.Random(1000 + index).random(), index
