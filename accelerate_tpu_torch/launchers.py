@@ -1,12 +1,15 @@
 """Launching several processes (the port of `accelerate_tpu/launchers.py`).
 
 `debug_launcher(function, args, num_processes)` runs ``function(*args)`` in
-`num_processes` fresh CPU processes joined over gloo on a free localhost
-port: each child gets the variables torchrun would set (``RANK``,
+`num_processes` fresh CPU processes joined over gloo on a localhost port:
+each child gets the variables torchrun would set (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and
 ``ACCELERATE_TPU_USE_CPU=1``, so the first `PartialState` it builds joins
-the group. `function` must be importable by name (a module-level function):
-the children are spawned, not forked.
+the group. The launcher hosts the group's rendezvous store itself
+(`hosted_store`, torchrun's agent store): its port is bound from the moment
+it is picked, so no other process can take it before the ranks meet.
+`function` must be importable by name (a module-level function): the
+children are spawned, not forked.
 
 `notebook_launcher` is JAX's: it refuses to run after a state exists, sets
 ``ACCELERATE_TPU_MIXED_PRECISION``, and runs the function in this process
@@ -26,7 +29,6 @@ from __future__ import annotations
 
 import os
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -39,11 +41,20 @@ GRACE_S = 10.0  # how long the other children may run on after one failed
 POLL_S = 0.05
 
 
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that nothing listens on right now."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def hosted_store(addr: str = "127.0.0.1"):
+    """(store, variables): a TCP store this process hosts, on a port the OS
+    picks as it binds, and the variables that send a group's ranks to it at
+    `addr` (``MASTER_ADDR``, ``MASTER_PORT`` and torch's
+    ``TORCHELASTIC_USE_AGENT_STORE``, under which every rank's ``env://``
+    rendezvous is a client, as under torchrun's agent). A port found free
+    and bound later by rank 0 can be taken in between by any process of
+    the host (another group's gloo pairs open ports by the dozen); this one
+    is held from the pick until the store is dropped. Keep the store while
+    the group runs."""
+    from torch.distributed import TCPStore
+
+    store = TCPStore(addr, 0, is_master=True, wait_for_workers=False)
+    return store, {"MASTER_ADDR": addr, "MASTER_PORT": str(store.port), "TORCHELASTIC_USE_AGENT_STORE": "True"}
 
 
 def rank_env(env: dict, rank: int, num_processes: int, port: int) -> dict:
@@ -55,14 +66,16 @@ def rank_env(env: dict, rank: int, num_processes: int, port: int) -> dict:
 
 
 class LocalProcesses:
-    """`num_processes` children of `cmd` on this host, one a rank, joined on
-    a fresh free port; shaped like a `subprocess.Popen` (`pid`, `poll`,
-    `wait`, `send_signal`, `kill`) so that the `Supervisor` restarts the
-    whole group as one unit, as torchrun's agent restarts a worker group."""
+    """`num_processes` children of `cmd` on this host, one a rank, joined at
+    a store this process hosts for the group (`hosted_store`); shaped like a
+    `subprocess.Popen` (`pid`, `poll`, `wait`, `send_signal`, `kill`) so
+    that the `Supervisor` restarts the whole group as one unit, on a store
+    of its own, as torchrun's agent restarts a worker group."""
 
     def __init__(self, cmd: List[str], env: Optional[dict], num_processes: int):
-        base = dict(env) if env is not None else dict(os.environ)
-        port = free_port()
+        self._store, group = hosted_store()
+        base = {**(dict(env) if env is not None else dict(os.environ)), **group}
+        port = int(group["MASTER_PORT"])
         self.args = cmd
         self.returncode: Optional[int] = None
         self._failed_at: Optional[float] = None
@@ -147,9 +160,15 @@ def _debug_worker(index: int, function, args, env: dict, error_dir: str):
 
 def _launch_functions(function: Callable, args, num_processes: int, env: dict, timeout: Optional[float], name: str):
     """Spawn `num_processes` children of ``function(*args)`` with `env` and
-    wait for all; see `debug_launcher`."""
+    wait for all; see `debug_launcher`. Without ``MASTER_PORT`` in `env`
+    they meet at a store this process hosts for them (`hosted_store`, at
+    ``MASTER_ADDR`` if `env` names one)."""
     import multiprocessing
 
+    store = None  # held until the children are done
+    if "MASTER_PORT" not in env:
+        store, group = hosted_store(env.get("MASTER_ADDR", "127.0.0.1"))
+        env = {**env, **group}
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as error_dir:
         procs = [ctx.Process(target=_debug_worker, args=(i, function, args, env, error_dir))
@@ -191,8 +210,6 @@ def debug_launcher(function: Callable, args=(), num_processes: int = 2, timeout:
     failed, with its traceback. `timeout` bounds the whole run."""
     env = {
         "WORLD_SIZE": str(num_processes),
-        "MASTER_ADDR": "127.0.0.1",
-        "MASTER_PORT": str(free_port()),
         "ACCELERATE_TPU_USE_CPU": "1",
         "ACCELERATE_TPU_DEBUG_LAUNCHER": "1",
         "OMP_NUM_THREADS": str(THREADS),
@@ -203,15 +220,18 @@ def debug_launcher(function: Callable, args=(), num_processes: int = 2, timeout:
 def card_launcher(function: Callable, args=(), num_processes: int = 1, use_port: Optional[str] = None,
                   master_addr: str = "127.0.0.1", timeout: Optional[float] = None):
     """Run ``function(*args)`` in one process per card over NCCL, process i
-    on card i; raises when there are fewer cards than `num_processes`."""
+    on card i, meeting at `master_addr`: on `use_port` when one is given,
+    else at a store this process hosts there; raises when there are fewer
+    cards than `num_processes`."""
     import torch
 
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if num_processes > cards:
         raise ValueError(f"num_processes={num_processes} needs one card a process; this host has {cards} "
                          "(NCCL takes one rank per device)")
-    env = {"WORLD_SIZE": str(num_processes), "MASTER_ADDR": master_addr,
-           "MASTER_PORT": str(use_port or free_port())}
+    env = {"WORLD_SIZE": str(num_processes), "MASTER_ADDR": master_addr}
+    if use_port:
+        env["MASTER_PORT"] = str(use_port)
     _launch_functions(function, args, num_processes, env, timeout, "card_launcher")
 
 

@@ -6,7 +6,9 @@ seed, made on the device) and its carry function, ``*_state_dict_from_flax``,
 which takes a JAX params tree to the port's `state_dict`. ResNet, an image
 model, is exported but not registered, as in the JAX package. The causal
 families and T5 have a `LayeredApply` for big-model inference
-(`layered_for_family`, `layered_for_model`)."""
+(`layered_for_family`, `layered_for_model`). Every family but Mixtral
+(which waits for expert sharding) sets ``tensor_parallel``: its forward
+splits over a "model" axis by its rules table (`parallel.tensor`)."""
 
 from __future__ import annotations
 

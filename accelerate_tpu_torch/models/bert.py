@@ -97,15 +97,16 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size)
+        # q | k | v: a tensor-parallel chain gives each rank its heads of each.
+        self.qkv.fused_parts = 3
         self.attn_out = Dense(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, hidden, mask):
-        cfg = self.cfg
         b, s, _ = hidden.shape
-        h, d = cfg.num_attention_heads, cfg.head_dim
-        q, k, v = (t.reshape(b, s, h, d) for t in self.qkv(hidden).chunk(3, dim=-1))
+        # The head count is the projection's (a tensor-parallel rank's holds its own heads).
+        q, k, v = (t.reshape(b, s, -1, self.cfg.head_dim) for t in self.qkv(hidden).chunk(3, dim=-1))
         out = dot_product_attention(q, k, v, mask=mask)
-        return self.attn_out(out.reshape(b, s, cfg.hidden_size))
+        return self.attn_out(out.reshape(b, s, -1))
 
 
 class BertLayer(nn.Module):
@@ -163,6 +164,9 @@ def sequence_classification_loss(batch, apply_fn):
 class BertForSequenceClassification(nn.Module):
 
     sharding_rules = BERT_SHARDING_RULES
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`;
+    #: the fused `qkv` a rank's heads of q, k and v in a chain).
+    tensor_parallel = True
 
     #: The loss `Accelerator.prepare` bundles with this model, as JAX's
     #: `create_bert_model` bundles it.

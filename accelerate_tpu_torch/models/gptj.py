@@ -109,6 +109,10 @@ class GPTJBlock(nn.Module):
 class GPTJForCausalLM(CausalDecoder):
 
     sharding_rules = GPTJ_SHARDING_RULES
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`):
+    #: each branch of the parallel block is a chain with its own all-reduce,
+    #: and the biased head a column loner (its bias split with its rows).
+    tensor_parallel = True
 
     slot_serving = False
 

@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..parallel.tensor import attend_heads
+from ..parallel.tensor import attend_heads, tied_logits
 from .decoder import CausalDecoder, DecoderLayeredApply, causal_lm_loss  # noqa: F401  (causal_lm_loss: JAX's home for it)
 
 
@@ -184,8 +184,7 @@ class LlamaForCausalLM(CausalDecoder):
 
     def head(self, hidden):
         if self.lm_head is None:
-            tied = getattr(self.embed_tokens, "logits", None)  # a vocab-parallel table's own head
-            return tied(hidden) if tied is not None else hidden @ self.embed_tokens.weight.T
+            return tied_logits(self.embed_tokens, hidden)
         return self.lm_head(hidden)
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike
+from ..parallel.tensor import tied_logits
 from .decoder import (
     CausalDecoder,
     DecoderAttention,
@@ -89,6 +90,9 @@ class OPTBlock(nn.Module):
 class OPTForCausalLM(CausalDecoder):
 
     sharding_rules = OPT_SHARDING_RULES
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`);
+    #: the tied head is the split table's own (`tied_logits`).
+    tensor_parallel = True
 
     slot_serving = False
 
@@ -107,7 +111,7 @@ class OPTForCausalLM(CausalDecoder):
         return self.embed_tokens(input_ids) + self.embed_positions(positions + POSITION_OFFSET)
 
     def head(self, hidden):
-        return hidden @ self.embed_tokens.weight.T.to(hidden.dtype)  # tied
+        return tied_logits(self.embed_tokens, hidden)
 
 
 def create_opt_model(

@@ -40,6 +40,7 @@ from ..device import DeviceLike
 from ..ops.attention import DecodeCache, decode_cache_attention, decode_cache_mask, dot_product_attention
 from ..ops.losses import global_mean
 from ..ops.remat import maybe_remat
+from ..parallel.tensor import HeadTable, tied_logits
 from .decoder import Dense, _Call, call_with, flax_tree_to_state_dict, random_init
 from .llama import RMSNorm
 
@@ -112,11 +113,12 @@ def relative_position_bucket(relative_position, bidirectional: bool, num_buckets
     return ret + torch.where(is_small, n.to(torch.int32), val_if_large)
 
 
-class T5RelativeBias(nn.Embedding):
+class T5RelativeBias(HeadTable):
     """The learned relative-position bias table, ``[num_buckets, heads]``,
     one per stack (T5 keeps it on the stack's first block and shares it).
     Called on query and key positions, it gives the ``[1, heads, q, k]``
-    additive score bias."""
+    additive score bias: under tensor parallel, the heads of this rank's
+    attention chains (`HeadTable.table`)."""
 
     def __init__(self, cfg: T5Config, bidirectional: bool):
         super().__init__(cfg.relative_attention_num_buckets, cfg.num_heads)
@@ -128,7 +130,7 @@ class T5RelativeBias(nn.Embedding):
         buckets = relative_position_bucket(rel, self.bidirectional, self.num_embeddings, self.max_distance)
         # Head-major and contiguous: every layer's score add then reads the
         # bias along keys, not with a stride of the head count.
-        return F.embedding(buckets.long(), self.weight).permute(2, 0, 1).contiguous()[None]
+        return F.embedding(buckets.long(), self.table()).permute(2, 0, 1).contiguous()[None]
 
 
 class T5Attention(nn.Module):
@@ -141,23 +143,24 @@ class T5Attention(nn.Module):
     first call and reads them back from ``decode_cache.cross`` after. They
     are kept head-major (``[B, H, S, D]`` storage seen as ``[B, S, H, D]``),
     the layout the plain attention multiplies in, so a step reads them
-    without copying them."""
+    without copying them. The head count is the projections' (a
+    tensor-parallel rank's holds its own heads)."""
 
     def __init__(self, cfg: T5Config):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
-        self.heads, self.head_dim = cfg.num_heads, cfg.d_kv
+        self.head_dim = cfg.d_kv
         self.wq, self.wk, self.wv = (Dense(cfg.d_model, inner, bias=False) for _ in range(3))
         self.wo = Dense(inner, cfg.d_model, bias=False)
 
     def _project_kv(self, src):
         b, s, _ = src.shape
-        return (self.wk(src).reshape(b, s, self.heads, self.head_dim),
-                self.wv(src).reshape(b, s, self.heads, self.head_dim))
+        return (self.wk(src).reshape(b, s, -1, self.head_dim),
+                self.wv(src).reshape(b, s, -1, self.head_dim))
 
     def forward(self, hidden, kv_hidden=None, bias=None, mask=None, causal=False, cache=None):
         b, s, _ = hidden.shape
-        q = self.wq(hidden).reshape(b, s, self.heads, self.head_dim)
+        q = self.wq(hidden).reshape(b, s, -1, self.head_dim)
         if cache is not None and kv_hidden is not None:
             decode, layer = cache
             if layer not in decode.cross:
@@ -253,6 +256,12 @@ class T5ForConditionalGeneration(nn.Module):
     a `DecodeCache` (`make_decode_cache`)."""
 
     sharding_rules = T5_SHARDING_RULES
+    #: Tensor parallel over "model" splits this family (`parallel.tensor`):
+    #: the attention and FFN blocks as chains (v1.0's `wo_ff` a row loner:
+    #: no rule splits its `wi`), each stack's bias table read a rank's
+    #: heads at a time (`head_table_readers`), the tied head through the
+    #: split embedding.
+    tensor_parallel = True
 
     loss_fn = staticmethod(seq2seq_lm_loss)
     slot_serving = False
@@ -272,14 +281,19 @@ class T5ForConditionalGeneration(nn.Module):
     def get_input_embeddings(self) -> nn.Embedding:
         return self.shared
 
+    def head_table_readers(self):
+        """{bias table: the attention blocks that add it}: the encoder's
+        self-attentions and the decoder's (the cross-attention has none)."""
+        return {"enc_bias": [b.attention for b in self.enc_blocks],
+                "dec_bias": [b.self_attention for b in self.dec_blocks]}
+
     def _head(self, hidden):
         """v1.1: `lm_head`. v1.0: the shared embedding, after HF's
         ``d_model ** -0.5`` rescale (flax's `Embed.attend`, promoting)."""
         if self.lm_head is not None:
             return self.lm_head(hidden)
         x = hidden * (self.config.d_model ** -0.5)
-        dtype = torch.promote_types(x.dtype, self.shared.weight.dtype)
-        return x.to(dtype) @ self.shared.weight.to(dtype).T
+        return tied_logits(self.shared, x.to(torch.promote_types(x.dtype, self.shared.weight.dtype)))
 
     def encode(self, input_ids, attention_mask=None):
         """[B, S] ids (and a [B, S] 1/0 mask) -> the encoder's [B, S, d_model] output."""

@@ -57,7 +57,7 @@ from torch.distributed.tensor import DTensor
 
 from .mesh import MODEL_WITH_FSDP, mesh_sizes
 from .sharding import derive_opt_state_placements, derive_param_placements
-from .tensor import TPGroup, shard_module
+from .tensor import TPGroup, TPSplit, join_parts, shard_module, split_part
 
 #: The ROADMAP A item 3 bullet for the planner's ZeRO table beside a sharding FSDP strategy.
 ZERO_WITH_FSDP = ("ROADMAP A item 3, the planner's ZeRO table (moments over \"data\") with an \"fsdp\" axis or a "
@@ -122,9 +122,9 @@ class ShardedLayout:
         # The optimizer a user built holds the original parameters: `adopt`
         # finds them by id (the names outlive a tensor-parallel split).
         self._names_by_id = {id(p): n for n, p in module.named_parameters()}
-        #: The "model" group and {name: torch dim split over it} under tensor parallel.
+        #: The "model" group and {name: its split over it} under tensor parallel.
         self.tp: Optional[TPGroup] = None
-        self.tp_dims: Dict[str, int] = {}
+        self.tp_dims: Dict[str, TPSplit] = {}
         # The gradient average's group: every process, or "data" under a "model" axis.
         self._grad_group = None
         if self.model_size > 1:
@@ -298,19 +298,18 @@ class ShardedLayout:
     def gather_model(self, part: torch.Tensor, name: str) -> torch.Tensor:
         """The whole of a tensor-parallel split (collective over "model"), or
         `part` itself for a tensor `name` does not split."""
-        dim = self.tp_dims.get(name)
-        if dim is None:
+        split = self.tp_dims.get(name)
+        if split is None:
             return part
-        part = _local(part).detach()
-        chunks = part.movedim(dim, 0).contiguous()
-        parts = [torch.empty_like(chunks) for _ in range(self.model_size)]
-        dist.all_gather(parts, chunks, group=self.tp.group)
-        return torch.cat(parts, dim=0).movedim(0, dim)
+        part = _local(part).detach().contiguous()
+        parts = [torch.empty_like(part) for _ in range(self.model_size)]
+        dist.all_gather(parts, part, group=self.tp.group)
+        return join_parts(parts, split)
 
     def split_model(self, full: torch.Tensor, name: str) -> torch.Tensor:
         """This rank's split of a whole tensor `name`, or the tensor whole."""
-        dim = self.tp_dims.get(name)
-        return full if dim is None else full.chunk(self.model_size, dim=dim)[self.tp.rank]
+        split = self.tp_dims.get(name)
+        return full if split is None else split_part(full, split, self.model_size, self.tp.rank)
 
     def local_entry(self, value: torch.Tensor, dim: Optional[int], global_shape=None):
         """(this process's tensor, the whole shape, its ``[[start, stop],

@@ -18,8 +18,10 @@ Megatron's layers issue.
     and one row layer. The columns' input enters through `copy_to_model`
     (identity forward, all-reduce backward) and their outputs stay split
     by head or hidden unit into the row layer, whose partial products
-    `reduce_from_model` sums (all-reduce forward, identity backward); the
-    bias, whole, is added after the sum.
+    `reduce_from_model` sums (all-reduce forward, identity backward) in f32,
+    twice a bf16 product's bytes (GSPMD sums a bf16 dot in bf16); the bias,
+    whole, is added after the sum, and the result rounded once to the
+    product's dtype.
   - A loner column layer (no row layer in its block: the head) gathers its
     output over "model" (`gather_from_model`), since its consumer reads it
     whole: the loss and the sampler see JAX's full logits.
@@ -41,6 +43,20 @@ Megatron's layers issue.
   - An `Int8Linear` (the int8 engine's) splits its int8 matrix like the
     kernel and its per-output-channel scale by the rule's output dim, as
     JAX's `derive_tp_param_shardings` places ``kernel/scale``.
+  - A fused column layer (``fused_parts`` > 1 on the layer: BERT's ``qkv``,
+    q | k | v in one kernel) in a chain gives each rank its run of each part
+    (q_r | k_r | v_r: its heads of each), where JAX's spec splits the
+    kernel's columns in one contiguous run and GSPMD moves the heads; the
+    bytes a rank holds are the spec's. As a loner it splits contiguously,
+    as the spec does, since its output is gathered whole. `TPSplit` names
+    the layout; `split_part` and `join_parts` cut a whole tensor to it and
+    put the parts back in JAX's order.
+  - A table that the attention blocks read a head at a time (T5's
+    relative-position bias, ``[buckets, heads]``) takes this rank's heads
+    where its blocks are chains (`head_table`): its gradient is then this
+    rank's heads only, so the table enters through `copy_to_model` and
+    every rank holds the summed gradient. Split by a rule, it is gathered
+    whole first (the gradient keeps this rank's part).
 
 A spec that fits none of these raises, naming the leaf. The attention and
 MLP modules read their per-rank head counts and widths off their layers'
@@ -53,7 +69,7 @@ a group must issue the same sequence).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -61,11 +77,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quantization import Int8Linear
-from .sharding import _flax_module_path, spec_for_param, tp_spec
+from .sharding import _flax_module_path, _leaf, spec_for_param, tp_spec
 
-#: The ROADMAP A item 3 bullet for families whose forward has no tensor-parallel split yet.
-OTHER_FAMILIES = ("ROADMAP A item 3, tensor parallel for the other families (GPT-J, OPT, T5 and BERT; "
-                  "Mixtral with expert sharding)")
+#: The ROADMAP A item 3 bullet for the one family whose forward has no tensor-parallel split yet.
+OTHER_FAMILIES = "ROADMAP A item 3, expert sharding (Mixtral's experts and router over \"model\")"
 
 #: Collectives issued by the blocks, by kind.
 COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
@@ -200,8 +215,15 @@ class RowParallel:
     def forward(self, x):
         if self.split_input:
             x = split_to_model(x, self.tp)
-        y = reduce_from_model(self._product(x), self.tp)
-        return y if self.bias is None else y + self.bias.to(y.dtype)
+        part = self._product(x)
+        # Summed and biased in f32, rounded once to the product's dtype, as
+        # one GEMM's epilogue rounds: a bf16 sum rounds the partials and the
+        # sum apart (on an H100, OPT-30B's pre-clip norms at model=2 part from
+        # tp=1's by 1.36e-3 with a bf16 sum, with the bias added in bf16 or
+        # f32 alike, and by 2.5e-4 with this one).
+        y = reduce_from_model(part.float(), self.tp)
+        y = y if self.bias is None else y + self.bias.float()
+        return y.to(part.dtype)
 
 
 class ColumnParallelLinear(ColumnParallel, nn.Linear):
@@ -265,7 +287,8 @@ class VocabParallelEmbedding(nn.Embedding):
         return reduce_from_model(rows * inside[..., None].to(rows.dtype), self.tp)
 
     def logits(self, hidden):
-        return gather_from_model(copy_to_model(hidden, self.tp) @ self.weight.T, self.tp)
+        weight = self.weight.to(hidden.dtype)
+        return gather_from_model(copy_to_model(hidden, self.tp) @ weight.T, self.tp)
 
 
 class HiddenParallelEmbedding(nn.Embedding):
@@ -280,7 +303,16 @@ class HiddenParallelEmbedding(nn.Embedding):
         return gather_from_model(F.embedding(ids, self.weight), self.tp)
 
     def logits(self, hidden):
-        return reduce_from_model(split_to_model(hidden, self.tp) @ self.weight.T, self.tp)
+        weight = self.weight.to(hidden.dtype)
+        return reduce_from_model(split_to_model(hidden, self.tp) @ weight.T, self.tp)
+
+
+def tied_logits(embedding: nn.Embedding, hidden):
+    """A head tied to `embedding`: ``hidden @ weight.T`` in `hidden`'s
+    dtype, or a split table's own head (its rows' logits gathered over the
+    vocab, or its columns' partial logits all-reduced)."""
+    tied = getattr(embedding, "logits", None)
+    return tied(hidden) if tied is not None else hidden @ embedding.weight.T.to(hidden.dtype)
 
 
 class HeadSplit:
@@ -323,19 +355,49 @@ def attend_heads(block: nn.Module, q, k, v, positions, *modes):
     return split.attend(q, k, v, positions, *modes)
 
 
+class TPSplit(NamedTuple):
+    """How a tensor is split over "model": on torch dim `dim`, each rank
+    holding its chunk of each of `parts` equal runs (1: one contiguous
+    chunk)."""
+
+    dim: int
+    parts: int = 1
+
+
+def split_part(full: torch.Tensor, split: TPSplit, size: int, rank: int) -> torch.Tensor:
+    """Rank `rank`'s part of a whole tensor under `split` over `size` ranks."""
+    runs = full.unflatten(split.dim, (split.parts, -1))
+    return runs.chunk(size, dim=split.dim + 1)[rank].flatten(split.dim, split.dim + 1)
+
+
+def join_parts(parts: Sequence[torch.Tensor], split: TPSplit) -> torch.Tensor:
+    """The whole tensor from every rank's part under `split`, in rank order
+    (JAX's layout: each run whole, the runs in order)."""
+    runs = [p.unflatten(split.dim, (split.parts, -1)) for p in parts]
+    return torch.cat(runs, dim=split.dim + 1).flatten(split.dim, split.dim + 1)
+
+
 def _param(value: torch.Tensor, like: nn.Parameter) -> nn.Parameter:
     return nn.Parameter(value.detach().clone(), requires_grad=like.requires_grad)
 
 
-def _split(t: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
-    return t.chunk(tp.size, dim=dim)[tp.rank]
+def _split(t: torch.Tensor, dim: int, tp: TPGroup, parts: int = 1) -> torch.Tensor:
+    return split_part(t, TPSplit(dim, parts), tp.size, tp.rank)
+
+
+def _fused_parts(layer, kind: str, loner: bool) -> int:
+    """The runs a column layer's output splits into on each rank: its
+    ``fused_parts`` in a chain, else 1."""
+    return getattr(layer, "fused_parts", 1) if kind == "column" and not loner else 1
 
 
 def _linear_split(layer, kind: str, tp: TPGroup, loner: bool):
     """`layer` (an `nn.Linear`, a `Dense` or an `Int8Linear`) as its
     rank's column- or row-parallel split; a `loner` column layer gathers
-    its output, a loner row layer takes its part of a whole input."""
+    its output, a loner row layer takes its part of a whole input. A fused
+    column layer in a chain takes its run of each part."""
     column = kind == "column"
+    parts = _fused_parts(layer, kind, loner)
     if isinstance(layer, Int8Linear):
         cls = ColumnParallelInt8Linear if column else RowParallelInt8Linear
         q = _split(layer.q, 0 if column else 1, tp).clone()
@@ -350,12 +412,12 @@ def _linear_split(layer, kind: str, tp: TPGroup, loner: bool):
             cls = ColumnParallelLinear if column else RowParallelLinear
         else:
             raise NotImplementedError(f"no tensor-parallel form of {type(layer).__name__}")
-        weight = _split(layer.weight, 0 if column else 1, tp)
+        weight = _split(layer.weight, 0 if column else 1, tp, parts)
         with torch.device("meta"):
             new = cls(weight.shape[1], weight.shape[0], bias=layer.bias is not None)
         new.weight = _param(weight, layer.weight)
         if layer.bias is not None:
-            new.bias = _param(_split(layer.bias, 0, tp) if column else layer.bias, layer.bias)
+            new.bias = _param(_split(layer.bias, 0, tp, parts) if column else layer.bias, layer.bias)
     new.tp = tp
     if column:
         new.gather_output = loner
@@ -366,8 +428,13 @@ def _linear_split(layer, kind: str, tp: TPGroup, loner: bool):
 
 def _embedding_split(layer: nn.Embedding, dim: int, tp: TPGroup) -> nn.Embedding:
     """The vocab-parallel (`dim` 0) or hidden-parallel (`dim` 1) split of
-    an embedding table."""
+    an embedding table; a head table (`HeadTable`) keeps its class and
+    holds its split (see `HeadTable.table`)."""
     weight = _split(layer.weight, dim, tp)
+    if isinstance(layer, HeadTable):
+        layer.weight = _param(weight, layer.weight)
+        layer.tp, layer.split_dim = tp, dim
+        return layer
     with torch.device("meta"):
         new = (VocabParallelEmbedding if dim == 0 else HiddenParallelEmbedding)(weight.shape[0], weight.shape[1])
     new.weight = _param(weight, layer.weight)
@@ -377,9 +444,51 @@ def _embedding_split(layer: nn.Embedding, dim: int, tp: TPGroup) -> nn.Embedding
     return new
 
 
+class HeadTable(nn.Embedding):
+    """An embedding table whose columns are attention heads, read whole by
+    blocks that compute every head and a rank's heads by chains (T5's
+    relative-position bias). `shard_module` gives it its "model" group
+    (`tp`), the torch dim a rule splits it on (`split_dim`, or None) and
+    whether its blocks are chains (`chain`); `table()` is what a forward
+    reads: this rank's heads in a chain, every head otherwise."""
+
+    tp: Optional[TPGroup] = None
+    split_dim: Optional[int] = None
+    chain: bool = False
+
+    def table(self) -> torch.Tensor:
+        weight, tp = self.weight, self.tp
+        if tp is None:
+            return weight
+        if self.split_dim == 0:  # buckets split: gathered whole, the gradient keeps this rank's rows
+            weight = gather_from_model(weight.T, tp).T
+        elif self.split_dim == 1 and not self.chain:  # heads split, every head read: gathered
+            weight = gather_from_model(weight, tp)
+        if self.chain and self.split_dim != 1:
+            # This rank's heads of the whole table; the gradient summed over "model".
+            heads = weight.shape[1] // tp.size
+            weight = copy_to_model(weight, tp)[:, tp.rank * heads:(tp.rank + 1) * heads]
+        return weight
+
+
+def _head_tables(module: nn.Module, tp: TPGroup):
+    """Tell each `HeadTable` of `module` its group and whether the blocks
+    that read it are chains: the model names them (``head_table_readers()``:
+    {table's name: [attention blocks]}); a table whose readers mix chains
+    and whole blocks raises."""
+    readers = getattr(module, "head_table_readers", None)
+    for name, blocks in (readers() if readers is not None else {}).items():
+        table = module.get_submodule(name)
+        chains = {getattr(b, "tp_heads", None) is None and isinstance(b.wq, ColumnParallel)
+                  and not b.wq.gather_output for b in blocks}
+        if len(chains) > 1:
+            raise NotImplementedError(f"{name}: its attention blocks are split as chains and whole at once")
+        table.tp, table.chain = tp, chains == {True}
+
+
 def refuse_family(module: nn.Module):
-    """A family whose forward has no tensor-parallel split raises, naming
-    the bullet that ports it."""
+    """A family whose forward has no tensor-parallel split (Mixtral) raises,
+    naming the bullet that ports it."""
     if not getattr(module, "tensor_parallel", False):
         raise NotImplementedError(
             f"{type(module).__name__} over a \"model\" axis above 1 waits for {OTHER_FAMILIES}")
@@ -412,14 +521,14 @@ def _chains(kinds: Dict[str, Optional[str]]) -> Dict[str, bool]:
     return loner
 
 
-def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGroup]) -> Dict[str, int]:
+def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGroup]) -> Dict[str, TPSplit]:
     """Replace, in place, every layer of `module` that `rules` shards over
     "model" by this rank's split (JAX's spec on the flax view of its
     kernel or embedding), in the form its block gives it (a chain, a loner;
     see the module's docstring), and give each attention block the table
-    does not split as a chain a `HeadSplit`. Returns {name in the state dict: torch dim
-    split over "model"} of the split tensors. With no group, or a group of
-    one, nothing changes."""
+    does not split as a chain a `HeadSplit`. Returns {name in the state dict:
+    its `TPSplit`} of the split tensors. With no group, or a group of one,
+    nothing changes."""
     if tp is None or tp.size == 1:
         return {}
     refuse_family(module)
@@ -434,15 +543,16 @@ def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGr
                 raise NotImplementedError(f"{base}kernel: spec {spec} is neither column- nor row-parallel")
             kinds[name] = _KINDS.get(spec)
         elif isinstance(layer, nn.Embedding):
-            spec = tuple(spec_for_param(base + "embedding", tuple(layer.weight.shape), sizes, rules=rules))
+            path = base + _leaf(layer, "weight", 2)[0]
+            spec = tuple(spec_for_param(path, tuple(layer.weight.shape), sizes, rules=rules))
             if not spec:
                 continue
             if spec not in _EMBEDDING_DIMS:
-                raise NotImplementedError(f"{base}embedding: spec {spec} is neither vocab- nor hidden-parallel")
-            tp_spec(base + "embedding", tuple(layer.weight.shape), sizes, rules)  # the divisibility check
+                raise NotImplementedError(f"{path}: spec {spec} is neither vocab- nor hidden-parallel")
+            tp_spec(path, tuple(layer.weight.shape), sizes, rules)  # the divisibility check
             embeddings[name] = _EMBEDDING_DIMS[spec]
     loner = _chains(kinds)
-    dims: Dict[str, int] = {}
+    dims: Dict[str, TPSplit] = {}
     replaced: Dict[str, nn.Module] = {}
     for name, kind in kinds.items():
         if kind is None:
@@ -450,15 +560,16 @@ def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGr
         layer = module.get_submodule(name)
         replaced[name] = _linear_split(layer, kind, tp, loner=loner[name])
         weight = "q" if isinstance(layer, Int8Linear) else "weight"
-        dims[f"{name}.{weight}"] = 0 if kind == "column" else 1
+        column = TPSplit(0, _fused_parts(layer, kind, loner[name]))
+        dims[f"{name}.{weight}"] = column if kind == "column" else TPSplit(1)
         if kind == "column":
             if layer.bias is not None:
-                dims[f"{name}.bias"] = 0
+                dims[f"{name}.bias"] = column
             if isinstance(layer, Int8Linear):
-                dims[f"{name}.scale"] = 0
+                dims[f"{name}.scale"] = column
     for name, dim in embeddings.items():
         replaced[name] = _embedding_split(module.get_submodule(name), dim, tp)
-        dims[f"{name}.weight"] = dim
+        dims[f"{name}.weight"] = TPSplit(dim)
     for name, new in replaced.items():
         parent, _, child = name.rpartition(".")
         setattr(module.get_submodule(parent) if parent else module, child, new)
@@ -466,6 +577,7 @@ def shard_module(module: nn.Module, rules: Optional[Sequence], tp: Optional[TPGr
         members = [f"{name}.{n}" if name else n for n in _ATTENTION]
         if all(m in kinds for m in members) and not all(kinds[m] and not loner[m] for m in members):
             block.tp_heads = HeadSplit(tp)  # not a chain: its heads come out whole
+    _head_tables(module, tp)
     return dims
 
 

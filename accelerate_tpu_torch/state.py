@@ -20,12 +20,17 @@ accelerator, the optimizers, the schedulers and the data loaders share.
 All three are Borg singletons, as in the JAX package: every instance reads
 and writes one shared dict, so an optimizer built inside `prepare` sees
 the `sync_gradients` flag the accelerator sets. Tests reset them with
-`_reset_state()`. Importing this module creates no process group.
+`_reset_state()`. Importing this module creates no process group; a group
+`PartialState` creates is torn down at the interpreter's exit if the
+script has not done so.
 """
 
 from __future__ import annotations
 
+import atexit
+import datetime
 import os
+import sys
 from contextlib import contextmanager
 from functools import partial, wraps
 from typing import Callable, Optional
@@ -62,6 +67,55 @@ def gloo_card(local_rank: int, share_device: bool = False) -> torch.device:
     device = resolve_device(torch.device("cuda", local_rank % max(count, 1)))
     torch.cuda.set_device(device)
     return device
+
+
+#: How long a rank at its exit waits for every rank of its group to be
+#: exiting too, before it leaves the group as it is.
+EXIT_WAIT_S = 5.0
+_EXITING_KEY = "accelerate_tpu_torch/exiting"
+#: The statuses `sys.exit` was called with in this process, once
+#: `_record_exit_statuses` has wrapped it (Python tells an exit handler
+#: nothing of the status).
+_EXIT_STATUSES: list = []
+
+
+def _record_exit_statuses():
+    """Wrap `sys.exit` (once) so that it keeps its status in `_EXIT_STATUSES`."""
+    exit_ = sys.exit
+    if getattr(exit_, "records_status", False):
+        return
+
+    def recording_exit(status=None):
+        _EXIT_STATUSES.append(status)
+        exit_(status)
+
+    recording_exit.records_status = True
+    sys.exit = recording_exit
+
+
+def _destroy_group_at_exit():
+    """Tear down the process group before the interpreter's own teardown,
+    once every rank is exiting: a gloo group left to it can abort a process
+    whose work is done ("terminate called without an active exception",
+    SIGABRT, in a few launches in a hundred under load on the CPU), since
+    its threads still run while the interpreter's statics are destroyed.
+    A rank that fails (an uncaught exception, a `sys.exit` status other
+    than 0, or no peer exiting within `EXIT_WAIT_S`) leaves the group as
+    it is: its peers see it gone only when its process is, so a launcher
+    reports its status, not theirs."""
+    if not (dist.is_available() and dist.is_initialized()) or getattr(sys, "last_exc", None) is not None:
+        return
+    if _EXIT_STATUSES and _EXIT_STATUSES[-1] not in (None, 0):
+        return
+    try:
+        store = dist.distributed_c10d._get_default_store()
+        store.set_timeout(datetime.timedelta(seconds=EXIT_WAIT_S))
+        if store.add(_EXITING_KEY, 1) == dist.get_world_size():
+            store.set(_EXITING_KEY + "/all", "1")
+        store.wait([_EXITING_KEY + "/all"], datetime.timedelta(seconds=EXIT_WAIT_S))
+    except Exception:  # a peer not exiting, or the store gone with it
+        return
+    dist.destroy_process_group()
 
 
 class PartialState:
@@ -111,6 +165,9 @@ class PartialState:
                 extra["device_id"] = self.device
             dist.init_process_group(backend, init_method=kwargs.get("init_method") or "env://",
                                     rank=int(env["RANK"]), world_size=int(env["WORLD_SIZE"]), **extra)
+            atexit.unregister(_destroy_group_at_exit)  # once, however many groups this process makes
+            atexit.register(_destroy_group_at_exit)
+            _record_exit_statuses()
         self.backend = backend
         self.cpu = self.device.type == "cpu"
         self.num_processes = dist.get_world_size() if backend else 1

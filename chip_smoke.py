@@ -94,7 +94,8 @@ prints no result):
    (b) bf16, timed: the paged and the contiguous engine on the 16 requests
        (decode tokens/s, TTFT p50, the cache's bytes, peak memory); then
        `generate` at batch 1 on a 512-token prompt and at batch 8 left-padded
-       128-512, 128 new tokens each (TTFT, the median of 3 one-token calls;
+       128-512, 64 new tokens each (TTFT, the median of 3 one-token
+       calls;
        decode tokens/s; peak memory), and with draft_tokens=4 at batch 1 on
        a prompt that repeats a 64-token passage (accepted tokens per verify
        step). Gates: every request finishes, every token id lies in the
@@ -167,16 +168,17 @@ prints no result):
        layers, the kernel path's greedy tokens equal the gather path's,
        plain and speculative, unquantized and on int8 and fp8 caches, and
        `generate`'s equal the K1 engine's on 4 prompts of 256 tokens; then
-       bf16 at 44 layers (41.1 GB of weights, 17.7 GB of pools) over the
+       bf16 at 22 of its 44 layers (20.5 GB of weights, 8.9 GB of pools)
+       over the
        first 8 of phase 3's requests, plain (K1) and
        speculative (K2), timed, launches
        gated as in phase 3; then int8 weights over an int8 and an fp8 cache
        at 4 layers (phase 3 holds int8 weights at full
        depth; the bf16 model the engine copies from and its int8 copy both
        on the card).
-   (b) `generate` of GPT-NeoX-20B, GPT-J-6B and OPT-30B in bf16 at full
-       depth, batch 1 on a 512-token prompt, 128 new tokens: TTFT, decode
-       tokens/s, peak memory; no K1-K5 launch.
+   (b) `generate` of GPT-NeoX-20B (at 22 of its 44 layers), GPT-J-6B and
+       OPT-30B in bf16 at full depth, batch 1 on a 512-token prompt, 64 new
+       tokens: TTFT, decode tokens/s, peak memory; no K1-K5 launch.
    (c) Training of each through `Accelerator.prepare` and `train_step`,
        sequence 2048, cut in depth (NeoX 2, GPT-J 4, OPT 2 layers): f32 at
        2 layers, batch 1, 3 steps, kernel losses against the plain
@@ -238,7 +240,7 @@ prints no result):
        8 timed steps (step time, tokens/s, peak memory, each step's ce and
        router losses, MFU over the work done, `mixtral_step_flops`; K3-K5
        launched 2 x 8 times); 2 fp16 steps.
-   (e) with phase 9, a 2-layer bf16 cut saved with `save_hf_checkpoint`
+   (e) with phase 9, a 1-layer bf16 cut saved with `save_hf_checkpoint`
        and loaded into a model from another seed: the same tensors bit for
        bit and the same greedy tokens.
 11. fp8 mixed precision and ResNet, run after phase 5 (f):
@@ -329,8 +331,8 @@ prints no result):
 
 14. Data parallel and FSDP/ZeRO (`parallel/fsdp.py`), run after phase 13.
    With one card the strategies run through NCCL at world
-   1 (``RANK=0``, ``WORLD_SIZE=1``, ``LOCAL_RANK=0``, a free ``MASTER_PORT``
-   on 127.0.0.1, set for the phase and put back, the process group torn
+   1 (``RANK=0``, ``WORLD_SIZE=1``, ``LOCAL_RANK=0``, at a store the
+   script hosts on 127.0.0.1, set for the phase and put back, the process group torn
    down however it ends), where the group, the placed module, the
    collectives and the sharded optimizer state are all on the path; runs
    across processes are held to JAX on the CPU over gloo
@@ -429,12 +431,12 @@ prints no result):
        --config_file F --gradient_accumulation_steps 2 --num_processes 1 S``:
        phase 15 (a)'s eager loop on Llama-1B at full width cut to 2 layers
        (phase 15 runs it at full depth; random weights from seed 0, batch
-       2 x 2048, 8 micro-steps, 4
+       2 x 2048, 4 micro-steps, 2
        optimizer steps) under ``Accelerator()``. Gates: the child reads
        bf16, accumulation 2, one process and ``cuda:0``; it built no kernel
        (its build listener heard nothing: the libraries the parent built are
-       loaded from ``build/``); K3-K5 launched 2 x 8 times each in bf16; its
-       8 losses equal, bit for bit, the same loop in this process under
+       loaded from ``build/``); K3-K5 launched 2 x 4 times each in bf16; its
+       4 losses equal, bit for bit, the same loop in this process under
        ``Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)``.
    (b) ``launch --max_restarts 1 --trace_dir D --mixed_precision bf16 S`` on
        the 1-layer cut at full width (batch 2 x 2048, fused steps): the
@@ -471,7 +473,8 @@ prints no result):
    (c) 40 GiB for the card, 13.6 GB of host RAM, the rest (4 layers, 4.9
        GB) in the disk store under a temporary directory.
    Gates for (b) and (c): the first forward's logits equal (a)'s bit for
-   bit and the 8 tokens are (a)'s; K3 launched 48 x 9 times; the bytes on
+   bit and the 4 tokens are (a)'s; K3 launched 48 x 5
+   times; the bytes on
    the card after dispatch within the card's budget; the peak during
    `generate` at most the resident bytes plus two layers plus (a)'s
    activations (the slack reported); no copy from unpinned host memory.
@@ -501,24 +504,24 @@ prints no result):
     `foreach=True`), clip 1.0, through `accelerator.train_step()`. First
     the host's MemTotal/MemAvailable and a bare copy of 1 GiB between a
     pinned arena and the card, each way.
-   (a) Cut to 2 layers, 2 steps each: resident; the optimizer's state in
+   (a) Cut to 1 layer, 2 steps each: resident; the optimizer's state in
        pinned host RAM (`offload_optimizer_state=True`); it and the masters
        (`cpu_offload=True`); the state in the disk store under a temporary
        directory (`offload_optimizer_device="disk"`); `DeepSpeedPlugin`
        with ``offload_optimizer: {"device": "nvme"}``. Gates: each run's
        losses and its masters after the second update equal the resident
-       run's bit for bit; K3-K5 launched 2 x 2 times. Reported per run:
+       run's bit for bit; K3-K5 launched 1 x 2 times. Reported per run:
        peak memory, step and update seconds, bytes moved a step; for the
        disk runs the store's write and (warm) read GB/s.
    (b) Full depth (28 layers, 6,050,882,784 parameters) through
        ``Accelerator(mixed_precision="bf16", deepspeed_plugin=DeepSpeedPlugin(
        hf_ds_config={"zero_optimization": {"stage": 2, "offload_optimizer":
-       {"device": "cpu"}}}))``, the reference's ZeRO-Offload config: 2
-       warm-up and 3 timed steps. Resident AdamW would need 18 bytes a
+       {"device": "cpu"}}}))``, the reference's ZeRO-Offload config: 1
+       warm-up and 2 timed steps. Resident AdamW would need 18 bytes a
        parameter before activations (f32 masters, gradients and two
        moments, bf16 copies), past the card; with the moments in pinned
        host RAM, 10. Gates: losses finite and the last below the first;
-       K3-K5 launched 28 x 5 times; the peak below the card's memory and
+       K3-K5 launched 28 x 3 times; the peak below the card's memory and
        the resident reckoning. Reported: the peak beside both reckonings
        (the port's size accounting), step time split into forward and
        backward and the update, the update beside its copy bound (the
@@ -629,10 +632,10 @@ prints no result):
    (c) In the same world, Llama-1B cut to 2 layers through `prepare` and
        `train_step()` under `ParallelismConfig(model=2)`: bf16 with f32
        masters, 2 x 2048, AdamW lr 1e-4, decay 1e-4, clip 1.0, 1 warm-up
-       and 3 timed steps, against the same run at tp=1 here. Gates: the
+       and 2 timed steps, against the same run at tp=1 here. Gates: the
        ranks' losses and pre-clip norms equal; losses finite, falling, and
        within 1e-2 relative of tp=1's at every step; norms within 1e-3;
-       K3-K5 launched 2 x 4 times on each rank. The ranks hand `prepare`
+       K3-K5 launched 2 x 3 times on each rank. The ranks hand `prepare`
        the model on the host, which splits it there and moves the split.
        Reported: the median step time and the steps' peak card memory
        beside tp=1's.
@@ -651,9 +654,9 @@ prints no result):
        seconds (the slower rank's) beside its predicted step time, the
        embedding's split, decode tokens/s beside (b)'s hand-table run.
    (e) Planned training in (c)'s setting under `sharding_rules="auto"`:
-       model=2 (1 warm-up and 3 timed steps) and data=2 (1 x 2048 a rank,
+       model=2 (1 warm-up and 2 timed steps) and data=2 (1 x 2048 a rank,
        the parameters whole, the moments split over "data" by the plan's
-       ZeRO table; 1 warm-up and 2 timed steps), against (c)'s tp=1
+       ZeRO table; 1 warm-up and 1 timed step), against (c)'s tp=1
        losses. Gates: losses finite and within 1e-2 relative of tp=1's at
        every step, equal across the ranks; at data=2 a rank's live moment
        bytes at most 0.55 of tp=1's and within 1% of the plan's
@@ -661,6 +664,28 @@ prints no result):
        every rank. Reported: each mesh's median step time beside (c)'s.
        `--plan-only` runs the build and (d)-(e) alone, with the tp=1 runs
        they are held to.
+   (f) In the same world, the other families trained over their tables
+       (`TP_FAMILIES`): GPT-J-6B at 2 layers, 1 x 2048; OPT-30B at 2
+       layers, 1 x 2048; T0pp-11B at 2 + 2 layers, 2048 encoder and 1024
+       decoder tokens, no mask (the cross-attention takes the flash gate);
+       BERT-base at full depth, 32 x 128; each at its published widths from
+       `create_named_model`'s config, random weights from seed 0, through
+       `prepare` and `train_step()` under `ParallelismConfig(model=2)`:
+       bf16 with f32 masters, AdamW lr 1e-4, decay 1e-4, clip 1.0, 1 warm-up
+       and 2 timed steps, each against the same run at tp=1 here (run while
+       the ranks start). The ranks hand `prepare` the model on the host.
+       Gates: the ranks' losses and pre-clip norms equal; losses finite and
+       within 1e-2 relative of tp=1's at every step, norms within 1e-3
+       (T0pp-11B's, 532 at the start, within 1e-2: `TP_FAMILY_NORM_RTOL`); a
+       rank's live parameters at most 0.6 of tp=1's; K3-K5 launched layers
+       x 3 times on each rank (T5's decoder layers; BERT none, as in JAX).
+       Before the world, K3-K5 (bf16) are held and timed at each family's
+       rank shape (`TP_FAMILY_FLASH`: GPT-J 8 heads of 256 causal, OPT-30B
+       28 heads of 128 causal, T0pp's cross-attention 32 heads of 64, 1024
+       over 2048 keys, non-causal, scale 1.0). Reported: each family's
+       median step time and the steps' peak card memory beside tp=1's (the
+       tp=2 times are two ranks time-sliced on one card over host-staged
+       gloo, not NVLink). `--tp-families-only` runs the build and (f) alone.
 
 `--fp8-only` runs the build and phase 11 alone, `--telemetry-only` the build
 and phase 13 alone, `--dist-only` the build and phase 14 alone,
@@ -669,7 +694,10 @@ phase 16 alone, `--bigmodel-only` the build and phase 17 alone,
 `--offload-train-only` the build and phase 18 alone, `--checkpoint-only` the
 build and phase 19 alone, `--examples-only` the build and phase 20 alone,
 `--tp-only` the build and phase 21 alone, `--plan-only` the build and
-phase 21 (d)-(e) alone, and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
+phase 21 (d)-(e) alone, `--tp-families-only` the build and phase 21 (f)
+alone, `--tp-precision-witness` the build and T0pp-11B at (f)'s cut in f32
+at tp=2 against tp=1 and in bf16 against f32 at tp=1 (what parts its norms),
+and `--kernels-only` stops after phase 2 (none prints a result line). Each phase prints its wall time on a `[time]` line, and the
 whole script's before the `kernels` line.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`), so f32 means f32.
@@ -872,6 +900,7 @@ FAMILY_TRAIN_LAYERS = {"gpt-neox-20b": 2, "gptj-6b": 4, "opt-30b": 2}
 # NeoX-20B's int8-weight engine quantizes a copy of a bf16 model cut to this
 # depth (phase 3 holds int8 weights at full depth on Llama-1B).
 NEOX_W8_LAYERS = 4
+NEOX_TIMED_LAYERS = 22  # phase 9 (b)'s and NeoX's generate depth: half of NeoX-20B's 44
 FAMILY_TIMED_STEPS, FAMILY_WARMUP, FAMILY_FP16_STEPS = 4, 2, 2
 
 # T5 (phase 8): T0pp-11B at its published widths. Training is cut to this
@@ -1504,7 +1533,7 @@ def profile_run(run, unprofiled_wall_s):
 # `generate` and the contiguous engine (phase 4): Llama-1B, 2048-token cache.
 GENERATE_SHAPE = dict(
     max_length=2048, prompt=256, new=32, batch=4, ragged=(64, 128, 192, 256), penalty=1.3,
-    timed_prompt=512, timed_new=128, timed_batch=8, timed_ragged=(128, 512), passage=64, draft=4,
+    timed_prompt=512, timed_new=64, timed_batch=8, timed_ragged=(128, 512), passage=64, draft=4,
 )
 
 
@@ -2626,13 +2655,14 @@ def gqa_repeat_time(prof):
 
 # ----------------------------------------------------------------- families
 def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_layers=NEOX_W8_LAYERS, n_requests=8,
-                      system_len=256, new=32, n_prompts=4, profile=False):
+                      system_len=256, new=32, n_prompts=4, profile=False, timed_layers=NEOX_TIMED_LAYERS):
     """GPT-NeoX through the paged engine (K1 and K2 at D 96, G = 1). (a) f32
     at full width cut to `parity_layers` layers: the kernel path's tokens
     equal the gather path's, unquantized and on int8 and fp8 caches
     (`engine_parity`), and `generate`'s greedy tokens equal the K1 engine's
-    on `n_prompts` prompts; (b) bf16 at full width and depth, timed, with
-    the launch gates of `engine_timed`; (e) int8 weights over an int8 and an
+    on `n_prompts` prompts; (b) bf16 at full width cut to `timed_layers`
+    layers, timed, with the launch gates of `engine_timed`; (e) int8
+    weights over an int8 and an
     fp8 cache at `w8_layers` layers (`engine_quantized`). With `profile`,
     device time by kernel group of one more bf16 plain run."""
     import dataclasses
@@ -2667,7 +2697,8 @@ def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_lay
     log(f"[time] neox (a) f32 {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    model = create(config, seed=0, dtype=torch.bfloat16, device=device)
+    timed = dataclasses.replace(config, num_hidden_layers=min(timed_layers, config.num_hidden_layers))
+    model = create(timed, seed=0, dtype=torch.bfloat16, device=device)
     log_model(f"[neox] {model_name} bf16", model, t0)
     _, nbytes = engine_timed(model, requests, device, engine_kw, report)
     if profile:
@@ -2683,16 +2714,21 @@ def neox_engine_phase(device, model_name="gpt-neox-20b", parity_layers=2, w8_lay
                    device=device)
     # The bf16 cache of a model of this depth: the pools are per layer.
     engine_quantized(model, requests, device, engine_kw, report, None,
-                     nbytes * w8_layers // config.num_hidden_layers)
+                     nbytes * w8_layers // timed.num_hidden_layers)
     del model
     free_memory(device)
     log(f"[time] neox (e) int8 weights {time.perf_counter() - t0:.1f}s")
     return report
 
 
+#: The families' generate at a cut depth: {name: layers} (the others at full depth).
+FAMILY_GENERATE_LAYERS = {"gpt-neox-20b": NEOX_TIMED_LAYERS}
+
+
 def family_generate_phase(device, model_name, shape=GENERATE_SHAPE, profile=False, model=None):
-    """`generate` of `model_name` in bf16 at full width and depth (random
-    weights from seed 0, or `model` when the caller made it): batch 1 on a
+    """`generate` of `model_name` in bf16 at full width and depth, or the
+    depth `FAMILY_GENERATE_LAYERS` gives it (random weights from seed 0, or
+    `model` when the caller made it): batch 1 on a
     `timed_prompt`-token prompt, `timed_new` new tokens (`timed_generate`:
     TTFT, decode tokens/s, peak memory), after a warm-up; every K1-K5 count
     stays 0 over it. With `profile`, device time by kernel group of one
@@ -2700,7 +2736,12 @@ def family_generate_phase(device, model_name, shape=GENERATE_SHAPE, profile=Fals
     from accelerate_tpu_torch import GenerationConfig, Generator, create_named_model
 
     t0 = time.perf_counter()
-    if model is None:
+    if model is None and model_name in FAMILY_GENERATE_LAYERS:
+        from accelerate_tpu_torch.models import CREATE_BY_FAMILY
+
+        config = cut_config(model_name, FAMILY_GENERATE_LAYERS[model_name])
+        model = CREATE_BY_FAMILY[type(config)](config, seed=0, dtype=torch.bfloat16, device=device)
+    elif model is None:
         model = create_named_model(model_name, seed=0, dtype=torch.bfloat16, device=device)
     log_model(f"[family] {model_name} bf16", model, t0)
     report = {"model": model_name, "layers": model.config.num_hidden_layers,
@@ -3093,7 +3134,7 @@ def filesystem(path):
 
 
 def hf_phase(device, model_name="llama-1b", t5_name=T5_MODEL, t5_layers=T5_TRAIN_LAYERS, engine_kw=None,
-             n_requests=8, system_len=256, mixtral_name=MIXTRAL_MODEL, mixtral_layers=2):
+             n_requests=8, system_len=256, mixtral_name=MIXTRAL_MODEL, mixtral_layers=1):
     """HF checkpoint interchange on the card, through a temporary directory
     (removed however the phase ends): `model_name` in bf16 at full width and
     depth (random weights from seed 0) written with `save_hf_checkpoint`
@@ -4273,7 +4314,7 @@ DIST_GUARD_STEPS = 4
 DIST_FP8_STEPS = (2, 4)  # (d): warm-up and timed steps of each fp8 run
 # The launcher's variables phase 14 sets for its world-1 NCCL group, and
 # puts back after.
-DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "TORCHELASTIC_USE_AGENT_STORE")
 
 
 def reset_port_state(partial=False):
@@ -4285,37 +4326,26 @@ def reset_port_state(partial=False):
         PartialState._reset_state()
 
 
-WORLD_ONE_PORT_TRIES = 3
-
-
 class world_one_group:
     """A one-process group for the block: the launcher's variables set (a
-    free port on 127.0.0.1), `PartialState` built on them (NCCL on the card,
-    gloo on the CPU), and on exit the group destroyed, the singletons reset
-    and the variables as they were."""
+    store this process hosts, `launchers.hosted_store`), `PartialState`
+    built on them (NCCL on the card, gloo on the CPU), and on exit the
+    group destroyed, the store dropped, the singletons reset and the
+    variables as they were."""
 
     def __init__(self, device):
         self.device = device
 
     def __enter__(self):
-        from accelerate_tpu_torch.launchers import free_port
+        from accelerate_tpu_torch.launchers import hosted_store
         from accelerate_tpu_torch.state import PartialState
 
         self.saved = {k: os.environ.get(k) for k in DIST_ENV}
         try:
-            for attempt in range(WORLD_ONE_PORT_TRIES):
-                # A port free when picked can be taken before the store binds
-                # it (another socket's ephemeral port): pick again.
-                os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                                  MASTER_PORT=str(free_port()))
-                reset_port_state(partial=True)
-                try:
-                    state = PartialState(cpu=self.device.type == "cpu")
-                    break
-                except torch.distributed.DistNetworkError as e:
-                    if "EADDRINUSE" not in str(e) or attempt + 1 == WORLD_ONE_PORT_TRIES:
-                        raise
-                    log(f"[dist] port {os.environ['MASTER_PORT']} taken before the store bound it; another")
+            self.store, group = hosted_store()
+            os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", **group)
+            reset_port_state(partial=True)
+            state = PartialState(cpu=self.device.type == "cpu")
             backend = torch.distributed.get_backend()
             if self.device.type == "cuda" and backend != "nccl":
                 raise RuntimeError(f"the card's process group runs {backend!r}, not nccl")
@@ -4328,6 +4358,7 @@ class world_one_group:
     def __exit__(self, *exc):
         if torch.distributed.is_available() and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+        self.store = None
         reset_port_state(partial=True)
         for k, v in self.saved.items():
             if v is None:
@@ -4999,7 +5030,7 @@ def surface_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=SURFACE, c
 # (a)'s eager loop runs at `eager_layers`: phase 15 holds that loop at full depth.
 # (b)'s restart at 1 layer: its save and load are most of the phase, and the
 # embedding and head most of their bytes.
-LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=4, eager_layers=2, restart_layers=1, restart_steps=4,
+LAUNCH = dict(batch=2, accumulation=2, optimizer_steps=2, eager_layers=2, restart_layers=1, restart_steps=4,
               save_after=2, restart_rows=16)
 CLI = ("-m", "accelerate_tpu_torch.commands.accelerate_cli")
 # The user's script the launched children run. The parent runs the same
@@ -5467,7 +5498,7 @@ def launch_phase(device, model_name="llama-1b", seq=TRAIN_SEQ, shape=LAUNCH):
 
 # ------------------------------------------------------------ big-model inference
 BIGMODEL = dict(
-    model="opt-30b", prompt=1024, new=8,
+    model="opt-30b", prompt=1024, new=4,
     # (b) mirrors the reference's 2 x 24 GB row: 48 GiB of card for the weights.
     budget_b={0: "48GiB"},
     # (c) about 4 layers (4.9 GB) on disk: the checkout's filesystem is slow.
@@ -5892,7 +5923,7 @@ def bigmodel_k3_row(k3, launches):
 
 
 # ------------------------------------------------------------------ phase 18: training past the card
-OFFLOAD_TRAIN = dict(model="gptj-6b", parity_layers=2, parity_steps=2, batch=1, warmup=2, timed_steps=3,
+OFFLOAD_TRAIN = dict(model="gptj-6b", parity_layers=1, parity_steps=2, batch=1, warmup=1, timed_steps=2,
                      # None: the model's full depth (GPT-J-6B's 28 layers).
                      layers=None, copy_bytes=1 << 30)
 #: Phase 18 (a)'s runs, each against the first.
@@ -6717,12 +6748,38 @@ def examples_phase(device, twins=EXAMPLE_TWINS, gate_runs=GATE_RUNS):
 # write passed the phase's 40 s (59.7 s at level 1, 146.8 s at zlib's 6).
 # (b) serves 8 requests and (c) takes 1 warm-up and 3 timed steps: the
 # script's time pays for (d) and (e) with them.
-TP = dict(tp=2, convert_layers=2, convert_vocab=1024, train_layers=2, batch=2, warmup=1, timed_steps=3,
+TP = dict(tp=2, convert_layers=2, convert_vocab=1024, train_layers=2, batch=2, warmup=1, timed_steps=2,
           n_requests=8, system_len=256, draft_tokens=3, timeout_s=600,
-          plan_requests=8, plan_max_new=16, plan_refine_top_k=2, plan_model_steps=3, plan_data_steps=2)
+          plan_requests=8, plan_max_new=16, plan_refine_top_k=2, plan_model_steps=2, plan_data_steps=1)
 #: Phase 21's parts: (a) convert, (b) serving and (c) training over the
-#: family's table, (d) serving and (e) training under ``sharding_rules="auto"``.
-TP_PARTS = ("a", "b", "c", "d", "e")
+#: family's table, (d) serving and (e) training under ``sharding_rules="auto"``,
+#: (f) the other families trained over their tables.
+TP_PARTS = ("a", "b", "c", "d", "e", "f")
+#: Phase 21 (f): each family at its published widths ({name: its cut}; layers
+#: None keeps the model's depth, T5's count is each stack's), bf16 with f32
+#: masters, 1 warm-up and 2 timed steps.
+TP_FAMILIES = {
+    "gptj-6b": dict(layers=2, batch=1, seq=TRAIN_SEQ),
+    "opt-30b": dict(layers=2, batch=1, seq=TRAIN_SEQ),
+    "t0pp-11b": dict(layers=2, batch=1, seq=T5_ENC_SEQ, dec_seq=T5_DEC_SEQ),
+    "bert-base": dict(layers=None, batch=32, seq=128),
+}
+TP_FAMILY_STEPS = dict(warmup=1, timed_steps=2)
+TP_FAMILY_PARAMS = 0.6  # a rank's live parameters over tp=1's, at most
+#: (f)'s norm limit where it is not `TP_NORM_RTOL`: T0pp-11B's pre-clip norm
+#: starts at 532 (unscaled attention scores, clipped to 1.0). On an H100
+#: (`--tp-precision-witness`) bf16 alone, at tp=1, moves that first norm by
+#: 8.4e-3 of f32's, while in f32 the split's first loss and norm are tp=1's
+#: within 2.6e-6; in bf16 tp=2's first norm parts from tp=1's by 2.6e-3, the
+#: next two (after Adam's first steps, which part f32 runs too) by up to
+#: 7.2e-3, its losses by 3.0e-3 (PERF.md). It is held to the loss limit.
+TP_FAMILY_NORM_RTOL = {"t0pp-11b": 1e-2}
+#: K3-K5 at (f)'s per-rank attention: {name: (shape, causal, scale, row suffix)}.
+TP_FAMILY_FLASH = {
+    "gptj-6b": (dict(b=1, hq=8, s=2048, d=256), True, None, "_tp2_gptj"),
+    "opt-30b": (dict(b=1, hq=28, s=2048, d=128), True, None, "_tp2_opt"),
+    "t0pp-11b": (dict(b=1, hq=32, s=1024, sk=2048, d=64), False, 1.0, "_tp2_t5cross"),
+}
 TP_PLAN_BYTES = 0.10  # JAX's round-trip bound: a rank's weight + pool bytes against the plan's prediction
 TP_ZERO_SHARE = 0.55  # at data=2, a rank's moment bytes over tp=1's, at most
 TP_ZERO_BYTES = 0.01  # ... and within 1% of the plan's per-chip optimizer bytes
@@ -6813,13 +6870,13 @@ def tp_serve_runs(device, model, requests, engine_kw, **tp_kw):
 
 
 def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False, sharding_rules=None, batch=None,
-                 warmup=None, timed_steps=None):
-    """Phase 21 (c)'s and (e)'s run: `train` in bf16 with the pre-clip global
-    norm of every step; returns the losses, step seconds, norms, K3-K5
-    launches, the steps' peak card memory, this rank's live optimizer moment
-    bytes (step counts aside) and its dims of the moments sharded over the
-    layout's ZeRO axis. `batch`, `warmup` and `timed_steps` default to
-    `shape`'s."""
+                 warmup=None, timed_steps=None, loader=None, mixed_precision="bf16"):
+    """Phase 21 (c)'s, (e)'s and (f)'s run: `train` in bf16 with the pre-clip
+    global norm of every step; returns the losses, step seconds, norms,
+    K3-K5 launches, the steps' peak card memory, this rank's live optimizer
+    moment bytes (step counts aside) and its dims of the moments sharded
+    over the layout's ZeRO axis. `batch`, `warmup` and `timed_steps` default
+    to `shape`'s; `loader` replaces the repeated token batch."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     free_memory(device)
@@ -6840,11 +6897,11 @@ def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False,
             step_fn.optimizer.clip_grad_norm_ = clipped
 
     warmup = shape["warmup"] if warmup is None else warmup
-    losses, seconds, pmodel, step_fn, _ = train(device, config, "bf16", batch=batch or shape["batch"],
+    losses, seconds, pmodel, step_fn, _ = train(device, config, mixed_precision, batch=batch or shape["batch"],
                                                 steps=shape["timed_steps"] if timed_steps is None else timed_steps,
                                                 seq=seq, warmup=warmup, on_step=record_norm,
                                                 accelerator_kw=accelerator_kw, on_host=on_host,
-                                                sharding_rules=sharding_rules)
+                                                sharding_rules=sharding_rules, loader=loader)
     state = step_fn.optimizer.optimizer.state
     layout = pmodel.layout
     report = dict(losses=losses, step_s=seconds, norms=[float(n) for n in norms], launches=dict(fa.LAUNCHES),
@@ -6859,6 +6916,121 @@ def tp_train_run(device, config, shape, seq, accelerator_kw=None, on_host=False,
                   opt_rules=[[p, list(spec)] for p, spec in pmodel.opt_sharding_rules or []])
     del pmodel, step_fn
     free_memory(device)
+    return report
+
+
+def family_config(name, layers):
+    """`name`'s registered config cut to `layers` layers (each stack's for
+    T5); None keeps its depth."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models import MODEL_REGISTRY
+
+    config = MODEL_REGISTRY[name]()
+    if layers is None:
+        return config
+    if hasattr(config, "num_decoder_layers"):
+        return t5_config(name, layers)
+    return dataclasses.replace(config, num_hidden_layers=layers)
+
+
+def bert_loader(config, batch, steps, seq, seed=0):
+    """A `SimpleDataLoader` over one `bert_batch` of `batch` x `seq` with
+    labels from numpy `seed`, repeated `steps` times."""
+    from accelerate_tpu_torch import BatchSampler, SimpleDataLoader
+
+    ids, mask, types = (t.numpy() for t in bert_batch(config, batch, seq, seed))
+    labels = np.random.default_rng(seed + 1).integers(0, config.num_labels, batch)
+    data = [{"input_ids": ids[i % batch], "attention_mask": mask[i % batch], "token_type_ids": types[i % batch],
+             "labels": labels[i % batch]} for i in range(batch * steps)]
+    return SimpleDataLoader(data, BatchSampler(range(len(data)), batch))
+
+
+def flash_layers(config):
+    """The layers of `config` whose attention takes K3-K5 in (f)'s setting:
+    a causal decoder's every layer, T5's decoder (its cross-attention,
+    unmasked), BERT's none (a padding mask at 128 tokens)."""
+    if hasattr(config, "num_decoder_layers"):
+        return config.num_decoder_layers
+    if hasattr(config, "type_vocab_size"):
+        return 0
+    return config.num_hidden_layers
+
+
+def family_tp_run(device, name, shape, accelerator_kw=None, on_host=False, steps=TP_FAMILY_STEPS):
+    """Phase 21 (f)'s run of family `name` at `shape` (a `TP_FAMILIES`
+    entry; bf16 unless it names another ``mixed_precision``): `tp_train_run`
+    on its data, random weights from seed 0."""
+    config = family_config(name, shape["layers"])
+    n = steps["warmup"] + steps["timed_steps"]
+    if hasattr(config, "num_decoder_layers"):
+        loader = t5_batch_loader(config.vocab_size, shape["batch"], n, shape["seq"], shape["dec_seq"])
+    elif hasattr(config, "type_vocab_size"):
+        loader = bert_loader(config, shape["batch"], n, shape["seq"])
+    else:
+        loader = repeated_batch_loader(config.vocab_size, shape["batch"], n, shape["seq"])
+    return tp_train_run(device, config, dict(shape, **steps), shape["seq"], accelerator_kw, on_host=on_host,
+                        loader=loader, mixed_precision=shape.get("mixed_precision", "bf16"))
+
+
+def family_tp_gates(device, shape, ranks, base, steps=TP_FAMILY_STEPS):
+    """Phase 21 (f)'s gates for each family against its tp=1 run `base`:
+    the ranks' losses and norms equal; losses finite and within
+    `TP_LOSS_RTOL` of tp=1's at every step, norms within `TP_NORM_RTOL`
+    (`TP_FAMILY_NORM_RTOL` where it names the family); a
+    rank's live parameters at most `TP_FAMILY_PARAMS` of tp=1's; K3-K5
+    launched `flash_layers` x steps times on each rank (on the card)."""
+    out = {}
+    for name, one in base.items():
+        runs = [r["families"][name] for r in ranks]
+        config = family_config(name, shape["families"][name]["layers"])
+        want = expected_launches(flash_layers(config) * (steps["warmup"] + steps["timed_steps"]), torch.bfloat16)
+        losses = [r["losses"] for r in runs]
+        report = out[name] = {
+            "tp1": {k: one[k] for k in ("losses", "norms", "step_ms_median", "peak_bytes", "param_numel")},
+            "tp2": {k: runs[0][k] for k in ("losses", "norms", "step_ms_median", "peak_bytes", "param_numel")},
+            "tp2_step_ms": [1e3 * x for x in runs[0]["step_s"]],
+            "launches": [r["launches"] for r in runs],
+            "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(losses[0], one["losses"])),
+            "norm_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(runs[0]["norms"], one["norms"])),
+            "param_share": [r["param_numel"] / one["param_numel"] for r in runs],
+        }
+        log(f"[tp] (f) {name} {json.dumps(report)}")
+        if any(l != losses[0] for l in losses[1:]) or any(r["norms"] != runs[0]["norms"] for r in runs[1:]):
+            raise RuntimeError(f"(f) {name} at model=2: the ranks' losses or norms differ: {losses}")
+        if not all(np.isfinite(losses[0])):
+            raise RuntimeError(f"(f) {name} at model=2: losses {losses[0]} are not finite")
+        if report["loss_rel_diff"] > TP_LOSS_RTOL or report["norm_rel_diff"] > TP_FAMILY_NORM_RTOL.get(name, TP_NORM_RTOL):
+            raise RuntimeError(f"(f) {name} at model=2 against tp=1: {report}")
+        if max(report["param_share"]) > TP_FAMILY_PARAMS:
+            raise RuntimeError(f"(f) {name}: a rank holds more than {TP_FAMILY_PARAMS} of tp=1's parameters: {report}")
+        if device.type == "cuda" and any(r["launches"] != want for r in runs):
+            raise RuntimeError(f"(f) {name}: K3-K5 launches {report['launches']}, expected {want}")
+    return out
+
+
+def tp_precision_witness(device, name="t0pp-11b", families=TP_FAMILIES, shape=TP):
+    """`--tp-precision-witness`: what parts `name`'s norms at model=2 from
+    tp=1's in (f). The family at (f)'s cut in f32 at tp=2 (phase 21's world)
+    against f32 at tp=1 (the split alone: summation order), and bf16 at
+    tp=1 against f32 at tp=1 (bf16 rounding alone, no split); both
+    reported as the largest relative difference of any step's loss and
+    pre-clip norm."""
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    f32 = dict(families[name], mixed_precision="no")
+    split = tp_phase(device, shape=shape, timed=False, parts=("f",), families={name: f32})["family_training"][name]
+    one = split["tp1"]
+    bf16 = family_tp_run(device, name, families[name])
+    report = {"model": name, "cut": families[name],
+              "f32_tp2_vs_tp1": {k: split[k] for k in ("loss_rel_diff", "norm_rel_diff")},
+              "bf16_vs_f32_tp1": {"loss_rel_diff": rel(bf16["losses"], one["losses"]),
+                                  "norm_rel_diff": rel(bf16["norms"], one["norms"])},
+              "f32_tp1": {k: one[k] for k in ("losses", "norms")},
+              "f32_tp2": {k: split["tp2"][k] for k in ("losses", "norms")},
+              "bf16_tp1": {k: bf16[k] for k in ("losses", "norms")}}
+    log(f"[tp] precision witness {json.dumps(report)}")
     return report
 
 
@@ -6952,6 +7124,12 @@ def tp_worker(out_dir, model_name, shape, seq, engine_kw, cpu):
         report["train"] = tp_train_run(device, config, shape, seq, dict(
             accelerator_kw, parallelism_config=ParallelismConfig(model=shape["tp"])), on_host=True)
         report["train_s"] = time.perf_counter() - t0
+    if "f" in parts:
+        t0 = time.perf_counter()
+        report["families"] = {name: family_tp_run(device, name, cut, dict(
+            accelerator_kw, parallelism_config=ParallelismConfig(model=shape["tp"])), on_host=True)
+            for name, cut in shape["families"].items()}
+        report["families_s"] = time.perf_counter() - t0
     if "e" in parts:
         t0 = time.perf_counter()
         report["plan_train"] = {
@@ -6976,9 +7154,9 @@ def tp_world(device, out_dir, model_name, shape, seq, engine_kw, while_starting,
     runs here while they run (its error raised once they are done)."""
     import threading
 
-    from accelerate_tpu_torch.launchers import _launch_functions, free_port
+    from accelerate_tpu_torch.launchers import _launch_functions
 
-    env = {"WORLD_SIZE": str(shape["tp"]), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    env = {"WORLD_SIZE": str(shape["tp"])}  # the launcher hosts the group's store
     if device.type == "cpu":
         env["ACCELERATE_TPU_USE_CPU"] = "1"
     failure = []
@@ -7220,15 +7398,18 @@ def plan_train_gates(device, shape, ranks, base, plans):
     return report
 
 
-def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=None, timed=True, parts=TP_PARTS):
+def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=None, timed=True, parts=TP_PARTS,
+             families=TP_FAMILIES):
     """Phase 21: convert (a), then Llama over two tensor-parallel ranks
     sharing the card: serving (b) and training (c) over the family's table
-    against tp=1, then the planner's (d) and (e). `parts` picks which run;
-    (d) and (e) without (b) and (c) run their tp=1 references here."""
+    against tp=1, then the planner's (d) and (e), then the other families
+    trained over their tables (f: `families`, {name: its cut}). `parts`
+    picks which run; (d) and (e) without (b) and (c) run their tp=1
+    references here."""
     import tempfile
 
     engine_kw = dict(ENGINE_KW if engine_kw is None else engine_kw, draft_tokens=shape["draft_tokens"])
-    shape = dict(shape, parts=tuple(parts))
+    shape = dict(shape, parts=tuple(parts), families=dict(families) if "f" in parts else {})
     report = {"model": model_name, "tp": shape["tp"], "parts": list(parts)}
     env_before = {k: os.environ.get(k) for k in DIST_ENV}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
@@ -7250,6 +7431,14 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
                                                             kv_dtypes=("int8",)))
             report["flash"] = flash_kernel_phase(device, TP_FLASH_SHAPE, dtypes=(torch.bfloat16,))
             log(f"[time] tp (kernels at a rank's heads) {time.perf_counter() - t1:.1f}s")
+        if timed and "f" in parts:
+            t1 = time.perf_counter()
+            report["family_flash"] = {}
+            for name, (fshape, causal, scale, _) in TP_FAMILY_FLASH.items():
+                log(f"[flash] (f) {name} at a rank's heads: {json.dumps(fshape)}, causal {causal}, scale {scale}")
+                report["family_flash"][name] = flash_kernel_phase(device, fshape, causal=causal, scale=scale,
+                                                                  dtypes=(torch.bfloat16,))
+            log(f"[time] tp (f) kernels at the families' rank shapes {time.perf_counter() - t1:.1f}s")
         from accelerate_tpu_torch import create_named_model
 
         refs = {}
@@ -7279,6 +7468,10 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
                                               if device.type == "cuda" else None)}
             if "c" in parts or "e" in parts:
                 refs["train"] = tp_train_run(device, train_config, shape, seq)
+            if "f" in parts:
+                t3 = time.perf_counter()
+                refs["families"] = {name: family_tp_run(device, name, cut) for name, cut in shape["families"].items()}
+                log(f"[time] tp (f) tp=1 references {time.perf_counter() - t3:.1f}s")
             log(f"[time] tp (tp=1 references) {time.perf_counter() - t2:.1f}s")
 
         t1 = time.perf_counter()
@@ -7286,8 +7479,8 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
                          convert_part if "a" in parts else None)
         report["world_s"] = time.perf_counter() - t1
         log(f"[time] tp (b)-(e) tp=1, then the world of {shape['tp']} {report['world_s']:.1f}s "
-            + " ".join(f"({key} {ranks[0][key]:.1f}s)" for key in ("serve_s", "train_s", "plan_serve_s", "plan_train_s")
-                       if key in ranks[0]))
+            + " ".join(f"({key} {ranks[0][key]:.1f}s)" for key in ("serve_s", "train_s", "plan_serve_s", "plan_train_s",
+                                                                  "families_s") if key in ranks[0]))
         model, requests, base = refs["model"], refs["requests"], refs.get("serve")
 
         # (b) serving
@@ -7352,6 +7545,9 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
         # (e) planned training
         if "e" in parts:
             report["plan_training"] = plan_train_gates(device, shape, ranks, base_train, train_plans)
+        # (f) the other families
+        if "f" in parts:
+            report["family_training"] = family_tp_gates(device, shape, ranks, refs["families"])
         builds = [r["builds"] for r in ranks]
         report["rank_builds"] = builds
         if any(builds):
@@ -7364,7 +7560,7 @@ def tp_phase(device, model_name="llama-1b", shape=TP, seq=TRAIN_SEQ, engine_kw=N
 def tp_summary(report):
     """Phase 21's numbers without the logits and tokens."""
     keep = dict(report)
-    keep.pop("kernels", None), keep.pop("flash", None)
+    keep.pop("kernels", None), keep.pop("flash", None), keep.pop("family_flash", None)
     return keep
 
 
@@ -7396,6 +7592,18 @@ def tp_rows(report):
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     rows += flash_rows(report["flash"], launches, None, TP_FLASH_SHAPE, suffix="_tp2",
                        design=" (one tensor-parallel rank's 16 heads of Llama-1B's 32)")
+    return rows + (tp_family_rows(report) if "family_flash" in report else [])
+
+
+def tp_family_rows(report):
+    """The `kernels` line's K3-K5 rows at (f)'s per-rank shapes, launches
+    summed over both ranks' runs of that family."""
+    rows = []
+    for name, (shape, causal, scale, suffix) in TP_FAMILY_FLASH.items():
+        runs = report["family_training"][name]["launches"]
+        launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+        rows += flash_rows(report["family_flash"][name], launches, None, shape, suffix=suffix, causal=causal,
+                           scale=scale, design=f" (one tensor-parallel rank's heads of {name}: {shape['hq']})")
     return rows
 
 
@@ -7551,6 +7759,12 @@ def main(argv=None) -> int:
                         help="run only the build and phase 21 (d)-(e) (Llama-1B served and trained under the "
                              "planner's layout over two ranks sharing the card, with their tp=1 references; "
                              "prints no result line)")
+    parser.add_argument("--tp-families-only", action="store_true",
+                        help="run only the build and phase 21 (f) (GPT-J-6B, OPT-30B, T0pp-11B and BERT-base trained "
+                             "over two tensor-parallel ranks sharing the card, against tp=1; prints no result line)")
+    parser.add_argument("--tp-precision-witness", action="store_true",
+                        help="run only the build and T0pp-11B at phase 21 (f)'s cut in f32 at tp=2 against tp=1, "
+                             "and bf16 against f32 at tp=1 (prints no result line)")
     parser.add_argument("--compare", nargs="+", metavar="TREE",
                         help="time the flash kernels of each source tree instead, in turns (a b b a)")
     parser.add_argument("--head-dim", type=int, default=FLASH_SHAPE["d"], choices=(16, 32, 64, 96, 128, 256),
@@ -7639,6 +7853,20 @@ def main(argv=None) -> int:
         tp = tp_phase(device, parts=("d", "e"))
         log(f"[tp] summary: {json.dumps(tp_summary(tp))}")
         log(f"[time] tp phase (d)-(e) {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.tp_families_only:
+        t0 = time.perf_counter()
+        tp = tp_phase(device, parts=("f",))
+        log(f"[tp] summary: {json.dumps(tp_summary(tp))}")
+        log(f"[tp] rows: {json.dumps(tp_family_rows(tp))}")
+        log(f"[time] tp phase (f) {time.perf_counter() - t0:.1f}s")
+        log(card)
+        return 0
+    if args.tp_precision_witness:
+        t0 = time.perf_counter()
+        tp_precision_witness(device)
+        log(f"[time] tp precision witness {time.perf_counter() - t0:.1f}s")
         log(card)
         return 0
     if args.tp_only:

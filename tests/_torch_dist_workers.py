@@ -994,11 +994,24 @@ def tp_requests(n=4, max_new=8, first_id=0, **kw):
             for i in range(n)]
 
 
+#: The families of `tests/test_torch_tp_families.py`: {key: (module of
+#: `accelerate_tpu_torch.models`, its factory)}.
+TP_FAMILIES = {"gptj": ("gptj", "create_gptj_model"), "opt": ("opt", "create_opt_model"),
+               "t5": ("t5", "create_t5_model"), "t5_v1_0": ("t5", "create_t5_model"),
+               "bert": ("bert", "create_bert_model")}
+
+
 def tp_model(inputs, family):
+    import importlib
+
     from accelerate_tpu_torch.models import gpt_neox, llama
 
-    make = {"llama": llama.create_llama_model, "tied": llama.create_llama_model,
-            "gpt_neox": gpt_neox.create_gpt_neox_model}[family]
+    if family in TP_FAMILIES:
+        module, factory = TP_FAMILIES[family]
+        make = getattr(importlib.import_module(f"accelerate_tpu_torch.models.{module}"), factory)
+    else:
+        make = {"llama": llama.create_llama_model, "tied": llama.create_llama_model,
+                "gpt_neox": gpt_neox.create_gpt_neox_model}[family]
     model = make(inputs["cfgs"][family], device="cpu")
     model.load_state_dict(inputs["sds"][family])
     return model
@@ -1175,9 +1188,10 @@ def tp_train(inputs, family, remat=None, parallelism=None, batches=None, save_di
 
 def tp_refusals(inputs):
     """The refusals over a "model" axis at world 2: FSDP's sharding
-    strategies, fp8 and a family with no tensor-parallel forward."""
+    strategies, fp8 and Mixtral (no tensor-parallel forward before expert
+    sharding)."""
     from accelerate_tpu_torch import Accelerator
-    from accelerate_tpu_torch.models import gptj
+    from accelerate_tpu_torch.models import mixtral
     from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin, ParallelismConfig
 
     out = {}
@@ -1185,12 +1199,12 @@ def tp_refusals(inputs):
         "full_shard": (dict(fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")), "llama"),
         "shard_grad_op": (dict(fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="SHARD_GRAD_OP")), "llama"),
         "fp8": (dict(mixed_precision="fp8"), "llama"),
-        "gptj": ({}, "gptj"),
+        "mixtral": ({}, "mixtral"),
     }
     for name, (kwargs, family) in cases.items():
         _reset()
         acc = Accelerator(cpu=True, parallelism_config=ParallelismConfig(model=2), **kwargs)
-        model = (gptj.create_gptj_model(gptj.gptj_tiny(), device="cpu") if family == "gptj"
+        model = (mixtral.create_mixtral_model(mixtral.mixtral_tiny(), device="cpu") if family == "mixtral"
                  else tp_model(inputs, family))
         try:
             acc.prepare(model, _adamw(model))
@@ -1324,4 +1338,97 @@ def tp_train4(in_dir, out_dir):
     except NotImplementedError as exc:
         out["model_with_fsdp"] = str(exc)
     _reset()
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+# ------------------------------------------------------------------ tensor parallel, the other families
+def tp_family_logits(inputs, family):
+    """`family`'s logits on the first rows of its first batch, split over
+    the default group (every process one "model" rank) by its table: the
+    tied heads of OPT and T5 v1.0 through the split embedding."""
+    from accelerate_tpu_torch.parallel.tensor import TPGroup, tensor_parallel_copy
+
+    model = tp_model(inputs, family)
+    split = tensor_parallel_copy(model, model.sharding_rules, TPGroup())
+    batch = {k: torch.as_tensor(v[:2]) for k, v in inputs["batches"][family][0].items()}
+    with torch.no_grad():
+        if "decoder_input_ids" in batch:
+            return split(batch["input_ids"], batch["decoder_input_ids"])
+        return split(batch["input_ids"])
+
+
+def tp_bert_layout(inputs):
+    """BERT split at model=2 by `prepare`, before any step: this rank's
+    layer-0 `qkv` weight and bias, and the whole tree gathered back."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
+
+    _reset()
+    acc = Accelerator(cpu=True, parallelism_config=ParallelismConfig(model=2))
+    model = tp_model(inputs, "bert")
+    pmodel = acc.prepare(model)
+    qkv = pmodel.module.bert.layers[0].attention.qkv
+    out = {"weight": qkv.weight.detach().clone(), "bias": qkv.bias.detach().clone(),
+           "whole": pmodel.full_state_dict(), "dims": dict(pmodel.layout.tp_dims)}
+    _reset()
+    return out
+
+
+def tp_indivisible_refusal(inputs, parallelism):
+    """`prepare` of BERT at a vocab `parallelism`'s "model" size does not
+    divide: the error's text."""
+    import dataclasses
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import bert
+
+    _reset()
+    acc = Accelerator(cpu=True, parallelism_config=parallelism)
+    model = bert.create_bert_model(dataclasses.replace(inputs["cfgs"]["bert"], vocab_size=inputs["odd_vocab"]),
+                                   device="cpu")
+    try:
+        acc.prepare(model, _adamw(model))
+        return "no-error"
+    except ValueError as exc:
+        return str(exc)
+    finally:
+        _reset()
+
+
+def tp_families2(in_dir, out_dir):
+    """Every world-2 scenario of `tests/test_torch_tp_families.py`, in a
+    world launched by ``accelerate-tpu-torch launch --mesh_model 2``: each
+    family by its table and under the planner, BERT saved at model=2 and
+    loaded from model=1, T5 with its attention whole, the tied heads'
+    logits and BERT's split `qkv`."""
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    out = {}
+    for family in TP_FAMILIES:
+        batches = inputs["batches"][family]
+        out[family] = tp_train(inputs, family, batches=batches)
+        out["auto", family] = tp_train(inputs, family, batches=batches, sharding_rules="auto")
+    head, tail = inputs["batches"]["bert"][:2], inputs["batches"]["bert"][2:]
+    out["save"] = tp_train(inputs, "bert", batches=head, save_dir=os.path.join(out_dir, "ckpt_model2"),
+                           after_save=tail)
+    out["load"] = tp_train(inputs, "bert", batches=tail, load_dir=inputs["ckpt_model1"])
+    out["whole_attention", "t5"] = tp_train(inputs, "t5", batches=inputs["batches"]["t5"],
+                                            sharding_rules=inputs["whole_attention"])
+    out["logits"] = {family: tp_family_logits(inputs, family) for family in ("opt", "t5_v1_0")}
+    out["bert_layout"] = tp_bert_layout(inputs)
+    torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))
+
+
+def tp_families4(in_dir, out_dir):
+    """data 2 x model 2 at world 4: each family by its table and under the
+    planner (its ZeRO moments over "data"); then BERT's vocab at model=4."""
+    from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
+
+    inputs = torch.load(os.path.join(in_dir, "inputs.pt"), weights_only=False)
+    mesh = ParallelismConfig(data=2, model=2)
+    out = {}
+    for family in TP_FAMILIES:
+        batches = inputs["batches"][family]
+        out[family] = tp_train(inputs, family, parallelism=mesh, batches=batches)
+        out["auto", family] = tp_train(inputs, family, parallelism=mesh, batches=batches, sharding_rules="auto")
+    out["indivisible"] = tp_indivisible_refusal(inputs, ParallelismConfig(model=4))
     torch.save(out, os.path.join(out_dir, f"rank{os.environ['RANK']}.pt"))

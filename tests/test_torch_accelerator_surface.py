@@ -482,7 +482,7 @@ def test_init_process_group_kwargs_reach_the_process_group(monkeypatch):
     the group's collectives run with it."""
     import torch.distributed as dist
 
-    from accelerate_tpu_torch.launchers import free_port
+    from accelerate_tpu_torch.launchers import hosted_store
 
     seen = {}
     real = dist.init_process_group
@@ -492,8 +492,8 @@ def test_init_process_group_kwargs_reach_the_process_group(monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(dist, "init_process_group", record)
-    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                     MASTER_PORT=str(free_port())).items():
+    store, group = hosted_store()
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", **group).items():
         monkeypatch.setenv(k, v)
     PartialState._reset_state()
     try:

@@ -985,7 +985,7 @@ def test_launch_phase_rehearses_on_the_cpu():
     """Phase 16 at llama_tiny (sequence 64), its children under ``--cpu``
     (about 45 s: ten fresh interpreters through the CLI): the launched
     child reads bf16 from ``config --default``'s file and accumulation 2
-    from the flag, and its 8 losses equal the in-process loop's bit for
+    from the flag, and its 4 losses equal the in-process loop's bit for
     bit; the supervised run takes exactly 2 attempts (exit codes 1 then 0),
     resumes within rtol 1e-6 of the uninterrupted run, and its trace is
     one id with each attempt's checkpoint and step spans under it; ``test``
@@ -994,7 +994,8 @@ def test_launch_phase_rehearses_on_the_cpu():
     launched, restart = report["launched"], report["restart"]
     child = launched["child"]
     assert (child["mixed_precision"], child["gradient_accumulation_steps"], child["device"]) == ("bf16", 2, "cpu")
-    assert launched["losses_bit_for_bit"] and len(child["losses"]) == 8
+    micro_steps = chip_smoke.LAUNCH["optimizer_steps"] * chip_smoke.LAUNCH["accumulation"]
+    assert launched["losses_bit_for_bit"] and len(child["losses"]) == micro_steps == 4
     assert [len(a["losses"]) for a in restart["attempts"]] == [2, 2] and restart["max_rel_diff"] <= 1e-6
     assert restart["trace"]["attempts"] == [(1, 1), (2, 0)] and len(restart["trace"]["trace_ids"]) == 1
     assert all(not c["builds"] for c in (child, *restart["attempts"]))
@@ -1259,24 +1260,37 @@ def test_examples_only_refuses_without_a_card_and_is_a_known_flag():
 
 
 TP_REHEARSAL = dict(chip_smoke.TP, n_requests=4, system_len=16, timeout_s=300)
+#: (f)'s families at their tiny configs, in f32: at widths of 64-128 a
+#: bf16 rank's two roundings of a row-parallel sum move OPT-tiny's first
+#: pre-clip norm by 1.8e-3, past (f)'s 1e-3.
+TP_FAMILY_REHEARSAL = {name: dict(cut, layers=None, mixed_precision="no") for name, cut in (
+    ("gptj-tiny", dict(batch=1, seq=64)), ("opt-tiny", dict(batch=1, seq=64)),
+    ("t5-tiny", dict(batch=1, seq=64, dec_seq=32)), ("bert-tiny", dict(batch=4, seq=32)))}
 
 
 def test_tp_phase_rehearses_on_the_cpu(monkeypatch):
-    """Phase 21 on the CPU at llama-tiny (about 20 s): (a) converts a 2-layer
+    """Phase 21 on the CPU at llama-tiny (about 25 s): (a) converts a 2-layer
     checkpoint both ways bit for bit; (b)-(e) spawn one
     world of 2 over gloo, whose ranks agree on tokens, logits, losses and
     norms, hold tp=1's within the gates, issue the same collectives and
     hold half of tp=1's bytes, then serve and train under the planner's
-    layouts; nothing is left behind."""
+    layouts; (f) trains GPT-J, OPT, T5 and BERT at their tiny configs over
+    the same world against tp=1 under (f)'s gates; nothing is left behind."""
     monkeypatch.delenv("RANK", raising=False)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
         report = chip_smoke.tp_phase(torch.device("cpu"), "llama-tiny", shape=TP_REHEARSAL, seq=64,
-                                     engine_kw=dict(chip_smoke.ENGINE_KW, max_length=768), timed=False)
+                                     engine_kw=dict(chip_smoke.ENGINE_KW, max_length=768), timed=False,
+                                     families=TP_FAMILY_REHEARSAL)
     finally:
         torch.set_num_threads(threads)
+    families = report["family_training"]
+    assert set(families) == set(TP_FAMILY_REHEARSAL)
+    for name, run in families.items():
+        assert run["loss_rel_diff"] < 1e-2 and run["norm_rel_diff"] < 1e-3, name
+        assert max(run["param_share"]) <= chip_smoke.TP_FAMILY_PARAMS, name
     conv = report["convert"]
     assert not conv["mismatched"] and conv["digest_verifies"] and conv["round_trip_keys_equal"]
     for name in chip_smoke.TP_ENGINE_RUNS:
@@ -1330,37 +1344,91 @@ def test_tp_only_refuses_without_a_card_and_is_a_known_flag():
     assert usage.returncode == 0 and "--tp-only" in usage.stdout
 
 
+def test_tp_families_only_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tp-families-only"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[tp]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--tp-families-only" in usage.stdout
+
+
+def test_tp_precision_witness_refuses_without_a_card_and_is_a_known_flag():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tp-precision-witness"],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 2 and "needs a CUDA device" in run.stderr
+    assert "[tp]" not in run.stdout and '"ok"' not in run.stdout
+    usage = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--help"],
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "--tp-precision-witness" in usage.stdout
+
+
+def test_tp_precision_witness_rehearses_on_the_cpu(monkeypatch):
+    """The witness at t5-tiny (about 15 s: one world of 2): in f32 the split
+    holds tp=1's losses and norms to 1e-5; bf16 at tp=1 parts from f32 by
+    more; nothing is left behind."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    cut = {"t5-tiny": dict(layers=None, batch=1, seq=64, dec_seq=32)}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        report = chip_smoke.tp_precision_witness(torch.device("cpu"), "t5-tiny", cut, TP_REHEARSAL)
+    finally:
+        torch.set_num_threads(threads)
+    split, rounding = report["f32_tp2_vs_tp1"], report["bf16_vs_f32_tp1"]
+    assert split["loss_rel_diff"] < 1e-5 and split["norm_rel_diff"] < 1e-5
+    assert rounding["norm_rel_diff"] > split["norm_rel_diff"] and len(report["bf16_tp1"]["norms"]) == 3
+    assert not torch.distributed.is_initialized() and "RANK" not in os.environ
+
+
+def test_family_tp_gates_catch_parted_ranks_far_losses_and_whole_ranks():
+    """Phase 21 (f)'s gates: ranks whose losses part, a loss past 1e-2 of
+    tp=1's, a norm past 1e-3 and a rank holding more than 0.6 of tp=1's
+    parameters each fail; a run within every limit passes."""
+    one = dict(losses=[2.0, 1.9], norms=[1.0, 1.0], step_ms_median=1.0, peak_bytes=None, param_numel=100)
+
+    def rank(losses=(2.0, 1.9), norms=(1.0, 1.0), numel=50):
+        return {"families": {"bert-tiny": dict(one, losses=list(losses), norms=list(norms), param_numel=numel,
+                                               step_s=[1e-3, 1e-3], launches={})}}
+
+    shape = {"families": {"bert-tiny": dict(layers=None)}}
+    cpu = torch.device("cpu")
+    report = chip_smoke.family_tp_gates(cpu, shape, [rank(), rank()], {"bert-tiny": one})
+    assert report["bert-tiny"]["param_share"] == [0.5, 0.5]
+    for ranks, match in (([rank(), rank((2.0, 1.91))], "differ"), ([rank((2.0, 1.95))] * 2, "against tp=1"),
+                         ([rank(norms=(1.0, 1.01))] * 2, "against tp=1"), ([rank(numel=70)] * 2, "more than")):
+        with pytest.raises(RuntimeError, match=match):
+            chip_smoke.family_tp_gates(cpu, shape, ranks, {"bert-tiny": one})
+
+
 def test_world_one_group_picks_another_port_when_its_port_is_taken(monkeypatch):
-    """The one-process group of phases 14-20: a port taken between its pick
-    and the store's bind (EADDRINUSE) is picked again; any other error, or
-    the last try's, is raised, and nothing is left behind."""
-    from accelerate_tpu_torch import state
+    """The one-process group of phases 14-20 meets at a store it hosts: a
+    ``MASTER_PORT`` already set, on a port another socket holds, is not
+    used; the store's port is held through the block (nothing else can
+    bind it), and on exit the group is gone and the variables are as they
+    were."""
+    import socket
 
-    calls = []
-
-    class Flaky(state.PartialState):
-        def __init__(self, *args, **kwargs):
-            calls.append(os.environ["MASTER_PORT"])
-            if len(calls) == 1:
-                raise torch.distributed.DistNetworkError("failed to listen: EADDRINUSE, address already in use")
-            super().__init__(*args, **kwargs)
-
-    class Taken(state.PartialState):
-        def __init__(self, *args, **kwargs):
-            calls.append(os.environ["MASTER_PORT"])
-            raise torch.distributed.DistNetworkError("failed to listen: EADDRINUSE")
-
-    monkeypatch.delenv("MASTER_PORT", raising=False)
-    monkeypatch.setattr(state, "PartialState", Flaky)
-    with chip_smoke.world_one_group(torch.device("cpu")):
-        assert torch.distributed.is_initialized() and len(calls) == 2
-    assert not torch.distributed.is_initialized() and "MASTER_PORT" not in os.environ
-    monkeypatch.setattr(state, "PartialState", Taken)
-    calls.clear()
-    with pytest.raises(torch.distributed.DistNetworkError):
-        with chip_smoke.world_one_group(torch.device("cpu")):
-            pass
-    assert len(calls) == chip_smoke.WORLD_ONE_PORT_TRIES and "MASTER_PORT" not in os.environ
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        port = str(taken.getsockname()[1])
+        monkeypatch.setenv("MASTER_PORT", port)
+        monkeypatch.delenv("TORCHELASTIC_USE_AGENT_STORE", raising=False)
+        with chip_smoke.world_one_group(torch.device("cpu")) as state:
+            assert torch.distributed.is_initialized() and state.num_processes == 1
+            mine = int(os.environ["MASTER_PORT"])
+            assert mine != int(port)
+            with socket.socket() as other, pytest.raises(OSError):
+                other.bind(("127.0.0.1", mine))
+        assert not torch.distributed.is_initialized() and os.environ["MASTER_PORT"] == port
+        assert "TORCHELASTIC_USE_AGENT_STORE" not in os.environ
 
 
 def test_plan_only_refuses_without_a_card_and_is_a_known_flag():

@@ -266,6 +266,16 @@ def _launch(tmp_path, argv, fail_rank=-1, timeout=120):
     return subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=_cli_env()), out
 
 
+def _free_port():
+    """A port on 127.0.0.1 that nothing listens on right now, for an address
+    the user names on every invocation (``--coordinator_address``)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _reports(out, world):
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
 
@@ -329,7 +339,7 @@ def test_coordinator_invocations_meet_as_one_group(tmp_path):
     script.write_text(WORKER)
     out = tmp_path / "out"
     out.mkdir()
-    port = launchers.free_port()
+    port = _free_port()
     procs = [subprocess.Popen([sys.executable, "-m", "accelerate_tpu_torch.commands.accelerate_cli", "launch",
                                "--cpu", "--num_processes", "2", "--coordinator_address", f"127.0.0.1:{port}",
                                "--process_id", str(i), "--mixed_precision", "fp16", str(script), str(out), "-1"],
@@ -354,6 +364,40 @@ def test_a_failing_rank_ends_the_group_with_its_exit_code(tmp_path):
     result, out = _launch(tmp_path, ["--cpu", "--num_processes", "2"], fail_rank=1)
     assert result.returncode == 3, result.stdout + result.stderr
     assert not (out / "rank1.json").exists()
+
+
+def test_a_group_is_torn_down_at_exit_only_after_a_clean_end(monkeypatch):
+    """`PartialState`'s exit handler on a one-process gloo group: after a
+    failing `sys.exit` status (which the wrapped `sys.exit` keeps) or an
+    uncaught exception it leaves the group; after a clean end, every rank
+    exiting, it destroys it."""
+    from accelerate_tpu_torch import state as port_state
+
+    monkeypatch.setattr(sys, "exit", sys.exit)  # put back after the test
+    monkeypatch.setattr(port_state, "_EXIT_STATUSES", [])
+    store, group = launchers.hosted_store()
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", **group).items():
+        monkeypatch.setenv(k, v)
+    _reset_port()
+    try:
+        PartialState(cpu=True)
+        assert torch.distributed.is_initialized() and sys.exit.records_status
+        with pytest.raises(SystemExit):
+            sys.exit(3)
+        port_state._destroy_group_at_exit()
+        assert port_state._EXIT_STATUSES == [3] and torch.distributed.is_initialized()
+        port_state._EXIT_STATUSES.clear()
+        monkeypatch.setattr(sys, "last_exc", RuntimeError("uncaught"), raising=False)
+        port_state._destroy_group_at_exit()
+        assert torch.distributed.is_initialized()
+        monkeypatch.setattr(sys, "last_exc", None)
+        port_state._destroy_group_at_exit()
+        assert not torch.distributed.is_initialized()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        _reset_port()
+        del store
 
 
 def test_local_processes_terminate_the_rest_after_the_grace(monkeypatch):

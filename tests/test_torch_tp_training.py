@@ -305,7 +305,7 @@ def test_refusals_name_their_bullets(worlds):
     for case in ("full_shard", "shard_grad_op"):
         assert "tensor parallel with \"fsdp\"" in refused[case], refused[case]
     assert "fp8 with tensor parallel" in refused["fp8"]
-    assert "tensor parallel for the other families" in refused["gptj"]
+    assert "expert sharding" in refused["mixtral"], refused["mixtral"]
     assert "tensor parallel with \"fsdp\"" in worlds["w4"][0]["model_with_fsdp"]
 
 
